@@ -1,0 +1,111 @@
+"""The port stands alone: no jax, nothing of kungfu_tpu, no silent CPU.
+
+* an AST scan: no module of kungfu_tpu_torch/, nor chip_smoke.py,
+  imports ``jax`` or ``kungfu_tpu`` (whole module names:
+  ``kungfu_tpu_torch`` itself starts with ``kungfu_tpu``);
+* a fresh interpreter importing every port module loads no kungfu_tpu
+  or jax module and initialises no CUDA context;
+* entry points asked for the default device raise without a GPU.
+"""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from kungfu_tpu_torch import interop
+from kungfu_tpu_torch.models.transformer import (Transformer,
+                                                 TransformerConfig, param_spec)
+from kungfu_tpu_torch.utils.device import resolve_device
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "kungfu_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+PORT_MODULES = sorted(
+    ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+    for p in PORT_FILES if p.name != "chip_smoke.py")
+FORBIDDEN = ("jax", "kungfu_tpu")
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+class TestNoReferenceImports:
+    def test_files_exist(self):
+        assert (ROOT / "chip_smoke.py").is_file()
+        assert len(PORT_FILES) > 15
+
+    @pytest.mark.parametrize("path", PORT_FILES,
+                             ids=lambda p: str(p.relative_to(ROOT)))
+    def test_ast_scan(self, path):
+        bad = [n for n in _imports(path) if _forbidden(n)]
+        assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+    def test_scan_matches_whole_names(self):
+        assert _forbidden("jax.numpy") and _forbidden("kungfu_tpu.serve")
+        assert not _forbidden("kungfu_tpu_torch.serve")
+        assert not _forbidden("jaxtyping")
+
+    def test_fresh_import_loads_no_reference_and_no_cuda(self):
+        code = (
+            "import sys, importlib\n"
+            f"sys.path.insert(0, {str(ROOT)!r})\n"
+            f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m in ('jax', 'kungfu_tpu') or "
+            "m.startswith(('jax.', 'kungfu_tpu.'))]\n"
+            "assert not bad, bad\n"
+            "import torch\n"
+            "assert not torch.cuda.is_initialized()\n"
+            "print('ISOLATED', len(sys.modules))\n")
+        out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                             text=True, timeout=120)
+        assert out.returncode == 0, out.stderr
+        assert "ISOLATED" in out.stdout
+
+
+class TestDefaultDeviceIsTheCard:
+    @pytest.fixture(autouse=True)
+    def _no_gpu(self, monkeypatch):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def test_resolve_device(self):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            resolve_device(None)
+        with pytest.raises(RuntimeError):
+            resolve_device("cuda")
+        assert resolve_device("cpu") == torch.device("cpu")
+
+    def test_init_raises(self):
+        cfg = TransformerConfig(vocab_size=8, d_model=8, n_layers=1,
+                                n_heads=2, d_ff=8)
+        with pytest.raises(RuntimeError):
+            Transformer(cfg).init()
+        assert Transformer(cfg).init(device="cpu")["head"]["w"].device.type \
+            == "cpu"
+
+    def test_converter_raises(self):
+        cfg = TransformerConfig(vocab_size=8, d_model=8, n_layers=1,
+                                n_heads=2, d_ff=8)
+        flat = {p: np.zeros(s, np.float32) for p, s, _ in param_spec(cfg)}
+        tree = {}
+        for path, arr in flat.items():
+            node = tree
+            *parents, leaf = path.split("/")
+            for key in parents:
+                node = node.setdefault(key, {})
+            node[leaf] = arr
+        with pytest.raises(RuntimeError):
+            interop.params_from_jax(tree, cfg)
