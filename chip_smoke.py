@@ -9,10 +9,12 @@ Phases (any failed check exits non-zero before the result line):
 
 1. probe   — torch/CUDA versions, device name, compute capability,
              ``nvidia-smi`` name and power limit;
-2. build   — nvcc builds every hand-written kernel from ``csrc/``;
+2. build   — nvcc builds every hand-written CUDA kernel from ``csrc/``,
+             one nvcc per source, all started together (the Triton
+             kernels compile at their first launch, in phase 3);
 3. kernels — each kernel against its plain PyTorch version on the card,
              at the main path's shape and at the edge cases, with the
-             tolerances below; timed (median of 21 CUDA-event windows)
+             tolerances below; timed (median of CUDA-event windows)
              beside its plain version and one PyTorch library call;
 4. forward — the flagship forward (vocab 32128, d_model 768, 12 layers,
              12 heads, d_ff 3072, RoPE, causal, bf16, ids [4, 256]) with
@@ -20,9 +22,17 @@ Phases (any failed check exits non-zero before the result line):
              against the same model under ``KF_TPU_ATTN=xla``;
 5. serve   — the continuous-batching engine on the same model answers
              six requests (two sharing a 64-token prefix), held against
-             full-context greedy decoding through the forward.
+             full-context greedy decoding through the forward;
+6. train   — the flagship training step (``gpt_small(max_seq=2048)``,
+             f32 params, bf16 compute, ids/targets [4, 2048]): flash
+             attention + fused cross-entropy through ``dp_train_step`` and
+             ``synchronous_sgd(sgd(0.05, momentum=0.9))``; launches per
+             step, first-step gradients against the plain path, ten steps
+             of falling loss, one step through ``Transformer.loss`` under
+             ``KF_TPU_XENT=fused``, step ms, tokens/s and MFU.
 
-It prints a ``kernels`` JSON line, the ``nvidia-smi`` line, and last
+Each path's launches are counted from zero just before it runs.  It
+prints a ``kernels`` JSON line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Imports neither jax nor kungfu_tpu.
 """
 
@@ -34,6 +44,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -54,9 +65,41 @@ LOGITS_ATOL = 5e-2
 #: token by at most this (the same bf16 noise as LOGITS_ATOL)
 GREEDY_MARGIN = 5e-2
 
+#: flash backward, f32: the reference's own tolerances
+#: (tests/test_pallas.py:61-145) against the blocked plain version on the
+#: same saved (O, lse) and against autograd through plain attention
+F32_GRAD_ATOL_BLOCKED = 2e-4
+F32_GRAD_ATOL_AUTOGRAD = 5e-4
+#: flash backward, bf16, as a share of the largest |gradient|: the kernel
+#: rounds dO V^T's inputs, P and dS to bf16 (half an ulp is 2^-9
+#: relative) and writes dQ/dK/dV in bf16, where the plain versions keep
+#: f32 throughout; each gradient sums up to 2048 such terms, so a few
+#: ulps at the top of the range (2^-7 relative is 0.8%) is the expected
+#: difference, and 2e-2 leaves room for the longest rows
+BF16_GRAD_RTOL = 2e-2
+#: xent loss against the one-pass plain version: the reference kernel's
+#: own tolerances (tests/test_pallas.py:181-225)
+XENT_LOSS_ATOL_F32 = 1e-4
+XENT_LOSS_ATOL_BF16 = 1e-3
+#: dlogits against the blocked plain version: f32 as the reference's
+#: kernel test; bf16 within one bf16 rounding of the largest |dlogit|
+XENT_DLOGITS_ATOL_F32 = 2e-5
+XENT_DLOGITS_RTOL_BF16 = 2 ** -8
+#: first-step gradients, flash + fused xent against plain attention +
+#: plain xent, relative L2 per leaf (denominator floored at 1e-3 of the
+#: largest leaf's norm: the key biases' gradient is zero in exact
+#: arithmetic, as softmax ignores a per-row shift, so both paths return
+#: rounding noise there).  The plain attention rounds its scores to bf16
+#: before the softmax, the kernel keeps them in f32; that 2^-9 relative
+#: noise on the scores travels through 12 layers of bf16 activations
+TRAIN_GRAD_REL_L2 = 5e-2
+
 FLAGSHIP = dict(vocab_size=32128, d_model=768, n_layers=12, n_heads=12,
                 d_ff=3072, max_seq=512, causal=True, pos="rope",
                 dtype="bfloat16")
+#: the training path: bench.py:payload_lm's gpt_small at ids [4, 2048]
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048
+TRAIN_STEPS = 10
 
 
 class SmokeFailure(Exception):
@@ -103,13 +146,25 @@ def device_ms(torch, fn, iters: int = 20, windows: int = 21) -> float:
     return statistics.median(times)
 
 
-def phase_kernels(torch, attention, spec):
-    """Kernel vs plain version at the main shape and the edge cases."""
+def bound(spec, flops: float, nbytes: float) -> dict:
+    """Least time on the card: the larger of bf16 operations over the
+    dense bf16 peak and bytes over the memory rate (datasheet)."""
+    t_ops = flops / spec["bf16_flops"] * 1e3
+    t_bytes = nbytes / spec["hbm_bytes_s"] * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
+
+
+def phase_flash_forward(torch, attention, spec):
+    """Forward kernel vs plain version at the main shapes and the edge
+    cases."""
     import torch.nn.functional as F
 
     cases = [
         # name, (B, H, S, D), dtype, causal
         ("main", (4, 12, 256, 64), torch.bfloat16, True),
+        ("train_main", (TRAIN_BATCH, 12, TRAIN_SEQ, 64), torch.bfloat16, True),
         ("f32_causal_ragged", (2, 4, 200, 64), torch.float32, True),
         ("bf16_noncausal", (4, 12, 256, 64), torch.bfloat16, False),
         ("bf16_d128", (2, 8, 256, 128), torch.bfloat16, True),
@@ -129,39 +184,229 @@ def phase_kernels(torch, attention, spec):
         l_err = (lse - ref_lse).abs().max().item()
         o_tol, l_tol = ((BF16_O_ATOL, BF16_LSE_ATOL) if dtype == torch.bfloat16
                         else (F32_ATOL, F32_ATOL))
-        print(f"kernel {name}: shape {(b, h, s, d)} {str(dtype)[6:]} "
+        print(f"flash fwd {name}: shape {(b, h, s, d)} {str(dtype)[6:]} "
               f"causal={causal} max|dO|={o_err:.3e} (tol {o_tol}) "
               f"max|dlse|={l_err:.3e} (tol {l_tol})")
         check(bool(torch.isfinite(out.float()).all()), f"{name}: non-finite O")
         check(o_err <= o_tol, f"{name}: O error {o_err} > {o_tol}")
         check(l_err <= l_tol, f"{name}: lse error {l_err} > {l_tol}")
         results[name] = {"o_err": o_err, "lse_err": l_err}
+        del q, k, v, out, lse, ref_o, ref_lse
 
-    # timing at the main path's shape (contiguous [BH, S, D]; warm L2)
-    b, h, s, d = 4, 12, 256, 64
-    q, k, v = (torch.randn((b * h, s, d), generator=gen, device="cuda"
-                           ).to(torch.bfloat16) for _ in range(3))
-    q4, k4, v4 = (t.view(b, h, s, d) for t in (q, k, v))
-    ms = device_ms(torch, lambda: attention.flash_attention_with_lse(
-        q, k, v, causal=True))
-    plain_ms = device_ms(torch, lambda: attention.flash_attention_reference(
-        q, k, v, True))
-    library_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, is_causal=True))
-    # least time: causal pairs need 4*D FLOPs each (QK^T and PV); bytes
-    # are q, k, v read once, O written once (bf16), lse written (f32)
-    flops = 4 * d * b * h * s * (s + 1) // 2
-    nbytes = 4 * b * h * s * d * 2 + b * h * s * 4
-    t_ops = flops / spec["bf16_flops"] * 1e3
-    t_bytes = nbytes / spec["hbm_bytes_s"] * 1e3
-    timing = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-              "bound_ms": max(t_ops, t_bytes),
-              "bound_by": "operations" if t_ops > t_bytes else "bytes",
-              "flops": flops, "bytes": nbytes}
-    print(f"kernel timing main shape: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
-          f"{timing['bound_ms']:.4f} ms ({timing['bound_by']}); "
-          f"{flops / ms / 1e9:.1f} TFLOP/s")
+    # timing at both main-path shapes (contiguous [BH, S, D]; warm L2)
+    timing = {}
+    for label, (b, h, s, d) in (("s256", (4, 12, 256, 64)),
+                                ("s2048", (TRAIN_BATCH, 12, TRAIN_SEQ, 64))):
+        q, k, v = (torch.randn((b * h, s, d), generator=gen, device="cuda"
+                               ).to(torch.bfloat16) for _ in range(3))
+        q4, k4, v4 = (t.view(b, h, s, d) for t in (q, k, v))
+        ms = device_ms(torch, lambda: attention._launch(q, k, v, True))
+        plain_ms = device_ms(torch, lambda: attention.flash_attention_reference(
+            q, k, v, True), iters=1, windows=5)
+        library_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True))
+        # causal pairs need 4*D FLOPs each (QK^T and PV); bytes are q, k,
+        # v read once, O written once (bf16), lse written (f32)
+        t = bound(spec, 4 * d * b * h * s * (s + 1) // 2,
+                  4 * b * h * s * d * 2 + b * h * s * 4)
+        timing[label] = {"ms": ms, "plain_ms": plain_ms,
+                         "library_ms": library_ms, **t}
+        print(f"flash fwd timing {label}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}); "
+              f"{t['flops'] / ms / 1e9:.1f} TFLOP/s")
+        del q, k, v, q4, k4, v4
+    return results, timing
+
+
+def _grad_err(got, ref) -> float:
+    return max((a.float() - b.float()).abs().max().item()
+               for a, b in zip(got, ref))
+
+
+def phase_flash_backward(torch, attention, spec):
+    """dQ and dK/dV kernels (through the autograd op, with dO and dlse
+    cotangents) vs the blocked plain version and vs autograd through the
+    plain forward, at the main shape and the edge cases."""
+    cases = [
+        # name, (B, H, S, D), dtype, causal, nonzero dlse
+        ("main", (TRAIN_BATCH, 12, TRAIN_SEQ, 64), torch.bfloat16, True, False),
+        ("bf16_dlse", (2, 4, 256, 64), torch.bfloat16, True, True),
+        ("bf16_noncausal", (2, 4, 256, 64), torch.bfloat16, False, False),
+        ("bf16_d32", (2, 4, 256, 32), torch.bfloat16, True, False),
+        ("bf16_d128_ragged", (2, 4, 200, 128), torch.bfloat16, True, True),
+        ("f32_causal_ragged", (2, 4, 200, 64), torch.float32, True, True),
+        ("f32_noncausal", (1, 3, 130, 32), torch.float32, False, True),
+        ("f32_d128", (1, 2, 100, 128), torch.float32, True, False),
+    ]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    results = {}
+    for name, (b, h, s, d), dtype, causal, with_dlse in cases:
+        shape = (b * h, s, d)
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda"
+                                   ).to(dtype) for _ in range(4))
+        dl = (torch.randn((b * h, s), generator=gen, device="cuda")
+              if with_dlse else torch.zeros((b * h, s), device="cuda"))
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out, lse = attention.flash_attention_with_lse(*leaves, causal=causal)
+        got = torch.autograd.grad((out, lse), leaves, (do, dl))
+        torch.cuda.synchronize()
+        delta = (do.float() * out.float()).sum(-1) - dl
+        blocked = attention.flash_attention_backward_reference(
+            q, k, v, out.detach(), lse.detach(), do, causal, delta=delta)
+        f32 = [t.float().requires_grad_(True) for t in (q, k, v)]
+        ro, rl = attention.flash_attention_reference(*f32, causal)
+        auto = torch.autograd.grad((ro, rl), f32, (do.float(), dl))
+        e_blk, e_auto = _grad_err(got, blocked), _grad_err(got, auto)
+        if dtype == torch.bfloat16:
+            top = max(t.abs().max().item() for t in auto)
+            t_blk = t_auto = BF16_GRAD_RTOL * top
+        else:
+            t_blk, t_auto = F32_GRAD_ATOL_BLOCKED, F32_GRAD_ATOL_AUTOGRAD
+        print(f"flash bwd {name}: shape {(b, h, s, d)} {str(dtype)[6:]} "
+              f"causal={causal} dlse={with_dlse} max|d(dq,dk,dv)| vs blocked "
+              f"{e_blk:.3e} (tol {t_blk:.3e}), vs autograd {e_auto:.3e} "
+              f"(tol {t_auto:.3e})")
+        check(all(bool(torch.isfinite(g.float()).all()) for g in got),
+              f"{name}: non-finite gradients")
+        check(e_blk <= t_blk, f"{name}: backward vs blocked {e_blk} > {t_blk}")
+        check(e_auto <= t_auto,
+              f"{name}: backward vs autograd {e_auto} > {t_auto}")
+        results[name] = {"dq_err": _grad_err(got[:1], blocked[:1]),
+                         "dkv_err": _grad_err(got[1:], blocked[1:]),
+                         "err_vs_autograd": e_auto}
+        del q, k, v, do, leaves, out, lse, got, blocked, f32, ro, rl, auto
+
+    # timing at the main shape: each kernel alone, the plain backward,
+    # and SDPA's backward (forward + backward less the forward)
+    import torch.nn.functional as F
+
+    b, h, s, d = TRAIN_BATCH, 12, TRAIN_SEQ, 64
+    bh = b * h
+    q, k, v, do = (torch.randn((bh, s, d), generator=gen, device="cuda"
+                               ).to(torch.bfloat16) for _ in range(4))
+    out, lse = attention._launch(q, k, v, True)
+    delta = (do.float() * out.float()).sum(-1)
+    dq_ms = device_ms(torch, lambda: attention._launch_bwd_dq(
+        q, k, v, do, lse, delta, True))
+    dkv_ms = device_ms(torch, lambda: attention._launch_bwd_dkv(
+        q, k, v, do, lse, delta, True))
+    plain_ms = device_ms(torch, lambda: attention.flash_attention_backward_reference(
+        q, k, v, out, lse, do, True), iters=1, windows=5)
+    q4, k4, v4 = (t.view(b, h, s, d).clone().requires_grad_(True)
+                  for t in (q, k, v))
+    do4 = do.view(b, h, s, d)
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+        torch.autograd.grad(o, (q4, k4, v4), do4)
+
+    with torch.no_grad():
+        sdpa_fwd = device_ms(torch, lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True))
+    library_ms = device_ms(torch, sdpa_fwd_bwd) - sdpa_fwd
+    pairs = bh * s * (s + 1) // 2
+    # dQ: 3 products per causal pair (QK^T, dO V^T, dS K), 2*D FLOPs each;
+    # reads q, k, v, dO (bf16) and lse, delta (f32), writes dq
+    # dK/dV: 4 products (QK^T, dO V^T, P^T dO, dS^T Q); writes dk and dv
+    rows = bh * s * 4 * 2
+    t_dq = bound(spec, 3 * 2 * d * pairs, 5 * bh * s * d * 2 + rows)
+    t_dkv = bound(spec, 4 * 2 * d * pairs, 6 * bh * s * d * 2 + rows)
+    timing = {
+        "dq": {"ms": dq_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               **t_dq},
+        "dkv": {"ms": dkv_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                **t_dkv},
+    }
+    print(f"flash bwd timing main: dQ {dq_ms:.4f} ms (bound "
+          f"{t_dq['bound_ms']:.4f}, {t_dq['bound_by']}), dK/dV {dkv_ms:.4f} "
+          f"ms (bound {t_dkv['bound_ms']:.4f}, {t_dkv['bound_by']}); plain "
+          f"backward {plain_ms:.4f} ms; sdpa backward {library_ms:.4f} ms "
+          f"(fwd+bwd less fwd {sdpa_fwd:.4f}); "
+          f"{(t_dq['flops'] + t_dkv['flops']) / (dq_ms + dkv_ms) / 1e9:.1f} "
+          f"TFLOP/s")
+    return results, timing
+
+
+def phase_xent(torch, xk, spec):
+    """Fused cross-entropy forward and backward kernels vs their plain
+    versions, at the main shape (f32 and bf16) and ragged edges."""
+    import torch.nn.functional as F
+
+    n_main, v_main = TRAIN_BATCH * TRAIN_SEQ, FLAGSHIP["vocab_size"]
+    cases = [
+        # name, N, V, dtype
+        ("main", n_main, v_main, torch.float32),
+        ("bf16_main", n_main, v_main, torch.bfloat16),
+        ("ragged_v", 300, 1000, torch.float32),
+        ("ragged_n", 8191, 2048, torch.float32),
+        ("bf16_ragged", 517, 1000, torch.bfloat16),
+    ]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    results = {}
+    for name, n, v, dtype in cases:
+        x = (torch.randn((n, v), generator=gen, device="cuda") * 3).to(dtype)
+        t = torch.randint(0, v, (n,), generator=gen, device="cuda")
+        g = torch.randn((n,), generator=gen, device="cuda")
+        loss, lse = xk.forward(x, t)
+        dlog = xk.backward(x, t, lse, g)
+        torch.cuda.synchronize()
+        ref_loss, ref_lse = xk.xent_forward_reference(x, t)
+        ref_d = xk.xent_backward_reference(x, t, ref_lse, g)
+        l_err = (loss - ref_loss).abs().max().item()
+        d_err = (dlog.float() - ref_d.float()).abs().max().item()
+        if dtype == torch.bfloat16:
+            l_tol = XENT_LOSS_ATOL_BF16
+            d_tol = XENT_DLOGITS_RTOL_BF16 * ref_d.float().abs().max().item()
+        else:
+            l_tol, d_tol = XENT_LOSS_ATOL_F32, XENT_DLOGITS_ATOL_F32
+        print(f"xent {name}: [{n}, {v}] {str(dtype)[6:]} max|dloss|="
+              f"{l_err:.3e} (tol {l_tol}) max|ddlogits|={d_err:.3e} "
+              f"(tol {d_tol:.3e})")
+        check(bool(torch.isfinite(loss).all()), f"xent {name}: non-finite loss")
+        check(dlog.dtype == dtype, f"xent {name}: dlogits dtype {dlog.dtype}")
+        check(l_err <= l_tol, f"xent {name}: loss error {l_err} > {l_tol}")
+        check(d_err <= d_tol, f"xent {name}: dlogits error {d_err} > {d_tol}")
+        results[name] = {"loss_err": l_err, "dlogits_err": d_err}
+        del x, t, g, loss, lse, dlog, ref_loss, ref_lse, ref_d
+
+    # timing at the main shape, f32 logits as the model produces them
+    n, v = n_main, v_main
+    x = torch.randn((n, v), generator=gen, device="cuda")
+    t = torch.randint(0, v, (n,), generator=gen, device="cuda")
+    g = torch.full((n,), 1.0 / n, device="cuda")
+    _, lse = xk.forward(x, t)
+    fwd_ms = device_ms(torch, lambda: xk.forward(x, t))
+    bwd_ms = device_ms(torch, lambda: xk.backward(x, t, lse, g))
+    plain_fwd = device_ms(torch, lambda: xk.xent_forward_reference(x, t),
+                          iters=1, windows=5)
+    plain_bwd = device_ms(torch, lambda: xk.xent_backward_reference(
+        x, t, lse, g), iters=1, windows=5)
+    with torch.no_grad():
+        lib_fwd = device_ms(torch, lambda: F.cross_entropy(
+            x, t, reduction="none"), iters=1, windows=5)
+    xr = x.clone().requires_grad_(True)
+
+    def lib_fwd_bwd():
+        torch.autograd.grad(F.cross_entropy(xr, t, reduction="none"), xr, g)
+
+    lib_bwd = device_ms(torch, lib_fwd_bwd, iters=1, windows=5) - lib_fwd
+    # no matrix product: the forward reads the logits once (and writes two
+    # [N] f32 vectors); the backward reads them once and writes dlogits
+    t_fwd = bound(spec, 0, n * v * 4 + n * 4 + 2 * n * 4)
+    t_bwd = bound(spec, 0, 2 * n * v * 4 + n * 4 * 3)
+    timing = {
+        "fwd": {"ms": fwd_ms, "plain_ms": plain_fwd, "library_ms": lib_fwd,
+                **t_fwd},
+        "bwd": {"ms": bwd_ms, "plain_ms": plain_bwd, "library_ms": lib_bwd,
+                **t_bwd},
+    }
+    print(f"xent timing main [{n}, {v}] f32: fwd {fwd_ms:.4f} ms (bound "
+          f"{t_fwd['bound_ms']:.4f}, plain {plain_fwd:.4f}, F.cross_entropy "
+          f"{lib_fwd:.4f}); bwd {bwd_ms:.4f} ms (bound "
+          f"{t_bwd['bound_ms']:.4f}, plain {plain_bwd:.4f}, F.cross_entropy "
+          f"backward {lib_bwd:.4f}); {t_fwd['bytes'] / fwd_ms / 1e6:.0f} and "
+          f"{t_bwd['bytes'] / bwd_ms / 1e6:.0f} GB/s")
     return results, timing
 
 
@@ -304,6 +549,155 @@ def phase_serve(torch, np, attention, model, params):
             "greedy_worst_margin": worst, "reused_tokens": reused}
 
 
+def _counts(attention, xk) -> dict:
+    return {**attention.launch_counts, **xk.launch_counts}
+
+
+def _reset(attention, xk) -> None:
+    attention.reset_launch_counts()
+    xk.reset_launch_counts()
+
+
+def phase_train(torch, np, attention, xk, tr, costmodel, spec):
+    """The flagship training step through the kernels: launches per step,
+    first-step gradients against the plain path, ten steps of falling
+    loss on a fixed batch, one step through Transformer.loss under
+    KF_TPU_XENT=fused, then step time, tokens/s and MFU."""
+    from kungfu_tpu_torch.comm.device import Communicator
+    from kungfu_tpu_torch.ops import xent
+    from kungfu_tpu_torch.optimizers import sgd, synchronous_sgd
+    from kungfu_tpu_torch.parallel.train import _value_and_grad, dp_train_step
+
+    model = tr.gpt_small(max_seq=TRAIN_SEQ)
+    cfg = model.cfg
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator().manual_seed(0), device="cuda")
+    rng = np.random.default_rng(0)
+    ids, targets = (torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(TRAIN_BATCH, TRAIN_SEQ))).cuda()
+        for _ in range(2))
+    batch = (ids, targets)
+    torch.cuda.synchronize()
+    print(f"train init: {time.perf_counter() - t0:.2f} s")
+    flash = attention.make_flash_attn()
+
+    def loss_fn(p, b):
+        logits = model.apply(p, b[0], train=True, attn_fn=flash)
+        return xent.softmax_cross_entropy(logits, b[1]).mean()
+
+    def loss_plain(p, b):
+        logits = model.apply(p, b[0], train=True,
+                             attn_fn=tr.default_attention)
+        logp = torch.log_softmax(logits, dim=-1)
+        return -logp.gather(-1, b[1][..., None]).squeeze(-1).mean()
+
+    comm = Communicator(devices=["cuda:0"])
+    tx = synchronous_sgd(sgd(0.05, momentum=0.9), comm.axis)
+    step = dp_train_step(loss_fn, tx, comm)
+    opt = tx.init(params)
+
+    # one step through the kernels, launches counted from zero
+    _reset(attention, xk)
+    p, o, loss = step(params, opt, batch)
+    torch.cuda.synchronize()
+    per_step = _counts(attention, xk)
+    print(f"train step launches: {per_step}")
+    want = {"flash_fwd": cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
+            "flash_bwd_dkv": cfg.n_layers, "xent_fwd": 1, "xent_bwd": 1}
+    check(per_step == want, f"one train step launched {per_step}, "
+          f"expected {want}")
+    losses = [float(loss)]
+
+    # first-step gradients: kernels against plain attention + plain xent
+    (_, g_flash, _), (_, g_plain, _) = (
+        _value_and_grad(lambda q: fn(q, batch), params)
+        for fn in (loss_fn, loss_plain))
+    flat_f, flat_p = tr.flatten(g_flash), tr.flatten(g_plain)
+    norms = {k: t.float().norm().item() for k, t in flat_p.items()}
+    floor = 1e-3 * max(norms.values())
+    rel = {k: (flat_f[k].float() - flat_p[k].float()).norm().item()
+           / max(norms[k], floor) for k in flat_p}
+    worst = max(rel, key=rel.get)
+    print(f"first-step gradients vs plain path: worst leaf {worst} rel L2 "
+          f"{rel[worst]:.3e} (tol {TRAIN_GRAD_REL_L2}); median "
+          f"{statistics.median(rel.values()):.3e} over {len(rel)} leaves")
+    check(all(bool(torch.isfinite(t).all()) for t in flat_f.values()),
+          "non-finite gradients")
+    check(rel[worst] <= TRAIN_GRAD_REL_L2,
+          f"gradient of {worst} differs from the plain path by "
+          f"{rel[worst]} > {TRAIN_GRAD_REL_L2}")
+    del g_flash, g_plain, flat_f, flat_p
+
+    # the remaining steps on the fixed batch, timed on the host clock;
+    # counting starts again from zero, so the launches of the gradient
+    # comparison above are not counted as the path's
+    _reset(attention, xk)
+    times = []
+    for _ in range(TRAIN_STEPS - 1):
+        t0 = time.perf_counter()
+        p, o, loss = step(p, o, batch)
+        losses.append(float(loss))  # synchronises
+        times.append((time.perf_counter() - t0) * 1e3)
+    print(f"train losses: {[round(x, 4) for x in losses]}")
+    check(all(np.isfinite(losses)), "non-finite loss")
+    check(losses[-1] < losses[0],
+          f"loss did not fall over {TRAIN_STEPS} steps: {losses}")
+
+    # one step through Transformer.loss with the fused xent kernels
+    saved = os.environ.get("KF_TPU_XENT")
+    os.environ["KF_TPU_XENT"] = "fused"
+    try:
+        xent.XENT_ENV.reload()
+        model_step = dp_train_step(
+            lambda q, b: model.loss(q, b, attn_fn=flash), tx, comm)
+        before = _counts(attention, xk)
+        _, _, m_loss = model_step(params, tx.init(params), batch)
+        torch.cuda.synchronize()
+        after = _counts(attention, xk)
+    finally:
+        if saved is None:
+            os.environ.pop("KF_TPU_XENT")
+        else:
+            os.environ["KF_TPU_XENT"] = saved
+        xent.XENT_ENV.reload()
+    fused = {k: after[k] - before[k] for k in after}
+    print(f"Transformer.loss step under KF_TPU_XENT=fused: loss "
+          f"{float(m_loss):.4f} (first step {losses[0]:.4f}), launches {fused}")
+    check(fused == want, f"Transformer.loss step launched {fused}")
+    check(abs(float(m_loss) - losses[0]) <= 1e-3 * abs(losses[0]),
+          f"Transformer.loss {float(m_loss)} != the step's {losses[0]}")
+    launches = {k: v + per_step[k] for k, v in _counts(attention, xk).items()}
+
+    step_ms = statistics.median(times)
+    toks = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
+    flops = costmodel.train_step_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    mfu = flops / (step_ms / 1e3) / spec["bf16_flops"]
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"train: {step_ms:.2f} ms/step median of {len(times)} "
+          f"({min(times):.2f}-{max(times):.2f}), {toks:.0f} tokens/s, "
+          f"{flops / 1e12:.3f} TFLOP/step, MFU {mfu:.4f} against "
+          f"{spec['bf16_flops'] / 1e12:.0f} TFLOP/s bf16; peak memory "
+          f"{peak_gb:.1f} GiB")
+    return {"launches": launches, "per_step": per_step, "losses": losses,
+            "grad_rel_l2_worst": rel[worst], "grad_worst_leaf": worst,
+            "step_ms": step_ms, "step_ms_all": times, "tokens_s": toks,
+            "flops_per_step": flops, "mfu": mfu, "peak_gib": peak_gb}
+
+
+def build_all(attention) -> None:
+    """nvcc for each CUDA source, all started together."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        futures = [pool.submit(attention.load), pool.submit(attention.load_bwd)]
+        built = [f.result() for f in futures]
+    print(f"build: {time.perf_counter() - t0:.2f} s wall")
+    for b in built:
+        print(f"  {b.path.name}: nvcc {b.seconds:.2f} s")
+        for line in b.log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"  ptxas: {line.strip()}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -316,6 +710,7 @@ def main() -> int:
     from kungfu_tpu_torch.models import transformer as tr
     from kungfu_tpu_torch.ops import costmodel
     from kungfu_tpu_torch.ops.cuda import attention
+    from kungfu_tpu_torch.ops.triton import xent as xk
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -332,18 +727,17 @@ def main() -> int:
     check(spec is not None, f"no datasheet entry for {name!r}")
 
     # 2. build
-    t0 = time.perf_counter()
-    built = attention.load()
-    print(f"build: {built.path.name} in {time.perf_counter() - t0:.2f} s "
-          f"(nvcc {built.seconds:.2f} s)")
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    build_all(attention)
 
     # 3. kernels against their plain versions
-    errs, timing = phase_kernels(torch, attention, spec)
+    t0 = time.perf_counter()
+    fwd_errs, fwd_timing = phase_flash_forward(torch, attention, spec)
+    bwd_errs, bwd_timing = phase_flash_backward(torch, attention, spec)
+    xent_errs, xent_timing = phase_xent(torch, xk, spec)
+    torch.cuda.empty_cache()
+    print(f"kernels phase: {time.perf_counter() - t0:.2f} s")
 
-    # 4. + 5. the main path: flagship forward, then the serving engine
+    # 4. + 5. the forward and serving paths, without autograd graphs
     model = tr.Transformer(tr.TransformerConfig(**FLAGSHIP))
     t0 = time.perf_counter()
     params = model.init(torch.Generator().manual_seed(0), device="cuda")
@@ -351,25 +745,50 @@ def main() -> int:
     print(f"init: {time.perf_counter() - t0:.2f} s")
     ids = torch.from_numpy(np.random.default_rng(0).integers(
         0, FLAGSHIP["vocab_size"], size=(4, 256))).cuda()
-    fwd = phase_forward(torch, attention, tr, model, params, ids)
-    serve = phase_serve(torch, np, attention, model, params)
+    with torch.inference_mode():
+        fwd = phase_forward(torch, attention, tr, model, params, ids)
+        serve = phase_serve(torch, np, attention, model, params)
+    del model, params
+    torch.cuda.empty_cache()
 
-    kernels = [{
-        "name": "attention._fwd_kernel",
-        "route": "cuda",
-        "source": "kungfu_tpu_torch/ops/cuda/csrc/flash_fwd.cu",
-        "replaces": "kungfu_tpu/ops/pallas/attention.py:77",
-        "launches": fwd["launches"] + serve["launches"],
-        "max_abs_err": errs["main"]["o_err"],
-        "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"],
-    }]
-    print("details: " + json.dumps({"forward": fwd, "serve": serve,
-                                    "kernel_errors": errs,
-                                    "kernel_timing": timing}))
+    # 6. the training path
+    train = phase_train(torch, np, attention, xk, tr, costmodel, spec)
+
+    def row(name, route, source, replaces, key, err, timing):
+        return {"name": name, "route": route, "source": source,
+                "replaces": replaces,
+                "launches": (fwd["launches"] + serve["launches"]
+                             if key == "flash_fwd" else 0)
+                + train["launches"][key],
+                "max_abs_err": err,
+                **{k: timing[k] for k in ("ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")}}
+
+    cu = "kungfu_tpu_torch/ops/cuda/csrc/"
+    tri = "kungfu_tpu_torch/ops/triton/xent.py"
+    pal = "kungfu_tpu/ops/pallas/"
+    kernels = [
+        row("attention._fwd_kernel", "cuda", cu + "flash_fwd.cu",
+            pal + "attention.py:77", "flash_fwd",
+            fwd_errs["train_main"]["o_err"], fwd_timing["s2048"]),
+        row("attention._bwd_dq_kernel", "cuda", cu + "flash_bwd.cu",
+            pal + "attention.py:241", "flash_bwd_dq",
+            bwd_errs["main"]["dq_err"], bwd_timing["dq"]),
+        row("attention._bwd_dkv_kernel", "cuda", cu + "flash_bwd.cu",
+            pal + "attention.py:288", "flash_bwd_dkv",
+            bwd_errs["main"]["dkv_err"], bwd_timing["dkv"]),
+        row("xent._fwd_kernel", "triton", tri, pal + "xent.py:49",
+            "xent_fwd", xent_errs["main"]["loss_err"], xent_timing["fwd"]),
+        row("xent._bwd_kernel", "triton", tri, pal + "xent.py:163",
+            "xent_bwd", xent_errs["main"]["dlogits_err"], xent_timing["bwd"]),
+    ]
+    for k in kernels:
+        check(k["launches"] > 0, f"{k['name']} never launched on the main path")
+    print("details: " + json.dumps({
+        "forward": fwd, "serve": serve, "train": train,
+        "flash_fwd_errors": fwd_errs, "flash_fwd_timing": fwd_timing,
+        "flash_bwd_errors": bwd_errs, "flash_bwd_timing": bwd_timing,
+        "xent_errors": xent_errs, "xent_timing": xent_timing}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -4,15 +4,23 @@ The JAX package ``kungfu_tpu`` is the reference this port is held
 against; this package imports nothing from it and never imports jax.
 The layout mirrors the reference so a reader finds each counterpart:
 
-* ``models/{nn,transformer}.py`` — the flagship transformer forward;
-* ``ops/cuda/attention.py`` + ``ops/cuda/csrc/flash_fwd.cu`` — the
-  hand-written flash-attention forward kernel (``sm_90a``) and its plain
-  PyTorch version;
+* ``models/{nn,transformer}.py`` — the flagship transformer: forward,
+  dropout and the next-token loss, differentiable in the parameters;
+* ``ops/cuda/attention.py`` + ``ops/cuda/csrc/flash_{fwd,bwd}.cu`` — the
+  hand-written flash-attention forward and backward kernels (``sm_90a``)
+  and their plain PyTorch versions;
+* ``ops/xent.py`` + ``ops/triton/xent.py`` — fused softmax cross-entropy:
+  routing, and the Triton forward/backward kernels with their plain
+  versions;
+* ``parallel/train.py``, ``optimizers/``, ``comm/device.py``,
+  ``ops/{collective,schedules,fuse,monitor}.py``, ``monitor/pulse.py`` —
+  the data-parallel training step at world size 1;
 * ``serve/{kvcache,slo,engine}.py`` — the continuous-batching engine;
 * ``interop.py`` — weights across from / back to the JAX param tree;
 * ``ops/costmodel.py``, ``monitor/``, ``utils/`` — trimmed copies of the
   reference's jax-free helpers.
 
-Importing the package builds nothing and touches no GPU: kernels build
-with ``nvcc`` at first use (``ops/cuda/_build.py``).
+Importing the package builds nothing and touches no GPU: CUDA kernels
+build with ``nvcc`` at first use (``ops/cuda/_build.py``), Triton
+kernels at first launch.
 """

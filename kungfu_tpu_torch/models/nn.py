@@ -1,4 +1,5 @@
-"""Functional layers on tensors: dense, layernorm, embedding, gelu.
+"""Functional layers on tensors: dense, layernorm, embedding, gelu,
+dropout.
 
 Port of the transformer's subset of ``kungfu_tpu/models/nn.py`` (conv
 and batch norm come with the ResNet slice).  Same conventions: a layer
@@ -86,6 +87,18 @@ def embedding_apply(p: Params, ids: torch.Tensor,
 
 
 # -- misc ----------------------------------------------------------------
+def dropout(gen: torch.Generator, x: torch.Tensor, rate: float,
+            train: bool) -> torch.Tensor:
+    """Inverted dropout (``nn.dropout`` of the reference), the keep mask
+    drawn from ``gen``, which must live on ``x``'s device.  The draws
+    cannot match ``jax.random``: parity holds at ``rate=0`` only."""
+    if not train or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0).to(x.dtype)
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """tanh-approximate GELU (``jax.nn.gelu(approximate=True)``)."""
     return F.gelu(x, approximate="tanh")

@@ -1,11 +1,14 @@
-"""GPT/BERT-style transformer — the flagship model, forward only.
+"""GPT/BERT-style transformer — the flagship model.
 
 Port of ``kungfu_tpu/models/transformer.py``: pre-LN blocks, RoPE or
 learned positions, bf16 activations over f32 parameters, pluggable
-attention.  Parameters are a plain nested dict of tensors keyed like the
-reference's pytree (``embed/table``, ``layer_{i}/wq/w``, ``head/w``);
-:mod:`kungfu_tpu_torch.interop` carries them across.  ``loss`` and
-dropout come with the training slice.
+attention, dropout, and the next-token loss.  Parameters are a plain
+nested dict of tensors keyed like the reference's pytree
+(``embed/table``, ``layer_{i}/wq/w``, ``head/w``);
+:mod:`kungfu_tpu_torch.interop` carries them across.  ``apply``,
+``hidden`` and ``loss`` are differentiable in the parameters, as the
+reference's are under ``jax.grad``; inference callers wrap them in
+``torch.inference_mode()``.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from kungfu_tpu_torch.models import nn
+from kungfu_tpu_torch.ops.xent import token_nll
 from kungfu_tpu_torch.utils import envs
 from kungfu_tpu_torch.utils.device import resolve_device
 
@@ -173,18 +177,20 @@ class Transformer:
         return unflatten(flat)
 
     # -- apply -----------------------------------------------------------
-    @torch.no_grad()
-    def apply(self, params, ids: torch.Tensor,
+    def apply(self, params, ids: torch.Tensor, train: bool = False,
+              generator: Optional[torch.Generator] = None,
               attn_fn: Optional[Callable] = None,
               positions: Optional[torch.Tensor] = None) -> torch.Tensor:
         """ids: [B, S] int → logits [B, S, vocab] f32 on the params'
-        device.  ``attn_fn(q, k, v, causal)`` overrides attention;
-        ``positions`` overrides token positions."""
-        h = self.hidden(params, ids, attn_fn=attn_fn, positions=positions)
+        device.  ``train`` with a ``generator`` (on the params' device)
+        applies dropout; ``attn_fn(q, k, v, causal)`` overrides
+        attention; ``positions`` overrides token positions."""
+        h = self.hidden(params, ids, train=train, generator=generator,
+                        attn_fn=attn_fn, positions=positions)
         return nn.dense_apply(params["head"], h).float()
 
-    @torch.no_grad()
-    def hidden(self, params, ids: torch.Tensor,
+    def hidden(self, params, ids: torch.Tensor, train: bool = False,
+               generator: Optional[torch.Generator] = None,
                attn_fn: Optional[Callable] = None,
                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Features after the final norm, before the LM head."""
@@ -211,8 +217,36 @@ class Transformer:
             h = h + nn.dense_apply(lp["wo"], o, dtype=dt)
             x = nn.layernorm_apply(lp["ln2"], h)
             y = nn.gelu(nn.dense_apply(lp["ffn_in"], x, dtype=dt))
+            if train and cfg.dropout > 0 and generator is not None:
+                y = nn.dropout(generator, y, cfg.dropout, train)
             h = h + nn.dense_apply(lp["ffn_out"], y, dtype=dt)
         return nn.layernorm_apply(params["ln_f"], h)
+
+    def loss(self, params, batch, train: bool = True,
+             generator: Optional[torch.Generator] = None,
+             attn_fn: Optional[Callable] = None,
+             positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Next-token LM loss; batch = (ids, targets), both [B, S].
+
+        ``KF_TPU_LM_HEAD`` (``fused`` | ``plain`` | ``auto``, default
+        auto) selects the head.  ``plain`` materializes the logits and
+        routes through :func:`~kungfu_tpu_torch.ops.xent.token_nll`;
+        ``auto`` is ``plain`` here, as the reference's is off a TPU (its
+        crossover is a TPU measurement); ``fused`` raises until the fused
+        LM-head kernels are ported."""
+        ids, targets = batch
+        mode = os.environ.get(envs.LM_HEAD, "auto").lower()
+        if mode not in ("fused", "plain", "auto"):
+            raise ValueError(
+                f"{envs.LM_HEAD}={mode!r}: one of fused | plain | auto")
+        if mode == "fused":
+            raise NotImplementedError(
+                f"{envs.LM_HEAD}=fused: the fused LM-head kernels "
+                "(kungfu_tpu/ops/pallas/lm_head.py) are ported with the "
+                "LM-head slice; use plain or auto")
+        logits = self.apply(params, ids, train=train, generator=generator,
+                            attn_fn=attn_fn, positions=positions)
+        return token_nll(logits, targets.to(logits.device), training=train)
 
     def _heads(self, x: torch.Tensor) -> torch.Tensor:
         B, S, _ = x.shape

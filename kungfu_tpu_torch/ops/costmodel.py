@@ -69,6 +69,12 @@ def forward_flops(cfg, batch: int, seq: int, lm_head: bool = True) -> int:
     return matmul + attn + head
 
 
+def train_step_flops(cfg, batch: int, seq: int) -> int:
+    """Fwd + bwd for one step: the standard 3x-forward accounting (the
+    backward pass computes both operands' gradients of every matmul)."""
+    return 3 * forward_flops(cfg, batch, seq)
+
+
 def serve_prefill_flops(cfg, tokens: int, start: int = 0) -> int:
     """Prefill of ``tokens`` new positions on top of ``start`` cached ones,
     plus ONE logits row."""

@@ -1,14 +1,18 @@
-"""Where the time goes on the card: the flagship forward and a full-batch
-decode step of the serving engine, traced with ``torch.profiler``.
+"""Where the time goes on the card: the flagship forward, a full-batch
+decode step of the serving engine, and one flagship training step,
+traced with ``torch.profiler``.
 
     python -m kungfu_tpu_torch.profile [--steps N] [--out FILE]
 
 For each phase it prints (and writes as JSON to ``--out``): host wall
 time per call, device busy time per call (the sum of the CUDA kernel
 durations the profiler recorded), the device's idle share of the wall
-time, and the device time by kernel family (the hand-written flash
-kernel, matrix products, everything else) with the top kernels by name.
-Random weights from seed 0 at the flagship's full width; needs a GPU.
+time, and the device time by kernel family (the hand-written flash and
+cross-entropy kernels, matrix products, everything else) with the top
+kernels by name.  Random weights from seed 0 at the flagship's full
+width; the training step is chip_smoke.py's (ids [4, 2048], flash
+attention + fused cross-entropy, ``dp_train_step`` with
+``synchronous_sgd(sgd(0.05, momentum=0.9))``).  Needs a GPU.
 """
 
 from __future__ import annotations
@@ -23,10 +27,17 @@ import time
 
 def _family(name: str) -> str:
     low = name.lower()
-    if "flash_fwd" in low:
-        return "flash_fwd (hand-written)"
-    if any(t in low for t in ("gemm", "cutlass", "xmma", "cublas", "matmul")):
-        return "matmul (cuBLAS)"
+    for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "xent_fwd",
+                   "xent_bwd"):
+        if kernel in low:
+            return f"{kernel} (hand-written)"
+    # f32 products run on the CUDA cores (TF32 off): in the flagship
+    # these are the LM head's (bf16 features promote against f32 weights)
+    if any(t in low for t in ("sgemm", "simt", "f32f32", "ffma")):
+        return "matmul f32 (cuBLAS: the LM head)"
+    if any(t in low for t in ("gemm", "cutlass", "xmma", "cublas", "matmul",
+                              "nvjet")):
+        return "matmul bf16 (cuBLAS)"
     return "other (elementwise, reductions, copies, gathers)"
 
 
@@ -65,6 +76,36 @@ def _profile(torch, fn, steps: int) -> dict:
     }
 
 
+def _train_step(torch, rng):
+    """One flagship training step as a closure over its carried state."""
+    from kungfu_tpu_torch.comm.device import Communicator
+    from kungfu_tpu_torch.models.transformer import gpt_small
+    from kungfu_tpu_torch.ops.cuda.attention import make_flash_attn
+    from kungfu_tpu_torch.ops.xent import softmax_cross_entropy
+    from kungfu_tpu_torch.optimizers import sgd, synchronous_sgd
+    from kungfu_tpu_torch.parallel.train import dp_train_step
+
+    model = gpt_small(max_seq=2048)
+    flash = make_flash_attn()
+    batch = tuple(torch.from_numpy(rng.integers(
+        0, model.cfg.vocab_size, size=(4, 2048))).cuda() for _ in range(2))
+
+    def loss_fn(p, b):
+        return softmax_cross_entropy(
+            model.apply(p, b[0], train=True, attn_fn=flash), b[1]).mean()
+
+    comm = Communicator(devices=["cuda:0"])
+    tx = synchronous_sgd(sgd(0.05, momentum=0.9), comm.axis)
+    step = dp_train_step(loss_fn, tx, comm)
+    params = model.init(torch.Generator().manual_seed(0), device="cuda")
+    state = [params, tx.init(params)]
+
+    def run():
+        state[0], state[1], _ = step(state[0], state[1], batch)
+
+    return run
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=5)
@@ -74,6 +115,7 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
+    torch.backends.cuda.matmul.allow_tf32 = False
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
         return 2
@@ -89,16 +131,21 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(0)
     ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(4, 256))).cuda()
     out = {"device": torch.cuda.get_device_name(0)}
-    out["forward_4x256"] = _profile(torch, lambda: model.apply(params, ids),
-                                    args.steps)
 
-    engine = InferenceEngine(model, params, max_batch=8, max_seq=512)
-    for i in range(8):
-        engine.submit(f"r{i}", rng.integers(0, cfg.vocab_size, size=128).tolist(),
-                      256)
-    while engine.pending_count:
-        engine.step()  # admit all eight (one prefill per step)
-    out["decode_step_batch8"] = _profile(torch, engine.step, args.steps)
+    with torch.inference_mode():
+        out["forward_4x256"] = _profile(
+            torch, lambda: model.apply(params, ids), args.steps)
+        engine = InferenceEngine(model, params, max_batch=8, max_seq=512)
+        for i in range(8):
+            engine.submit(f"r{i}",
+                          rng.integers(0, cfg.vocab_size, size=128).tolist(),
+                          256)
+        while engine.pending_count:
+            engine.step()  # admit all eight (one prefill per step)
+        out["decode_step_batch8"] = _profile(torch, engine.step, args.steps)
+    del engine, params
+    out["train_step_4x2048"] = _profile(torch, _train_step(torch, rng),
+                                        args.steps)
 
     text = json.dumps(out, indent=1)
     print(text)

@@ -20,6 +20,25 @@
 ``KF_XRAY_PEAK_FLOPS``         per-card peak FLOP/s pinned for the kf_mfu
                                gauge, overriding device-name detection
                                (ops/costmodel.py)
+``KF_TPU_XENT``                cross-entropy impl: "auto"|"fused"|"plain"|
+                               "xla" (alias of plain); ``fused`` takes the
+                               Triton kernels, ``auto`` is ``plain`` until an
+                               H100 sweep sets a crossover; read at import
+                               and on ``XENT_ENV.reload()`` (ops/xent.py)
+``KF_XENT_XLA_BUDGET_MB``      logits-bytes budget of the reference's training
+                               routing rule, default 2048 (ops/xent.py)
+``KF_XENT_FWD_MIN_ELEMENTS``   min logits elements of the reference's
+                               forward-only routing rule, default 4194304
+                               (ops/xent.py)
+``KF_TPU_LM_HEAD``             lm-head impl: "auto"|"fused"|"plain"; ``auto``
+                               is ``plain`` off a TPU, ``fused`` raises until
+                               the fused LM-head kernels are ported
+                               (models/transformer.py)
+``KF_PULSE_EVERY``             sample the gradient-noise-scale / variance pair
+                               every N steps, default 10; 0 disables
+                               (monitor/pulse.py, parallel/train.py)
+``KF_PULSE_EMA``               EMA weight of the published pulse estimates,
+                               default 0.2 (monitor/pulse.py)
 =============================  ================================================
 """
 
@@ -34,6 +53,12 @@ SERVE_MAX_BATCH = "KF_SERVE_MAX_BATCH"
 SERVE_SLO_TTFT_MS = "KF_SERVE_SLO_TTFT_MS"
 SERVE_SLO_E2E_MS = "KF_SERVE_SLO_E2E_MS"
 XRAY_PEAK_FLOPS = "KF_XRAY_PEAK_FLOPS"
+XENT = "KF_TPU_XENT"
+XENT_XLA_BUDGET_MB = "KF_XENT_XLA_BUDGET_MB"
+XENT_FWD_MIN_ELEMENTS = "KF_XENT_FWD_MIN_ELEMENTS"
+LM_HEAD = "KF_TPU_LM_HEAD"
+PULSE_EVERY = "KF_PULSE_EVERY"
+PULSE_EMA = "KF_PULSE_EMA"
 
 
 def parse_int_env(name: str, default: int) -> int:

@@ -2,9 +2,10 @@
 
 * an AST scan: no module of kungfu_tpu_torch/, nor chip_smoke.py,
   imports ``jax`` or ``kungfu_tpu`` (whole module names:
-  ``kungfu_tpu_torch`` itself starts with ``kungfu_tpu``);
-* a fresh interpreter importing every port module loads no kungfu_tpu
-  or jax module and initialises no CUDA context;
+  ``kungfu_tpu_torch`` itself starts with ``kungfu_tpu``), and none
+  imports ``triton`` outside a function;
+* a fresh interpreter importing every port module loads no kungfu_tpu,
+  jax or triton module and initialises no CUDA context;
 * entry points asked for the default device raise without a GPU.
 """
 
@@ -43,6 +44,22 @@ def _imports(path: Path):
             yield node.module or ""
 
 
+def _module_level_imports(path: Path):
+    """Imports that run when the module is imported: everything outside
+    function bodies."""
+    todo = list(ast.parse(path.read_text(), str(path)).body)
+    while todo:
+        node = todo.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.Lambda)):
+            continue
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+        todo.extend(ast.iter_child_nodes(node))
+
+
 class TestNoReferenceImports:
     def test_files_exist(self):
         assert (ROOT / "chip_smoke.py").is_file()
@@ -54,6 +71,18 @@ class TestNoReferenceImports:
         bad = [n for n in _imports(path) if _forbidden(n)]
         assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
+    @pytest.mark.parametrize("path", PORT_FILES,
+                             ids=lambda p: str(p.relative_to(ROOT)))
+    def test_triton_only_inside_functions(self, path):
+        bad = [n for n in _module_level_imports(path)
+               if n == "triton" or n.startswith("triton.")]
+        assert not bad, f"{path.relative_to(ROOT)} imports {bad} at import"
+
+    def test_triton_scan_sees_module_level_imports(self, tmp_path):
+        src = tmp_path / "m.py"
+        src.write_text("import triton\n\ndef f():\n    import triton.language\n")
+        assert list(_module_level_imports(src)) == ["triton"]
+
     def test_scan_matches_whole_names(self):
         assert _forbidden("jax.numpy") and _forbidden("kungfu_tpu.serve")
         assert not _forbidden("kungfu_tpu_torch.serve")
@@ -64,8 +93,8 @@ class TestNoReferenceImports:
             "import sys, importlib\n"
             f"sys.path.insert(0, {str(ROOT)!r})\n"
             f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
-            "bad = [m for m in sys.modules if m in ('jax', 'kungfu_tpu') or "
-            "m.startswith(('jax.', 'kungfu_tpu.'))]\n"
+            "bad = [m for m in sys.modules if m in ('jax', 'kungfu_tpu', "
+            "'triton') or m.startswith(('jax.', 'kungfu_tpu.', 'triton.'))]\n"
             "assert not bad, bad\n"
             "import torch\n"
             "assert not torch.cuda.is_initialized()\n"
@@ -95,6 +124,13 @@ class TestDefaultDeviceIsTheCard:
             Transformer(cfg).init()
         assert Transformer(cfg).init(device="cpu")["head"]["w"].device.type \
             == "cpu"
+
+    def test_communicator_raises(self):
+        from kungfu_tpu_torch.comm.device import Communicator
+
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Communicator()
+        assert Communicator(devices=["cpu"]).device == torch.device("cpu")
 
     def test_converter_raises(self):
         cfg = TransformerConfig(vocab_size=8, d_model=8, n_layers=1,
