@@ -4,7 +4,7 @@ Port of the part of ``kungfu_tpu/comm/device.py:116 Communicator`` that
 the single-card training step reads: ``devices``, ``size``, ``rank``,
 ``axis`` (the names the collectives of :mod:`kungfu_tpu_torch.ops` take)
 and the allreduce ``strategy``.  One torch device; more than one raises
-until the data-parallel slice (port slice 3) brings the
+until the data-parallel slice (port slice 4) brings the
 ``torch.distributed`` mesh.
 """
 
@@ -30,7 +30,7 @@ class Communicator:
         if len(devs) != 1:
             raise NotImplementedError(
                 f"a communicator over {len(devs)} devices comes with the "
-                "data-parallel slice (port slice 3)")
+                "data-parallel slice (port slice 4)")
         self.devices = devs
         self.axis = GLOBAL_AXES
         self.set_strategy(strategy)

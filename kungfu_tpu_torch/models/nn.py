@@ -78,11 +78,25 @@ def embedding_init(gen: torch.Generator, vocab: int, dim: int) -> Params:
     return {"table": normal(gen, (vocab, dim))}
 
 
+def take_index(idx: torch.Tensor, n: int):
+    """``(safe, ok)`` for indices into an axis of size ``n`` with
+    ``jnp.take``'s default semantics: ``ok`` marks ``[-n, n)``, ``safe``
+    wraps ``[-n, -1]`` and clamps the rest into range, so a gather with
+    it needs no host sync and trips no device assert; the caller fills
+    NaN where ``ok`` is false."""
+    idx = idx.long()
+    ok = (idx >= -n) & (idx < n)
+    return torch.where(idx < 0, idx + n, idx).clamp(0, n - 1), ok
+
+
 def embedding_apply(p: Params, ids: torch.Tensor,
                     dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Row gather (``jnp.take`` on axis 0); gathering before the cast
-    gives the same values as casting the table first."""
-    rows = p["table"][ids]
+    """Row gather (``jnp.take`` on axis 0): ids in ``[-V, -1]`` wrap, ids
+    outside ``[-V, V)`` give NaN rows.  Gathering before the cast gives
+    the same values as casting the table first."""
+    table = p["table"]
+    safe, ok = take_index(ids, table.shape[0])
+    rows = torch.where(ok[..., None], table[safe], float("nan"))
     return rows.to(dtype) if dtype is not None else rows
 
 

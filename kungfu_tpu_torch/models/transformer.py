@@ -21,6 +21,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from kungfu_tpu_torch.models import nn
+from kungfu_tpu_torch.ops.lm_head import lm_head_nll
 from kungfu_tpu_torch.ops.xent import token_nll
 from kungfu_tpu_torch.utils import envs
 from kungfu_tpu_torch.utils.device import resolve_device
@@ -229,21 +230,22 @@ class Transformer:
         """Next-token LM loss; batch = (ids, targets), both [B, S].
 
         ``KF_TPU_LM_HEAD`` (``fused`` | ``plain`` | ``auto``, default
-        auto) selects the head.  ``plain`` materializes the logits and
-        routes through :func:`~kungfu_tpu_torch.ops.xent.token_nll`;
+        auto) selects the head.  ``fused`` takes the features from
+        :meth:`hidden` into :func:`~kungfu_tpu_torch.ops.lm_head.lm_head_nll`
+        (the logits never materialize); ``plain`` materializes the logits
+        and routes through :func:`~kungfu_tpu_torch.ops.xent.token_nll`;
         ``auto`` is ``plain`` here, as the reference's is off a TPU (its
-        crossover is a TPU measurement); ``fused`` raises until the fused
-        LM-head kernels are ported."""
+        budget, ``route_fused_lm_head``, is a TPU setting)."""
         ids, targets = batch
         mode = os.environ.get(envs.LM_HEAD, "auto").lower()
         if mode not in ("fused", "plain", "auto"):
             raise ValueError(
                 f"{envs.LM_HEAD}={mode!r}: one of fused | plain | auto")
         if mode == "fused":
-            raise NotImplementedError(
-                f"{envs.LM_HEAD}=fused: the fused LM-head kernels "
-                "(kungfu_tpu/ops/pallas/lm_head.py) are ported with the "
-                "LM-head slice; use plain or auto")
+            h = self.hidden(params, ids, train=train, generator=generator,
+                            attn_fn=attn_fn, positions=positions)
+            return lm_head_nll(h, params["head"]["w"],
+                               targets.to(h.device)).mean()
         logits = self.apply(params, ids, train=train, generator=generator,
                             attn_fn=attn_fn, positions=positions)
         return token_nll(logits, targets.to(logits.device), training=train)

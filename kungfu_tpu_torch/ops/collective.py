@@ -40,7 +40,7 @@ def _single(axis: Axis) -> None:
     if n != 1:
         raise NotImplementedError(
             f"collectives over {n} peers come with the data-parallel slice "
-            "(port slice 3); this build reduces over one peer only")
+            "(port slice 4); this build reduces over one peer only")
 
 
 def all_reduce(x, axis: Axis, op: str = "sum"):

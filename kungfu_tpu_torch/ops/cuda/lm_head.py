@@ -1,0 +1,225 @@
+"""Fused LM head + softmax cross-entropy: the hand-written Hopper kernels
+and their plain PyTorch versions.
+
+Port of the kernels of ``kungfu_tpu/ops/pallas/lm_head.py``.  The kernels
+in ``csrc/lm_head.cu`` replace ``_fwd_kernel`` (loss and lse from logits
+tiles that never leave the chip), ``_bwd_dh_kernel`` (``dh = dl Wᵀ``,
+vocab innermost) and ``_bwd_dw_kernel`` (``dW = hᵀ dl``, rows
+innermost), where ``dl = (exp(h W - lse) - onehot) * g`` is recomputed
+tile by tile.  Their plain versions, :func:`lm_head_forward_reference`
+and :func:`lm_head_backward_reference`, compute the same functions one
+vocab block at a time (f32 products, the reference's ``-1e30`` start and
+``1e-30`` clamp), so a comparison at the flagship shape never holds a
+second ``[N, V]`` buffer.
+
+:func:`forward` and :func:`backward` dispatch by device: a CPU tensor
+takes the plain version, a CUDA tensor launches the kernels or raises —
+a failed build, a refused launch or a CUDA error never falls back.  A
+target outside ``[0, V)`` gives ``loss = lse`` and no onehot term in
+both, as in the reference kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Optional, Tuple
+
+import torch
+
+from kungfu_tpu_torch.ops.cuda import _build
+
+_NEG_INF = -1e30
+#: vocab block of the plain versions (any size gives the same sums up to
+#: f32 reassociation)
+REF_BLOCK_V = 2048
+
+#: launches of the hand-written kernels: +1 per launch, nowhere else
+launch_counts = {"lm_head_fwd": 0, "lm_head_bwd_dh": 0, "lm_head_bwd_dw": 0}
+
+_lock = threading.Lock()
+_built: Optional[_build.Built] = None
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def load() -> _build.Built:
+    """Build (first call only) and bind ``csrc/lm_head.cu``."""
+    global _built
+    with _lock:
+        if _built is None:
+            built = _build.build("lm_head.cu")
+            ptr, i32 = ctypes.c_void_p, ctypes.c_int
+            signatures = {
+                "kf_lm_head_fwd_splits": [i32] * 2,
+                "kf_lm_head_fwd": [ptr] * 6 + [i32] * 5 + [ptr],
+                "kf_lm_head_bwd_dh": [ptr] * 6 + [i32] * 5 + [ptr],
+                "kf_lm_head_bwd_dw": [ptr] * 6 + [i32] * 5 + [ptr],
+            }
+            for name, argtypes in signatures.items():
+                fn = getattr(built.lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            built.lib.kf_error_string.argtypes = [ctypes.c_int]
+            built.lib.kf_error_string.restype = ctypes.c_char_p
+            _built = built
+        return _built
+
+
+# -- plain versions --------------------------------------------------------
+def lm_head_forward_reference(h: torch.Tensor, w: torch.Tensor,
+                              targets: torch.Tensor,
+                              block_v: int = REF_BLOCK_V
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the forward kernel: ``(loss, lse)`` f32 ``[N]`` for
+    ``h`` ``[N, D]``, ``w`` ``[D, V]``: an online softmax over f32 logits
+    blocks ``h @ w[:, block]``, as the reference's ``_fwd_kernel`` sweeps
+    them."""
+    hf = h.float()
+    n, v = h.shape[0], w.shape[1]
+    t = targets.long()[:, None]
+    m = torch.full((n,), _NEG_INF, dtype=torch.float32, device=h.device)
+    l = torch.zeros_like(m)
+    tl = torch.zeros_like(m)
+    for v0 in range(0, v, block_v):
+        x = hf @ w[:, v0:v0 + block_v].float()
+        cols = torch.arange(v0, v0 + x.shape[1], device=h.device)
+        m_new = torch.maximum(m, x.amax(dim=1))
+        l = l * torch.exp(m - m_new) + torch.exp(x - m_new[:, None]).sum(1)
+        tl = tl + torch.where(cols[None, :] == t, x, 0.0).sum(1)
+        m = m_new
+    lse = m + torch.log(l.clamp_min(1e-30))
+    return lse - tl, lse
+
+
+def lm_head_backward_reference(h, w, targets, lse, g,
+                               block_v: int = REF_BLOCK_V
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the backward kernels: ``(dh, dW)`` in h's and w's
+    dtypes for the cotangent ``g`` of the per-row loss, one vocab block
+    at a time (``dl = (exp(x - lse) - onehot) * g`` in f32, ``dh += dl
+    w_blkᵀ``, ``dW[:, blk] = hᵀ dl``), each summed in f32 and rounded
+    once."""
+    hf = h.float()
+    v = w.shape[1]
+    t = targets.long()[:, None]
+    dh = torch.zeros(hf.shape, dtype=torch.float32, device=h.device)
+    dw = torch.empty(w.shape, dtype=w.dtype, device=w.device)
+    for v0 in range(0, v, block_v):
+        wb = w[:, v0:v0 + block_v].float()
+        x = hf @ wb
+        cols = torch.arange(v0, v0 + x.shape[1], device=h.device)
+        dl = (torch.exp(x - lse[:, None]) - (cols[None, :] == t).float()
+              ) * g[:, None]
+        dh += dl @ wb.T
+        dw[:, v0:v0 + block_v] = (hf.T @ dl).to(w.dtype)
+    return dh.to(h.dtype), dw
+
+
+# -- dispatch --------------------------------------------------------------
+def _check(h: torch.Tensor, w: torch.Tensor, targets: torch.Tensor) -> None:
+    if h.dim() != 2 or w.dim() != 2 or w.shape[0] != h.shape[1] \
+            or targets.shape != h.shape[:1]:
+        raise ValueError(f"expected h [N, D], w [D, V] and targets [N], got "
+                         f"{tuple(h.shape)}, {tuple(w.shape)} and "
+                         f"{tuple(targets.shape)}")
+    for name, t in (("h", h), ("w", w)):
+        if t.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"the fused LM head takes float32 or bfloat16 "
+                             f"{name}, got {t.dtype}")
+    if targets.dtype.is_floating_point or targets.dtype == torch.bool:
+        raise ValueError(f"targets must be integers, got {targets.dtype}")
+    if not (h.device == w.device == targets.device):
+        raise ValueError("h, w and targets lie on different devices")
+    if h.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the fused LM head runs on cuda or cpu, "
+                         f"not {h.device}")
+    if min(h.shape + w.shape[1:]) == 0 or max(h.shape + w.shape[1:]) >= 2 ** 31:
+        raise ValueError(f"unsupported sizes h {tuple(h.shape)}, "
+                         f"w {tuple(w.shape)}")
+
+
+def _raise_on(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"lm_head {what} launch failed: "
+                           f"{lib.kf_error_string(err).decode()}")
+
+
+def _types(h: torch.Tensor, w: torch.Tensor) -> Tuple[int, int]:
+    return int(h.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16)
+
+
+def _launch_fwd(h, w, targets) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel on contiguous ``h``, ``w`` and int32 ``targets``."""
+    lib = load().lib
+    (n, d), v = h.shape, w.shape[1]
+    # the partial max, sum and target logit of each vocab split
+    part = torch.empty((lib.kf_lm_head_fwd_splits(n, v), n, 3),
+                       dtype=torch.float32, device=h.device)
+    loss = torch.empty(n, dtype=torch.float32, device=h.device)
+    lse = torch.empty_like(loss)
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream(h.device).cuda_stream
+        err = lib.kf_lm_head_fwd(
+            h.data_ptr(), w.data_ptr(), targets.data_ptr(), part.data_ptr(),
+            loss.data_ptr(), lse.data_ptr(), n, d, v, *_types(h, w), stream)
+    _raise_on(lib, err, "forward")
+    launch_counts["lm_head_fwd"] += 1
+    return loss, lse
+
+
+def _launch_bwd_kernel(name: str, h, w, targets, lse, g, out) -> None:
+    lib = load().lib
+    (n, d), v = h.shape, w.shape[1]
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream(h.device).cuda_stream
+        err = getattr(lib, f"kf_{name}")(
+            h.data_ptr(), w.data_ptr(), targets.data_ptr(), lse.data_ptr(),
+            g.data_ptr(), out.data_ptr(), n, d, v, *_types(h, w), stream)
+    _raise_on(lib, err, name)
+    launch_counts[name] += 1
+
+
+def _launch_dh(h, w, targets, lse, g) -> torch.Tensor:
+    """The dh kernel on contiguous operands (int32 targets, f32 lse and g)."""
+    dh = torch.empty_like(h)
+    _launch_bwd_kernel("lm_head_bwd_dh", h, w, targets, lse, g, dh)
+    return dh
+
+
+def _launch_dw(h, w, targets, lse, g) -> torch.Tensor:
+    """The dW kernel, operands as :func:`_launch_dh`."""
+    dw = torch.empty_like(w)
+    _launch_bwd_kernel("lm_head_bwd_dw", h, w, targets, lse, g, dw)
+    return dw
+
+
+def _operands(h, w, targets):
+    return h.contiguous(), w.contiguous(), targets.to(torch.int32).contiguous()
+
+
+def forward(h: torch.Tensor, w: torch.Tensor, targets: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(loss, lse)`` f32 ``[N]`` for ``h`` ``[N, D]``, ``w`` ``[D, V]`` and
+    int ``targets`` ``[N]``: the plain version on the CPU, the kernel on
+    CUDA."""
+    _check(h, w, targets)
+    if h.device.type == "cpu":
+        return lm_head_forward_reference(h, w, targets)
+    return _launch_fwd(*_operands(h, w, targets))
+
+
+def backward(h, w, targets, lse, g) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dh, dW)`` in h's and w's dtypes for the cotangent ``g`` of the
+    per-row loss: the plain version on the CPU, the dh kernel then the
+    dW kernel on CUDA."""
+    _check(h, w, targets)
+    g = g.float().expand(h.shape[:1]).contiguous()
+    lse = lse.float().contiguous()
+    if h.device.type == "cpu":
+        return lm_head_backward_reference(h, w, targets, lse, g)
+    ops = (*_operands(h, w, targets), lse, g)
+    return _launch_dh(*ops), _launch_dw(*ops)

@@ -3,7 +3,7 @@
 Port of ``kungfu_tpu/ops/schedules.py:445 all_reduce_scheduled``.  The
 reference decomposes the collective in-program for its ``two_stage``,
 ``ring`` and ``pallas_ring`` schedules; those arms need a world larger
-than one card and come with the data-parallel slice (port slice 3).
+than one card and come with the data-parallel slice (port slice 4).
 """
 
 from __future__ import annotations
@@ -27,5 +27,5 @@ def all_reduce_scheduled(x, axis: Axis, op: str = "sum",
     if schedule != "psum":
         raise NotImplementedError(
             f"allreduce schedule {schedule!r} comes with the data-parallel "
-            "slice (port slice 3); only 'psum' is ported")
+            "slice (port slice 4); only 'psum' is ported")
     return all_reduce(x, axis, op=op)

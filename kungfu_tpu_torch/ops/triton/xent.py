@@ -121,10 +121,15 @@ def _kernels():
 def xent_forward_reference(logits: torch.Tensor, targets: torch.Tensor
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the forward kernel: ``(loss, lse)`` f32 ``[N]`` for
-    ``[N, V]`` logits, in one pass over the f32 upcast."""
+    ``[N, V]`` logits, in one pass over the f32 upcast.  A target outside
+    ``[0, V)`` matches no logit, so its loss is lse, as in the kernel."""
     x = logits.float()
+    v = x.shape[-1]
     lse = torch.logsumexp(x, dim=-1)
-    return lse - x.gather(-1, targets.long()[:, None]).squeeze(-1), lse
+    t = targets.long()[:, None]
+    ok = (t >= 0) & (t < v)
+    picked = torch.where(ok, x.gather(-1, t.clamp(0, v - 1)), 0.0)
+    return lse - picked.squeeze(-1), lse
 
 
 def xent_backward_reference(logits, targets, lse, g,

@@ -23,6 +23,7 @@ import os
 import torch
 from torch.autograd.function import once_differentiable
 
+from kungfu_tpu_torch.models.nn import take_index
 from kungfu_tpu_torch.ops.triton import xent as kernels
 from kungfu_tpu_torch.utils import envs
 
@@ -106,9 +107,13 @@ def token_nll(logits: torch.Tensor, targets: torch.Tensor,
               training: bool = True) -> torch.Tensor:
     """Mean next-token NLL with the ``KF_TPU_XENT`` dispatch (``fused`` |
     ``plain`` | ``auto``); ``training`` is the reference's routing hint,
-    which steers nothing while ``auto`` means ``plain`` (module doc)."""
+    which steers nothing while ``auto`` means ``plain`` (module doc).
+    The plain branch picks the target as ``jnp.take_along_axis`` does:
+    a target in ``[-V, -1]`` wraps, one outside ``[-V, V)`` gives NaN."""
     del training
     if XENT_ENV.mode == "fused":
         return softmax_cross_entropy(logits, targets).mean()
     logp = torch.log_softmax(logits, dim=-1)
-    return -logp.gather(-1, targets.long()[..., None]).squeeze(-1).mean()
+    safe, ok = take_index(targets, logits.shape[-1])
+    nll = -logp.gather(-1, safe[..., None]).squeeze(-1)
+    return torch.where(ok, nll, float("nan")).mean()

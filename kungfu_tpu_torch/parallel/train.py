@@ -10,8 +10,8 @@ the gradient collective (``synchronous_sgd`` over ``comm.axis``).
 At world size 1 every collective is the identity
 (:mod:`kungfu_tpu_torch.ops.collective`).  What needs a larger world or
 another layout raises, naming the slice that brings it: ``zero_stage``
-and ``replicated_params=False`` (data-parallel/ZeRO, port slice 3), a
-``plan`` with tp/pp/sp axes (the full parallel plan, port slice 4).
+and ``replicated_params=False`` (data-parallel/ZeRO, port slice 4), a
+``plan`` with tp/pp/sp axes (the full parallel plan, port slice 5).
 """
 
 from __future__ import annotations
@@ -48,7 +48,7 @@ def _refuse(zero_stage, plan, replicated_params: bool) -> None:
             raise NotImplementedError(
                 f"dp_train_step is the dp-only entrypoint; a plan with "
                 f"tp={plan.tp} pp={plan.pp} sp={plan.sp} comes with the full "
-                "parallel plan (port slice 4)")
+                "parallel plan (port slice 5)")
         if zero_stage is not None and zero_stage != plan.zero_stage:
             raise ValueError(f"zero_stage={zero_stage} disagrees with "
                              f"plan.zero_stage={plan.zero_stage}")
@@ -60,12 +60,12 @@ def _refuse(zero_stage, plan, replicated_params: bool) -> None:
     if zero_stage is not None:
         raise NotImplementedError(
             f"zero_stage={zero_stage}: the ZeRO steps come with the "
-            "data-parallel/ZeRO slice (port slice 3)")
+            "data-parallel/ZeRO slice (port slice 4)")
     if not replicated_params:
         raise NotImplementedError(
             "replicated_params=False (per-replica stacked params for "
             "SMA/AdaptiveSGD) comes with the data-parallel slice (port "
-            "slice 3)")
+            "slice 4)")
 
 
 def dp_train_step(loss_fn, tx, comm, replicated_params: bool = True,

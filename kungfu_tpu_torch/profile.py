@@ -2,17 +2,20 @@
 decode step of the serving engine, and one flagship training step,
 traced with ``torch.profiler``.
 
-    python -m kungfu_tpu_torch.profile [--steps N] [--out FILE]
+    python -m kungfu_tpu_torch.profile [--steps N] [--lm-head plain|fused]
+                                       [--out FILE]
 
 For each phase it prints (and writes as JSON to ``--out``): host wall
 time per call, device busy time per call (the sum of the CUDA kernel
 durations the profiler recorded), the device's idle share of the wall
-time, and the device time by kernel family (the hand-written flash and
-cross-entropy kernels, matrix products, everything else) with the top
-kernels by name.  Random weights from seed 0 at the flagship's full
-width; the training step is chip_smoke.py's (ids [4, 2048], flash
-attention + fused cross-entropy, ``dp_train_step`` with
-``synchronous_sgd(sgd(0.05, momentum=0.9))``).  Needs a GPU.
+time, and the device time by kernel family (the hand-written flash,
+cross-entropy and LM-head kernels, matrix products, everything else)
+with the top kernels by name.  Random weights from seed 0 at the
+flagship's full width; the training step is chip_smoke.py's (ids
+[4, 2048], flash attention, ``dp_train_step`` with
+``synchronous_sgd(sgd(0.05, momentum=0.9))``) with the plain head and
+the fused cross-entropy (``--lm-head plain``, the default) or the fused
+LM head (``--lm-head fused``).  Needs a GPU.
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ import time
 def _family(name: str) -> str:
     low = name.lower()
     for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "xent_fwd",
-                   "xent_bwd"):
+                   "xent_bwd", "lm_head_fwd", "lm_head_bwd_dh",
+                   "lm_head_bwd_dw"):
         if kernel in low:
             return f"{kernel} (hand-written)"
     # f32 products run on the CUDA cores (TF32 off): in the flagship
@@ -76,11 +80,13 @@ def _profile(torch, fn, steps: int) -> dict:
     }
 
 
-def _train_step(torch, rng):
-    """One flagship training step as a closure over its carried state."""
+def _train_step(torch, rng, lm_head: str):
+    """One flagship training step as a closure over its carried state;
+    ``lm_head`` picks the plain head + fused xent or the fused head."""
     from kungfu_tpu_torch.comm.device import Communicator
     from kungfu_tpu_torch.models.transformer import gpt_small
     from kungfu_tpu_torch.ops.cuda.attention import make_flash_attn
+    from kungfu_tpu_torch.ops.lm_head import lm_head_nll
     from kungfu_tpu_torch.ops.xent import softmax_cross_entropy
     from kungfu_tpu_torch.optimizers import sgd, synchronous_sgd
     from kungfu_tpu_torch.parallel.train import dp_train_step
@@ -91,6 +97,9 @@ def _train_step(torch, rng):
         0, model.cfg.vocab_size, size=(4, 2048))).cuda() for _ in range(2))
 
     def loss_fn(p, b):
+        if lm_head == "fused":
+            h = model.hidden(p, b[0], train=True, attn_fn=flash)
+            return lm_head_nll(h, p["head"]["w"], b[1]).mean()
         return softmax_cross_entropy(
             model.apply(p, b[0], train=True, attn_fn=flash), b[1]).mean()
 
@@ -109,6 +118,8 @@ def _train_step(torch, rng):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--lm-head", choices=("plain", "fused"), default="plain",
+                    help="head of the training step")
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
 
@@ -144,8 +155,8 @@ def main(argv=None) -> int:
             engine.step()  # admit all eight (one prefill per step)
         out["decode_step_batch8"] = _profile(torch, engine.step, args.steps)
     del engine, params
-    out["train_step_4x2048"] = _profile(torch, _train_step(torch, rng),
-                                        args.steps)
+    out[f"train_step_4x2048_{args.lm_head}_head"] = _profile(
+        torch, _train_step(torch, rng, args.lm_head), args.steps)
 
     text = json.dumps(out, indent=1)
     print(text)

@@ -102,6 +102,48 @@ class TestLayers:
         np.testing.assert_array_equal(got.float().numpy(),
                                       np.asarray(ref, np.float32))
 
+    @pytest.mark.parametrize("dtype", [None, "bfloat16"])
+    def test_embedding_out_of_range_ids(self, dtype):
+        """``jnp.take``'s fill: ids in [-V, -1] wrap, ids outside [-V, V)
+        give NaN rows; the port matches value for value and NaN for NaN."""
+        table = _rng(10).normal(size=(50, 8)).astype(np.float32)
+        ids = np.array([[-51, -50, -1, 0, 49], [50, 89, 7, -7, 1000]])
+        jdt = jnp.dtype(dtype) if dtype else None
+        tdt = getattr(torch, dtype) if dtype else None
+        ref = np.asarray(jnn.embedding_apply(
+            {"table": jnp.asarray(table)}, jnp.asarray(ids, jnp.int32),
+            dtype=jdt), np.float32)
+        got = tnn.embedding_apply({"table": torch.from_numpy(table)},
+                                  torch.from_numpy(ids), dtype=tdt)
+        np.testing.assert_array_equal(np.isnan(got.float().numpy()),
+                                      np.isnan(ref))
+        assert np.isnan(ref).any(axis=-1).sum() == 4
+        np.testing.assert_array_equal(got.float().numpy(), ref)
+
+    def test_embedding_out_of_range_gradient(self):
+        """NaN rows take no part in the table's gradient."""
+        table = torch.ones(6, 3, requires_grad=True)
+        out = tnn.embedding_apply({"table": table}, torch.tensor([0, 9, -1]))
+        torch.nansum(out).backward()
+        np.testing.assert_array_equal(table.grad.sum(-1).numpy(),
+                                      [3, 0, 0, 0, 0, 3])
+
+    def test_transformer_out_of_vocab_id_gives_nan_rows(self):
+        jcfg, tcfg = _cfg()
+        jp = _jax_params(jcfg, seed=2)
+        tp = interop.params_from_jax(_np_tree(jp), tcfg, device="cpu")
+        ids = _rng(11).integers(0, 64, size=(1, 8))
+        ids[0, 5] = 70
+        ref = np.asarray(jtr.Transformer(jcfg).apply(
+            jp, jnp.asarray(ids, jnp.int32), attn_fn=jtr.default_attention))
+        got = ttr.Transformer(tcfg).apply(
+            tp, torch.from_numpy(ids), attn_fn=ttr.default_attention).numpy()
+        # the NaN row reaches every position in both packages: its value
+        # row meets the masked (zero) probabilities of earlier positions,
+        # and 0 * NaN is NaN
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+        assert np.isnan(got).all()
+
     def test_gelu_tanh(self):
         x = _rng(4).normal(size=(1000,)).astype(np.float32) * 4
         np.testing.assert_allclose(

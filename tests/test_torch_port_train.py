@@ -146,8 +146,8 @@ class TestLossVersusJax:
         monkeypatch.setenv("KF_TPU_LM_HEAD", "auto")
         assert float(model.loss(tp, batch, attn_fn=attn)) == plain
         monkeypatch.setenv("KF_TPU_LM_HEAD", "fused")
-        with pytest.raises(NotImplementedError, match="LM-head slice"):
-            model.loss(tp, batch, attn_fn=attn)
+        np.testing.assert_allclose(float(model.loss(tp, batch, attn_fn=attn)),
+                                   plain, rtol=2e-5)
         monkeypatch.setenv("KF_TPU_LM_HEAD", "bogus")
         with pytest.raises(ValueError, match="KF_TPU_LM_HEAD"):
             model.loss(tp, batch, attn_fn=attn)
@@ -206,6 +206,34 @@ class TestTrainStepVersusJax:
         ttx = synchronous_sgd(sgd(0.05, momentum=0.9), comm.axis,
                               fuse_grads=fuse_grads)
         tstep = dp_train_step(tloss, ttx, comm)
+        jbatch = (jnp.asarray(ids, jnp.int32), jnp.asarray(tgt, jnp.int32))
+        tbatch = (torch.from_numpy(ids), torch.from_numpy(tgt))
+        js, ts = jtx.init(jp), ttx.init(tp)
+        jlosses, tlosses = [], []
+        for _ in range(5):
+            jp, js, jl = jstep(jp, js, jbatch)
+            tp, ts, tl = tstep(tp, ts, tbatch)
+            jlosses.append(float(jl))
+            tlosses.append(float(tl))
+        np.testing.assert_allclose(tlosses, jlosses, atol=TRAIN_ATOL)
+        assert tlosses[-1] < tlosses[0]
+        _assert_trees_close(tp, jp, TRAIN_ATOL)
+
+    def test_five_steps_fused_lm_head(self, monkeypatch):
+        """``Transformer.loss`` under ``KF_TPU_LM_HEAD=fused`` (flash
+        attention, the fused LM head) through each package's
+        dp_train_step for five steps from the same params."""
+        monkeypatch.setenv("KF_TPU_LM_HEAD", "fused")
+        jmodel, jp, tmodel, tp, ids, tgt = _setup(seed=3)
+        jflash, tflash = jmake_flash(), make_flash_attn()
+        jcomm = JCommunicator(devices=[jax.devices()[0]], local_size=1)
+        jtx = jsync(optax.sgd(0.05, momentum=0.9), jcomm.axis)
+        jstep = jdp_train_step(
+            lambda p, b: jmodel.loss(p, b, attn_fn=jflash), jtx, jcomm)
+        comm = Communicator(devices=["cpu"])
+        ttx = synchronous_sgd(sgd(0.05, momentum=0.9), comm.axis)
+        tstep = dp_train_step(
+            lambda p, b: tmodel.loss(p, b, attn_fn=tflash), ttx, comm)
         jbatch = (jnp.asarray(ids, jnp.int32), jnp.asarray(tgt, jnp.int32))
         tbatch = (torch.from_numpy(ids), torch.from_numpy(tgt))
         js, ts = jtx.init(jp), ttx.init(tp)
@@ -335,7 +363,7 @@ class TestCollectivesAtWorldOne:
         x = torch.ones(3)
         assert schedules.all_reduce_scheduled(x, "kf_local", "mean") is x
         for name in ("ring", "two_stage", "pallas_ring"):
-            with pytest.raises(NotImplementedError, match="slice 3"):
+            with pytest.raises(NotImplementedError, match="slice 4"):
                 schedules.all_reduce_scheduled(x, "kf_local", schedule=name)
         with pytest.raises(ValueError):
             schedules.all_reduce_scheduled(x, "kf_local", schedule="bogus")
@@ -347,7 +375,7 @@ class TestCollectivesAtWorldOne:
                                           local_size=1).axis
         with pytest.raises(ValueError):
             comm.set_strategy("bogus")
-        with pytest.raises(NotImplementedError, match="slice 3"):
+        with pytest.raises(NotImplementedError, match="slice 4"):
             Communicator(devices=["cpu", "cpu"])
 
 

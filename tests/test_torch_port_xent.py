@@ -167,6 +167,56 @@ class TestTokenNllRouting:
         assert txent.XENT_ENV.reload().mode == "plain"
 
 
+class TestOutOfVocabTargets:
+    """A target outside [0, V): the kernels (Pallas and Triton) and their
+    plain versions give loss = lse; the plain ``token_nll`` picks the
+    target as ``take_along_axis`` does (wrap [-V, -1], NaN outside
+    [-V, V)).  The reference pads V to its vocab block, and a target
+    inside the padding picks the -1e30 mask value (a loss of 1e30); the
+    port has no padding, so those targets are left out."""
+
+    TARGETS = np.array([-1, 300, 0, 129, -130, 7, -131, 500])
+
+    def test_forward_gives_lse(self):
+        logits, _ = _data(8, 130, seed=9)
+        x, t = torch.from_numpy(logits), torch.from_numpy(self.TARGETS)
+        loss, lse = kernels.xent_forward_reference(x, t)
+        jloss, jlse = jxent._fwd_call(jnp.asarray(logits),
+                                      jnp.asarray(self.TARGETS, jnp.int32),
+                                      8, 128, True)
+        np.testing.assert_allclose(loss.numpy(), np.asarray(jloss),
+                                   atol=LOSS_ATOL_F32)
+        np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), atol=1e-5)
+        out = ~((self.TARGETS >= 0) & (self.TARGETS < 130))
+        np.testing.assert_array_equal(loss.numpy()[out], lse.numpy()[out])
+
+    def test_backward_has_no_onehot_term(self):
+        logits, _ = _data(8, 130, seed=10)
+        g = np.full(8, 0.5, np.float32)
+        x, t = torch.from_numpy(logits), torch.from_numpy(self.TARGETS)
+        _, lse = kernels.xent_forward_reference(x, t)
+        got = kernels.xent_backward_reference(x, t, lse, torch.from_numpy(g))
+        ref = jxent._bwd_blocked(jnp.asarray(logits),
+                                 jnp.asarray(self.TARGETS, jnp.int32),
+                                 jnp.asarray(lse.numpy()), jnp.asarray(g), 128)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=2e-5)
+
+    @pytest.mark.parametrize("rows,nan", [(slice(0, 8), True),
+                                          (slice(4, 6), False),
+                                          (slice(0, 1), False)])
+    def test_plain_token_nll_matches_take_along_axis(self, knobs, rows, nan):
+        knobs(KF_TPU_XENT="plain")
+        logits, _ = _data(8, 130, seed=11)
+        logits, targets = logits[rows], self.TARGETS[rows]
+        ref = float(jxent.token_nll(jnp.asarray(logits),
+                                    jnp.asarray(targets, jnp.int32)))
+        got = float(txent.token_nll(torch.from_numpy(logits),
+                                    torch.from_numpy(targets)))
+        assert np.isnan(got) == np.isnan(ref) == nan
+        if not nan:
+            np.testing.assert_allclose(got, ref, atol=LOSS_ATOL_F32)
+
+
 class TestShapeRouting:
     SHAPES = [(8192, 32128, 4, True), (8192, 32128, 2, True),
               (1024, 1024, 4, True), (4096, 1024, 4, False),
