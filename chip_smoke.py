@@ -34,7 +34,25 @@ Phases (any failed check exits non-zero before the result line):
              ``lm_head_nll``: the logits never reach device memory), held
              against flash + plain head + plain cross-entropy, and one
              step through ``Transformer.loss`` under
-             ``KF_TPU_LM_HEAD=fused``; the same measurements.
+             ``KF_TPU_LM_HEAD=fused``; the same measurements;
+8. S-SGD   — phase 6's step on four co-resident ranks of one card
+             (``Communicator(devices=["cuda:0"] * 4)``, one batch row per
+             rank), ``synchronous_sgd(..., schedule="pallas_ring",
+             fuse_grads=True)``: one ring reduce-scatter and one ring
+             all-gather over the fused gradient; the first loss and the
+             reduced gradient against phase 6's single-rank ones, ten
+             steps of falling loss, step ms, tokens/s, peak memory;
+9. ZeRO    — ZeRO-2 and ZeRO-3 (``zero_train_step(...,
+             schedule="pallas_ring")``) on the same ranks: 129 bucketed
+             ring launches per direction, params after one step against
+             phase 8's, falling loss, step ms, tokens/s, peak memory,
+             per-rank optimizer bytes, and the ring bytes counted in one
+             step against ``zero_comm_bytes``.
+
+Phase 3 also holds the ring reduce-scatter and all-gather kernels
+bitwise against their plain versions, at the main path's shapes (a
+262,144-column bucket over four ranks, and the fused [4, 134,404,608]
+gradient) and at the reference suite's edges.
 
 Each path's launches are counted from zero just before it runs.  It
 prints a ``kernels`` JSON line, the ``nvidia-smi`` line, and last
@@ -118,6 +136,21 @@ LMH_GRAD_RTOL_BF16 = 2 ** -6
 #: Transformer.loss against the step's own first loss: the same
 #: computation reached through the model's dispatch
 MODEL_LOSS_RTOL = 1e-4
+#: four ranks' mean loss against phase 6's one-rank loss over the same
+#: tokens and params: the same sum of 8192 token losses, taken as four
+#: f32 means of 2048 and their mean instead of one mean of 8192
+RANKS_LOSS_RTOL = 1e-5
+#: the four ranks' reduced first-step gradient against phase 6's
+#: one-rank gradient, relative L2 per leaf (floored as for phase 6): the
+#: ranks run the same kernels on [1, 2048] slices of phase 6's [4, 2048]
+#: batch, so only the GEMMs' tiling at another M and the order of the
+#: f32 sums over tokens differ; a bf16 activation that rounds the other
+#: way in one layer travels through the rest, and the key biases'
+#: gradient is rounding noise in both (zero in exact arithmetic)
+RANKS_GRAD_REL_L2 = 5e-2
+#: ZeRO params after one step against S-SGD's when they are not bitwise
+#: equal: the reference's own tolerance (tests/test_zero.py:70-72)
+ZERO_RTOL, ZERO_ATOL = 1e-5, 1e-6
 
 FLAGSHIP = dict(vocab_size=32128, d_model=768, n_layers=12, n_heads=12,
                 d_ff=3072, max_seq=512, causal=True, pos="rope",
@@ -125,6 +158,10 @@ FLAGSHIP = dict(vocab_size=32128, d_model=768, n_layers=12, n_heads=12,
 #: the training path: bench.py:payload_lm's gpt_small at ids [4, 2048]
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048
 TRAIN_STEPS = 10
+#: co-resident ranks of phases 8 and 9: one batch row each
+RANKS = 4
+#: f32 parameters of gpt_small(max_seq=2048); the 4-rank ring chunk
+FLAGSHIP_PARAMS = 134_404_608
 
 
 class SmokeFailure(Exception):
@@ -731,34 +768,23 @@ def phase_train(torch, np, kernels, tr, costmodel, spec, head: str):
     from kungfu_tpu_torch.ops import xent
     from kungfu_tpu_torch.ops.lm_head import lm_head_nll
     from kungfu_tpu_torch.optimizers import sgd, synchronous_sgd
-    from kungfu_tpu_torch.parallel.train import _value_and_grad, dp_train_step
+    from kungfu_tpu_torch.parallel.train import dp_train_step
 
-    attention = kernels[0]
-    model = tr.gpt_small(max_seq=TRAIN_SEQ)
-    cfg = model.cfg
     t0 = time.perf_counter()
-    params = model.init(torch.Generator().manual_seed(0), device="cuda")
-    rng = np.random.default_rng(0)
-    ids, targets = (torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, size=(TRAIN_BATCH, TRAIN_SEQ))).cuda()
-        for _ in range(2))
-    batch = (ids, targets)
+    model, params, batch, flash, loss_fn = _flagship_train(torch, np, tr,
+                                                           kernels[0])
+    cfg = model.cfg
     torch.cuda.synchronize()
     print(f"train ({head} head) init: {time.perf_counter() - t0:.2f} s")
-    flash = attention.make_flash_attn()
 
     if head == "fused":
-        def loss_fn(p, b):
+        def loss_fn(p, b):  # noqa: F811 -- the fused head replaces it
             h = model.hidden(p, b[0], train=True, attn_fn=flash)
             return lm_head_nll(h, p["head"]["w"], b[1]).mean()
 
         ref_attn, knob = flash, "KF_TPU_LM_HEAD"
         routed = {"lm_head_fwd": 1, "lm_head_bwd_dh": 1, "lm_head_bwd_dw": 1}
     else:
-        def loss_fn(p, b):
-            logits = model.apply(p, b[0], train=True, attn_fn=flash)
-            return xent.softmax_cross_entropy(logits, b[1]).mean()
-
         ref_attn, knob = tr.default_attention, "KF_TPU_XENT"
         routed = {"xent_fwd": 1, "xent_bwd": 1}
 
@@ -786,9 +812,8 @@ def phase_train(torch, np, kernels, tr, costmodel, spec, head: str):
     losses = [float(loss)]
 
     # first-step gradients: kernels against the plain path
-    (_, g_kern, _), (_, g_plain, _) = (
-        _value_and_grad(lambda q: fn(q, batch), params)
-        for fn in (loss_fn, loss_plain))
+    g_kern, g_plain = (_grads(fn, params, batch)
+                       for fn in (loss_fn, loss_plain))
     flat_f, flat_p = tr.flatten(g_kern), tr.flatten(g_plain)
     norms = {k: t.float().norm().item() for k, t in flat_p.items()}
     floor = 1e-3 * max(norms.values())
@@ -866,10 +891,329 @@ def phase_train(torch, np, kernels, tr, costmodel, spec, head: str):
             "flops_per_step": flops, "mfu": mfu, "peak_gib": peak_gb}
 
 
-def build_all(attention, lmk) -> None:
+def phase_ring(torch, ringk, rc, spec):
+    """Ring reduce-scatter and all-gather kernels against their plain
+    versions, bitwise, at the reference suite's edges and the main
+    path's shapes (one ZeRO bucket, the fused S-SGD gradient), then
+    timed beside the plain versions and one PyTorch call each."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+
+    def data(k, length, dtype):
+        if dtype == torch.int32:
+            return torch.randint(-1000, 1000, (k, length), generator=gen,
+                                 device="cuda", dtype=torch.int32)
+        return torch.randn((k, length), generator=gen, device="cuda").to(dtype)
+
+    def case(k, chunk, dtype, bidi):
+        cut = rc.band_cut(chunk, dtype, bidi)
+        x = data(k, k * chunk, dtype)
+        rs = ringk.reduce_scatter(x, cut)
+        ag = ringk.all_gather(rs, cut)
+        torch.cuda.synchronize()
+        ok = (torch.equal(rs, rc.ring_reduce_scatter_reference(x, cut))
+              and torch.equal(ag, rc.ring_all_gather_reference(rs, cut)))
+        if dtype == torch.int32:
+            ok = ok and torch.equal(rs, x.view(k, k, chunk).sum(
+                0, dtype=torch.int32))
+        check(ok, f"ring k={k} chunk={chunk} {dtype} bidirectional={bidi}: "
+              f"kernel != plain version")
+        return cut < chunk
+
+    split = 0
+    cases = 0
+    for k in (2, 3, 5, 8):
+        for chunk in (2048, 1024, 1000, 40):
+            for bidi in (False, True):
+                split += case(k, chunk, torch.float32, bidi)
+                cases += 1
+        split += case(k, 4096, torch.bfloat16, True)
+        split += case(k, 4096, torch.int32, True)
+        case(k, 1000, torch.int32, False)
+        cases += 3
+    check(split > 0, "no edge case split into two bands")
+    print(f"ring edges: {cases} cases (k 2/3/5/8, f32 chunk 2048/1024/1000/"
+          f"40 x one or two directions, bf16 4096 and int32 4096/1000), "
+          f"{split} with two bands: reduce-scatter and all-gather bitwise "
+          f"equal to the plain versions; int32 equal to view(k, k, "
+          f"chunk).sum(0)")
+
+    k = RANKS
+    shapes = {"bucket": 262_144, "fused": FLAGSHIP_PARAMS // RANKS}
+    timing = {}
+    for label, chunk in shapes.items():
+        x = data(k, k * chunk, torch.float32)
+        rs = ringk.reduce_scatter(x)
+        ag = ringk.all_gather(rs)
+        torch.cuda.synchronize()
+        ref_rs = rc.ring_reduce_scatter_reference(x)
+        check(torch.equal(rs, ref_rs), f"ring rs {label}: kernel != plain")
+        del ref_rs
+        ref_ag = rc.ring_all_gather_reference(rs)
+        check(torch.equal(ag, ref_ag), f"ring ag {label}: kernel != plain")
+        del ref_ag, ag
+        big = label == "fused"
+        it, win = (5, 7) if big else (50, 11)
+        rs_ms = device_ms(torch, lambda: ringk.reduce_scatter(x), it, win)
+        ag_ms = device_ms(torch, lambda: ringk.all_gather(rs), it, win)
+        rs_plain = device_ms(torch, lambda: rc.ring_reduce_scatter_reference(
+            x), 1, 3 if big else 5)
+        ag_plain = device_ms(torch, lambda: rc.ring_all_gather_reference(rs),
+                             1, 3 if big else 5)
+        rs_lib = device_ms(torch, lambda: x.view(k, k, chunk).sum(0), it, win)
+        ag_lib = device_ms(torch, lambda: rs.reshape(1, -1).expand(
+            k, -1).contiguous(), it, win)
+        # each kernel reads its input once and writes its output once:
+        # k*k*chunk and k*chunk f32 elements, the other way round for the
+        # all-gather; no arithmetic to speak of
+        nbytes = (k * k * chunk + k * chunk) * 4
+        t = bound(spec, 0, nbytes)
+        timing[label] = {
+            "rs": {"ms": rs_ms, "plain_ms": rs_plain, "library_ms": rs_lib,
+                   **t},
+            "ag": {"ms": ag_ms, "plain_ms": ag_plain, "library_ms": ag_lib,
+                   **t}}
+        print(f"ring timing {label} k={k} chunk={chunk} f32: reduce-scatter "
+              f"{rs_ms:.4f} ms (plain {rs_plain:.4f}, view(k, k, chunk)."
+              f"sum(0) {rs_lib:.4f}), all-gather {ag_ms:.4f} ms (plain "
+              f"{ag_plain:.4f}, expand().contiguous() {ag_lib:.4f}); bound "
+              f"{t['bound_ms']:.4f} ms ({nbytes} bytes); "
+              f"{nbytes / rs_ms / 1e6:.0f} and {nbytes / ag_ms / 1e6:.0f} GB/s")
+        del x, rs
+        torch.cuda.empty_cache()
+    return timing
+
+
+def _flagship_train(torch, np, tr, attention):
+    """gpt_small(max_seq=2048) with random weights from seed 0, ids and
+    targets [4, 2048] from ``default_rng(0)``, the flash attention and
+    phase 6's loss (plain head, fused cross-entropy)."""
+    from kungfu_tpu_torch.ops import xent
+
+    model = tr.gpt_small(max_seq=TRAIN_SEQ)
+    params = model.init(torch.Generator().manual_seed(0), device="cuda")
+    rng = np.random.default_rng(0)
+    ids, targets = (torch.from_numpy(rng.integers(
+        0, model.cfg.vocab_size, size=(TRAIN_BATCH, TRAIN_SEQ))).cuda()
+        for _ in range(2))
+    flash = attention.make_flash_attn()
+
+    def loss_fn(p, b):
+        logits = model.apply(p, b[0], train=True, attn_fn=flash)
+        return xent.softmax_cross_entropy(logits, b[1]).mean()
+
+    return model, params, (ids, targets), flash, loss_fn
+
+
+def _grads(fn, params, batch):
+    """The gradient tree of ``fn(params, batch)`` (one rank's pass)."""
+    from kungfu_tpu_torch.parallel.train import per_rank_grads
+    from kungfu_tpu_torch.utils.tree import tree_flatten, tree_unflatten
+
+    grads = []
+    per_rank_grads(fn, params, [batch], lambda r, g: grads.extend(g))
+    return tree_unflatten(tree_flatten(params)[1], grads)
+
+
+def _rank_launches(cfg) -> dict:
+    """One step's launches on RANKS ranks, each running phase 6's
+    per-rank forward and backward."""
+    return dict(flash_fwd=RANKS * cfg.n_layers,
+                flash_bwd_dq=RANKS * cfg.n_layers,
+                flash_bwd_dkv=RANKS * cfg.n_layers,
+                xent_fwd=RANKS, xent_bwd=RANKS)
+
+
+def _timed_steps(torch, np, step, p, o, batch, losses):
+    """TRAIN_STEPS - 1 more steps on the host clock; peak memory of
+    those steps; returns (p, o, times, peak GiB)."""
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(TRAIN_STEPS - 1):
+        t0 = time.perf_counter()
+        p, o, loss = step(p, o, batch)
+        losses.append(float(loss))  # synchronises
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(all(np.isfinite(losses)), f"non-finite loss {losses}")
+    check(losses[-1] < losses[0],
+          f"loss did not fall over {TRAIN_STEPS} steps: {losses}")
+    return p, o, times, peak
+
+
+def phase_ssgd(torch, np, kernels, tr, first_loss: float):
+    """Phase 6's training step on RANKS co-resident ranks through the
+    pallas_ring schedule, fused gradients: launches per step, the first
+    loss and the reduced gradient against the one-rank step's, ten steps
+    of falling loss, step ms, tokens/s and peak memory.  Returns the
+    result and the params after the first step (phase 9 compares its
+    own with them)."""
+    from kungfu_tpu_torch.comm.device import Communicator
+    from kungfu_tpu_torch.ops import collective
+    from kungfu_tpu_torch.optimizers import (GradientTransformation, sgd,
+                                             synchronous_sgd)
+    from kungfu_tpu_torch.parallel.train import dp_train_step
+    from kungfu_tpu_torch.utils.tree import tree_map
+
+    model, params, batch, _, loss_fn = _flagship_train(torch, np, tr,
+                                                       kernels[0])
+    cfg = model.cfg
+    inner = sgd(0.05, momentum=0.9)
+    seen = {}
+
+    def update(grads, state, p=None):
+        # keep the first reduced gradient the inner optimizer receives
+        if "grads" not in seen:
+            seen["grads"] = tree_map(lambda g: g.clone(), grads)
+        return inner.update(grads, state, p)
+
+    comm = Communicator(devices=["cuda:0"] * RANKS, local_size=RANKS)
+    tx = synchronous_sgd(GradientTransformation(inner.init, update),
+                         comm.axis, schedule="pallas_ring", fuse_grads=True)
+    step = dp_train_step(loss_fn, tx, comm)
+    opt = tx.init(params)
+
+    # one step, launches counted from zero; the ranks' replicated rows
+    # are checked bitwise equal before one is taken
+    _reset(kernels)
+    collective.CHECK_REPLICAS = True
+    try:
+        p, o, loss = step(params, opt, batch)
+        torch.cuda.synchronize()
+    finally:
+        collective.CHECK_REPLICAS = False
+    per_step = _counts(kernels)
+    want = {key: 0 for key in per_step}
+    want.update(_rank_launches(cfg), ring_rs=1, ring_ag=1)
+    print(f"S-SGD ({RANKS} ranks, pallas_ring) step launches: {per_step}")
+    check(per_step == want, f"one S-SGD step launched {per_step}, expected "
+          f"{want}")
+    losses = [float(loss)]
+    loss_rel = abs(losses[0] - first_loss) / abs(first_loss)
+    print(f"S-SGD first loss {losses[0]:.6f} vs one rank {first_loss:.6f}: "
+          f"rel {loss_rel:.3e} (tol {RANKS_LOSS_RTOL})")
+    check(loss_rel <= RANKS_LOSS_RTOL, f"S-SGD first loss {losses[0]} != "
+          f"phase 6's {first_loss}")
+
+    # the reduced gradient against the one-rank gradient (phase 6's)
+    g_one = _grads(loss_fn, params, batch)
+    flat_r, flat_1 = tr.flatten(seen.pop("grads")), tr.flatten(g_one)
+    norms = {key: t.norm().item() for key, t in flat_1.items()}
+    floor = 1e-3 * max(norms.values())
+    rel = {key: (flat_r[key] - flat_1[key]).norm().item()
+           / max(norms[key], floor) for key in flat_1}
+    worst = max(rel, key=rel.get)
+    print(f"S-SGD reduced first-step gradient vs one rank: worst leaf "
+          f"{worst} rel L2 {rel[worst]:.3e} (tol {RANKS_GRAD_REL_L2}); "
+          f"median {statistics.median(rel.values()):.3e}; head/w "
+          f"{rel['head/w']:.3e}")
+    check(rel[worst] <= RANKS_GRAD_REL_L2,
+          f"reduced gradient of {worst} differs by {rel[worst]}")
+    del g_one, flat_r, flat_1
+    p1 = tree_map(lambda t: t.clone(), p)
+
+    _reset(kernels)
+    p, o, times, peak = _timed_steps(torch, np, step, p, o, batch, losses)
+    launches = {key: v + per_step[key] for key, v in _counts(kernels).items()}
+    step_ms = statistics.median(times)
+    toks = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
+    print(f"S-SGD losses: {[round(x, 4) for x in losses]}")
+    print(f"S-SGD ({RANKS} ranks on one card): {step_ms:.2f} ms/step median "
+          f"of {len(times)} ({min(times):.2f}-{max(times):.2f}), {toks:.0f} "
+          f"tokens/s over the global batch; peak memory of the timed steps "
+          f"{peak:.2f} GiB")
+    return {"launches": launches, "per_step": per_step, "losses": losses,
+            "first_loss_rel": loss_rel, "grad_rel_l2_worst": rel[worst],
+            "grad_worst_leaf": worst,
+            "grad_rel_l2_median": statistics.median(rel.values()),
+            "step_ms": step_ms, "step_ms_all": times, "tokens_s": toks,
+            "peak_gib": peak}, p1
+
+
+def phase_zero(torch, np, kernels, tr, stage: int, ssgd_p1):
+    """ZeRO stage ``stage`` on the same ranks through the pallas_ring
+    bucket schedule: launches and ring bytes of one step, params after
+    it against S-SGD's, ten steps of falling loss, step ms, tokens/s,
+    peak memory and per-rank optimizer bytes."""
+    from kungfu_tpu_torch.comm.device import Communicator
+    from kungfu_tpu_torch.ops import collectives
+    from kungfu_tpu_torch.optimizers import sgd
+    from kungfu_tpu_torch.parallel.zero import (opt_state_bytes_per_device,
+                                                zero_train_step)
+
+    model, params, batch, _, loss_fn = _flagship_train(torch, np, tr,
+                                                       kernels[0])
+    comm = Communicator(devices=["cuda:0"] * RANKS, local_size=RANKS)
+    z = zero_train_step(loss_fn, sgd(0.05, momentum=0.9), comm, stage=stage,
+                        schedule="pallas_ring")
+    o = z.init_opt(params)
+    p = z.init_params(params)
+    geo = z._get(params)
+    buckets = len(geo.widths)
+    analytic = z.comm_bytes(params)
+    del params
+
+    _reset(kernels)
+    collectives.reset_ring_bytes()
+    p, o, loss = z.step(p, o, batch)
+    torch.cuda.synchronize()
+    per_step = _counts(kernels)
+    ring_bytes = dict(collectives.ring_bytes)
+    want = {key: 0 for key in per_step}
+    want.update(_rank_launches(model.cfg), ring_rs=buckets,
+                ring_ag=buckets if stage == 3 else 0)
+    print(f"ZeRO-{stage} step launches ({buckets} buckets of "
+          f"{geo.widths[0]} columns): {per_step}")
+    check(per_step == want, f"one ZeRO-{stage} step launched {per_step}, "
+          f"expected {want}")
+    want_bytes = {"reduce_scatter": analytic["grad_bytes"],
+                  "all_gather": analytic["param_bytes"] if stage == 3 else 0.0}
+    print(f"ZeRO-{stage} ring bytes per rank in one step: {ring_bytes}; "
+          f"zero_comm_bytes {analytic} (stages 1/2 regather the params with "
+          f"a plain copy, the reference's partitioner all-gather)")
+    for key, v in want_bytes.items():
+        check(abs(ring_bytes[key] - v) <= 1e-9 * max(v, 1.0),
+              f"ZeRO-{stage} {key} bytes {ring_bytes[key]} != {v}")
+
+    # params after one step against S-SGD's after one step
+    got = tr.flatten(z.gather_params(p))
+    ref = tr.flatten(ssgd_p1)
+    same = [key for key in ref if torch.equal(got[key], ref[key])]
+    worst = max(((got[key] - ref[key]).abs().max().item(), key) for key in ref)
+    ratio = max(_ratio(got[key], ref[key], ZERO_RTOL, ZERO_ATOL)
+                for key in ref)
+    bitwise = len(same) == len(ref)
+    print(f"ZeRO-{stage} params after one step vs S-SGD's: "
+          f"{len(same)}/{len(ref)} leaves bitwise equal; max|d| "
+          f"{worst[0]:.3e} ({worst[1]}); {ratio:.3f} of rtol {ZERO_RTOL} "
+          f"atol {ZERO_ATOL}")
+    check(ratio <= 1.0, f"ZeRO-{stage} params differ from S-SGD's beyond "
+          f"rtol {ZERO_RTOL} atol {ZERO_ATOL}")
+    del got, ref
+
+    losses = [float(loss)]
+    _reset(kernels)
+    p, o, times, peak = _timed_steps(torch, np, z.step, p, o, batch, losses)
+    launches = {key: v + per_step[key] for key, v in _counts(kernels).items()}
+    step_ms = statistics.median(times)
+    toks = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
+    opt_bytes = opt_state_bytes_per_device(o, RANKS)
+    print(f"ZeRO-{stage} losses: {[round(x, 4) for x in losses]}")
+    print(f"ZeRO-{stage} ({RANKS} ranks on one card): {step_ms:.2f} ms/step "
+          f"median of {len(times)} ({min(times):.2f}-{max(times):.2f}), "
+          f"{toks:.0f} tokens/s; peak memory of the timed steps {peak:.2f} "
+          f"GiB; optimizer state {opt_bytes} bytes per rank")
+    return {"launches": launches, "per_step": per_step, "losses": losses,
+            "buckets": buckets, "ring_bytes": ring_bytes,
+            "zero_comm_bytes": analytic, "params_bitwise_vs_ssgd": bitwise,
+            "leaves_bitwise": len(same), "max_abs_vs_ssgd": worst[0],
+            "step_ms": step_ms, "step_ms_all": times, "tokens_s": toks,
+            "peak_gib": peak, "opt_state_bytes_per_rank": opt_bytes}
+
+
+def build_all(attention, lmk, ringk) -> None:
     """nvcc for each CUDA source, all started together."""
     t0 = time.perf_counter()
-    loaders = (attention.load, attention.load_bwd, lmk.load)
+    loaders = (attention.load, attention.load_bwd, lmk.load, ringk.load)
     with ThreadPoolExecutor(max_workers=len(loaders)) as pool:
         futures = [pool.submit(fn) for fn in loaders]
         built = [f.result() for f in futures]
@@ -891,8 +1235,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     from kungfu_tpu_torch.models import transformer as tr
+    from kungfu_tpu_torch.ops import collectives as rc
     from kungfu_tpu_torch.ops import costmodel
     from kungfu_tpu_torch.ops.cuda import attention
+    from kungfu_tpu_torch.ops.cuda import collectives as ringk
     from kungfu_tpu_torch.ops.cuda import lm_head as lmk
     from kungfu_tpu_torch.ops.triton import xent as xk
 
@@ -911,7 +1257,7 @@ def main() -> int:
     check(spec is not None, f"no datasheet entry for {name!r}")
 
     # 2. build
-    build_all(attention, lmk)
+    build_all(attention, lmk, ringk)
 
     # 3. kernels against their plain versions
     t0 = time.perf_counter()
@@ -921,6 +1267,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     lmh_errs, lmh_timing = phase_lm_head(torch, lmk, spec)
     torch.cuda.empty_cache()
+    ring_timing = phase_ring(torch, ringk, rc, spec)
     print(f"kernels phase: {time.perf_counter() - t0:.2f} s")
 
     # 4. + 5. the forward and serving paths, without autograd graphs
@@ -939,13 +1286,23 @@ def main() -> int:
 
     # 6. + 7. the training path, plain head then fused LM head; each
     # phase's peak memory is its own timed steps'
-    kernels = (attention, xk, lmk)
+    kernels = (attention, xk, lmk, ringk)
     train = phase_train(torch, np, kernels, tr, costmodel, spec, "plain")
     torch.cuda.empty_cache()
     train_fused = phase_train(torch, np, kernels, tr, costmodel, spec, "fused")
     print(f"train, fused LM head against the plain head: "
           f"{train_fused['step_ms']:.2f} vs {train['step_ms']:.2f} ms/step, "
           f"peak {train_fused['peak_gib']:.2f} vs {train['peak_gib']:.2f} GiB")
+    torch.cuda.empty_cache()
+
+    # 8. + 9. the same step on four co-resident ranks: S-SGD, then ZeRO
+    ssgd, ssgd_p1 = phase_ssgd(torch, np, kernels, tr, train["losses"][0])
+    torch.cuda.empty_cache()
+    zero2 = phase_zero(torch, np, kernels, tr, 2, ssgd_p1)
+    torch.cuda.empty_cache()
+    zero3 = phase_zero(torch, np, kernels, tr, 3, ssgd_p1)
+    del ssgd_p1
+    paths = (train, train_fused, ssgd, zero2, zero3)
 
     def row(name, route, source, replaces, key, err, timing):
         extra = {k: timing[k] for k in ("plain_head_ms", "bound_fp32_ms")
@@ -954,11 +1311,20 @@ def main() -> int:
                 "replaces": replaces,
                 "launches": (fwd["launches"] + serve["launches"]
                              if key == "flash_fwd" else 0)
-                + train["launches"][key] + train_fused["launches"][key],
+                + sum(path["launches"][key] for path in paths),
                 "max_abs_err": err,
                 **{k: timing[k] for k in ("ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms")},
                 **extra}
+
+    def ring_row(name, replaces, key, kind):
+        # the fused S-SGD shape; the 4 MiB ZeRO bucket beside it.  Both
+        # kernels are held bitwise, so the error is 0
+        bucket = ring_timing["bucket"][kind]
+        return {**row(name, "cuda", cu + "ring.cu", replaces, key, 0.0,
+                      ring_timing["fused"][kind]),
+                **{f"bucket_{k}": bucket[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "library_ms")}}
 
     cu = "kungfu_tpu_torch/ops/cuda/csrc/"
     tri = "kungfu_tpu_torch/ops/triton/xent.py"
@@ -986,12 +1352,18 @@ def main() -> int:
         row("lm_head._bwd_dw_kernel", "cuda", cu + "lm_head.cu",
             pal + "lm_head.py:139", "lm_head_bwd_dw",
             lmh_errs["main"]["dw_err"], lmh_timing["dw"]),
+        ring_row("collectives._rs_kernel", pal + "collectives.py:287",
+                 "ring_rs", "rs"),
+        ring_row("collectives._ag_kernel", pal + "collectives.py:359",
+                 "ring_ag", "ag"),
     ]
     for k in rows:
         check(k["launches"] > 0, f"{k['name']} never launched on the main path")
     print("details: " + json.dumps({
         "forward": fwd, "serve": serve, "train": train,
-        "train_fused_head": train_fused,
+        "train_fused_head": train_fused, "ssgd_4_ranks": ssgd,
+        "zero2_4_ranks": zero2, "zero3_4_ranks": zero3,
+        "ring_timing": ring_timing,
         "flash_fwd_errors": fwd_errs, "flash_fwd_timing": fwd_timing,
         "flash_bwd_errors": bwd_errs, "flash_bwd_timing": bwd_timing,
         "xent_errors": xent_errs, "xent_timing": xent_timing,

@@ -12,9 +12,13 @@ The layout mirrors the reference so a reader finds each counterpart:
 * ``ops/xent.py`` + ``ops/triton/xent.py`` — fused softmax cross-entropy:
   routing, and the Triton forward/backward kernels with their plain
   versions;
-* ``parallel/train.py``, ``optimizers/``, ``comm/device.py``,
-  ``ops/{collective,schedules,fuse,monitor}.py``, ``monitor/pulse.py`` —
-  the data-parallel training step at world size 1;
+* ``parallel/{train,zero}.py``, ``optimizers/``, ``comm/device.py``,
+  ``ops/{collective,schedules,fuse,monitor}.py``, ``monitor/pulse.py``,
+  ``initializer.py`` — data-parallel S-SGD and ZeRO-1/2/3 over ``n``
+  co-resident ranks whose values are stacked on a leading rank axis;
+* ``ops/collectives.py`` + ``ops/cuda/csrc/ring.cu`` — the ring
+  reduce-scatter and all-gather: routing, autograd pair, plain versions
+  and the hand-written kernels that run every rank in one launch;
 * ``serve/{kvcache,slo,engine}.py`` — the continuous-batching engine;
 * ``interop.py`` — weights across from / back to the JAX param tree;
 * ``ops/costmodel.py``, ``monitor/``, ``utils/`` — trimmed copies of the

@@ -1,52 +1,112 @@
-"""The device-plane communicator, world-1 subset.
+"""The device-plane communicator over co-resident stacked ranks.
 
-Port of the part of ``kungfu_tpu/comm/device.py:116 Communicator`` that
-the single-card training step reads: ``devices``, ``size``, ``rank``,
-``axis`` (the names the collectives of :mod:`kungfu_tpu_torch.ops` take)
-and the allreduce ``strategy``.  One torch device; more than one raises
-until the data-parallel slice (port slice 4) brings the
-``torch.distributed`` mesh.
+Port of ``kungfu_tpu/comm/device.py:116 Communicator``.  The reference
+is single-controller: one process holds the whole mesh, and its eager
+collectives take values **stacked** on a leading peer axis of size
+``n`` (``out[i] = reduce_j x[j]``).  The port keeps that convention with
+``n`` ranks in one process: their tensors share one card
+(``devices=["cuda:0"] * n``), where the ring kernels run every rank's
+program in one launch, or the host (``devices=["cpu"] * n``).  Distinct
+cards (peer pointers over NVLink) and the multi-controller mode (one
+process per host) come with the multi-card slice.
+
+The mesh is the reference's 2-D ``(kf_host, kf_local)``: ``local_size``
+ranks per host, ``local_*`` collectives over the intra-host axis,
+``cross_*`` over the inter-host one, the rest over both.  Inside a
+training step the collectives of :mod:`kungfu_tpu_torch.ops` read the
+rank world that :meth:`Communicator.world` enters, as the reference's
+read ``shard_map``'s axis environment.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import math
+from typing import List, Optional, Sequence
 
-from kungfu_tpu_torch.ops.schedules import ALLREDUCE_SCHEDULES
+import torch
+
+from kungfu_tpu_torch.ops import collective as coll
+from kungfu_tpu_torch.ops.schedules import (ALLREDUCE_SCHEDULES, SIZE_BUCKETS,
+                                            all_gather_flat,
+                                            all_reduce_scheduled,
+                                            bucket_widths, reduce_scatter_flat,
+                                            size_bucket)
 from kungfu_tpu_torch.utils.device import resolve_device
+from kungfu_tpu_torch.utils.tree import tree_map
 
 HOST_AXIS = "kf_host"
 LOCAL_AXIS = "kf_local"
 GLOBAL_AXES = (HOST_AXIS, LOCAL_AXIS)
 
+_REDUCE_OPS = ("sum", "min", "max", "prod", "mean")
+
+
+def _one_device(devices: Sequence) -> List[torch.device]:
+    """Resolve ``devices`` (default one ``cuda``); every rank must sit on
+    the same card, or all on the host."""
+    names = list(devices) if devices else [None]
+    raw = {str(torch.device("cuda" if d is None else d)) for d in names}
+    cards = {d.replace("cuda:0", "cuda") for d in raw}
+    if len(cards) > 1:
+        raise NotImplementedError(
+            f"ranks on distinct devices {sorted(raw)}: the ranks of one "
+            "communicator share one card (or the host) until the "
+            "multi-card slice brings peer pointers over NVLink")
+    return [resolve_device(d) for d in names]
+
 
 class Communicator:
-    """One device's world.  ``devices`` defaults to ``[cuda]``; a
-    ``"cpu"`` device runs the plain paths on the host."""
+    """One mesh epoch of ``len(devices)`` co-resident ranks, laid out
+    ``(num_hosts, local_size)``.  Immutable, as the reference's."""
 
     def __init__(self, devices: Optional[Sequence] = None,
-                 strategy: str = "psum"):
-        devs = [resolve_device(d) for d in (devices or [None])]
-        if len(devs) != 1:
-            raise NotImplementedError(
-                f"a communicator over {len(devs)} devices comes with the "
-                "data-parallel slice (port slice 4)")
-        self.devices = devs
+                 local_size: Optional[int] = None, strategy: str = "psum",
+                 version: int = 0):
+        self.devices = _one_device(devices)
+        n = len(self.devices)
+        local = n if local_size is None else int(local_size)
+        if local < 1 or n % local:
+            raise ValueError(f"{n} devices not divisible by "
+                             f"local_size={local_size}")
+        self.version = version
+        self._n, self._local, self._hosts = n, local, n // local
         self.axis = GLOBAL_AXES
+        self._bucket_strategy: dict = {}
         self.set_strategy(strategy)
 
+    # -- metadata ----------------------------------------------------------
     @property
     def size(self) -> int:
-        return len(self.devices)
+        return self._n
+
+    @property
+    def local_size(self) -> int:
+        return self._local
+
+    @property
+    def num_hosts(self) -> int:
+        return self._hosts
 
     @property
     def rank(self) -> int:
+        """The controller's rank: one process holds every rank's value."""
         return 0
 
     @property
-    def device(self):
+    def device(self) -> torch.device:
         return self.devices[0]
 
+    def world(self):
+        """The rank world of this mesh (``(kf_host, num_hosts),
+        (kf_local, local_size)``), entered around a step's collectives."""
+        return coll.rank_world([(HOST_AXIS, self._hosts),
+                                (LOCAL_AXIS, self._local)])
+
+    def __repr__(self):
+        return (f"Communicator(v{self.version}, {self._n} ranks as "
+                f"{self._hosts}x{self._local} on {self.device})")
+
+    # -- strategy ----------------------------------------------------------
     @property
     def strategy(self) -> str:
         """Active allreduce schedule (:mod:`kungfu_tpu_torch.ops.schedules`)."""
@@ -58,5 +118,168 @@ class Communicator:
                 f"unknown strategy {name!r}; one of {ALLREDUCE_SCHEDULES}")
         self._strategy = name
 
-    def __repr__(self):
-        return f"Communicator({self.size} device: {self.device})"
+    def set_bucket_strategy(self, bucket: int, name: Optional[str]) -> None:
+        """Install ``name`` as the schedule of one payload-size bucket
+        (:data:`~kungfu_tpu_torch.ops.schedules.SIZE_BUCKETS`); ``None``
+        clears the override."""
+        if not 0 <= bucket < len(SIZE_BUCKETS):
+            raise ValueError(
+                f"bucket {bucket} out of range [0, {len(SIZE_BUCKETS)})")
+        if name is None:
+            self._bucket_strategy.pop(bucket, None)
+            return
+        if name not in ALLREDUCE_SCHEDULES:
+            raise ValueError(
+                f"unknown strategy {name!r}; one of {ALLREDUCE_SCHEDULES}")
+        self._bucket_strategy[bucket] = name
+
+    def strategy_for(self, nbytes: int) -> str:
+        """Active schedule for a payload of ``nbytes``."""
+        return self._bucket_strategy.get(size_bucket(nbytes), self._strategy)
+
+    def bucket_strategies(self) -> dict:
+        """Installed per-bucket overrides, ``{bucket_index: name}``."""
+        return dict(self._bucket_strategy)
+
+    # -- eager collectives on stacked values --------------------------------
+    def _check(self, x) -> None:
+        coll.check_stacked(x, self._n)
+
+    def _mesh_axes(self) -> List[str]:
+        return [ax for ax, size in zip(GLOBAL_AXES, (self._hosts, self._local))
+                if size > 1]
+
+    def _reduce_leaf(self, a: torch.Tensor, op: str, axes,
+                     schedule: Optional[str]) -> torch.Tensor:
+        if op == "prod":
+            g = coll.group_view(a, axes)
+            return coll.ungroup(g.prod(1, keepdim=True).expand_as(g), axes)
+        if schedule is None:
+            schedule = self.strategy_for(a.numel() * a.element_size())
+        return all_reduce_scheduled(a, axes, op=op, schedule=schedule)
+
+    def _axis_reduce(self, x, op: str, axes, schedule: Optional[str] = None):
+        """Reduce every leaf over ``axes`` with ``schedule`` (default:
+        the schedule of the leaf's payload bucket)."""
+        if op not in _REDUCE_OPS:
+            raise ValueError(f"op {op!r} not in {_REDUCE_OPS}")
+        self._check(x)
+        with self.world():
+            return tree_map(lambda a: self._reduce_leaf(a, op, axes,
+                                                        schedule), x)
+
+    def all_reduce(self, x, op: str = "sum"):
+        """Stacked allreduce: ``out[i] = reduce_j x[j]``, each leaf with
+        the schedule of its payload bucket (:meth:`strategy_for`)."""
+        return self._axis_reduce(x, op, GLOBAL_AXES)
+
+    def local_all_reduce(self, x, op: str = "sum"):
+        """Reduce over the intra-host axis only."""
+        return self._axis_reduce(x, op, (LOCAL_AXIS,))
+
+    def cross_all_reduce(self, x, op: str = "sum"):
+        """Reduce over the inter-host axis only."""
+        return self._axis_reduce(x, op, (HOST_AXIS,))
+
+    def reduce(self, x, root: int = 0, op: str = "sum"):
+        """Root-valid reduce: rank ``root``'s row holds the reduction
+        (a plain ``psum``, as the reference's), every other row its own
+        input."""
+        self._check_root(root)
+        red = self._axis_reduce(x, op, GLOBAL_AXES, schedule="psum")
+
+        def leaf(a, r):
+            keep = torch.arange(self._n, device=a.device) == root
+            return torch.where(keep.reshape((-1,) + (1,) * (a.dim() - 1)),
+                               r, a)
+
+        return tree_map(leaf, x, red)
+
+    def broadcast(self, x, root: int = 0):
+        """``out[i] = x[root]`` for every rank."""
+        self._check_root(root)
+        self._check(x)
+        with self.world():
+            return coll.broadcast(x, GLOBAL_AXES, root=root)
+
+    def all_gather(self, x):
+        """``out[i] = stack_j x[j]``: every rank sees every row,
+        ``[n, n, ...]``."""
+        self._check(x)
+        with self.world():
+            return coll.all_gather(x, GLOBAL_AXES)
+
+    def gather(self, x, root: int = 0):
+        """Every rank receives the stacked copy (:meth:`all_gather`): the
+        reference's deliberate divergence from a root-only gather."""
+        self._check_root(root)
+        return self.all_gather(x)
+
+    def reduce_scatter(self, x, op: str = "sum", bucket_bytes: int = 4 << 20):
+        """Stacked reduce-scatter: ``out[i]`` is chunk ``i`` of the
+        reduction of the rows, each flattened and zero-padded to
+        ``n * chunk``; ``[n, chunk]``.  Bucketed as the ZeRO steps are,
+        and through the ring kernel when ``pallas_ring`` is the schedule
+        of the payload's bucket."""
+        if op not in ("sum", "mean"):
+            raise ValueError(f"reduce_scatter supports sum/mean, got {op!r}")
+        self._check(x)
+        n = self._n
+
+        def leaf(a):
+            flat = a.reshape(n, -1)
+            size = flat.shape[1]
+            chunk = math.ceil(size / n) if size else 0
+            if chunk * n > size:
+                flat = torch.cat([flat, flat.new_zeros(n, chunk * n - size)], 1)
+            widths = bucket_widths(chunk, n, a.element_size(), bucket_bytes)
+            out = reduce_scatter_flat(flat, self._mesh_axes(), chunk, widths,
+                                      schedule=self._flat_schedule(a))
+            return out / n if op == "mean" else out
+
+        with self.world():
+            return tree_map(leaf, x)
+
+    def all_gather_shard(self, x, bucket_bytes: int = 4 << 20):
+        """Inverse of :meth:`reduce_scatter`: each rank's ``[chunk]`` row
+        gathered in rank order, ``[n, n * chunk]`` (every row alike),
+        bucketed the same way."""
+        self._check(x)
+        n = self._n
+
+        def leaf(a):
+            flat = a.reshape(n, -1)
+            widths = bucket_widths(flat.shape[1], n, a.element_size(),
+                                   bucket_bytes)
+            return all_gather_flat(flat, self._mesh_axes(), widths,
+                                   schedule=self._flat_schedule(a))
+
+        with self.world():
+            return tree_map(leaf, x)
+
+    def _flat_schedule(self, a: torch.Tensor) -> str:
+        nbytes = a.numel() * a.element_size()
+        return ("pallas_ring" if self.strategy_for(nbytes) == "pallas_ring"
+                else "lax")
+
+    def group_all_reduce(self, tensors: List, op: str = "sum",
+                         fuse: bool = True):
+        """Allreduce a list of stacked tensors, fused into one buffer
+        (``fuse=True``) for a single collective."""
+        if not fuse:
+            return [self.all_reduce(t, op) for t in tensors]
+        from kungfu_tpu_torch.ops.fuse import defuse, fuse as fuse_
+
+        flat, spec = fuse_(tensors, batch_axes=1)
+        return defuse(self.all_reduce(flat, op), spec)
+
+    def barrier(self) -> None:
+        """A one-element allreduce, then the card's queue drains."""
+        out = self.all_reduce(torch.ones((self._n, 1), dtype=torch.int32,
+                                         device=self.device))
+        if out.device.type == "cuda":
+            torch.cuda.synchronize(out.device)
+
+    def _check_root(self, root: int) -> None:
+        if not 0 <= root < self._n:
+            raise ValueError(f"root {root} out of range [0, {self._n})")

@@ -32,19 +32,11 @@ XENT_FWD_MIN_ELEMENTS = 1 << 22
 XENT_TRAIN_XLA_BUDGET_MB = 2048
 
 
-class _Knobs:
+class _Knobs(envs.LaunchKnobs):
     """The ``KF_TPU_XENT`` / ``KF_XENT_XLA_BUDGET_MB`` /
-    ``KF_XENT_FWD_MIN_ELEMENTS`` knobs, read when the module is imported
-    and on :meth:`reload`, as the reference's launch-set knobs are: a
-    mid-run change of the environment re-routes nothing until
-    ``XENT_ENV.reload()``.  A value outside the modes raises."""
-
-    def __init__(self):
-        self._read()
-
-    def reload(self) -> "_Knobs":
-        self._read()
-        return self
+    ``KF_XENT_FWD_MIN_ELEMENTS`` knobs (launch-set: a mid-run change of
+    the environment re-routes nothing until ``XENT_ENV.reload()``).  A
+    value outside the modes raises."""
 
     def _read(self) -> None:
         mode = os.environ.get(envs.XENT, "auto").lower()

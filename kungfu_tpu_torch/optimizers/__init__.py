@@ -2,8 +2,10 @@
 optax subset (``_transform.py``)."""
 
 from kungfu_tpu_torch.optimizers._transform import (GradientTransformation,
-                                                    apply_updates, sgd)
+                                                    adam, adamw,
+                                                    apply_updates, chain,
+                                                    scale_by_adam, sgd)
 from kungfu_tpu_torch.optimizers.sync_sgd import synchronous_sgd
 
-__all__ = ["GradientTransformation", "apply_updates", "sgd",
-           "synchronous_sgd"]
+__all__ = ["GradientTransformation", "adam", "adamw", "apply_updates",
+           "chain", "scale_by_adam", "sgd", "synchronous_sgd"]

@@ -1,48 +1,148 @@
-"""The data-parallel training step, world-1 subset.
+"""The data-parallel training step over co-resident stacked ranks.
 
-Port of ``kungfu_tpu/parallel/train.py:662 dp_train_step``.  The step is
+Port of ``kungfu_tpu/parallel/train.py:52 ParallelPlan`` (trimmed to the
+axes and the ZeRO stage) and ``:662 dp_train_step``.  The step is
 functional, as the reference's jitted one is: ``step(params, opt_state,
-batch) -> (params, opt_state, loss)`` takes trees of tensors, detaches
-the parameter leaves, takes ``torch.autograd.grad`` of ``loss_fn`` over
-them, and returns new trees (the inputs are not modified).  ``tx`` does
-the gradient collective (``synchronous_sgd`` over ``comm.axis``).
+batch) -> (params, opt_state, loss)`` takes trees of tensors and returns
+new trees (the inputs are not modified).
 
-At world size 1 every collective is the identity
-(:mod:`kungfu_tpu_torch.ops.collective`).  What needs a larger world or
-another layout raises, naming the slice that brings it: ``zero_stage``
-and ``replicated_params=False`` (data-parallel/ZeRO, port slice 4), a
-``plan`` with tp/pp/sp axes (the full parallel plan, port slice 5).
+The reference runs the step body under ``shard_map``, one copy per
+device.  The port runs it for the communicator's ``n`` ranks in one
+process: rank ``r`` takes rows ``[r*B/n, (r+1)*B/n)`` of every batch
+leaf (as ``P(axes)`` splits the batch), and the ranks' forwards and
+backwards run one after another.  Their gradients are stacked on a
+leading rank axis ``[n, ...]`` and ``tx`` (``synchronous_sgd`` over
+``comm.axis``) reduces them inside :meth:`Communicator.world
+<kungfu_tpu_torch.comm.device.Communicator.world>`.  A replicated
+output (the params, the loss) is returned once
+(:func:`~kungfu_tpu_torch.ops.collective.replicated`).
+
+``zero_stage`` (or a plan with one) routes to
+:func:`kungfu_tpu_torch.parallel.zero.zero_train_step`.  What needs
+another slice raises, naming it: ``replicated_params=False`` (the
+per-replica optimizers) and a plan with tp/pp/sp axes (the full
+parallel plan, port slice 5).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from dataclasses import dataclass
+from typing import Callable, List, Optional, Sequence
 
 import torch
 
 from kungfu_tpu_torch.monitor.pulse import PulseMonitor
-from kungfu_tpu_torch.ops.collective import all_reduce, group_all_reduce
+from kungfu_tpu_torch.ops.collective import (all_reduce, group_all_reduce,
+                                             replicated)
 from kungfu_tpu_torch.ops.monitor import _sq_norm
+from kungfu_tpu_torch.ops.schedules import ALLREDUCE_SCHEDULES
 from kungfu_tpu_torch.optimizers._transform import apply_updates
 from kungfu_tpu_torch.utils.tree import (tree_flatten, tree_leaves, tree_map,
                                          tree_unflatten)
 
 
-def _value_and_grad(fn, params):
-    """``(fn(params), grads, detached params)``: ``fn``'s first output (or
-    its only one) is the scalar differentiated."""
+@dataclass(frozen=True)
+class ParallelPlan:
+    """The parallelism configuration the data-parallel entry points
+    consume: every axis degree, the ZeRO stage and the allreduce arm
+    (the reference's pipeline fields come with the full plan)."""
+
+    dp: int = 1
+    tp: int = 1
+    pp: int = 1
+    sp: int = 1
+    #: 0 = replicated optimizer; 1/2/3 route the ZeRO family
+    zero_stage: int = 0
+    #: allreduce decomposition arm (ops.schedules.ALLREDUCE_SCHEDULES)
+    collective_schedule: str = "psum"
+
+    def __post_init__(self):
+        for name, v in (("dp", self.dp), ("tp", self.tp),
+                        ("pp", self.pp), ("sp", self.sp)):
+            if v < 1:
+                raise ValueError(f"{name}={v} must be >= 1")
+        if self.zero_stage not in (0, 1, 2, 3):
+            raise ValueError(f"zero_stage={self.zero_stage} not in 0..3")
+        if self.collective_schedule not in ALLREDUCE_SCHEDULES:
+            raise ValueError(
+                f"collective_schedule={self.collective_schedule!r}; one of "
+                f"{ALLREDUCE_SCHEDULES}")
+
+    @property
+    def size(self) -> int:
+        """Device count of the in-mesh form (dp*pp*sp*tp)."""
+        return self.dp * self.pp * self.sp * self.tp
+
+
+def split_batch(batch, n: int) -> List:
+    """Rank ``r``'s shard of every batch leaf: rows ``[r*B/n, (r+1)*B/n)``
+    (views); a 0-d leaf goes to every rank whole, as ``P()``."""
+    leaves, treedef = tree_flatten(batch)
+    for l in leaves:
+        if l.dim() and l.shape[0] % n:
+            raise ValueError(f"batch leading axis {l.shape[0]} is not "
+                             f"divisible by the {n} ranks")
+
+    def shard(l, r):
+        if not l.dim():
+            return l
+        m = l.shape[0] // n
+        return l[r * m:(r + 1) * m]
+
+    return [tree_unflatten(treedef, [shard(l, r) for l in leaves])
+            for r in range(n)]
+
+
+def per_rank_grads(fn: Callable, params, shards: Sequence,
+                   sink: Callable) -> tuple:
+    """Each rank's forward and backward in turn: ``fn(params, shard_r)``
+    (its first output is the scalar loss), then ``sink(r, grads)`` with
+    rank ``r``'s gradients as a list in ``tree_flatten`` order, before
+    the next rank runs.  Returns the detached outputs, one per rank, and
+    the detached params."""
     leaves, treedef = tree_flatten(params)
     leaves = [l.detach().requires_grad_(True) for l in leaves]
-    out = fn(tree_unflatten(treedef, leaves))
-    loss = out[0] if isinstance(out, tuple) else out
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(l) if g is None else g
-             for g, l in zip(grads, leaves)]
-    return (out, tree_unflatten(treedef, grads),
-            tree_unflatten(treedef, [l.detach() for l in leaves]))
+    p = tree_unflatten(treedef, leaves)
+    outs = []
+    for r, shard in enumerate(shards):
+        out = fn(p, shard)
+        loss = out[0] if isinstance(out, tuple) else out
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        sink(r, [torch.zeros_like(l) if g is None else g
+                 for g, l in zip(grads, leaves)])
+        outs.append(tree_map(lambda t: t.detach(), out))
+    return outs, tree_unflatten(treedef, [l.detach() for l in leaves])
 
 
-def _refuse(zero_stage, plan, replicated_params: bool) -> None:
+def stack_ranks(rows: Sequence):
+    """Stack per-rank trees on a new leading rank axis (a view when there
+    is one rank)."""
+    if len(rows) == 1:
+        return tree_map(lambda a: a[None], rows[0])
+    return tree_map(lambda *a: torch.stack(a), *rows)
+
+
+def _stacked_grads(fn, params, shards):
+    """Per-rank gradients stacked ``[n, ...]`` per leaf; each rank's row
+    is copied in as soon as its backward ends."""
+    n = len(shards)
+    _, treedef = tree_flatten(params)
+    store = []
+
+    def sink(r, grads):
+        if n == 1:
+            store.extend(g[None] for g in grads)
+            return
+        if not store:
+            store.extend(g.new_empty((n,) + tuple(g.shape)) for g in grads)
+        for s, g in zip(store, grads):
+            s[r].copy_(g)
+
+    outs, params = per_rank_grads(fn, params, shards, sink)
+    return outs, tree_unflatten(treedef, store), params
+
+
+def _check_plan(zero_stage, plan, replicated_params: bool):
     if plan is not None:
         if plan.tp != 1 or plan.pp != 1 or plan.sp != 1:
             raise NotImplementedError(
@@ -57,58 +157,88 @@ def _refuse(zero_stage, plan, replicated_params: bool) -> None:
                 f"dp_train_step's replicated step has no "
                 f"{plan.collective_schedule!r} arm")
         zero_stage = plan.zero_stage or None
-    if zero_stage is not None:
-        raise NotImplementedError(
-            f"zero_stage={zero_stage}: the ZeRO steps come with the "
-            "data-parallel/ZeRO slice (port slice 4)")
-    if not replicated_params:
+    if zero_stage is None and not replicated_params:
         raise NotImplementedError(
             "replicated_params=False (per-replica stacked params for "
-            "SMA/AdaptiveSGD) comes with the data-parallel slice (port "
-            "slice 4)")
+            "SMA/AdaptiveSGD) comes with a later slice")
+    return zero_stage
 
 
 def dp_train_step(loss_fn, tx, comm, replicated_params: bool = True,
                   has_aux: bool = False, donate: bool = False,
                   zero_stage: Optional[int] = None, plan=None):
     """Pure data-parallel training step over a
-    :class:`~kungfu_tpu_torch.comm.device.Communicator`.
+    :class:`~kungfu_tpu_torch.comm.device.Communicator` of ``n`` ranks.
 
-    ``loss_fn(params, batch) -> scalar`` (or, with ``has_aux=True``,
-    ``loss_fn(params, aux, batch) -> (loss, new_aux)`` and
-    ``step(params, aux, opt_state, batch) -> (params, aux, opt_state,
-    loss)``).  ``donate`` is accepted for the reference's signature: the
-    port's step allocates new trees and the caller frees the old ones by
-    dropping them.  With ``KF_PULSE_EVERY`` > 0 (default 10) every
-    ``every``-th step also publishes the gradient-norm pulse
+    ``loss_fn(params, batch) -> scalar`` runs per rank on its batch
+    shard (or, with ``has_aux=True``, ``loss_fn(params, aux, batch) ->
+    (loss, new_aux)`` and ``step(params, aux, opt_state, batch) ->
+    (params, aux, opt_state, loss)``; the floating aux leaves are
+    averaged over the ranks).  ``tx`` does the gradient collective
+    (``synchronous_sgd`` over ``comm.axis``).  ``donate`` is accepted for
+    the reference's signature: the port's step allocates new trees and
+    the caller frees the old ones by dropping them.
+
+    ``zero_stage`` (1/2/3), or ``plan.zero_stage``, returns
+    :func:`~kungfu_tpu_torch.parallel.zero.zero_train_step` with ``tx``
+    as the inner elementwise transform; a plan's ``pallas_ring`` arm
+    becomes its bucket schedule.
+
+    With ``KF_PULSE_EVERY`` > 0 (default 10) every ``every``-th step
+    also publishes the gradient-norm pulse
     (:class:`~kungfu_tpu_torch.monitor.pulse.PulseMonitor`, exposed as
-    ``step.pulse``); the noise scale is ``None`` at world size 1."""
+    ``step.pulse``); the noise scale is ``None`` at one rank."""
     del donate
-    _refuse(zero_stage, plan, replicated_params)
-    axis = comm.axis
+    zero_stage = _check_plan(zero_stage, plan, replicated_params)
+    if zero_stage is not None:
+        if has_aux or not replicated_params:
+            raise ValueError(
+                "a ZeRO stage composes with the plain replicated-params, "
+                "no-aux step only (the sharded update is elementwise over "
+                "the fused flat buffer)")
+        from kungfu_tpu_torch.parallel.zero import zero_train_step
+
+        zsched = ("pallas_ring" if plan is not None
+                  and plan.collective_schedule == "pallas_ring" else "lax")
+        return zero_train_step(loss_fn, tx, comm, stage=zero_stage,
+                               schedule=zsched)
+    axis, n = comm.axis, comm.size
 
     def body(params, aux, opt_state, batch, pulse: bool):
+        shards = split_batch(batch, n)
         if has_aux:
-            (loss, new_aux), grads, params = _value_and_grad(
-                lambda p: loss_fn(p, aux, batch), params)
-            # replicas average floating aux state, as they do gradients
-            new_aux = tree_map(
-                lambda a: (all_reduce(a.detach(), axis, op="mean")
-                           if a.is_floating_point() else a), new_aux)
+            outs, grads, params = _stacked_grads(
+                lambda p, b: loss_fn(p, aux, b), params, shards)
+            losses = torch.stack([o[0] for o in outs])
+            aux_rows = stack_ranks([o[1] for o in outs])
         else:
-            loss, grads, params = _value_and_grad(
-                lambda p: loss_fn(p, batch), params)
+            outs, grads, params = _stacked_grads(loss_fn, params, shards)
+            losses = torch.stack(outs)
+        with comm.world():
             new_aux = aux
-        stats = None
-        if pulse:
-            # small-batch side: per-rank square norm, meaned over peers;
-            # large-batch side: the mean gradient's square norm
-            stats = (all_reduce(_sq_norm(grads), axis, op="mean"),
-                     _sq_norm(group_all_reduce(grads, axis, op="mean")))
-        updates, new_state = tx.update(grads, opt_state, params)
-        new_params = apply_updates(params, updates)
-        return (new_params, new_aux, new_state,
-                all_reduce(loss.detach(), axis, op="mean"), stats)
+            if has_aux:
+                # replicas average floating aux state, as they do gradients
+                new_aux = replicated(tree_map(
+                    lambda a: (all_reduce(a, axis, op="mean")
+                               if a.is_floating_point() else a), aux_rows))
+            stats = None
+            if pulse:
+                # small-batch side: each rank's square norm, meaned over
+                # the ranks; large-batch side: the mean gradient's
+                per_rank = sum((l.float() ** 2).reshape(n, -1).sum(1)
+                               for l in tree_leaves(grads))
+                stats = (replicated(all_reduce(per_rank, axis, op="mean")),
+                         _sq_norm(replicated(group_all_reduce(
+                             grads, axis, op="mean"))))
+            updates, new_state = tx.update(grads, opt_state, params)
+            # a tx that does not reduce leaves the updates stacked: the
+            # replicated params take rank 0's, as P() takes device 0's
+            updates = tree_map(
+                lambda u, p: replicated(u) if u.dim() == p.dim() + 1 else u,
+                updates, params)
+            new_params = apply_updates(params, updates)
+            loss = replicated(all_reduce(losses, axis, op="mean"))
+        return new_params, new_aux, new_state, loss, stats
 
     if has_aux:
         def step4(params, aux, opt_state, batch):
@@ -123,7 +253,6 @@ def dp_train_step(loss_fn, tx, comm, replicated_params: bool = True,
         p, _, s, loss, stats = body(params, None, opt_state, batch, sample)
         if sample:
             gl, gg = (float(x) for x in stats)
-            n = int(comm.size)
             leaves = tree_leaves(batch)
             b_small = (max(1, int(leaves[0].shape[0]) // n)
                        if (leaves and n) else 1)

@@ -3,6 +3,7 @@ decode step of the serving engine, and one flagship training step,
 traced with ``torch.profiler``.
 
     python -m kungfu_tpu_torch.profile [--steps N] [--lm-head plain|fused]
+                                       [--ranks R] [--zero 0|1|2|3]
                                        [--out FILE]
 
 For each phase it prints (and writes as JSON to ``--out``): host wall
@@ -15,7 +16,11 @@ flagship's full width; the training step is chip_smoke.py's (ids
 [4, 2048], flash attention, ``dp_train_step`` with
 ``synchronous_sgd(sgd(0.05, momentum=0.9))``) with the plain head and
 the fused cross-entropy (``--lm-head plain``, the default) or the fused
-LM head (``--lm-head fused``).  Needs a GPU.
+LM head (``--lm-head fused``).  ``--ranks R`` runs that step on ``R``
+co-resident ranks of the card, one batch row each: ``synchronous_sgd``
+under the ``pallas_ring`` schedule with fused gradients, or with
+``--zero S`` the ZeRO stage ``S`` step under the ``pallas_ring`` bucket
+schedule (chip_smoke.py's phases 8 and 9).  Needs a GPU.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ def _family(name: str) -> str:
     low = name.lower()
     for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "xent_fwd",
                    "xent_bwd", "lm_head_fwd", "lm_head_bwd_dh",
-                   "lm_head_bwd_dw"):
+                   "lm_head_bwd_dw", "ring_rs", "ring_ag"):
         if kernel in low:
             return f"{kernel} (hand-written)"
     # f32 products run on the CUDA cores (TF32 off): in the flagship
@@ -80,9 +85,10 @@ def _profile(torch, fn, steps: int) -> dict:
     }
 
 
-def _train_step(torch, rng, lm_head: str):
+def _train_step(torch, rng, lm_head: str, ranks: int = 1, zero: int = 0):
     """One flagship training step as a closure over its carried state;
-    ``lm_head`` picks the plain head + fused xent or the fused head."""
+    ``lm_head`` picks the plain head + fused xent or the fused head,
+    ``ranks`` the co-resident ranks and ``zero`` the ZeRO stage."""
     from kungfu_tpu_torch.comm.device import Communicator
     from kungfu_tpu_torch.models.transformer import gpt_small
     from kungfu_tpu_torch.ops.cuda.attention import make_flash_attn
@@ -90,6 +96,7 @@ def _train_step(torch, rng, lm_head: str):
     from kungfu_tpu_torch.ops.xent import softmax_cross_entropy
     from kungfu_tpu_torch.optimizers import sgd, synchronous_sgd
     from kungfu_tpu_torch.parallel.train import dp_train_step
+    from kungfu_tpu_torch.parallel.zero import zero_train_step
 
     model = gpt_small(max_seq=2048)
     flash = make_flash_attn()
@@ -103,11 +110,18 @@ def _train_step(torch, rng, lm_head: str):
         return softmax_cross_entropy(
             model.apply(p, b[0], train=True, attn_fn=flash), b[1]).mean()
 
-    comm = Communicator(devices=["cuda:0"])
-    tx = synchronous_sgd(sgd(0.05, momentum=0.9), comm.axis)
-    step = dp_train_step(loss_fn, tx, comm)
+    comm = Communicator(devices=["cuda:0"] * ranks, local_size=ranks)
     params = model.init(torch.Generator().manual_seed(0), device="cuda")
-    state = [params, tx.init(params)]
+    if zero:
+        step = zero_train_step(loss_fn, sgd(0.05, momentum=0.9), comm,
+                               stage=zero, schedule="pallas_ring")
+        state = [step.init_params(params), step.init_opt(params)]
+    else:
+        schedule = "pallas_ring" if ranks > 1 else "psum"
+        tx = synchronous_sgd(sgd(0.05, momentum=0.9), comm.axis,
+                             schedule=schedule, fuse_grads=ranks > 1)
+        step = dp_train_step(loss_fn, tx, comm)
+        state = [params, tx.init(params)]
 
     def run():
         state[0], state[1], _ = step(state[0], state[1], batch)
@@ -120,6 +134,10 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--lm-head", choices=("plain", "fused"), default="plain",
                     help="head of the training step")
+    ap.add_argument("--ranks", type=int, default=1,
+                    help="co-resident ranks of the training step")
+    ap.add_argument("--zero", type=int, choices=(0, 1, 2, 3), default=0,
+                    help="ZeRO stage of the training step (0: S-SGD)")
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
 
@@ -155,8 +173,13 @@ def main(argv=None) -> int:
             engine.step()  # admit all eight (one prefill per step)
         out["decode_step_batch8"] = _profile(torch, engine.step, args.steps)
     del engine, params
-    out[f"train_step_4x2048_{args.lm_head}_head"] = _profile(
-        torch, _train_step(torch, rng, args.lm_head), args.steps)
+    label = f"train_step_4x2048_{args.lm_head}_head"
+    if args.ranks > 1:
+        label += f"_{args.ranks}_ranks_" + (f"zero{args.zero}" if args.zero
+                                             else "ssgd_pallas_ring")
+    out[label] = _profile(torch, _train_step(torch, rng, args.lm_head,
+                                             args.ranks, args.zero),
+                          args.steps)
 
     text = json.dumps(out, indent=1)
     print(text)

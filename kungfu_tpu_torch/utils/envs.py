@@ -39,6 +39,14 @@
                                (monitor/pulse.py, parallel/train.py)
 ``KF_PULSE_EMA``               EMA weight of the published pulse estimates,
                                default 0.2 (monitor/pulse.py)
+``KF_PALLAS_COLLECTIVES``      ring collective impl: "auto"|"pallas"|"lax";
+                               ``auto`` takes the hand-written ring kernels on
+                               CUDA tensors and their plain versions on CPU
+                               ones, ``pallas`` the kernels (a CPU tensor
+                               raises: the port has no interpreter), ``lax``
+                               the plain versions; read at import and on
+                               ``COLLECTIVES_ENV.reload()``
+                               (ops/collectives.py)
 =============================  ================================================
 """
 
@@ -59,6 +67,10 @@ XENT_FWD_MIN_ELEMENTS = "KF_XENT_FWD_MIN_ELEMENTS"
 LM_HEAD = "KF_TPU_LM_HEAD"
 PULSE_EVERY = "KF_PULSE_EVERY"
 PULSE_EMA = "KF_PULSE_EMA"
+PALLAS_COLLECTIVES = "KF_PALLAS_COLLECTIVES"
+
+#: the values of ``KF_PALLAS_COLLECTIVES``, as the reference names them
+COLLECTIVE_IMPLS = ("auto", "pallas", "lax")
 
 
 def parse_int_env(name: str, default: int) -> int:
@@ -73,3 +85,36 @@ def parse_float_env(name: str, default: float) -> float:
         return float(os.environ.get(name, "") or default)
     except ValueError:
         return default
+
+
+class LaunchKnobs:
+    """Knobs read when their module is imported and on :meth:`reload`,
+    never per call, as the reference's launch-set knobs are: a mid-run
+    change of the environment changes nothing until ``reload()``.
+    Subclasses read their variables in ``_read``."""
+
+    def __init__(self):
+        self._read()
+
+    def reload(self):
+        self._read()
+        return self
+
+    def _read(self) -> None:
+        raise NotImplementedError
+
+
+class _CollectiveKnobs(LaunchKnobs):
+    """``KF_PALLAS_COLLECTIVES``: the default ``impl`` of every ring
+    collective call that does not pass one; a value outside
+    :data:`COLLECTIVE_IMPLS` raises."""
+
+    def _read(self) -> None:
+        impl = os.environ.get(PALLAS_COLLECTIVES, "auto").lower()
+        if impl not in COLLECTIVE_IMPLS:
+            raise ValueError(
+                f"{PALLAS_COLLECTIVES}={impl!r}: one of {COLLECTIVE_IMPLS}")
+        self.impl = impl
+
+
+COLLECTIVES_ENV = _CollectiveKnobs()

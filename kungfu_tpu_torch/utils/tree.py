@@ -3,7 +3,8 @@
 The subset of ``jax.tree_util`` the training step needs.  Dict keys are
 visited in sorted order, as ``jax.tree_util`` visits them, so a
 flattened tree (a fused gradient buffer) has the reference's layout.
-``None`` is an empty subtree, as in jax.
+``None`` is an empty subtree, as in jax, and a ``NamedTuple`` (an
+optimizer state) is a node whose children are its fields, in order.
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ from __future__ import annotations
 from typing import Any, Callable, List, Tuple
 
 #: a tree's structure: ("dict", keys, children) | ("list"/"tuple", n,
-#: children) | ("none",) | ("leaf",)
+#: children) | ("namedtuple", type, children) | ("none",) | ("leaf",)
 TreeDef = Tuple
 
 
@@ -21,10 +22,12 @@ def tree_flatten(tree) -> Tuple[List[Any], TreeDef]:
         parts = [tree_flatten(tree[k]) for k in keys]
         return ([l for ls, _ in parts for l in ls],
                 ("dict", tuple(keys), tuple(d for _, d in parts)))
-    if isinstance(tree, (list, tuple)) and not hasattr(tree, "_fields"):
+    if isinstance(tree, (list, tuple)):
         parts = [tree_flatten(t) for t in tree]
+        kind = ("namedtuple", type(tree)) if hasattr(tree, "_fields") else \
+            (type(tree).__name__, len(tree))
         return ([l for ls, _ in parts for l in ls],
-                (type(tree).__name__, len(tree), tuple(d for _, d in parts)))
+                kind + (tuple(d for _, d in parts),))
     if tree is None:
         return [], ("none",)
     return [tree], ("leaf",)
@@ -55,6 +58,8 @@ def tree_unflatten(treedef: TreeDef, leaves) -> Any:
         children = [build(c) for c in d[2]]
         if kind == "dict":
             return dict(zip(d[1], children))
+        if kind == "namedtuple":
+            return d[1](*children)
         return children if kind == "list" else tuple(children)
 
     return build(treedef)
