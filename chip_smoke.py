@@ -11,11 +11,19 @@ Phases (any failed check exits non-zero before the result line):
              ``nvidia-smi`` name and power limit;
 2. build   — nvcc builds every hand-written CUDA kernel from ``csrc/``,
              one nvcc per source, all started together (the Triton
-             kernels compile at their first launch, in phase 3);
+             kernels compile at their first launch, in phase 3); the
+             wgmma/TMA flash kernels must show no register spills in
+             ptxas's report and HGMMA and UTMALDG instructions in their
+             SASS (``cuobjdump``);
 3. kernels — each kernel against its plain PyTorch version on the card,
-             at the main path's shape and at the edge cases, with the
-             tolerances below; timed (median of CUDA-event windows)
-             beside its plain version and one PyTorch library call;
+             at the main path's shape and at the edge cases (for the
+             flash kernels also a bf16 grid of sequence lengths around
+             their tile edges, head dims 32/64/128, causal and not),
+             with the tolerances below; timed (median of CUDA-event
+             windows) beside its plain version and one PyTorch library
+             call, the flash forward at its three main-path shapes and
+             dK/dV at the two training shapes, with the host µs per
+             launch;
 4. forward — the flagship forward (vocab 32128, d_model 768, 12 layers,
              12 heads, d_ff 3072, RoPE, causal, bf16, ids [4, 256]) with
              random weights from a seed, through the kernel, held
@@ -218,6 +226,44 @@ def bound(spec, flops: float, nbytes: float) -> dict:
             "flops": flops, "bytes": nbytes}
 
 
+#: bf16 edge cases of the wgmma kernels' tiling (128-row q blocks and
+#: kv tiles in the forward, 128 kv rows by 64- or 32-row q tiles in the
+#: dK/dV kernel): sequence lengths on both sides of the tile edges
+EDGE_SEQS = (1, 63, 65, 127, 129, 2047)
+EDGE_BH = (1, 12)
+EDGE_DIMS = (32, 64, 128)
+#: the main-path shapes [BH, S, D] of the flash kernels: the serving
+#: forward, the one-rank training step, one of four co-resident ranks
+FLASH_SHAPES = {"s256": (48, 256, 64), "s2048": (48, TRAIN_SEQ, 64),
+                "rank_s2048": (12, TRAIN_SEQ, 64)}
+
+
+def _edge_cases():
+    """(name, (BH, S, D), causal, input scale) of the bf16 edge grid, and
+    one case with q and k scaled by 8, so row maxima move across kv
+    blocks."""
+    cases = [(f"edge_bh{bh}_s{s}_d{d}_{'causal' if c else 'full'}",
+              (bh, s, d), c, 1.0)
+             for s in EDGE_SEQS for bh in EDGE_BH for d in EDGE_DIMS
+             for c in (True, False)]
+    cases.append(("edge_x8_bh12_s2047_d64_causal", (12, 2047, 64), True, 8.0))
+    return cases
+
+
+def host_us(torch, fn, calls: int = 200) -> float:
+    """Host µs per call of ``fn`` (a kernel wrapper), enqueued behind a
+    sleep kernel so the launch queue never blocks."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(400_000_000)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def phase_flash_forward(torch, attention, spec):
     """Forward kernel vs plain version at the main shapes and the edge
     cases."""
@@ -234,11 +280,16 @@ def phase_flash_forward(torch, attention, spec):
         ("f32_d128_noncausal", (1, 2, 100, 128), torch.float32, False),
         ("f32_d32", (1, 3, 70, 32), torch.float32, True),
     ]
+    cases = ([(n, sh, dt, c, 1.0) for n, sh, dt, c in cases]
+             + [(n, (1, *sh), torch.bfloat16, c, x)
+                for n, sh, c, x in _edge_cases()])
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
-    for name, (b, h, s, d), dtype, causal in cases:
+    worst = {"o_err": 0.0, "lse_err": 0.0}
+    for name, (b, h, s, d), dtype, causal, x in cases:
         q, k, v = (torch.randn((b * h, s, d), generator=gen, device="cuda"
-                               ).to(dtype) for _ in range(3))
+                               ) for _ in range(3))
+        q, k, v = ((q * x).to(dtype), (k * x).to(dtype), v.to(dtype))
         out, lse = attention.flash_attention_with_lse(q, k, v, causal=causal)
         torch.cuda.synchronize()
         ref_o, ref_lse = attention.flash_attention_reference(q, k, v, causal)
@@ -246,37 +297,50 @@ def phase_flash_forward(torch, attention, spec):
         l_err = (lse - ref_lse).abs().max().item()
         o_tol, l_tol = ((BF16_O_ATOL, BF16_LSE_ATOL) if dtype == torch.bfloat16
                         else (F32_ATOL, F32_ATOL))
-        print(f"flash fwd {name}: shape {(b, h, s, d)} {str(dtype)[6:]} "
-              f"causal={causal} max|dO|={o_err:.3e} (tol {o_tol}) "
-              f"max|dlse|={l_err:.3e} (tol {l_tol})")
+        edge = name.startswith("edge_")
+        if not edge:
+            print(f"flash fwd {name}: shape {(b, h, s, d)} {str(dtype)[6:]} "
+                  f"causal={causal} max|dO|={o_err:.3e} (tol {o_tol}) "
+                  f"max|dlse|={l_err:.3e} (tol {l_tol})")
         check(bool(torch.isfinite(out.float()).all()), f"{name}: non-finite O")
         check(o_err <= o_tol, f"{name}: O error {o_err} > {o_tol}")
         check(l_err <= l_tol, f"{name}: lse error {l_err} > {l_tol}")
         results[name] = {"o_err": o_err, "lse_err": l_err}
+        if edge:
+            worst = {"o_err": max(worst["o_err"], o_err),
+                     "lse_err": max(worst["lse_err"], l_err)}
         del q, k, v, out, lse, ref_o, ref_lse
+    n_edge = len(_edge_cases())
+    print(f"flash fwd bf16 edges: {n_edge} cases (S {EDGE_SEQS} x BH "
+          f"{EDGE_BH} x D {EDGE_DIMS} x causal/full, and q, k x8 at "
+          f"[12, 2047, 64]): worst max|dO|={worst['o_err']:.3e} (tol "
+          f"{BF16_O_ATOL}), max|dlse|={worst['lse_err']:.3e} (tol "
+          f"{BF16_LSE_ATOL})")
 
-    # timing at both main-path shapes (contiguous [BH, S, D]; warm L2)
+    # timing at the main-path shapes (contiguous [BH, S, D]; warm L2)
     timing = {}
-    for label, (b, h, s, d) in (("s256", (4, 12, 256, 64)),
-                                ("s2048", (TRAIN_BATCH, 12, TRAIN_SEQ, 64))):
-        q, k, v = (torch.randn((b * h, s, d), generator=gen, device="cuda"
+    for label, (bh, s, d) in FLASH_SHAPES.items():
+        q, k, v = (torch.randn((bh, s, d), generator=gen, device="cuda"
                                ).to(torch.bfloat16) for _ in range(3))
-        q4, k4, v4 = (t.view(b, h, s, d) for t in (q, k, v))
+        q4, k4, v4 = (t.view(1, bh, s, d) for t in (q, k, v))
         ms = device_ms(torch, lambda: attention._launch(q, k, v, True))
         plain_ms = device_ms(torch, lambda: attention.flash_attention_reference(
             q, k, v, True), iters=1, windows=5)
         library_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
             q4, k4, v4, is_causal=True))
+        us = host_us(torch, lambda: attention._launch(q, k, v, True))
         # causal pairs need 4*D FLOPs each (QK^T and PV); bytes are q, k,
         # v read once, O written once (bf16), lse written (f32)
-        t = bound(spec, 4 * d * b * h * s * (s + 1) // 2,
-                  4 * b * h * s * d * 2 + b * h * s * 4)
+        t = bound(spec, 4 * d * bh * s * (s + 1) // 2,
+                  4 * bh * s * d * 2 + bh * s * 4)
         timing[label] = {"ms": ms, "plain_ms": plain_ms,
-                         "library_ms": library_ms, **t}
-        print(f"flash fwd timing {label}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
-              f"{t['bound_ms']:.4f} ms ({t['bound_by']}); "
-              f"{t['flops'] / ms / 1e9:.1f} TFLOP/s")
+                         "library_ms": library_ms, "host_us": us, **t}
+        print(f"flash fwd timing {label} [{bh}, {s}, {d}]: kernel {ms:.4f} "
+              f"ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}, "
+              f"{t['bound_ms'] / ms:.1%} of it); "
+              f"{t['flops'] / ms / 1e9:.1f} TFLOP/s; host {us:.1f} us per "
+              f"launch")
         del q, k, v, q4, k4, v4
     return results, timing
 
@@ -301,12 +365,18 @@ def phase_flash_backward(torch, attention, spec):
         ("f32_noncausal", (1, 3, 130, 32), torch.float32, False, True),
         ("f32_d128", (1, 2, 100, 128), torch.float32, True, False),
     ]
+    cases = ([(*c, 1.0) for c in cases]
+             + [(n, (1, *sh), torch.bfloat16, c, False, x)
+                for n, sh, c, x in _edge_cases()])
     gen = torch.Generator(device="cuda").manual_seed(1)
     results = {}
-    for name, (b, h, s, d), dtype, causal, with_dlse in cases:
+    worst = 0.0
+    for name, (b, h, s, d), dtype, causal, with_dlse, x in cases:
         shape = (b * h, s, d)
-        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda"
-                                   ).to(dtype) for _ in range(4))
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                       for _ in range(4))
+        q, k, v, do = ((q * x).to(dtype), (k * x).to(dtype), v.to(dtype),
+                       do.to(dtype))
         dl = (torch.randn((b * h, s), generator=gen, device="cuda")
               if with_dlse else torch.zeros((b * h, s), device="cuda"))
         leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
@@ -325,10 +395,13 @@ def phase_flash_backward(torch, attention, spec):
             t_blk = t_auto = BF16_GRAD_RTOL * top
         else:
             t_blk, t_auto = F32_GRAD_ATOL_BLOCKED, F32_GRAD_ATOL_AUTOGRAD
-        print(f"flash bwd {name}: shape {(b, h, s, d)} {str(dtype)[6:]} "
-              f"causal={causal} dlse={with_dlse} max|d(dq,dk,dv)| vs blocked "
-              f"{e_blk:.3e} (tol {t_blk:.3e}), vs autograd {e_auto:.3e} "
-              f"(tol {t_auto:.3e})")
+        if name.startswith("edge_"):
+            worst = max(worst, e_blk / t_blk, e_auto / t_auto)
+        else:
+            print(f"flash bwd {name}: shape {(b, h, s, d)} {str(dtype)[6:]} "
+                  f"causal={causal} dlse={with_dlse} max|d(dq,dk,dv)| vs "
+                  f"blocked {e_blk:.3e} (tol {t_blk:.3e}), vs autograd "
+                  f"{e_auto:.3e} (tol {t_auto:.3e})")
         check(all(bool(torch.isfinite(g.float()).all()) for g in got),
               f"{name}: non-finite gradients")
         check(e_blk <= t_blk, f"{name}: backward vs blocked {e_blk} > {t_blk}")
@@ -338,55 +411,66 @@ def phase_flash_backward(torch, attention, spec):
                          "dkv_err": _grad_err(got[1:], blocked[1:]),
                          "err_vs_autograd": e_auto}
         del q, k, v, do, leaves, out, lse, got, blocked, f32, ro, rl, auto
+    print(f"flash bwd bf16 edges: {len(_edge_cases())} cases (as the "
+          f"forward's), the largest error used {worst:.3f} of its tolerance "
+          f"(vs blocked and vs autograd, {BF16_GRAD_RTOL} of max|grad|)")
+    check(worst <= 1.0, "a bf16 edge case exceeded its tolerance")
 
-    # timing at the main shape: each kernel alone, the plain backward,
-    # and SDPA's backward (forward + backward less the forward)
+    # timing at the training shapes: each kernel alone, the plain
+    # backward, and SDPA's backward (forward + backward less the forward)
     import torch.nn.functional as F
 
-    b, h, s, d = TRAIN_BATCH, 12, TRAIN_SEQ, 64
-    bh = b * h
-    q, k, v, do = (torch.randn((bh, s, d), generator=gen, device="cuda"
-                               ).to(torch.bfloat16) for _ in range(4))
-    out, lse = attention._launch(q, k, v, True)
-    delta = (do.float() * out.float()).sum(-1)
-    dq_ms = device_ms(torch, lambda: attention._launch_bwd_dq(
-        q, k, v, do, lse, delta, True))
-    dkv_ms = device_ms(torch, lambda: attention._launch_bwd_dkv(
-        q, k, v, do, lse, delta, True))
-    plain_ms = device_ms(torch, lambda: attention.flash_attention_backward_reference(
-        q, k, v, out, lse, do, True), iters=1, windows=5)
-    q4, k4, v4 = (t.view(b, h, s, d).clone().requires_grad_(True)
-                  for t in (q, k, v))
-    do4 = do.view(b, h, s, d)
+    timing = {}
+    for label in ("s2048", "rank_s2048"):
+        bh, s, d = FLASH_SHAPES[label]
+        q, k, v, do = (torch.randn((bh, s, d), generator=gen, device="cuda"
+                                   ).to(torch.bfloat16) for _ in range(4))
+        out, lse = attention._launch(q, k, v, True)
+        delta = (do.float() * out.float()).sum(-1)
+        dq_ms = device_ms(torch, lambda: attention._launch_bwd_dq(
+            q, k, v, do, lse, delta, True))
+        dkv_ms = device_ms(torch, lambda: attention._launch_bwd_dkv(
+            q, k, v, do, lse, delta, True))
+        dkv_us = host_us(torch, lambda: attention._launch_bwd_dkv(
+            q, k, v, do, lse, delta, True))
+        plain_ms = device_ms(
+            torch, lambda: attention.flash_attention_backward_reference(
+                q, k, v, out, lse, do, True), iters=1, windows=5)
+        q4, k4, v4 = (t.view(1, bh, s, d).clone().requires_grad_(True)
+                      for t in (q, k, v))
+        do4 = do.view(1, bh, s, d)
 
-    def sdpa_fwd_bwd():
-        o = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
-        torch.autograd.grad(o, (q4, k4, v4), do4)
+        def sdpa_fwd_bwd():
+            o = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+            torch.autograd.grad(o, (q4, k4, v4), do4)
 
-    with torch.no_grad():
-        sdpa_fwd = device_ms(torch, lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True))
-    library_ms = device_ms(torch, sdpa_fwd_bwd) - sdpa_fwd
-    pairs = bh * s * (s + 1) // 2
-    # dQ: 3 products per causal pair (QK^T, dO V^T, dS K), 2*D FLOPs each;
-    # reads q, k, v, dO (bf16) and lse, delta (f32), writes dq
-    # dK/dV: 4 products (QK^T, dO V^T, P^T dO, dS^T Q); writes dk and dv
-    rows = bh * s * 4 * 2
-    t_dq = bound(spec, 3 * 2 * d * pairs, 5 * bh * s * d * 2 + rows)
-    t_dkv = bound(spec, 4 * 2 * d * pairs, 6 * bh * s * d * 2 + rows)
-    timing = {
-        "dq": {"ms": dq_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-               **t_dq},
-        "dkv": {"ms": dkv_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                **t_dkv},
-    }
-    print(f"flash bwd timing main: dQ {dq_ms:.4f} ms (bound "
-          f"{t_dq['bound_ms']:.4f}, {t_dq['bound_by']}), dK/dV {dkv_ms:.4f} "
-          f"ms (bound {t_dkv['bound_ms']:.4f}, {t_dkv['bound_by']}); plain "
-          f"backward {plain_ms:.4f} ms; sdpa backward {library_ms:.4f} ms "
-          f"(fwd+bwd less fwd {sdpa_fwd:.4f}); "
-          f"{(t_dq['flops'] + t_dkv['flops']) / (dq_ms + dkv_ms) / 1e9:.1f} "
-          f"TFLOP/s")
+        with torch.no_grad():
+            sdpa_fwd = device_ms(torch, lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=True))
+        library_ms = device_ms(torch, sdpa_fwd_bwd) - sdpa_fwd
+        pairs = bh * s * (s + 1) // 2
+        # dQ: 3 products per causal pair (QK^T, dO V^T, dS K), 2*D FLOPs
+        # each; reads q, k, v, dO (bf16) and lse, delta (f32), writes dq
+        # dK/dV: 4 products (QK^T, dO V^T, P^T dO, dS^T Q); writes dk, dv
+        rows = bh * s * 4 * 2
+        t_dq = bound(spec, 3 * 2 * d * pairs, 5 * bh * s * d * 2 + rows)
+        t_dkv = bound(spec, 4 * 2 * d * pairs, 6 * bh * s * d * 2 + rows)
+        timing[label] = {
+            "dq": {"ms": dq_ms, "plain_ms": plain_ms,
+                   "library_ms": library_ms, **t_dq},
+            "dkv": {"ms": dkv_ms, "plain_ms": plain_ms,
+                    "library_ms": library_ms, "host_us": dkv_us, **t_dkv},
+        }
+        print(f"flash bwd timing {label} [{bh}, {s}, {d}]: dQ {dq_ms:.4f} ms "
+              f"(bound {t_dq['bound_ms']:.4f}, {t_dq['bound_by']}, "
+              f"{t_dq['flops'] / dq_ms / 1e9:.1f} TFLOP/s), dK/dV "
+              f"{dkv_ms:.4f} ms (bound {t_dkv['bound_ms']:.4f}, "
+              f"{t_dkv['bound_by']}, {t_dkv['bound_ms'] / dkv_ms:.1%} of it, "
+              f"{t_dkv['flops'] / dkv_ms / 1e9:.1f} TFLOP/s, host "
+              f"{dkv_us:.1f} us per launch); plain backward {plain_ms:.4f} "
+              f"ms; sdpa backward {library_ms:.4f} ms (fwd+bwd less fwd "
+              f"{sdpa_fwd:.4f})")
+        del q, k, v, do, out, lse, delta, q4, k4, v4, do4
     return results, timing
 
 
@@ -1210,19 +1294,89 @@ def phase_zero(torch, np, kernels, tr, stage: int, ssgd_p1):
             "peak_gib": peak, "opt_state_bytes_per_rank": opt_bytes}
 
 
-def build_all(attention, lmk, ringk) -> None:
-    """nvcc for each CUDA source, all started together."""
+#: the wgmma/TMA kernels: their ptxas report must show no spills and
+#: their SASS must hold wgmma (HGMMA) and TMA load (UTMALDG) instructions
+WGMMA_KERNELS = ("flash_fwd_bf16_wgmma_kernel", "flash_bwd_dkv_bf16_wgmma_kernel")
+
+
+def _ptxas_report(log: str) -> dict:
+    """{mangled kernel name: its ptxas lines} from an ``-Xptxas -v`` log."""
+    import re
+
+    report, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?([\w]+)'?", line)
+        if m:
+            cur = m.group(1)
+            report.setdefault(cur, [])
+        elif cur is not None and ("registers" in line or "spill" in line):
+            report[cur].append(line.strip().replace("ptxas info    : ", ""))
+    return report
+
+
+def _sass_counts(torch, path) -> dict:
+    """{mangled kernel name: {"HGMMA": n, "UTMALDG": n}} for the wgmma
+    kernels in a built library, from ``cuobjdump --dump-sass``."""
+    import re
+    from pathlib import Path
+
+    from kungfu_tpu_torch.ops.cuda import _build
+
+    tool = Path(_build.nvcc_path()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "--dump-sass", str(path)],
+                         capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump exited {out.returncode}: "
+          f"{out.stderr.strip()[:500]}")
+    counts, cur = {}, None
+    for line in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1) if any(k in m.group(1) for k in WGMMA_KERNELS) else None
+            if cur:
+                counts[cur] = {"HGMMA": 0, "UTMALDG": 0}
+        elif cur:
+            for op in ("HGMMA", "UTMALDG"):
+                counts[cur][op] += bool(re.search(rf"\b{op}\b", line))
+    return counts
+
+
+def build_all(torch, attention, lmk, ringk) -> dict:
+    """nvcc for each CUDA source, all started together; then each wgmma
+    kernel's ptxas report (no spills allowed) and SASS counts (HGMMA and
+    UTMALDG must be there)."""
+    import re
+
     t0 = time.perf_counter()
     loaders = (attention.load, attention.load_bwd, lmk.load, ringk.load)
     with ThreadPoolExecutor(max_workers=len(loaders)) as pool:
         futures = [pool.submit(fn) for fn in loaders]
         built = [f.result() for f in futures]
-    print(f"build: {time.perf_counter() - t0:.2f} s wall")
+    wall = time.perf_counter() - t0
+    print(f"build: {wall:.2f} s wall")
+    info = {"wall_s": wall, "kernels": {}}
     for b in built:
         print(f"  {b.path.name}: nvcc {b.seconds:.2f} s")
         for line in b.log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"  ptxas: {line.strip()}")
+    for b in built[:2]:
+        report = _ptxas_report(b.log)
+        for fn, counts in _sass_counts(torch, b.path).items():
+            lines = report.get(fn, [])
+            print(f"wgmma kernel {fn}: {'; '.join(lines)}; SASS HGMMA "
+                  f"{counts['HGMMA']}, UTMALDG {counts['UTMALDG']}")
+            check(bool(lines), f"{fn}: no ptxas report")
+            check(all(re.search(r"\b0 bytes spill stores", ln)
+                      for ln in lines if "spill" in ln),
+                  f"{fn} spills registers: {lines}")
+            check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
+                  f"{fn}: SASS without wgmma or TMA loads: {counts}")
+            info["kernels"][fn] = {"ptxas": lines, **counts}
+    names = " ".join(info["kernels"])
+    check(all(k in names for k in WGMMA_KERNELS) and len(info["kernels"]) == 6,
+          f"expected the wgmma kernels at D 32/64/128, found {names}")
+    return info
 
 
 def main() -> int:
@@ -1257,7 +1411,7 @@ def main() -> int:
     check(spec is not None, f"no datasheet entry for {name!r}")
 
     # 2. build
-    build_all(attention, lmk, ringk)
+    build = build_all(torch, attention, lmk, ringk)
 
     # 3. kernels against their plain versions
     t0 = time.perf_counter()
@@ -1335,10 +1489,10 @@ def main() -> int:
             fwd_errs["train_main"]["o_err"], fwd_timing["s2048"]),
         row("attention._bwd_dq_kernel", "cuda", cu + "flash_bwd.cu",
             pal + "attention.py:241", "flash_bwd_dq",
-            bwd_errs["main"]["dq_err"], bwd_timing["dq"]),
+            bwd_errs["main"]["dq_err"], bwd_timing["s2048"]["dq"]),
         row("attention._bwd_dkv_kernel", "cuda", cu + "flash_bwd.cu",
             pal + "attention.py:288", "flash_bwd_dkv",
-            bwd_errs["main"]["dkv_err"], bwd_timing["dkv"]),
+            bwd_errs["main"]["dkv_err"], bwd_timing["s2048"]["dkv"]),
         row("xent._fwd_kernel", "triton", tri, pal + "xent.py:49",
             "xent_fwd", xent_errs["main"]["loss_err"], xent_timing["fwd"]),
         row("xent._bwd_kernel", "triton", tri, pal + "xent.py:163",
@@ -1363,7 +1517,7 @@ def main() -> int:
         "forward": fwd, "serve": serve, "train": train,
         "train_fused_head": train_fused, "ssgd_4_ranks": ssgd,
         "zero2_4_ranks": zero2, "zero3_4_ranks": zero3,
-        "ring_timing": ring_timing,
+        "ring_timing": ring_timing, "build": build,
         "flash_fwd_errors": fwd_errs, "flash_fwd_timing": fwd_timing,
         "flash_bwd_errors": bwd_errs, "flash_bwd_timing": bwd_timing,
         "xent_errors": xent_errs, "xent_timing": xent_timing,

@@ -41,7 +41,8 @@ class Built:
     #: wall seconds nvcc took in this process; 0.0 when an earlier build
     #: with the same hash was loaded
     seconds: float
-    #: nvcc's output (the -Xptxas -v resource report); empty when loaded
+    #: nvcc's output (the -Xptxas -v resource report), kept beside the
+    #: library when it was built and read back when it is loaded
     log: str
 
 
@@ -75,7 +76,8 @@ def _source_key(source: Path, nvcc: str) -> str:
 def build(source: str) -> Built:
     """Compile ``csrc/<source>`` into ``lib<stem>-<hash>.so`` (unless that
     build exists) and load it.  Concurrent processes serialise on a lock
-    file; the library is renamed into place only when complete."""
+    file; the library is renamed into place only when complete, after
+    nvcc's report (``.log`` beside it)."""
     src = CSRC / source
     nvcc = nvcc_path()
     out_dir = BUILD_DIR
@@ -96,6 +98,10 @@ def build(source: str) -> Built:
                 raise RuntimeError(
                     f"nvcc failed with exit code {proc.returncode}: "
                     f"{' '.join(cmd)}\n{log}")
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
             _log.info("built %s with nvcc in %.1f s", out.name, seconds)
+        else:
+            log_path = out.with_suffix(".log")
+            log = log_path.read_text() if log_path.exists() else ""
     return Built(ctypes.CDLL(str(out)), out, seconds, log)

@@ -9,74 +9,337 @@
 // yields 0; O is written in the input dtype and lse = m + log(l) in f32.
 // A causal q block stops at the last kv block it attends to (the
 // reference's _causal_hi), so causal attention does about half the work.
+// The TPU carried m/l/acc across a sequential grid axis; here the kv walk
+// is a loop inside the CTA, and CTAs run in any order, heaviest first.
 //
-// Design for the card, not the TPU's block by block:
-// * One CTA of four warps per (bh, 64-row q block); each warp owns 16 q
-//   rows.  The TPU carried m/l/acc across a sequential grid axis; here
-//   the kv walk is a loop inside the CTA, and CTAs run in any order.
-// * 64x64 tiles: the Q tile and one K and one V tile live in shared
-//   memory, reused by all 64 q rows; scores and probabilities never leave
-//   the SM.  64 rows is the smallest tile that still gives each warp a
-//   full 16-row tensor-core fragment, and at the flagship shape (BH 48,
-//   S 256) it yields 192 CTAs on 132 SMs where 128-row tiles would leave
-//   a third of the card idle.  (The TPU tiles of 256x1024 fit 16 MB of
-//   VMEM; a CTA here has 227 KB of shared memory.)
-// * bf16: both products on the tensor cores through WMMA (bf16 in, f32
-//   accumulate).  P is rounded to bf16 before the PV product, like the
-//   reference's p.astype(v.dtype); l sums the unrounded f32 P.
-// * f32: plain FMA on the CUDA cores, never TF32, so f32 parity checks
-//   hold the algorithm to f32 rounding.  Q is pre-scaled by 1/sqrt(D)
-//   as the reference does before its dot.
-// * Ragged S is masked with bounds checks (rows past S load as zeros);
-//   nothing is padded in device memory.  lse is a plain [BH, S] row
-//   vector (the TPU's 128-lane replication was a Mosaic tiling rule).
-// * Causal q blocks are scheduled heaviest first (blockIdx.x reversed).
+// bf16: warp-specialised wgmma/TMA kernel (flash_fwd_bf16_wgmma_kernel).
+// * One producer warpgroup and two consumer warpgroups of 64 q rows each
+//   (128-row q blocks, one CTA per SM).  After setmaxnreg.dec, one
+//   producer thread TMA-loads the Q tile once and streams K and V tiles
+//   (128 rows; 64 at D = 128) through a
+//   two-stage ring in shared memory (full/empty mbarriers per stage, K and
+//   V on separate full barriers so Q K^T starts before V lands).  The
+//   tensor maps are 3-D over [BH, S, D], so a tile that runs past S is
+//   zero-filled by the TMA unit instead of reading the next head.
+// * The consumers take the registers the producer gave up.  S = Q K^T is
+//   one wgmma chain (both operands K-major in shared memory) into f32
+//   registers; the online softmax runs in registers (quad shuffles for
+//   the row max, per-thread partial row sums reduced once at the end);
+//   O is rescaled in registers; P is packed to bf16 in registers and is
+//   the register A operand of the P V wgmma, with V (stored [kv, D],
+//   MN-major) through the transpose bit.  Nothing of S, P or O passes
+//   through shared memory; O/l and lse are stored from registers.
+// * Masks are evaluated only on a block that crosses the diagonal or S.
+// Rounding points (the plain version's): S is the f32-accumulated bf16
+// product of unscaled Q and K, times scale in f32 (log2(e) folded into
+// the scale for exp2; lse is written in natural log); l sums the
+// unrounded f32 P; P is rounded to bf16 before P V.
 //
-// What bounds it: at the flagship shape the causal forward needs about
-// 0.4 GFLOP against 6.3 MB of q/k/v/o traffic, so the card's memory, not
-// its tensor cores, sets the least time; this simple kernel (no wgmma,
-// TMA or warp specialisation yet) is bound in practice by its serial
-// load -> sync -> compute steps.  PERF.md holds the measured times.
+// f32: plain FMA on the CUDA cores, never TF32, so f32 parity checks hold
+// the algorithm to f32 rounding; 64x64 tiles, one CTA of four warps per
+// (bh, 64-row q block), Q pre-scaled by 1/sqrt(D) as the reference does.
+//
+// What bounds it: at the training shape [48, 2048, 64] causal the forward
+// needs 26 us of bf16 tensor-core work (4 D FLOPs per causal pair)
+// against 8 us of q/k/v/o traffic, so the tensor cores set the least
+// time.  PERF.md holds the measured times.
 //
 // Interface: a plain C launcher taking device pointers and the caller's
 // stream, loaded with ctypes (kungfu_tpu_torch/ops/cuda/attention.py).
-// q, k, v, o are contiguous [BH, S, D] with 16-byte aligned bases.
+// q, k, v, o are contiguous [BH, S, D] with 16-byte aligned bases; the
+// launcher encodes the tensor maps on each call.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BQ = 64;          // q rows per CTA
-constexpr int BK = 64;          // kv rows per tile
-constexpr int NTHREADS = 128;   // four warps, 16 q rows each
+using namespace hopper;
+
+constexpr int BQ = 64;          // f32: q rows per CTA
+constexpr int BK = 64;          // f32: kv rows per tile
+constexpr int NTHREADS = 128;   // f32: four warps, 16 q rows each
 constexpr float MASK_VALUE = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 constexpr int KF_BAD_ARGS = -1;
+constexpr int KF_BAD_REGS = -3;
 
 __host__ __device__ constexpr size_t round_up(size_t x, size_t a) {
   return (x + a - 1) / a * a;
 }
 
-// Shared-memory carve-up for the bf16 kernel.  Leading dimensions are
-// padded (rows stay 32-byte aligned for WMMA, banks are staggered).
+// ---------------------------------------------------------------- bf16 --
+
+constexpr int STAGES = 2;
+
 template <int D>
-struct Bf16Layout {
-  static constexpr int LDT = D + 8;   // bf16 Q/K/V tiles
-  static constexpr int LDS = BK + 4;  // f32 scores
-  static constexpr int LDP = BK + 8;  // bf16 probabilities
-  static constexpr int LDO = D + 4;   // f32 output accumulator
-  static constexpr size_t Q = 0;
-  static constexpr size_t K = Q + round_up(size_t(BQ) * LDT * 2, 128);
-  static constexpr size_t V = K + round_up(size_t(BK) * LDT * 2, 128);
-  static constexpr size_t S = V + round_up(size_t(BK) * LDT * 2, 128);
-  static constexpr size_t P = S + round_up(size_t(BQ) * LDS * 4, 128);
-  static constexpr size_t O = P + round_up(size_t(BQ) * LDP * 2, 128);
-  static constexpr size_t BYTES = O + round_up(size_t(BQ) * LDO * 4, 128);
+struct FwdCfg {
+  static constexpr int NWG = 2;          // consumer warpgroups
+  static constexpr int BQ = 64 * NWG;    // q rows per CTA
+  // kv rows per tile: at D = 128 the S accumulator is halved so that S,
+  // O and P fit the consumers' registers without spilling
+  static constexpr int BK = D == 128 ? 64 : 128;
+  static constexpr int THREADS = 128 * (NWG + 1);
+  // registers at entry (ptxas allots the launch bounds' maximum to a
+  // kernel with setmaxnreg); the producer drops to PRODUCER_REGS and the
+  // consumers split what it frees
+  static constexpr int ENTRY_REGS = 65536 / THREADS / 8 * 8;
+  static constexpr int PRODUCER_REGS = 24;
+  static constexpr int CONSUMER_REGS =
+      ENTRY_REGS + (ENTRY_REGS - PRODUCER_REGS) / NWG;
+  static_assert(CONSUMER_REGS % 8 == 0 && CONSUMER_REGS <= 256, "registers");
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;
+  static constexpr int K_OFF = Q_BYTES;                    // STAGES tiles
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;  // STAGES tiles
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  // q_full, k_full[STAGES], v_full[STAGES], empty[STAGES]
+  static constexpr int BYTES = BAR_OFF + (1 + 3 * STAGES) * 8 + 1024;
 };
+
+// One block of the online softmax for the two rows this thread holds:
+// s holds the raw scores Q K^T of kv columns [k0, k0 + BK) in the
+// accumulator layout and leaves as P (unrounded f32); m, l and O are
+// updated (l is this thread's partial row sum); P packed to bf16 lands
+// in p as the A fragments of the P V product.
+template <bool MASK, int BK, int D>
+__device__ __forceinline__ void softmax_block(float (&s)[BK / 2], float (&m)[2],
+                                              float (&l)[2], float (&o)[D / 2],
+                                              uint32_t (&p)[BK / 16][4],
+                                              int qpos0, int k0, int cq, int S,
+                                              int causal, float scale_log2) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qpos = qpos0 + 8 * i;
+    float mx = MASK_VALUE;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float v = s[4 * j + 2 * i + c] * scale_log2;
+        if (MASK) {
+          const int kpos = k0 + 8 * j + cq + c;
+          if (kpos >= S || (causal && kpos > qpos)) v = MASK_VALUE;
+        }
+        s[4 * j + 2 * i + c] = v;
+        mx = fmaxf(mx, v);
+      }
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[i], mx);
+    const float corr = exp2f(m[i] - m_new);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float v = s[4 * j + 2 * i + c];
+        // masked entries contribute 0, also when the row is masked so far
+        const float pv = (MASK && v == MASK_VALUE) ? 0.f : exp2f(v - m_new);
+        s[4 * j + 2 * i + c] = pv;
+        sum += pv;
+      }
+    }
+    l[i] = l[i] * corr + sum;
+    m[i] = m_new;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[4 * j + 2 * i] *= corr;
+      o[4 * j + 2 * i + 1] *= corr;
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < BK / 16; ++t) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      p[t][r] = pack_bf16(s[8 * t + 2 * r], s[8 * t + 2 * r + 1]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(FwdCfg<D>::THREADS, 1)
+flash_fwd_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                            const __grid_constant__ CUtensorMap k_map,
+                            const __grid_constant__ CUtensorMap v_map,
+                            __nv_bfloat16* __restrict__ o,
+                            float* __restrict__ lse, int S, float scale_log2,
+                            int causal) {
+  using C = FwdCfg<D>;
+  using G = TileGeom<D>;
+  constexpr int BKV = C::BK;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_tile = base;
+  const uint32_t bars = base + C::BAR_OFF;
+  const uint32_t q_full = bars;
+  auto k_tile = [&](int s) { return base + C::K_OFF + s * C::KV_BYTES; };
+  auto v_tile = [&](int s) { return base + C::V_OFF + s * C::KV_BYTES; };
+  auto k_full = [&](int s) { return bars + 8u * (1 + s); };
+  auto v_full = [&](int s) { return bars + 8u * (1 + STAGES + s); };
+  auto empty = [&](int s) { return bars + 8u * (1 + 2 * STAGES + s); };
+
+  const int bh = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * C::BQ;  // heaviest first
+  const int n_all = (S + BKV - 1) / BKV;
+  const int n_kb = causal ? min(n_all, (q0 + C::BQ - 1) / BKV + 1) : n_all;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(empty(s), C::NWG * 128);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ------------------------------------------------------ producer --
+    setmaxnreg_dec<C::PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      prefetch_map(&q_map);
+      prefetch_map(&k_map);
+      prefetch_map(&v_map);
+      mbar_arrive_expect_tx(q_full, C::Q_BYTES);
+      for (int b = 0; b < G::N_BOX; ++b) {
+        tma_load_3d(q_tile + b * C::BQ * G::ROW_BYTES, &q_map, q_full,
+                    b * G::BOX_COLS, q0, bh);
+      }
+      for (int kb = 0; kb < n_kb; ++kb) {
+        const int s = kb % STAGES;
+        mbar_wait(empty(s), ((kb / STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(k_full(s), C::KV_BYTES);
+        for (int b = 0; b < G::N_BOX; ++b) {
+          tma_load_3d(k_tile(s) + b * BKV * G::ROW_BYTES, &k_map, k_full(s),
+                      b * G::BOX_COLS, kb * BKV, bh);
+        }
+        mbar_arrive_expect_tx(v_full(s), C::KV_BYTES);
+        for (int b = 0; b < G::N_BOX; ++b) {
+          tma_load_3d(v_tile(s) + b * BKV * G::ROW_BYTES, &v_map, v_full(s),
+                      b * G::BOX_COLS, kb * BKV, bh);
+        }
+      }
+    }
+  } else {
+    // ------------------------------------------------------ consumer --
+    setmaxnreg_inc<C::CONSUMER_REGS>();
+    const int w = wg - 1;  // q rows [64 w, 64 w + 64) of the block
+    const int t = threadIdx.x % 128;
+    const int lane = t % 32;
+    const int qpos0 = q0 + 64 * w + 16 * (t / 32) + lane / 4;  // + 8 i
+    const int cq = 2 * (lane % 4);
+    float oacc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) oacc[i] = 0.f;
+    float m[2] = {MASK_VALUE, MASK_VALUE}, l[2] = {0.f, 0.f};
+    mbar_wait(q_full, 0);
+
+    for (int kb = 0; kb < n_kb; ++kb) {
+      const int s = kb % STAGES;
+      const uint32_t ph = (kb / STAGES) & 1;
+      const int k0 = kb * BKV;
+      float sacc[BKV / 2];
+      mbar_wait(k_full(s), ph);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        Wgmma<BKV>::template ss<0>(
+            sacc, desc_kmajor<D>(q_tile, C::BQ, 64 * w, ks),
+            desc_kmajor<D>(k_tile(s), BKV, 0, ks), ks > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sacc);
+
+      uint32_t p[BKV / 16][4];
+      const bool need_mask =
+          k0 + BKV > S || (causal && k0 + BKV - 1 > q0 + 64 * w);
+      if (need_mask) {
+        softmax_block<true, BKV, D>(sacc, m, l, oacc, p, qpos0, k0, cq, S,
+                                    causal, scale_log2);
+      } else {
+        softmax_block<false, BKV, D>(sacc, m, l, oacc, p, qpos0, k0, cq, S,
+                                     causal, scale_log2);
+      }
+
+      mbar_wait(v_full(s), ph);
+      fence_regs(oacc);
+      fence_frags(p);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < BKV / 16; ++ks) {
+        Wgmma<D>::template rs<1>(oacc, p[ks],
+                                 desc_mnmajor<D>(v_tile(s), BKV, ks), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(oacc);
+      mbar_arrive(empty(s));
+    }
+
+    // epilogue: O / l in bf16 and lse, from registers
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float lt = l[i];
+      lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+      lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+      const float l_safe = fmaxf(lt, 1e-30f);
+      const float inv = __frcp_rn(l_safe);
+      const int qpos = qpos0 + 8 * i;
+      if (qpos < S) {
+        __nv_bfloat16* dst = o + ((size_t)bh * S + qpos) * D + cq;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          *reinterpret_cast<uint32_t*>(dst + 8 * j) = pack_bf16(
+              oacc[4 * j + 2 * i] * inv, oacc[4 * j + 2 * i + 1] * inv);
+        }
+        if (lane % 4 == 0) lse[(size_t)bh * S + qpos] = m[i] * LN2 + logf(l_safe);
+      }
+    }
+  }
+}
+
+// Encodes the maps and launches; the first call of each instantiation
+// raises its shared-memory limit and checks the entry register count
+// setmaxnreg's budget assumes (a mismatch would hang setmaxnreg.inc).
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                void* lse, int bh, int S, float scale, int causal,
+                cudaStream_t stream) {
+  using C = FwdCfg<D>;
+  auto kernel = flash_fwd_bf16_wgmma_kernel<D>;
+  static int ready = 0;
+  if (ready == 0) {
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return (int)err;
+    if (attr.numRegs != C::ENTRY_REGS) return KF_BAD_REGS;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::BYTES);
+    if (err != cudaSuccess) return (int)err;
+    ready = 1;
+  }
+  CUtensorMap qm, km, vm;
+  int err = encode_rows_map<D>(&qm, q, bh, S, C::BQ);
+  if (err == 0) err = encode_rows_map<D>(&km, k, bh, S, C::BK);
+  if (err == 0) err = encode_rows_map<D>(&vm, v, bh, S, C::BK);
+  if (err != 0) return err;
+  const dim3 grid((S + C::BQ - 1) / C::BQ, bh);
+  kernel<<<grid, C::THREADS, C::BYTES, stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), S,
+      scale * LOG2E, causal);
+  return (int)cudaGetLastError();
+}
+
+// ----------------------------------------------------------------- f32 --
 
 template <int D>
 struct F32Layout {
@@ -142,111 +405,6 @@ __device__ __forceinline__ float softmax_update(const float* scores, int k0,
   l = l * corr + sum;
   m = m_new;
   return corr;
-}
-
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
-                      __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                      int S, float scale, int causal) {
-  using L = Bf16Layout<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem + L::Q);
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem + L::K);
-  __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(smem + L::V);
-  float* Ss = reinterpret_cast<float*>(smem + L::S);
-  __nv_bfloat16* Ps = reinterpret_cast<__nv_bfloat16*>(smem + L::P);
-  float* Os = reinterpret_cast<float*>(smem + L::O);
-
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest first
-  const size_t base = (size_t)blockIdx.y * S * D;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int row = warp * 16 + (lane >> 1);  // the row this lane pair owns
-  const int half = lane & 1;
-  const int qpos = q0 + row;
-
-  load_rows<__nv_bfloat16, D, L::LDT>(Qs, q + base, q0, S, tid);
-  for (int i = tid; i < BQ * D; i += NTHREADS) Os[(i / D) * L::LDO + i % D] = 0.f;
-
-  const int n_kb = (S + BK - 1) / BK;
-  const int kb_end = causal ? min(n_kb, (q0 + BQ - 1) / BK + 1) : n_kb;
-  float m = MASK_VALUE, l = 0.f;
-
-  for (int kb = 0; kb < kb_end; ++kb) {
-    const int k0 = kb * BK;
-    __syncthreads();  // all warps are done with the previous K/V tiles
-    load_rows<__nv_bfloat16, D, L::LDT>(Ks, k + base, k0, S, tid);
-    load_rows<__nv_bfloat16, D, L::LDT>(Vs, v + base, k0, S, tid);
-    __syncthreads();
-
-    // scores of this warp's 16 rows: Q K^T, bf16 in, f32 accumulate
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> sacc[BK / 16];
-#pragma unroll
-    for (int n = 0; n < BK / 16; ++n) wmma::fill_fragment(sacc[n], 0.f);
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> qa;
-      wmma::load_matrix_sync(qa, Qs + warp * 16 * L::LDT + kk, L::LDT);
-#pragma unroll
-      for (int n = 0; n < BK / 16; ++n) {
-        // K stored [kv, D] row-major is K^T column-major
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> kt;
-        wmma::load_matrix_sync(kt, Ks + n * 16 * L::LDT + kk, L::LDT);
-        wmma::mma_sync(sacc[n], qa, kt, sacc[n]);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < BK / 16; ++n) {
-      wmma::store_matrix_sync(Ss + warp * 16 * L::LDS + n * 16, sacc[n], L::LDS,
-                              wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    float scaled[32];
-    const float* srow = Ss + row * L::LDS + half * 32;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) scaled[j] = srow[j] * scale;
-    __nv_bfloat16* prow = Ps + row * L::LDP + half * 32;
-    const float corr = softmax_update(
-        scaled, k0, half * 32, qpos, S, causal, m, l,
-        [&](int j, float p) { prow[j] = __float2bfloat16(p); });
-    float* orow = Os + row * L::LDO + half * (D / 2);
-#pragma unroll
-    for (int c = 0; c < D / 2; ++c) orow[c] *= corr;
-    __syncwarp();
-
-    // O += P V on this warp's rows
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> pa[BK / 16];
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      wmma::load_matrix_sync(pa[kk], Ps + warp * 16 * L::LDP + kk * 16, L::LDP);
-    }
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> oacc;
-      float* otile = Os + warp * 16 * L::LDO + n * 16;
-      wmma::load_matrix_sync(oacc, otile, L::LDO, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> vb;
-        wmma::load_matrix_sync(vb, Vs + kk * 16 * L::LDT + n * 16, L::LDT);
-        wmma::mma_sync(oacc, pa[kk], vb, oacc);
-      }
-      wmma::store_matrix_sync(otile, oacc, L::LDO, wmma::mem_row_major);
-    }
-    __syncwarp();
-  }
-
-  const float l_safe = fmaxf(l, 1e-30f);
-  if (qpos < S) {
-    const float* orow = Os + row * L::LDO + half * (D / 2);
-    __nv_bfloat16* dst = o + base + (size_t)qpos * D + half * (D / 2);
-#pragma unroll
-    for (int c = 0; c < D / 2; ++c) dst[c] = __float2bfloat16(orow[c] / l_safe);
-    if (half == 0) lse[(size_t)blockIdx.y * S + qpos] = m + logf(l_safe);
-  }
 }
 
 template <int D>
@@ -321,18 +479,20 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <typename T, int D, typename Kernel>
-int launch(Kernel kernel, size_t smem, const void* q, const void* k,
-           const void* v, void* o, void* lse, int bh, int S, float scale,
-           int causal, cudaStream_t stream) {
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               void* lse, int bh, int S, float scale, int causal,
+               cudaStream_t stream) {
+  auto kernel = flash_fwd_f32_kernel<D>;
+  constexpr size_t smem = F32Layout<D>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + BQ - 1) / BQ, bh);
   kernel<<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      S, scale, causal);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), S, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -341,18 +501,16 @@ int dispatch(int is_bf16, const void* q, const void* k, const void* v, void* o,
              void* lse, int bh, int S, float scale, int causal,
              cudaStream_t stream) {
   if (is_bf16) {
-    return launch<__nv_bfloat16, D>(flash_fwd_bf16_kernel<D>,
-                                    Bf16Layout<D>::BYTES, q, k, v, o, lse, bh,
-                                    S, scale, causal, stream);
+    return launch_bf16<D>(q, k, v, o, lse, bh, S, scale, causal, stream);
   }
-  return launch<float, D>(flash_fwd_f32_kernel<D>, F32Layout<D>::BYTES, q, k,
-                          v, o, lse, bh, S, scale, causal, stream);
+  return launch_f32<D>(q, k, v, o, lse, bh, S, scale, causal, stream);
 }
 
 }  // namespace
 
-// Returns 0 on success, a cudaError_t code, or -1 for arguments the kernel
-// does not take (the Python wrapper checks them first).
+// Returns 0 on success, a cudaError_t code, or a negative code of
+// kf_error_string for arguments the kernel does not take (the Python
+// wrapper checks them first).
 extern "C" int kf_flash_fwd(const void* q, const void* k, const void* v,
                             void* o, void* lse, int bh, int seq, int head_dim,
                             int causal, int is_bf16, float scale,
@@ -373,5 +531,9 @@ extern "C" int kf_flash_fwd(const void* q, const void* k, const void* v,
 
 extern "C" const char* kf_error_string(int code) {
   if (code == KF_BAD_ARGS) return "unsupported arguments";
+  if (code == KF_TMA_ENCODE_FAILED) return "cuTensorMapEncodeTiled failed";
+  if (code == KF_BAD_REGS) {
+    return "kernel's entry register count differs from its setmaxnreg budget";
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

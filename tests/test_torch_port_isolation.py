@@ -24,11 +24,12 @@ from kungfu_tpu_torch.models.transformer import (Transformer,
 from kungfu_tpu_torch.utils.device import resolve_device
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "kungfu_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+#: scripts that drive the port on the card, outside its package
+PORT_SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "scripts" / "flash_timing.py"]
+PORT_FILES = sorted((ROOT / "kungfu_tpu_torch").rglob("*.py")) + PORT_SCRIPTS
 PORT_MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
-    for p in PORT_FILES if p.name != "chip_smoke.py")
+    for p in PORT_FILES if p not in PORT_SCRIPTS)
 FORBIDDEN = ("jax", "kungfu_tpu")
 
 
