@@ -22,8 +22,8 @@ Phases (any failed check exits non-zero before the result line):
              with the tolerances below; timed (median of CUDA-event
              windows) beside its plain version and one PyTorch library
              call, the flash forward at its three main-path shapes and
-             dK/dV at the two training shapes, with the host µs per
-             launch;
+             dQ and dK/dV at the two training shapes, with the host µs
+             per launch;
 4. forward — the flagship forward (vocab 32128, d_model 768, 12 layers,
              12 heads, d_ff 3072, RoPE, causal, bf16, ids [4, 256]) with
              random weights from a seed, through the kernel, held
@@ -60,7 +60,10 @@ Phases (any failed check exits non-zero before the result line):
 Phase 3 also holds the ring reduce-scatter and all-gather kernels
 bitwise against their plain versions, at the main path's shapes (a
 262,144-column bucket over four ranks, and the fused [4, 134,404,608]
-gradient) and at the reference suite's edges.
+gradient), at the reference suite's edges and at rows the
+reduce-scatter's vector loads cannot take whole (a base off 16 bytes, a
+row stride off 4 elements, odd chunks and cuts, k = 16), and times each
+with its host µs per launch.
 
 Each path's launches are counted from zero just before it runs.  It
 prints a ``kernels`` JSON line, the ``nvidia-smi`` line, and last
@@ -431,6 +434,8 @@ def phase_flash_backward(torch, attention, spec):
             q, k, v, do, lse, delta, True))
         dkv_ms = device_ms(torch, lambda: attention._launch_bwd_dkv(
             q, k, v, do, lse, delta, True))
+        dq_us = host_us(torch, lambda: attention._launch_bwd_dq(
+            q, k, v, do, lse, delta, True))
         dkv_us = host_us(torch, lambda: attention._launch_bwd_dkv(
             q, k, v, do, lse, delta, True))
         plain_ms = device_ms(
@@ -457,13 +462,15 @@ def phase_flash_backward(torch, attention, spec):
         t_dkv = bound(spec, 4 * 2 * d * pairs, 6 * bh * s * d * 2 + rows)
         timing[label] = {
             "dq": {"ms": dq_ms, "plain_ms": plain_ms,
-                   "library_ms": library_ms, **t_dq},
+                   "library_ms": library_ms, "host_us": dq_us, **t_dq},
             "dkv": {"ms": dkv_ms, "plain_ms": plain_ms,
                     "library_ms": library_ms, "host_us": dkv_us, **t_dkv},
         }
         print(f"flash bwd timing {label} [{bh}, {s}, {d}]: dQ {dq_ms:.4f} ms "
               f"(bound {t_dq['bound_ms']:.4f}, {t_dq['bound_by']}, "
-              f"{t_dq['flops'] / dq_ms / 1e9:.1f} TFLOP/s), dK/dV "
+              f"{t_dq['bound_ms'] / dq_ms:.1%} of it, "
+              f"{t_dq['flops'] / dq_ms / 1e9:.1f} TFLOP/s, host "
+              f"{dq_us:.1f} us per launch), dK/dV "
               f"{dkv_ms:.4f} ms (bound {t_dkv['bound_ms']:.4f}, "
               f"{t_dkv['bound_by']}, {t_dkv['bound_ms'] / dkv_ms:.1%} of it, "
               f"{t_dkv['flops'] / dkv_ms / 1e9:.1f} TFLOP/s, host "
@@ -1003,6 +1010,20 @@ def phase_ring(torch, ringk, rc, spec):
               f"kernel != plain version")
         return cut < chunk
 
+    def view_case(k, chunk, cut, dtype, off, pad):
+        # rows of a wider buffer: the base `off` elements in (not 16-byte
+        # aligned when off is 1), the row stride k*chunk + off + pad
+        x = data(k, k * chunk + off + pad, dtype)[:, off:off + k * chunk]
+        rs = ringk.reduce_scatter(x, cut)
+        shards = data(k, chunk + off + pad, dtype)[:, off:off + chunk]
+        shards.copy_(rs)
+        ag = ringk.all_gather(shards, cut)
+        torch.cuda.synchronize()
+        ok = (torch.equal(rs, rc.ring_reduce_scatter_reference(x, cut))
+              and torch.equal(ag, rc.ring_all_gather_reference(rs, cut)))
+        check(ok, f"ring k={k} chunk={chunk} cut={cut} {dtype} rows at "
+              f"offset {off}, stride {x.stride(0)}: kernel != plain version")
+
     split = 0
     cases = 0
     for k in (2, 3, 5, 8):
@@ -1020,6 +1041,24 @@ def phase_ring(torch, ringk, rc, spec):
           f"{split} with two bands: reduce-scatter and all-gather bitwise "
           f"equal to the plain versions; int32 equal to view(k, k, "
           f"chunk).sum(0)")
+    views = 0
+    for k in (3, 4, 16):
+        for chunk in (1001, 4097):
+            for dtype in (torch.float32, torch.bfloat16, torch.int32):
+                for cut in (chunk // 2 | 1, chunk):
+                    for off, pad in ((1, 0), (0, 3), (1, 3)):
+                        view_case(k, chunk, cut, dtype, off, pad)
+                        views += 1
+    for bidi in (False, True):
+        for dtype in (torch.float32, torch.bfloat16, torch.int32):
+            case(16, 4096, dtype, bidi)
+            views += 1
+    print(f"ring edges, unaligned rows: {views} cases (k 3/4/16, chunk 1001/"
+          f"4097, f32/bf16/int32, an odd cut or one band; rows of a wider "
+          f"buffer from element 1, and strides of k*chunk + 1, + 3, + 4 "
+          f"elements; and k = 16 at chunk 4096 with the reference's cut): "
+          f"reduce-scatter and all-gather bitwise equal to the plain "
+          f"versions")
 
     k = RANKS
     shapes = {"bucket": 262_144, "fused": FLAGSHIP_PARAMS // RANKS}
@@ -1046,6 +1085,9 @@ def phase_ring(torch, ringk, rc, spec):
         rs_lib = device_ms(torch, lambda: x.view(k, k, chunk).sum(0), it, win)
         ag_lib = device_ms(torch, lambda: rs.reshape(1, -1).expand(
             k, -1).contiguous(), it, win)
+        calls = 20 if big else 200
+        rs_us = host_us(torch, lambda: ringk.reduce_scatter(x), calls)
+        ag_us = host_us(torch, lambda: ringk.all_gather(rs), calls)
         # each kernel reads its input once and writes its output once:
         # k*k*chunk and k*chunk f32 elements, the other way round for the
         # all-gather; no arithmetic to speak of
@@ -1053,15 +1095,16 @@ def phase_ring(torch, ringk, rc, spec):
         t = bound(spec, 0, nbytes)
         timing[label] = {
             "rs": {"ms": rs_ms, "plain_ms": rs_plain, "library_ms": rs_lib,
-                   **t},
+                   "host_us": rs_us, **t},
             "ag": {"ms": ag_ms, "plain_ms": ag_plain, "library_ms": ag_lib,
-                   **t}}
+                   "host_us": ag_us, **t}}
         print(f"ring timing {label} k={k} chunk={chunk} f32: reduce-scatter "
               f"{rs_ms:.4f} ms (plain {rs_plain:.4f}, view(k, k, chunk)."
               f"sum(0) {rs_lib:.4f}), all-gather {ag_ms:.4f} ms (plain "
               f"{ag_plain:.4f}, expand().contiguous() {ag_lib:.4f}); bound "
               f"{t['bound_ms']:.4f} ms ({nbytes} bytes); "
-              f"{nbytes / rs_ms / 1e6:.0f} and {nbytes / ag_ms / 1e6:.0f} GB/s")
+              f"{nbytes / rs_ms / 1e6:.0f} and {nbytes / ag_ms / 1e6:.0f} GB/s; "
+              f"host {rs_us:.1f} and {ag_us:.1f} us per launch")
         del x, rs
         torch.cuda.empty_cache()
     return timing
@@ -1296,7 +1339,9 @@ def phase_zero(torch, np, kernels, tr, stage: int, ssgd_p1):
 
 #: the wgmma/TMA kernels: their ptxas report must show no spills and
 #: their SASS must hold wgmma (HGMMA) and TMA load (UTMALDG) instructions
-WGMMA_KERNELS = ("flash_fwd_bf16_wgmma_kernel", "flash_bwd_dkv_bf16_wgmma_kernel")
+WGMMA_KERNELS = ("flash_fwd_bf16_wgmma_kernel",
+                 "flash_bwd_dq_bf16_wgmma_kernel",
+                 "flash_bwd_dkv_bf16_wgmma_kernel")
 
 
 def _ptxas_report(log: str) -> dict:
@@ -1358,7 +1403,9 @@ def build_all(torch, attention, lmk, ringk) -> dict:
     for b in built:
         print(f"  {b.path.name}: nvcc {b.seconds:.2f} s")
         for line in b.log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
+            # "Performance": ptxas's warning that it serialised wgmma
+            if any(w in line for w in ("registers", "spill", "Compiling",
+                                       "Performance")):
                 print(f"  ptxas: {line.strip()}")
     for b in built[:2]:
         report = _ptxas_report(b.log)
@@ -1374,7 +1421,7 @@ def build_all(torch, attention, lmk, ringk) -> dict:
                   f"{fn}: SASS without wgmma or TMA loads: {counts}")
             info["kernels"][fn] = {"ptxas": lines, **counts}
     names = " ".join(info["kernels"])
-    check(all(k in names for k in WGMMA_KERNELS) and len(info["kernels"]) == 6,
+    check(all(k in names for k in WGMMA_KERNELS) and len(info["kernels"]) == 9,
           f"expected the wgmma kernels at D 32/64/128, found {names}")
     return info
 
@@ -1459,8 +1506,8 @@ def main() -> int:
     paths = (train, train_fused, ssgd, zero2, zero3)
 
     def row(name, route, source, replaces, key, err, timing):
-        extra = {k: timing[k] for k in ("plain_head_ms", "bound_fp32_ms")
-                 if k in timing}
+        extra = {k: timing[k] for k in ("plain_head_ms", "bound_fp32_ms",
+                                        "host_us") if k in timing}
         return {"name": name, "route": route, "source": source,
                 "replaces": replaces,
                 "launches": (fwd["launches"] + serve["launches"]
@@ -1478,7 +1525,7 @@ def main() -> int:
         return {**row(name, "cuda", cu + "ring.cu", replaces, key, 0.0,
                       ring_timing["fused"][kind]),
                 **{f"bucket_{k}": bucket[k] for k in (
-                    "ms", "plain_ms", "bound_ms", "library_ms")}}
+                    "ms", "plain_ms", "bound_ms", "library_ms", "host_us")}}
 
     cu = "kungfu_tpu_torch/ops/cuda/csrc/"
     tri = "kungfu_tpu_torch/ops/triton/xent.py"

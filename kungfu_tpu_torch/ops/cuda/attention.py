@@ -3,11 +3,11 @@ PyTorch versions.
 
 Port of ``kungfu_tpu/ops/pallas/attention.py``.  The kernels replace the
 TPU kernels ``_fwd_kernel`` (``csrc/flash_fwd.cu``), ``_bwd_dq_kernel``
-and ``_bwd_dkv_kernel`` (``csrc/flash_bwd.cu``).  In bf16 the forward and
-the dK/dV kernel are warp-specialised Hopper kernels (wgmma products,
-TMA tile rings over 3-D tensor maps that the C launchers encode on each
-call, ``csrc/hopper.cuh``); the dQ kernel and the f32 kernels are the
-first ports (WMMA, and FMA on the CUDA cores).  Their plain versions:
+and ``_bwd_dkv_kernel`` (``csrc/flash_bwd.cu``).  In bf16 all three are
+warp-specialised Hopper kernels (wgmma products, TMA tile rings over 3-D
+tensor maps that the C launchers encode on each call,
+``csrc/hopper.cuh``); the f32 kernels use FMA on the CUDA cores.  Their
+plain versions:
 :func:`flash_attention_reference` computes the forward with the same f32
 upcast, ``1/sqrt(D)`` scale, ``-1e30`` mask and ``1e-30`` clamp in one
 pass; :func:`flash_attention_backward_reference` is the reference's

@@ -4,7 +4,9 @@ hand-written Hopper kernels of ``csrc/ring.cu``.
 They replace ``kungfu_tpu/ops/pallas/collectives.py::_rs_kernel`` and
 ``::_ag_kernel``.  Each wrapper takes one ring's stacked buffers on one
 card (row ``r`` is rank ``r``'s), checks them, and launches one kernel
-for all ``k`` ranks, which passes partial sums (or tiles) from rank to
+for all ``k`` ranks.  The reduce-scatter folds each output vector
+directly from the ``k`` ranks' rows, in the ring's order (a hop of the
+ring is a load on one card); the all-gather passes tiles from rank to
 rank through per-block slots and flags in device memory.  Their plain
 versions, which compute the same bits, are
 :func:`kungfu_tpu_torch.ops.collectives.ring_reduce_scatter_reference`
@@ -12,10 +14,11 @@ and :func:`~kungfu_tpu_torch.ops.collectives.ring_all_gather_reference`;
 :mod:`kungfu_tpu_torch.ops.collectives` routes between the two.  A CPU
 tensor, a failed build or a refused launch raises: nothing falls back.
 
-The kernel's scratch (two tiles and two flags per resident block) is
-allocated once per card at first launch and is independent of the
-buffers' size.  Its flags are never reset: each launch raises the epoch
-past every flag value the one before wrote.  Launches on one card are
+The reduce-scatter keeps nothing between launches.  The all-gather's
+scratch (two tiles and two flags per resident block) is allocated once
+per card at first launch and is independent of the buffers' size.  Its
+flags are never reset: each launch raises the epoch past every flag
+value the one before wrote.  All-gather launches on one card are
 serialised on the caller's stream, as the epoch requires.
 """
 
@@ -74,13 +77,14 @@ def load() -> _build.Built:
             built = _build.build("ring.cu")
             lib = built.lib
             ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            lib.kf_ring_rs.argtypes = [i32, ptr, ptr, i32, i64, i64, ptr]
             lib.kf_ring_tile.argtypes = []
             lib.kf_ring_capacity.argtypes = [ctypes.POINTER(ctypes.c_int)]
-            lib.kf_ring_launch.argtypes = [
-                i32, i32, ptr, ptr, i32, i64, i64, ptr, ptr, i32,
+            lib.kf_ring_ag_launch.argtypes = [
+                i32, ptr, ptr, i32, i64, i64, ptr, ptr, i32,
                 ctypes.POINTER(ctypes.c_uint64), ptr]
-            for fn in (lib.kf_ring_tile, lib.kf_ring_capacity,
-                       lib.kf_ring_launch):
+            for fn in (lib.kf_ring_rs, lib.kf_ring_tile, lib.kf_ring_capacity,
+                       lib.kf_ring_ag_launch):
                 fn.restype = ctypes.c_int
             lib.kf_error_string.argtypes = [ctypes.c_int]
             lib.kf_error_string.restype = ctypes.c_char_p
@@ -105,31 +109,37 @@ def _check(x: torch.Tensor, what: str) -> None:
         raise ValueError(f"each rank's row of {what} must be contiguous")
 
 
-def _launch(kind: int, code: int, x: torch.Tensor, out: torch.Tensor,
-            chunk: int, cut: int) -> None:
+def _rows(t: torch.Tensor):
+    """The ``k`` row base pointers of ``t`` as a C array."""
+    step = t.stride(0) * t.element_size()
+    base = t.data_ptr()
+    return (ctypes.c_void_p * t.shape[0])(
+        *(base + r * step for r in range(t.shape[0])))
+
+
+def _launch_ag(code: int, x: torch.Tensor, out: torch.Tensor, chunk: int,
+               cut: int) -> None:
     lib = load().lib
     k = x.shape[0]
-    rows = lambda t: (ctypes.c_void_p * k)(  # noqa: E731
-        *(t.data_ptr() + r * t.stride(0) * t.element_size() for r in range(k)))
     with _lock:
         scratch = _scratch.get(x.device)
         if scratch is None:
             scratch = _scratch[x.device] = _Scratch(lib, x.device)
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = lib.kf_ring_launch(
-                kind, code, rows(x), rows(out), k, chunk, cut,
+            err = lib.kf_ring_ag_launch(
+                code, _rows(x), _rows(out), k, chunk, cut,
                 scratch.slot.data_ptr(), scratch.flag.data_ptr(),
                 scratch.blocks, ctypes.byref(scratch.base), stream)
-    _raise_on(lib, err, "launch")
+    _raise_on(lib, err, "all-gather launch")
 
 
 def reduce_scatter(parts: torch.Tensor, cut: Optional[int] = None
                    ) -> torch.Tensor:
     """The reduce-scatter kernel for one ring: ``parts`` ``[k, k*chunk]``
-    (row ``r``: rank ``r``'s mesh-major flat buffer) to ``[k, chunk]``,
-    f32, bf16 or int32; ``cut`` ends the clockwise band (default
-    ``chunk``: one direction)."""
+    (row ``r``: rank ``r``'s mesh-major flat buffer; any row stride and
+    base) to ``[k, chunk]``, f32, bf16 or int32; ``cut`` ends the
+    clockwise band (default ``chunk``: one direction)."""
     _check(parts, "parts")
     k = parts.shape[0]
     if parts.dtype not in _RS_CODES:
@@ -143,7 +153,12 @@ def reduce_scatter(parts: torch.Tensor, cut: Optional[int] = None
     if not 0 < cut <= chunk:
         raise ValueError(f"band cut {cut} outside (0, {chunk}]")
     out = torch.empty((k, chunk), dtype=parts.dtype, device=parts.device)
-    _launch(0, _RS_CODES[parts.dtype], parts, out, chunk, cut)
+    lib = load().lib
+    with torch.cuda.device(parts.device):
+        err = lib.kf_ring_rs(_RS_CODES[parts.dtype], _rows(parts), _rows(out),
+                             k, chunk, cut,
+                             torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, err, "reduce-scatter launch")
     launch_counts["ring_rs"] += 1
     return out
 
@@ -165,7 +180,7 @@ def all_gather(shards: torch.Tensor, cut: Optional[int] = None
     out = torch.empty((k, k * chunk), dtype=shards.dtype, device=shards.device)
     words = 2 if size == 8 else 1
     wdt = torch.int16 if size == 2 else torch.int32
-    _launch(1, min(size, 4), shards.view(wdt), out.view(wdt), chunk * words,
-            cut * words)
+    _launch_ag(min(size, 4), shards.view(wdt), out.view(wdt), chunk * words,
+               cut * words)
     launch_counts["ring_ag"] += 1
     return out

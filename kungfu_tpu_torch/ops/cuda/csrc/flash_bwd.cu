@@ -13,10 +13,10 @@
 // delta is computed by the caller (the reference computes it outside its
 // Pallas kernels too).  Like the reference there are two kernels and no
 // atomics, so every result is deterministic:
-// * dQ: one CTA per (bh, 64-row q block) loops over the kv blocks up to
-//   the causal edge, accumulating dQ; q blocks run heaviest first.
-// * dK/dV: one CTA per (bh, 64-row kv block) loops over the q blocks from
-//   the causal edge on, accumulating dK and dV.
+// * dQ: one CTA per (bh, q block) loops over the kv blocks up to the
+//   causal edge, accumulating dQ; q blocks run heaviest first.
+// * dK/dV: one CTA per (bh, kv block) loops over the q blocks from the
+//   causal edge on, accumulating dK and dV.
 //
 // P uses the lse that the port's forward wrote: bf16 takes the product of
 // unscaled Q and K (f32 accumulate), then x scale in f32; f32 takes Q
@@ -26,14 +26,29 @@
 // P to dO's dtype before P^T dO, dS and Q*scale to Q's dtype before
 // dS^T (Q*scale); every product accumulates in f32.
 //
-// dQ (bf16 and f32) and dK/dV f32: four warps per CTA, each owning 16
-// rows of the product it accumulates; the accumulators stay in registers
-// (WMMA fragments for bf16, arrays for f32) across the whole loop,
-// because unlike the forward nothing rescales them.  Scores, dP, P and
-// dS live in shared memory one 64x64 tile at a time and never reach
-// device memory.  Rows past S load as zeros and are masked (no padding
-// copies); lse and delta are plain [BH, S] vectors.  f32 uses FMA on the
-// CUDA cores, never TF32.
+// f32 (dQ and dK/dV): four warps per CTA, 64-row tiles, each warp owning
+// 16 rows of the product it accumulates in registers across the whole
+// loop; P and dS pass through shared memory one 64x64 tile at a time and
+// never reach device memory.  Rows past S load as zeros and are masked
+// (no padding copies); lse and delta are plain [BH, S] vectors.  FMA on
+// the CUDA cores, never TF32.
+//
+// dQ bf16 (flash_bwd_dq_bf16_wgmma_kernel): warp-specialised wgmma and
+// TMA, q-major.  A CTA owns 128 q rows: two consumer warpgroups of 64
+// rows, with Q and dO resident in shared memory (one TMA load) and each
+// thread's lse (times log2 e) and delta rows in registers.  The producer
+// warpgroup streams K and V tiles of 64 rows through a two-stage ring of
+// full/empty mbarriers, K and V on separate full barriers so that
+// S = Q K^T starts before V lands.  Per kv tile each consumer issues
+// S = Q K^T and dP = dO V^T by wgmma (operands K-major as stored), forms
+// P = exp2(S scale log2 e - lse log2 e) in registers while dP is still in
+// flight, then dS = P (dP - delta), rounds it to bf16 in the accumulator
+// layout and feeds it as the register A operand of dQ += dS K, with K
+// (stored [kv, D]) MN-major through the transpose bit.  No score, P or
+// dS tile touches shared memory; dQ (16-64 f32 registers) stays in
+// registers for the whole loop and is scaled once in the epilogue.  Masks
+// run only on a tile that crosses the diagonal or S; there kv >= S (K
+// zero-filled) and q >= S (lse read as 0) are masked explicitly.
 //
 // dK/dV bf16 (flash_bwd_dkv_bf16_wgmma_kernel): warp-specialised wgmma
 // and TMA, kv-major from the start, so nothing is transposed through
@@ -59,17 +74,15 @@
 //
 // The backward recomputes S the same way as flash_fwd.cu (the bf16
 // product of unscaled Q and K, f32 accumulate, times scale in f32), but
-// not in the same instruction order: the forward's wgmma and the dQ
-// kernel's WMMA may sum a row's products in another order, so P can
+// not in the same instruction order: the forward's and the backward's
+// wgmma chains may sum a row's products in another order, so P can
 // differ from the forward's at the f32 ulp level; chip_smoke.py holds the
 // backward to its tolerances with the forward's lse.
 //
 // What bounds it: at the flagship training shape (BH 48, S 2048, D 64,
 // causal) the two kernels do seven 2*D-FLOP products per causal pair,
 // ~90 GFLOP, against ~89 MB of operand traffic, so the tensor cores set
-// the least time.  The dQ kernel (WMMA, no TMA or pipelining yet) is
-// bound in practice by its serial load -> sync -> compute steps and its
-// shared-memory round trips; PERF.md holds the measured times.
+// the least time.  PERF.md holds the measured times.
 //
 // Interface: plain C launchers taking device pointers and the caller's
 // stream, loaded with ctypes (kungfu_tpu_torch/ops/cuda/attention.py).
@@ -78,12 +91,9 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
@@ -98,23 +108,9 @@ __host__ __device__ constexpr size_t round_up(size_t x, size_t a) {
   return (x + a - 1) / a * a;
 }
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// Rows [r0, r0 + 64) of a contiguous [S, D] matrix into shared memory with
-// leading dimension LD, 16 bytes per thread per step, each element
-// multiplied by `scale` in f32 and rounded back to T (scale 1 copies);
-// rows past S are zero.
+// Rows [r0, r0 + 64) of a contiguous f32 [S, D] matrix into shared memory
+// with leading dimension LD, 16 bytes per thread per step, each element
+// multiplied by `scale` (scale 1 copies); rows past S are zero.
 template <typename T, int D, int LD>
 __device__ __forceinline__ void load_rows(T* dst, const T* __restrict__ src,
                                           int r0, int S, int tid,
@@ -130,7 +126,7 @@ __device__ __forceinline__ void load_rows(T* dst, const T* __restrict__ src,
       if (scale != 1.f) {
         T* e = reinterpret_cast<T*>(&val);
 #pragma unroll
-        for (int j = 0; j < EPV; ++j) e[j] = from_f32<T>(to_f32(e[j]) * scale);
+        for (int j = 0; j < EPV; ++j) e[j] *= scale;
       }
     }
     *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
@@ -143,179 +139,258 @@ __device__ __forceinline__ bool live(int qpos, int kpos, int S, int causal) {
 
 // ---------------------------------------------------------------- bf16 --
 
-// Shared memory of the bf16 kernels.  Tiles keep the forward's padded
-// leading dimensions (rows stay 32-byte aligned for WMMA, banks are
-// staggered).  The f32 staging of the epilogue reuses the two score
-// tiles, which are dead by then.
 template <int D>
-struct Bf16Layout {
-  static constexpr int LDT = D + 8;   // bf16 [64, D] operand tiles
-  static constexpr int LDS = BK + 4;  // f32 [64, 64] S and dP
-  static constexpr int LDP = BK + 8;  // bf16 [64, 64] P and dS
-  static constexpr int LDO = D + 4;   // f32 [64, D] staging
-  static constexpr size_t TILE = round_up(size_t(64) * LDT * 2, 128);
-  static constexpr size_t FTILE = round_up(size_t(64) * LDS * 4, 128);
-  static constexpr size_t PTILE = round_up(size_t(64) * LDP * 2, 128);
-  static_assert(size_t(64) * LDO * 4 <= 2 * FTILE, "staging overflows");
+struct DqCfg {
+  static constexpr int BQ = 128;                 // q rows per CTA
+  // kv rows per streamed tile: at D = 128 the S and dP accumulators are
+  // halved, since with 64-row tiles they, dQ and the dS fragments made
+  // ptxas spill
+  static constexpr int BK = D == 128 ? 32 : 64;
+  static constexpr int STAGES = 2;
+  static constexpr int THREADS = 384;            // producer + 2 consumers
+  static constexpr int ENTRY_REGS = 168;         // 65536 / 384, multiple of 8
+  static constexpr int PRODUCER_REGS = 24;
+  static constexpr int CONSUMER_REGS =
+      ENTRY_REGS + (ENTRY_REGS - PRODUCER_REGS) / 2;
+  static constexpr int Q_BYTES = BQ * D * 2;
+  static constexpr int KV_BYTES = BK * D * 2;
+  static constexpr int DO_OFF = Q_BYTES;                     // Q at 0
+  static constexpr int K_OFF = DO_OFF + Q_BYTES;             // STAGES tiles
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;    // STAGES tiles
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  // q_full, k_full[STAGES], v_full[STAGES], empty[STAGES]
+  static constexpr int BYTES = BAR_OFF + (1 + 3 * STAGES) * 8 + 1024;
+  static_assert(KV_BYTES % 1024 == 0, "alignment");
+
+  // shared-memory addresses from the 1024-aligned base
+  static __device__ uint32_t q_tile(uint32_t b) { return b; }
+  static __device__ uint32_t do_tile(uint32_t b) { return b + DO_OFF; }
+  static __device__ uint32_t k_tile(uint32_t b, int s) {
+    return b + K_OFF + s * KV_BYTES;
+  }
+  static __device__ uint32_t v_tile(uint32_t b, int s) {
+    return b + V_OFF + s * KV_BYTES;
+  }
+  static __device__ uint32_t q_full(uint32_t b) { return b + BAR_OFF; }
+  static __device__ uint32_t k_full(uint32_t b, int s) {
+    return b + BAR_OFF + 8u * (1 + s);
+  }
+  static __device__ uint32_t v_full(uint32_t b, int s) {
+    return b + BAR_OFF + 8u * (1 + STAGES + s);
+  }
+  static __device__ uint32_t empty(uint32_t b, int s) {
+    return b + BAR_OFF + 8u * (1 + 2 * STAGES + s);
+  }
 };
 
-template <int D>
-struct DqBf16Layout : Bf16Layout<D> {
-  using B = Bf16Layout<D>;
-  static constexpr size_t Q = 0;
-  static constexpr size_t DO = Q + B::TILE;
-  static constexpr size_t K = DO + B::TILE;
-  static constexpr size_t V = K + B::TILE;
-  static constexpr size_t S = V + B::TILE;
-  static constexpr size_t DP = S + B::FTILE;
-  static constexpr size_t DS = DP + B::FTILE;
-  static constexpr size_t BYTES = DS + B::PTILE;
-};
-
-using AccFrag = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-using ARow = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using ACol = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major>;
-using BRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using BCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major>;
-
-// S = Q K^T and dP = dO V^T for one warp's 16 q rows against a 64-row kv
-// tile, stored to Ss / dPs (f32, leading dimension LDS).
-template <int D>
-__device__ __forceinline__ void scores_and_dp(const __nv_bfloat16* Qs,
-                                              const __nv_bfloat16* dOs,
-                                              const __nv_bfloat16* Ks,
-                                              const __nv_bfloat16* Vs,
-                                              float* Ss, float* dPs,
-                                              int warp) {
-  using B = Bf16Layout<D>;
-  AccFrag sacc[BK / 16], pacc[BK / 16];
+// P = exp2(S scale log2 e - lse log2 e) in place of S: rows qpos0 + 8 i,
+// columns k0 + 8 j + cq + c.  MASK (a tile that crosses S or the
+// diagonal) zeroes kv >= S (K zero-filled), q >= S (lse read as 0) and,
+// causal, kv > q; a template argument, as in dkv_probs.
+template <bool MASK, int BK>
+__device__ __forceinline__ void dq_probs(float (&sacc)[BK / 2],
+                                         const float (&lse2)[2], int qpos0,
+                                         int k0, int cq, int S, int causal,
+                                         float scale_log2) {
 #pragma unroll
-  for (int n = 0; n < BK / 16; ++n) {
-    wmma::fill_fragment(sacc[n], 0.f);
-    wmma::fill_fragment(pacc[n], 0.f);
-  }
+  for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
-  for (int kk = 0; kk < D; kk += 16) {
-    ARow qa, da;
-    wmma::load_matrix_sync(qa, Qs + warp * 16 * B::LDT + kk, B::LDT);
-    wmma::load_matrix_sync(da, dOs + warp * 16 * B::LDT + kk, B::LDT);
+    for (int i = 0; i < 2; ++i) {
 #pragma unroll
-    for (int n = 0; n < BK / 16; ++n) {
-      // K and V stored [kv, D] row-major are K^T and V^T column-major
-      BCol kt, vt;
-      wmma::load_matrix_sync(kt, Ks + n * 16 * B::LDT + kk, B::LDT);
-      wmma::mma_sync(sacc[n], qa, kt, sacc[n]);
-      wmma::load_matrix_sync(vt, Vs + n * 16 * B::LDT + kk, B::LDT);
-      wmma::mma_sync(pacc[n], da, vt, pacc[n]);
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < BK / 16; ++n) {
-    wmma::store_matrix_sync(Ss + warp * 16 * B::LDS + n * 16, sacc[n], B::LDS,
-                            wmma::mem_row_major);
-    wmma::store_matrix_sync(dPs + warp * 16 * B::LDS + n * 16, pacc[n], B::LDS,
-                            wmma::mem_row_major);
-  }
-}
-
-// The dQ epilogue: one warp's accumulator fragments (16 rows x D) through
-// f32 staging to rows [r0 + warp*16, +16) of a bf16 [S, D] output, each
-// value times `mult`.
-template <int D>
-__device__ __forceinline__ void store_rows(const AccFrag* acc, float* stage,
-                                           __nv_bfloat16* dst, int r0, int S,
-                                           float mult, int warp, int lane) {
-  using B = Bf16Layout<D>;
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    wmma::store_matrix_sync(stage + warp * 16 * B::LDO + n * 16, acc[n], B::LDO,
-                            wmma::mem_row_major);
-  }
-  __syncwarp();
-  const int row = warp * 16 + (lane >> 1), half = lane & 1;
-  if (r0 + row < S) {
-    const float* src = stage + row * B::LDO + half * (D / 2);
-    __nv_bfloat16* out = dst + (size_t)(r0 + row) * D + half * (D / 2);
-#pragma unroll
-    for (int c = 0; c < D / 2; ++c) out[c] = __float2bfloat16(src[c] * mult);
-  }
-  __syncwarp();
-}
-
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const __nv_bfloat16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         __nv_bfloat16* __restrict__ dq, int S, float scale,
-                         int causal) {
-  using L = DqBf16Layout<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem + L::Q);
-  __nv_bfloat16* dOs = reinterpret_cast<__nv_bfloat16*>(smem + L::DO);
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem + L::K);
-  __nv_bfloat16* Vs = reinterpret_cast<__nv_bfloat16*>(smem + L::V);
-  float* Ss = reinterpret_cast<float*>(smem + L::S);
-  float* dPs = reinterpret_cast<float*>(smem + L::DP);
-  __nv_bfloat16* dSs = reinterpret_cast<__nv_bfloat16*>(smem + L::DS);
-
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest first
-  const size_t base = (size_t)blockIdx.y * S * D;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int row = warp * 16 + (lane >> 1);  // the row this lane pair owns
-  const int half = lane & 1;
-  const int qpos = q0 + row;
-  const size_t ridx = (size_t)blockIdx.y * S + qpos;
-  const float row_lse = qpos < S ? lse[ridx] : 0.f;
-  const float row_delta = qpos < S ? delta[ridx] : 0.f;
-
-  load_rows<__nv_bfloat16, D, L::LDT>(Qs, q + base, q0, S, tid);
-  load_rows<__nv_bfloat16, D, L::LDT>(dOs, dout + base, q0, S, tid);
-
-  AccFrag acc[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
-
-  const int n_kb = (S + BK - 1) / BK;
-  const int kb_end = causal ? min(n_kb, (q0 + BQ - 1) / BK + 1) : n_kb;
-  for (int kb = 0; kb < kb_end; ++kb) {
-    const int k0 = kb * BK;
-    __syncthreads();  // all warps are done with the previous K/V tiles
-    load_rows<__nv_bfloat16, D, L::LDT>(Ks, k + base, k0, S, tid);
-    load_rows<__nv_bfloat16, D, L::LDT>(Vs, v + base, k0, S, tid);
-    __syncthreads();
-
-    scores_and_dp<D>(Qs, dOs, Ks, Vs, Ss, dPs, warp);
-    __syncwarp();
-    const float* srow = Ss + row * L::LDS + half * 32;
-    const float* dprow = dPs + row * L::LDS + half * 32;
-    __nv_bfloat16* dsrow = dSs + row * L::LDP + half * 32;
-#pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const bool ok = live(qpos, k0 + half * 32 + j, S, causal);
-      const float p = ok ? expf(srow[j] * scale - row_lse) : 0.f;
-      dsrow[j] = __float2bfloat16(ok ? p * (dprow[j] - row_delta) : 0.f);
-    }
-    __syncwarp();
-
-    // dQ += dS K on this warp's rows (scale applied once, at the end)
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      ARow dsa;
-      wmma::load_matrix_sync(dsa, dSs + warp * 16 * L::LDP + kk * 16, L::LDP);
-#pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
-        BRow kb_frag;
-        wmma::load_matrix_sync(kb_frag, Ks + kk * 16 * L::LDT + n * 16, L::LDT);
-        wmma::mma_sync(acc[n], dsa, kb_frag, acc[n]);
+      for (int c = 0; c < 2; ++c) {
+        const int idx = 4 * j + 2 * i + c;
+        float p = exp2f(sacc[idx] * scale_log2 - lse2[i]);
+        if (MASK) {
+          const int kv = k0 + 8 * j + cq + c, q = qpos0 + 8 * i;
+          if (kv >= S || q >= S || (causal && kv > q)) p = 0.f;
+        }
+        sacc[idx] = p;
       }
     }
   }
-  __syncthreads();  // the staging overlays every warp's score tiles
-  store_rows<D>(acc, Ss, dq + base, q0, S, scale, warp, lane);
+}
+
+// dQ: one CTA per (bh, 128-row q block), heaviest first.  Q and dO stay
+// resident; K and V tiles stream through the producer's ring.  Each
+// consumer warpgroup owns 64 q rows and keeps their lse (times log2 e)
+// and delta in registers.  A tile's dQ product is waited for only after
+// the next tile's S and dP are issued, and its stage is released then.
+template <int D>
+__global__ void __launch_bounds__(384, 1)
+flash_bwd_dq_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                               const __grid_constant__ CUtensorMap k_map,
+                               const __grid_constant__ CUtensorMap v_map,
+                               const __grid_constant__ CUtensorMap do_map,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               __nv_bfloat16* __restrict__ dq, int S,
+                               float scale, int causal) {
+  using C = DqCfg<D>;
+  using G = hopper::TileGeom<D>;
+  using namespace hopper;
+  constexpr int BQ = C::BQ, BKV = C::BK, ST = C::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+
+  const int bh = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // heaviest first
+  const int n_all = (S + BKV - 1) / BKV;
+  const int n_kb = causal ? min(n_all, (q0 + BQ - 1) / BKV + 1) : n_all;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(C::q_full(base), 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(C::k_full(base, s), 1);
+      mbar_init(C::v_full(base, s), 1);
+      mbar_init(C::empty(base, s), 256);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ------------------------------------------------------ producer --
+    setmaxnreg_dec<C::PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      prefetch_map(&k_map);
+      prefetch_map(&v_map);
+      mbar_arrive_expect_tx(C::q_full(base), 2 * C::Q_BYTES);
+      for (int b = 0; b < G::N_BOX; ++b) {
+        tma_load_3d(C::q_tile(base) + b * BQ * G::ROW_BYTES, &q_map,
+                    C::q_full(base), b * G::BOX_COLS, q0, bh);
+        tma_load_3d(C::do_tile(base) + b * BQ * G::ROW_BYTES, &do_map,
+                    C::q_full(base), b * G::BOX_COLS, q0, bh);
+      }
+      for (int kb = 0; kb < n_kb; ++kb) {
+        const int s = kb % ST;
+        mbar_wait(C::empty(base, s), ((kb / ST) & 1) ^ 1);
+        mbar_arrive_expect_tx(C::k_full(base, s), C::KV_BYTES);
+        for (int b = 0; b < G::N_BOX; ++b) {
+          tma_load_3d(C::k_tile(base, s) + b * BKV * G::ROW_BYTES, &k_map,
+                      C::k_full(base, s), b * G::BOX_COLS, kb * BKV, bh);
+        }
+        mbar_arrive_expect_tx(C::v_full(base, s), C::KV_BYTES);
+        for (int b = 0; b < G::N_BOX; ++b) {
+          tma_load_3d(C::v_tile(base, s) + b * BKV * G::ROW_BYTES, &v_map,
+                      C::v_full(base, s), b * G::BOX_COLS, kb * BKV, bh);
+        }
+      }
+    }
+    return;
+  }
+
+  // -------------------------------------------------------- consumer --
+  setmaxnreg_inc<C::CONSUMER_REGS>();
+  const int w = wg - 1;  // q rows [64 w, 64 w + 64) of the block
+  const int qw0 = q0 + 64 * w;
+  const int t = threadIdx.x % 128;
+  const int lane = t % 32;
+  const int qpos0 = qw0 + 16 * (t / 32) + lane / 4;  // + 8 i
+  const int cq = 2 * (lane % 4);
+  const float scale_log2 = scale * LOG2E;
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int q = qpos0 + 8 * i;
+    const size_t idx = (size_t)bh * S + q;
+    lse2[i] = q < S ? lse[idx] * LOG2E : 0.f;
+    dlt[i] = q < S ? delta[idx] : 0.f;
+  }
+  float dq_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+  // this warpgroup's kv tiles end at its own diagonal; the block's tiles
+  // past it are only released
+  const int n_kb_w = causal ? min(n_all, (qw0 + 63) / BKV + 1) : n_all;
+  mbar_wait(C::q_full(base), 0);
+
+  for (int kb = 0; kb < n_kb_w; ++kb) {
+    const int s = kb % ST;
+    const uint32_t ph = (kb / ST) & 1;
+    const int k0 = kb * BKV;
+    // S = Q K^T, then dP = dO V^T (V may land later): K-major operands
+    float sacc[BKV / 2], dpacc[BKV / 2];
+    mbar_wait(C::k_full(base, s), ph);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      Wgmma<BKV>::template ss<0>(
+          sacc, desc_kmajor<D>(C::q_tile(base), BQ, 64 * w, ks),
+          desc_kmajor<D>(C::k_tile(base, s), BKV, 0, ks), ks > 0);
+    }
+    wgmma_commit();
+    mbar_wait(C::v_full(base, s), ph);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      Wgmma<BKV>::template ss<0>(
+          dpacc, desc_kmajor<D>(C::do_tile(base), BQ, 64 * w, ks),
+          desc_kmajor<D>(C::v_tile(base, s), BKV, 0, ks), ks > 0);
+    }
+    wgmma_commit();
+
+    // the groups complete in order: the previous tile's dQ product and
+    // this S are done, dP may still be in flight
+    wgmma_wait<1>();
+    fence_regs(sacc);
+    if (kb > 0) mbar_arrive(C::empty(base, (kb - 1) % ST));
+    if (k0 + BKV > S || qw0 + 64 > S || (causal && k0 + BKV - 1 > qw0)) {
+      dq_probs<true, BKV>(sacc, lse2, qpos0, k0, cq, S, causal, scale_log2);
+    } else {
+      dq_probs<false, BKV>(sacc, lse2, qpos0, k0, cq, S, causal, scale_log2);
+    }
+    wgmma_wait<0>();
+    fence_regs(dpacc);
+    // dS = P (dP - delta), rounded to bf16 as the register A operand of
+    // dQ += dS K; K (stored [kv, D]) is MN-major through the transpose bit
+    uint32_t dsa[BKV / 16][4];
+#pragma unroll
+    for (int kt = 0; kt < BKV / 16; ++kt) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int idx = 8 * kt + 2 * r;
+        const float d = dlt[r % 2];
+        dsa[kt][r] = pack_bf16(sacc[idx] * (dpacc[idx] - d),
+                               sacc[idx + 1] * (dpacc[idx + 1] - d));
+      }
+    }
+    fence_frags(dsa);
+    fence_regs(dq_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < BKV / 16; ++ks) {
+      Wgmma<D>::template rs<1>(dq_acc, dsa[ks],
+                               desc_mnmajor<D>(C::k_tile(base, s), BKV, ks), 1);
+    }
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_regs(dq_acc);
+  if (n_kb_w > 0) mbar_arrive(C::empty(base, (n_kb_w - 1) % ST));
+  // a stage may be released only once its tile has landed: an early
+  // arrival would count towards the phase of the tile before
+  for (int kb = n_kb_w; kb < n_kb; ++kb) {
+    const int s = kb % ST;
+    const uint32_t ph = (kb / ST) & 1;
+    mbar_wait(C::k_full(base, s), ph);
+    mbar_wait(C::v_full(base, s), ph);
+    mbar_arrive(C::empty(base, s));
+  }
+
+  // epilogue: dQ times scale, in bf16, from registers
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int q = qpos0 + 8 * i;
+    if (q < S) {
+      __nv_bfloat16* dst = dq + ((size_t)bh * S + q) * D + cq;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(dst + 8 * j) = pack_bf16(
+            dq_acc[4 * j + 2 * i] * scale, dq_acc[4 * j + 2 * i + 1] * scale);
+      }
+    }
+  }
 }
 
 template <int D>
@@ -370,6 +445,39 @@ struct DkvCfg {
     return b + BAR_OFF + 8u * (1 + 2 * STAGES + s);
   }
 };
+
+// P^T = exp2(S^T scale log2 e - lse log2 e) in place of S^T and, for dK,
+// dS^T = P^T (dP^T - delta) in place of dP^T: rows kv0 + 8 i, columns
+// q0 + 8 j + cq + c.  MASK (a tile that crosses S or the diagonal) zeroes
+// q >= S and, causal, q < kv.  The mask is a template argument, so no
+// element carries a branch: tested per element, the compiler wrapped each
+// of them in a divergent branch with its own convergence barrier.
+template <bool MASK, bool DO_DK, int BQ, int NDP>
+__device__ __forceinline__ void dkv_probs(float (&sacc)[BQ / 2],
+                                          float (&dpacc)[NDP], const float* ls,
+                                          const float* ds, int q0, int kv0,
+                                          int cq, int S, int causal,
+                                          float scale_log2) {
+#pragma unroll
+  for (int j = 0; j < BQ / 8; ++j) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int col = 8 * j + cq + c;
+      const float l2 = ls[col];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int idx = 4 * j + 2 * i + c;
+        float p = exp2f(sacc[idx] * scale_log2 - l2);
+        if (MASK) {
+          const int q = q0 + col;
+          if (q >= S || (causal && q < kv0 + 8 * i)) p = 0.f;
+        }
+        sacc[idx] = p;
+        if constexpr (DO_DK) dpacc[idx] = p * (dpacc[idx] - ds[col]);
+      }
+    }
+  }
+}
 
 // One consumer warpgroup of the dK/dV kernel: kv rows [kvw0, kvw0 + 64)
 // against every streamed q tile; run<DO_DK, DO_DV> accumulates dK, dV or
@@ -436,28 +544,14 @@ struct DkvConsumer {
       fence_regs(sacc);
       if constexpr (DO_DK) fence_regs(dpacc);
 
-      // P^T and dS^T: rows kv0 + 8 i, columns q0 + 8 j + cq + c
-      const bool need_mask = q0 + BQ > S || (causal && q0 < kvw0 + 63);
       const float* ls = lse_s + s * BQ;
       const float* ds = delta_s + s * BQ;
-#pragma unroll
-      for (int j = 0; j < BQ / 8; ++j) {
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int col = 8 * j + cq + c;
-          const float l2 = ls[col];
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const int idx = 4 * j + 2 * i + c;
-            float p = exp2f(sacc[idx] * scale_log2 - l2);
-            if (need_mask) {
-              const int q = q0 + col;
-              if (q >= S || (causal && q < kv0 + 8 * i)) p = 0.f;
-            }
-            sacc[idx] = p;
-            if constexpr (DO_DK) dpacc[idx] = p * (dpacc[idx] - ds[col]);
-          }
-        }
+      if (q0 + BQ > S || (causal && q0 < kvw0 + 63)) {
+        dkv_probs<true, DO_DK, BQ>(sacc, dpacc, ls, ds, q0, kv0, cq, S, causal,
+                                   scale_log2);
+      } else {
+        dkv_probs<false, DO_DK, BQ>(sacc, dpacc, ls, ds, q0, kv0, cq, S,
+                                    causal, scale_log2);
       }
       // dV += P^T dO and dK += dS^T (Q scale): bf16 register A operands,
       // dO and Q MN-major through the transpose bit
@@ -844,31 +938,58 @@ int prepare(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+// Encodes the maps and launches; the first call of each instantiation
+// checks the entry register count setmaxnreg's budget assumes (a mismatch
+// would hang setmaxnreg.inc) and raises its shared-memory limit.
+template <int D>
+int launch_dq_bf16(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta,
+                   void* dq, int bh, int S, float scale, int causal,
+                   cudaStream_t stream) {
+  using C = DqCfg<D>;
+  auto kernel = flash_bwd_dq_bf16_wgmma_kernel<D>;
+  static int ready = 0;
+  if (ready == 0) {
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return (int)err;
+    if (attr.numRegs != C::ENTRY_REGS) return KF_BAD_REGS;
+    if ((err = (cudaError_t)prepare(kernel, C::BYTES)) != cudaSuccess) {
+      return (int)err;
+    }
+    ready = 1;
+  }
+  CUtensorMap qm, km, vm, dom;
+  int err = hopper::encode_rows_map<D>(&qm, q, bh, S, C::BQ);
+  if (err == 0) err = hopper::encode_rows_map<D>(&km, k, bh, S, C::BK);
+  if (err == 0) err = hopper::encode_rows_map<D>(&vm, v, bh, S, C::BK);
+  if (err == 0) err = hopper::encode_rows_map<D>(&dom, dout, bh, S, C::BQ);
+  if (err != 0) return err;
+  const dim3 grid((S + C::BQ - 1) / C::BQ, bh);
+  kernel<<<grid, C::THREADS, C::BYTES, stream>>>(
+      qm, km, vm, dom, lse, delta, static_cast<__nv_bfloat16*>(dq), S, scale,
+      causal);
+  return (int)cudaGetLastError();
+}
+
 template <int D>
 int launch_dq(int is_bf16, const void* q, const void* k, const void* v,
               const void* dout, const float* lse, const float* delta,
               void* dq, int bh, int S, float scale, int causal,
               cudaStream_t stream) {
-  const dim3 grid((S + BQ - 1) / BQ, bh);
-  int err;
   if (is_bf16) {
-    using T = __nv_bfloat16;
-    auto kernel = flash_bwd_dq_bf16_kernel<D>;
-    constexpr size_t smem = DqBf16Layout<D>::BYTES;
-    if ((err = prepare(kernel, smem)) != 0) return err;
-    kernel<<<grid, NTHREADS, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-        static_cast<T*>(dq), S, scale, causal);
-  } else {
-    auto kernel = flash_bwd_dq_f32_kernel<D>;
-    constexpr size_t smem = F32Layout<D>::BYTES;
-    if ((err = prepare(kernel, smem)) != 0) return err;
-    kernel<<<grid, NTHREADS, smem, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-        delta, static_cast<float*>(dq), S, scale, causal);
+    return launch_dq_bf16<D>(q, k, v, dout, lse, delta, dq, bh, S, scale,
+                             causal, stream);
   }
+  const dim3 grid((S + BQ - 1) / BQ, bh);
+  auto kernel = flash_bwd_dq_f32_kernel<D>;
+  constexpr size_t smem = F32Layout<D>::BYTES;
+  int err;
+  if ((err = prepare(kernel, smem)) != 0) return err;
+  kernel<<<grid, NTHREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, static_cast<float*>(dq), S, scale, causal);
   return (int)cudaGetLastError();
 }
 

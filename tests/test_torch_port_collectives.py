@@ -203,6 +203,35 @@ class TestRingBitwise:
         assert _bits(_port_ag(n, rs, bidi)) == \
             _bits(_ref_ag(n, jshard, bidi, impl="pallas"))
 
+    @pytest.mark.parametrize("n", range(2, 9))
+    @pytest.mark.parametrize("bidi", [False, True])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32"])
+    def test_fold_order_of_the_direct_kernel(self, n, bidi, dtype):
+        """The per-element order the CUDA reduce-scatter folds in: rank
+        ``r``'s element of chunk ``r`` is ``((x[r+s][r] + x[r+2s][r]) +
+        ...) + x[r][r]``, ``s = +1`` on ``[0, cut)`` and ``-1`` on
+        ``[cut, chunk)``, each step rounded to the element type, written
+        here as a loop over source ranks; bitwise the plain version and
+        the reference's ``impl="lax"`` ring."""
+        chunk = 4096 if dtype == "bfloat16" else 2048
+        tdt = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+               "int32": torch.int32}[dtype]
+        cut = collectives.band_cut(chunk, tdt, bidi)
+        assert (cut < chunk) == bidi
+        jx, tx = _inputs(n, n * chunk, dtype, 31 * n + bidi)
+        x = tx.view(n, n, chunk)
+        want = torch.empty((n, chunk), dtype=tdt)
+        for r in range(n):
+            for s, lo, hi in ((1, 0, cut), (-1, cut, chunk)):
+                if hi > lo:
+                    acc = x[(r + s) % n, r, lo:hi]
+                    for j in range(2, n + 1):
+                        acc = acc + x[(r + s * j) % n, r, lo:hi]
+                    want[r, lo:hi] = acc
+        assert _bits(collectives.ring_reduce_scatter_reference(tx, cut)) == \
+            _bits(want)
+        assert _bits(_ref_rs(n, jx, bidi)) == _bits(want)
+
     @pytest.mark.parametrize("n", (3, 4))
     @pytest.mark.parametrize("shape", [(5, 7), (3, 37), (1,)])
     def test_all_reduce(self, n, shape):

@@ -178,4 +178,6 @@ def test_flash_kernel_names_map_to_their_profile_family(source, families):
         assert family.endswith("(hand-written)"), (name, family)
         seen.add(family.split(" ")[0])
     assert seen == families
-    assert any("wgmma" in n for n in names), "the bf16 wgmma kernel is gone"
+    for family in families:
+        assert any("wgmma" in n and profile._family(n).startswith(family)
+                   for n in names), f"the bf16 wgmma {family} kernel is gone"
