@@ -14,7 +14,8 @@ Phases (any failed check exits non-zero before the result line):
              kernels compile at their first launch, in phase 3); the
              wgmma/TMA flash kernels must show no register spills in
              ptxas's report and HGMMA and UTMALDG instructions in their
-             SASS (``cuobjdump``);
+             SASS (``cuobjdump``), and so must the LM head's wgmma dW
+             kernels;
 3. kernels — each kernel against its plain PyTorch version on the card,
              at the main path's shape and at the edge cases (for the
              flash kernels also a bf16 grid of sequence lengths around
@@ -60,10 +61,15 @@ Phases (any failed check exits non-zero before the result line):
 Phase 3 also holds the ring reduce-scatter and all-gather kernels
 bitwise against their plain versions, at the main path's shapes (a
 262,144-column bucket over four ranks, and the fused [4, 134,404,608]
-gradient), at the reference suite's edges and at rows the
-reduce-scatter's vector loads cannot take whole (a base off 16 bytes, a
-row stride off 4 elements, odd chunks and cuts, k = 16), and times each
-with its host µs per launch.
+gradient), at the reference suite's edges and at rows the kernels'
+vector loads cannot take whole (a base off 16 bytes, a row stride off 4
+elements, odd chunks and cuts, k = 16; 2-, 4- and 8-byte elements for
+the all-gather), and times each with its host µs per launch.  The fused
+LM head's cases other than the flagship's (``LMH_CASES``: all-bf16,
+all-f32, ragged N, D and V, clusters of three and four CTAs for the
+wgmma dW kernel) each run in a process of their own
+(``python3 chip_smoke.py --lm-head-case NAME``), all started together,
+so that a kernel that hangs or faults names its case.
 
 Each path's launches are counted from zero just before it runs.  It
 prints a ``kernels`` JSON line, the ``nvidia-smi`` line, and last
@@ -570,66 +576,124 @@ def _ratio(got, ref, rtol: float, atol: float) -> float:
     return (d / (atol + rtol * ref.abs())).max().item()
 
 
+#: the fused LM head's cases: N, D, V, h dtype, W dtype.  bf16 h takes
+#: the wgmma dW kernel on the split of W (f32 h the SIMT one)
+LMH_CASES = {
+    "main": (TRAIN_BATCH * TRAIN_SEQ, FLAGSHIP["d_model"],
+             FLAGSHIP["vocab_size"], "bfloat16", "float32"),
+    "bf16": (2048, 768, 8192, "bfloat16", "bfloat16"),
+    "f32": (1024, 768, 4096, "float32", "float32"),
+    "ragged": (517, 200, 1000, "bfloat16", "float32"),
+    "ragged_f32_wide": (130, 1000, 777, "float32", "float32"),
+    # the wgmma dW kernel's edges: V not a multiple of its 64 vocab
+    # columns, D not a multiple of 16, N not a multiple of its 64 rows
+    "ragged_bf16": (517, 200, 1000, "bfloat16", "bfloat16"),
+    # a cluster of three CTAs, the last partly past D; D not a multiple
+    # of 8, so h is copied to rows of a 16-byte pitch
+    "ragged_cluster3": (300, 603, 777, "bfloat16", "float32"),
+    # a cluster of four CTAs
+    "ragged_cluster4": (130, 1000, 777, "bfloat16", "float32"),
+}
+
+
+def lm_head_case(torch, lmk, name: str) -> dict:
+    """One case of the fused LM head: the split kernel bitwise against
+    its plain version (bf16 h), then the forward, dh and dW kernels
+    against theirs, with out-of-vocab targets in the ragged cases."""
+    n, d, v, dt_h, dt_w = LMH_CASES[name]
+    dt_h, dt_w = getattr(torch, dt_h), getattr(torch, dt_w)
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(
+        3 + list(LMH_CASES).index(name))
+    h = torch.randn((n, d), generator=gen, device="cuda").to(dt_h)
+    w = (torch.randn((d, v), generator=gen, device="cuda") * 0.05).to(dt_w)
+    t = torch.randint(0, v, (n,), generator=gen, device="cuda")
+    if name.startswith("ragged"):
+        t[:2] = torch.tensor([-1, v + 7])  # out of vocab: loss = lse
+    g = torch.randn((n,), generator=gen, device="cuda")
+    if dt_h == bf16:
+        hi, lo = lmk.split_w(w)
+        ref_hi, ref_lo = lmk.split_w_reference(w)
+        torch.cuda.synchronize()
+        check(torch.equal(hi.view(torch.int16), ref_hi.view(torch.int16))
+              and (lo is None or torch.equal(lo.view(torch.int16),
+                                             ref_lo.view(torch.int16))),
+              f"lm_head {name}: split kernel != plain version")
+        del hi, lo, ref_hi, ref_lo
+    loss, lse = lmk.forward(h, w, t)
+    dh, dw = lmk.backward(h, w, t, lse, g)
+    torch.cuda.synchronize()
+    ref_loss, ref_lse = lmk.lm_head_forward_reference(h, w, t)
+    ref_dh, ref_dw = lmk.lm_head_backward_reference(h, w, t, ref_lse, g)
+    ratios = {"loss": _ratio(loss, ref_loss, LMH_LOSS_RTOL, LMH_LOSS_ATOL),
+              "lse": _ratio(lse, ref_lse, LMH_LOSS_RTOL, LMH_LOSS_ATOL)}
+    for key, got, ref in (("dh", dh, ref_dh), ("dw", dw, ref_dw)):
+        rtol = LMH_GRAD_RTOL_BF16 if got.dtype == bf16 else LMH_GRAD_RTOL_F32
+        atol = LMH_GRAD_ATOL_SHARE * ref.float().abs().max().item()
+        ratios[key] = _ratio(got, ref, rtol, atol)
+    errs = {"loss_err": (loss - ref_loss).abs().max().item(),
+            "dh_err": (dh.float() - ref_dh.float()).abs().max().item(),
+            "dw_err": (dw.float() - ref_dw.float()).abs().max().item()}
+    print(f"lm_head {name}: h [{n}, {d}] {str(dt_h)[6:]} W [{d}, {v}] "
+          f"{str(dt_w)[6:]}: share of tolerance used: " + ", ".join(
+              f"{k} {r:.3f}" for k, r in ratios.items())
+          + f"; max|dloss| {errs['loss_err']:.3e} max|ddh| "
+          f"{errs['dh_err']:.3e} (max|dh| {ref_dh.float().abs().max().item():.3e}) "
+          f"max|ddW| {errs['dw_err']:.3e} (max|dW| "
+          f"{ref_dw.float().abs().max().item():.3e})", flush=True)
+    check(dh.dtype == dt_h and dw.dtype == dt_w,
+          f"lm_head {name}: gradient dtypes {dh.dtype} {dw.dtype}")
+    for key, r in ratios.items():
+        check(r <= 1.0, f"lm_head {name}: {key} off by {r:.3f} of its "
+              f"tolerance")
+    if name.startswith("ragged"):
+        check(bool(torch.equal(loss[:2], lse[:2])),
+              f"lm_head {name}: out-of-vocab targets do not give lse")
+    return {**errs, **{f"{k}_tol_share": r for k, r in ratios.items()}}
+
+
+def _lm_head_edges() -> dict:
+    """Every case but the main one, each in a process of its own (all
+    started together), so that a hang or a fault names its case."""
+    def run(name):
+        try:
+            out = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--lm-head-case",
+                 name], capture_output=True, text=True, timeout=300, cwd=HERE)
+        except subprocess.TimeoutExpired:
+            return name, None, "timed out after 300 s"
+        lines = [ln for ln in out.stdout.splitlines()
+                 if ln.startswith("LMH_CASE ")]
+        for ln in out.stdout.splitlines():
+            if ln.startswith("lm_head "):
+                print(ln)
+        if out.returncode != 0 or not lines:
+            return name, None, (f"exit {out.returncode}: "
+                                f"{out.stderr.strip()[-1500:]}")
+        return name, json.loads(lines[-1][len("LMH_CASE "):]), None
+
+    names = [k for k in LMH_CASES if k != "main"]
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        done = list(pool.map(run, names))
+    for name, _, err in done:
+        check(err is None, f"lm_head {name}: {err}")
+    return {name: res for name, res, _ in done}
+
+
 def phase_lm_head(torch, lmk, spec):
-    """Fused LM-head forward, dh and dW kernels vs their plain versions at
-    the flagship shape (bf16 h, f32 W), all-bf16, all-f32 and ragged
-    edges (with out-of-vocab targets, and D above one 768-wide
-    accumulator chunk), then timed beside the plain versions and the
-    plain head they replace."""
+    """Fused LM-head forward, dh and dW kernels (and the split of W for
+    the wgmma dW kernel) vs their plain versions at the flagship shape
+    (bf16 h, f32 W) in this process, then the other cases of
+    ``LMH_CASES`` each in its own process; then timed at the flagship
+    shape beside the plain versions and the plain head they replace."""
     import torch.nn.functional as F
 
-    bf16, f32 = torch.bfloat16, torch.float32
-    n_main, d_main = TRAIN_BATCH * TRAIN_SEQ, FLAGSHIP["d_model"]
-    v_main = FLAGSHIP["vocab_size"]
-    cases = [
-        # name, N, D, V, h dtype, W dtype
-        ("main", n_main, d_main, v_main, bf16, f32),
-        ("bf16", 2048, 768, 8192, bf16, bf16),
-        ("f32", 1024, 768, 4096, f32, f32),
-        ("ragged", 517, 200, 1000, bf16, f32),
-        ("ragged_f32_wide", 130, 1000, 777, f32, f32),
-    ]
+    bf16 = torch.bfloat16
+    n_main, d_main, v_main = LMH_CASES["main"][:3]
+    results = {"main": lm_head_case(torch, lmk, "main")}
+    torch.cuda.empty_cache()
+    results.update(_lm_head_edges())
     gen = torch.Generator(device="cuda").manual_seed(3)
-    results = {}
-    for name, n, d, v, dt_h, dt_w in cases:
-        h = torch.randn((n, d), generator=gen, device="cuda").to(dt_h)
-        w = (torch.randn((d, v), generator=gen, device="cuda") * 0.05).to(dt_w)
-        t = torch.randint(0, v, (n,), generator=gen, device="cuda")
-        if name.startswith("ragged"):
-            t[:2] = torch.tensor([-1, v + 7])  # out of vocab: loss = lse
-        g = torch.randn((n,), generator=gen, device="cuda")
-        loss, lse = lmk.forward(h, w, t)
-        dh, dw = lmk.backward(h, w, t, lse, g)
-        torch.cuda.synchronize()
-        ref_loss, ref_lse = lmk.lm_head_forward_reference(h, w, t)
-        ref_dh, ref_dw = lmk.lm_head_backward_reference(h, w, t, ref_lse, g)
-        ratios = {"loss": _ratio(loss, ref_loss, LMH_LOSS_RTOL, LMH_LOSS_ATOL),
-                  "lse": _ratio(lse, ref_lse, LMH_LOSS_RTOL, LMH_LOSS_ATOL)}
-        for key, got, ref in (("dh", dh, ref_dh), ("dw", dw, ref_dw)):
-            rtol = LMH_GRAD_RTOL_BF16 if got.dtype == bf16 else LMH_GRAD_RTOL_F32
-            atol = LMH_GRAD_ATOL_SHARE * ref.float().abs().max().item()
-            ratios[key] = _ratio(got, ref, rtol, atol)
-        errs = {"loss_err": (loss - ref_loss).abs().max().item(),
-                "dh_err": (dh.float() - ref_dh.float()).abs().max().item(),
-                "dw_err": (dw.float() - ref_dw.float()).abs().max().item()}
-        print(f"lm_head {name}: h [{n}, {d}] {str(dt_h)[6:]} W [{d}, {v}] "
-              f"{str(dt_w)[6:]}: share of tolerance used: " + ", ".join(
-                  f"{k} {r:.3f}" for k, r in ratios.items())
-              + f"; max|dloss| {errs['loss_err']:.3e} max|ddh| "
-              f"{errs['dh_err']:.3e} (max|dh| {ref_dh.float().abs().max().item():.3e}) "
-              f"max|ddW| {errs['dw_err']:.3e} (max|dW| "
-              f"{ref_dw.float().abs().max().item():.3e})")
-        check(dh.dtype == dt_h and dw.dtype == dt_w,
-              f"lm_head {name}: gradient dtypes {dh.dtype} {dw.dtype}")
-        for key, r in ratios.items():
-            check(r <= 1.0, f"lm_head {name}: {key} off by {r:.3f} of its "
-                  f"tolerance")
-        if name.startswith("ragged"):
-            check(bool(torch.equal(loss[:2], lse[:2])),
-                  f"lm_head {name}: out-of-vocab targets do not give lse")
-        results[name] = {**errs, **{f"{k}_tol_share": r
-                                    for k, r in ratios.items()}}
-        del h, w, t, g, loss, lse, dh, dw, ref_loss, ref_lse, ref_dh, ref_dw
 
     # timing at the main shape: each kernel alone (windows of 1-2
     # launches keep each kernel's timing to a few seconds), the plain
@@ -648,6 +712,10 @@ def phase_lm_head(torch, lmk, spec):
                       iters=1, windows=5)
     dw_ms = device_ms(torch, lambda: lmk._launch_dw(h, w, t32, lse, g),
                       iters=1, windows=5)
+    split_ms = device_ms(torch, lambda: lmk.split_w(w), iters=5, windows=5)
+    host = {"fwd": host_us(torch, lambda: lmk._launch_fwd(h, w, t32), 10),
+            "dh": host_us(torch, lambda: lmk._launch_dh(h, w, t32, lse, g), 10),
+            "dw": host_us(torch, lambda: lmk._launch_dw(h, w, t32, lse, g), 10)}
     plain_fwd = device_ms(torch, lambda: lmk.lm_head_forward_reference(
         h, w, t), iters=1, windows=3)
     plain_bwd = device_ms(torch, lambda: lmk.lm_head_backward_reference(
@@ -676,16 +744,23 @@ def phase_lm_head(torch, lmk, spec):
             ("dw", dw_ms, plain_bwd, head_bwd, 2 * prod,
              reads + 2 * n * 4 + w.numel() * w.element_size())):
         timing[key] = {"ms": ms, "plain_ms": plain, "library_ms": None,
-                       "plain_head_ms": head,
+                       "plain_head_ms": head, "host_us": host[key],
                        "bound_fp32_ms": flops / spec["f32_flops"] * 1e3,
                        **bound(spec, flops, nbytes)}
+    # the wgmma dW kernel runs four bf16 products of 2*N*D*V (the logits
+    # from W's two terms, dW from dl's two terms), the split before them
+    timing["dw"]["split_ms"] = split_ms
+    timing["dw"]["bound_executed_ms"] = 4 * prod / spec["bf16_flops"] * 1e3
     print(f"lm_head timing main [{n}, {d}] x [{d}, {v}] bf16 h, f32 W: fwd "
           f"{fwd_ms:.4f} ms, dh {dh_ms:.4f} ms, dW {dw_ms:.4f} ms (bounds "
           f"{timing['fwd']['bound_ms']:.4f} / {timing['dh']['bound_ms']:.4f} "
           f"/ {timing['dw']['bound_ms']:.4f} at bf16 peak, "
           f"{timing['fwd']['bound_fp32_ms']:.4f} / "
           f"{timing['dh']['bound_fp32_ms']:.4f} / "
-          f"{timing['dw']['bound_fp32_ms']:.4f} at FP32 peak); plain "
+          f"{timing['dw']['bound_fp32_ms']:.4f} at FP32 peak; dW executes "
+          f"{timing['dw']['bound_executed_ms']:.4f} of bf16 work, its split "
+          f"{split_ms:.4f} ms of it); host {host['fwd']:.1f} / "
+          f"{host['dh']:.1f} / {host['dw']:.1f} us per launch; plain "
           f"versions fwd {plain_fwd:.4f} ms, bwd {plain_bwd:.4f} ms; plain "
           f"head (f32 product + F.cross_entropy, two calls) fwd "
           f"{head_fwd:.4f} ms, bwd {head_bwd:.4f} ms; "
@@ -874,7 +949,8 @@ def phase_train(torch, np, kernels, tr, costmodel, spec, head: str):
             return lm_head_nll(h, p["head"]["w"], b[1]).mean()
 
         ref_attn, knob = flash, "KF_TPU_LM_HEAD"
-        routed = {"lm_head_fwd": 1, "lm_head_bwd_dh": 1, "lm_head_bwd_dw": 1}
+        routed = {"lm_head_fwd": 1, "lm_head_bwd_dh": 1, "lm_head_bwd_dw": 1,
+                  "lm_head_split": 1}
     else:
         ref_attn, knob = tr.default_attention, "KF_TPU_XENT"
         routed = {"xent_fwd": 1, "xent_bwd": 1}
@@ -990,9 +1066,9 @@ def phase_ring(torch, ringk, rc, spec):
     gen = torch.Generator(device="cuda").manual_seed(4)
 
     def data(k, length, dtype):
-        if dtype == torch.int32:
+        if not dtype.is_floating_point:
             return torch.randint(-1000, 1000, (k, length), generator=gen,
-                                 device="cuda", dtype=torch.int32)
+                                 device="cuda", dtype=dtype)
         return torch.randn((k, length), generator=gen, device="cuda").to(dtype)
 
     def case(k, chunk, dtype, bidi):
@@ -1053,6 +1129,28 @@ def phase_ring(torch, ringk, rc, spec):
         for dtype in (torch.float32, torch.bfloat16, torch.int32):
             case(16, 4096, dtype, bidi)
             views += 1
+    # the all-gather moves 2-, 4- and 8-byte elements; the 4-byte ones
+    # ran above, beside the reduce-scatter
+    ag_views = 0
+    for k in (3, 4, 16):
+        for chunk in (1, 1001, 4097):
+            for dtype in (torch.int16, torch.float64, torch.int64):
+                for cut in sorted({chunk // 2 | 1, chunk}):
+                    for off, pad in ((0, 0), (1, 0), (0, 3), (1, 3)):
+                        shards = data(k, chunk + off + pad, dtype)[
+                            :, off:off + chunk]
+                        ag = ringk.all_gather(shards, cut)
+                        torch.cuda.synchronize()
+                        check(torch.equal(ag, rc.ring_all_gather_reference(
+                            shards, cut)), f"ring all-gather k={k} "
+                            f"chunk={chunk} cut={cut} {dtype} rows at offset "
+                            f"{off}, stride {shards.stride(0)}: kernel != "
+                            f"plain version")
+                        ag_views += 1
+    print(f"ring all-gather edges, 2- and 8-byte elements: {ag_views} cases "
+          f"(k 3/4/16, chunk 1/1001/4097, int16/float64/int64, an odd cut "
+          f"or one band, rows from element 0 or 1 with strides of chunk, "
+          f"+ 1, + 3, + 4 elements): bitwise equal to the plain version")
     print(f"ring edges, unaligned rows: {views} cases (k 3/4/16, chunk 1001/"
           f"4097, f32/bf16/int32, an odd cut or one band; rows of a wider "
           f"buffer from element 1, and strides of k*chunk + 1, + 3, + 4 "
@@ -1341,7 +1439,11 @@ def phase_zero(torch, np, kernels, tr, stage: int, ssgd_p1):
 #: their SASS must hold wgmma (HGMMA) and TMA load (UTMALDG) instructions
 WGMMA_KERNELS = ("flash_fwd_bf16_wgmma_kernel",
                  "flash_bwd_dq_bf16_wgmma_kernel",
-                 "flash_bwd_dkv_bf16_wgmma_kernel")
+                 "flash_bwd_dkv_bf16_wgmma_kernel",
+                 "lm_head_bwd_dw_wgmma_kernel")
+#: their instantiations: the flash kernels at D 32/64/128, dW for f32
+#: and bf16 W
+WGMMA_INSTANTIATIONS = 3 * 3 + 2
 
 
 def _ptxas_report(log: str) -> dict:
@@ -1407,7 +1509,7 @@ def build_all(torch, attention, lmk, ringk) -> dict:
             if any(w in line for w in ("registers", "spill", "Compiling",
                                        "Performance")):
                 print(f"  ptxas: {line.strip()}")
-    for b in built[:2]:
+    for b in built[:3]:
         report = _ptxas_report(b.log)
         for fn, counts in _sass_counts(torch, b.path).items():
             lines = report.get(fn, [])
@@ -1421,8 +1523,10 @@ def build_all(torch, attention, lmk, ringk) -> dict:
                   f"{fn}: SASS without wgmma or TMA loads: {counts}")
             info["kernels"][fn] = {"ptxas": lines, **counts}
     names = " ".join(info["kernels"])
-    check(all(k in names for k in WGMMA_KERNELS) and len(info["kernels"]) == 9,
-          f"expected the wgmma kernels at D 32/64/128, found {names}")
+    check(all(k in names for k in WGMMA_KERNELS)
+          and len(info["kernels"]) == WGMMA_INSTANTIATIONS,
+          f"expected {WGMMA_INSTANTIATIONS} wgmma kernels (flash at D "
+          f"32/64/128, dW for f32 and bf16 W), found {names}")
     return info
 
 
@@ -1576,8 +1680,26 @@ def main() -> int:
     return 0
 
 
+def lm_head_case_main(name: str) -> int:
+    """``--lm-head-case NAME``: one case of ``LMH_CASES`` (phase 3 runs
+    each edge case so), its result as a ``LMH_CASE`` JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("FAIL: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from kungfu_tpu_torch.ops.cuda import lm_head as lmk
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print("LMH_CASE " + json.dumps(lm_head_case(torch, lmk, name)))
+    return 0
+
+
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--lm-head-case"]:
+            sys.exit(lm_head_case_main(sys.argv[2]))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)

@@ -4,29 +4,23 @@ hand-written Hopper kernels of ``csrc/ring.cu``.
 They replace ``kungfu_tpu/ops/pallas/collectives.py::_rs_kernel`` and
 ``::_ag_kernel``.  Each wrapper takes one ring's stacked buffers on one
 card (row ``r`` is rank ``r``'s), checks them, and launches one kernel
-for all ``k`` ranks.  The reduce-scatter folds each output vector
-directly from the ``k`` ranks' rows, in the ring's order (a hop of the
-ring is a load on one card); the all-gather passes tiles from rank to
-rank through per-block slots and flags in device memory.  Their plain
-versions, which compute the same bits, are
+for all ``k`` ranks.  On one card a hop of the ring is a load, so both
+work directly: the reduce-scatter folds each output vector from the
+``k`` ranks' rows in the ring's order, and the all-gather copies each
+vector of a shard into all ``k`` outputs.  Their plain versions, which
+compute the same bits, are
 :func:`kungfu_tpu_torch.ops.collectives.ring_reduce_scatter_reference`
 and :func:`~kungfu_tpu_torch.ops.collectives.ring_all_gather_reference`;
 :mod:`kungfu_tpu_torch.ops.collectives` routes between the two.  A CPU
 tensor, a failed build or a refused launch raises: nothing falls back.
-
-The reduce-scatter keeps nothing between launches.  The all-gather's
-scratch (two tiles and two flags per resident block) is allocated once
-per card at first launch and is independent of the buffers' size.  Its
-flags are never reset: each launch raises the epoch past every flag
-value the one before wrote.  All-gather launches on one card are
-serialised on the caller's stream, as the epoch requires.
+Neither kernel keeps anything between launches.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Dict, Optional
+from typing import Optional
 
 import torch
 
@@ -35,33 +29,11 @@ from kungfu_tpu_torch.ops.cuda import _build
 #: launches of the hand-written kernels: +1 per launch, nowhere else
 launch_counts = {"ring_rs": 0, "ring_ag": 0}
 
-#: reduce-scatter element codes of ``kf_ring_launch``
+#: reduce-scatter element codes of ``kf_ring_rs``
 _RS_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 
 _lock = threading.Lock()
 _built: Optional[_build.Built] = None
-
-
-class _Scratch:
-    """One card's slots, flags and epoch."""
-
-    def __init__(self, lib, device: torch.device):
-        blocks = ctypes.c_int(0)
-        with torch.cuda.device(device):
-            _raise_on(lib, lib.kf_ring_capacity(ctypes.byref(blocks)),
-                      "capacity query")
-        if blocks.value < 2:
-            raise RuntimeError(f"{device} cannot launch the ring kernels "
-                               "cooperatively")
-        self.blocks = blocks.value
-        self.slot = torch.empty(self.blocks * 2 * lib.kf_ring_tile() * 4,
-                                dtype=torch.uint8, device=device)
-        self.flag = torch.zeros(self.blocks * 2, dtype=torch.int64,
-                                device=device)
-        self.base = ctypes.c_uint64(0)
-
-
-_scratch: Dict[torch.device, _Scratch] = {}
 
 
 def reset_launch_counts() -> None:
@@ -78,13 +50,8 @@ def load() -> _build.Built:
             lib = built.lib
             ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             lib.kf_ring_rs.argtypes = [i32, ptr, ptr, i32, i64, i64, ptr]
-            lib.kf_ring_tile.argtypes = []
-            lib.kf_ring_capacity.argtypes = [ctypes.POINTER(ctypes.c_int)]
-            lib.kf_ring_ag_launch.argtypes = [
-                i32, ptr, ptr, i32, i64, i64, ptr, ptr, i32,
-                ctypes.POINTER(ctypes.c_uint64), ptr]
-            for fn in (lib.kf_ring_rs, lib.kf_ring_tile, lib.kf_ring_capacity,
-                       lib.kf_ring_ag_launch):
+            lib.kf_ring_ag.argtypes = [i32, ptr, ptr, i32, i64, ptr]
+            for fn in (lib.kf_ring_rs, lib.kf_ring_ag):
                 fn.restype = ctypes.c_int
             lib.kf_error_string.argtypes = [ctypes.c_int]
             lib.kf_error_string.restype = ctypes.c_char_p
@@ -115,23 +82,6 @@ def _rows(t: torch.Tensor):
     base = t.data_ptr()
     return (ctypes.c_void_p * t.shape[0])(
         *(base + r * step for r in range(t.shape[0])))
-
-
-def _launch_ag(code: int, x: torch.Tensor, out: torch.Tensor, chunk: int,
-               cut: int) -> None:
-    lib = load().lib
-    k = x.shape[0]
-    with _lock:
-        scratch = _scratch.get(x.device)
-        if scratch is None:
-            scratch = _scratch[x.device] = _Scratch(lib, x.device)
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = lib.kf_ring_ag_launch(
-                code, _rows(x), _rows(out), k, chunk, cut,
-                scratch.slot.data_ptr(), scratch.flag.data_ptr(),
-                scratch.blocks, ctypes.byref(scratch.base), stream)
-    _raise_on(lib, err, "all-gather launch")
 
 
 def reduce_scatter(parts: torch.Tensor, cut: Optional[int] = None
@@ -165,9 +115,11 @@ def reduce_scatter(parts: torch.Tensor, cut: Optional[int] = None
 
 def all_gather(shards: torch.Tensor, cut: Optional[int] = None
                ) -> torch.Tensor:
-    """The all-gather kernel for one ring: ``shards`` ``[k, chunk]`` to
-    ``[k, k*chunk]``, moved as 2- or 4-byte words (an 8-byte dtype as
-    pairs of 4-byte words); ``cut`` as in :func:`reduce_scatter`."""
+    """The all-gather kernel for one ring: ``shards`` ``[k, chunk]`` (any
+    row stride and base) to ``[k, k*chunk]``, elements of 2, 4 or 8
+    bytes.  ``cut`` is the reference's band cut, checked as in
+    :func:`reduce_scatter`: it does not change a gather's values, so the
+    kernel takes none."""
     _check(shards, "shards")
     k, chunk = shards.shape
     cut = chunk if cut is None else int(cut)
@@ -178,9 +130,10 @@ def all_gather(shards: torch.Tensor, cut: Optional[int] = None
         raise ValueError(f"the all-gather kernel moves 2-, 4- or 8-byte "
                          f"elements, got {shards.dtype}")
     out = torch.empty((k, k * chunk), dtype=shards.dtype, device=shards.device)
-    words = 2 if size == 8 else 1
-    wdt = torch.int16 if size == 2 else torch.int32
-    _launch_ag(min(size, 4), shards.view(wdt), out.view(wdt), chunk * words,
-               cut * words)
+    lib = load().lib
+    with torch.cuda.device(shards.device):
+        err = lib.kf_ring_ag(size, _rows(shards), _rows(out), k, chunk,
+                             torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, err, "all-gather launch")
     launch_counts["ring_ag"] += 1
     return out

@@ -30,11 +30,14 @@
 //     per tile it recomputes the logits tile, forms dl in shared memory
 //     and adds dl W^T to a [32, 768] f32 accumulator held in registers
 //     (96 values a thread).
-//   - dW: one CTA per 32-column vocab block walks the rows in 128-row
-//     tiles; per tile it recomputes the logits tile, forms dl in shared
-//     memory and adds h^T dl to a [768, 32] f32 accumulator in registers.
+//   - dW, f32 h (lm_head_bwd_dw_kernel): one CTA per 32-column vocab
+//     block walks the rows in 128-row tiles; per tile it recomputes the
+//     logits tile, forms dl in shared memory and adds h^T dl to a
+//     [768, 32] f32 accumulator in registers.
+//   - dW, bf16 h (lm_head_bwd_dw_wgmma_kernel, below): wgmma and TMA on
+//     W split into two bf16 terms; see "dW on the tensor cores".
 //   A model dimension above 768 is handled in 768-wide chunks, each
-//   chunk sweeping (and recomputing) the logits again.
+//   chunk sweeping (and recomputing) the logits again (SIMT kernels).
 // * The accumulators live in registers (up to 255 a thread), so one CTA
 //   runs per SM and no second CTA hides its loads.  Instead each product
 //   walks its K dimension in chunks staged through shared memory, and the
@@ -42,7 +45,7 @@
 //   current chunk's products (Chunk::fetch / store), so their latency
 //   hides behind them; only dh's second product loads its chunk just in
 //   time, because the registers a chunk ahead would need spill.
-// * Every product is an f32 SIMT product on the CUDA cores: each
+// * Every SIMT product is an f32 product on the CUDA cores: each
 //   operand is converted to f32 as it is staged into shared memory
 //   (exact for bf16), multiplied with fmaf and summed in f32.  TF32 is
 //   never used and W is never rounded to bf16, so the flagship's f32
@@ -68,22 +71,50 @@
 // two (the recomputed logits and its own product), against ~111 MB of
 // operand traffic, so every kernel is bound by operations: 0.41 / 0.82 /
 // 0.82 ms at the bf16 tensor-core peak, 6.0 / 12.1 / 12.1 ms at the
-// 67 TFLOP/s FP32 peak its f32 products run at.  This simple kernel (no
-// wgmma, TMA or cp.async ring; one CTA per SM, two barriers per chunk)
-// is slower than cuBLAS's f32 GEMMs; PERF.md holds the measured times.
-// A faster head splits W into two bf16 halves on the tensor cores.
+// 67 TFLOP/s FP32 peak the SIMT products run at.  These simple kernels
+// (no wgmma, TMA or cp.async ring; one CTA per SM, two barriers per
+// chunk) are slower than cuBLAS's f32 GEMMs; PERF.md holds the times.
+//
+// dW on the tensor cores (bf16 h, the flagship's case).  W is never
+// rounded to one bf16 and TF32 is never used: a split kernel
+// (lm_head_split_w_kernel) writes W^T as hi = bf16(W) and lo = bf16(W -
+// hi) (exact in f32, so hi + lo keeps about 17 bits of W), transposed to
+// [V, ld] with ld = D rounded up to 8 so each row pitch is a multiple of
+// 16 bytes, as TMA needs.  The logits are h W_hi + h W_lo (two bf16
+// products, f32 accumulate; one for a bf16 W), and dl is split the same
+// way in registers (dl_hi, dl_lo), so dW = h^T dl_hi + h^T dl_lo.  The
+// kernel has the shape of the flash dK/dV kernel: a block of 64 vocab
+// columns plays the kv block, h's rows play the q rows.  The dW^T
+// accumulator of a vocab block, [64, D] f32, does not fit one SM's
+// registers at D = 768, so D is split over a thread block cluster of
+// ceil(D / 256) CTAs (at most 8): each computes partial logits^T over
+// its own 256 columns, the partials are exchanged and added in rank
+// order (every CTA holds the same bits), and each CTA accumulates its
+// own [64, 256] slice of dW^T (128 registers a thread).  Its W^T slice
+// (hi and lo, 64 KB) stays in shared memory for the whole row sweep;
+// only h streams, by TMA.  Two consumer warpgroups take the row tiles in
+// turn, so that one's products run while the other waits for its
+// exchange.  No atomics; rows past N carry g = 0, vocab columns past V
+// are masked (a template argument, one branch per CTA).  At the flagship
+// shape it executes 4 x 2 N D V = 1.6 TFLOP of bf16 work (1.64 ms at the
+// dense peak) where the function needs 0.82 ms; the exchange of partials
+// (16 KB per CTA, warpgroup and row tile, through L2) is what it still
+// waits on.
 //
 // Interface: plain C launchers taking device pointers and the caller's
 // stream, loaded with ctypes (kungfu_tpu_torch/ops/cuda/lm_head.py).  h is
-// a contiguous [N, D] matrix, w a contiguous [D, V] matrix (the JAX
-// layout), targets int32 [N]; lse and g are f32 [N]; each element type
-// is float or bfloat16.
+// a contiguous [N, D] matrix (for the wgmma dW kernel: any row pitch that
+// is a multiple of 8 elements, 16-byte aligned), w a contiguous [D, V]
+// matrix (the JAX layout), targets int32 [N]; lse and g are f32 [N];
+// each element type is float or bfloat16.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -92,6 +123,8 @@ constexpr int BK = 16;     // depth of a chunk along D in the logits products
 constexpr int DC = 768;    // model-dim columns one accumulator holds
 constexpr float NEG_INF = -1e30f;
 constexpr int KF_BAD_ARGS = -1;
+constexpr int KF_BAD_REGS = -3;
+constexpr float LOG2E = 1.4426950408889634f;
 
 // forward: 128 rows x 128 vocab columns, 8x8 outputs a thread; vocab
 // splits until about 512 CTAs, four waves of one CTA per SM on 132 SMs
@@ -548,6 +581,428 @@ lm_head_bwd_dw_kernel(const TH* __restrict__ h, const TW* __restrict__ w,
   }
 }
 
+// ----------------------------------------------------- dW on wgmma --
+
+// W split into two bf16 terms, transposed to [V, ld] (ld = D rounded up
+// to 8, so a row pitch is a multiple of 16 bytes, as TMA needs; columns
+// [D, ld) are zero): hi = bf16(W), lo = bf16(W - hi).  W - hi is exact
+// in f32, so hi + lo holds W to about 2^-17 of its value.  A bf16 W
+// gives hi = W and no lo (SPLIT false).  32 x 32 tiles through shared
+// memory, so the reads of W's rows and the writes of the transposed
+// rows are both coalesced.
+template <typename TW, bool SPLIT>
+__global__ void __launch_bounds__(256)
+lm_head_split_w_kernel(const TW* __restrict__ w, __nv_bfloat16* __restrict__ hi,
+                       __nv_bfloat16* __restrict__ lo, int D, int V, int ld) {
+  __shared__ float tile[32][33];
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  const int v0 = blockIdx.x * 32, d0 = blockIdx.y * 32;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int d = d0 + ty + 8 * k, v = v0 + tx;
+    tile[ty + 8 * k][tx] = d < D && v < V ? to_f32(w[(size_t)d * V + v]) : 0.f;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int v = v0 + ty + 8 * k, d = d0 + tx;
+    if (v < V && d < ld) {
+      const float x = tile[tx][ty + 8 * k];
+      const __nv_bfloat16 h = __float2bfloat16_rn(x);
+      hi[(size_t)v * ld + d] = h;
+      if (SPLIT) lo[(size_t)v * ld + d] = __float2bfloat16_rn(x - __bfloat162float(h));
+    }
+  }
+}
+
+// The dW kernel for bf16 h, a thread block cluster of CS = ceil(D / 256)
+// CTAs per 64-column vocab block (blockIdx.y); CTA `rank` of the cluster
+// owns columns [256 rank, 256 rank + 256) of D.  Per 64-row tile of h
+// (all N rows, in order):
+//   1. partial logits^T [64 v, 64 n] = W^T[v, slice] h[n, slice]^T by
+//      wgmma from shared memory, W^T (hi, then lo) K-major as the split
+//      kernel stored it, resident for the whole sweep; h's tile, K-major,
+//      streams through a TMA ring;
+//   2. the CS partials are exchanged and added in rank order, so every
+//      CTA of the cluster holds the same logits, bit for bit;
+//   3. dl^T = (exp(logits^T - lse) - onehot) g in the accumulator layout,
+//      split into bf16 hi and lo register A fragments;
+//   4. dW^T[64 v, slice] += dl_hi^T h + dl_lo^T h, h's tile read MN-major
+//      through the transpose bit.
+// Two consumer warpgroups take the tiles in turn, each with its own dW^T
+// accumulator (added in a fixed order at the end), so that one's tensor
+// work runs while the other waits for its exchange; there is no producer
+// warp (a third warpgroup would cap every thread at 168 registers), so
+// each warpgroup refills the two ring stages it owns as it frees them,
+// and reads its tiles' lse, g and targets itself.  The exchange goes
+// through L2: each warpgroup stores its partial into a slot of a global
+// scratch indexed by the SM it runs on (so the slots stay in L2), arrives
+// on its peers' mbarriers (release at cluster scope), waits for theirs,
+// and loads the CS partials from L2.  Through distributed shared memory
+// the same exchange was slower (it moves far fewer bytes per clock than
+// L2 here), and its slots do not fit beside two warpgroups' ring stages.
+struct DwCfg {
+  static constexpr int BV = 64;          // vocab columns per cluster
+  static constexpr int BN = 64;          // rows of h per tile
+  static constexpr int SLICE = 256;      // model-dim columns per CTA
+  static constexpr int MAX_CS = 8;       // the portable cluster size
+  static constexpr int STAGES = 4;       // two h tiles per warpgroup
+  static constexpr int THREADS = 256;    // two consumer warpgroups
+  // the scratch slots: (SM, warpgroup, parity), a partial's f32 each
+  static constexpr int MAX_SM = 256;
+  static constexpr int PART_FLOATS = 128 * 32;
+  static constexpr int W_BYTES = BV * SLICE * 2;      // one term's tile
+  static constexpr int H_BYTES = BN * SLICE * 2;      // one h tile
+  static constexpr int WLO_OFF = W_BYTES;             // W hi at 0
+  static constexpr int H_OFF = 2 * W_BYTES;           // STAGES tiles
+  // lse * log2 e, g, target: [warpgroup][parity][3][BN]
+  static constexpr int ROW_OFF = H_OFF + STAGES * H_BYTES;
+  static constexpr int BAR_OFF = ROW_OFF + 2 * 2 * 3 * BN * 4;
+  // w_full, full[STAGES], ready[2 warpgroups][2]
+  static constexpr int BYTES = BAR_OFF + (1 + STAGES + 4) * 8 + 1024;
+  static_assert(W_BYTES % 1024 == 0 && H_BYTES % 1024 == 0, "alignment");
+  static_assert(2 * H_BYTES >= 128 * 128 * 4, "the final sum's buffer");
+
+  static __device__ uint32_t w_tile(uint32_t b, int term) {
+    return b + term * WLO_OFF;
+  }
+  static __device__ uint32_t h_tile(uint32_t b, int s) {
+    return b + H_OFF + s * H_BYTES;
+  }
+  static __device__ uint32_t w_full(uint32_t b) { return b + BAR_OFF; }
+  static __device__ uint32_t full(uint32_t b, int s) {
+    return b + BAR_OFF + 8u * (1 + s);
+  }
+  static __device__ uint32_t ready(uint32_t b, int w, int p) {
+    return b + BAR_OFF + 8u * (1 + STAGES + 2 * w + p);
+  }
+};
+
+// One h tile into stage s by TMA (one thread).
+__device__ __forceinline__ void dw_load_h(uint32_t base, const CUtensorMap* map,
+                                          int s, int d0, int r0) {
+  using C = DwCfg;
+  hopper::mbar_arrive_expect_tx(C::full(base, s), C::H_BYTES);
+  for (int b = 0; b < C::SLICE / 64; ++b) {
+    hopper::tma_load_2d(C::h_tile(base, s) + b * C::BN * 128, map,
+                        C::full(base, s), d0 + 64 * b, r0);
+  }
+}
+
+// dl^T in place of the logits^T fragment x (rows v0 + vrow + 8 i, columns
+// 8 j + cn + c of the tile), from the tile's lse * log2 e, g and
+// targets.  MASK (the cluster's vocab block runs past V) zeroes columns
+// v >= V, whose W rows arrived zero-filled; rows of h past N carry g = 0.
+template <bool MASK>
+__device__ __forceinline__ void dw_dl(float (&x)[32], const float* lse2,
+                                      const float* gs, const int* tg, int v,
+                                      int V, int cn) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int col = 8 * j + cn + c;
+      const float l2 = lse2[col], gg = gs[col];
+      const int t = tg[col];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int idx = 4 * j + 2 * i + c;
+        const float p = exp2f(fmaf(x[idx], LOG2E, -l2));
+        float d = (p - (t == v + 8 * i ? 1.f : 0.f)) * gg;
+        if (MASK && v + 8 * i >= V) d = 0.f;
+        x[idx] = d;
+      }
+    }
+  }
+}
+
+// What a consumer warpgroup needs besides its registers.
+struct DwArgs {
+  uint32_t base;       // the 1024-aligned shared-memory base
+  uint8_t* gbase;      // the same, generic
+  const CUtensorMap* h_map;
+  const int* targets;
+  const float* lse;
+  const float* g;
+  float* xs;           // the exchange scratch
+  const int* sm_of;    // the SM of each CTA of the cluster
+  int N, D, V, v0, d0, cs, me, wg;
+};
+
+// Warpgroup wg's share of the row sweep (tiles wg, wg + 2, ...): its
+// dW^T slice in acc.
+template <typename TW, bool MASK>
+__device__ __forceinline__ void dw_sweep(const DwArgs& a, float (&acc)[128]) {
+  using C = DwCfg;
+  using namespace hopper;
+  constexpr bool SPLIT = sizeof(TW) == 4;
+  const int t = threadIdx.x % 128, lane = t % 32;
+  const int vrow = 16 * (t / 32) + lane / 4;  // + 8 i
+  const int cn = 2 * (lane % 4);
+  const int n_it = (a.N + C::BN - 1) / C::BN;
+  mbar_wait(C::w_full(a.base), 0);
+
+  for (int it = a.wg, j = 0; it < n_it; it += 2, ++j) {
+    const int s = it % C::STAGES, p = j % 2;
+    // lse * log2 e, g and the target of the tile's row t (t < 64), read
+    // while the logits are computed; rows past N get g = 0 (so dl = 0)
+    // and no target
+    float* rows = reinterpret_cast<float*>(a.gbase + C::ROW_OFF) +
+                  (a.wg * 2 + p) * 3 * C::BN;
+    float row_l = 0.f, row_g = 0.f;
+    int row_t = -1;
+    if (t < C::BN && it * C::BN + t < a.N) {
+      const int n = it * C::BN + t;
+      row_l = a.lse[n] * LOG2E;
+      row_g = a.g[n];
+      row_t = a.targets[n];
+    }
+    mbar_wait(C::full(a.base, s), (it / C::STAGES) & 1);
+    // 1. partial logits^T over this CTA's slice of D
+    float x[32];
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < C::SLICE / 16; ++ks) {
+      Wgmma<64>::template ss<0>(
+          x, desc_kmajor<C::SLICE>(C::w_tile(a.base, 0), C::BV, 0, ks),
+          desc_kmajor<C::SLICE>(C::h_tile(a.base, s), C::BN, 0, ks), ks > 0);
+    }
+    if constexpr (SPLIT) {
+#pragma unroll
+      for (int ks = 0; ks < C::SLICE / 16; ++ks) {
+        Wgmma<64>::template ss<0>(
+            x, desc_kmajor<C::SLICE>(C::w_tile(a.base, 1), C::BV, 0, ks),
+            desc_kmajor<C::SLICE>(C::h_tile(a.base, s), C::BN, 0, ks), 1);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(x);
+    if (t < C::BN) {
+      rows[t] = row_l;
+      rows[C::BN + t] = row_g;
+      reinterpret_cast<int*>(rows + 2 * C::BN)[t] = row_t;
+    }
+
+    // 2. the cluster's partials through L2, added in rank order.  Slot
+    // p was last read by the peers' warpgroups at this warpgroup's tile
+    // j - 2; each has since arrived for tile j - 1, which it does only
+    // after that read.
+    if (a.cs > 1) {
+      float4* mine = reinterpret_cast<float4*>(
+          a.xs + ((size_t)(a.sm_of[a.me] * 2 + a.wg) * 2 + p) * C::PART_FLOATS);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        __stcg(mine + q * 128 + t, make_float4(x[4 * q], x[4 * q + 1],
+                                               x[4 * q + 2], x[4 * q + 3]));
+      }
+      // the warpgroup's stores (partial and rows) are ordered before
+      // thread r's release arrival on CTA r's barrier
+      named_sync(1 + a.wg, 128);
+      if (t < a.cs && t != a.me) {
+        mbar_arrive_cluster(mapa(C::ready(a.base, a.wg, p), t));
+      }
+      mbar_wait_cluster(C::ready(a.base, a.wg, p), (j / 2) & 1);
+      // four ranks' loads of a quarter in flight together, then their
+      // sums
+      for (int r0 = 0; r0 < a.cs; r0 += 4) {
+#pragma unroll
+        for (int qq = 0; qq < 4; ++qq) {
+          float4 v[4][2];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            if (r0 + r < a.cs) {
+              const float4* src = reinterpret_cast<const float4*>(
+                  a.xs + ((size_t)(a.sm_of[r0 + r] * 2 + a.wg) * 2 + p) *
+                             C::PART_FLOATS) + t;
+#pragma unroll
+              for (int q = 0; q < 2; ++q) v[r][q] = __ldcg(src + (2 * qq + q) * 128);
+            }
+          }
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            float* e = x + 4 * (2 * qq + q);
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              if (r0 + r == 0) {
+                e[0] = v[r][q].x; e[1] = v[r][q].y; e[2] = v[r][q].z; e[3] = v[r][q].w;
+              } else if (r0 + r < a.cs) {
+                e[0] += v[r][q].x; e[1] += v[r][q].y; e[2] += v[r][q].z; e[3] += v[r][q].w;
+              }
+            }
+          }
+        }
+      }
+    } else {
+      named_sync(1 + a.wg, 128);  // the rows are in shared memory
+    }
+
+    // 3. dl^T, split into bf16 hi and lo A fragments (k-slice kt: tile
+    // columns [16 kt, 16 kt + 16)).  The rows' buffer of parity p is
+    // written again two tiles on, after this warpgroup's next barrier,
+    // which every thread passes only when done reading it here.
+    dw_dl<MASK>(x, rows, rows + C::BN,
+                reinterpret_cast<const int*>(rows + 2 * C::BN), a.v0 + vrow,
+                a.V, cn);
+    uint32_t fhi[C::BN / 16][4], flo[C::BN / 16][4];
+#pragma unroll
+    for (int kt = 0; kt < C::BN / 16; ++kt) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float lo = x[8 * kt + 2 * r], hi = x[8 * kt + 2 * r + 1];
+        const __nv_bfloat162 h2 = __floats2bfloat162_rn(lo, hi);
+        const float2 hf = __bfloat1622float2(h2);
+        fhi[kt][r] = *reinterpret_cast<const uint32_t*>(&h2);
+        flo[kt][r] = pack_bf16(lo - hf.x, hi - hf.y);
+      }
+    }
+
+    // 4. dW^T += dl_hi^T h + dl_lo^T h, waited for at once: left in
+    // flight over the next tile's logits, ptxas serialises every wgmma
+    // (its C7515 warning)
+    fence_frags(fhi);
+    fence_frags(flo);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < C::BN / 16; ++ks) {
+      Wgmma<256>::template rs<1>(
+          acc, fhi[ks], desc_mnmajor<C::SLICE>(C::h_tile(a.base, s), C::BN, ks), 1);
+    }
+#pragma unroll
+    for (int ks = 0; ks < C::BN / 16; ++ks) {
+      Wgmma<256>::template rs<1>(
+          acc, flo[ks], desc_mnmajor<C::SLICE>(C::h_tile(a.base, s), C::BN, ks), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    // the stage is free: this warpgroup's tile it + STAGES goes there
+    if (t == 0 && it + C::STAGES < n_it) {
+      dw_load_h(a.base, a.h_map, s, a.d0, (it + C::STAGES) * C::BN);
+    }
+  }
+}
+
+template <typename TW, bool MASK>
+__device__ __forceinline__ void dw_consumer(const DwArgs& a,
+                                            TW* __restrict__ dw) {
+  using C = DwCfg;
+  const int t = threadIdx.x % 128, lane = t % 32;
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  dw_sweep<TW, MASK>(a, acc);
+
+  // the two warpgroups' sums, added in a fixed order (warpgroup 0's
+  // first) in the h stages, which every tile has left by now
+  float4* sum = reinterpret_cast<float4*>(a.gbase + C::H_OFF);
+  hopper::named_sync(3, 256);  // both sweeps are done with the stages
+  if (a.wg == 1) {
+#pragma unroll
+    for (int q = 0; q < 32; ++q) {
+      sum[q * 128 + t] = make_float4(acc[4 * q], acc[4 * q + 1],
+                                     acc[4 * q + 2], acc[4 * q + 3]);
+    }
+  }
+  hopper::named_sync(3, 256);
+  if (a.wg == 1) return;
+#pragma unroll
+  for (int q = 0; q < 32; ++q) {
+    const float4 o = sum[q * 128 + t];
+    acc[4 * q] += o.x; acc[4 * q + 1] += o.y; acc[4 * q + 2] += o.z;
+    acc[4 * q + 3] += o.w;
+  }
+
+  // epilogue: dW[d, v], rows d0 + 8 j + cn + c, columns v0 + vrow + 8 i
+  const int vrow = 16 * (t / 32) + lane / 4;
+  const int cn = 2 * (lane % 4);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int v = a.v0 + vrow + 8 * i;
+    if (v >= a.V) continue;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int d = a.d0 + 8 * j + cn + c;
+        if (d < a.D) dw[(size_t)d * a.V + v] = from_f32<TW>(acc[4 * j + 2 * i + c]);
+      }
+    }
+  }
+}
+
+template <typename TW>
+__global__ void __launch_bounds__(DwCfg::THREADS, 1)
+lm_head_bwd_dw_wgmma_kernel(const __grid_constant__ CUtensorMap h_map,
+                            const __grid_constant__ CUtensorMap whi_map,
+                            const __grid_constant__ CUtensorMap wlo_map,
+                            const int* __restrict__ targets,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ g, TW* __restrict__ dw,
+                            float* __restrict__ xs, int N, int D, int V) {
+  using C = DwCfg;
+  using namespace hopper;
+  constexpr bool SPLIT = sizeof(TW) == 4;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ int sm_here, sm_of[C::MAX_CS];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  uint8_t* gbase = smem_raw + (base - smem_u32(smem_raw));
+  const int me = (int)cluster_rank();
+  const int cs = gridDim.x;  // the cluster spans the grid's x
+  const int v0 = blockIdx.y * C::BV, d0 = me * C::SLICE;
+  const int n_it = (N + C::BN - 1) / C::BN;
+
+  if (threadIdx.x == 0) {
+    uint32_t sm;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+    if (sm >= C::MAX_SM) __trap();  // past the scratch
+    sm_here = (int)sm;
+    mbar_init(C::w_full(base), 1);
+    // full: the TMA issue's arrival; ready: one arrival from each peer's
+    // warpgroup
+    for (int s = 0; s < C::STAGES; ++s) mbar_init(C::full(base, s), 1);
+    for (int w = 0; w < 2; ++w)
+      for (int p = 0; p < 2; ++p)
+        mbar_init(C::ready(base, w, p), cs > 1 ? cs - 1 : 1);
+    mbar_init_fence();
+  }
+  // the barriers are initialised before any peer arrives on them, and
+  // every CTA's SM is known before any partial is exchanged
+  cluster_sync();
+  if (threadIdx.x < cs) {
+    sm_of[threadIdx.x] = (int)ld_cluster_u32(mapa(smem_u32(&sm_here), threadIdx.x));
+  }
+  if (threadIdx.x == 0) {
+    // this CTA's slice of W^T (hi, lo), and the first tiles of h; each
+    // warpgroup loads its later tiles itself as it frees their stages
+    prefetch_map(&h_map);
+    mbar_arrive_expect_tx(C::w_full(base), (SPLIT ? 2 : 1) * C::W_BYTES);
+    for (int b = 0; b < C::SLICE / 64; ++b) {
+      tma_load_2d(C::w_tile(base, 0) + b * C::BV * 128, &whi_map,
+                  C::w_full(base), d0 + 64 * b, v0);
+      if (SPLIT) {
+        tma_load_2d(C::w_tile(base, 1) + b * C::BV * 128, &wlo_map,
+                    C::w_full(base), d0 + 64 * b, v0);
+      }
+    }
+    for (int it = 0; it < C::STAGES && it < n_it; ++it) {
+      dw_load_h(base, &h_map, it, d0, it * C::BN);
+    }
+  }
+  __syncthreads();
+
+  const DwArgs a{base, gbase, &h_map, targets, lse, g, xs, sm_of,
+                 N, D, V, v0, d0, cs, me, (int)threadIdx.x / 128};
+  if (v0 + C::BV > V) {
+    dw_consumer<TW, true>(a, dw);
+  } else {
+    dw_consumer<TW, false>(a, dw);
+  }
+  // no CTA leaves while a peer may still arrive on its barriers
+  cluster_sync();
+}
+
 // ------------------------------------------------------------- launch --
 
 template <typename Kernel>
@@ -597,6 +1052,66 @@ int launch_dw(const void* h, const void* w, const int* targets,
       static_cast<const TH*>(h), static_cast<const TW*>(w), targets, lse, g,
       static_cast<TW*>(dw), N, D, V);
   return (int)cudaGetLastError();
+}
+
+template <typename TW, bool SPLIT>
+int launch_split(const void* w, void* hi, void* lo, int D, int V, int ld,
+                 cudaStream_t stream) {
+  const dim3 grid((V + 31) / 32, (ld + 31) / 32);
+  lm_head_split_w_kernel<TW, SPLIT><<<grid, 256, 0, stream>>>(
+      static_cast<const TW*>(w), static_cast<__nv_bfloat16*>(hi),
+      static_cast<__nv_bfloat16*>(lo), D, V, ld);
+  return (int)cudaGetLastError();
+}
+
+// Encodes the maps and launches one cluster of ceil(D / 256) CTAs per
+// vocab block.  The first call of each instantiation raises its
+// shared-memory limit and checks that ptxas kept everything in registers
+// (a spilled accumulator would be read while wgmma still writes it) and
+// that the block size fits.
+template <typename TW>
+int launch_dw_wgmma(const void* h, int h_ld, const void* w_hi,
+                    const void* w_lo, int w_ld, const int* targets,
+                    const float* lse, const float* g, void* dw, float* xs,
+                    int N, int D, int V, cudaStream_t stream) {
+  using C = DwCfg;
+  auto kernel = lm_head_bwd_dw_wgmma_kernel<TW>;
+  static int ready = 0;
+  if (ready == 0) {
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return (int)err;
+    if (attr.localSizeBytes != 0 || attr.maxThreadsPerBlock < C::THREADS)
+      return KF_BAD_REGS;
+    if ((err = (cudaError_t)prepare(kernel, C::BYTES)) != cudaSuccess)
+      return (int)err;
+    ready = 1;
+  }
+  const int cs = (D + C::SLICE - 1) / C::SLICE;
+  CUtensorMap hm, whm, wlm;
+  int err = hopper::encode_matrix_map(&hm, h, D, N, 2LL * h_ld, C::BN);
+  if (err == 0)
+    err = hopper::encode_matrix_map(&whm, w_hi, D, V, 2LL * w_ld, C::BV);
+  if (err == 0)
+    err = hopper::encode_matrix_map(&wlm, w_lo != nullptr ? w_lo : w_hi, D, V,
+                                    2LL * w_ld, C::BV);
+  if (err != 0) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cs, (V + C::BV - 1) / C::BV);
+  cfg.blockDim = dim3(C::THREADS);
+  cfg.dynamicSmemBytes = C::BYTES;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, hm, whm, wlm, targets,
+                                           lse, g, static_cast<TW*>(dw), xs,
+                                           N, D, V);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
 // FN<TH, TW>(...) for the element types of h and w.
@@ -662,7 +1177,52 @@ extern "C" int kf_lm_head_bwd_dw(const void* h, const void* w,
                      static_cast<cudaStream_t>(stream));
 }
 
+// W [D, V] (f32 or bf16) to hi, lo bf16 [V, ld] (lo untouched for bf16 W).
+extern "C" int kf_lm_head_split_w(const void* w, void* hi, void* lo, int d,
+                                  int v, int ld, int w_bf16, void* stream) {
+  if (d <= 0 || v <= 0 || ld < d || ld % 8 || (ld + 31) / 32 > 65535)
+    return KF_BAD_ARGS;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return w_bf16 ? launch_split<__nv_bfloat16, false>(w, hi, lo, d, v, ld, st)
+                : launch_split<float, true>(w, hi, lo, d, v, ld, st);
+}
+
+// Floats of the wgmma dW kernel's exchange scratch (kept in L2).
+extern "C" long long kf_lm_head_dw_scratch() {
+  return 4LL * DwCfg::MAX_SM * DwCfg::PART_FLOATS;
+}
+
+// dW [D, V] in W's dtype for bf16 h [N, D] with row pitch h_ld (a
+// multiple of 8, 16-byte aligned base), from the split's hi and lo
+// (lo ignored for bf16 W); D at most 256 * 8; xs: kf_lm_head_dw_scratch()
+// floats, any contents.
+extern "C" int kf_lm_head_bwd_dw_wgmma(const void* h, int h_ld,
+                                       const void* w_hi, const void* w_lo,
+                                       int w_ld, const void* targets,
+                                       const void* lse, const void* g,
+                                       void* dw, void* xs, int n, int d,
+                                       int v, int w_bf16, void* stream) {
+  if (bad_sizes(n, d, v) || d > DwCfg::SLICE * DwCfg::MAX_CS || h_ld < d ||
+      h_ld % 8 || w_ld < d || w_ld % 8 ||
+      reinterpret_cast<uintptr_t>(h) % 16 ||
+      (v + DwCfg::BV - 1) / DwCfg::BV > 65535)
+    return KF_BAD_ARGS;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* t = static_cast<const int*>(targets);
+  const float* l = static_cast<const float*>(lse);
+  const float* gg = static_cast<const float*>(g);
+  float* x = static_cast<float*>(xs);
+  return w_bf16 ? launch_dw_wgmma<__nv_bfloat16>(h, h_ld, w_hi, nullptr, w_ld,
+                                                 t, l, gg, dw, x, n, d, v, st)
+                : launch_dw_wgmma<float>(h, h_ld, w_hi, w_lo, w_ld, t, l, gg,
+                                         dw, x, n, d, v, st);
+}
+
 extern "C" const char* kf_error_string(int code) {
   if (code == KF_BAD_ARGS) return "unsupported arguments";
+  if (code == hopper::KF_TMA_ENCODE_FAILED) return "cuTensorMapEncodeTiled failed";
+  if (code == KF_BAD_REGS) {
+    return "the wgmma kernel spills registers or cannot run its block size";
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -34,35 +34,22 @@
 // rank then reads its k-1 remote contributions over NVLink, (k-1)*chunk
 // elements inbound per rank, as the ring does.
 //
-// All-gather (ring_ag_kernel), the first port's ring:
-// * One launch runs every rank's program: the grid is k ranks x ndir
-//   directions x nblk blocks.  Block (r, d, b) owns the same span of
-//   whole 2048-element tiles in every chunk of its band, for all k-1
-//   steps, and its partner downstream is block (r + s, d, b).  The TPU
-//   kernel's remote DMAs and semaphores become stores into the
-//   downstream block's slot in device memory and flags written with
-//   st.release.gpu and read with ld.acquire.gpu.
-// * The forwarded tile stays in registers; each block has two receive
-//   slots of one tile (double buffering) and two flags, so scratch is
-//   bounded by the grid, never by the chunk.  Per tile and step: wait for
-//   downstream's ack of the slot about to be reused (from the step before
-//   last), store the tile into it, release downstream's ready flag,
-//   acquire our own, read our slot, release our ack, store the tile.
-// * Every block waits on a neighbour, so all blocks must be resident at
-//   once: the launch is cooperative (it fails rather than deadlocks when
-//   the grid does not fit) and the grid is sized from the occupancy.
-// * Flags never need a reset: their values are `base + q + 1` for the
-//   block's q-th exchange, and base grows by each launch's exchange count,
-//   so no flag left by an earlier launch satisfies a wait of this one
-//   (the TPU kernel instead drains its ack semaphores to zero).
-// * A wait that does not end within 20 s traps: a broken protocol ends
-//   the process with an error instead of hanging the card.
+// All-gather (ring_ag_copy_kernel): a direct copy, for the same reason.
+// The ring would pass each shard rank to rank; on one card every rank's
+// output is reachable, so each thread loads 16-byte vectors of one
+// rank's shard j (two a step, both in flight together) once each and
+// stores each into all k outputs at out[r][j*chunk + o], streaming
+// (evict-first) stores.  No slots, flags, epoch or cooperative launch:
+// an ordinary grid-stride launch of a few blocks per SM, one grid row per
+// shard.  Elements of 2, 4 or 8 bytes; a shard whose source and k
+// destinations share their offset mod 16 bytes takes vector copies after
+// a scalar head and ends in a scalar tail, any other runs scalar.  The
+// band cut does not change the values of a gather (both bands land in
+// the same places), so the all-gather takes none.
 //
 // What bounds both: bytes.  Reduce-scatter reads k*k*chunk elements and
-// writes k*chunk; all-gather the reverse.  The all-gather's ring adds
-// (k-1) slot writes and reads per element through L2 and one flag round
-// trip per tile and step; its loads and stores are plain coalesced
-// words, with slot traffic marked .cg (L2 only).
+// writes k*chunk; all-gather reads k*chunk and writes k*k*chunk.  Each
+// kernel moves exactly those bytes once.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,92 +60,10 @@ namespace {
 
 constexpr int KMAX = 64;
 constexpr int THREADS = 256;
-constexpr int EPT = 8;                 // elements per thread per tile
-constexpr int TILE = THREADS * EPT;    // elements per tile
 constexpr int KF_BAD_ARGS = 10001;
-constexpr int KF_RING_TOO_LARGE = 10002;
-constexpr unsigned long long TIMEOUT_NS = 20000000000ull;
-
-struct RingArgs {
-  const void* in[KMAX];             // rank r's input
-  void* out[KMAX];                  // rank r's output
-  void* slot[KMAX];                 // rank r's slots: [ndir*nblk][2][TILE]
-  unsigned long long* flag[KMAX];   // rank r's flags: [ndir*nblk][2]
-  long long chunk;                  // elements of one chunk
-  long long cut;                    // end of the clockwise band
-  int k, ndir, nblk;
-  unsigned long long base;          // every flag is <= base at launch
-};
-
-__device__ __forceinline__ unsigned long long ld_acquire(
-    const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
-               : "=l"(v) : "l"(p) : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_release(unsigned long long* p,
-                                           unsigned long long v) {
-  asm volatile("st.release.gpu.global.u64 [%0], %1;"
-               :: "l"(p), "l"(v) : "memory");
-}
-
-__device__ __forceinline__ unsigned long long now_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// the whole block waits until *p >= v (thread 0 spins)
-__device__ __forceinline__ void wait_geq(const unsigned long long* p,
-                                         unsigned long long v) {
-  if (threadIdx.x == 0) {
-    const unsigned long long t0 = now_ns();
-    while (ld_acquire(p) < v) {
-      if (now_ns() - t0 > TIMEOUT_NS) __trap();
-    }
-  }
-  __syncthreads();
-}
-
-// after every thread's earlier accesses, publish *p = v
-__device__ __forceinline__ void signal(unsigned long long* p,
-                                       unsigned long long v) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    st_release(p, v);
-  }
-}
 
 __device__ __forceinline__ long long mod(long long x, int k) {
   return ((x % k) + k) % k;
-}
-
-// one block's place in the grid and its span of tiles
-struct Place {
-  int r, d, sign, dn, me;
-  long long lo, hi, t0, t1;
-};
-
-__device__ __forceinline__ Place place(const RingArgs& a) {
-  Place p;
-  const int per_rank = a.ndir * a.nblk;
-  p.r = blockIdx.x / per_rank;
-  const int rem = blockIdx.x % per_rank;
-  p.d = rem / a.nblk;
-  const int b = rem % a.nblk;
-  p.sign = p.d == 0 ? 1 : -1;
-  p.dn = static_cast<int>(mod(p.r + p.sign, a.k));
-  p.me = rem;
-  p.lo = p.d == 0 ? 0 : a.cut;
-  p.hi = p.d == 0 ? a.cut : a.chunk;
-  const long long tiles = (p.hi - p.lo + TILE - 1) / TILE;
-  const long long per = (tiles + a.nblk - 1) / a.nblk;
-  p.t0 = b * per;
-  p.t1 = p.t0 + per < tiles ? p.t0 + per : tiles;
-  return p;
 }
 
 struct FoldF32 {
@@ -264,67 +169,63 @@ ring_rs_fold_kernel(const FoldArgs a) {
 
 // ------------------------------------------------------- all-gather --
 
-// Exchange one tile with the ring neighbours: send `v` downstream, receive
-// upstream's into `v`.  q is the block's exchange count.
+constexpr int COPY_BLOCKS_PER_SM = 8;
+
+struct CopyArgs {
+  const void* in[KMAX];   // rank j's shard: chunk elements
+  void* out[KMAX];        // rank r's gathered buffer: k chunks
+  long long chunk;
+  int k;
+  // per shard blockIdx.y = j: the scalar elements before the first
+  // 16-byte vector, or -1 when the source and the k destinations do not
+  // share their offset mod 16 bytes (the shard runs scalar)
+  signed char head[KMAX];
+};
+
+// out[r][j*chunk + e] = in[j][e] for every r: one load, k stores.
 template <typename T>
-__device__ __forceinline__ void exchange(const RingArgs& a, const Place& p,
-                                         unsigned long long q, long long e0,
-                                         T (&v)[EPT]) {
-  T* dst = static_cast<T*>(a.slot[p.dn]) +
-           (static_cast<long long>(p.me) * 2 + (q & 1)) * TILE;
-  const T* src = static_cast<const T*>(a.slot[p.r]) +
-                 (static_cast<long long>(p.me) * 2 + (q & 1)) * TILE;
-  unsigned long long* dn_flag = a.flag[p.dn] + 2 * p.me;  // [0] ready
-  unsigned long long* my_flag = a.flag[p.r] + 2 * p.me;   // [1] ack
-  // downstream has read what we stored in this slot two exchanges ago
-  if (q >= 2) wait_geq(dn_flag + 1, a.base + q - 1);
-#pragma unroll
-  for (int i = 0; i < EPT; ++i) {
-    const int j = i * THREADS + threadIdx.x;
-    if (e0 + j < p.hi) __stcg(dst + j, v[i]);
+__global__ void __launch_bounds__(THREADS, COPY_BLOCKS_PER_SM)
+ring_ag_copy_kernel(const CopyArgs a) {
+  constexpr int VEC = 16 / sizeof(T);
+  __shared__ T* dst[KMAX];  // shard j's place in each rank's output
+  const int j = blockIdx.y, k = a.k;
+  if (threadIdx.x < k) {
+    dst[threadIdx.x] = static_cast<T*>(a.out[threadIdx.x]) + j * a.chunk;
   }
-  signal(dn_flag, a.base + q + 1);
-  wait_geq(my_flag, a.base + q + 1);
-#pragma unroll
-  for (int i = 0; i < EPT; ++i) {
-    const int j = i * THREADS + threadIdx.x;
-    if (e0 + j < p.hi) v[i] = __ldcg(src + j);
+  __syncthreads();
+  const T* src = static_cast<const T*>(a.in[j]);
+  const long long n = a.chunk;
+  const long long head = a.head[j] < 0 ? n : min((long long)a.head[j], n);
+  const long long nvec = (n - head) / VEC;
+  const long long body_end = head + nvec * VEC;  // the scalar tail's start
+  const long long stride = (long long)gridDim.x * THREADS;
+  // the vectors, two a thread a step, both loads in flight together; the
+  // stores stream (evict first): nothing reads them back soon, and L2
+  // keeps the lines it needs for the loads
+  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < nvec;
+       i += 2 * stride) {
+    const long long e0 = head + i * VEC, e1 = e0 + stride * VEC;
+    const bool two = i + stride < nvec;
+    const uint4 a0 = __ldg(reinterpret_cast<const uint4*>(src + e0));
+    uint4 a1;
+    if (two) a1 = __ldg(reinterpret_cast<const uint4*>(src + e1));
+    for (int r = 0; r < k; ++r) {
+      __stcs(reinterpret_cast<uint4*>(dst[r] + e0), a0);
+      if (two) __stcs(reinterpret_cast<uint4*>(dst[r] + e1), a1);
+    }
   }
-  signal(my_flag + 1, a.base + q + 1);
-}
-
-template <typename W>
-__global__ void __launch_bounds__(THREADS) ring_ag_kernel(const RingArgs a) {
-  const Place p = place(a);
-  const W* in = static_cast<const W*>(a.in[p.r]);
-  W* out = static_cast<W*>(a.out[p.r]);
-  unsigned long long q = 0;
-  for (long long t = p.t0; t < p.t1; ++t) {
-    const long long e0 = p.lo + t * TILE;
-    W buf[EPT];
-    W* own = out + p.r * a.chunk + e0;
-#pragma unroll
-    for (int i = 0; i < EPT; ++i) {
-      const int j = i * THREADS + threadIdx.x;
-      if (e0 + j < p.hi) {
-        buf[i] = in[e0 + j];
-        own[j] = buf[i];
-      }
-    }
-    for (int s = 0; s < a.k - 1; ++s, ++q) {
-      exchange(a, p, q, e0, buf);
-      W* dst = out + mod(p.r - p.sign * (s + 1), a.k) * a.chunk + e0;
-#pragma unroll
-      for (int i = 0; i < EPT; ++i) {
-        const int j = i * THREADS + threadIdx.x;
-        if (e0 + j < p.hi) dst[j] = buf[i];
-      }
-    }
+  // the scalar head and tail
+  const long long scalars = head + (n - body_end);
+  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
+       i < scalars; i += stride) {
+    const long long e = i < head ? i : body_end + (i - head);
+    const T v = src[e];
+    for (int r = 0; r < k; ++r) dst[r][e] = v;
   }
 }
 
-using Kernel = void (*)(const RingArgs);
 using FoldKernel = void (*)(const FoldArgs);
+using CopyKernel = void (*)(const CopyArgs);
 
 // reduce-scatter element code: 0 f32, 1 bf16, 2 int32
 FoldKernel pick_fold(int code) {
@@ -334,27 +235,20 @@ FoldKernel pick_fold(int code) {
   return nullptr;
 }
 
-// all-gather word bytes: 2 or 4
-Kernel pick_ag(int code) {
-  if (code == 4) return ring_ag_kernel<unsigned>;
-  if (code == 2) return ring_ag_kernel<unsigned short>;
+// all-gather element bytes: 2, 4 or 8
+CopyKernel pick_copy(int bytes) {
+  if (bytes == 2) return ring_ag_copy_kernel<unsigned short>;
+  if (bytes == 4) return ring_ag_copy_kernel<unsigned>;
+  if (bytes == 8) return ring_ag_copy_kernel<unsigned long long>;
   return nullptr;
 }
 
-// blocks of `kernel` the current device holds at once
-int capacity(Kernel kernel, int* blocks) {
-  int dev = 0, sms = 0, per_sm = 0, coop = 0;
+int sm_count(int* sms) {
+  int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, reinterpret_cast<const void*>(kernel), THREADS, 0);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  *blocks = coop ? per_sm * sms : 0;
-  return 0;
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -370,11 +264,9 @@ extern "C" int kf_ring_rs(int code, const void* const* in, void* const* out,
   if (kernel == nullptr || k < 2 || k > KMAX || chunk <= 0 || cut <= 0 ||
       cut > chunk)
     return KF_BAD_ARGS;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  int sms = 0;
+  const int err = sm_count(&sms);
+  if (err) return err;
   const long long es = code == 1 ? 2 : 4, vec = 16 / es;
   FoldArgs a;
   a.chunk = chunk;
@@ -414,85 +306,48 @@ extern "C" int kf_ring_rs(int code, const void* const* in, void* const* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Elements of one all-gather tile; the scratch of one block is 2 tiles of
-// 4-byte words and 2 flags.
-extern "C" int kf_ring_tile() { return TILE; }
-
-// The most blocks the all-gather kernels can keep resident on the current
-// device (0 when it cannot launch cooperatively): the scratch is sized
-// for it.
-extern "C" int kf_ring_capacity(int* blocks) {
-  int most = 0;
-  for (const int code : {4, 2}) {
-    int b = 0;
-    const int err = capacity(pick_ag(code), &b);
-    if (err) return err;
-    most = b > most ? b : most;
-  }
-  *blocks = most;
-  return 0;
-}
-
-// One launch of the ring all-gather over k co-resident ranks (code: word
-// bytes, 2 or 4).  in/out: k device pointers each.  slot/flag: one
-// scratch region of `scratch_blocks` blocks (2 tiles of 4-byte words and 2
-// zero-initialised u64 flags each), carved per rank here; *base is the
-// epoch, advanced past every flag value this launch writes.
-extern "C" int kf_ring_ag_launch(int code, const void* const* in,
-                                 void* const* out, int k, long long chunk,
-                                 long long cut, void* slot, void* flag,
-                                 int scratch_blocks, unsigned long long* base,
-                                 void* stream) {
-  const Kernel kernel = pick_ag(code);
-  if (kernel == nullptr || k < 2 || k > KMAX || chunk <= 0 || cut <= 0 ||
-      cut > chunk)
-    return KF_BAD_ARGS;
-  int resident = 0;
-  const int err = capacity(kernel, &resident);
+// One launch of the all-gather over k co-resident ranks: in/out are k
+// device pointers each (rank j's chunk elements, rank r's k*chunk),
+// elements of `bytes` bytes (2, 4 or 8).  Any element-aligned bases;
+// nothing to keep between launches.
+extern "C" int kf_ring_ag(int bytes, const void* const* in, void* const* out,
+                          int k, long long chunk, void* stream) {
+  const CopyKernel kernel = pick_copy(bytes);
+  if (kernel == nullptr || k < 2 || k > KMAX || chunk <= 0) return KF_BAD_ARGS;
+  int sms = 0;
+  const int err = sm_count(&sms);
   if (err) return err;
-  const int ndir = cut < chunk ? 2 : 1;
-  const long long tiles[2] = {(cut + TILE - 1) / TILE,
-                              (chunk - cut + TILE - 1) / TILE};
-  const long long most = tiles[0] > tiles[1] ? tiles[0] : tiles[1];
-  const int fit = (resident < scratch_blocks ? resident : scratch_blocks) /
-                  (k * ndir);
-  if (fit < 1) return KF_RING_TOO_LARGE;
-  const int nblk = most < fit ? static_cast<int>(most) : fit;
-  RingArgs a;
-  const long long word = 4;  // the scratch is carved in 4-byte words
-  for (int r = 0; r < k; ++r) {
-    a.in[r] = in[r];
-    a.out[r] = out[r];
-    a.slot[r] = static_cast<char*>(slot) +
-                static_cast<long long>(r) * ndir * nblk * 2 * TILE * word;
-    a.flag[r] = static_cast<unsigned long long*>(flag) +
-                static_cast<long long>(r) * ndir * nblk * 2;
-  }
+  const long long es = bytes, vec = 16 / es;
+  CopyArgs a;
   a.chunk = chunk;
-  a.cut = cut;
   a.k = k;
-  a.ndir = ndir;
-  a.nblk = nblk;
-  a.base = *base;
-  void* args[] = {&a};
-  cudaError_t e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(kernel), dim3(k * ndir * nblk),
-      dim3(THREADS), args, 0, static_cast<cudaStream_t>(stream));
-  if (e == cudaSuccess) e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  // each block makes (k-1) exchanges per tile of its span
-  long long per = 0;
-  for (int d = 0; d < ndir; ++d) {
-    const long long p = (tiles[d] + nblk - 1) / nblk;
-    per = p > per ? p : per;
+  long long most = 0;  // work items (vectors and scalars) of a shard
+  for (int j = 0; j < k; ++j) {
+    a.in[j] = in[j];
+    a.out[j] = out[j];
+    const uintptr_t o = reinterpret_cast<uintptr_t>(in[j]);
+    bool shared = o % es == 0;
+    for (int r = 0; r < k && shared; ++r) {
+      shared = (reinterpret_cast<uintptr_t>(out[r]) + j * chunk * es) % 16 ==
+               o % 16;
+    }
+    const long long head =
+        shared ? static_cast<long long>((16 - o % 16) % 16) / es : -1;
+    a.head[j] = static_cast<signed char>(head);
+    const long long h = head < 0 || head > chunk ? chunk : head;
+    const long long nvec = (chunk - h) / vec;
+    const long long items = chunk - nvec * (vec - 1);
+    most = items > most ? items : most;
   }
-  *base += static_cast<unsigned long long>(per) * (k - 1);
-  return 0;
+  long long bx = (most + THREADS - 1) / THREADS;
+  const long long fill = sms * COPY_BLOCKS_PER_SM / k;
+  bx = bx < fill ? bx : (fill > 0 ? fill : 1);
+  kernel<<<dim3(static_cast<unsigned>(bx), k), THREADS, 0,
+           static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* kf_error_string(int code) {
   if (code == KF_BAD_ARGS) return "unsupported arguments";
-  if (code == KF_RING_TOO_LARGE)
-    return "the ring's blocks cannot all be resident on this device";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

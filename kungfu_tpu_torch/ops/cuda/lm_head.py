@@ -10,7 +10,10 @@ tile by tile.  Their plain versions, :func:`lm_head_forward_reference`
 and :func:`lm_head_backward_reference`, compute the same functions one
 vocab block at a time (f32 products, the reference's ``-1e30`` start and
 ``1e-30`` clamp), so a comparison at the flagship shape never holds a
-second ``[N, V]`` buffer.
+second ``[N, V]`` buffer.  For bf16 ``h`` the dW kernel runs on the
+tensor cores from W split into two bf16 terms (:func:`split_w`, whose
+plain version is :func:`split_w_reference`): W is never rounded to one
+bf16 and TF32 is never used.
 
 :func:`forward` and :func:`backward` dispatch by device: a CPU tensor
 takes the plain version, a CUDA tensor launches the kernels or raises —
@@ -35,7 +38,10 @@ _NEG_INF = -1e30
 REF_BLOCK_V = 2048
 
 #: launches of the hand-written kernels: +1 per launch, nowhere else
-launch_counts = {"lm_head_fwd": 0, "lm_head_bwd_dh": 0, "lm_head_bwd_dw": 0}
+launch_counts = {"lm_head_fwd": 0, "lm_head_bwd_dh": 0, "lm_head_bwd_dw": 0,
+                 "lm_head_split": 0}
+#: the wgmma dW kernel's cluster holds D in slices of 256, at most 8
+WGMMA_MAX_D = 256 * 8
 
 _lock = threading.Lock()
 _built: Optional[_build.Built] = None
@@ -58,11 +64,16 @@ def load() -> _build.Built:
                 "kf_lm_head_fwd": [ptr] * 6 + [i32] * 5 + [ptr],
                 "kf_lm_head_bwd_dh": [ptr] * 6 + [i32] * 5 + [ptr],
                 "kf_lm_head_bwd_dw": [ptr] * 6 + [i32] * 5 + [ptr],
+                "kf_lm_head_split_w": [ptr] * 3 + [i32] * 4 + [ptr],
+                "kf_lm_head_bwd_dw_wgmma": [ptr, i32, ptr, ptr, i32]
+                + [ptr] * 5 + [i32] * 4 + [ptr],
             }
             for name, argtypes in signatures.items():
                 fn = getattr(built.lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+            built.lib.kf_lm_head_dw_scratch.argtypes = []
+            built.lib.kf_lm_head_dw_scratch.restype = ctypes.c_longlong
             built.lib.kf_error_string.argtypes = [ctypes.c_int]
             built.lib.kf_error_string.restype = ctypes.c_char_p
             _built = built
@@ -117,6 +128,29 @@ def lm_head_backward_reference(h, w, targets, lse, g,
         dh += dl @ wb.T
         dw[:, v0:v0 + block_v] = (hf.T @ dl).to(w.dtype)
     return dh.to(h.dtype), dw
+
+
+def split_ld(d: int) -> int:
+    """Row pitch in elements of the split's ``[V, ld]`` outputs: ``d``
+    rounded up to 8, so a row is a multiple of 16 bytes (TMA's rule)."""
+    return -(-d // 8) * 8
+
+
+def split_w_reference(w: torch.Tensor
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain version of the split kernel: ``w`` ``[D, V]`` to ``hi`` and
+    ``lo`` bf16 ``[V, ld]`` (columns ``[D, ld)`` zero), ``hi = bf16(wᵀ)``
+    and ``lo = bf16(wᵀ - hi)``; ``lo`` is None for a bf16 ``w``, whose
+    ``hi`` is ``wᵀ`` exactly."""
+    d, v = w.shape
+    wt = w.t().float()
+    hi = torch.zeros((v, split_ld(d)), dtype=torch.bfloat16, device=w.device)
+    hi[:, :d] = wt.to(torch.bfloat16)
+    if w.dtype == torch.bfloat16:
+        return hi, None
+    lo = torch.zeros_like(hi)
+    lo[:, :d] = (wt - hi[:, :d].float()).to(torch.bfloat16)
+    return hi, lo
 
 
 # -- dispatch --------------------------------------------------------------
@@ -190,10 +224,51 @@ def _launch_dh(h, w, targets, lse, g) -> torch.Tensor:
     return dh
 
 
+def split_w(w: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The split kernel on a contiguous CUDA ``w``: as
+    :func:`split_w_reference`, bit for bit."""
+    lib = load().lib
+    d, v = w.shape
+    hi = torch.empty((v, split_ld(d)), dtype=torch.bfloat16, device=w.device)
+    lo = None if w.dtype == torch.bfloat16 else torch.empty_like(hi)
+    with torch.cuda.device(w.device):
+        err = lib.kf_lm_head_split_w(
+            w.data_ptr(), hi.data_ptr(), 0 if lo is None else lo.data_ptr(),
+            d, v, hi.shape[1], int(lo is None),
+            torch.cuda.current_stream(w.device).cuda_stream)
+    _raise_on(lib, err, "split")
+    launch_counts["lm_head_split"] += 1
+    return hi, lo
+
+
 def _launch_dw(h, w, targets, lse, g) -> torch.Tensor:
-    """The dW kernel, operands as :func:`_launch_dh`."""
+    """The dW kernel, operands as :func:`_launch_dh`.  bf16 ``h`` (D up to
+    :data:`WGMMA_MAX_D`) takes the wgmma kernel on the split of ``w``;
+    f32 ``h`` and wider D take the f32 SIMT kernel."""
     dw = torch.empty_like(w)
-    _launch_bwd_kernel("lm_head_bwd_dw", h, w, targets, lse, g, dw)
+    (n, d), v = h.shape, w.shape[1]
+    if h.dtype != torch.bfloat16 or d > WGMMA_MAX_D:
+        _launch_bwd_kernel("lm_head_bwd_dw", h, w, targets, lse, g, dw)
+        return dw
+    w_hi, w_lo = split_w(w)
+    if d % 8 or h.data_ptr() % 16:
+        # TMA reads rows of a pitch that is a multiple of 16 bytes
+        padded = torch.empty((n, split_ld(d)), dtype=h.dtype, device=h.device)
+        padded[:, :d] = h
+        h = padded
+    lib = load().lib
+    # where the cluster's CTAs exchange their partial logits
+    scratch = torch.empty(lib.kf_lm_head_dw_scratch(), dtype=torch.float32,
+                          device=h.device)
+    with torch.cuda.device(h.device):
+        err = lib.kf_lm_head_bwd_dw_wgmma(
+            h.data_ptr(), h.stride(0), w_hi.data_ptr(),
+            0 if w_lo is None else w_lo.data_ptr(), w_hi.shape[1],
+            targets.data_ptr(), lse.data_ptr(), g.data_ptr(), dw.data_ptr(),
+            scratch.data_ptr(), n, d, v, int(w_lo is None),
+            torch.cuda.current_stream(h.device).cuda_stream)
+    _raise_on(lib, err, "lm_head_bwd_dw")
+    launch_counts["lm_head_bwd_dw"] += 1
     return dw
 
 

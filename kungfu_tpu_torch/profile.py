@@ -37,7 +37,8 @@ def _family(name: str) -> str:
     low = name.lower()
     for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "xent_fwd",
                    "xent_bwd", "lm_head_fwd", "lm_head_bwd_dh",
-                   "lm_head_bwd_dw", "ring_rs", "ring_ag"):
+                   "lm_head_bwd_dw", "lm_head_split", "ring_rs",
+                   "ring_ag"):
         if kernel in low:
             return f"{kernel} (hand-written)"
     # f32 products run on the CUDA cores (TF32 off): in the flagship

@@ -12,8 +12,8 @@ seeds.
 
 The other tests read the CUDA sources: every ``extern "C"`` launcher
 must match the ctypes ``argtypes`` its wrapper binds (a mismatch passes
-garbage with no error), and every ``__global__`` flash kernel must fall
-into its hand-written family in ``profile._family``.
+garbage with no error), and every ``__global__`` kernel must fall into
+its hand-written family in ``profile._family``.
 """
 
 import ctypes
@@ -158,13 +158,23 @@ def test_launchers_match_wrapper_argtypes(monkeypatch):
             f"{src}:{name} is never bound"
         assert [_ctypes_kind(t) for t in fn.argtypes] == c_kinds, \
             f"{src}:{name} argtypes differ from the C parameters"
-    assert {"kf_flash_fwd", "kf_flash_bwd_dq", "kf_flash_bwd_dkv"} <= {
-        name for _, name in launchers}
+    assert {"kf_flash_fwd", "kf_flash_bwd_dq", "kf_flash_bwd_dkv",
+            "kf_lm_head_split_w", "kf_lm_head_bwd_dw_wgmma", "kf_ring_rs",
+            "kf_ring_ag"} <= {name for _, name in launchers}
+
+
+#: the families whose bf16 path is a wgmma kernel, by source
+_WGMMA_FAMILIES = {"flash_fwd.cu": {"flash_fwd"},
+                   "flash_bwd.cu": {"flash_bwd_dq", "flash_bwd_dkv"},
+                   "lm_head.cu": {"lm_head_bwd_dw"}, "ring.cu": set()}
 
 
 @pytest.mark.parametrize("source,families", [
     ("flash_fwd.cu", {"flash_fwd"}),
     ("flash_bwd.cu", {"flash_bwd_dq", "flash_bwd_dkv"}),
+    ("lm_head.cu", {"lm_head_fwd", "lm_head_bwd_dh", "lm_head_bwd_dw",
+                    "lm_head_split"}),
+    ("ring.cu", {"ring_rs", "ring_ag"}),
 ])
 def test_flash_kernel_names_map_to_their_profile_family(source, families):
     text = (CSRC / source).read_text()
@@ -178,6 +188,6 @@ def test_flash_kernel_names_map_to_their_profile_family(source, families):
         assert family.endswith("(hand-written)"), (name, family)
         seen.add(family.split(" ")[0])
     assert seen == families
-    for family in families:
+    for family in _WGMMA_FAMILIES[source]:
         assert any("wgmma" in n and profile._family(n).startswith(family)
                    for n in names), f"the bf16 wgmma {family} kernel is gone"

@@ -207,7 +207,8 @@ class TestKernelContract:
         h, w, t = _data(8, 16, 64, seed=7)
         _port(h, w, t)
         assert kernels.launch_counts == {"lm_head_fwd": 0, "lm_head_bwd_dh": 0,
-                                         "lm_head_bwd_dw": 0}
+                                         "lm_head_bwd_dw": 0,
+                                         "lm_head_split": 0}
 
     def test_block_sizes_are_ignored(self):
         h, w, t = (torch.from_numpy(a) for a in _data(9, 16, 70, seed=8))
@@ -264,3 +265,88 @@ class TestKernelContract:
             monkeypatch.setenv("KF_TPU_LM_HEAD", mode)
             model.loss(tp, (ids, ids), attn_fn=ttr.default_attention)
             assert bool(calls) == fused, mode
+
+
+class TestSplitPlainVersion:
+    """The plain version of the split kernel, which chip_smoke.py holds
+    the kernel to bit for bit."""
+
+    @pytest.mark.parametrize("d,v", [(24, 70), (203, 130), (768, 64)])
+    def test_terms_and_pitch(self, d, v):
+        rng = np.random.default_rng(d + v)
+        w = torch.from_numpy((rng.standard_normal((d, v)) * 0.05)
+                             .astype(np.float32))
+        hi, lo = kernels.split_w_reference(w)
+        ld = kernels.split_ld(d)
+        assert ld % 8 == 0 and d <= ld < d + 8
+        assert hi.shape == lo.shape == (v, ld)
+        assert hi.dtype == lo.dtype == torch.bfloat16
+        assert torch.equal(hi[:, :d], w.t().to(torch.bfloat16))
+        assert not hi[:, d:].any() and not lo[:, d:].any()
+        wt = w.t().double()
+        got = hi[:, :d].double() + lo[:, :d].double()
+        assert ((got - wt).abs() <= 2.0 ** -16 * wt.abs()).all()
+
+    def test_bf16_weights_need_one_term(self):
+        w = torch.from_numpy(np.random.default_rng(0).standard_normal(
+            (40, 33)).astype(np.float32)).to(torch.bfloat16)
+        hi, lo = kernels.split_w_reference(w)
+        assert lo is None and hi.shape == (33, 40)
+        assert torch.equal(hi, w.t())
+
+
+def _dw_split_emulation(h, w, t, lse, g):
+    """dW as the wgmma kernel computes it: logits h W_hi + h W_lo (one
+    product for a bf16 W), dl split into bf16 dl_hi and dl_lo, dW = hᵀ
+    dl_hi + hᵀ dl_lo, every product f32, rounded once to W's dtype."""
+    d, v = w.shape
+    w_hi, w_lo = kernels.split_w_reference(w)
+    hf = h.float()
+    x = hf @ w_hi[:, :d].float().t()
+    if w_lo is not None:
+        x = x + hf @ w_lo[:, :d].float().t()
+    cols = torch.arange(v)
+    dl = (torch.exp(x - lse[:, None]) - (cols[None, :] == t.long()[:, None])
+          .float()) * g[:, None]
+    dl_hi = dl.to(torch.bfloat16).float()
+    dl_lo = (dl - dl_hi).to(torch.bfloat16).float()
+    return (hf.t() @ dl_hi + hf.t() @ dl_lo).to(w.dtype)
+
+
+class TestSplitArithmetic:
+    """The wgmma dW kernel's arithmetic, emulated on the CPU, against the
+    reference's dW (Pallas in interpret mode) at chip_smoke.py's dW
+    tolerances: ``rtol`` 1e-4 for f32 W (two bf16 ulps for bf16 W) plus
+    1e-5 of max|dW|.  The flagship's statistics: bf16 h ~ N(0, 1), W ~
+    0.05 N(0, 1), g ~ N(0, 1); ragged V, out-of-vocab targets."""
+
+    @pytest.mark.parametrize("n,d,v,w_bf16", [
+        (64, 96, 200, False), (48, 64, 130, False), (40, 128, 70, True),
+        (72, 256, 1000, False)])
+    def test_matches_jax_gradient(self, n, d, v, w_bf16):
+        rng = np.random.default_rng(100 + n + d + v)
+        h = np.asarray(jnp.asarray(rng.standard_normal((n, d)), jnp.bfloat16),
+                       np.float32)
+        w = (rng.standard_normal((d, v)) * 0.05).astype(np.float32)
+        if w_bf16:
+            w = np.asarray(jnp.asarray(w, jnp.bfloat16), np.float32)
+        t = rng.integers(0, v, n).astype(np.int32)
+        t[:2] = [-1, 2 * v + 256]  # out of vocab, past the padded block
+        g = rng.standard_normal(n).astype(np.float32)
+        wdt = jnp.bfloat16 if w_bf16 else jnp.float32
+        jh, jw = jnp.asarray(h, jnp.bfloat16), jnp.asarray(w, wdt)
+        _, vjp = jax.vjp(lambda a, b: jlm_head_nll(a, b, jnp.asarray(t),
+                                                   block_n=8, block_v=128),
+                         jh, jw)
+        ref = np.asarray(vjp(jnp.asarray(g))[1], np.float32)
+        th = torch.from_numpy(h).to(torch.bfloat16)
+        tw = torch.from_numpy(w).to(torch.bfloat16 if w_bf16
+                                    else torch.float32)
+        _, lse = kernels.lm_head_forward_reference(th, tw, torch.from_numpy(t))
+        got = _dw_split_emulation(th, tw, torch.from_numpy(t), lse,
+                                  torch.from_numpy(g))
+        assert got.dtype == tw.dtype
+        rtol = 2 ** -6 if w_bf16 else 1e-4
+        atol = 1e-5 * np.abs(ref).max()
+        np.testing.assert_allclose(got.float().numpy(), ref, rtol=rtol,
+                                   atol=atol)
