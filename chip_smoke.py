@@ -14,8 +14,8 @@ Phases (any failed check exits non-zero before the result line):
              kernels compile at their first launch, in phase 3); the
              wgmma/TMA flash kernels must show no register spills in
              ptxas's report and HGMMA and UTMALDG instructions in their
-             SASS (``cuobjdump``), and so must the LM head's wgmma dW
-             kernels;
+             SASS (``cuobjdump``), and so must the LM head's wgmma
+             forward, dh and dW kernels;
 3. kernels — each kernel against its plain PyTorch version on the card,
              at the main path's shape and at the edge cases (for the
              flash kernels also a bf16 grid of sequence lengths around
@@ -66,10 +66,11 @@ vector loads cannot take whole (a base off 16 bytes, a row stride off 4
 elements, odd chunks and cuts, k = 16; 2-, 4- and 8-byte elements for
 the all-gather), and times each with its host µs per launch.  The fused
 LM head's cases other than the flagship's (``LMH_CASES``: all-bf16,
-all-f32, ragged N, D and V, clusters of three and four CTAs for the
-wgmma dW kernel) each run in a process of their own
-(``python3 chip_smoke.py --lm-head-case NAME``), all started together,
-so that a kernel that hangs or faults names its case.
+all-f32, ragged N, D and V, clusters of three, four and eight CTAs for
+the wgmma dh and dW kernels, and bf16 h with D past the largest
+cluster, where dh and dW take the SIMT kernels) each run in a process
+of their own (``python3 chip_smoke.py --lm-head-case NAME``), all
+started together, so that a kernel that hangs or faults names its case.
 
 Each path's launches are counted from zero just before it runs.  It
 prints a ``kernels`` JSON line, the ``nvidia-smi`` line, and last
@@ -577,7 +578,8 @@ def _ratio(got, ref, rtol: float, atol: float) -> float:
 
 
 #: the fused LM head's cases: N, D, V, h dtype, W dtype.  bf16 h takes
-#: the wgmma dW kernel on the split of W (f32 h the SIMT one)
+#: the wgmma forward, dh and dW kernels on the split of W (f32 h the
+#: SIMT ones)
 LMH_CASES = {
     "main": (TRAIN_BATCH * TRAIN_SEQ, FLAGSHIP["d_model"],
              FLAGSHIP["vocab_size"], "bfloat16", "float32"),
@@ -585,21 +587,29 @@ LMH_CASES = {
     "f32": (1024, 768, 4096, "float32", "float32"),
     "ragged": (517, 200, 1000, "bfloat16", "float32"),
     "ragged_f32_wide": (130, 1000, 777, "float32", "float32"),
-    # the wgmma dW kernel's edges: V not a multiple of its 64 vocab
-    # columns, D not a multiple of 16, N not a multiple of its 64 rows
+    # the wgmma kernels' edges: V not a multiple of their 64 or 128 vocab
+    # columns, D not a multiple of 16, N not a multiple of their 64 or
+    # 128 rows
     "ragged_bf16": (517, 200, 1000, "bfloat16", "bfloat16"),
     # a cluster of three CTAs, the last partly past D; D not a multiple
     # of 8, so h is copied to rows of a 16-byte pitch
     "ragged_cluster3": (300, 603, 777, "bfloat16", "float32"),
     # a cluster of four CTAs
     "ragged_cluster4": (130, 1000, 777, "bfloat16", "float32"),
+    # the largest cluster, eight CTAs
+    "ragged_cluster8": (130, 2048, 777, "bfloat16", "float32"),
+    # bf16 h past a cluster's eight slices: the wgmma forward, the SIMT
+    # dh and dW kernels
+    "ragged_bf16_wide": (130, 2100, 777, "bfloat16", "float32"),
 }
 
 
 def lm_head_case(torch, lmk, name: str) -> dict:
     """One case of the fused LM head: the split kernel bitwise against
     its plain version (bf16 h), then the forward, dh and dW kernels
-    against theirs, with out-of-vocab targets in the ragged cases."""
+    against theirs, with out-of-vocab targets in the ragged cases; the
+    backward takes the forward's split of W, as the autograd function
+    passes it."""
     n, d, v, dt_h, dt_w = LMH_CASES[name]
     dt_h, dt_w = getattr(torch, dt_h), getattr(torch, dt_w)
     bf16 = torch.bfloat16
@@ -620,8 +630,11 @@ def lm_head_case(torch, lmk, name: str) -> dict:
                                              ref_lo.view(torch.int16))),
               f"lm_head {name}: split kernel != plain version")
         del hi, lo, ref_hi, ref_lo
-    loss, lse = lmk.forward(h, w, t)
-    dh, dw = lmk.backward(h, w, t, lse, g)
+    loss, lse, split = lmk.forward(h, w, t)
+    check((split is not None) == (dt_h == bf16),
+          f"lm_head {name}: the forward kept no split of W")
+    dh, dw = lmk.backward(h, w, t, lse, g, split)
+    del split
     torch.cuda.synchronize()
     ref_loss, ref_lse = lmk.lm_head_forward_reference(h, w, t)
     ref_dh, ref_dw = lmk.lm_head_backward_reference(h, w, t, ref_lse, g)
@@ -705,7 +718,7 @@ def phase_lm_head(torch, lmk, spec):
     t = torch.randint(0, v, (n,), generator=gen, device="cuda")
     t32 = t.to(torch.int32)
     g = torch.full((n,), 1.0 / n, device="cuda")
-    _, lse = lmk._launch_fwd(h, w, t32)
+    lse = lmk._launch_fwd(h, w, t32)[1]
     fwd_ms = device_ms(torch, lambda: lmk._launch_fwd(h, w, t32), iters=2,
                        windows=5)
     dh_ms = device_ms(torch, lambda: lmk._launch_dh(h, w, t32, lse, g),
@@ -747,19 +760,25 @@ def phase_lm_head(torch, lmk, spec):
                        "plain_head_ms": head, "host_us": host[key],
                        "bound_fp32_ms": flops / spec["f32_flops"] * 1e3,
                        **bound(spec, flops, nbytes)}
-    # the wgmma dW kernel runs four bf16 products of 2*N*D*V (the logits
-    # from W's two terms, dW from dl's two terms), the split before them
-    timing["dw"]["split_ms"] = split_ms
-    timing["dw"]["bound_executed_ms"] = 4 * prod / spec["bf16_flops"] * 1e3
+    # the wgmma kernels run bf16 products of 2*N*D*V each: the logits
+    # from W's two terms (all three kernels), then dW from dl's two terms
+    # (four in all) or dh from dl_hi W_hi, dl_hi W_lo and dl_lo W_hi
+    # (five); each times the split of W, which it makes when not given one
+    for key, products in (("fwd", 2), ("dh", 5), ("dw", 4)):
+        timing[key]["split_ms"] = split_ms
+        timing[key]["bound_executed_ms"] = (products * prod
+                                            / spec["bf16_flops"] * 1e3)
     print(f"lm_head timing main [{n}, {d}] x [{d}, {v}] bf16 h, f32 W: fwd "
           f"{fwd_ms:.4f} ms, dh {dh_ms:.4f} ms, dW {dw_ms:.4f} ms (bounds "
           f"{timing['fwd']['bound_ms']:.4f} / {timing['dh']['bound_ms']:.4f} "
           f"/ {timing['dw']['bound_ms']:.4f} at bf16 peak, "
           f"{timing['fwd']['bound_fp32_ms']:.4f} / "
           f"{timing['dh']['bound_fp32_ms']:.4f} / "
-          f"{timing['dw']['bound_fp32_ms']:.4f} at FP32 peak; dW executes "
-          f"{timing['dw']['bound_executed_ms']:.4f} of bf16 work, its split "
-          f"{split_ms:.4f} ms of it); host {host['fwd']:.1f} / "
+          f"{timing['dw']['bound_fp32_ms']:.4f} at FP32 peak; the kernels "
+          f"execute {timing['fwd']['bound_executed_ms']:.4f} / "
+          f"{timing['dh']['bound_executed_ms']:.4f} / "
+          f"{timing['dw']['bound_executed_ms']:.4f} of bf16 work; the split "
+          f"of W, {split_ms:.4f} ms, is in each time); host {host['fwd']:.1f} / "
           f"{host['dh']:.1f} / {host['dw']:.1f} us per launch; plain "
           f"versions fwd {plain_fwd:.4f} ms, bwd {plain_bwd:.4f} ms; plain "
           f"head (f32 product + F.cross_entropy, two calls) fwd "
@@ -1440,10 +1459,12 @@ def phase_zero(torch, np, kernels, tr, stage: int, ssgd_p1):
 WGMMA_KERNELS = ("flash_fwd_bf16_wgmma_kernel",
                  "flash_bwd_dq_bf16_wgmma_kernel",
                  "flash_bwd_dkv_bf16_wgmma_kernel",
+                 "lm_head_fwd_wgmma_kernel",
+                 "lm_head_bwd_dh_wgmma_kernel",
                  "lm_head_bwd_dw_wgmma_kernel")
-#: their instantiations: the flash kernels at D 32/64/128, dW for f32
-#: and bf16 W
-WGMMA_INSTANTIATIONS = 3 * 3 + 2
+#: their instantiations: the flash kernels at D 32/64/128; the LM head's
+#: forward, dh and dW, each for f32 and bf16 W
+WGMMA_INSTANTIATIONS = 3 * 3 + 3 * 2
 
 
 def _ptxas_report(log: str) -> dict:
@@ -1526,7 +1547,8 @@ def build_all(torch, attention, lmk, ringk) -> dict:
     check(all(k in names for k in WGMMA_KERNELS)
           and len(info["kernels"]) == WGMMA_INSTANTIATIONS,
           f"expected {WGMMA_INSTANTIATIONS} wgmma kernels (flash at D "
-          f"32/64/128, dW for f32 and bf16 W), found {names}")
+          f"32/64/128; LM-head forward, dh and dW for f32 and bf16 W), "
+          f"found {names}")
     return info
 
 
@@ -1611,6 +1633,7 @@ def main() -> int:
 
     def row(name, route, source, replaces, key, err, timing):
         extra = {k: timing[k] for k in ("plain_head_ms", "bound_fp32_ms",
+                                        "bound_executed_ms", "split_ms",
                                         "host_us") if k in timing}
         return {"name": name, "route": route, "source": source,
                 "replaces": replaces,

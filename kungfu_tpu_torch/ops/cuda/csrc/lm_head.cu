@@ -15,95 +15,88 @@
 // no onehot term, as in the reference kernels.  lse is a residual of the
 // forward, not differentiated (the reference's VJP takes g only).
 //
-// Design for the card, not the TPU's block by block:
-// * The TPU carried its accumulators in VMEM across a sequential grid
-//   axis; here that axis is a loop inside one CTA, and CTAs run in any
-//   order.  No atomics: every result is deterministic.
-//   - forward: one CTA per (128-row block, vocab split) walks its share
-//     of the vocab in 128-column tiles, keeping a running max, sum of
-//     exponentials and target logit per (row, column subset) in each
-//     thread's registers; the 16 threads of a row merge them in shared
-//     memory, and a small second kernel merges the splits into loss and
-//     lse.  The splits exist only to fill the card: 64 row blocks alone
-//     would leave most of the SMs idle at the flagship shape.
-//   - dh: one CTA per 32-row block walks the vocab in 256-column tiles;
-//     per tile it recomputes the logits tile, forms dl in shared memory
-//     and adds dl W^T to a [32, 768] f32 accumulator held in registers
-//     (96 values a thread).
-//   - dW, f32 h (lm_head_bwd_dw_kernel): one CTA per 32-column vocab
-//     block walks the rows in 128-row tiles; per tile it recomputes the
-//     logits tile, forms dl in shared memory and adds h^T dl to a
-//     [768, 32] f32 accumulator in registers.
-//   - dW, bf16 h (lm_head_bwd_dw_wgmma_kernel, below): wgmma and TMA on
-//     W split into two bf16 terms; see "dW on the tensor cores".
-//   A model dimension above 768 is handled in 768-wide chunks, each
-//   chunk sweeping (and recomputing) the logits again (SIMT kernels).
-// * The accumulators live in registers (up to 255 a thread), so one CTA
-//   runs per SM and no second CTA hides its loads.  Instead each product
-//   walks its K dimension in chunks staged through shared memory, and the
-//   next chunk's global loads are issued into registers before the
-//   current chunk's products (Chunk::fetch / store), so their latency
-//   hides behind them; only dh's second product loads its chunk just in
-//   time, because the registers a chunk ahead would need spill.
-// * Every SIMT product is an f32 product on the CUDA cores: each
-//   operand is converted to f32 as it is staged into shared memory
-//   (exact for bf16), multiplied with fmaf and summed in f32.  TF32 is
-//   never used and W is never rounded to bf16, so the flagship's f32
-//   head weights keep their value (lm_head.py:54-57 and :129-132,
-//   :157-160 take f32 products with f32 accumulation).  The all-bf16
-//   case takes the same f32 path: its products are exact in f32.
-// * Rounding points: the logits, the probabilities and dl stay f32
-//   (never stored); loss and lse are written in f32; dh is rounded once
-//   to h's dtype and dW once to W's dtype, from their f32 accumulators,
-//   as the reference casts its f32 scratch at the end of each sweep.
-// * Each block tile is a register-blocked SIMT GEMM: operands staged in
-//   shared memory k-major, each thread owning a 4-aligned grid of
-//   outputs (8x8 forward, 4x8 and 4x24 in dh, 4x4 and 24x4 in dW) fed by
-//   16-byte shared loads, arranged so that a warp's loads are broadcasts
-//   or one contiguous 128-byte line.
+// Design for the card, not the TPU's block by block.  bf16 h (every
+// main path) takes three wgmma/TMA kernels on W split into two bf16
+// terms; f32 h (an edge case no main path has) keeps f32 SIMT kernels.
+//
+// The split (lm_head_split_w_kernel) writes W^T as hi = bf16(W) and lo =
+// bf16(W - hi) (exact in f32, so hi + lo keeps about 17 bits of W),
+// transposed to [V, ld] with ld = D rounded up to 8 so each row pitch is
+// a multiple of 16 bytes, as TMA needs.  W is never rounded to one bf16
+// and TF32 is never used: the logits are h W_hi + h W_lo (two bf16
+// products, f32 accumulate; one for a bf16 W), and dl is split the same
+// way in registers (dl_hi, dl_lo).  The forward splits W once a step and
+// hands the split on to dh and dW.
+// * forward (lm_head_fwd_wgmma_kernel): a GEMM with a softmax epilogue.
+//   One CTA per (128-row block, vocab split), two consumer warpgroups of
+//   64 rows and a producer warp streaming h, W_hi and W_lo chunks through
+//   a TMA ring; per 128-column vocab tile the logits stay in registers
+//   and update each row's running max, sum of exponentials and target
+//   logit in the accumulator layout.  lm_head_fwd_combine_kernel merges
+//   the splits.  No cluster: the logits only feed per-row reductions.
+// * dh (lm_head_bwd_dh_wgmma_kernel) and dW (lm_head_bwd_dw_wgmma_kernel)
+//   recompute the logits tile by tile.  Their f32 accumulators, [64, D]
+//   for a block of rows or of vocab columns, do not fit one warpgroup's
+//   registers at D = 768 (384 a thread), so D is split over a thread
+//   block cluster of ceil(D / 256) CTAs (at most 8): each CTA computes
+//   partial logits over its 256 columns, the partials are exchanged
+//   through L2 and added in rank order (exchange_partials: every CTA
+//   holds the same bits), and each CTA accumulates its own [64, 256]
+//   slice (128 registers a thread).  dW keeps its W^T slice resident and
+//   streams h; dh keeps its h slice resident and streams W^T.  Two
+//   consumer warpgroups take the tiles in turn, so that one's products
+//   run while the other waits for its exchange, which is what both still
+//   wait on (the notes before each kernel, and "dW on the tensor cores"
+//   below).
+// * f32 h: the SIMT kernels below.  The TPU carried its accumulators in
+//   VMEM across a sequential grid axis; here that axis is a loop inside
+//   one CTA, and CTAs run in any order.  forward: one CTA per (128-row
+//   block, vocab split) over 128-column vocab tiles, the 16 threads of a
+//   row merging their (max, sum, target) in shared memory; dh: one CTA
+//   per 32-row block over 256-column vocab tiles, dl W^T into a [32, 768]
+//   f32 register accumulator; dW: one CTA per 32-column vocab block over
+//   128-row tiles, h^T dl into [768, 32].  A model dimension above 768 is
+//   handled in 768-wide chunks, each sweeping (and recomputing) the
+//   logits again.  The accumulators live in registers, so one CTA runs
+//   per SM; each product walks its K dimension in chunks staged through
+//   shared memory, the next chunk's global loads issued into registers
+//   before the current chunk's products (Chunk::fetch / store).  Every
+//   SIMT product is an f32 fmaf product on the CUDA cores (each operand
+//   converted to f32 as it is staged, exact for bf16).
+// * No atomics: every result is deterministic.  Rounding points: the
+//   logits, the probabilities and dl stay f32 (never stored) apart from
+//   dl's two bf16 terms; loss and lse are written in f32; dh is rounded
+//   once to h's dtype and dW once to W's dtype, from their f32
+//   accumulators, as the reference casts its f32 scratch at the end of
+//   each sweep.
 // * Ragged N, D and V are masked inside the kernels (no padding copies):
-//   rows and columns past the end load as zeros, masked vocab columns
-//   take no part in the max or the sum (a -inf logit) and get dl = 0;
-//   rows past N have g = 0 and are never written.
+//   rows and columns past the end load as zeros (TMA zero-fills them),
+//   masked vocab columns take no part in the max or the sum and get
+//   dl = 0 (a template argument, one branch per tile); rows past N have
+//   g = 0 and are never written.
 //
 // What bounds it: at the flagship shape (N 8192, D 768, V 32128) the
-// forward does one 2*N*D*V = 404 GFLOP product and each backward kernel
+// forward needs one 2*N*D*V = 404 GFLOP product and each backward kernel
 // two (the recomputed logits and its own product), against ~111 MB of
 // operand traffic, so every kernel is bound by operations: 0.41 / 0.82 /
-// 0.82 ms at the bf16 tensor-core peak, 6.0 / 12.1 / 12.1 ms at the
-// 67 TFLOP/s FP32 peak the SIMT products run at.  These simple kernels
-// (no wgmma, TMA or cp.async ring; one CTA per SM, two barriers per
-// chunk) are slower than cuBLAS's f32 GEMMs; PERF.md holds the times.
+// 0.82 ms at the bf16 tensor-core peak.  The split doubles the logits
+// products, so the wgmma kernels execute two (forward), five (dh: the
+// logits from W's two terms, then dl_hi W_hi, dl_hi W_lo and dl_lo W_hi;
+// dl_lo W_lo, about 2^-18 of a term, is left out) and four (dW) bf16
+// products: 0.82 / 2.04 / 1.64 ms.  PERF.md holds the times.
 //
-// dW on the tensor cores (bf16 h, the flagship's case).  W is never
-// rounded to one bf16 and TF32 is never used: a split kernel
-// (lm_head_split_w_kernel) writes W^T as hi = bf16(W) and lo = bf16(W -
-// hi) (exact in f32, so hi + lo keeps about 17 bits of W), transposed to
-// [V, ld] with ld = D rounded up to 8 so each row pitch is a multiple of
-// 16 bytes, as TMA needs.  The logits are h W_hi + h W_lo (two bf16
-// products, f32 accumulate; one for a bf16 W), and dl is split the same
-// way in registers (dl_hi, dl_lo), so dW = h^T dl_hi + h^T dl_lo.  The
-// kernel has the shape of the flash dK/dV kernel: a block of 64 vocab
-// columns plays the kv block, h's rows play the q rows.  The dW^T
-// accumulator of a vocab block, [64, D] f32, does not fit one SM's
-// registers at D = 768, so D is split over a thread block cluster of
-// ceil(D / 256) CTAs (at most 8): each computes partial logits^T over
-// its own 256 columns, the partials are exchanged and added in rank
-// order (every CTA holds the same bits), and each CTA accumulates its
-// own [64, 256] slice of dW^T (128 registers a thread).  Its W^T slice
-// (hi and lo, 64 KB) stays in shared memory for the whole row sweep;
-// only h streams, by TMA.  Two consumer warpgroups take the row tiles in
-// turn, so that one's products run while the other waits for its
-// exchange.  No atomics; rows past N carry g = 0, vocab columns past V
-// are masked (a template argument, one branch per CTA).  At the flagship
-// shape it executes 4 x 2 N D V = 1.6 TFLOP of bf16 work (1.64 ms at the
-// dense peak) where the function needs 0.82 ms; the exchange of partials
-// (16 KB per CTA, warpgroup and row tile, through L2) is what it still
-// waits on.
+// dW on the tensor cores (bf16 h, the flagship's case).  The kernel has
+// the shape of the flash dK/dV kernel: a block of 64 vocab columns plays
+// the kv block, h's rows play the q rows.  Each CTA computes partial
+// logits^T over its own 256 columns of D, and accumulates its own
+// [64, 256] slice of dW^T.  Its W^T slice (hi and lo, 64 KB) stays in
+// shared memory for the whole row sweep; only h streams, by TMA.  At the
+// flagship shape it executes 4 x 2 N D V = 1.6 TFLOP of bf16 work (1.64
+// ms at the dense peak) where the function needs 0.82 ms.
 //
 // Interface: plain C launchers taking device pointers and the caller's
 // stream, loaded with ctypes (kungfu_tpu_torch/ops/cuda/lm_head.py).  h is
-// a contiguous [N, D] matrix (for the wgmma dW kernel: any row pitch that
+// a contiguous [N, D] matrix (for the wgmma kernels: any row pitch that
 // is a multiple of 8 elements, 16-byte aligned), w a contiguous [D, V]
 // matrix (the JAX layout), targets int32 [N]; lse and g are f32 [N];
 // each element type is float or bfloat16.
@@ -729,6 +722,73 @@ struct DwArgs {
   int N, D, V, v0, d0, cs, me, wg;
 };
 
+// The cluster's partial logits of one [64, 64] tile, exchanged through
+// L2 and added in rank order, so that every CTA holds the same bits (the
+// wgmma dW and dh kernels).  x is this warpgroup's partial in the
+// accumulator layout on entry and the cluster's sum on return.  The
+// partial goes to slot (SM, warpgroup, parity p) of the scratch xs; the
+// warpgroup's stores before the call (partial and any shared memory) are
+// ordered before thread r's release arrival on CTA r's `ready` barrier
+// (local address; parity p, phase j / 2).  Slot p was last read by the
+// peers' warpgroups at this warpgroup's tile j - 2; each has since
+// arrived for tile j - 1, which it does only after that read.
+//
+// The loads are latency-bound (a round trip to L2 each round), and the
+// registers allow 32 values in flight beside x: rank 0's partial loads
+// straight into x, the others' in rounds of half the tile for two ranks,
+// so a cluster of three waits two round trips.
+__device__ __forceinline__ void exchange_partials(float (&x)[32], float* xs,
+                                                  const int* sm_of, int cs,
+                                                  int me, int wg, int p, int j,
+                                                  uint32_t ready) {
+  using namespace hopper;
+  constexpr int PART_FLOATS = DwCfg::PART_FLOATS;
+  const int t = threadIdx.x % 128;
+  auto slot = [&](int r) {
+    return reinterpret_cast<float4*>(
+               xs + ((size_t)(sm_of[r] * 2 + wg) * 2 + p) * PART_FLOATS) + t;
+  };
+  float4* mine = slot(me);
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    __stcg(mine + q * 128, make_float4(x[4 * q], x[4 * q + 1], x[4 * q + 2],
+                                       x[4 * q + 3]));
+  }
+  named_sync(1 + wg, 128);
+  if (t < cs && t != me) mbar_arrive_cluster(mapa(ready, t));
+  mbar_wait_cluster(ready, (j / 2) & 1);
+  const float4* src0 = slot(0);
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const float4 u = __ldcg(src0 + q * 128);
+    x[4 * q] = u.x; x[4 * q + 1] = u.y; x[4 * q + 2] = u.z; x[4 * q + 3] = u.w;
+  }
+  for (int r0 = 1; r0 < cs; r0 += 2) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float4 v[2][4];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (r0 + r < cs) {
+          const float4* src = slot(r0 + r);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) v[r][q] = __ldcg(src + (4 * h + q) * 128);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (r0 + r < cs) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            float* e = x + 4 * (4 * h + q);
+            e[0] += v[r][q].x; e[1] += v[r][q].y; e[2] += v[r][q].z; e[3] += v[r][q].w;
+          }
+        }
+      }
+    }
+  }
+}
+
 // Warpgroup wg's share of the row sweep (tiles wg, wg + 2, ...): its
 // dW^T slice in acc.
 template <typename TW, bool MASK>
@@ -784,55 +844,10 @@ __device__ __forceinline__ void dw_sweep(const DwArgs& a, float (&acc)[128]) {
       reinterpret_cast<int*>(rows + 2 * C::BN)[t] = row_t;
     }
 
-    // 2. the cluster's partials through L2, added in rank order.  Slot
-    // p was last read by the peers' warpgroups at this warpgroup's tile
-    // j - 2; each has since arrived for tile j - 1, which it does only
-    // after that read.
+    // 2. the cluster's partials through L2, added in rank order
     if (a.cs > 1) {
-      float4* mine = reinterpret_cast<float4*>(
-          a.xs + ((size_t)(a.sm_of[a.me] * 2 + a.wg) * 2 + p) * C::PART_FLOATS);
-#pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        __stcg(mine + q * 128 + t, make_float4(x[4 * q], x[4 * q + 1],
-                                               x[4 * q + 2], x[4 * q + 3]));
-      }
-      // the warpgroup's stores (partial and rows) are ordered before
-      // thread r's release arrival on CTA r's barrier
-      named_sync(1 + a.wg, 128);
-      if (t < a.cs && t != a.me) {
-        mbar_arrive_cluster(mapa(C::ready(a.base, a.wg, p), t));
-      }
-      mbar_wait_cluster(C::ready(a.base, a.wg, p), (j / 2) & 1);
-      // four ranks' loads of a quarter in flight together, then their
-      // sums
-      for (int r0 = 0; r0 < a.cs; r0 += 4) {
-#pragma unroll
-        for (int qq = 0; qq < 4; ++qq) {
-          float4 v[4][2];
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            if (r0 + r < a.cs) {
-              const float4* src = reinterpret_cast<const float4*>(
-                  a.xs + ((size_t)(a.sm_of[r0 + r] * 2 + a.wg) * 2 + p) *
-                             C::PART_FLOATS) + t;
-#pragma unroll
-              for (int q = 0; q < 2; ++q) v[r][q] = __ldcg(src + (2 * qq + q) * 128);
-            }
-          }
-#pragma unroll
-          for (int q = 0; q < 2; ++q) {
-            float* e = x + 4 * (2 * qq + q);
-#pragma unroll
-            for (int r = 0; r < 4; ++r) {
-              if (r0 + r == 0) {
-                e[0] = v[r][q].x; e[1] = v[r][q].y; e[2] = v[r][q].z; e[3] = v[r][q].w;
-              } else if (r0 + r < a.cs) {
-                e[0] += v[r][q].x; e[1] += v[r][q].y; e[2] += v[r][q].z; e[3] += v[r][q].w;
-              }
-            }
-          }
-        }
-      }
+      exchange_partials(x, a.xs, a.sm_of, a.cs, a.me, a.wg, p, j,
+                        C::ready(a.base, a.wg, p));
     } else {
       named_sync(1 + a.wg, 128);  // the rows are in shared memory
     }
@@ -877,7 +892,10 @@ __device__ __forceinline__ void dw_sweep(const DwArgs& a, float (&acc)[128]) {
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
-    // the stage is free: this warpgroup's tile it + STAGES goes there
+    // the stage is free once all four warps' products are done (each
+    // warp's wait covers its own share of the wgmma): this warpgroup's
+    // tile it + STAGES goes there
+    named_sync(1 + a.wg, 128);
     if (t == 0 && it + C::STAGES < n_it) {
       dw_load_h(a.base, a.h_map, s, a.d0, (it + C::STAGES) * C::BN);
     }
@@ -1003,6 +1021,515 @@ lm_head_bwd_dw_wgmma_kernel(const __grid_constant__ CUtensorMap h_map,
   cluster_sync();
 }
 
+// ------------------------------------------------ forward on wgmma --
+
+// The forward kernel for bf16 h: a GEMM with a softmax epilogue, from
+// the split of W (logits h W_hi + h W_lo, one product for a bf16 W).
+// One CTA per (128-row block, vocab split); a producer warp streams, per
+// 128-column vocab tile and 64-column chunk of D, the chunk of h's rows
+// (from L2: every vocab tile reads it again) and of W_hi and W_lo
+// through a ring of STAGES stages; two consumer warpgroups of 64 rows
+// each take the logits tile [64, 128] into registers by wgmma (both
+// operands K-major) and update each row's running max, sum of
+// exponentials and target logit in the accumulator layout (quad
+// shuffles for the tile's row max; the sums stay per thread until the
+// end).  The partials of each split go to `part` as the SIMT forward's
+// do, and lm_head_fwd_combine_kernel merges them.
+struct FwdWCfg {
+  static constexpr int BM = 128;        // rows of h per CTA
+  static constexpr int BV = 128;        // vocab columns per tile
+  static constexpr int BK = 64;         // columns of D per stage: one box
+  static constexpr int STAGES = 4;
+  static constexpr int CONSUMERS = 256;  // two warpgroups
+  static constexpr int THREADS = CONSUMERS + 32;  // and a producer warp
+  static constexpr int H_BYTES = BM * BK * 2;
+  static constexpr int W_BYTES = BV * BK * 2;  // one term's chunk
+  static constexpr int STAGE_BYTES = H_BYTES + 2 * W_BYTES;
+  static constexpr int BAR_OFF = STAGES * STAGE_BYTES;
+  // full[STAGES], empty[STAGES]
+  static constexpr int BYTES = BAR_OFF + 2 * STAGES * 8 + 1024;
+  static_assert(H_BYTES % 1024 == 0 && W_BYTES % 1024 == 0, "alignment");
+
+  static __device__ uint32_t h_tile(uint32_t b, int s) {
+    return b + s * STAGE_BYTES;
+  }
+  static __device__ uint32_t w_tile(uint32_t b, int s, int term) {
+    return b + s * STAGE_BYTES + H_BYTES + term * W_BYTES;
+  }
+  static __device__ uint32_t full(uint32_t b, int s) { return b + BAR_OFF + 8u * s; }
+  static __device__ uint32_t empty(uint32_t b, int s) {
+    return b + BAR_OFF + 8u * (STAGES + s);
+  }
+};
+
+// One logits tile into the running (max, sum, target logit) of the
+// thread's two rows: x holds rows + 8 i and columns v + 8 j + c (v is
+// the tile's first column plus the thread's offset).  m is quad-uniform;
+// l and tl are this thread's partial sums.  MASK (the tile runs past V)
+// leaves columns >= V out, whose W rows arrived zero-filled.
+template <bool MASK>
+__device__ __forceinline__ void fwd_tile(const float (&x)[64], float (&m)[2],
+                                         float (&l)[2], float (&tl)[2],
+                                         const int (&tgt)[2], int v, int V) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx = NEG_INF;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        if (!MASK || v + 8 * j + c < V) mx = fmaxf(mx, x[4 * j + 2 * i + c]);
+      }
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[i], mx);
+    const float mb = m_new * LOG2E;
+    float s = 0.f, tv = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = v + 8 * j + c;
+        const float xv = x[4 * j + 2 * i + c];
+        if (!MASK || col < V) {
+          s += exp2f(fmaf(xv, LOG2E, -mb));
+          if (col == tgt[i]) tv = xv;
+        }
+      }
+    }
+    l[i] = l[i] * exp2f((m[i] - m_new) * LOG2E) + s;
+    tl[i] += tv;
+    m[i] = m_new;
+  }
+}
+
+template <typename TW>
+__global__ void __launch_bounds__(FwdWCfg::THREADS, 1)
+lm_head_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap h_map,
+                         const __grid_constant__ CUtensorMap whi_map,
+                         const __grid_constant__ CUtensorMap wlo_map,
+                         const int* __restrict__ targets,
+                         float* __restrict__ part, int N, int D, int V) {
+  using C = FwdWCfg;
+  using namespace hopper;
+  constexpr bool SPLIT = sizeof(TW) == 4;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const int r0 = blockIdx.x * C::BM;
+  const int n_vt = (V + C::BV - 1) / C::BV;
+  const int vt_begin = (int)((long long)blockIdx.y * n_vt / gridDim.y);
+  const int vt_end = (int)((long long)(blockIdx.y + 1) * n_vt / gridDim.y);
+  const int n_kc = (D + C::BK - 1) / C::BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(C::full(base, s), 1);
+      mbar_init(C::empty(base, s), C::CONSUMERS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= C::CONSUMERS) {
+    // ------------------------------------------------------ producer --
+    if (threadIdx.x == C::CONSUMERS) {
+      prefetch_map(&h_map);
+      prefetch_map(&whi_map);
+      if (SPLIT) prefetch_map(&wlo_map);
+      const int n_items = (vt_end - vt_begin) * n_kc;
+      for (int it = 0; it < n_items; ++it) {
+        const int s = it % C::STAGES;
+        const int v0 = (vt_begin + it / n_kc) * C::BV, d0 = (it % n_kc) * C::BK;
+        mbar_wait(C::empty(base, s), ((it / C::STAGES) & 1) ^ 1);
+        mbar_arrive_expect_tx(C::full(base, s),
+                              C::H_BYTES + (SPLIT ? 2 : 1) * C::W_BYTES);
+        tma_load_2d(C::h_tile(base, s), &h_map, C::full(base, s), d0, r0);
+        tma_load_2d(C::w_tile(base, s, 0), &whi_map, C::full(base, s), d0, v0);
+        if (SPLIT) {
+          tma_load_2d(C::w_tile(base, s, 1), &wlo_map, C::full(base, s), d0, v0);
+        }
+      }
+    }
+    return;
+  }
+
+  // -------------------------------------------------------- consumers --
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128, lane = t % 32;
+  const int row = 64 * wg + 16 * (t / 32) + lane / 4;  // + 8 i
+  const int cn = 2 * (lane % 4);
+  float m[2], l[2], tl[2];
+  int tgt[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + row + 8 * i;
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+    tl[i] = 0.f;
+    tgt[i] = r < N ? targets[r] : -1;
+  }
+  int it = 0;
+  for (int vt = vt_begin; vt < vt_end; ++vt) {
+    float x[64];
+    for (int kc = 0; kc < n_kc; ++kc, ++it) {
+      const int s = it % C::STAGES;
+      mbar_wait(C::full(base, s), (it / C::STAGES) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < C::BK / 16; ++ks) {
+        Wgmma<128>::template ss<0>(
+            x, desc_kmajor<C::BK>(C::h_tile(base, s), C::BM, 64 * wg, ks),
+            desc_kmajor<C::BK>(C::w_tile(base, s, 0), C::BV, 0, ks),
+            kc > 0 || ks > 0);
+      }
+      if constexpr (SPLIT) {
+#pragma unroll
+        for (int ks = 0; ks < C::BK / 16; ++ks) {
+          Wgmma<128>::template ss<0>(
+              x, desc_kmajor<C::BK>(C::h_tile(base, s), C::BM, 64 * wg, ks),
+              desc_kmajor<C::BK>(C::w_tile(base, s, 1), C::BV, 0, ks), 1);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(x);
+      mbar_arrive(C::empty(base, s));
+    }
+    const int v = vt * C::BV + cn;
+    if (vt * C::BV + C::BV > V) {
+      fwd_tile<true>(x, m, l, tl, tgt, v, V);
+    } else {
+      fwd_tile<false>(x, m, l, tl, tgt, v, V);
+    }
+  }
+
+  // the quad's partial sums; one thread of the quad writes the row
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float li = l[i], ti = tl[i];
+    li += __shfl_xor_sync(0xffffffffu, li, 1);
+    li += __shfl_xor_sync(0xffffffffu, li, 2);
+    ti += __shfl_xor_sync(0xffffffffu, ti, 1);
+    ti += __shfl_xor_sync(0xffffffffu, ti, 2);
+    const int r = r0 + row + 8 * i;
+    if (lane % 4 == 0 && r < N) {
+      float* p = part + ((size_t)blockIdx.y * N + r) * 3;
+      p[0] = m[i];
+      p[1] = li;
+      p[2] = ti;
+    }
+  }
+}
+
+// ----------------------------------------------------- dh on wgmma --
+
+// The dh kernel for bf16 h: the dW kernel with the roles of h and W
+// swapped.  A thread block cluster of CS = ceil(D / 256) CTAs per 64-row
+// tile of h (blockIdx.y); CTA `rank` owns columns [256 rank, 256 rank +
+// 256) of D and keeps its [64, 256] slice of h resident in shared
+// memory.  Per 64-row vocab tile of W^T (all V rows, in order):
+//   1. partial logits [64 n, 64 v] = h[n, slice] W^T[v, slice]^T by
+//      wgmma from shared memory, both K-major; W^T's tile (hi, then lo)
+//      streams through a TMA ring;
+//   2. the CS partials are exchanged through L2 and added in rank order
+//      (exchange_partials), so every CTA holds the same logits;
+//   3. dl = (exp(logits - lse) - onehot) g in the accumulator layout,
+//      split into bf16 hi and lo register A fragments;
+//   4. dh[n, slice] += dl_hi W_hi + dl_hi W_lo + dl_lo W_hi, W^T's tile
+//      read MN-major through the transpose bit.  dl_lo W_lo (about 2^-18
+//      of a term) is left out; a bf16 W has no lo, so there it is dl_hi W
+//      + dl_lo W.
+// As in dW, two consumer warpgroups take the vocab tiles in turn, each
+// with its own dh accumulator (added in a fixed order at the end), and
+// there is no producer warp: the warpgroup that frees a stage refills it
+// with the tile STAGES on, which is the other warpgroup's (STAGES is
+// odd).  A stage holds both terms of a tile (64 KB), so three fit beside
+// h.  Each stage has one full barrier per warpgroup, and a tile's load
+// completes on its consumer's: each barrier then has one waiter, which
+// waits on every one of its phases in order, so no parity wait is ever
+// two phases away from the barrier.  A barrier shared by the stage's
+// alternating consumers would not do: a parity wait on tile it could
+// pass on the still pending phase of tile it - 3.
+struct DhCfg {
+  static constexpr int BN = 64;          // rows of h per cluster
+  static constexpr int BV = 64;          // vocab rows of W^T per tile
+  static constexpr int SLICE = 256;      // model-dim columns per CTA
+  static constexpr int MAX_CS = DwCfg::MAX_CS;
+  static constexpr int STAGES = 3;
+  static constexpr int THREADS = 256;    // two consumer warpgroups
+  static constexpr int H_BYTES = BN * SLICE * 2;
+  static constexpr int W_BYTES = BV * SLICE * 2;     // one term's tile
+  static constexpr int STAGE_BYTES = 2 * W_BYTES;
+  static constexpr int W_OFF = H_BYTES;              // STAGES stages
+  // lse * log2 e, g, target of the tile's rows: [3][BN]
+  static constexpr int ROW_OFF = W_OFF + STAGES * STAGE_BYTES;
+  static constexpr int BAR_OFF = ROW_OFF + 3 * BN * 4;
+  // h_full, full[STAGES][2 warpgroups], ready[2 warpgroups][2]
+  static constexpr int BYTES = BAR_OFF + (1 + 2 * STAGES + 4) * 8 + 1024;
+  static_assert(H_BYTES % 1024 == 0 && W_BYTES % 1024 == 0, "alignment");
+  static_assert(STAGES * STAGE_BYTES >= 128 * 128 * 4, "the final sum's buffer");
+  static_assert(BYTES <= 232448 - 64, "shared memory");
+
+  static __device__ uint32_t w_tile(uint32_t b, int s, int term) {
+    return b + W_OFF + s * STAGE_BYTES + term * W_BYTES;
+  }
+  static __device__ uint32_t h_full(uint32_t b) { return b + BAR_OFF; }
+  // stage s's full barrier for the tiles warpgroup w consumes
+  static __device__ uint32_t full(uint32_t b, int s, int w) {
+    return b + BAR_OFF + 8u * (1 + 2 * s + w);
+  }
+  static __device__ uint32_t ready(uint32_t b, int w, int p) {
+    return b + BAR_OFF + 8u * (1 + 2 * STAGES + 2 * w + p);
+  }
+};
+static_assert(DhCfg::STAGES % 2 == 1, "a refill goes to the other warpgroup");
+
+// Vocab tile `it` of W^T (hi, and lo when SPLIT) into stage it % STAGES
+// by TMA, completing on the full barrier of its consumer, warpgroup it % 2
+// (one thread).
+template <bool SPLIT>
+__device__ __forceinline__ void dh_load_w(uint32_t base, const CUtensorMap* hi,
+                                          const CUtensorMap* lo, int it, int d0) {
+  using C = DhCfg;
+  const int s = it % C::STAGES, v0 = it * C::BV;
+  const uint32_t bar = C::full(base, s, it % 2);
+  hopper::mbar_arrive_expect_tx(bar, (SPLIT ? 2 : 1) * C::W_BYTES);
+  for (int b = 0; b < C::SLICE / 64; ++b) {
+    hopper::tma_load_2d(C::w_tile(base, s, 0) + b * C::BV * 128, hi, bar,
+                        d0 + 64 * b, v0);
+    if (SPLIT) {
+      hopper::tma_load_2d(C::w_tile(base, s, 1) + b * C::BV * 128, lo, bar,
+                          d0 + 64 * b, v0);
+    }
+  }
+}
+
+// dl in place of the logits fragment x (rows nrow + 8 i of the tile,
+// columns v + 8 j + c, v the tile's first column plus the thread's
+// offset), from the rows' lse * log2 e, g and targets in shared memory.
+// MASK (the tile runs past V) zeroes columns >= V, whose W rows arrived
+// zero-filled; rows of h past N carry g = 0.
+template <bool MASK>
+__device__ __forceinline__ void dh_dl(float (&x)[32], const float* lse2,
+                                      const float* gs, const int* tg, int nrow,
+                                      int v, int V) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float l2 = lse2[nrow + 8 * i], gg = gs[nrow + 8 * i];
+    const int tt = tg[nrow + 8 * i];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int idx = 4 * j + 2 * i + c, col = v + 8 * j + c;
+        const float p = exp2f(fmaf(x[idx], LOG2E, -l2));
+        float d = (p - (tt == col ? 1.f : 0.f)) * gg;
+        if (MASK && col >= V) d = 0.f;
+        x[idx] = d;
+      }
+    }
+  }
+}
+
+template <typename TW>
+__global__ void __launch_bounds__(DhCfg::THREADS, 1)
+lm_head_bwd_dh_wgmma_kernel(const __grid_constant__ CUtensorMap h_map,
+                            const __grid_constant__ CUtensorMap whi_map,
+                            const __grid_constant__ CUtensorMap wlo_map,
+                            const int* __restrict__ targets,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ g,
+                            __nv_bfloat16* __restrict__ dh,
+                            float* __restrict__ xs, int N, int D, int V) {
+  using C = DhCfg;
+  using namespace hopper;
+  constexpr bool SPLIT = sizeof(TW) == 4;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ int sm_here, sm_of[C::MAX_CS];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  uint8_t* gbase = smem_raw + (base - smem_u32(smem_raw));
+  const int me = (int)cluster_rank();
+  const int cs = gridDim.x;  // the cluster spans the grid's x
+  const int r0 = blockIdx.y * C::BN, d0 = me * C::SLICE;
+  const int n_it = (V + C::BV - 1) / C::BV;
+  float* lse2 = reinterpret_cast<float*>(gbase + C::ROW_OFF);
+  float* gs = lse2 + C::BN;
+  int* tg = reinterpret_cast<int*>(gs + C::BN);
+
+  if (threadIdx.x == 0) {
+    uint32_t sm;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+    if (sm >= DwCfg::MAX_SM) __trap();  // past the scratch
+    sm_here = (int)sm;
+    mbar_init(C::h_full(base), 1);
+    for (int s = 0; s < C::STAGES; ++s)
+      for (int w = 0; w < 2; ++w) mbar_init(C::full(base, s, w), 1);
+    for (int w = 0; w < 2; ++w)
+      for (int p = 0; p < 2; ++p)
+        mbar_init(C::ready(base, w, p), cs > 1 ? cs - 1 : 1);
+    mbar_init_fence();
+  }
+  // the rows' lse, g and targets; rows past N get g = 0 (so dl = 0) and
+  // no target
+  if (threadIdx.x < C::BN) {
+    const int n = r0 + threadIdx.x;
+    lse2[threadIdx.x] = n < N ? lse[n] * LOG2E : 0.f;
+    gs[threadIdx.x] = n < N ? g[n] : 0.f;
+    tg[threadIdx.x] = n < N ? targets[n] : -1;
+  }
+  // the barriers are initialised before any peer arrives on them, and
+  // every CTA's SM is known before any partial is exchanged
+  cluster_sync();
+  if (threadIdx.x < cs) {
+    sm_of[threadIdx.x] = (int)ld_cluster_u32(mapa(smem_u32(&sm_here), threadIdx.x));
+  }
+  if (threadIdx.x == 0) {
+    // this CTA's slice of h, and the first vocab tiles of W^T
+    prefetch_map(&whi_map);
+    if (SPLIT) prefetch_map(&wlo_map);
+    mbar_arrive_expect_tx(C::h_full(base), C::H_BYTES);
+    for (int b = 0; b < C::SLICE / 64; ++b) {
+      tma_load_2d(base + b * C::BN * 128, &h_map, C::h_full(base), d0 + 64 * b, r0);
+    }
+    for (int it = 0; it < C::STAGES && it < n_it; ++it) {
+      dh_load_w<SPLIT>(base, &whi_map, &wlo_map, it, d0);
+    }
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128, lane = t % 32;
+  const int nrow = 16 * (t / 32) + lane / 4;  // + 8 i
+  const int cn = 2 * (lane % 4);
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  mbar_wait(C::h_full(base), 0);
+
+  for (int it = wg, j = 0; it < n_it; it += 2, ++j) {
+    const int s = it % C::STAGES, p = j % 2;
+    // this warpgroup's tiles in stage s are it mod 2 STAGES apart
+    mbar_wait(C::full(base, s, wg), (it / (2 * C::STAGES)) & 1);
+    // 1. partial logits over this CTA's slice of D
+    float x[32];
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < C::SLICE / 16; ++ks) {
+      Wgmma<64>::template ss<0>(
+          x, desc_kmajor<C::SLICE>(base, C::BN, 0, ks),
+          desc_kmajor<C::SLICE>(C::w_tile(base, s, 0), C::BV, 0, ks), ks > 0);
+    }
+    if constexpr (SPLIT) {
+#pragma unroll
+      for (int ks = 0; ks < C::SLICE / 16; ++ks) {
+        Wgmma<64>::template ss<0>(
+            x, desc_kmajor<C::SLICE>(base, C::BN, 0, ks),
+            desc_kmajor<C::SLICE>(C::w_tile(base, s, 1), C::BV, 0, ks), 1);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(x);
+
+    // 2. the cluster's partials through L2, added in rank order
+    if (cs > 1) {
+      exchange_partials(x, xs, sm_of, cs, me, wg, p, j, C::ready(base, wg, p));
+    }
+
+    // 3. dl, split into bf16 hi and lo A fragments (k-slice kt: tile
+    // columns [16 kt, 16 kt + 16))
+    const int v = it * C::BV + cn;
+    if (it * C::BV + C::BV > V) {
+      dh_dl<true>(x, lse2, gs, tg, nrow, v, V);
+    } else {
+      dh_dl<false>(x, lse2, gs, tg, nrow, v, V);
+    }
+    uint32_t fhi[C::BV / 16][4], flo[C::BV / 16][4];
+#pragma unroll
+    for (int kt = 0; kt < C::BV / 16; ++kt) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float lo = x[8 * kt + 2 * r], hi = x[8 * kt + 2 * r + 1];
+        const __nv_bfloat162 h2 = __floats2bfloat162_rn(lo, hi);
+        const float2 hf = __bfloat1622float2(h2);
+        fhi[kt][r] = *reinterpret_cast<const uint32_t*>(&h2);
+        flo[kt][r] = pack_bf16(lo - hf.x, hi - hf.y);
+      }
+    }
+
+    // 4. dh += dl_hi W_hi + dl_hi W_lo + dl_lo W_hi, waited for at once
+    // (left in flight over the next tile's logits, ptxas serialises
+    // every wgmma)
+    fence_frags(fhi);
+    fence_frags(flo);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < C::BV / 16; ++ks) {
+      Wgmma<256>::template rs<1>(
+          acc, fhi[ks], desc_mnmajor<C::SLICE>(C::w_tile(base, s, 0), C::BV, ks), 1);
+    }
+    if constexpr (SPLIT) {
+#pragma unroll
+      for (int ks = 0; ks < C::BV / 16; ++ks) {
+        Wgmma<256>::template rs<1>(
+            acc, fhi[ks], desc_mnmajor<C::SLICE>(C::w_tile(base, s, 1), C::BV, ks), 1);
+      }
+    }
+#pragma unroll
+    for (int ks = 0; ks < C::BV / 16; ++ks) {
+      Wgmma<256>::template rs<1>(
+          acc, flo[ks], desc_mnmajor<C::SLICE>(C::w_tile(base, s, 0), C::BV, ks), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    // the stage is free once all four warps' products are done (each
+    // warp's wait covers its own share of the wgmma): tile it + STAGES
+    // goes there
+    named_sync(1 + wg, 128);
+    if (t == 0 && it + C::STAGES < n_it) {
+      dh_load_w<SPLIT>(base, &whi_map, &wlo_map, it + C::STAGES, d0);
+    }
+  }
+
+  // the two warpgroups' sums, added in a fixed order (warpgroup 0's
+  // first) in the stages, which every tile has left by now
+  float4* sum = reinterpret_cast<float4*>(gbase + C::W_OFF);
+  named_sync(3, 256);
+  if (wg == 1) {
+#pragma unroll
+    for (int q = 0; q < 32; ++q) {
+      sum[q * 128 + t] = make_float4(acc[4 * q], acc[4 * q + 1],
+                                     acc[4 * q + 2], acc[4 * q + 3]);
+    }
+  }
+  named_sync(3, 256);
+  if (wg == 0) {
+#pragma unroll
+    for (int q = 0; q < 32; ++q) {
+      const float4 o = sum[q * 128 + t];
+      acc[4 * q] += o.x; acc[4 * q + 1] += o.y; acc[4 * q + 2] += o.z;
+      acc[4 * q + 3] += o.w;
+    }
+    // epilogue: dh[n, d], rows r0 + nrow + 8 i, columns d0 + 8 j + cn + c
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int n = r0 + nrow + 8 * i;
+      if (n >= N) continue;
+#pragma unroll
+      for (int jj = 0; jj < 32; ++jj) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int d = d0 + 8 * jj + cn + c;
+          if (d < D) dh[(size_t)n * D + d] = __float2bfloat16(acc[4 * jj + 2 * i + c]);
+        }
+      }
+    }
+  }
+  // no CTA leaves while a peer may still arrive on its barriers
+  cluster_sync();
+}
+
 // ------------------------------------------------------------- launch --
 
 template <typename Kernel>
@@ -1114,6 +1641,91 @@ int launch_dw_wgmma(const void* h, int h_ld, const void* w_hi,
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
+// The same, for the wgmma forward: one CTA per 128-row block and vocab
+// split.  The first call of each instantiation checks the build (no
+// spills, the block size fits) and raises the shared-memory limit.
+template <typename TW>
+int launch_fwd_wgmma(const void* h, int h_ld, const void* w_hi,
+                     const void* w_lo, int w_ld, const int* targets,
+                     float* part, float* loss, float* lse, int N, int D,
+                     int V, int splits, cudaStream_t stream) {
+  using C = FwdWCfg;
+  auto kernel = lm_head_fwd_wgmma_kernel<TW>;
+  static int ready = 0;
+  if (ready == 0) {
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return (int)err;
+    if (attr.localSizeBytes != 0 || attr.maxThreadsPerBlock < C::THREADS)
+      return KF_BAD_REGS;
+    if ((err = (cudaError_t)prepare(kernel, C::BYTES)) != cudaSuccess)
+      return (int)err;
+    ready = 1;
+  }
+  CUtensorMap hm, whm, wlm;
+  int err = hopper::encode_matrix_map(&hm, h, D, N, 2LL * h_ld, C::BM);
+  if (err == 0)
+    err = hopper::encode_matrix_map(&whm, w_hi, D, V, 2LL * w_ld, C::BV);
+  if (err == 0)
+    err = hopper::encode_matrix_map(&wlm, w_lo != nullptr ? w_lo : w_hi, D, V,
+                                    2LL * w_ld, C::BV);
+  if (err != 0) return err;
+  const dim3 grid((N + C::BM - 1) / C::BM, splits);
+  kernel<<<grid, C::THREADS, C::BYTES, stream>>>(hm, whm, wlm, targets, part,
+                                                 N, D, V);
+  if ((err = (int)cudaGetLastError()) != 0) return err;
+  lm_head_fwd_combine_kernel<<<(N + 255) / 256, 256, 0, stream>>>(
+      part, loss, lse, N, splits);
+  return (int)cudaGetLastError();
+}
+
+// The same, for the wgmma dh kernel: one cluster of ceil(D / 256) CTAs
+// per 64-row tile of h.
+template <typename TW>
+int launch_dh_wgmma(const void* h, int h_ld, const void* w_hi,
+                    const void* w_lo, int w_ld, const int* targets,
+                    const float* lse, const float* g, void* dh, float* xs,
+                    int N, int D, int V, cudaStream_t stream) {
+  using C = DhCfg;
+  auto kernel = lm_head_bwd_dh_wgmma_kernel<TW>;
+  static int ready = 0;
+  if (ready == 0) {
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return (int)err;
+    if (attr.localSizeBytes != 0 || attr.maxThreadsPerBlock < C::THREADS)
+      return KF_BAD_REGS;
+    if ((err = (cudaError_t)prepare(kernel, C::BYTES)) != cudaSuccess)
+      return (int)err;
+    ready = 1;
+  }
+  const int cs = (D + C::SLICE - 1) / C::SLICE;
+  CUtensorMap hm, whm, wlm;
+  int err = hopper::encode_matrix_map(&hm, h, D, N, 2LL * h_ld, C::BN);
+  if (err == 0)
+    err = hopper::encode_matrix_map(&whm, w_hi, D, V, 2LL * w_ld, C::BV);
+  if (err == 0)
+    err = hopper::encode_matrix_map(&wlm, w_lo != nullptr ? w_lo : w_hi, D, V,
+                                    2LL * w_ld, C::BV);
+  if (err != 0) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cs, (N + C::BN - 1) / C::BN);
+  cfg.blockDim = dim3(C::THREADS);
+  cfg.dynamicSmemBytes = C::BYTES;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kernel, hm, whm, wlm, targets, lse, g,
+      static_cast<__nv_bfloat16*>(dh), xs, N, D, V);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
 // FN<TH, TW>(...) for the element types of h and w.
 #define KF_DISPATCH(h_bf16, w_bf16, FN, ...)                              \
   ((h_bf16) ? ((w_bf16) ? FN<__nv_bfloat16, __nv_bfloat16>(__VA_ARGS__)   \
@@ -1131,26 +1743,45 @@ int fwd_splits(int n, int v) {
   return std::max(1, std::min(tiles, (F_TARGET_CTAS + row_blocks - 1) / row_blocks));
 }
 
+// Vocab splits of the wgmma forward (one CTA per SM): as many as one
+// wave of the card's SMs holds, at most one split per vocab tile.
+int fwd_wgmma_splits(int n, int v) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    sms = 132;
+  const int row_blocks = (n + FwdWCfg::BM - 1) / FwdWCfg::BM;
+  const int tiles = (v + FwdWCfg::BV - 1) / FwdWCfg::BV;
+  return std::max(1, std::min(tiles, sms / row_blocks));
+}
+
 }  // namespace
 
-// The number of f32 values of the forward's scratch `part` is
-// kf_lm_head_fwd_splits(n, v) * n * 3.
-extern "C" int kf_lm_head_fwd_splits(int n, int v) {
-  return n > 0 && v > 0 ? fwd_splits(n, v) : KF_BAD_ARGS;
+// The vocab splits of the forward for bf16 h (the wgmma kernel) or f32
+// h; its scratch `part` holds splits * n * 3 f32 values.
+extern "C" int kf_lm_head_fwd_splits(int n, int v, int h_bf16) {
+  if (n <= 0 || v <= 0) return KF_BAD_ARGS;
+  return h_bf16 ? fwd_wgmma_splits(n, v) : fwd_splits(n, v);
 }
 
 // Each launcher returns 0 on success, a cudaError_t code, or -1 for
 // arguments the kernels do not take (the Python wrapper checks first).
+// The f32-h forward (bf16 h takes kf_lm_head_fwd_wgmma).
 extern "C" int kf_lm_head_fwd(const void* h, const void* w,
                               const void* targets, void* part, void* loss,
-                              void* lse, int n, int d, int v, int h_bf16,
-                              int w_bf16, void* stream) {
+                              void* lse, int n, int d, int v, int w_bf16,
+                              void* stream) {
   if (bad_sizes(n, d, v)) return KF_BAD_ARGS;
-  return KF_DISPATCH(h_bf16, w_bf16, launch_fwd, h, w,
-                     static_cast<const int*>(targets),
-                     static_cast<float*>(part), static_cast<float*>(loss),
-                     static_cast<float*>(lse), n, d, v, fwd_splits(n, v),
-                     static_cast<cudaStream_t>(stream));
+  const int* t = static_cast<const int*>(targets);
+  float* p = static_cast<float*>(part);
+  float* out_loss = static_cast<float*>(loss);
+  float* out_lse = static_cast<float*>(lse);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return w_bf16 ? launch_fwd<float, __nv_bfloat16>(h, w, t, p, out_loss, out_lse,
+                                                   n, d, v, fwd_splits(n, v), st)
+                : launch_fwd<float, float>(h, w, t, p, out_loss, out_lse, n, d,
+                                           v, fwd_splits(n, v), st);
 }
 
 extern "C" int kf_lm_head_bwd_dh(const void* h, const void* w,
@@ -1187,14 +1818,63 @@ extern "C" int kf_lm_head_split_w(const void* w, void* hi, void* lo, int d,
                 : launch_split<float, true>(w, hi, lo, d, v, ld, st);
 }
 
-// Floats of the wgmma dW kernel's exchange scratch (kept in L2).
-extern "C" long long kf_lm_head_dw_scratch() {
+// Floats of the wgmma dW and dh kernels' exchange scratch (kept in L2).
+extern "C" long long kf_lm_head_exchange_scratch() {
   return 4LL * DwCfg::MAX_SM * DwCfg::PART_FLOATS;
+}
+
+// Loss and lse (f32 [N]) for bf16 h [N, D] with row pitch h_ld (a
+// multiple of 8, 16-byte aligned base), from the split's hi and lo (lo
+// ignored for bf16 W); part: splits * n * 3 floats, splits from
+// kf_lm_head_fwd_splits(n, v, 1).
+extern "C" int kf_lm_head_fwd_wgmma(const void* h, int h_ld, const void* w_hi,
+                                    const void* w_lo, int w_ld,
+                                    const void* targets, void* part,
+                                    void* loss, void* lse, int n, int d,
+                                    int v, int splits, int w_bf16,
+                                    void* stream) {
+  if (bad_sizes(n, d, v) || h_ld < d || h_ld % 8 || w_ld < d || w_ld % 8 ||
+      reinterpret_cast<uintptr_t>(h) % 16 || splits < 1 || splits > 65535)
+    return KF_BAD_ARGS;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* t = static_cast<const int*>(targets);
+  float* p = static_cast<float*>(part);
+  float* out_loss = static_cast<float*>(loss);
+  float* out_lse = static_cast<float*>(lse);
+  return w_bf16 ? launch_fwd_wgmma<__nv_bfloat16>(h, h_ld, w_hi, nullptr, w_ld,
+                                                  t, p, out_loss, out_lse, n, d,
+                                                  v, splits, st)
+                : launch_fwd_wgmma<float>(h, h_ld, w_hi, w_lo, w_ld, t, p,
+                                          out_loss, out_lse, n, d, v, splits,
+                                          st);
+}
+
+// dh (bf16 [N, D]) for bf16 h, arguments as kf_lm_head_bwd_dw_wgmma's.
+extern "C" int kf_lm_head_bwd_dh_wgmma(const void* h, int h_ld,
+                                       const void* w_hi, const void* w_lo,
+                                       int w_ld, const void* targets,
+                                       const void* lse, const void* g,
+                                       void* dh, void* xs, int n, int d,
+                                       int v, int w_bf16, void* stream) {
+  if (bad_sizes(n, d, v) || d > DhCfg::SLICE * DhCfg::MAX_CS || h_ld < d ||
+      h_ld % 8 || w_ld < d || w_ld % 8 ||
+      reinterpret_cast<uintptr_t>(h) % 16 ||
+      (n + DhCfg::BN - 1) / DhCfg::BN > 65535)
+    return KF_BAD_ARGS;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* t = static_cast<const int*>(targets);
+  const float* l = static_cast<const float*>(lse);
+  const float* gg = static_cast<const float*>(g);
+  float* x = static_cast<float*>(xs);
+  return w_bf16 ? launch_dh_wgmma<__nv_bfloat16>(h, h_ld, w_hi, nullptr, w_ld,
+                                                 t, l, gg, dh, x, n, d, v, st)
+                : launch_dh_wgmma<float>(h, h_ld, w_hi, w_lo, w_ld, t, l, gg,
+                                         dh, x, n, d, v, st);
 }
 
 // dW [D, V] in W's dtype for bf16 h [N, D] with row pitch h_ld (a
 // multiple of 8, 16-byte aligned base), from the split's hi and lo
-// (lo ignored for bf16 W); D at most 256 * 8; xs: kf_lm_head_dw_scratch()
+// (lo ignored for bf16 W); D at most 256 * 8; xs: kf_lm_head_exchange_scratch()
 // floats, any contents.
 extern "C" int kf_lm_head_bwd_dw_wgmma(const void* h, int h_ld,
                                        const void* w_hi, const void* w_lo,

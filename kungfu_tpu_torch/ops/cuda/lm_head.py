@@ -10,10 +10,14 @@ tile by tile.  Their plain versions, :func:`lm_head_forward_reference`
 and :func:`lm_head_backward_reference`, compute the same functions one
 vocab block at a time (f32 products, the reference's ``-1e30`` start and
 ``1e-30`` clamp), so a comparison at the flagship shape never holds a
-second ``[N, V]`` buffer.  For bf16 ``h`` the dW kernel runs on the
+second ``[N, V]`` buffer.  For bf16 ``h`` all three kernels run on the
 tensor cores from W split into two bf16 terms (:func:`split_w`, whose
 plain version is :func:`split_w_reference`): W is never rounded to one
-bf16 and TF32 is never used.
+bf16 and TF32 is never used.  :func:`forward` splits W once and returns
+the split, which :func:`backward` reuses for dh and dW: one split a
+training step.  f32 ``h`` keeps the f32 SIMT kernels, and so do dh and
+dW for bf16 ``h`` with D above :data:`WGMMA_MAX_D` (a cluster holds at
+most eight 256-column slices).
 
 :func:`forward` and :func:`backward` dispatch by device: a CPU tensor
 takes the plain version, a CUDA tensor launches the kernels or raises —
@@ -40,8 +44,13 @@ REF_BLOCK_V = 2048
 #: launches of the hand-written kernels: +1 per launch, nowhere else
 launch_counts = {"lm_head_fwd": 0, "lm_head_bwd_dh": 0, "lm_head_bwd_dw": 0,
                  "lm_head_split": 0}
-#: the wgmma dW kernel's cluster holds D in slices of 256, at most 8
+#: the wgmma dh and dW kernels' clusters hold D in slices of 256, at
+#: most 8
 WGMMA_MAX_D = 256 * 8
+
+#: W split into two bf16 terms, ``(hi, lo)`` ``[V, ld]`` (lo None for a
+#: bf16 W), as :func:`split_w` returns it
+Split = Tuple[torch.Tensor, Optional[torch.Tensor]]
 
 _lock = threading.Lock()
 _built: Optional[_build.Built] = None
@@ -60,11 +69,15 @@ def load() -> _build.Built:
             built = _build.build("lm_head.cu")
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             signatures = {
-                "kf_lm_head_fwd_splits": [i32] * 2,
-                "kf_lm_head_fwd": [ptr] * 6 + [i32] * 5 + [ptr],
+                "kf_lm_head_fwd_splits": [i32] * 3,
+                "kf_lm_head_fwd": [ptr] * 6 + [i32] * 4 + [ptr],
                 "kf_lm_head_bwd_dh": [ptr] * 6 + [i32] * 5 + [ptr],
                 "kf_lm_head_bwd_dw": [ptr] * 6 + [i32] * 5 + [ptr],
                 "kf_lm_head_split_w": [ptr] * 3 + [i32] * 4 + [ptr],
+                "kf_lm_head_fwd_wgmma": [ptr, i32, ptr, ptr, i32]
+                + [ptr] * 4 + [i32] * 5 + [ptr],
+                "kf_lm_head_bwd_dh_wgmma": [ptr, i32, ptr, ptr, i32]
+                + [ptr] * 5 + [i32] * 4 + [ptr],
                 "kf_lm_head_bwd_dw_wgmma": [ptr, i32, ptr, ptr, i32]
                 + [ptr] * 5 + [i32] * 4 + [ptr],
             }
@@ -72,8 +85,8 @@ def load() -> _build.Built:
                 fn = getattr(built.lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            built.lib.kf_lm_head_dw_scratch.argtypes = []
-            built.lib.kf_lm_head_dw_scratch.restype = ctypes.c_longlong
+            built.lib.kf_lm_head_exchange_scratch.argtypes = []
+            built.lib.kf_lm_head_exchange_scratch.restype = ctypes.c_longlong
             built.lib.kf_error_string.argtypes = [ctypes.c_int]
             built.lib.kf_error_string.restype = ctypes.c_char_p
             _built = built
@@ -186,45 +199,11 @@ def _types(h: torch.Tensor, w: torch.Tensor) -> Tuple[int, int]:
     return int(h.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16)
 
 
-def _launch_fwd(h, w, targets) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The forward kernel on contiguous ``h``, ``w`` and int32 ``targets``."""
-    lib = load().lib
-    (n, d), v = h.shape, w.shape[1]
-    # the partial max, sum and target logit of each vocab split
-    part = torch.empty((lib.kf_lm_head_fwd_splits(n, v), n, 3),
-                       dtype=torch.float32, device=h.device)
-    loss = torch.empty(n, dtype=torch.float32, device=h.device)
-    lse = torch.empty_like(loss)
-    with torch.cuda.device(h.device):
-        stream = torch.cuda.current_stream(h.device).cuda_stream
-        err = lib.kf_lm_head_fwd(
-            h.data_ptr(), w.data_ptr(), targets.data_ptr(), part.data_ptr(),
-            loss.data_ptr(), lse.data_ptr(), n, d, v, *_types(h, w), stream)
-    _raise_on(lib, err, "forward")
-    launch_counts["lm_head_fwd"] += 1
-    return loss, lse
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _launch_bwd_kernel(name: str, h, w, targets, lse, g, out) -> None:
-    lib = load().lib
-    (n, d), v = h.shape, w.shape[1]
-    with torch.cuda.device(h.device):
-        stream = torch.cuda.current_stream(h.device).cuda_stream
-        err = getattr(lib, f"kf_{name}")(
-            h.data_ptr(), w.data_ptr(), targets.data_ptr(), lse.data_ptr(),
-            g.data_ptr(), out.data_ptr(), n, d, v, *_types(h, w), stream)
-    _raise_on(lib, err, name)
-    launch_counts[name] += 1
-
-
-def _launch_dh(h, w, targets, lse, g) -> torch.Tensor:
-    """The dh kernel on contiguous operands (int32 targets, f32 lse and g)."""
-    dh = torch.empty_like(h)
-    _launch_bwd_kernel("lm_head_bwd_dh", h, w, targets, lse, g, dh)
-    return dh
-
-
-def split_w(w: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+def split_w(w: torch.Tensor) -> Split:
     """The split kernel on a contiguous CUDA ``w``: as
     :func:`split_w_reference`, bit for bit."""
     lib = load().lib
@@ -234,41 +213,125 @@ def split_w(w: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     with torch.cuda.device(w.device):
         err = lib.kf_lm_head_split_w(
             w.data_ptr(), hi.data_ptr(), 0 if lo is None else lo.data_ptr(),
-            d, v, hi.shape[1], int(lo is None),
-            torch.cuda.current_stream(w.device).cuda_stream)
+            d, v, hi.shape[1], int(lo is None), _stream(w))
     _raise_on(lib, err, "split")
     launch_counts["lm_head_split"] += 1
     return hi, lo
 
 
-def _launch_dw(h, w, targets, lse, g) -> torch.Tensor:
-    """The dW kernel, operands as :func:`_launch_dh`.  bf16 ``h`` (D up to
-    :data:`WGMMA_MAX_D`) takes the wgmma kernel on the split of ``w``;
-    f32 ``h`` and wider D take the f32 SIMT kernel."""
-    dw = torch.empty_like(w)
+def _split_for(w: torch.Tensor, split: Optional[Split]) -> Split:
+    """``split`` checked against ``w``, or a new split of ``w``."""
+    if split is None:
+        return split_w(w)
+    hi, lo = split
+    d, v = w.shape
+    if hi.shape != (v, split_ld(d)) or hi.dtype != torch.bfloat16 \
+            or hi.device != w.device or not hi.is_contiguous() \
+            or (lo is None) != (w.dtype == torch.bfloat16) \
+            or (lo is not None and (lo.shape != hi.shape
+                                    or lo.dtype != torch.bfloat16
+                                    or lo.device != w.device
+                                    or not lo.is_contiguous())):
+        raise ValueError("split does not match w: expected hi (and lo for "
+                         "an f32 w) bf16 [V, ld] on w's device")
+    return hi, lo
+
+
+def _tma_rows(h: torch.Tensor) -> torch.Tensor:
+    """``h``, or a copy with a 16-byte row pitch and base: TMA reads rows
+    of a pitch that is a multiple of 16 bytes."""
+    n, d = h.shape
+    if d % 8 == 0 and h.data_ptr() % 16 == 0:
+        return h
+    padded = torch.empty((n, split_ld(d)), dtype=h.dtype, device=h.device)
+    padded[:, :d] = h
+    return padded
+
+
+def _split_args(split: Split) -> tuple:
+    hi, lo = split
+    return hi.data_ptr(), 0 if lo is None else lo.data_ptr(), hi.shape[1]
+
+
+def _launch_fwd(h, w, targets, split: Optional[Split] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Split]]:
+    """The forward kernel on contiguous ``h``, ``w`` and int32 ``targets``:
+    ``(loss, lse, split)``.  bf16 ``h`` takes the wgmma kernel on the
+    split of ``w`` (``split``, or one made here), which it returns; f32
+    ``h`` takes the f32 SIMT kernel and returns no split."""
+    lib = load().lib
+    (n, d), v = h.shape, w.shape[1]
+    bf16 = h.dtype == torch.bfloat16
+    if bf16:
+        split = _split_for(w, split)
+    with torch.cuda.device(h.device):
+        # the partial max, sum and target logit of each vocab split
+        part = torch.empty((lib.kf_lm_head_fwd_splits(n, v, int(bf16)), n, 3),
+                           dtype=torch.float32, device=h.device)
+        loss = torch.empty(n, dtype=torch.float32, device=h.device)
+        lse = torch.empty_like(loss)
+        if bf16:
+            ht = _tma_rows(h)
+            err = lib.kf_lm_head_fwd_wgmma(
+                ht.data_ptr(), ht.stride(0), *_split_args(split),
+                targets.data_ptr(), part.data_ptr(), loss.data_ptr(),
+                lse.data_ptr(), n, d, v, part.shape[0],
+                int(split[1] is None), _stream(h))
+        else:
+            split = None
+            err = lib.kf_lm_head_fwd(
+                h.data_ptr(), w.data_ptr(), targets.data_ptr(),
+                part.data_ptr(), loss.data_ptr(), lse.data_ptr(), n, d, v,
+                int(w.dtype == torch.bfloat16), _stream(h))
+    _raise_on(lib, err, "forward")
+    launch_counts["lm_head_fwd"] += 1
+    return loss, lse, split
+
+
+def _launch_bwd_kernel(name: str, h, w, targets, lse, g, out,
+                       split: Optional[Split]) -> None:
+    """The dh or dW kernel ``name`` into ``out``: the wgmma kernel on the
+    split of ``w`` (``split``, or one made here) for bf16 ``h`` with D up
+    to :data:`WGMMA_MAX_D`, else the f32 SIMT kernel."""
+    lib = load().lib
     (n, d), v = h.shape, w.shape[1]
     if h.dtype != torch.bfloat16 or d > WGMMA_MAX_D:
-        _launch_bwd_kernel("lm_head_bwd_dw", h, w, targets, lse, g, dw)
-        return dw
-    w_hi, w_lo = split_w(w)
-    if d % 8 or h.data_ptr() % 16:
-        # TMA reads rows of a pitch that is a multiple of 16 bytes
-        padded = torch.empty((n, split_ld(d)), dtype=h.dtype, device=h.device)
-        padded[:, :d] = h
-        h = padded
-    lib = load().lib
-    # where the cluster's CTAs exchange their partial logits
-    scratch = torch.empty(lib.kf_lm_head_dw_scratch(), dtype=torch.float32,
-                          device=h.device)
+        with torch.cuda.device(h.device):
+            err = getattr(lib, f"kf_{name}")(
+                h.data_ptr(), w.data_ptr(), targets.data_ptr(), lse.data_ptr(),
+                g.data_ptr(), out.data_ptr(), n, d, v, *_types(h, w),
+                _stream(h))
+        _raise_on(lib, err, name)
+        launch_counts[name] += 1
+        return
+    split = _split_for(w, split)
+    h = _tma_rows(h)
     with torch.cuda.device(h.device):
-        err = lib.kf_lm_head_bwd_dw_wgmma(
-            h.data_ptr(), h.stride(0), w_hi.data_ptr(),
-            0 if w_lo is None else w_lo.data_ptr(), w_hi.shape[1],
-            targets.data_ptr(), lse.data_ptr(), g.data_ptr(), dw.data_ptr(),
-            scratch.data_ptr(), n, d, v, int(w_lo is None),
-            torch.cuda.current_stream(h.device).cuda_stream)
-    _raise_on(lib, err, "lm_head_bwd_dw")
-    launch_counts["lm_head_bwd_dw"] += 1
+        # where the cluster's CTAs exchange their partial logits
+        scratch = torch.empty(lib.kf_lm_head_exchange_scratch(),
+                              dtype=torch.float32, device=h.device)
+        err = getattr(lib, f"kf_{name}_wgmma")(
+            h.data_ptr(), h.stride(0), *_split_args(split), targets.data_ptr(),
+            lse.data_ptr(), g.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            n, d, v, int(split[1] is None), _stream(h))
+    _raise_on(lib, err, name)
+    launch_counts[name] += 1
+
+
+def _launch_dh(h, w, targets, lse, g, split: Optional[Split] = None
+               ) -> torch.Tensor:
+    """The dh kernel on contiguous operands (int32 targets, f32 lse and
+    g)."""
+    dh = torch.empty_like(h)
+    _launch_bwd_kernel("lm_head_bwd_dh", h, w, targets, lse, g, dh, split)
+    return dh
+
+
+def _launch_dw(h, w, targets, lse, g, split: Optional[Split] = None
+               ) -> torch.Tensor:
+    """The dW kernel, operands as :func:`_launch_dh`."""
+    dw = torch.empty_like(w)
+    _launch_bwd_kernel("lm_head_bwd_dw", h, w, targets, lse, g, dw, split)
     return dw
 
 
@@ -277,24 +340,30 @@ def _operands(h, w, targets):
 
 
 def forward(h: torch.Tensor, w: torch.Tensor, targets: torch.Tensor
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(loss, lse)`` f32 ``[N]`` for ``h`` ``[N, D]``, ``w`` ``[D, V]`` and
-    int ``targets`` ``[N]``: the plain version on the CPU, the kernel on
-    CUDA."""
+            ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Split]]:
+    """``(loss, lse, split)`` for ``h`` ``[N, D]``, ``w`` ``[D, V]`` and int
+    ``targets`` ``[N]``: loss and lse f32 ``[N]``, and the split of ``w``
+    the kernel took, for :func:`backward` (None on the CPU and for f32
+    ``h``).  The plain version on the CPU, the kernel on CUDA."""
     _check(h, w, targets)
     if h.device.type == "cpu":
-        return lm_head_forward_reference(h, w, targets)
+        return (*lm_head_forward_reference(h, w, targets), None)
     return _launch_fwd(*_operands(h, w, targets))
 
 
-def backward(h, w, targets, lse, g) -> Tuple[torch.Tensor, torch.Tensor]:
+def backward(h, w, targets, lse, g, split: Optional[Split] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(dh, dW)`` in h's and w's dtypes for the cotangent ``g`` of the
     per-row loss: the plain version on the CPU, the dh kernel then the
-    dW kernel on CUDA."""
+    dW kernel on CUDA.  ``split`` is the forward's split of ``w``; without
+    it, bf16 ``h`` splits ``w`` once here for both kernels."""
     _check(h, w, targets)
     g = g.float().expand(h.shape[:1]).contiguous()
     lse = lse.float().contiguous()
     if h.device.type == "cpu":
         return lm_head_backward_reference(h, w, targets, lse, g)
     ops = (*_operands(h, w, targets), lse, g)
-    return _launch_dh(*ops), _launch_dw(*ops)
+    if split is None and h.dtype == torch.bfloat16 \
+            and h.shape[1] <= WGMMA_MAX_D:
+        split = split_w(ops[1])
+    return _launch_dh(*ops, split), _launch_dw(*ops, split)

@@ -4,8 +4,10 @@ Port of the public half of ``kungfu_tpu/ops/pallas/lm_head.py``:
 :func:`lm_head_nll` and the custom VJP behind it (``_lmh``, ``_lmh_fwd``,
 ``_lmh_bwd``), as a ``torch.autograd.Function``.  The forward emits the
 per-token NLL and keeps ``(h, w, targets, lse)`` as residuals — O(N·D +
-D·V), not O(N·V); the backward recomputes the logits tile by tile for
-``dh`` and ``dW``.  The kernels and their plain versions live in
+D·V), not O(N·V) — and, on the card, the split of ``w`` into two bf16
+terms that its kernel took, so that the backward does not split again;
+the backward recomputes the logits tile by tile for ``dh`` and ``dW``.
+The kernels and their plain versions live in
 :mod:`kungfu_tpu_torch.ops.cuda.lm_head`: a CUDA tensor launches the
 kernels (or raises), a CPU tensor takes the plain versions.
 """
@@ -21,22 +23,25 @@ from kungfu_tpu_torch.ops.cuda import lm_head as kernels
 
 
 class _LMHead(torch.autograd.Function):
-    """Per-row NLL with residuals ``(h, w, targets, lse)``; the backward
-    returns ``dh`` in h's dtype and ``dW`` in w's, and nothing for the
-    targets.  lse is a residual, not an output: it is not differentiated,
-    as in the reference's VJP."""
+    """Per-row NLL with residuals ``(h, w, targets, lse)`` and the split of
+    ``w`` (``(W_hi, W_lo)``, or None); the backward returns ``dh`` in h's
+    dtype and ``dW`` in w's, and nothing for the targets.  lse is a
+    residual, not an output: it is not differentiated, as in the
+    reference's VJP."""
 
     @staticmethod
     def forward(ctx, h, w, targets):
-        loss, lse = kernels.forward(h, w, targets)
-        ctx.save_for_backward(h, w, targets, lse)
+        loss, lse, split = kernels.forward(h, w, targets)
+        hi, lo = split if split is not None else (None, None)
+        ctx.save_for_backward(h, w, targets, lse, hi, lo)
         return loss
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        h, w, targets, lse = ctx.saved_tensors
-        return (*kernels.backward(h, w, targets, lse, g), None)
+        h, w, targets, lse, hi, lo = ctx.saved_tensors
+        split = None if hi is None else (hi, lo)
+        return (*kernels.backward(h, w, targets, lse, g, split), None)
 
 
 def lm_head_nll(h: torch.Tensor, w: torch.Tensor, targets: torch.Tensor,

@@ -11,16 +11,17 @@ commit unpacked into an ignored directory, can be timed in turns
 flagship's shape, h ``[8192, 768]`` bf16 and W ``[768, 32128]`` f32 (the
 fused-head training step of ``gpt_small(max_seq=2048)`` at ids
 ``[4, 2048]``), it prints the device ms per launch of the forward
-(``lm_head._launch_fwd``), dh (``_launch_dh``) and dW (``_launch_dw``,
-which for bf16 h includes the split of W where the checkout has one,
-timed alone beside it): the median over 5 CUDA-event windows of one
-launch (two for the forward), warm L2, the stream held by a sleep kernel
-while the host enqueues; the host µs per launch of each wrapper (host
-clock over 10 calls enqueued behind a sleep kernel); dW's largest error
-against the plain version as a share of chip_smoke.py's tolerance; the
-wgmma and TMA-load instruction counts (HGMMA, UTMALDG) of every wgmma
-kernel in the checkout's built library (``cuobjdump --dump-sass``); and
-the card's name and power limit.  The last line is one JSON object with
+(``lm_head._launch_fwd``), dh (``_launch_dh``) and dW (``_launch_dw``;
+for bf16 h each includes the split of W where the checkout's kernel
+takes one, timed alone beside them): the median over 5 CUDA-event
+windows of one launch (two for the forward), warm L2, the stream held by
+a sleep kernel while the host enqueues; the host µs per launch of each
+wrapper (host clock over 10 calls enqueued behind a sleep kernel); the
+largest error of loss, lse, dh and dW against the plain versions as a
+share of chip_smoke.py's tolerances; the wgmma and TMA-load instruction
+counts (HGMMA, UTMALDG) of every wgmma kernel in the checkout's built
+library (``cuobjdump --dump-sass``); and the card's name and power
+limit.  The last line is one JSON object with
 all of it.  Needs a GPU.
 """
 
@@ -36,8 +37,17 @@ import sys
 import time
 
 N, D, V = 8192, 768, 32128
-#: chip_smoke.py's f32 dW tolerance: rtol plus a share of max|dW|
-DW_RTOL, DW_ATOL_SHARE = 1e-4, 1e-5
+#: chip_smoke.py's tolerances: loss and lse; f32 dW (rtol plus a share
+#: of max|dW|); bf16 dh (two bf16 ulps plus the same share)
+LOSS_RTOL, LOSS_ATOL = 2e-5, 1e-6
+DW_RTOL, ATOL_SHARE = 1e-4, 1e-5
+DH_RTOL_BF16 = 2 ** -6
+
+
+def tol_share(got, ref, rtol: float, atol: float) -> float:
+    """max |got - ref| / (atol + rtol |ref|); <= 1 passes."""
+    ref = ref.float()
+    return ((got.float() - ref).abs() / (atol + rtol * ref.abs())).max().item()
 
 
 def device_ms(torch, fn, iters: int, windows: int = 5) -> float:
@@ -113,12 +123,19 @@ def main() -> int:
     t = torch.randint(0, V, (N,), generator=gen, device="cuda",
                       dtype=torch.int32)
     g = torch.randn((N,), generator=gen, device="cuda")
-    _, lse = lmk._launch_fwd(h, w, t)
+    loss, lse = lmk._launch_fwd(h, w, t)[:2]
+    dh = lmk._launch_dh(h, w, t, lse, g)
     dw = lmk._launch_dw(h, w, t, lse, g)
-    _, ref = lmk.lm_head_backward_reference(h, w, t, lse, g)
-    atol = DW_ATOL_SHARE * ref.abs().max().item()
-    share = ((dw - ref).abs() / (atol + DW_RTOL * ref.abs())).max().item()
-    del dw, ref
+    ref_loss, ref_lse = lmk.lm_head_forward_reference(h, w, t)
+    ref_dh, ref_dw = lmk.lm_head_backward_reference(h, w, t, ref_lse, g)
+    shares = {
+        "loss": tol_share(loss, ref_loss, LOSS_RTOL, LOSS_ATOL),
+        "lse": tol_share(lse, ref_lse, LOSS_RTOL, LOSS_ATOL),
+        "dh": tol_share(dh, ref_dh, DH_RTOL_BF16,
+                        ATOL_SHARE * ref_dh.float().abs().max().item()),
+        "dw": tol_share(dw, ref_dw, DW_RTOL,
+                        ATOL_SHARE * ref_dw.abs().max().item())}
+    del dh, dw, ref_dh, ref_dw
 
     def fwd():
         lmk._launch_fwd(h, w, t)
@@ -134,14 +151,16 @@ def main() -> int:
            "split_ms": (device_ms(torch, lambda: lmk.split_w(w), 5)
                         if hasattr(lmk, "split_w") else None),
            "fwd_host_us": host_us(torch, fwd), "dh_host_us": host_us(torch, dh),
-           "dw_host_us": host_us(torch, dwk), "dw_tol_share": share}
+           "dw_host_us": host_us(torch, dwk),
+           **{f"{k}_tol_share": r for k, r in shares.items()}}
     split = "" if row["split_ms"] is None else \
         f" (its split of W {row['split_ms']:.4f} ms)"
     print(f"{args.label} h [{N}, {D}] bf16, W [{D}, {V}] f32: forward "
           f"{row['fwd_ms']:.4f} ms ({row['fwd_host_us']:.1f} us host), dh "
           f"{row['dh_ms']:.4f} ms ({row['dh_host_us']:.1f} us host), dW "
           f"{row['dw_ms']:.4f} ms{split} ({row['dw_host_us']:.1f} us host); "
-          f"dW uses {share:.3f} of its tolerance")
+          f"share of tolerance used: " + ", ".join(
+              f"{k} {r:.3f}" for k, r in shares.items()))
     tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     sass = sass_counts(lmk.load().path, tool)
     for name, c in sorted(sass.items()):

@@ -159,14 +159,17 @@ def test_launchers_match_wrapper_argtypes(monkeypatch):
         assert [_ctypes_kind(t) for t in fn.argtypes] == c_kinds, \
             f"{src}:{name} argtypes differ from the C parameters"
     assert {"kf_flash_fwd", "kf_flash_bwd_dq", "kf_flash_bwd_dkv",
-            "kf_lm_head_split_w", "kf_lm_head_bwd_dw_wgmma", "kf_ring_rs",
-            "kf_ring_ag"} <= {name for _, name in launchers}
+            "kf_lm_head_split_w", "kf_lm_head_fwd_wgmma",
+            "kf_lm_head_bwd_dh_wgmma", "kf_lm_head_bwd_dw_wgmma",
+            "kf_ring_rs", "kf_ring_ag"} <= {name for _, name in launchers}
 
 
 #: the families whose bf16 path is a wgmma kernel, by source
 _WGMMA_FAMILIES = {"flash_fwd.cu": {"flash_fwd"},
                    "flash_bwd.cu": {"flash_bwd_dq", "flash_bwd_dkv"},
-                   "lm_head.cu": {"lm_head_bwd_dw"}, "ring.cu": set()}
+                   "lm_head.cu": {"lm_head_fwd", "lm_head_bwd_dh",
+                                  "lm_head_bwd_dw"},
+                   "ring.cu": set()}
 
 
 @pytest.mark.parametrize("source,families", [

@@ -350,3 +350,160 @@ class TestSplitArithmetic:
         atol = 1e-5 * np.abs(ref).max()
         np.testing.assert_allclose(got.float().numpy(), ref, rtol=rtol,
                                    atol=atol)
+
+
+def _logits_split_emulation(h, w):
+    """The logits as the wgmma kernels take them: h W_hi + h W_lo (one
+    product for a bf16 W), every product f32."""
+    d = w.shape[0]
+    w_hi, w_lo = kernels.split_w_reference(w)
+    hf = h.float()
+    x = hf @ w_hi[:, :d].float().t()
+    if w_lo is not None:
+        x = x + hf @ w_lo[:, :d].float().t()
+    return x, w_hi[:, :d].float(), None if w_lo is None else w_lo[:, :d].float()
+
+
+def _fwd_split_emulation(h, w, t):
+    """Loss and lse as the wgmma forward computes them: the split logits,
+    then the max, the sum of exponentials and the target logit in f32; a
+    target outside [0, V) gives loss = lse."""
+    x, _, _ = _logits_split_emulation(h, w)
+    m = x.amax(dim=1)
+    lse = m + torch.log(torch.exp(x - m[:, None]).sum(1).clamp_min(1e-30))
+    cols = torch.arange(w.shape[1])
+    tl = torch.where(cols[None, :] == t.long()[:, None], x, 0.0).sum(1)
+    return lse - tl, lse
+
+
+def _dh_split_emulation(h, w, t, lse, g):
+    """dh as the wgmma dh kernel computes it, in f32 before its one
+    rounding: the split logits, dl split into bf16 dl_hi and dl_lo, dh =
+    dl_hi W_hi + dl_hi W_lo + dl_lo W_hi (dl_hi W + dl_lo W for a bf16
+    W); the kernel leaves dl_lo W_lo out."""
+    x, w_hi, w_lo = _logits_split_emulation(h, w)
+    cols = torch.arange(w.shape[1])
+    dl = (torch.exp(x - lse[:, None]) - (cols[None, :] == t.long()[:, None])
+          .float()) * g[:, None]
+    dl_hi = dl.to(torch.bfloat16).float()
+    dl_lo = (dl - dl_hi).to(torch.bfloat16).float()
+    dh = dl_hi @ w_hi + dl_lo @ w_hi
+    if w_lo is not None:
+        dh = dh + dl_hi @ w_lo
+    return dh
+
+
+#: TestSplitArithmetic's shapes, a ragged V past the 128-column vocab
+#: tile of the forward, and the flagship's ratio of D to V at a small N
+_SPLIT_SHAPES = [(64, 96, 200, False), (48, 64, 130, False),
+                 (40, 128, 70, True), (72, 256, 1000, False),
+                 (33, 200, 777, False), (24, 128, 517, True)]
+
+
+class TestForwardAndDhSplitArithmetic:
+    """The wgmma forward's and dh kernel's arithmetic, emulated on the
+    CPU, against the reference's Pallas kernels in interpret mode at
+    chip_smoke.py's tolerances: loss and lse ``rtol`` 2e-5, ``atol``
+    1e-6; dh before its rounding against the f32 gradient, ``rtol`` 1e-4
+    plus 1e-5 of max|dh|; dh rounded to bf16 (the kernel's output for
+    bf16 h) against the reference's bf16 dh within two bf16 ulps
+    (2^-6) plus the same share.  bf16 h ~ N(0, 1), W ~ 0.05 N(0, 1), g ~
+    N(0, 1), out-of-vocab targets."""
+
+    @staticmethod
+    def _inputs(n, d, v, w_bf16):
+        rng = np.random.default_rng(300 + n + d + v)
+        h = np.asarray(jnp.asarray(rng.standard_normal((n, d)), jnp.bfloat16),
+                       np.float32)
+        w = (rng.standard_normal((d, v)) * 0.05).astype(np.float32)
+        if w_bf16:
+            w = np.asarray(jnp.asarray(w, jnp.bfloat16), np.float32)
+        t = rng.integers(0, v, n).astype(np.int32)
+        t[:2] = [-1, 2 * v + 256]  # out of vocab, past the padded block
+        g = rng.standard_normal(n).astype(np.float32)
+        tw = torch.from_numpy(w).to(torch.bfloat16 if w_bf16 else torch.float32)
+        return h, w, t, g, tw
+
+    @pytest.mark.parametrize("kind", ["forward", "dh"])
+    @pytest.mark.parametrize("n,d,v,w_bf16", _SPLIT_SHAPES)
+    def test_matches_jax_kernels(self, kind, n, d, v, w_bf16):
+        h, w, t, g, tw = self._inputs(n, d, v, w_bf16)
+        wdt = jnp.bfloat16 if w_bf16 else jnp.float32
+        th = torch.from_numpy(h).to(torch.bfloat16)
+        tt = torch.from_numpy(t)
+        if kind == "forward":
+            jloss, jlse = jfwd_call(jnp.asarray(h, jnp.bfloat16),
+                                    jnp.asarray(w, wdt), jnp.asarray(t), 8,
+                                    128, True)
+            loss, lse = _fwd_split_emulation(th, tw, tt)
+            np.testing.assert_allclose(loss.numpy(), np.asarray(jloss),
+                                       rtol=2e-5, atol=1e-6)
+            np.testing.assert_allclose(lse.numpy(), np.asarray(jlse),
+                                       rtol=2e-5, atol=1e-6)
+            np.testing.assert_array_equal(loss.numpy()[:2], lse.numpy()[:2])
+            return
+        _, lse = kernels.lm_head_forward_reference(th, tw, tt)
+        dh = _dh_split_emulation(th, tw, tt, lse, torch.from_numpy(g))
+        for hdt, got, rtol in ((jnp.float32, dh, 1e-4),
+                               (jnp.bfloat16, dh.to(torch.bfloat16), 2 ** -6)):
+            _, vjp = jax.vjp(lambda a, b: jlm_head_nll(a, b, jnp.asarray(t),
+                                                       block_n=8, block_v=128),
+                             jnp.asarray(h, hdt), jnp.asarray(w, wdt))
+            ref = np.asarray(vjp(jnp.asarray(g))[0], np.float32)
+            np.testing.assert_allclose(got.float().numpy(), ref, rtol=rtol,
+                                       atol=1e-5 * np.abs(ref).max())
+
+
+class TestSplitResidual:
+    def test_lm_head_passes_the_forward_split_to_backward(self, monkeypatch):
+        """``_LMHead`` keeps the forward's split of W and hands it to the
+        backward, so a training step splits W once; on the CPU nothing
+        launches."""
+        kernels.reset_launch_counts()
+        seen = {}
+        real_fwd, real_bwd = kernels.forward, kernels.backward
+
+        def forward(h, w, targets):
+            loss, lse, _ = real_fwd(h, w, targets)
+            seen["split"] = kernels.split_w_reference(w)
+            return loss, lse, seen["split"]
+
+        def backward(h, w, targets, lse, g, split=None):
+            seen["backward_split"] = split
+            return real_bwd(h, w, targets, lse, g, split)
+
+        monkeypatch.setattr(kernels, "forward", forward)
+        monkeypatch.setattr(kernels, "backward", backward)
+        h, w, t = _data(10, 24, 130, seed=12)
+        loss, grads = _port(h, w, t)
+        hi, lo = seen["backward_split"]
+        assert hi is seen["split"][0] and lo is seen["split"][1]
+        ref_loss, ref_grads = _jax(h, w, t)
+        np.testing.assert_allclose(loss.numpy(), ref_loss, rtol=LOSS_RTOL,
+                                   atol=LOSS_ATOL)
+        for a, b in zip(grads, ref_grads):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b),
+                                       rtol=GRAD_RTOL, atol=GRAD_ATOL)
+        assert set(kernels.launch_counts.values()) == {0}
+
+    def test_cpu_forward_keeps_no_split(self):
+        h, w, t = (torch.from_numpy(a) for a in _data(6, 16, 40, seed=13))
+        loss, lse, split = kernels.forward(h, w, t)
+        assert split is None
+        ref_loss, ref_lse = kernels.lm_head_forward_reference(h, w, t)
+        assert torch.equal(loss, ref_loss) and torch.equal(lse, ref_lse)
+
+    @pytest.mark.parametrize("case", ["shape", "dtype", "lo_for_bf16_w",
+                                      "no_lo_for_f32_w", "lo_shape"])
+    def test_a_split_that_does_not_match_w_is_refused(self, case):
+        w = torch.zeros(20, 36)
+        hi, lo = kernels.split_w_reference(w)
+        split = {"shape": (hi[:, :16], lo), "dtype": (hi.float(), lo),
+                 "lo_for_bf16_w": (hi, lo), "no_lo_for_f32_w": (hi, None),
+                 "lo_shape": (hi, lo[:-1])}[case]
+        if case == "lo_for_bf16_w":
+            w = w.to(torch.bfloat16)
+        with pytest.raises(ValueError):
+            kernels._split_for(w, split)
+        got = kernels._split_for(w.float(), (hi, lo))
+        assert got[0] is hi and got[1] is lo
