@@ -23,8 +23,10 @@ Phases (any failed check exits non-zero before the result line):
              with the tolerances below; timed (median of CUDA-event
              windows) beside its plain version and one PyTorch library
              call, the flash forward at its three main-path shapes and
-             dQ and dK/dV at the two training shapes, with the host µs
-             per launch;
+             dQ and dK/dV at the two training shapes, and all three
+             without a mask at one BERT-base rank's [96, 512, 64], the
+             cross-entropy at the flagship's [8192, 32128] and BERT's
+             [4096, 30528], with the host µs per launch;
 4. forward — the flagship forward (vocab 32128, d_model 768, 12 layers,
              12 heads, d_ff 3072, RoPE, causal, bf16, ids [4, 256]) with
              random weights from a seed, through the kernel, held
@@ -56,7 +58,23 @@ Phases (any failed check exits non-zero before the result line):
              ring launches per direction, params after one step against
              phase 8's, falling loss, step ms, tokens/s, peak memory,
              per-rank optimizer bytes, and the ring bytes counted in one
-             step against ``zero_comm_bytes``.
+             step against ``zero_comm_bytes``;
+10. replicas — ``bert_base()`` (vocab 30528, learned positions,
+             bidirectional) at full width and depth on the same four
+             ranks, 8 x 512 tokens each, phase 6's loss, inner
+             ``sgd(1e-3, momentum=0.9)``: SMA (``synchronous_averaging``,
+             alpha 0.1) over stacked per-replica params, each rank's
+             first step against the same step under KF_TPU_ATTN=xla, the
+             ranks apart after it, ten steps of falling loss and a
+             cross-rank spread below alpha 0's; AdaptiveSGD (switch at
+             step 5: the spread falls across it); the GNS and variance
+             monitors on the replicated step, their first-step square
+             norms, variance and raw GNS against f64 on the host;
+             ``Communicator.autotune_strategy`` at 4 MiB a rank (the
+             pallas_ring candidate launches both ring kernels; the
+             winner is installed and agrees with psum); step ms,
+             tokens/s, MFU, launches and peak memory of the SMA and GNS
+             steps.
 
 Phase 3 also holds the ring reduce-scatter and all-gather kernels
 bitwise against their plain versions, at the main path's shapes (a
@@ -80,6 +98,7 @@ prints a ``kernels`` JSON line, the ``nvidia-smi`` line, and last
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -181,6 +200,26 @@ RANKS = 4
 #: f32 parameters of gpt_small(max_seq=2048); the 4-rank ring chunk
 FLAGSHIP_PARAMS = 134_404_608
 
+#: phase 10: bert_base() (vocab 30528, learned positions, bidirectional)
+#: on RANKS co-resident ranks, 8 x 512 tokens a rank; the inner
+#: optimizer of benchmarks/system.py:103, sgd(1e-3, momentum=0.9)
+BERT_ROWS, BERT_SEQ, BERT_VOCAB = 8, 512, 30528
+BERT_PARAMS = 132_340_224
+BERT_LR, BERT_MOMENTUM = 1e-3, 0.9
+SMA_ALPHA = 0.1
+ADA_CHANGE_STEP = 5
+MONITOR_STEPS = 5
+#: square norms and the variance, f32 on the card against f64 on the
+#: host: sums of 132M squares a rank in another order, each rounding at
+#: 2^-24 of a running sum (about sqrt(132M) * 6e-8 = 7e-4 relative at
+#: worst for a sum of like-signed terms); the raw GNS divides a
+#: difference of two such sums, so its error is larger
+GNS_SQ_RTOL = 1e-3
+GNS_RTOL = 1e-2
+#: an allreduce mean under the autotuned schedule against psum's: four
+#: f32 values summed in another order, rounded once each
+AUTOTUNE_RTOL, AUTOTUNE_ATOL = 1e-5, 1e-6
+
 
 class SmokeFailure(Exception):
     pass
@@ -242,10 +281,16 @@ def bound(spec, flops: float, nbytes: float) -> dict:
 EDGE_SEQS = (1, 63, 65, 127, 129, 2047)
 EDGE_BH = (1, 12)
 EDGE_DIMS = (32, 64, 128)
-#: the main-path shapes [BH, S, D] of the flash kernels: the serving
-#: forward, the one-rank training step, one of four co-resident ranks
-FLASH_SHAPES = {"s256": (48, 256, 64), "s2048": (48, TRAIN_SEQ, 64),
-                "rank_s2048": (12, TRAIN_SEQ, 64)}
+#: the main-path shapes [BH, S, D] of the flash kernels and their mask:
+#: the serving forward, the one-rank training step, one of four
+#: co-resident ranks, and one BERT-base rank of phase 10 (8 x 512
+#: tokens, 12 heads, bidirectional)
+FLASH_SHAPES = {"s256": (48, 256, 64, True),
+                "s2048": (48, TRAIN_SEQ, 64, True),
+                "rank_s2048": (12, TRAIN_SEQ, 64, True),
+                "bert_s512": (8 * 12, 512, 64, False)}
+#: the backward's timed shapes: the two causal training shapes and BERT's
+FLASH_BWD_SHAPES = ("s2048", "rank_s2048", "bert_s512")
 
 
 def _edge_cases():
@@ -283,6 +328,7 @@ def phase_flash_forward(torch, attention, spec):
         # name, (B, H, S, D), dtype, causal
         ("main", (4, 12, 256, 64), torch.bfloat16, True),
         ("train_main", (TRAIN_BATCH, 12, TRAIN_SEQ, 64), torch.bfloat16, True),
+        ("bert_main", (BERT_ROWS, 12, BERT_SEQ, 64), torch.bfloat16, False),
         ("f32_causal_ragged", (2, 4, 200, 64), torch.float32, True),
         ("bf16_noncausal", (4, 12, 256, 64), torch.bfloat16, False),
         ("bf16_d128", (2, 8, 256, 128), torch.bfloat16, True),
@@ -329,23 +375,25 @@ def phase_flash_forward(torch, attention, spec):
 
     # timing at the main-path shapes (contiguous [BH, S, D]; warm L2)
     timing = {}
-    for label, (bh, s, d) in FLASH_SHAPES.items():
+    for label, (bh, s, d, causal) in FLASH_SHAPES.items():
         q, k, v = (torch.randn((bh, s, d), generator=gen, device="cuda"
                                ).to(torch.bfloat16) for _ in range(3))
         q4, k4, v4 = (t.view(1, bh, s, d) for t in (q, k, v))
-        ms = device_ms(torch, lambda: attention._launch(q, k, v, True))
+        ms = device_ms(torch, lambda: attention._launch(q, k, v, causal))
         plain_ms = device_ms(torch, lambda: attention.flash_attention_reference(
-            q, k, v, True), iters=1, windows=5)
+            q, k, v, causal), iters=1, windows=5)
         library_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True))
-        us = host_us(torch, lambda: attention._launch(q, k, v, True))
-        # causal pairs need 4*D FLOPs each (QK^T and PV); bytes are q, k,
+            q4, k4, v4, is_causal=causal))
+        us = host_us(torch, lambda: attention._launch(q, k, v, causal))
+        # each (q, k) pair needs 4*D FLOPs (QK^T and PV): s(s+1)/2 pairs
+        # a row block under the causal mask, s*s without; bytes are q, k,
         # v read once, O written once (bf16), lse written (f32)
-        t = bound(spec, 4 * d * bh * s * (s + 1) // 2,
-                  4 * bh * s * d * 2 + bh * s * 4)
+        pairs = bh * (s * (s + 1) // 2 if causal else s * s)
+        t = bound(spec, 4 * d * pairs, 4 * bh * s * d * 2 + bh * s * 4)
         timing[label] = {"ms": ms, "plain_ms": plain_ms,
                          "library_ms": library_ms, "host_us": us, **t}
-        print(f"flash fwd timing {label} [{bh}, {s}, {d}]: kernel {ms:.4f} "
+        print(f"flash fwd timing {label} [{bh}, {s}, {d}] causal={causal}: "
+              f"kernel {ms:.4f} "
               f"ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
               f"{t['bound_ms']:.4f} ms ({t['bound_by']}, "
               f"{t['bound_ms'] / ms:.1%} of it); "
@@ -367,6 +415,8 @@ def phase_flash_backward(torch, attention, spec):
     cases = [
         # name, (B, H, S, D), dtype, causal, nonzero dlse
         ("main", (TRAIN_BATCH, 12, TRAIN_SEQ, 64), torch.bfloat16, True, False),
+        ("bert_main", (BERT_ROWS, 12, BERT_SEQ, 64), torch.bfloat16, False,
+         False),
         ("bf16_dlse", (2, 4, 256, 64), torch.bfloat16, True, True),
         ("bf16_noncausal", (2, 4, 256, 64), torch.bfloat16, False, False),
         ("bf16_d32", (2, 4, 256, 32), torch.bfloat16, True, False),
@@ -431,36 +481,36 @@ def phase_flash_backward(torch, attention, spec):
     import torch.nn.functional as F
 
     timing = {}
-    for label in ("s2048", "rank_s2048"):
-        bh, s, d = FLASH_SHAPES[label]
+    for label in FLASH_BWD_SHAPES:
+        bh, s, d, causal = FLASH_SHAPES[label]
         q, k, v, do = (torch.randn((bh, s, d), generator=gen, device="cuda"
                                    ).to(torch.bfloat16) for _ in range(4))
-        out, lse = attention._launch(q, k, v, True)
+        out, lse = attention._launch(q, k, v, causal)
         delta = (do.float() * out.float()).sum(-1)
         dq_ms = device_ms(torch, lambda: attention._launch_bwd_dq(
-            q, k, v, do, lse, delta, True))
+            q, k, v, do, lse, delta, causal))
         dkv_ms = device_ms(torch, lambda: attention._launch_bwd_dkv(
-            q, k, v, do, lse, delta, True))
+            q, k, v, do, lse, delta, causal))
         dq_us = host_us(torch, lambda: attention._launch_bwd_dq(
-            q, k, v, do, lse, delta, True))
+            q, k, v, do, lse, delta, causal))
         dkv_us = host_us(torch, lambda: attention._launch_bwd_dkv(
-            q, k, v, do, lse, delta, True))
+            q, k, v, do, lse, delta, causal))
         plain_ms = device_ms(
             torch, lambda: attention.flash_attention_backward_reference(
-                q, k, v, out, lse, do, True), iters=1, windows=5)
+                q, k, v, out, lse, do, causal), iters=1, windows=5)
         q4, k4, v4 = (t.view(1, bh, s, d).clone().requires_grad_(True)
                       for t in (q, k, v))
         do4 = do.view(1, bh, s, d)
 
         def sdpa_fwd_bwd():
-            o = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+            o = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
             torch.autograd.grad(o, (q4, k4, v4), do4)
 
         with torch.no_grad():
             sdpa_fwd = device_ms(torch, lambda: F.scaled_dot_product_attention(
-                q4, k4, v4, is_causal=True))
+                q4, k4, v4, is_causal=causal))
         library_ms = device_ms(torch, sdpa_fwd_bwd) - sdpa_fwd
-        pairs = bh * s * (s + 1) // 2
+        pairs = bh * (s * (s + 1) // 2 if causal else s * s)
         # dQ: 3 products per causal pair (QK^T, dO V^T, dS K), 2*D FLOPs
         # each; reads q, k, v, dO (bf16) and lse, delta (f32), writes dq
         # dK/dV: 4 products (QK^T, dO V^T, P^T dO, dS^T Q); writes dk, dv
@@ -473,7 +523,8 @@ def phase_flash_backward(torch, attention, spec):
             "dkv": {"ms": dkv_ms, "plain_ms": plain_ms,
                     "library_ms": library_ms, "host_us": dkv_us, **t_dkv},
         }
-        print(f"flash bwd timing {label} [{bh}, {s}, {d}]: dQ {dq_ms:.4f} ms "
+        print(f"flash bwd timing {label} [{bh}, {s}, {d}] causal={causal}: "
+              f"dQ {dq_ms:.4f} ms "
               f"(bound {t_dq['bound_ms']:.4f}, {t_dq['bound_by']}, "
               f"{t_dq['bound_ms'] / dq_ms:.1%} of it, "
               f"{t_dq['flops'] / dq_ms / 1e9:.1f} TFLOP/s, host "
@@ -498,6 +549,7 @@ def phase_xent(torch, xk, spec):
         # name, N, V, dtype
         ("main", n_main, v_main, torch.float32),
         ("bf16_main", n_main, v_main, torch.bfloat16),
+        ("bert_main", BERT_ROWS * BERT_SEQ, BERT_VOCAB, torch.float32),
         ("ragged_v", 300, 1000, torch.float32),
         ("ragged_n", 8191, 2048, torch.float32),
         ("bf16_ragged", 517, 1000, torch.bfloat16),
@@ -530,43 +582,53 @@ def phase_xent(torch, xk, spec):
         results[name] = {"loss_err": l_err, "dlogits_err": d_err}
         del x, t, g, loss, lse, dlog, ref_loss, ref_lse, ref_d
 
-    # timing at the main shape, f32 logits as the model produces them
-    n, v = n_main, v_main
-    x = torch.randn((n, v), generator=gen, device="cuda")
-    t = torch.randint(0, v, (n,), generator=gen, device="cuda")
-    g = torch.full((n,), 1.0 / n, device="cuda")
-    _, lse = xk.forward(x, t)
-    fwd_ms = device_ms(torch, lambda: xk.forward(x, t))
-    bwd_ms = device_ms(torch, lambda: xk.backward(x, t, lse, g))
-    plain_fwd = device_ms(torch, lambda: xk.xent_forward_reference(x, t),
-                          iters=1, windows=5)
-    plain_bwd = device_ms(torch, lambda: xk.xent_backward_reference(
-        x, t, lse, g), iters=1, windows=5)
-    with torch.no_grad():
-        lib_fwd = device_ms(torch, lambda: F.cross_entropy(
-            x, t, reduction="none"), iters=1, windows=5)
-    xr = x.clone().requires_grad_(True)
+    # timing at the main shapes (the flagship step's, one BERT-base
+    # rank's), f32 logits as the models produce them
+    timing = {}
+    for label, (n, v) in {"main": (n_main, v_main),
+                          "bert": (BERT_ROWS * BERT_SEQ, BERT_VOCAB)}.items():
+        x = torch.randn((n, v), generator=gen, device="cuda")
+        t = torch.randint(0, v, (n,), generator=gen, device="cuda")
+        g = torch.full((n,), 1.0 / n, device="cuda")
+        _, lse = xk.forward(x, t)
+        fwd_ms = device_ms(torch, lambda: xk.forward(x, t))
+        bwd_ms = device_ms(torch, lambda: xk.backward(x, t, lse, g))
+        fwd_us = host_us(torch, lambda: xk.forward(x, t))
+        bwd_us = host_us(torch, lambda: xk.backward(x, t, lse, g))
+        plain_fwd = device_ms(torch, lambda: xk.xent_forward_reference(x, t),
+                              iters=1, windows=5)
+        plain_bwd = device_ms(torch, lambda: xk.xent_backward_reference(
+            x, t, lse, g), iters=1, windows=5)
+        with torch.no_grad():
+            lib_fwd = device_ms(torch, lambda: F.cross_entropy(
+                x, t, reduction="none"), iters=1, windows=5)
+        xr = x.clone().requires_grad_(True)
 
-    def lib_fwd_bwd():
-        torch.autograd.grad(F.cross_entropy(xr, t, reduction="none"), xr, g)
+        def lib_fwd_bwd():
+            torch.autograd.grad(F.cross_entropy(xr, t, reduction="none"), xr,
+                                g)
 
-    lib_bwd = device_ms(torch, lib_fwd_bwd, iters=1, windows=5) - lib_fwd
-    # no matrix product: the forward reads the logits once (and writes two
-    # [N] f32 vectors); the backward reads them once and writes dlogits
-    t_fwd = bound(spec, 0, n * v * 4 + n * 4 + 2 * n * 4)
-    t_bwd = bound(spec, 0, 2 * n * v * 4 + n * 4 * 3)
-    timing = {
-        "fwd": {"ms": fwd_ms, "plain_ms": plain_fwd, "library_ms": lib_fwd,
-                **t_fwd},
-        "bwd": {"ms": bwd_ms, "plain_ms": plain_bwd, "library_ms": lib_bwd,
-                **t_bwd},
-    }
-    print(f"xent timing main [{n}, {v}] f32: fwd {fwd_ms:.4f} ms (bound "
-          f"{t_fwd['bound_ms']:.4f}, plain {plain_fwd:.4f}, F.cross_entropy "
-          f"{lib_fwd:.4f}); bwd {bwd_ms:.4f} ms (bound "
-          f"{t_bwd['bound_ms']:.4f}, plain {plain_bwd:.4f}, F.cross_entropy "
-          f"backward {lib_bwd:.4f}); {t_fwd['bytes'] / fwd_ms / 1e6:.0f} and "
-          f"{t_bwd['bytes'] / bwd_ms / 1e6:.0f} GB/s")
+        lib_bwd = device_ms(torch, lib_fwd_bwd, iters=1, windows=5) - lib_fwd
+        # no matrix product: the forward reads the logits once (and writes
+        # two [N] f32 vectors); the backward reads them once and writes
+        # dlogits
+        t_fwd = bound(spec, 0, n * v * 4 + n * 4 + 2 * n * 4)
+        t_bwd = bound(spec, 0, 2 * n * v * 4 + n * 4 * 3)
+        timing[label] = {
+            "fwd": {"ms": fwd_ms, "plain_ms": plain_fwd,
+                    "library_ms": lib_fwd, "host_us": fwd_us, **t_fwd},
+            "bwd": {"ms": bwd_ms, "plain_ms": plain_bwd,
+                    "library_ms": lib_bwd, "host_us": bwd_us, **t_bwd},
+        }
+        print(f"xent timing {label} [{n}, {v}] f32: fwd {fwd_ms:.4f} ms "
+              f"(bound {t_fwd['bound_ms']:.4f}, plain {plain_fwd:.4f}, "
+              f"F.cross_entropy {lib_fwd:.4f}); bwd {bwd_ms:.4f} ms (bound "
+              f"{t_bwd['bound_ms']:.4f}, plain {plain_bwd:.4f}, "
+              f"F.cross_entropy backward {lib_bwd:.4f}); "
+              f"{t_fwd['bytes'] / fwd_ms / 1e6:.0f} and "
+              f"{t_bwd['bytes'] / bwd_ms / 1e6:.0f} GB/s; host {fwd_us:.1f} "
+              f"and {bwd_us:.1f} us per launch")
+        del x, t, g, lse, xr
     return results, timing
 
 
@@ -1267,12 +1329,12 @@ def _rank_launches(cfg) -> dict:
                 xent_fwd=RANKS, xent_bwd=RANKS)
 
 
-def _timed_steps(torch, np, step, p, o, batch, losses):
-    """TRAIN_STEPS - 1 more steps on the host clock; peak memory of
-    those steps; returns (p, o, times, peak GiB)."""
+def _timed_steps(torch, np, step, p, o, batch, losses, steps=TRAIN_STEPS):
+    """``steps`` - 1 more steps on the host clock; peak memory of those
+    steps; returns (p, o, times, peak GiB)."""
     torch.cuda.reset_peak_memory_stats()
     times = []
-    for _ in range(TRAIN_STEPS - 1):
+    for _ in range(steps - 1):
         t0 = time.perf_counter()
         p, o, loss = step(p, o, batch)
         losses.append(float(loss))  # synchronises
@@ -1280,7 +1342,7 @@ def _timed_steps(torch, np, step, p, o, batch, losses):
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     check(all(np.isfinite(losses)), f"non-finite loss {losses}")
     check(losses[-1] < losses[0],
-          f"loss did not fall over {TRAIN_STEPS} steps: {losses}")
+          f"loss did not fall over {steps} steps: {losses}")
     return p, o, times, peak
 
 
@@ -1452,6 +1514,367 @@ def phase_zero(torch, np, kernels, tr, stage: int, ssgd_p1):
             "leaves_bitwise": len(same), "max_abs_vs_ssgd": worst[0],
             "step_ms": step_ms, "step_ms_all": times, "tokens_s": toks,
             "peak_gib": peak, "opt_state_bytes_per_rank": opt_bytes}
+
+
+def _spread(tree) -> float:
+    """The cross-rank spread of a stacked tree: the largest standard
+    deviation over the ranks of any element of any leaf."""
+    from kungfu_tpu_torch.utils.tree import tree_leaves
+
+    return max(float(t.float().std(0).max()) for t in tree_leaves(tree))
+
+
+def _recording(tx, seen: dict):
+    """``tx`` whose first ``update`` keeps a copy of the (stacked)
+    gradients it receives in ``seen["grads"]``."""
+    from kungfu_tpu_torch.optimizers import GradientTransformation
+    from kungfu_tpu_torch.utils.tree import tree_map
+
+    def update(grads, state, params=None):
+        if "grads" not in seen:
+            seen["grads"] = tree_map(lambda g: g.clone(), grads)
+        return tx.update(grads, state, params)
+
+    return GradientTransformation(tx.init, update)
+
+
+def _rel_l2_per_rank(tr, got, ref) -> tuple:
+    """Worst relative L2 over leaves and ranks of two stacked trees
+    (denominator floored at 1e-3 of the largest leaf norm of the rank),
+    with its leaf and rank."""
+    flat_g, flat_r = tr.flatten(got), tr.flatten(ref)
+    worst = (0.0, "", 0)
+    for r in range(RANKS):
+        norms = {k: t[r].float().norm().item() for k, t in flat_r.items()}
+        floor = 1e-3 * max(norms.values())
+        for k in flat_r:
+            rel = ((flat_g[k][r].float() - flat_r[k][r].float()).norm().item()
+                   / max(norms[k], floor))
+            worst = max(worst, (rel, k, r))
+    return worst
+
+
+def _host_noise_stats(torch, grads, b_small: int) -> dict:
+    """The mean over ranks of the square norms, the square norm of the
+    mean, the variance and the raw GNS of stacked gradients, in f64 on
+    the host, leaf by leaf."""
+    from kungfu_tpu_torch.utils.tree import tree_leaves
+
+    local = torch.zeros(RANKS, dtype=torch.float64)
+    global_sq = 0.0
+    for g in tree_leaves(grads):
+        h = g.detach().to("cpu", torch.float64).reshape(RANKS, -1)
+        local += (h * h).sum(1)
+        m = h.mean(0)
+        global_sq += float((m * m).sum())
+        del h, m
+    local_sq = float(local.mean())
+    b_big = b_small * RANKS
+    g2 = (b_big * global_sq - b_small * local_sq) / (b_big - b_small)
+    s = (local_sq - global_sq) / (1.0 / b_small - 1.0 / b_big)
+    return {"local_sq": local_sq, "global_sq": global_sq,
+            "variance": local_sq - global_sq, "gns": s / abs(g2)}
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / abs(b)
+
+
+def phase_replicas(torch, np, kernels, tr, costmodel, spec):
+    """bert_base() on RANKS co-resident ranks: SMA and AdaptiveSGD over
+    stacked per-replica params, the GNS and variance monitors on the
+    replicated step, and the autotune of the allreduce schedule.  Each
+    main-path run counts its launches from zero; the comparison runs
+    (the step under KF_TPU_ATTN=xla, SMA with alpha 0) are not
+    counted."""
+    from kungfu_tpu_torch.comm.device import Communicator
+    from kungfu_tpu_torch.ops import collective, xent
+    from kungfu_tpu_torch.ops.monitor import rank_sq_norms
+    from kungfu_tpu_torch.ops.schedules import ALLREDUCE_SCHEDULES
+    from kungfu_tpu_torch.optimizers import (adaptive_sgd,
+                                             monitor_gradient_noise_scale,
+                                             monitor_gradient_variance, sgd,
+                                             synchronous_averaging)
+    from kungfu_tpu_torch.parallel.train import (dp_train_step,
+                                                 stack_for_replicas)
+    from kungfu_tpu_torch.utils.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    model = tr.bert_base()
+    cfg = model.cfg
+    params = model.init(torch.Generator().manual_seed(0), device="cuda")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    rng = np.random.default_rng(0)
+    rows = RANKS * BERT_ROWS
+    batch = tuple(torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(rows, BERT_SEQ))).cuda() for _ in range(2))
+    flash = kernels[0].make_flash_attn()
+    torch.cuda.synchronize()
+    print(f"replicas: bert_base() {n_params} f32 params (vocab "
+          f"{cfg.vocab_size}, d_model {cfg.d_model}, {cfg.n_layers} layers, "
+          f"{cfg.n_heads} heads, d_ff {cfg.d_ff}, pos {cfg.pos}, causal "
+          f"{cfg.causal}, compute {cfg.dtype}); {RANKS} ranks x "
+          f"[{BERT_ROWS}, {BERT_SEQ}] tokens; init "
+          f"{time.perf_counter() - t0:.2f} s")
+    check(n_params == BERT_PARAMS, f"bert_base() has {n_params} params, "
+          f"expected {BERT_PARAMS}")
+
+    def loss_fn(p, b):
+        logits = model.apply(p, b[0], train=True, attn_fn=flash)
+        return xent.softmax_cross_entropy(logits, b[1]).mean()
+
+    def loss_xla(p, b):  # attention picked by KF_TPU_ATTN, set to xla
+        logits = model.apply(p, b[0], train=True)
+        return xent.softmax_cross_entropy(logits, b[1]).mean()
+
+    comm = Communicator(devices=["cuda:0"] * RANKS, local_size=RANKS)
+    inner = sgd(BERT_LR, momentum=BERT_MOMENTUM)
+    want_step = {key: 0 for key in _counts(kernels)}
+    want_step.update(flash_fwd=RANKS * cfg.n_layers,
+                     flash_bwd_dq=RANKS * cfg.n_layers,
+                     flash_bwd_dkv=RANKS * cfg.n_layers,
+                     xent_fwd=RANKS, xent_bwd=RANKS)
+    tokens = rows * BERT_SEQ
+    flops = costmodel.train_step_flops(cfg, rows, BERT_SEQ)
+    launches = {key: 0 for key in want_step}
+    out = {"params": n_params}
+
+    def add(counts):
+        for key, v in counts.items():
+            launches[key] += v
+
+    def measure(name, times, peak, per_step):
+        step_ms = statistics.median(times)
+        m = {"step_ms": step_ms, "step_ms_all": times,
+             "tokens_s": tokens / (step_ms / 1e3),
+             "mfu": flops / (step_ms / 1e3) / spec["bf16_flops"],
+             "launches_per_step": per_step, "peak_gib": peak}
+        print(f"replicas {name} ({RANKS} ranks on one card): {step_ms:.2f} "
+              f"ms/step median of {len(times)} ({min(times):.2f}-"
+              f"{max(times):.2f}), {m['tokens_s']:.0f} tokens/s over the "
+              f"global batch, {flops / 1e12:.3f} TFLOP/step, MFU "
+              f"{m['mfu']:.4f}; launches per step {per_step}; peak memory "
+              f"of the timed steps {peak:.2f} GiB")
+        return m
+
+    def stacked_start(tx):
+        return (stack_for_replicas(params, RANKS),
+                stack_for_replicas(tx.init(params), RANKS))
+
+    # 1. SMA: the first step through the kernels, launches from zero
+    seen = {}
+    tx = _recording(synchronous_averaging(inner, comm.axis, alpha=SMA_ALPHA),
+                    seen)
+    step = dp_train_step(loss_fn, tx, comm, replicated_params=False)
+    p, o = stacked_start(tx)
+    _reset(kernels)
+    p, o, loss = step(p, o, batch)
+    torch.cuda.synchronize()
+    per_step = _counts(kernels)
+    add(per_step)
+    print(f"replicas SMA step launches: {per_step}")
+    check(per_step == want_step, f"one SMA step launched {per_step}, "
+          f"expected {want_step}")
+    losses = [float(loss)]
+    g_kern = seen.pop("grads")
+
+    # the same first step under KF_TPU_ATTN=xla (not counted)
+    seen_x = {}
+    tx_x = _recording(synchronous_averaging(inner, comm.axis,
+                                            alpha=SMA_ALPHA), seen_x)
+    saved = os.environ.get("KF_TPU_ATTN")
+    os.environ["KF_TPU_ATTN"] = "xla"
+    try:
+        p_x, _, loss_x = dp_train_step(
+            loss_xla, tx_x, comm, replicated_params=False)(
+                *stacked_start(tx_x), batch)
+        torch.cuda.synchronize()
+    finally:
+        if saved is None:
+            os.environ.pop("KF_TPU_ATTN")
+        else:
+            os.environ["KF_TPU_ATTN"] = saved
+    p_rel = _rel_l2_per_rank(tr, p, p_x)
+    g_rel = _rel_l2_per_rank(tr, g_kern, seen_x.pop("grads"))
+    del g_kern, p_x
+    # each rank's params are held; its gradient (the whole update at step
+    # 1, whose pull is 0) is reported: the flash backward's q and k
+    # gradients stand further from the plain path's at BERT's nearly
+    # uniform attention than phase 6's causal ones do (PERF.md §6)
+    print(f"replicas SMA step 1 vs the same step under KF_TPU_ATTN=xla: "
+          f"loss {losses[0]:.6f} vs {float(loss_x):.6f}; each rank's params "
+          f"worst rel L2 {p_rel[0]:.3e} ({p_rel[1]}, rank {p_rel[2]}; tol "
+          f"{TRAIN_GRAD_REL_L2}); each rank's gradient worst rel L2 "
+          f"{g_rel[0]:.3e} ({g_rel[1]}, rank {g_rel[2]})")
+    check(p_rel[0] <= TRAIN_GRAD_REL_L2,
+          f"SMA step 1 params differ from the xla step's: {p_rel}")
+    head = tr.flatten(p)["head/w"]
+    differ = sum(not all(torch.equal(t[0], t[r]) for r in range(1, RANKS))
+                 for t in tree_leaves(p))
+    spread1 = _spread(p)
+    print(f"replicas SMA after step 1: {differ} of {len(tree_leaves(p))} "
+          f"leaves differ between ranks; spread {spread1:.3e}")
+    check(spread1 > 0 and not torch.equal(head[0], head[1]),
+          "SMA step 1 left the replicas equal: the step replicated")
+
+    _reset(kernels)
+    p, o, times, peak = _timed_steps(torch, np, step, p, o, batch, losses)
+    add(_counts(kernels))
+    spread_sma = _spread(p)
+    print(f"replicas SMA losses: {[round(x, 4) for x in losses]}")
+    out["sma"] = {"losses": losses, "first_loss_xla": float(loss_x),
+                  "params_rel_l2_vs_xla": p_rel[0],
+                  "grads_rel_l2_vs_xla": g_rel[0],
+                  "leaves_differing_after_step1": differ,
+                  "spread_after_step1": spread1,
+                  "spread": spread_sma,
+                  **measure("SMA", times, peak, per_step)}
+    del p, o, step, tx
+
+    # SMA with alpha 0 (local SGD), the same ten steps (not counted)
+    tx0 = synchronous_averaging(inner, comm.axis, alpha=0.0)
+    step0 = dp_train_step(loss_fn, tx0, comm, replicated_params=False)
+    p, o = stacked_start(tx0)
+    for _ in range(TRAIN_STEPS):
+        p, o, _ = step0(p, o, batch)
+    spread0 = _spread(p)
+    del p, o, step0
+    print(f"replicas SMA cross-rank spread after {TRAIN_STEPS} steps: alpha "
+          f"{SMA_ALPHA} {spread_sma:.3e}, alpha 0 {spread0:.3e}")
+    check(spread_sma < spread0, "SMA's pull did not hold the replicas closer "
+          "than local SGD")
+    out["sma"]["spread_alpha0"] = spread0
+    torch.cuda.empty_cache()
+
+    # 2. AdaptiveSGD: SMA for ADA_CHANGE_STEP steps, the full pull, S-SGD
+    tx = adaptive_sgd(inner, comm.axis, change_step=ADA_CHANGE_STEP)
+    step = dp_train_step(loss_fn, tx, comm, replicated_params=False)
+    p, o = stacked_start(tx)
+    _reset(kernels)
+    losses, spreads = [], []
+    for _ in range(TRAIN_STEPS):
+        p, o, loss = step(p, o, batch)
+        losses.append(float(loss))
+        spreads.append(_spread(p))
+    add(_counts(kernels))
+    before, after = spreads[ADA_CHANGE_STEP - 1], spreads[ADA_CHANGE_STEP]
+    print(f"replicas AdaptiveSGD losses: {[round(x, 4) for x in losses]}; "
+          f"spread per step {[float(f'{x:.3e}') for x in spreads]}; right "
+          f"before the switch (step {ADA_CHANGE_STEP}) {before:.3e}, right "
+          f"after the switch step {after:.3e}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"AdaptiveSGD loss did not fall: {losses}")
+    check(after < before, "AdaptiveSGD's switch did not bring the replicas "
+          "closer")
+    check(o.step.tolist() == [TRAIN_STEPS] * RANKS,
+          f"AdaptiveSGD step counts {o.step.tolist()}")
+    out["adaptive_sgd"] = {"losses": losses, "spreads": spreads,
+                           "spread_before_switch": before,
+                           "spread_after_switch": after}
+    del p, o, step, tx
+    torch.cuda.empty_cache()
+
+    # 3. the monitors on the replicated step
+    def monitor_run(name, make_tx):
+        seen = {}
+        tx = _recording(make_tx(), seen)
+        step = dp_train_step(loss_fn, tx, comm)
+        p, o = params, tx.init(params)
+        _reset(kernels)
+        p, o, loss = step(p, o, batch)
+        torch.cuda.synchronize()
+        per_step = _counts(kernels)
+        check(per_step == want_step, f"one {name} step launched {per_step}")
+        first = o
+        losses = [float(loss)]
+        _reset(kernels)
+        p, o, times, peak = _timed_steps(torch, np, step, p, o, batch, losses,
+                                         steps=MONITOR_STEPS)
+        counts = _counts(kernels)
+        add(per_step)
+        add(counts)
+        print(f"replicas {name} losses: {[round(x, 4) for x in losses]}")
+        return seen.pop("grads"), first, o, losses, times, peak, per_step
+
+    g, first, last, losses, times, peak, per_step = monitor_run(
+        "GNS", lambda: monitor_gradient_noise_scale(
+            inner, comm.axis, local_batch_size=BERT_ROWS))
+    host = _host_noise_stats(torch, g, BERT_ROWS)
+    with comm.world():
+        dev_local = float(collective.all_reduce(
+            rank_sq_norms(g), comm.axis, op="mean")[0])
+        dev_global = float(rank_sq_norms(collective.all_reduce(
+            g, comm.axis, op="mean"))[0])
+    del g
+    raw = float(first.noise_scale)  # the EMA's first sample is the raw one
+    errs = {"local_sq": _rel(dev_local, host["local_sq"]),
+            "global_sq": _rel(dev_global, host["global_sq"]),
+            "gns": _rel(raw, host["gns"])}
+    print(f"replicas GNS step 1: mean |g_r|^2 {dev_local:.6e} (f64 "
+          f"{host['local_sq']:.6e}, rel {errs['local_sq']:.2e}), |mean g|^2 "
+          f"{dev_global:.6e} (f64 {host['global_sq']:.6e}, rel "
+          f"{errs['global_sq']:.2e}), tol {GNS_SQ_RTOL}; raw GNS {raw:.6e} "
+          f"(f64 {host['gns']:.6e}, rel {errs['gns']:.2e}, tol {GNS_RTOL}); "
+          f"smoothed after {MONITOR_STEPS} steps "
+          f"{float(last.noise_scale):.6e}")
+    check(errs["local_sq"] <= GNS_SQ_RTOL and errs["global_sq"] <= GNS_SQ_RTOL,
+          f"square norms differ from f64: {errs}")
+    check(errs["gns"] <= GNS_RTOL, f"raw GNS differs from f64: {errs}")
+    check(math.isfinite(float(last.noise_scale)), "non-finite noise scale")
+    out["gns"] = {"losses": losses, "host_f64": host,
+                  "device_local_sq": dev_local, "device_global_sq": dev_global,
+                  "raw_gns_step1": raw, "rel_errors": errs,
+                  "noise_scale": float(last.noise_scale),
+                  **measure("GNS", times, peak, per_step)}
+    del first, last
+    torch.cuda.empty_cache()
+
+    g, first, last, losses, *_ = monitor_run(
+        "variance", lambda: monitor_gradient_variance(inner, comm.axis))
+    host = _host_noise_stats(torch, g, BERT_ROWS)
+    del g
+    var = float(first.variance)
+    err = _rel(var, host["variance"])
+    print(f"replicas variance step 1: {var:.6e} (f64 {host['variance']:.6e}, "
+          f"rel {err:.2e}, tol {GNS_SQ_RTOL}); after {MONITOR_STEPS} steps "
+          f"{float(last.variance):.6e}")
+    check(err <= GNS_SQ_RTOL, f"variance differs from f64 by {err}")
+    check(float(last.variance) >= 0.0, "negative variance")
+    out["variance"] = {"losses": losses, "variance_step1": var,
+                       "host_f64": host["variance"], "rel_error": err,
+                       "variance": float(last.variance)}
+    del first, last, params
+    torch.cuda.empty_cache()
+
+    # 4. the autotune of the allreduce schedule (4 MiB a rank)
+    _reset(kernels)
+    winner = comm.autotune_strategy()
+    torch.cuda.synchronize()
+    counts = _counts(kernels)
+    add(counts)
+    times = comm.autotune_times
+    print(f"replicas autotune: {winner} over "
+          f"{ {k: round(v * 1e3, 4) for k, v in times.items()} } ms per "
+          f"allreduce of 4 MiB a rank; launches {counts}")
+    check(comm.strategy == winner, "autotune did not install its winner")
+    check(set(times) == set(ALLREDUCE_SCHEDULES)
+          and all(0 < v < 1e8 for v in times.values()),
+          f"autotune did not time every schedule: {times}")
+    check(counts["ring_rs"] > 0 and counts["ring_ag"] > 0,
+          f"autotune's pallas_ring candidate launched {counts}")
+    x = torch.randn((RANKS, 1 << 20), generator=torch.Generator(
+        device="cuda").manual_seed(5), device="cuda")
+    got = comm.all_reduce(x, op="mean")
+    ref = Communicator(devices=["cuda:0"] * RANKS).all_reduce(x, op="mean")
+    ratio = _ratio(got, ref, AUTOTUNE_RTOL, AUTOTUNE_ATOL)
+    print(f"replicas allreduce mean under {winner} vs psum: {ratio:.3f} of "
+          f"rtol {AUTOTUNE_RTOL} atol {AUTOTUNE_ATOL}")
+    check(ratio <= 1.0, f"allreduce under {winner} differs from psum's")
+    out["autotune"] = {"winner": winner, "ms": {k: v * 1e3 for k, v in
+                                                 times.items()},
+                       "launches": counts, "vs_psum_ratio": ratio}
+    out["launches"] = launches
+    return out
 
 
 #: the wgmma/TMA kernels: their ptxas report must show no spills and
@@ -1629,12 +2052,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     zero3 = phase_zero(torch, np, kernels, tr, 3, ssgd_p1)
     del ssgd_p1
-    paths = (train, train_fused, ssgd, zero2, zero3)
+    torch.cuda.empty_cache()
 
-    def row(name, route, source, replaces, key, err, timing):
+    # 10. bert_base() on the same ranks: SMA, AdaptiveSGD, the monitors
+    # and the autotune of the allreduce schedule
+    t0 = time.perf_counter()
+    replicas = phase_replicas(torch, np, kernels, tr, costmodel, spec)
+    print(f"replicas phase: {time.perf_counter() - t0:.2f} s")
+    paths = (train, train_fused, ssgd, zero2, zero3, replicas)
+
+    def row(name, route, source, replaces, key, err, timing, bert=None):
         extra = {k: timing[k] for k in ("plain_head_ms", "bound_fp32_ms",
                                         "bound_executed_ms", "split_ms",
                                         "host_us") if k in timing}
+        if bert is not None:  # the same kernel at phase 10's shape
+            extra.update({f"bert_{k}": bert[k] for k in (
+                "ms", "plain_ms", "bound_ms", "library_ms", "host_us")})
         return {"name": name, "route": route, "source": source,
                 "replaces": replaces,
                 "launches": (fwd["launches"] + serve["launches"]
@@ -1660,17 +2093,22 @@ def main() -> int:
     rows = [
         row("attention._fwd_kernel", "cuda", cu + "flash_fwd.cu",
             pal + "attention.py:77", "flash_fwd",
-            fwd_errs["train_main"]["o_err"], fwd_timing["s2048"]),
+            fwd_errs["train_main"]["o_err"], fwd_timing["s2048"],
+            fwd_timing["bert_s512"]),
         row("attention._bwd_dq_kernel", "cuda", cu + "flash_bwd.cu",
             pal + "attention.py:241", "flash_bwd_dq",
-            bwd_errs["main"]["dq_err"], bwd_timing["s2048"]["dq"]),
+            bwd_errs["main"]["dq_err"], bwd_timing["s2048"]["dq"],
+            bwd_timing["bert_s512"]["dq"]),
         row("attention._bwd_dkv_kernel", "cuda", cu + "flash_bwd.cu",
             pal + "attention.py:288", "flash_bwd_dkv",
-            bwd_errs["main"]["dkv_err"], bwd_timing["s2048"]["dkv"]),
+            bwd_errs["main"]["dkv_err"], bwd_timing["s2048"]["dkv"],
+            bwd_timing["bert_s512"]["dkv"]),
         row("xent._fwd_kernel", "triton", tri, pal + "xent.py:49",
-            "xent_fwd", xent_errs["main"]["loss_err"], xent_timing["fwd"]),
+            "xent_fwd", xent_errs["main"]["loss_err"],
+            xent_timing["main"]["fwd"], xent_timing["bert"]["fwd"]),
         row("xent._bwd_kernel", "triton", tri, pal + "xent.py:163",
-            "xent_bwd", xent_errs["main"]["dlogits_err"], xent_timing["bwd"]),
+            "xent_bwd", xent_errs["main"]["dlogits_err"],
+            xent_timing["main"]["bwd"], xent_timing["bert"]["bwd"]),
         row("lm_head._fwd_kernel", "cuda", cu + "lm_head.cu",
             pal + "lm_head.py:60", "lm_head_fwd",
             lmh_errs["main"]["loss_err"], lmh_timing["fwd"]),
@@ -1687,10 +2125,15 @@ def main() -> int:
     ]
     for k in rows:
         check(k["launches"] > 0, f"{k['name']} never launched on the main path")
+    for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "xent_fwd",
+                "xent_bwd", "ring_rs", "ring_ag"):
+        check(replicas["launches"][key] > 0,
+              f"phase 10 never launched {key}")
     print("details: " + json.dumps({
         "forward": fwd, "serve": serve, "train": train,
         "train_fused_head": train_fused, "ssgd_4_ranks": ssgd,
         "zero2_4_ranks": zero2, "zero3_4_ranks": zero3,
+        "replicas_bert_4_ranks": replicas,
         "ring_timing": ring_timing, "build": build,
         "flash_fwd_errors": fwd_errs, "flash_fwd_timing": fwd_timing,
         "flash_bwd_errors": bwd_errs, "flash_bwd_timing": bwd_timing,

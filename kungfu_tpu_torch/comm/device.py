@@ -21,6 +21,7 @@ read ``shard_map``'s axis environment.
 from __future__ import annotations
 
 import math
+import time
 from typing import List, Optional, Sequence
 
 import torch
@@ -32,7 +33,10 @@ from kungfu_tpu_torch.ops.schedules import (ALLREDUCE_SCHEDULES, SIZE_BUCKETS,
                                             bucket_widths, reduce_scatter_flat,
                                             size_bucket)
 from kungfu_tpu_torch.utils.device import resolve_device
+from kungfu_tpu_torch.utils.log import get_logger
 from kungfu_tpu_torch.utils.tree import tree_map
+
+_log = get_logger("kungfu_tpu_torch.comm")
 
 HOST_AXIS = "kf_host"
 LOCAL_AXIS = "kf_local"
@@ -72,6 +76,9 @@ class Communicator:
         self._n, self._local, self._hosts = n, local, n // local
         self.axis = GLOBAL_AXES
         self._bucket_strategy: dict = {}
+        #: seconds per allreduce of each schedule, as the last
+        #: :meth:`autotune_strategy` agreed them
+        self.autotune_times: dict = {}
         self.set_strategy(strategy)
 
     # -- metadata ----------------------------------------------------------
@@ -140,6 +147,111 @@ class Communicator:
     def bucket_strategies(self) -> dict:
         """Installed per-bucket overrides, ``{bucket_index: name}``."""
         return dict(self._bucket_strategy)
+
+    def autotune_strategy(self, nbytes: int = 4 << 20, trials: int = 3) -> str:
+        """Time every schedule of ``ALLREDUCE_SCHEDULES`` on an f32
+        buffer of ``nbytes`` per rank on this mesh and install the
+        fastest (reference ``comm/device.py:283``).  A winning time that
+        is not a credible measurement keeps the incumbent.  Call it at
+        the same point on every controller: the times are agreed over
+        the mesh (:meth:`_agree`) before the choice."""
+        x = torch.randn((self._n, max(1, nbytes // 4)),
+                        generator=torch.Generator().manual_seed(0)
+                        ).to(self.device)
+        prev = self._strategy
+        try:
+            times = self._time_schedules(x, max(1, trials))
+            if all(t is None for t in times):
+                raise RuntimeError(
+                    "autotune: no allreduce schedule could be timed on "
+                    "this mesh (see preceding warnings)")
+            # 1e9 marks a schedule that did not run; it loses to any
+            # real time
+            agreed = self._agree(
+                [t if t is not None and math.isfinite(t) else 1e9
+                 for t in times], op="mean")
+        finally:
+            self._strategy = prev
+            # the probe's buffer never recurs in training: let it go now
+            del x
+        idx = min(range(len(agreed)), key=agreed.__getitem__)
+        win_t = agreed[idx]
+        if not math.isfinite(win_t) or win_t <= 0.0 or win_t >= 1e8:
+            _log.warning("autotune: winning time %r is not a credible "
+                         "measurement (times %s); keeping %r", win_t,
+                         agreed, self._strategy)
+            return self._strategy
+        self.autotune_times = dict(zip(ALLREDUCE_SCHEDULES, agreed))
+        winner = ALLREDUCE_SCHEDULES[idx]
+        _log.info("autotune: %s over %s", winner,
+                  {s: round(t * 1e3, 4) for s, t in
+                   self.autotune_times.items()})
+        self.set_strategy(winner)
+        return winner
+
+    def _agree(self, row, op: str) -> List[float]:
+        """Reduce a small per-controller vector over the mesh, through the
+        plain ``psum`` path with the bucket overrides suspended (the
+        machinery under measurement carries no agreement traffic).  One
+        process holds every rank, so this is the identity; a
+        multi-controller mesh agrees here."""
+        stacked = torch.tensor([float(v) for v in row], dtype=torch.float32,
+                               device=self.device).expand(self._n, len(row))
+        prev, prev_buckets = self._strategy, self._bucket_strategy
+        self._strategy, self._bucket_strategy = "psum", {}
+        try:
+            return self.all_reduce(stacked, op=op)[0].tolist()
+        finally:
+            self._strategy, self._bucket_strategy = prev, prev_buckets
+
+    def _time_schedules(self, x, trials: int) -> List[Optional[float]]:
+        """Seconds per allreduce of ``x`` for each schedule: one salted
+        chain of ``k`` allreduces (each feeding the next) timed at two
+        ``k``, their difference over the extra allreduces, so the fixed
+        cost of a chain cancels; the candidates are interleaved, with a
+        running minimum each, so a burst of load cannot land on one
+        schedule alone.  On the card the chain is timed with CUDA events,
+        on the host with its clock.  ``None`` for a schedule that
+        raised."""
+        k_lo, k_hi = 4, 16
+        cuda = x.device.type == "cuda"
+
+        def chain(sched, k, salt):
+            if cuda:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+            else:
+                t0 = time.perf_counter()
+            with self.world():
+                y = x + salt
+                for _ in range(k):
+                    y = all_reduce_scheduled(y, GLOBAL_AXES, op="mean",
+                                             schedule=sched)
+            if cuda:
+                end.record()
+                end.synchronize()
+                return start.elapsed_time(end) / 1e3
+            return time.perf_counter() - t0
+
+        ok = {}
+        for sched in ALLREDUCE_SCHEDULES:  # warm up each chain once
+            try:
+                chain(sched, k_lo, 0.5)
+                chain(sched, k_hi, 0.5)
+                ok[sched] = True
+            except RuntimeError as e:
+                _log.warning("autotune: schedule %s failed: %s", sched, e)
+        salts = torch.Generator().manual_seed(1234)
+        best = {s: [math.inf, math.inf] for s in ok}
+        for _ in range(trials):
+            for sched in ok:
+                for i, k in enumerate((k_lo, k_hi)):
+                    salt = float(torch.rand((), generator=salts))
+                    best[sched][i] = min(best[sched][i],
+                                         chain(sched, k, salt))
+        return [max((best[s][1] - best[s][0]) / (k_hi - k_lo), 1e-9)
+                if s in ok else None for s in ALLREDUCE_SCHEDULES]
 
     # -- eager collectives on stacked values --------------------------------
     def _check(self, x) -> None:

@@ -1,1 +1,6 @@
-"""Metrics registry and flight-recorder timeline (trimmed copies)."""
+"""Metrics registry, flight-recorder timeline and pulse (trimmed copies),
+and the device plane's strategy driver."""
+
+from kungfu_tpu_torch.monitor.adaptive import DeviceStrategyDriver
+
+__all__ = ["DeviceStrategyDriver"]

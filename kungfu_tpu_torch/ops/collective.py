@@ -236,6 +236,13 @@ def broadcast(x, axis: Axis, root: int = 0):
     return tree_map(leaf, x)
 
 
+def rank_view(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``v`` with trailing unit axes to ``like``'s rank, so that a per-rank
+    ``[n]`` value (a stacked step count) meets a stacked ``[n, ...]``
+    leaf row by row; a 0-d ``v`` broadcasts to every row."""
+    return v.reshape(tuple(v.shape) + (1,) * (like.dim() - v.dim()))
+
+
 #: when true, :func:`replicated` checks that every rank's row is bitwise
 #: equal to row 0 before it takes row 0 (the tests turn it on)
 CHECK_REPLICAS = False

@@ -14,8 +14,11 @@ saturates, and a state laid out as optax's ``chain`` lays it out, so a
 state carried over from the reference fills it leaf for leaf.
 
 The transforms are elementwise tree maps: a leaf stacked on a leading
-rank axis (a ZeRO shard, ``[n, chunk]``) is updated row by row, and
-``count`` stays one 0-d tensor that every rank shares.
+rank axis (a ZeRO shard, ``[n, chunk]``) is updated row by row.  Adam's
+``count`` is one 0-d tensor that every rank shares, or, in a state
+stacked per replica (``stack_for_replicas``), ``[n]``: each rank's count
+then meets its own rows (:func:`~kungfu_tpu_torch.ops.collective.
+rank_view`), as each device's scalar does in the reference.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
+from kungfu_tpu_torch.ops.collective import rank_view
 from kungfu_tpu_torch.utils.tree import tree_leaves, tree_map
 
 
@@ -89,8 +93,9 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32,
                                          device=c.device), c)
         updates = tree_map(
-            lambda m, v: (m / bc1.to(m.dtype))
-            / (torch.sqrt(v / bc2.to(v.dtype) + eps_root) + eps), mu, nu)
+            lambda m, v: (m / rank_view(bc1, m).to(m.dtype))
+            / (torch.sqrt(v / rank_view(bc2, v).to(v.dtype) + eps_root)
+               + eps), mu, nu)
         return updates, ScaleByAdamState(count, mu, nu)
 
     return GradientTransformation(init, update)

@@ -1,27 +1,30 @@
 """The data-parallel training step over co-resident stacked ranks.
 
 Port of ``kungfu_tpu/parallel/train.py:52 ParallelPlan`` (trimmed to the
-axes and the ZeRO stage) and ``:662 dp_train_step``.  The step is
-functional, as the reference's jitted one is: ``step(params, opt_state,
-batch) -> (params, opt_state, loss)`` takes trees of tensors and returns
-new trees (the inputs are not modified).
+axes and the ZeRO stage), ``:662 dp_train_step`` and ``:864
+stack_for_replicas``.  The step is functional, as the reference's jitted
+one is: ``step(params, opt_state, batch) -> (params, opt_state, loss)``
+takes trees of tensors and returns new trees (the inputs are not
+modified).
 
 The reference runs the step body under ``shard_map``, one copy per
 device.  The port runs it for the communicator's ``n`` ranks in one
 process: rank ``r`` takes rows ``[r*B/n, (r+1)*B/n)`` of every batch
 leaf (as ``P(axes)`` splits the batch), and the ranks' forwards and
 backwards run one after another.  Their gradients are stacked on a
-leading rank axis ``[n, ...]`` and ``tx`` (``synchronous_sgd`` over
-``comm.axis``) reduces them inside :meth:`Communicator.world
-<kungfu_tpu_torch.comm.device.Communicator.world>`.  A replicated
-output (the params, the loss) is returned once
-(:func:`~kungfu_tpu_torch.ops.collective.replicated`).
+leading rank axis ``[n, ...]`` and ``tx`` reduces them inside
+:meth:`Communicator.world
+<kungfu_tpu_torch.comm.device.Communicator.world>`.  With replicated
+params (S-SGD, the monitors) a replicated output (the params, the loss)
+is returned once (:func:`~kungfu_tpu_torch.ops.collective.replicated`);
+with ``replicated_params=False`` (SMA, AdaptiveSGD) the params, the
+optimizer state and the aux state are stacked ``[n, ...]``
+(:func:`stack_for_replicas`), rank ``r`` differentiates its own row and
+the updates stay stacked.
 
 ``zero_stage`` (or a plan with one) routes to
-:func:`kungfu_tpu_torch.parallel.zero.zero_train_step`.  What needs
-another slice raises, naming it: ``replicated_params=False`` (the
-per-replica optimizers) and a plan with tp/pp/sp axes (the full
-parallel plan, port slice 5).
+:func:`kungfu_tpu_torch.parallel.zero.zero_train_step`.  A plan with
+tp/pp/sp axes (the full parallel plan) raises, naming it.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ import torch
 from kungfu_tpu_torch.monitor.pulse import PulseMonitor
 from kungfu_tpu_torch.ops.collective import (all_reduce, group_all_reduce,
                                              replicated)
-from kungfu_tpu_torch.ops.monitor import _sq_norm
+from kungfu_tpu_torch.ops.monitor import _sq_norm, rank_sq_norms
 from kungfu_tpu_torch.ops.schedules import ALLREDUCE_SCHEDULES
 from kungfu_tpu_torch.optimizers._transform import apply_updates
 from kungfu_tpu_torch.utils.tree import (tree_flatten, tree_leaves, tree_map,
@@ -94,22 +97,27 @@ def split_batch(batch, n: int) -> List:
 
 
 def per_rank_grads(fn: Callable, params, shards: Sequence,
-                   sink: Callable) -> tuple:
+                   sink: Callable, stacked: bool = False) -> tuple:
     """Each rank's forward and backward in turn: ``fn(params, shard_r)``
     (its first output is the scalar loss), then ``sink(r, grads)`` with
     rank ``r``'s gradients as a list in ``tree_flatten`` order, before
-    the next rank runs.  Returns the detached outputs, one per rank, and
-    the detached params."""
+    the next rank runs.  With ``stacked`` every params leaf is ``[n,
+    ...]`` and rank ``r`` differentiates a detached view of its own row
+    ``r``, so its gradients are that row's; otherwise the ranks share
+    one tree.  Returns the detached outputs, one per rank, and the
+    detached params."""
     leaves, treedef = tree_flatten(params)
-    leaves = [l.detach().requires_grad_(True) for l in leaves]
-    p = tree_unflatten(treedef, leaves)
+    shared = None if stacked else [l.detach().requires_grad_(True)
+                                   for l in leaves]
     outs = []
     for r, shard in enumerate(shards):
-        out = fn(p, shard)
+        own = ([l[r].detach().requires_grad_(True) for l in leaves]
+               if stacked else shared)
+        out = fn(tree_unflatten(treedef, own), shard)
         loss = out[0] if isinstance(out, tuple) else out
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = torch.autograd.grad(loss, own, allow_unused=True)
         sink(r, [torch.zeros_like(l) if g is None else g
-                 for g, l in zip(grads, leaves)])
+                 for g, l in zip(grads, own)])
         outs.append(tree_map(lambda t: t.detach(), out))
     return outs, tree_unflatten(treedef, [l.detach() for l in leaves])
 
@@ -122,7 +130,16 @@ def stack_ranks(rows: Sequence):
     return tree_map(lambda *a: torch.stack(a), *rows)
 
 
-def _stacked_grads(fn, params, shards):
+def stack_for_replicas(tree, n: int):
+    """``tree`` tiled onto a leading replica axis ``[n, ...]`` (copies),
+    for ``dp_train_step(replicated_params=False)``: the params, and the
+    optimizer state from ``tx.init`` of the unstacked params."""
+    return tree_map(
+        lambda a: a.unsqueeze(0).expand((n,) + tuple(a.shape)).contiguous(),
+        tree)
+
+
+def _stacked_grads(fn, params, shards, stacked: bool = False):
     """Per-rank gradients stacked ``[n, ...]`` per leaf; each rank's row
     is copied in as soon as its backward ends."""
     n = len(shards)
@@ -138,11 +155,11 @@ def _stacked_grads(fn, params, shards):
         for s, g in zip(store, grads):
             s[r].copy_(g)
 
-    outs, params = per_rank_grads(fn, params, shards, sink)
+    outs, params = per_rank_grads(fn, params, shards, sink, stacked)
     return outs, tree_unflatten(treedef, store), params
 
 
-def _check_plan(zero_stage, plan, replicated_params: bool):
+def _check_plan(zero_stage, plan):
     if plan is not None:
         if plan.tp != 1 or plan.pp != 1 or plan.sp != 1:
             raise NotImplementedError(
@@ -157,10 +174,6 @@ def _check_plan(zero_stage, plan, replicated_params: bool):
                 f"dp_train_step's replicated step has no "
                 f"{plan.collective_schedule!r} arm")
         zero_stage = plan.zero_stage or None
-    if zero_stage is None and not replicated_params:
-        raise NotImplementedError(
-            "replicated_params=False (per-replica stacked params for "
-            "SMA/AdaptiveSGD) comes with a later slice")
     return zero_stage
 
 
@@ -174,10 +187,17 @@ def dp_train_step(loss_fn, tx, comm, replicated_params: bool = True,
     shard (or, with ``has_aux=True``, ``loss_fn(params, aux, batch) ->
     (loss, new_aux)`` and ``step(params, aux, opt_state, batch) ->
     (params, aux, opt_state, loss)``; the floating aux leaves are
-    averaged over the ranks).  ``tx`` does the gradient collective
-    (``synchronous_sgd`` over ``comm.axis``).  ``donate`` is accepted for
+    averaged over the ranks).  ``tx`` is any
+    :mod:`kungfu_tpu_torch.optimizers` transform over ``comm.axis``; it
+    does the gradient or weight collective.  ``donate`` is accepted for
     the reference's signature: the port's step allocates new trees and
     the caller frees the old ones by dropping them.
+
+    ``replicated_params=False`` (SMA, AdaptiveSGD: each replica owns
+    diverging weights) takes ``params``, ``opt_state`` and, with
+    ``has_aux``, ``aux`` stacked on a leading ``comm.size`` axis
+    (:func:`stack_for_replicas`) and returns them stacked; rank ``r``
+    trains row ``r``, and the pulse monitor stays off.
 
     ``zero_stage`` (1/2/3), or ``plan.zero_stage``, returns
     :func:`~kungfu_tpu_torch.parallel.zero.zero_train_step` with ``tx``
@@ -189,7 +209,7 @@ def dp_train_step(loss_fn, tx, comm, replicated_params: bool = True,
     (:class:`~kungfu_tpu_torch.monitor.pulse.PulseMonitor`, exposed as
     ``step.pulse``); the noise scale is ``None`` at one rank."""
     del donate
-    zero_stage = _check_plan(zero_stage, plan, replicated_params)
+    zero_stage = _check_plan(zero_stage, plan)
     if zero_stage is not None:
         if has_aux or not replicated_params:
             raise ValueError(
@@ -203,39 +223,48 @@ def dp_train_step(loss_fn, tx, comm, replicated_params: bool = True,
         return zero_train_step(loss_fn, tx, comm, stage=zero_stage,
                                schedule=zsched)
     axis, n = comm.axis, comm.size
+    stacked = not replicated_params
 
     def body(params, aux, opt_state, batch, pulse: bool):
         shards = split_batch(batch, n)
         if has_aux:
+            # each rank passes its own aux row when the aux is stacked
+            rows = ([tree_map(lambda a: a[r], aux) for r in range(n)]
+                    if stacked else [aux] * n)
             outs, grads, params = _stacked_grads(
-                lambda p, b: loss_fn(p, aux, b), params, shards)
+                lambda p, ab: loss_fn(p, ab[0], ab[1]), params,
+                list(zip(rows, shards)), stacked)
             losses = torch.stack([o[0] for o in outs])
             aux_rows = stack_ranks([o[1] for o in outs])
         else:
-            outs, grads, params = _stacked_grads(loss_fn, params, shards)
+            outs, grads, params = _stacked_grads(loss_fn, params, shards,
+                                                 stacked)
             losses = torch.stack(outs)
         with comm.world():
             new_aux = aux
             if has_aux:
                 # replicas average floating aux state, as they do gradients
-                new_aux = replicated(tree_map(
+                new_aux = tree_map(
                     lambda a: (all_reduce(a, axis, op="mean")
-                               if a.is_floating_point() else a), aux_rows))
+                               if a.is_floating_point() else a), aux_rows)
+                if not stacked:
+                    new_aux = replicated(new_aux)
             stats = None
             if pulse:
                 # small-batch side: each rank's square norm, meaned over
                 # the ranks; large-batch side: the mean gradient's
-                per_rank = sum((l.float() ** 2).reshape(n, -1).sum(1)
-                               for l in tree_leaves(grads))
-                stats = (replicated(all_reduce(per_rank, axis, op="mean")),
+                stats = (replicated(all_reduce(rank_sq_norms(grads), axis,
+                                               op="mean")),
                          _sq_norm(replicated(group_all_reduce(
                              grads, axis, op="mean"))))
             updates, new_state = tx.update(grads, opt_state, params)
-            # a tx that does not reduce leaves the updates stacked: the
-            # replicated params take rank 0's, as P() takes device 0's
-            updates = tree_map(
-                lambda u, p: replicated(u) if u.dim() == p.dim() + 1 else u,
-                updates, params)
+            if not stacked:
+                # a tx that does not reduce leaves the updates stacked:
+                # the replicated params take rank 0's, as P() takes
+                # device 0's
+                updates = tree_map(
+                    lambda u, p: (replicated(u) if u.dim() == p.dim() + 1
+                                  else u), updates, params)
             new_params = apply_updates(params, updates)
             loss = replicated(all_reduce(losses, axis, op="mean"))
         return new_params, new_aux, new_state, loss, stats
@@ -246,7 +275,9 @@ def dp_train_step(loss_fn, tx, comm, replicated_params: bool = True,
 
         return step4
 
-    mon = PulseMonitor.from_env()
+    # diverged replicas (SMA, AdaptiveSGD) are no small/large-batch
+    # pair: only the replicated step samples the pulse
+    mon = PulseMonitor.from_env() if replicated_params else None
 
     def step(params, opt_state, batch):
         sample = mon is not None and mon.should_sample()

@@ -4,6 +4,8 @@ traced with ``torch.profiler``.
 
     python -m kungfu_tpu_torch.profile [--steps N] [--lm-head plain|fused]
                                        [--ranks R] [--zero 0|1|2|3]
+                                       [--model gpt_small|bert]
+                                       [--optimizer ssgd|sma|gns|variance]
                                        [--out FILE]
 
 For each phase it prints (and writes as JSON to ``--out``): host wall
@@ -20,7 +22,13 @@ LM head (``--lm-head fused``).  ``--ranks R`` runs that step on ``R``
 co-resident ranks of the card, one batch row each: ``synchronous_sgd``
 under the ``pallas_ring`` schedule with fused gradients, or with
 ``--zero S`` the ZeRO stage ``S`` step under the ``pallas_ring`` bucket
-schedule (chip_smoke.py's phases 8 and 9).  Needs a GPU.
+schedule (chip_smoke.py's phases 8 and 9).  ``--model bert`` trains
+``bert_base()`` instead (chip_smoke.py's phase 10: 8 x 512 tokens a
+rank, flash attention without a mask, the plain head and the fused
+cross-entropy, ``sgd(1e-3, momentum=0.9)`` inside ``--optimizer``:
+``sma`` is ``synchronous_averaging`` over stacked per-replica params,
+``gns`` and ``variance`` the monitors, ``ssgd`` plain
+``synchronous_sgd``).  Needs a GPU.
 """
 
 from __future__ import annotations
@@ -130,6 +138,52 @@ def _train_step(torch, rng, lm_head: str, ranks: int = 1, zero: int = 0):
     return run
 
 
+def _bert_step(torch, rng, ranks: int, optimizer: str):
+    """One ``bert_base()`` training step of chip_smoke.py's phase 10 on
+    ``ranks`` co-resident ranks (8 x 512 tokens each) under
+    ``optimizer``, as a closure over its carried state."""
+    from kungfu_tpu_torch.comm.device import Communicator
+    from kungfu_tpu_torch.models.transformer import bert_base
+    from kungfu_tpu_torch.ops.cuda.attention import make_flash_attn
+    from kungfu_tpu_torch.ops.xent import softmax_cross_entropy
+    from kungfu_tpu_torch.optimizers import (monitor_gradient_noise_scale,
+                                             monitor_gradient_variance, sgd,
+                                             synchronous_averaging,
+                                             synchronous_sgd)
+    from kungfu_tpu_torch.parallel.train import (dp_train_step,
+                                                 stack_for_replicas)
+
+    model = bert_base()
+    flash = make_flash_attn()
+    batch = tuple(torch.from_numpy(rng.integers(
+        0, model.cfg.vocab_size, size=(8 * ranks, 512))).cuda()
+        for _ in range(2))
+
+    def loss_fn(p, b):
+        return softmax_cross_entropy(
+            model.apply(p, b[0], train=True, attn_fn=flash), b[1]).mean()
+
+    comm = Communicator(devices=["cuda:0"] * ranks, local_size=ranks)
+    inner = sgd(1e-3, momentum=0.9)
+    tx = {"ssgd": lambda: synchronous_sgd(inner, comm.axis),
+          "sma": lambda: synchronous_averaging(inner, comm.axis, alpha=0.1),
+          "gns": lambda: monitor_gradient_noise_scale(inner, comm.axis,
+                                                      local_batch_size=8),
+          "variance": lambda: monitor_gradient_variance(inner, comm.axis),
+          }[optimizer]()
+    params = model.init(torch.Generator().manual_seed(0), device="cuda")
+    stacked = optimizer == "sma"
+    step = dp_train_step(loss_fn, tx, comm, replicated_params=not stacked)
+    state = [params, tx.init(params)]
+    if stacked:
+        state = [stack_for_replicas(t, ranks) for t in state]
+
+    def run():
+        state[0], state[1], _ = step(state[0], state[1], batch)
+
+    return run
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=5)
@@ -139,6 +193,11 @@ def main(argv=None) -> int:
                     help="co-resident ranks of the training step")
     ap.add_argument("--zero", type=int, choices=(0, 1, 2, 3), default=0,
                     help="ZeRO stage of the training step (0: S-SGD)")
+    ap.add_argument("--model", choices=("gpt_small", "bert"),
+                    default="gpt_small", help="model of the training step")
+    ap.add_argument("--optimizer", choices=("ssgd", "sma", "gns", "variance"),
+                    default="ssgd",
+                    help="distributed optimizer of the bert step")
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
 
@@ -174,13 +233,17 @@ def main(argv=None) -> int:
             engine.step()  # admit all eight (one prefill per step)
         out["decode_step_batch8"] = _profile(torch, engine.step, args.steps)
     del engine, params
-    label = f"train_step_4x2048_{args.lm_head}_head"
-    if args.ranks > 1:
-        label += f"_{args.ranks}_ranks_" + (f"zero{args.zero}" if args.zero
-                                             else "ssgd_pallas_ring")
-    out[label] = _profile(torch, _train_step(torch, rng, args.lm_head,
-                                             args.ranks, args.zero),
-                          args.steps)
+    if args.model == "bert":
+        label = (f"train_step_bert_{8 * args.ranks}x512_{args.optimizer}_"
+                 f"{args.ranks}_ranks")
+        run = _bert_step(torch, rng, args.ranks, args.optimizer)
+    else:
+        label = f"train_step_4x2048_{args.lm_head}_head"
+        if args.ranks > 1:
+            label += f"_{args.ranks}_ranks_" + (
+                f"zero{args.zero}" if args.zero else "ssgd_pallas_ring")
+        run = _train_step(torch, rng, args.lm_head, args.ranks, args.zero)
+    out[label] = _profile(torch, run, args.steps)
 
     text = json.dumps(out, indent=1)
     print(text)

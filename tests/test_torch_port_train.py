@@ -277,7 +277,6 @@ class TestTrainStepVersusJax:
 
     @pytest.mark.parametrize("kwargs,match", [
         (dict(zero_stage=1, has_aux=True), "ZeRO"),
-        (dict(replicated_params=False), "replicated_params"),
         (dict(plan=types.SimpleNamespace(tp=2, pp=1, sp=1, zero_stage=0,
                                          collective_schedule="psum")),
          "tp=2"),
@@ -287,10 +286,9 @@ class TestTrainStepVersusJax:
          "ZeRO"),
     ])
     def test_later_slices_raise(self, kwargs, match):
-        """What the port does not run raises, naming it: the per-replica
-        optimizers' stacked params and the tp/pp/sp plan (later slices),
-        and a ZeRO stage with aux state or stacked params (refused by
-        the reference too)."""
+        """What the port does not run raises, naming it: the tp/pp/sp
+        plan (a later slice), and a ZeRO stage with aux state or stacked
+        params (refused by the reference too)."""
         comm = Communicator(devices=["cpu"])
         with pytest.raises((NotImplementedError, ValueError), match=match):
             dp_train_step(lambda p, b: 0.0, sgd(0.1), comm, **kwargs)

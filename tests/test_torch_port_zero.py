@@ -287,7 +287,7 @@ class TestZeroSteps:
 
     @pytest.mark.parametrize("stage", [1, 2, 3])
     def test_state_carried_from_reference(self, stage):
-        """interop.sharded_from_jax carries the reference's opt_shard
+        """interop.tree_from_jax carries the reference's opt_shard
         (and stage 3's parameter shard) across: one more step from it
         matches the reference's next step."""
         (jz, jp, jb), (tz, tp, tb) = _zero_pair("mlp", stage, "adam",
@@ -297,10 +297,10 @@ class TestZeroSteps:
         jp = jz.init_params(jp)
         tp = tz.init_params(tp)
         jp, jo, _ = jz.step(jp, jo, jb)
-        to = interop.sharded_from_jax(
+        to = interop.tree_from_jax(
             [np.asarray(a) for a in jax.tree_util.tree_leaves(jo)], to)
         if stage == 3:
-            tp = interop.sharded_from_jax([np.asarray(jp)], tp)
+            tp = interop.tree_from_jax([np.asarray(jp)], tp)
         else:
             tp = tree_map(lambda a: torch.from_numpy(np.array(a)), jp)
         assert int(tree_leaves(to)[0]) == 1
@@ -309,9 +309,9 @@ class TestZeroSteps:
         np.testing.assert_allclose(float(tl), float(jl), **STEP_TOL)
         _assert_close(tz.gather_params(tp), jz.gather_params(jp), STEP_TOL)
         with pytest.raises(ValueError, match="reference leaves"):
-            interop.sharded_from_jax([np.zeros(3)], to)
+            interop.tree_from_jax([np.zeros(3)], to)
         with pytest.raises(ValueError, match="does not fill"):
-            interop.sharded_from_jax(
+            interop.tree_from_jax(
                 [np.zeros(7) for _ in tree_leaves(to)], to)
 
     def test_hierarchical_mesh(self):
