@@ -74,7 +74,26 @@ Phases (any failed check exits non-zero before the result line):
              pallas_ring candidate launches both ring kernels; the
              winner is installed and agrees with psum); step ms,
              tokens/s, MFU, launches and peak memory of the SMA and GNS
-             steps.
+             steps;
+11. elastic — phase 9's model under ZeRO-2 (``pallas_ring``, inner
+             ``adam``) through the step-based schedule ``4:3,2:3,4:2``
+             (``[1, 2048]`` a rank at four ranks, ``[2, 2048]`` at two),
+             driven the KungFu way: a ``ConfigServer`` on an OS-assigned
+             port holds the cluster, each change of size is a PUT of
+             ``cluster.resize(n)`` read back with ``fetch_cluster``, and
+             the new world is placed from the ``ZeroBoundary`` and the
+             ``StepSnapshot`` committed after every step.  Each step
+             after a resize is bitwise equal to a fixed-world step from
+             the same boundary hand-repadded; at 4 -> 2 ``zero1_reshard``,
+             ``zero_snapshot`` -> ``zero_restore``, ``zero_reshard_p2p``
+             and chunk mode (four ``PyHostChannel``s on loopback, ring
+             mirrors, ranks 1 and 3 dead) give the boundary's state bit
+             for bit, and a step from chunk mode's equals the fixed
+             world's; a ZeRO-3 param shard re-carved 4 -> 2 gathers
+             bitwise and trains a stage-3 step at two ranks; every
+             step's launches are exact at k = 4 and k = 2; the loss
+             falls; commit, recarve, place and wire times, step ms and
+             peak memory.
 
 Phase 3 also holds the ring reduce-scatter and all-gather kernels
 bitwise against their plain versions, at the main path's shapes (a
@@ -82,7 +101,8 @@ bitwise against their plain versions, at the main path's shapes (a
 gradient), at the reference suite's edges and at rows the kernels'
 vector loads cannot take whole (a base off 16 bytes, a row stride off 4
 elements, odd chunks and cuts, k = 16; 2-, 4- and 8-byte elements for
-the all-gather), and times each with its host µs per launch.  The fused
+the all-gather), and times each with its host µs per launch, also at
+phase 11's two-rank bucket (524,288 columns).  The fused
 LM head's cases other than the flagship's (``LMH_CASES``: all-bf16,
 all-f32, ragged N, D and V, clusters of three, four and eight CTAs for
 the wgmma dh and dW kernels, and bf16 h with D past the largest
@@ -199,6 +219,13 @@ TRAIN_STEPS = 10
 RANKS = 4
 #: f32 parameters of gpt_small(max_seq=2048); the 4-rank ring chunk
 FLAGSHIP_PARAMS = 134_404_608
+
+#: phase 11: the step-based resize schedule (size:steps, KungFu's
+#: ``step_based_schedule`` form) of gpt_small under ZeRO-2 on one card,
+#: and its inner optimizer: adam, so the committed boundary carries a
+#: replicated scalar leaf (``count``) beside the two vector leaves
+ELASTIC_SCHEDULE = "4:3,2:3,4:2"
+ELASTIC_LR = 3e-4
 
 #: phase 10: bert_base() (vocab 30528, learned positions, bidirectional)
 #: on RANKS co-resident ranks, 8 x 512 tokens a rank; the inner
@@ -1239,10 +1266,16 @@ def phase_ring(torch, ringk, rc, spec):
           f"reduce-scatter and all-gather bitwise equal to the plain "
           f"versions")
 
-    k = RANKS
-    shapes = {"bucket": 262_144, "fused": FLAGSHIP_PARAMS // RANKS}
+    # the main path's shapes: the ZeRO bucket at four ranks, the fused
+    # S-SGD gradient, and phase 11's bucket at two ranks
+    from kungfu_tpu_torch.ops.schedules import bucket_widths
+
+    shapes = {"bucket": (RANKS, 262_144),
+              "fused": (RANKS, FLAGSHIP_PARAMS // RANKS),
+              "bucket_k2": (2, bucket_widths(FLAGSHIP_PARAMS // 2, 2, 4,
+                                             4 << 20)[0])}
     timing = {}
-    for label, chunk in shapes.items():
+    for label, (k, chunk) in shapes.items():
         x = data(k, k * chunk, torch.float32)
         rs = ringk.reduce_scatter(x)
         ag = ringk.all_gather(rs)
@@ -1320,13 +1353,13 @@ def _grads(fn, params, batch):
     return tree_unflatten(tree_flatten(params)[1], grads)
 
 
-def _rank_launches(cfg) -> dict:
-    """One step's launches on RANKS ranks, each running phase 6's
+def _rank_launches(cfg, ranks: int = RANKS) -> dict:
+    """One step's launches on ``ranks`` ranks, each running phase 6's
     per-rank forward and backward."""
-    return dict(flash_fwd=RANKS * cfg.n_layers,
-                flash_bwd_dq=RANKS * cfg.n_layers,
-                flash_bwd_dkv=RANKS * cfg.n_layers,
-                xent_fwd=RANKS, xent_bwd=RANKS)
+    return dict(flash_fwd=ranks * cfg.n_layers,
+                flash_bwd_dq=ranks * cfg.n_layers,
+                flash_bwd_dkv=ranks * cfg.n_layers,
+                xent_fwd=ranks, xent_bwd=ranks)
 
 
 def _timed_steps(torch, np, step, p, o, batch, losses, steps=TRAIN_STEPS):
@@ -1514,6 +1547,332 @@ def phase_zero(torch, np, kernels, tr, stage: int, ssgd_p1):
             "leaves_bitwise": len(same), "max_abs_vs_ssgd": worst[0],
             "step_ms": step_ms, "step_ms_all": times, "tokens_s": toks,
             "peak_gib": peak, "opt_state_bytes_per_rank": opt_bytes}
+
+
+def _put_cluster(port: int, cluster) -> int:
+    """PUT ``cluster`` to the config server on ``port``; its new version."""
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/put",
+                                 data=cluster.to_json().encode(), method="PUT")
+    with urllib.request.urlopen(req, timeout=10) as r:
+        return json.loads(r.read().decode())["version"]
+
+
+def _trees_bitwise(torch, got, want) -> tuple:
+    """(leaves bitwise equal, leaves) of two trees of one structure."""
+    from kungfu_tpu_torch.utils.tree import tree_leaves
+
+    a, b = tree_leaves(got), tree_leaves(want)
+    check(len(a) == len(b), f"trees of {len(a)} and {len(b)} leaves")
+    same = sum(x.shape == y.shape and x.dtype == y.dtype and torch.equal(x, y)
+               for x, y in zip(a, b))
+    return same, len(a)
+
+
+def _check_bitwise(torch, got, want, what: str) -> None:
+    same, n = _trees_bitwise(torch, got, want)
+    print(f"elastic: {what}: {same}/{n} leaves bitwise equal")
+    check(same == n, f"{what}: {n - same} of {n} leaves differ")
+
+
+def _chunk_mode_4_to_2(o4, total: int, c2):
+    """Check 3: each of four ranks commits its own row of the 4-rank
+    state (chunk mode), mirrors it on its ring predecessor over a
+    PyHostChannel on loopback (one thread a rank), ranks 1 and 3 die
+    (their channels close), and ranks 0 and 2 re-carve to two ranks from
+    the buddy mirrors; their rows, stacked on the card."""
+    from kungfu_tpu_torch.comm.host import PyHostChannel
+    from kungfu_tpu_torch.elastic import ZeroBoundary, place_stacked
+    from kungfu_tpu_torch.plan import PeerID, PeerList
+    from kungfu_tpu_torch.utils.tree import tree_map
+
+    chans = [PyHostChannel(PeerID("127.0.0.1", 0), bind_host="127.0.0.1")
+             for _ in range(RANKS)]
+    peers = PeerList.of(*(c.self_id for c in chans))
+    bounds = []
+    for r in range(RANKS):
+        b = ZeroBoundary()
+        b.commit_local(0, tree_map(lambda t: t[r] if t.dim() == 2 else t, o4),
+                       total=total, old_n=RANKS, my_old=r)
+        bounds.append(b)
+
+    class Peer:  # what the re-carve reads of a peer
+        def __init__(self, chan):
+            self.channel = chan
+            self.config = type("C", (), {"self_id": chan.self_id})()
+
+    def run(fns):
+        with ThreadPoolExecutor(max_workers=len(fns)) as pool:
+            return [f.result(timeout=600) for f in
+                    [pool.submit(fn) for fn in fns]]
+
+    survivors = (0, 2)
+    try:
+        t0 = time.perf_counter()
+        sent = run([lambda b=b, c=c: b.replicate_ring(c, peers, tag="p11")
+                    for b, c in zip(bounds, chans)])
+        replicate_s = time.perf_counter() - t0
+        for r in range(RANKS):
+            if r not in survivors:
+                chans[r].close()
+        t0 = time.perf_counter()
+        run([lambda r=r: bounds[r].recarve(
+            2, peer=Peer(chans[r]), old_workers=peers,
+            new_workers=peers.select(survivors), tag="p11", dead=(1, 3))
+            for r in survivors])
+        recarve_s = time.perf_counter() - t0
+    finally:
+        for c in chans:
+            c.close()
+    state = place_stacked([bounds[r] for r in survivors], c2)
+    return state, {"wire_bytes": sum(sent), "replicate_s": replicate_s,
+                   "recarve_s": recarve_s}
+
+
+def phase_elastic(torch, np, kernels, tr):
+    """gpt_small(max_seq=2048) under ZeRO-2 (pallas_ring, inner adam)
+    through the step-based schedule ELASTIC_SCHEDULE, driven the KungFu
+    way: a ConfigServer holds the cluster; at a change of size the loop
+    PUTs ``cluster.resize(n)``, reads it back with ``fetch_cluster``,
+    re-carves its ZeroBoundary, places it on a new Communicator and
+    resumes from the StepSnapshot's params.  Checks, each fatal: the
+    step after each resize bitwise equal to a fixed-world step from the
+    same boundary hand-repadded; at 4 -> 2 four re-carve paths and chunk
+    mode with dead ranks 1 and 3 bitwise equal; the ZeRO-3 shard
+    re-carved 4 -> 2; exact launches of every step; falling loss."""
+    from kungfu_tpu_torch.checkpoint import StepSnapshot
+    from kungfu_tpu_torch.comm.device import Communicator
+    from kungfu_tpu_torch.elastic import (ConfigServer, ZeroBoundary,
+                                          fetch_cluster, step_based_schedule,
+                                          total_steps)
+    from kungfu_tpu_torch.ops.schedules import bucket_widths
+    from kungfu_tpu_torch.optimizers import adam
+    from kungfu_tpu_torch.parallel import zero
+    from kungfu_tpu_torch.plan import Cluster, HostList
+    from kungfu_tpu_torch.utils.tree import (tree_flatten, tree_leaves,
+                                             tree_map, tree_unflatten)
+
+    model, params, batch, _, loss_fn = _flagship_train(torch, np, tr,
+                                                       kernels[0])
+    cfg = model.cfg
+    total = sum(t.numel() for t in tree_leaves(params))
+    check(total == FLAGSHIP_PARAMS, f"gpt_small has {total} params")
+    launches = {key: 0 for key in _counts(kernels)}
+
+    def buckets(n):
+        return len(bucket_widths(math.ceil(total / n), n, 4, 4 << 20))
+
+    def counted_step(z, p, o, n, stage, what):
+        """One step, its launches checked against the exact count."""
+        _reset(kernels)
+        t0 = time.perf_counter()
+        p, o, loss = z.step(p, o, batch)
+        loss = float(loss)  # synchronises
+        ms = (time.perf_counter() - t0) * 1e3
+        got = _counts(kernels)
+        want = {key: 0 for key in got}
+        want.update(_rank_launches(cfg, n), ring_rs=buckets(n),
+                    ring_ag=buckets(n) if stage == 3 else 0)
+        check(got == want, f"{what} ({n} ranks, ZeRO-{stage}) launched "
+              f"{got}, expected {want}")
+        for key, v in got.items():
+            launches[key] += v
+        check(math.isfinite(loss), f"{what}: loss {loss}")
+        return p, o, loss, ms
+
+    def world(n, version, strategy):
+        comm = Communicator(devices=["cuda:0"] * n, local_size=n,
+                            strategy=strategy, version=version)
+        return comm, zero.zero_train_step(loss_fn, adam(ELASTIC_LR), comm,
+                                          stage=2, schedule="pallas_ring")
+
+    def to_card(tree):
+        return tree_map(lambda t: t.to("cuda"), tree)
+
+    hosts = HostList.parse(f"127.0.0.1:{RANKS}")
+    server = ConfigServer(port=0, host="127.0.0.1", cluster=Cluster(
+        hosts.gen_runner_list(), hosts.gen_peer_list(RANKS))).start()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    try:
+        cluster, version = fetch_cluster(server.url)
+        comm, z = world(cluster.size(), version, "psum")
+        o, p = z.init_opt(params), params
+        boundary, snap = ZeroBoundary(), StepSnapshot()
+        losses, step_ms = [], {}
+        commit_ms, snap_ms, resizes = [], [], []
+        chunk_mode = None
+        for step in range(total_steps(ELASTIC_SCHEDULE)):
+            n = step_based_schedule(ELASTIC_SCHEDULE, step)
+            fixed = None
+            if n != comm.size:
+                old_n, strategy = comm.size, comm.strategy
+                got_v = _put_cluster(server.port, cluster.resize(n))
+                cluster, version = fetch_cluster(server.url)
+                check(version == got_v and cluster.size() == n,
+                      f"config server: version {version} with "
+                      f"{cluster.size()} workers after a PUT of {n}")
+                rec = {"step": step, "from": old_n, "to": n,
+                       "version": version}
+                # the strategy carries across the resize
+                new_comm, new_z = world(n, version, strategy)
+                committed = boundary.export_carve()
+                if n < old_n:
+                    # check 2 (+ 3): the other re-carve paths, from the
+                    # live old-world state, each kept until compared
+                    t0 = time.perf_counter()
+                    paths = {"zero1_reshard": zero.zero1_reshard(
+                        o, p, new_comm)}
+                    torch.cuda.synchronize()
+                    rec["zero1_reshard_s"] = time.perf_counter() - t0
+                    t0 = time.perf_counter()
+                    fresh = zero.zero_train_step(
+                        loss_fn, adam(ELASTIC_LR), new_comm).init_opt(params)
+                    paths["snapshot_restore"] = zero.zero_restore(
+                        zero.zero_snapshot(o), fresh, p, new_comm=new_comm)
+                    del fresh
+                    rec["snapshot_restore_s"] = time.perf_counter() - t0
+                    t0 = time.perf_counter()
+                    paths["p2p"] = zero.zero_reshard_p2p(o, p, new_comm)
+                    torch.cuda.synchronize()
+                    rec["p2p_s"] = time.perf_counter() - t0
+                    paths["chunk_mode"], chunk_mode = _chunk_mode_4_to_2(
+                        o, total, new_comm)
+                # free the old world's step, state and graphs
+                del z, o, p
+                torch.cuda.empty_cache()
+                comm, z = new_comm, new_z
+                del new_comm, new_z
+                t0 = time.perf_counter()
+                boundary.recarve(n)
+                rec["recarve_s"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                o = boundary.place(comm)
+                torch.cuda.synchronize()
+                rec["place_s"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                p = to_card(snap.last()[1])
+                torch.cuda.synchronize()
+                rec["params_restore_s"] = time.perf_counter() - t0
+                # check 1's fixed world: the committed state hand-repadded
+                # in plain torch, on a communicator and step of its own
+                _, _, _, _, _, _, vec, scal = committed
+                chunk = math.ceil(total / n)
+                o_fx = []
+                for i in range(len(vec) + len(scal)):
+                    if i in vec:
+                        buf = torch.zeros(chunk * n, dtype=vec[i].dtype)
+                        buf[:total] = vec[i][:total]
+                        o_fx.append(buf.view(n, chunk).cuda())
+                    else:
+                        o_fx.append(scal[i].cuda())
+                o_fx = tree_unflatten(tree_flatten(o)[1], o_fx)
+                del committed, vec, scal
+                for name, state in (paths.items() if n < old_n else ()):
+                    _check_bitwise(torch, state, o, f"{old_n} -> {n} "
+                                   f"{name} vs ZeroBoundary full mode")
+                if n < old_n:
+                    del paths["zero1_reshard"], paths["snapshot_restore"], \
+                        paths["p2p"]
+                    torch.cuda.empty_cache()
+                _check_bitwise(torch, o_fx, o, f"{old_n} -> {n} hand "
+                               "repad vs ZeroBoundary full mode")
+                _, z_fx = world(n, version, strategy)
+                fixed = counted_step(z_fx, to_card(snap.last()[1]), o_fx, n,
+                                     2, f"fixed-world step {step}")
+                del z_fx, o_fx
+                if n < old_n:
+                    ck = counted_step(z, to_card(snap.last()[1]),
+                                      paths.pop("chunk_mode"), n, 2,
+                                      f"chunk-mode step {step}")
+                    _check_bitwise(torch, ck[:2], fixed[:2], f"step "
+                                   f"{step} from the chunk-mode carve vs "
+                                   "the fixed world")
+                    del ck
+                resizes.append(rec)
+                print(f"elastic: resize {old_n} -> {n} at step {step} "
+                      f"(config version {version}): " + ", ".join(
+                          f"{k} {v:.3f}" for k, v in rec.items()
+                          if k.endswith("_s")))
+            p, o, loss, ms = counted_step(z, p, o, n, 2,
+                                          f"elastic step {step}")
+            losses.append(loss)
+            step_ms.setdefault(n, []).append(ms)
+            if fixed is not None:
+                _check_bitwise(torch, (p, o), fixed[:2], f"step {step} "
+                               f"after the resize to {n} vs the fixed world")
+                check(loss == fixed[2], f"step {step} loss {loss} != "
+                      f"fixed world's {fixed[2]}")
+                del fixed
+            t0 = time.perf_counter()
+            boundary.commit(step, o, p)
+            commit_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            snap.commit(step, p)
+            snap_ms.append((time.perf_counter() - t0) * 1e3)
+        sizes = [step_based_schedule(ELASTIC_SCHEDULE, s)
+                 for s in range(len(losses))]
+        print(f"elastic: schedule {ELASTIC_SCHEDULE}, sizes {sizes}, "
+              f"losses {[round(x, 4) for x in losses]}")
+        check(losses[-1] < losses[0], f"elastic loss did not fall: {losses}")
+    finally:
+        server.stop()
+    del z, o, p, boundary, snap
+    torch.cuda.empty_cache()
+
+    # check 4: ZeRO-3 at four ranks, its param shard (and state)
+    # re-carved to two, gathered bitwise, and one stage-3 step at two
+    c4 = Communicator(devices=["cuda:0"] * RANKS, local_size=RANKS)
+    z3 = zero.zero_train_step(loss_fn, adam(ELASTIC_LR), c4, stage=3,
+                              schedule="pallas_ring")
+    ps, o3, loss3, ms3 = counted_step(z3, z3.init_params(params),
+                                      z3.init_opt(params), RANKS, 3,
+                                      "ZeRO-3 step")
+    b3 = ZeroBoundary()
+    b3.commit(0, {"opt": o3, "p": ps}, params)
+    full_old = tree_map(torch.clone, z3.gather_params(ps))
+    del z3, ps, o3
+    torch.cuda.empty_cache()
+    b3.recarve(2)
+    c2 = Communicator(devices=["cuda:0"] * 2, local_size=2)
+    st = b3.place(c2)
+    z32 = zero.zero_train_step(loss_fn, adam(ELASTIC_LR), c2, stage=3,
+                               schedule="pallas_ring")
+    z32.init_params(params)  # binds the stage-3 geometry
+    _check_bitwise(torch, z32.gather_params(st["p"]), full_old,
+                   "ZeRO-3 params gathered after the 4 -> 2 re-carve vs "
+                   "before")
+    del full_old
+    _, _, loss32, ms32 = counted_step(z32, st["p"], st["opt"], 2, 3,
+                                      "ZeRO-3 step at 2 ranks")
+    del z32, st, b3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    wall = time.perf_counter() - t_phase
+    ms4 = statistics.median(step_ms[RANKS])
+    ms2 = statistics.median(step_ms[2])
+    print(f"elastic: step ms median {ms4:.2f} at 4 ranks "
+          f"({step_ms[RANKS]}), {ms2:.2f} at 2 ({step_ms[2]}); "
+          f"ZeroBoundary.commit ms median {statistics.median(commit_ms):.2f} "
+          f"({[round(x, 2) for x in commit_ms]}, D2H of "
+          f"{2 * total * 4} bytes of Adam state); StepSnapshot.commit ms "
+          f"median {statistics.median(snap_ms):.2f} ({total * 4} bytes of "
+          f"params)")
+    print(f"elastic: chunk mode, dead ranks 1 and 3: replicate_ring "
+          f"{chunk_mode['wire_bytes']} bytes on the wire in "
+          f"{chunk_mode['replicate_s']:.3f} s "
+          f"({chunk_mode['wire_bytes'] / chunk_mode['replicate_s'] / 1e9:.2f}"
+          f" GB/s), recarve {chunk_mode['recarve_s']:.3f} s; ZeRO-3 steps "
+          f"{ms3:.2f} ms at 4 ranks, {ms32:.2f} at 2; peak memory "
+          f"{peak:.2f} GiB; phase {wall:.1f} s")
+    return {"launches": launches, "schedule": ELASTIC_SCHEDULE,
+            "losses": losses, "step_ms": {str(k): v for k, v in
+                                          step_ms.items()},
+            "step_ms_median_4": ms4, "step_ms_median_2": ms2,
+            "boundary_commit_ms": commit_ms, "snapshot_commit_ms": snap_ms,
+            "resizes": resizes, "chunk_mode": chunk_mode,
+            "zero3_step_ms": [ms3, ms32], "zero3_losses": [loss3, loss32],
+            "peak_gib": peak, "wall_s": wall}
 
 
 def _spread(tree) -> float:
@@ -2059,7 +2418,13 @@ def main() -> int:
     t0 = time.perf_counter()
     replicas = phase_replicas(torch, np, kernels, tr, costmodel, spec)
     print(f"replicas phase: {time.perf_counter() - t0:.2f} s")
-    paths = (train, train_fused, ssgd, zero2, zero3, replicas)
+    torch.cuda.empty_cache()
+
+    # 11. ZeRO-2 through a live 4 -> 2 -> 4 resize of the same ranks
+    t0 = time.perf_counter()
+    elastic = phase_elastic(torch, np, kernels, tr)
+    print(f"elastic phase: {time.perf_counter() - t0:.2f} s")
+    paths = (train, train_fused, ssgd, zero2, zero3, replicas, elastic)
 
     def row(name, route, source, replaces, key, err, timing, bert=None):
         extra = {k: timing[k] for k in ("plain_head_ms", "bound_fp32_ms",
@@ -2079,13 +2444,15 @@ def main() -> int:
                 **extra}
 
     def ring_row(name, replaces, key, kind):
-        # the fused S-SGD shape; the 4 MiB ZeRO bucket beside it.  Both
-        # kernels are held bitwise, so the error is 0
-        bucket = ring_timing["bucket"][kind]
-        return {**row(name, "cuda", cu + "ring.cu", replaces, key, 0.0,
-                      ring_timing["fused"][kind]),
-                **{f"bucket_{k}": bucket[k] for k in (
-                    "ms", "plain_ms", "bound_ms", "library_ms", "host_us")}}
+        # the fused S-SGD shape; the 4 MiB ZeRO bucket at four ranks and
+        # at two (phase 11) beside it.  Both kernels are held bitwise, so
+        # the error is 0
+        out = row(name, "cuda", cu + "ring.cu", replaces, key, 0.0,
+                  ring_timing["fused"][kind])
+        for label in ("bucket", "bucket_k2"):
+            out.update({f"{label}_{k}": ring_timing[label][kind][k] for k in (
+                "ms", "plain_ms", "bound_ms", "library_ms", "host_us")})
+        return out
 
     cu = "kungfu_tpu_torch/ops/cuda/csrc/"
     tri = "kungfu_tpu_torch/ops/triton/xent.py"
@@ -2129,11 +2496,13 @@ def main() -> int:
                 "xent_bwd", "ring_rs", "ring_ag"):
         check(replicas["launches"][key] > 0,
               f"phase 10 never launched {key}")
+        check(elastic["launches"][key] > 0,
+              f"phase 11 never launched {key}")
     print("details: " + json.dumps({
         "forward": fwd, "serve": serve, "train": train,
         "train_fused_head": train_fused, "ssgd_4_ranks": ssgd,
         "zero2_4_ranks": zero2, "zero3_4_ranks": zero3,
-        "replicas_bert_4_ranks": replicas,
+        "replicas_bert_4_ranks": replicas, "elastic_4_2_4": elastic,
         "ring_timing": ring_timing, "build": build,
         "flash_fwd_errors": fwd_errs, "flash_fwd_timing": fwd_timing,
         "flash_bwd_errors": bwd_errs, "flash_bwd_timing": bwd_timing,

@@ -20,6 +20,13 @@ The layout mirrors the reference so a reader finds each counterpart:
   reduce-scatter and all-gather: routing, autograd pair, plain versions
   and the hand-written kernels that run every rank in one launch;
 * ``serve/{kvcache,slo,engine}.py`` — the continuous-batching engine;
+* ``plan/``, ``comm/{host,faults}.py``, ``elastic/``, ``checkpoint.py``
+  — the host plane of elastic training: the cluster document, the
+  Python host channel, the config server, the step-based schedule, the
+  ``StepSnapshot`` replay point and ``ZeroBoundary``, which re-carves a
+  ZeRO state for a new world size (with ``parallel/zero.py``'s
+  ``zero1_reshard``, ``zero_snapshot``/``zero_restore`` and
+  ``zero_reshard_p2p``);
 * ``interop.py`` — weights across from / back to the JAX param tree;
 * ``ops/costmodel.py``, ``monitor/``, ``utils/`` — trimmed copies of the
   reference's jax-free helpers.

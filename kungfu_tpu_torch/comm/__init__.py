@@ -1,1 +1,3 @@
-"""Communicators (``device.py``: the world-1 device plane)."""
+"""Communicators: ``device.py`` (the device plane over co-resident
+ranks), ``host.py`` (the Python host channel) and ``faults.py`` (the
+typed failure vocabulary)."""

@@ -3,7 +3,12 @@ stacked ranks.
 
 Port of ``kungfu_tpu/parallel/zero.py``: ``zero1_train_step``,
 ``_ZeroGeometry``, ``ZeroStep``, ``zero_train_step``,
-``zero_comm_bytes`` and the optimizer-state byte counts.  For an
+``zero_comm_bytes``, the optimizer-state byte counts, and the elastic
+movement of the sharded state (``zero1_reshard``, ``zero1_snapshot``/
+``zero1_restore`` and their ``zero_*`` aliases, ``reshard_plan``,
+``zero_reshard_p2p``).  The host bucket pipelines
+(``host_bucket_pipeline``, ``host_bucket_all_gather``) come with the
+host collective engine.  For an
 elementwise inner transform the sharded update is the replicated update
 restricted to the shard, so every stage matches ``dp_train_step`` over
 ``synchronous_sgd`` to float tolerance:
@@ -43,6 +48,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from kungfu_tpu_torch.monitor.pulse import PulseMonitor
@@ -53,7 +59,8 @@ from kungfu_tpu_torch.ops.schedules import (FLAT_SCHEDULES, all_gather_flat,
                                             bucket_widths, reduce_scatter_flat)
 from kungfu_tpu_torch.optimizers._transform import apply_updates
 from kungfu_tpu_torch.parallel.train import per_rank_grads, split_batch
-from kungfu_tpu_torch.utils.tree import tree_flatten, tree_leaves, tree_map
+from kungfu_tpu_torch.utils.tree import (tree_flatten, tree_leaves, tree_map,
+                                         tree_unflatten)
 
 
 def opt_state_bytes(opt_state) -> int:
@@ -359,3 +366,390 @@ def zero1_train_step(loss_fn, inner, comm, average: bool = True,
     :class:`ZeroStep` at stage 1."""
     del donate
     return tuple(ZeroStep(loss_fn, inner, comm, 1, average, 4 << 20))
+
+
+# ==========================================================================
+# elastic state movement: re-carving the [n, chunk] rows for a new world
+# ==========================================================================
+#
+# Every stage shares the flat chunk geometry, so these move any stage's
+# state, the stage-3 parameter shard included.  A state's vector leaves
+# are told apart by that geometry: a 2-D ``[n, ceil(total / n)]`` leaf
+# holds rank r's chunk in row r; a 0-d leaf (Adam's ``count``) is
+# replicated; any other leaf (a stacked ``[n]`` scalar) moves as it is.
+# Re-carving is data movement only, so every path here is bitwise.
+
+
+def _param_total(params) -> int:
+    """The true (unpadded) element count of the param tree."""
+    return sum(l.numel() for l in tree_leaves(params))
+
+
+def _vector_indices(leaves, total: int) -> list:
+    """Indices of the ``[n, chunk]`` leaves; a 2-D leaf of another
+    geometry was built for another param tree and raises."""
+    out = []
+    for i, l in enumerate(leaves):
+        if l.dim() != 2:
+            continue
+        rows, cols = l.shape
+        if rows < 1 or cols != math.ceil(total / rows):
+            raise ValueError(
+                f"optimizer state leaf {i} of shape {tuple(l.shape)} is not "
+                f"a [n, ceil({total} / n)] carve: params fuse to {total} — "
+                "a re-carve needs the SAME param tree the state was built "
+                "from")
+        out.append(i)
+    return out
+
+
+def _world_of(leaves, vec_idx) -> Optional[int]:
+    """The rank count of the vector leaves (all must agree)."""
+    ns = {leaves[i].shape[0] for i in vec_idx}
+    if len(ns) > 1:
+        raise ValueError(f"state leaves are carved for different world "
+                         f"sizes {sorted(ns)}")
+    return ns.pop() if ns else None
+
+
+def _repad(full: torch.Tensor, total: int, new_padded: int) -> torch.Tensor:
+    """A flat state vector unpadded to the true parameter count and
+    re-padded with zeros for a new chunk geometry, on ``full``'s
+    device; shared by reshard and restore so their geometry (and its
+    misuse diagnostic) cannot drift."""
+    if full.numel() < total:
+        raise ValueError(
+            f"optimizer state vector has {full.numel()} elements but "
+            f"params fuse to {total} — zero1 reshard/restore needs the "
+            "SAME param tree the state was built from")
+    buf = full.new_zeros(new_padded)
+    buf[:total] = full.reshape(-1)[:total]
+    return buf
+
+
+def _place_sharded(new_comm, full: Optional[torch.Tensor] = None,
+                   my_chunk: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """A flat state vector as rows on ``new_comm``'s device: the full
+    padded buffer as the ``[n, chunk]`` stack of every rank's chunk, or
+    one rank's own chunk (one rank per process) as its ``[1, chunk]``
+    row."""
+    dev = new_comm.device
+    if full is not None:
+        n = new_comm.size
+        return full.reshape(n, full.numel() // n).to(dev)
+    return my_chunk.reshape(1, -1).to(dev)
+
+
+def zero1_reshard(opt_shard, params, new_comm, peer=None, snapshot=None):
+    """Re-place a ZeRO optimizer state (or a stage-3 param shard) onto a
+    new communicator epoch of ``new_comm.size`` ranks.
+
+    Each vector leaf is unpadded to the true parameter count (from
+    ``params``), re-padded to the new chunk geometry and laid out as
+    ``[new_n, new_chunk]`` rows on ``new_comm``'s device; scalar leaves
+    move as they are.  Values are preserved exactly, so training
+    continues as if the optimizer had always run at the new size.
+
+    With a ``snapshot`` (:func:`zero1_snapshot`'s blob, taken over the
+    old membership before the resize), or with a ``peer`` (a member of
+    a host-plane world receiving rank 0's blob), the state is rebuilt
+    through :func:`zero1_restore` instead: ``opt_shard`` then supplies
+    only the structure (a joiner passes its fresh ``init_opt(params)``).
+    """
+    total = _param_total(params)
+    n = new_comm.size
+    chunk = math.ceil(total / n)
+    leaves, treedef = tree_flatten(opt_shard)
+    if snapshot is not None or peer is not None:
+        # the structure only: a host-plane member holds its own rank's row
+        rows = 1 if peer is not None else n
+        fresh = [torch.empty((rows, chunk), dtype=l.dtype, device="meta")
+                 if l.dim() == 2 else l for l in leaves]
+        return zero1_restore(snapshot, tree_unflatten(treedef, fresh),
+                             params, peer, new_comm)
+    vec_idx = _vector_indices(leaves, total)
+    out = [_place_sharded(new_comm, full=_repad(l, total, chunk * n))
+           if i in vec_idx else l.to(new_comm.device)
+           for i, l in enumerate(leaves)]
+    return tree_unflatten(treedef, out)
+
+
+def _to_numpy(t: torch.Tensor):
+    return t.detach().cpu().numpy()
+
+
+def _member(peer):
+    """(channel, member index, member count) of ``peer``, or a lone
+    member without one."""
+    chan = getattr(peer, "channel", None) if peer is not None else None
+    if chan is None:
+        return None, 0, 1
+    return chan, peer.rank(), len(peer.cluster.workers)
+
+
+def zero1_snapshot(opt_shard, peer=None):
+    """Host snapshot of a ZeRO state at the end of a membership epoch,
+    in the reference's npz layout: key ``l{i}_o{offset}`` for each
+    rank's chunk of vector leaf ``i`` at its flat offset, ``s{i}`` for
+    every other leaf.
+
+    Without a channel every row is local and the blob is assembled in
+    place.  Over ``peer``'s host channel each member holds the rows of
+    its own ranks (one row per process in a host-plane world) at row
+    offset ``peer.rank() * rows``; the members' parts are gathered to
+    rank 0, which returns the blob (the others ``None``).  Rank 0 must
+    survive the resize: it holds the only copy.
+    """
+    import io
+
+    chan, member, _ = _member(peer)
+    leaves, _ = tree_flatten(opt_shard)
+    parts, scalars = {}, {}
+    for i, leaf in enumerate(leaves):
+        if leaf.dim() != 2:
+            scalars[f"s{i}"] = _to_numpy(leaf)
+            continue
+        rows, chunk = leaf.shape
+        host = _to_numpy(leaf)
+        for r in range(rows):
+            parts[f"l{i}_o{(member * rows + r) * chunk}"] = host[r]
+
+    def pack(d):
+        bio = io.BytesIO()
+        np.savez(bio, **d)
+        return bio.getvalue()
+
+    if chan is None:
+        return pack({**parts, **scalars})
+    name = f"kf.z1snap.v{peer.cluster_version}"
+    gathered = chan.gather_bytes(pack(parts), peer.cluster.workers, name)
+    if member != 0:
+        return None
+    merged = {}
+    for blob in gathered:
+        with np.load(io.BytesIO(blob)) as z:
+            for k in z.files:
+                merged[k] = z[k]
+    merged.update(scalars)  # replicated: rank 0's copy is everyone's
+    return pack(merged)
+
+
+def zero1_restore(snapshot, fresh_opt_shard, params, peer=None,
+                  new_comm=None):
+    """Rebuild a ZeRO state for a new epoch from a :func:`zero1_snapshot`
+    blob.
+
+    ``fresh_opt_shard`` (``init_opt(params)`` of the new epoch's step)
+    supplies the structure and the new geometry: a ``[rows, chunk]``
+    vector leaf is this member's rows of a world of ``members * rows``
+    ranks (``members`` = 1 without a channel).  Its values are
+    overwritten.  Over ``peer``'s channel rank 0 passes the blob and the
+    others ``None``; they receive it by broadcast.  The result lies on
+    ``new_comm``'s device (else on the host)."""
+    import io
+
+    chan, member, members = _member(peer)
+    if chan is not None:
+        if member == 0 and snapshot is None:
+            # fail before the broadcast, or every other member would
+            # wait in recv until its timeout
+            raise ValueError(
+                "zero1_restore: rank 0 must supply the snapshot blob")
+        name = f"kf.z1rest.v{peer.cluster_version}"
+        snapshot = chan.broadcast_bytes(snapshot, peer.cluster.workers, name)
+    if snapshot is None:
+        raise ValueError("zero1_restore: no snapshot (rank 0 must supply it)")
+    total = _param_total(params)
+    dev = new_comm.device if new_comm is not None else torch.device("cpu")
+    leaves, treedef = tree_flatten(fresh_opt_shard)
+    by_leaf = {}
+    with np.load(io.BytesIO(snapshot)) as z:
+        for k in z.files:
+            if k.startswith("s"):
+                by_leaf[("s", int(k[1:]))] = z[k]
+            else:
+                li, off = k[1:].split("_o")
+                by_leaf.setdefault(("l", int(li)), []).append(
+                    (int(off), z[k]))
+    out = []
+    for i, leaf in enumerate(leaves):
+        if leaf.dim() != 2:
+            val = by_leaf.get(("s", i))
+            out.append(leaf if val is None else
+                       torch.from_numpy(val.copy()).to(dev))
+            continue
+        chunks = sorted(by_leaf.get(("l", i), []), key=lambda c: c[0])
+        if not chunks:
+            raise ValueError(f"snapshot holds no chunks for state leaf {i}")
+        # the chunks must tile [0, covered) with no interior gap: a
+        # count check misses a hole whenever the old padding is at least
+        # one chunk wide, silently restoring zeros into momentum
+        expected = 0
+        for off, c in chunks:
+            if off != expected:
+                raise ValueError(
+                    f"snapshot leaf {i}: chunk gap at offset {expected} "
+                    f"(next chunk starts at {off}) — a contributing "
+                    "member's chunks are missing")
+            expected = off + c.shape[0]
+        full = torch.from_numpy(np.concatenate([c for _, c in chunks]))
+        rows, chunk = leaf.shape
+        buf = _repad(full, total, members * rows * chunk)
+        mine = buf.view(members * rows, chunk)[member * rows:(member + 1) * rows]
+        out.append(mine.contiguous().to(dev))
+    return tree_unflatten(treedef, out)
+
+
+# the snapshot/restore/reshard trio moves any stage's state; the aliases
+# make call sites say what they mean (reference :1062-1064)
+zero_snapshot = zero1_snapshot
+zero_restore = zero1_restore
+zero_reshard = zero1_reshard
+
+
+def reshard_plan(total: int, old_n: int, new_n: int):
+    """The segment-exchange plan of an ``old_n -> new_n`` re-carve of a
+    flat ``total``-element state vector: ``[(old_rank, new_rank, start,
+    length)]`` in global flat offsets, covering exactly ``[0, total)``
+    (padding is zeros on both sides and never moves).  Every rank
+    computes the same plan, so the exchange needs no leader: each rank
+    moves only the ``O(total/n)`` elements it owns or will own."""
+    if old_n < 1 or new_n < 1:
+        raise ValueError(f"world sizes must be >= 1 ({old_n} -> {new_n})")
+    oc = math.ceil(total / old_n)
+    nc = math.ceil(total / new_n)
+    segs = []
+    for r in range(new_n):
+        lo, hi = r * nc, min((r + 1) * nc, total)
+        if lo >= hi:
+            continue  # new rank holds pure padding
+        for o in range(lo // oc, (hi - 1) // oc + 1):
+            s = max(lo, o * oc)
+            e = min(hi, (o + 1) * oc, total)
+            if s < e:
+                segs.append((o, r, s, e - s))
+    return segs
+
+
+def zero_reshard_p2p(opt_shard, params, new_comm, peer=None,
+                     new_workers=None, old_n: Optional[int] = None,
+                     tag: str = "0"):
+    """Peer-to-peer re-carve of a ZeRO state: every old member sends
+    exactly the segments of its chunk that the new geometry assigns
+    elsewhere, every new member assembles its chunk from them, by
+    :func:`reshard_plan`.  No gather to a leader, no full-state blob.
+
+    Without a channel every old row is local: the plan is replayed on
+    the rows (the same data movement as the wire path, minus the wire)
+    into ``[new_comm.size, new_chunk]`` rows on ``new_comm``'s device.
+
+    Over ``peer``'s host channel each member holds its own rank's row
+    (vector leaves ``[1, old_chunk]``) of the OLD membership
+    ``peer.cluster.workers``; it returns its ``[1, new_chunk]`` row of
+    the new world ``new_workers`` of ``new_comm.size`` ranks, or
+    ``None`` for a leaver.  A joiner passes its fresh
+    ``init_opt(params)`` for structure and receives the replicated
+    leaves from old rank 0.  ``tag`` (the agreed new cluster version)
+    must match on every participant.
+    """
+    from kungfu_tpu_torch.comm.host import tensor_buffer
+    from kungfu_tpu_torch.elastic.reshard import _recv_or_fail
+
+    total = _param_total(params)
+    new_n = new_comm.size
+    new_chunk = math.ceil(total / new_n)
+    leaves, treedef = tree_flatten(opt_shard)
+    dev = new_comm.device
+    chan = getattr(peer, "channel", None) if peer is not None else None
+
+    if chan is None:
+        vec_idx = _vector_indices(leaves, total)
+        if old_n is None:
+            old_n = _world_of(leaves, vec_idx) or new_n
+        plan = reshard_plan(total, old_n, new_n)
+        out = []
+        for i, leaf in enumerate(leaves):
+            if i not in vec_idx:
+                out.append(leaf.to(dev))
+                continue
+            full = leaf.reshape(-1)
+            buf = full.new_zeros(new_chunk * new_n)
+            for (_, _, s, ln) in plan:
+                buf[s:s + ln] = full[s:s + ln]
+            out.append(_place_sharded(new_comm, full=buf))
+        return tree_unflatten(treedef, out)
+
+    # -- host-channel exchange --------------------------------------------
+    import io
+
+    if new_workers is None:
+        raise ValueError("zero_reshard_p2p over a channel needs the agreed "
+                         "new worker list")
+    old_workers = peer.cluster.workers
+    if old_n is None:
+        old_n = len(old_workers)
+    me = peer.config.self_id
+    my_old, my_new = old_workers.rank(me), new_workers.rank(me)
+    plan = reshard_plan(total, old_n, new_n)
+    old_chunk = math.ceil(total / old_n)
+    vec_idx = [i for i, l in enumerate(leaves) if l.dim() == 2]
+    for i in vec_idx:
+        if my_old is not None and tuple(leaves[i].shape) != (1, old_chunk):
+            raise NotImplementedError(
+                "zero_reshard_p2p over a channel takes one rank per "
+                f"process, its [1, {old_chunk}] row; leaf {i} has shape "
+                f"{tuple(leaves[i].shape)}")
+    mine = {i: leaves[i].detach().reshape(-1).cpu().contiguous()
+            for i in vec_idx} if my_old is not None else {}
+    off = (my_old or 0) * old_chunk
+
+    def seg_name(i, s):
+        return f"kf.zrs.{tag}.l{i}.o{s}"
+
+    # 1) serve: every segment my old chunk owns, destined elsewhere
+    if my_old is not None:
+        for (o, r, s, ln) in plan:
+            if o != my_old or new_workers[r] == me:
+                continue
+            for i in vec_idx:
+                chan.send(new_workers[r], seg_name(i, s),
+                          tensor_buffer(mine[i][s - off:s - off + ln]))
+        if my_old == 0:
+            # the replicated leaves for pure joiners (no owner: any
+            # surviving copy is the copy)
+            bio = io.BytesIO()
+            np.savez(bio, **{f"s{i}": _to_numpy(l)
+                             for i, l in enumerate(leaves)
+                             if i not in vec_idx})
+            for w in new_workers:
+                if old_workers.rank(w) is None:
+                    chan.send(w, f"kf.zrs.{tag}.scalars", bio.getvalue())
+    if my_new is None:
+        return None  # leaver: served its segments, holds nothing now
+
+    # 2) assemble my new chunk
+    scalars = None
+    if my_old is None:
+        with np.load(io.BytesIO(_recv_or_fail(
+                chan, old_workers[0], 0, "zero-reshard",
+                f"kf.zrs.{tag}.scalars"))) as z:
+            scalars = {k: z[k] for k in z.files}
+    lo = my_new * new_chunk
+    out = []
+    for i, leaf in enumerate(leaves):
+        if i not in vec_idx:
+            val = (torch.from_numpy(scalars[f"s{i}"].copy())
+                   if scalars is not None else leaf)
+            out.append(val.to(dev))
+            continue
+        buf = torch.zeros(new_chunk, dtype=leaf.dtype)
+        for (o, r, s, ln) in plan:
+            if r != my_new:
+                continue
+            if o == my_old:
+                buf[s - lo:s - lo + ln] = mine[i][s - off:s - off + ln]
+            else:
+                _recv_or_fail(chan, old_workers[o], o, "zero-reshard",
+                              seg_name(i, s), buf[s - lo:s - lo + ln])
+        out.append(_place_sharded(new_comm, my_chunk=buf))
+    return tree_unflatten(treedef, out)

@@ -47,6 +47,10 @@
                                the plain versions; read at import and on
                                ``COLLECTIVES_ENV.reload()``
                                (ops/collectives.py)
+``KF_TPU_HOST_TRANSPORT``      host channel backend: "auto"|"python"|"native";
+                               ``auto`` and ``python`` give the Python
+                               channel, ``native`` raises until the C++
+                               transport is ported (comm/host.py)
 =============================  ================================================
 """
 
@@ -68,6 +72,7 @@ LM_HEAD = "KF_TPU_LM_HEAD"
 PULSE_EVERY = "KF_PULSE_EVERY"
 PULSE_EMA = "KF_PULSE_EMA"
 PALLAS_COLLECTIVES = "KF_PALLAS_COLLECTIVES"
+HOST_TRANSPORT = "KF_TPU_HOST_TRANSPORT"
 
 #: the values of ``KF_PALLAS_COLLECTIVES``, as the reference names them
 COLLECTIVE_IMPLS = ("auto", "pallas", "lax")
