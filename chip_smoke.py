@@ -93,7 +93,30 @@ Phases (any failed check exits non-zero before the result line):
              bitwise and trains a stage-3 step at two ranks; every
              step's launches are exact at k = 4 and k = 2; the loss
              falls; commit, recarve, place and wire times, step ms and
-             peak memory.
+             peak memory;
+12. host engine — benchmarks/system.py's ``--backend host --model bert``
+             loop with phase 10's model, batch and loss (the real
+             gradient in place of the fake sizes): each step every
+             rank's gradient goes into its pinned f32 buffer, four
+             ``CollectiveEngine``s (one thread a rank) over
+             ``NativeHostChannel``s from ``HostChannel``'s default
+             ``auto`` mean-allreduce them in place in the C++ executor
+             (the native library built with g++ from the checkout), and
+             ``sgd(1e-3, momentum=0.9)`` applies the result on the card.
+             Checks: (a) native channels and executor; (b) the four
+             reduced buffers bitwise equal to each other and to the
+             plain graph walk; (c) the C++ executor and the Python path
+             bitwise equal for all eight strategies on 64 MiB a rank,
+             and on the whole buffer under AUTO; (d) params after step 1
+             within 1e-5 relative L2 per leaf of the device-plane S-SGD
+             step; (e) falling loss; (f) ``set_strategy`` at a step
+             boundary, the next step passing (b); (g) ZeRO-2 over the
+             host plane (``host_bucket_pipeline`` and
+             ``host_bucket_all_gather``), pipelined bitwise equal to
+             serial, within 1e-5 of (d); (h) ``host_noise_scale`` against
+             phase 10's GNS monitor.  Step ms split into grads, D2H,
+             allreduce and H2D + update, GB/s per strategy, pinned bytes,
+             peak memory and launches per step.
 
 Phase 3 also holds the ring reduce-scatter and all-gather kernels
 bitwise against their plain versions, at the main path's shapes (a
@@ -243,6 +266,14 @@ MONITOR_STEPS = 5
 #: difference of two such sums, so its error is larger
 GNS_SQ_RTOL = 1e-3
 GNS_RTOL = 1e-2
+#: phase 12: main-path steps of the host engine before the two strategy
+#: swaps; ZeRO-2's host bucket (columns a rank) and (c)'s slice
+HOST_STEPS = 6
+HOST_BUCKET = 1 << 20
+HOST_SLICE_BYTES = 64 << 20
+#: phase 12's params after one step against the device-plane S-SGD step,
+#: relative L2 per leaf: only the order of the f32 four-term mean differs
+HOST_PARAMS_RTOL = 1e-5
 #: an allreduce mean under the autotuned schedule against psum's: four
 #: f32 values summed in another order, rounded once each
 AUTOTUNE_RTOL, AUTOTUNE_ATOL = 1e-5, 1e-6
@@ -1939,7 +1970,42 @@ def _rel(a: float, b: float) -> float:
     return abs(a - b) / abs(b)
 
 
-def phase_replicas(torch, np, kernels, tr, costmodel, spec):
+def _bert_build(torch, np, tr, kernels):
+    """bert_base() with random weights from seed 0 on the card, the
+    global batch ([RANKS * BERT_ROWS, BERT_SEQ] ids and targets from
+    ``default_rng(0)``) and phase 6's loss with the flash attention:
+    ``(model, params, batch, loss_fn)``, shared by phases 10 and 12."""
+    from kungfu_tpu_torch.ops import xent
+    from kungfu_tpu_torch.utils.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    model = tr.bert_base()
+    cfg = model.cfg
+    params = model.init(torch.Generator().manual_seed(0), device="cuda")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    rng = np.random.default_rng(0)
+    rows = RANKS * BERT_ROWS
+    batch = tuple(torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(rows, BERT_SEQ))).cuda() for _ in range(2))
+    flash = kernels[0].make_flash_attn()
+    torch.cuda.synchronize()
+    print(f"bert: bert_base() {n_params} f32 params (vocab "
+          f"{cfg.vocab_size}, d_model {cfg.d_model}, {cfg.n_layers} layers, "
+          f"{cfg.n_heads} heads, d_ff {cfg.d_ff}, pos {cfg.pos}, causal "
+          f"{cfg.causal}, compute {cfg.dtype}); {RANKS} ranks x "
+          f"[{BERT_ROWS}, {BERT_SEQ}] tokens; init "
+          f"{time.perf_counter() - t0:.2f} s")
+    check(n_params == BERT_PARAMS, f"bert_base() has {n_params} params, "
+          f"expected {BERT_PARAMS}")
+
+    def loss_fn(p, b):
+        logits = model.apply(p, b[0], train=True, attn_fn=flash)
+        return xent.softmax_cross_entropy(logits, b[1]).mean()
+
+    return model, params, batch, loss_fn
+
+
+def phase_replicas(torch, np, kernels, tr, costmodel, spec, bert):
     """bert_base() on RANKS co-resident ranks: SMA and AdaptiveSGD over
     stacked per-replica params, the GNS and variance monitors on the
     replicated step, and the autotune of the allreduce schedule.  Each
@@ -1958,29 +2024,10 @@ def phase_replicas(torch, np, kernels, tr, costmodel, spec):
                                                  stack_for_replicas)
     from kungfu_tpu_torch.utils.tree import tree_leaves
 
-    t0 = time.perf_counter()
-    model = tr.bert_base()
+    model, params, batch, loss_fn = bert
     cfg = model.cfg
-    params = model.init(torch.Generator().manual_seed(0), device="cuda")
     n_params = sum(t.numel() for t in tree_leaves(params))
-    rng = np.random.default_rng(0)
     rows = RANKS * BERT_ROWS
-    batch = tuple(torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, size=(rows, BERT_SEQ))).cuda() for _ in range(2))
-    flash = kernels[0].make_flash_attn()
-    torch.cuda.synchronize()
-    print(f"replicas: bert_base() {n_params} f32 params (vocab "
-          f"{cfg.vocab_size}, d_model {cfg.d_model}, {cfg.n_layers} layers, "
-          f"{cfg.n_heads} heads, d_ff {cfg.d_ff}, pos {cfg.pos}, causal "
-          f"{cfg.causal}, compute {cfg.dtype}); {RANKS} ranks x "
-          f"[{BERT_ROWS}, {BERT_SEQ}] tokens; init "
-          f"{time.perf_counter() - t0:.2f} s")
-    check(n_params == BERT_PARAMS, f"bert_base() has {n_params} params, "
-          f"expected {BERT_PARAMS}")
-
-    def loss_fn(p, b):
-        logits = model.apply(p, b[0], train=True, attn_fn=flash)
-        return xent.softmax_cross_entropy(logits, b[1]).mean()
 
     def loss_xla(p, b):  # attention picked by KF_TPU_ATTN, set to xla
         logits = model.apply(p, b[0], train=True)
@@ -2235,6 +2282,386 @@ def phase_replicas(torch, np, kernels, tr, costmodel, spec):
     out["launches"] = launches
     return out
 
+def _run_ranks(fns, timeout: float = 600.0) -> list:
+    """Each callable on a thread of its own (one a rank), their results
+    in order; the first exception any raised is raised here."""
+    with ThreadPoolExecutor(max_workers=len(fns)) as pool:
+        futures = [pool.submit(fn) for fn in fns]
+        return [f.result(timeout=timeout) for f in futures]
+
+
+def _host_sq_norms(np, bufs, avg) -> tuple:
+    """``(mean over ranks of |g_r|^2, |avg|^2)`` in f64 numpy, as
+    ``host_noise_scale`` takes them."""
+    local = [float(np.sum(np.square(b.numpy().astype(np.float64))))
+             for b in bufs]
+    return (sum(local) / len(local),
+            float(np.sum(np.square(avg.numpy().astype(np.float64)))))
+
+
+def phase_host_engine(torch, np, kernels, tr, bert, gns10):
+    """benchmarks/system.py's ``--backend host --model bert`` loop on the
+    real model: each step, every rank's bert_base() gradient on the card
+    (phase 10's model, batch and loss), copied into the rank's pinned
+    f32 buffer, mean-allreduced in place by four CollectiveEngines (one
+    thread a rank) over NativeHostChannels from HostChannel's default
+    ``auto`` on loopback, copied back to the card and applied with
+    ``sgd(1e-3, momentum=0.9)``.  Checks (a)-(h), each fatal: (a) native
+    channels and the C++ executor; (b) the four reduced buffers bitwise
+    equal to each other and to the plain graph walk; (c) the C++ executor
+    and the Python path bitwise equal for every strategy on a 64 MiB
+    slice, and on the whole buffer for the default strategy; (d) the
+    params after step 1 against the device-plane S-SGD step; (e) falling
+    loss; (f) a strategy swap at a step boundary; (g) ZeRO-2 over the
+    host plane, pipelined bitwise equal to serial and close to (d); (h)
+    host_noise_scale against phase 10's GNS monitor.  Launches are
+    counted over the main-path steps only."""
+    import shutil
+    import tempfile
+
+    from kungfu_tpu_torch.comm import engine as E
+    from kungfu_tpu_torch.comm.host import HostChannel, NativeHostChannel
+    from kungfu_tpu_torch.native import transport as nt
+    from kungfu_tpu_torch.plan import PeerID, PeerList
+    from kungfu_tpu_torch.utils.tree import tree_flatten
+
+    t_phase = time.perf_counter()
+    model, params, batch, loss_fn = bert
+    leaves, treedef = tree_flatten(params)
+    sizes = [t.numel() for t in leaves]
+    total = sum(sizes)
+    check(total == BERT_PARAMS, f"{total} params, expected {BERT_PARAMS}")
+    out = {"params": total}
+
+    # (a) the library built from the checkout's sources, the channels
+    # from the factory's default auto, the engines on AUTO
+    t0 = time.perf_counter()
+    check(nt.available(), "the native host library did not build")
+    out["native_build_s"] = time.perf_counter() - t0
+    for k in ("KF_TPU_HOST_TRANSPORT", "KF_NATIVE_ENGINE", "KF_CHAOS_SPEC",
+              "KF_CONFIG_CHUNK_SIZE"):
+        os.environ.pop(k, None)
+    sock_dir = tempfile.mkdtemp(prefix="kfsock")
+    os.environ["KF_SOCK_DIR"] = sock_dir
+    unix = len(sock_dir) < 64  # AF_UNIX paths stop at 107 bytes
+    os.environ["KF_TPU_USE_UNIXSOCK"] = "1" if unix else "0"
+    chans = [HostChannel(PeerID("127.0.0.1", 0), bind_host="127.0.0.1")
+             for _ in range(RANKS)]
+    try:
+        check(all(type(c) is NativeHostChannel for c in chans),
+              f"HostChannel gave {[type(c).__name__ for c in chans]}")
+        peers = PeerList.of(*(c.self_id for c in chans))
+        engines = [E.CollectiveEngine(c, peers) for c in chans]
+        chunk_bytes = E.engine_chunk_size(True)
+        print(f"host engine: {RANKS} NativeHostChannels on {peers} "
+              f"({'unix sockets' if unix else 'TCP'} on loopback), library "
+              f"built in {out['native_build_s']:.2f} s; strategy AUTO = "
+              f"{E.auto_select(1)}, {len(engines[0]._graphs)} graph pairs; "
+              f"chunk {chunk_bytes} B; {E.engine_threads()} executor "
+              f"threads a rank")
+        out.update(_host_engine_steps(torch, np, kernels, E, engines, model,
+                                      params, batch, loss_fn, treedef, sizes,
+                                      chunk_bytes, gns10))
+    finally:
+        for c in chans:
+            c.close()
+        shutil.rmtree(sock_dir, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def _host_engine_steps(torch, np, kernels, E, engines, model, params, batch,
+                       loss_fn, treedef, sizes, chunk_bytes, gns10):
+    """Phase 12's steps and checks over the engines (see
+    :func:`phase_host_engine`)."""
+    from kungfu_tpu_torch.comm.device import Communicator
+    from kungfu_tpu_torch.ops.monitor import host_noise_scale
+    from kungfu_tpu_torch.optimizers import (apply_updates, sgd,
+                                             synchronous_sgd)
+    from kungfu_tpu_torch.parallel.train import (dp_train_step,
+                                                 per_rank_grads, split_batch)
+    from kungfu_tpu_torch.parallel.zero import (host_bucket_all_gather,
+                                                host_bucket_pipeline,
+                                                host_bucket_spans)
+    from kungfu_tpu_torch.plan import Strategy
+    from kungfu_tpu_torch.utils.tree import tree_flatten, tree_unflatten
+
+    total = sum(sizes)
+    shapes = [t.shape for t in tree_flatten(params)[0]]
+    cfg = model.cfg
+    shards = split_batch(batch, RANKS)
+    inner = sgd(BERT_LR, momentum=BERT_MOMENTUM)
+    bufs = [torch.empty(total, dtype=torch.float32, pin_memory=True)
+            for _ in range(RANKS)]
+    dev = torch.empty((RANKS, total), dtype=torch.float32, device="cuda")
+    pinned = sum(b.numel() * b.element_size() for b in bufs)
+    want_step = {key: 0 for key in _counts(kernels)}
+    want_step.update(_rank_launches(cfg))
+    launches = {key: 0 for key in want_step}
+    out = {"pinned_bytes": pinned}
+
+    def unflat(flat):
+        parts, off = [], 0
+        for k, shape in zip(sizes, shapes):
+            parts.append(flat[off:off + k].view(shape))
+            off += k
+        return tree_unflatten(treedef, parts)
+
+    def allreduce(tag, inplace=True, srcs=None):
+        srcs = bufs if srcs is None else srcs
+        return _run_ranks([lambda i=i: engines[i].all_reduce(
+            srcs[i], op="mean", inplace=inplace, name=tag)
+            for i in range(RANKS)])
+
+    def step(p, o, k):
+        """One main-path step; its phase times in ms and the loss."""
+        _reset(kernels)
+        t0 = time.perf_counter()
+
+        def sink(r, grads):
+            off = 0
+            for g, n in zip(grads, sizes):
+                dev[r, off:off + n].copy_(g.reshape(-1))
+                off += n
+
+        outs, _ = per_rank_grads(loss_fn, p, shards, sink)
+        loss = sum(float(x) for x in outs) / RANKS  # synchronises
+        t1 = time.perf_counter()
+        for r in range(RANKS):
+            bufs[r].copy_(dev[r])
+        t2 = time.perf_counter()
+        per = _counts(kernels)
+        for key, v in per.items():
+            launches[key] += v
+        check(per == want_step, f"host-engine step {k} launched {per}, "
+              f"expected {want_step}")
+        return loss, {"grads_ms": (t1 - t0) * 1e3, "d2h_ms": (t2 - t1) * 1e3}
+
+    def finish(p, o, times):
+        t0 = time.perf_counter()
+        allreduce(f"g{len(losses)}")
+        t1 = time.perf_counter()
+        g = unflat(bufs[0].to("cuda", non_blocking=True))
+        u, o = inner.update(g, o, p)
+        p = apply_updates(p, u)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        times.update(allreduce_ms=(t1 - t0) * 1e3,
+                     h2d_update_ms=(t2 - t1) * 1e3)
+        times["step_ms"] = sum(times[k] for k in (
+            "grads_ms", "d2h_ms", "allreduce_ms", "h2d_update_ms"))
+        return p, o
+
+    def check_b(inputs, what):
+        """(b): every rank's reduced buffer bitwise equal to the others'
+        and to the plain walk of the engines' current graphs."""
+        t0 = time.perf_counter()
+        plain = E.graph_all_reduce_reference(inputs, engines[0]._graphs,
+                                             "mean", chunk_size=chunk_bytes)
+        same = [torch.equal(bufs[r], bufs[0]) for r in range(RANKS)]
+        walk = [torch.equal(bufs[r], plain[r]) for r in range(RANKS)]
+        print(f"host engine {what}: reduced buffers bitwise equal to rank "
+              f"0's {same}, to the plain graph walk {walk} (walk "
+              f"{time.perf_counter() - t0:.2f} s)")
+        check(all(same) and all(walk), f"{what}: reduced buffers differ")
+
+    losses, rows = [], []
+    p, o = params, inner.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # step 1, with every check of the step-1 gradients
+    loss, times = step(p, o, 1)
+    losses.append(loss)
+    inputs = [b.clone() for b in bufs]
+    p, o = finish(p, o, times)
+    rows.append(times)
+    check(all(e.native_runs == 1 for e in engines),
+          f"(a) the C++ executor ran {[e.native_runs for e in engines]}")
+    check_b(inputs, "step 1")
+    reduced = bufs[0].clone()
+
+    # (h) the noise scale over the host plane against phase 10's monitor
+    t0 = time.perf_counter()
+    raw = _run_ranks([lambda i=i: host_noise_scale(
+        engines[i], inputs[i], bufs[i], BERT_ROWS) for i in range(RANKS)])
+    local_sq, global_sq = _host_sq_norms(np, inputs, reduced)
+    errs = {"local_sq": _rel(local_sq, gns10["device_local_sq"]),
+            "global_sq": _rel(global_sq, gns10["device_global_sq"]),
+            "gns": max(_rel(x, gns10["raw_gns_step1"]) for x in raw)}
+    print(f"host engine (h): host_noise_scale per rank {raw}; phase 10's "
+          f"raw GNS {gns10['raw_gns_step1']:.6e}; mean |g_r|^2 "
+          f"{local_sq:.6e} vs {gns10['device_local_sq']:.6e}, |mean g|^2 "
+          f"{global_sq:.6e} vs {gns10['device_global_sq']:.6e}; rel "
+          f"{errs} (tol {GNS_SQ_RTOL} norms, {GNS_RTOL} GNS; "
+          f"{time.perf_counter() - t0:.2f} s)")
+    check(len(set(raw)) == 1, f"(h) ranks disagree: {raw}")
+    check(errs["local_sq"] <= GNS_SQ_RTOL and errs["global_sq"] <= GNS_SQ_RTOL
+          and errs["gns"] <= GNS_RTOL, f"(h) noise scale differs: {errs}")
+    out["noise_scale"] = {"raw": raw[0], "local_sq": local_sq,
+                          "global_sq": global_sq, "rel_errors": errs}
+
+    # (d) the params after step 1 against the device-plane S-SGD step
+    comm = Communicator(devices=["cuda:0"] * RANKS, local_size=RANKS)
+    p_dev, _, loss_dev = dp_train_step(
+        loss_fn, synchronous_sgd(inner, comm.axis), comm)(
+            params, inner.init(params), batch)
+    p_dev_leaves = tree_flatten(p_dev)[0]
+    p1_leaves = tree_flatten(p)[0]
+    rel_d = max(float((a - b).norm() / b.norm())
+                for a, b in zip(p1_leaves, p_dev_leaves))
+    print(f"host engine (d): params after step 1 vs the device-plane S-SGD "
+          f"step: worst rel L2 per leaf {rel_d:.3e} (tol {HOST_PARAMS_RTOL});"
+          f" loss {losses[0]:.6f} vs {float(loss_dev):.6f}")
+    check(rel_d <= HOST_PARAMS_RTOL, f"(d) params differ by {rel_d}")
+    out["params_vs_device_ssgd"] = rel_d
+    p1_host = torch.cat([t.reshape(-1).cpu() for t in p1_leaves])
+    del p_dev, p_dev_leaves
+
+    # (g) ZeRO-2 over the host plane on the same gradients
+    chunk = total // RANKS
+    nb, rem = divmod(chunk, HOST_BUCKET)
+    widths = [HOST_BUCKET] * nb + ([rem] if rem else [])
+    spans = host_bucket_spans(chunk, widths)
+    p0_host = torch.cat([t.reshape(-1).cpu() for t in tree_flatten(
+        params)[0]])
+    zero = {}
+    for pipelined in (True, False):
+        def rank(i, pipelined=pipelined):
+            own = p0_host[i * chunk:(i + 1) * chunk].clone()
+            mom = torch.zeros(chunk)
+
+            def compute(b, red):
+                off, w = spans[b]
+                m = red + mom[off:off + w] * BERT_MOMENTUM
+                mom[off:off + w] = m
+                own[off:off + w] += -BERT_LR * m
+
+            tag = "z2p" if pipelined else "z2s"
+            host_bucket_pipeline(engines[i], inputs[i], widths, compute,
+                                 op="mean", pipelined=pipelined, name=tag)
+            return host_bucket_all_gather(engines[i], own, widths,
+                                          pipelined=pipelined,
+                                          name=tag + "g")
+
+        t0 = time.perf_counter()
+        zero[pipelined] = _run_ranks([lambda i=i: rank(i)
+                                      for i in range(RANKS)])
+        zero[f"{pipelined}_s"] = time.perf_counter() - t0
+    z_same = all(torch.equal(zero[True][r], zero[False][r]) and
+                 torch.equal(zero[True][r], zero[True][0])
+                 for r in range(RANKS))
+    z_rel = max(float((zero[True][0][off:off + k] - p1_host[off:off + k]).norm()
+                      / p1_host[off:off + k].norm())
+                for off, k in zip([0] + [int(x) for x in np.cumsum(sizes)[:-1]],
+                                  sizes))
+    print(f"host engine (g): ZeRO-2 over the host plane, {len(widths)} "
+          f"buckets of {HOST_BUCKET} columns a rank: pipelined "
+          f"{zero['True_s']:.2f} s, serial {zero['False_s']:.2f} s; "
+          f"pipelined bitwise equal to serial on every rank {z_same}; vs (d)'s"
+          f" params worst rel L2 per leaf {z_rel:.3e} (tol "
+          f"{HOST_PARAMS_RTOL})")
+    check(z_same, "(g) pipelined ZeRO-2 differs from serial")
+    check(z_rel <= HOST_PARAMS_RTOL, f"(g) ZeRO-2 params differ by {z_rel}")
+    out["zero2"] = {"buckets": len(widths), "pipelined_s": zero["True_s"],
+                    "serial_s": zero["False_s"], "rel_vs_d": z_rel}
+    del zero, p0_host, p1_host
+
+    # (c) the C++ executor against the Python path, every strategy on a
+    # 64 MiB slice of step 1's gradients, the whole buffer for AUTO
+    cut = HOST_SLICE_BYTES // 4
+    sl = [x[:cut].clone() for x in inputs]
+    strategies = {}
+    for strat in [s for s in Strategy if s != Strategy.AUTO]:
+        for e in engines:
+            e.set_strategy(strat)
+        t0 = time.perf_counter()
+        cxx = allreduce(f"c.{strat.value}.x", inplace=False, srcs=sl)
+        t1 = time.perf_counter()
+        # the engine's own stats of the C++ run: bytes over summed chunk
+        # seconds, per graph pair
+        gbs = [float(b / t / 1e9) if t else 0.0 for b, t in engines[0].stats]
+        os.environ["KF_NATIVE_ENGINE"] = "0"
+        try:
+            py = allreduce(f"c.{strat.value}.p", inplace=False, srcs=sl)
+        finally:
+            os.environ.pop("KF_NATIVE_ENGINE")
+        t2 = time.perf_counter()
+        plain = E.graph_all_reduce_reference(sl, engines[0]._graphs, "mean",
+                                             chunk_size=chunk_bytes)
+        ok = all(torch.equal(cxx[r], py[r]) and torch.equal(cxx[r], plain[r])
+                 and torch.equal(cxx[r], cxx[0]) for r in range(RANKS))
+        strategies[strat.value] = {
+            "pairs": len(engines[0]._graphs), "cxx_s": t1 - t0,
+            "python_s": t2 - t1, "wall_gb_s_cxx": HOST_SLICE_BYTES / (t1 - t0)
+            / 1e9, "wall_gb_s_python": HOST_SLICE_BYTES / (t2 - t1) / 1e9,
+            "stats_gb_s": gbs, "bitwise": ok}
+        print(f"host engine (c) {strat.value}: {len(engines[0]._graphs)} "
+              f"pairs; C++ {t1 - t0:.3f} s ({HOST_SLICE_BYTES / (t1 - t0) / 1e9:.3f}"
+              f" GB/s of buffer), Python path {t2 - t1:.3f} s "
+              f"({HOST_SLICE_BYTES / (t2 - t1) / 1e9:.3f} GB/s); per-pair "
+              f"stats GB/s {[round(x, 3) for x in gbs]}; C++ = Python = "
+              f"plain walk bitwise {ok}")
+        check(ok, f"(c) {strat.value}: the C++ executor and the Python path "
+              "differ")
+    del sl
+    for e in engines:
+        e.set_strategy(Strategy.AUTO)
+    t0 = time.perf_counter()
+    os.environ["KF_NATIVE_ENGINE"] = "0"
+    try:
+        py_full = allreduce("c.full.p", inplace=False, srcs=inputs)
+    finally:
+        os.environ.pop("KF_NATIVE_ENGINE")
+    full_s = time.perf_counter() - t0
+    full_ok = all(torch.equal(x, reduced) for x in py_full)
+    print(f"host engine (c) AUTO, whole buffer ({total * 4} B a rank): Python "
+          f"path {full_s:.2f} s ({total * 4 / full_s / 1e9:.3f} GB/s), C++ "
+          f"step 1 {rows[0]['allreduce_ms'] / 1e3:.2f} s; bitwise equal "
+          f"{full_ok}")
+    check(full_ok, "(c) the Python path differs from the C++ executor on "
+          "the whole buffer")
+    out["strategies"] = strategies
+    out["python_path_full_s"] = full_s
+    del py_full, inputs
+
+    # (e) the timed steps, then (f) a swap at each of two step boundaries
+    for k in range(2, HOST_STEPS + 1):
+        loss, times = step(p, o, k)
+        losses.append(loss)
+        p, o = finish(p, o, times)
+        rows.append(times)
+    for strat in (Strategy.STAR, Strategy.RING):
+        for e in engines:
+            e.set_strategy(strat)
+        loss, times = step(p, o, len(losses) + 1)
+        losses.append(loss)
+        inputs = [b.clone() for b in bufs]
+        p, o = finish(p, o, times)
+        check_b(inputs, f"(f) the step after set_strategy({strat.value})")
+        del inputs
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    timed = losses[:HOST_STEPS]
+    print(f"host engine (e): losses {[round(x, 4) for x in losses]}")
+    check(all(np.isfinite(losses)), f"non-finite loss {losses}")
+    check(timed[-1] < timed[0], f"(e) loss did not fall: {timed}")
+    check(all(e.native_runs >= HOST_STEPS + 3 for e in engines),
+          f"(a) native runs {[e.native_runs for e in engines]}")
+    med = {k: statistics.median(r[k] for r in rows[1:]) for k in rows[0]}
+    print(f"host engine step ({RANKS} ranks, {total * 4} B a rank, median of "
+          f"steps 2-{HOST_STEPS}): {med['step_ms']:.2f} ms = grads "
+          f"{med['grads_ms']:.2f} + D2H {med['d2h_ms']:.2f} + allreduce "
+          f"{med['allreduce_ms']:.2f} + H2D and update "
+          f"{med['h2d_update_ms']:.2f}; first step {rows[0]['step_ms']:.2f} "
+          f"ms ({ {k: round(v, 2) for k, v in rows[0].items()} }); allreduce "
+          f"{total * 4 / (med['allreduce_ms'] / 1e3) / 1e9:.3f} GB/s of buffer"
+          f"; pinned {out['pinned_bytes']} B; peak device memory "
+          f"{peak:.2f} GiB; launches per step {want_step}")
+    out.update(losses=losses, step_rows=rows, median=med, first=rows[0],
+               peak_gib=peak, launches=launches, per_step=want_step,
+               native_runs=[e.native_runs for e in engines])
+    return out
+
 
 #: the wgmma/TMA kernels: their ptxas report must show no spills and
 #: their SASS must hold wgmma (HGMMA) and TMA load (UTMALDG) instructions
@@ -2416,7 +2843,8 @@ def main() -> int:
     # 10. bert_base() on the same ranks: SMA, AdaptiveSGD, the monitors
     # and the autotune of the allreduce schedule
     t0 = time.perf_counter()
-    replicas = phase_replicas(torch, np, kernels, tr, costmodel, spec)
+    bert = _bert_build(torch, np, tr, kernels)
+    replicas = phase_replicas(torch, np, kernels, tr, costmodel, spec, bert)
     print(f"replicas phase: {time.perf_counter() - t0:.2f} s")
     torch.cuda.empty_cache()
 
@@ -2424,7 +2852,15 @@ def main() -> int:
     t0 = time.perf_counter()
     elastic = phase_elastic(torch, np, kernels, tr)
     print(f"elastic phase: {time.perf_counter() - t0:.2f} s")
-    paths = (train, train_fused, ssgd, zero2, zero3, replicas, elastic)
+    torch.cuda.empty_cache()
+
+    # 12. the host engine: system.py's --backend host loop on bert_base()
+    host_engine = phase_host_engine(torch, np, kernels, tr, bert,
+                                    replicas["gns"])
+    print(f"host engine phase: {host_engine['phase_s']:.2f} s")
+    del bert
+    paths = (train, train_fused, ssgd, zero2, zero3, replicas, elastic,
+             host_engine)
 
     def row(name, route, source, replaces, key, err, timing, bert=None):
         extra = {k: timing[k] for k in ("plain_head_ms", "bound_fp32_ms",
@@ -2498,11 +2934,16 @@ def main() -> int:
               f"phase 10 never launched {key}")
         check(elastic["launches"][key] > 0,
               f"phase 11 never launched {key}")
+    for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "xent_fwd",
+                "xent_bwd"):
+        check(host_engine["launches"][key] > 0,
+              f"phase 12 never launched {key}")
     print("details: " + json.dumps({
         "forward": fwd, "serve": serve, "train": train,
         "train_fused_head": train_fused, "ssgd_4_ranks": ssgd,
         "zero2_4_ranks": zero2, "zero3_4_ranks": zero3,
         "replicas_bert_4_ranks": replicas, "elastic_4_2_4": elastic,
+        "host_engine_bert_4_ranks": host_engine,
         "ring_timing": ring_timing, "build": build,
         "flash_fwd_errors": fwd_errs, "flash_fwd_timing": fwd_timing,
         "flash_bwd_errors": bwd_errs, "flash_bwd_timing": bwd_timing,

@@ -1,14 +1,14 @@
-"""Host-side message channel: the control plane between workers (trimmed
-copy of ``kungfu_tpu/comm/host.py``, the Python backend).
+"""Host-side message channel between workers (trimmed copy of
+``kungfu_tpu/comm/host.py``).
 
-Typed, named messages over TCP between peers, rendezvous-by-name receive
-queues, connect retries while peers come up, and version-token fencing:
-every COLLECTIVE message is queued under the cluster-version token it
-was sent with and only read under the receiver's current token, so a
-stale payload never aliases a later epoch's collective.  The channel
-carries control traffic and the host-plane moves of sharded state (the
-re-carve segments of :mod:`kungfu_tpu_torch.elastic.reshard`), never the
-per-step gradients.
+Typed, named messages between peers, rendezvous-by-name receive queues,
+connect retries while peers come up, and version-token fencing: every
+COLLECTIVE message is queued under the cluster-version token it was sent
+with and only read under the receiver's current token, so a stale
+payload never aliases a later epoch's collective.  The channel carries
+control traffic, the host-plane moves of sharded state (the re-carve
+segments of :mod:`kungfu_tpu_torch.elastic.reshard`) and the host
+collective engine's chunks (:mod:`kungfu_tpu_torch.comm.engine`).
 
 Wire format (little-endian), the reference's byte for byte, so a port
 endpoint and a reference endpoint exchange messages:
@@ -16,15 +16,26 @@ endpoint and a reference endpoint exchange messages:
     magic u32 | token u32 | conn_type u8 | src_len u16 | src utf8
     | name_len u16 | name utf8 | payload_len u32 | payload
 
-Differences from the reference's Python backend: TCP only (no Unix
-socket listener for colocated peers: a reference sender falls back to
-TCP when it finds no socket file); a payload is read with
-``recv_into`` into one ``bytearray`` and queued as that buffer, with no
-copy per chunk; a channel made with port 0 binds a port the OS assigns
-and reports it in :attr:`PyHostChannel.self_id`.  The native C++ backend
-(``NativeHostChannel``, ``native/transport.cpp``) is not ported:
-:func:`HostChannel` raises when ``KF_TPU_HOST_TRANSPORT=native`` asks
-for it.
+Two interoperable backends implement the wire and the API:
+
+* :class:`NativeHostChannel` -- the accept loop, framed decode,
+  rendezvous queues, fencing and pooled sender run in C++ threads
+  (:file:`kungfu_tpu_torch/native/transport.cpp`, a copy of the
+  reference's), and the host engine's whole allreduce can run there;
+* :class:`PyHostChannel` -- pure-Python sockets, always available.
+
+:func:`HostChannel` is the factory, chosen as the reference's
+``_backend()`` chooses: ``KF_TPU_HOST_TRANSPORT`` ``native`` | ``python``
+| ``auto`` (the default: native whenever the native library loads).
+
+Differences from the reference: the Python backend is TCP only (no Unix
+socket listener for colocated peers: a sender falls back to TCP when it
+finds no socket file); it reads a payload with ``recv_into`` into one
+``bytearray`` and queues that buffer, with no copy per chunk.  Either
+backend made with port 0 binds a port the OS assigns and reports it in
+``self_id``.  ``monitor=`` is accepted and kept as ``channel.monitor``
+(the engine reads it), but nothing feeds it egress or ingress bytes
+yet: that comes with the port of ``monitor/metrics.py NetMonitor``.
 """
 
 from __future__ import annotations
@@ -41,6 +52,9 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from kungfu_tpu_torch.monitor import timeline
+from kungfu_tpu_torch.monitor.registry import REGISTRY
+from kungfu_tpu_torch.native import np_view
 from kungfu_tpu_torch.plan.peer import PeerID
 from kungfu_tpu_torch.plan.peerlist import PeerList
 from kungfu_tpu_torch.utils import envs
@@ -60,6 +74,50 @@ CONNECT_RETRY_PERIOD_S = 0.2  # reference: 500 x 200ms (config.go:16-18)
 CONNECT_TIMEOUT_S = 10.0
 #: how often an accept loop checks for close (the bound on close's wait)
 POLL_INTERVAL_S = 0.05
+
+USE_UNIXSOCK = envs.USE_UNIXSOCK
+
+#: default ceiling on the load-scaled pools (``KF_CONFIG_HOST_POOL_MAX``)
+HOST_POOL_CAP_DEFAULT = 16
+
+
+def host_pool_size(n_peers: int, floor: int = 2,
+                   pool: str = "host") -> int:
+    """Pool size scaled with the peer count (reference
+    ``comm/host.py:88``): one slot per peer, floored at ``floor`` and
+    capped by ``KF_CONFIG_HOST_POOL_MAX`` (default 16; the cap wins over
+    the floor).  Exported as the ``kf_host_pool_size{pool=...}`` gauge."""
+    cap = max(1, envs.parse_int_env(envs.HOST_POOL_MAX,
+                                    HOST_POOL_CAP_DEFAULT))
+    size = max(1, min(cap, max(int(floor), int(n_peers))))
+    REGISTRY.gauge("kf_host_pool_size", pool=pool).set(size)
+    return size
+
+
+def unixsock_enabled() -> bool:
+    """Colocated native channels also listen on a unix domain socket
+    (reference ``UseUnixSock=true``); opt out with
+    ``KF_TPU_USE_UNIXSOCK=0``."""
+    return os.environ.get(USE_UNIXSOCK, "1").lower() not in ("0", "false",
+                                                             "no")
+
+
+def unix_sock_path(host: str, port: int) -> str:
+    """The sockfile of the peer at ``host:port``; must match the C++
+    transport's scheme (``native/transport.cpp unix_sock_path``).  It
+    lives in a per-uid mode-0700 directory, ``KF_SOCK_DIR`` or
+    ``/tmp/kf-tpu-<uid>``; a directory that is not private and ours
+    raises ``OSError``."""
+    base = os.environ.get("KF_SOCK_DIR") or f"/tmp/kf-tpu-{os.getuid()}"
+    os.makedirs(base, mode=0o700, exist_ok=True)
+    st = os.lstat(base)
+    import stat as _stat
+
+    if (not _stat.S_ISDIR(st.st_mode) or st.st_uid != os.getuid()
+            or (st.st_mode & 0o077) != 0):
+        raise OSError(f"unsafe socket dir {base}: not a private dir owned "
+                      f"by uid {os.getuid()}")
+    return f"{base}/{host}-{port}.sock"
 
 
 class ConnType(enum.IntEnum):
@@ -254,7 +312,9 @@ class PyHostChannel(_ChannelOps):
     a port the OS assigns; :attr:`self_id` then carries it.
     """
 
-    def __init__(self, self_id: PeerID, token: int = 0, bind_host: str = ""):
+    def __init__(self, self_id: PeerID, token: int = 0, bind_host: str = "",
+                 monitor=None):
+        self.monitor = monitor
         self._token = token
         self._queues: Dict[Tuple[int, str, str, int], queue.Queue] = {}
         self._qlock = threading.Lock()
@@ -391,6 +451,9 @@ class PyHostChannel(_ChannelOps):
         nbytes = _payload_nbytes(payload)
         head = _encode_head(self._token, conn_type, str(self.self_id), name,
                             nbytes)
+        if timeline.enabled():
+            timeline.event("send", name, peer=str(peer), nbytes=nbytes,
+                           conn=int(conn_type))
         entry = self._pooled(peer)
         with entry[1]:
             if entry[0] is None:
@@ -410,6 +473,25 @@ class PyHostChannel(_ChannelOps):
                     # receiver would parse payload bytes as a header
                     self._drop(entry)
                     raise
+
+    def chaos_partial_send(self, peer: PeerID, name: str, payload,
+                           nbytes: int,
+                           conn_type: ConnType = ConnType.COLLECTIVE) -> None:
+        """Fault-injection primitive of the ``reset`` chaos clause: a
+        frame whose header promises the whole payload, then only its
+        first ``nbytes`` bytes, then a closed socket, on a connection of
+        its own so the pooled one stays intact for the retry."""
+        head = _encode_head(self._token, conn_type, str(self.self_id), name,
+                            _payload_nbytes(payload))
+        sock = self._connect(peer, retries=5)
+        try:
+            sock.sendall(head)
+            sock.sendall(memoryview(payload).cast("B")[:nbytes])
+        finally:
+            try:
+                sock.close()
+            except OSError:
+                pass
 
     @staticmethod
     def _drop(entry) -> None:
@@ -440,11 +522,15 @@ class PyHostChannel(_ChannelOps):
         """The payload of the next message ``name`` from ``src`` (the
         buffer it was read into); ``TimeoutError`` after ``timeout``."""
         try:
-            return self._queue(conn_type, str(src), name,
-                               self._token).get(timeout=timeout)
+            payload = self._queue(conn_type, str(src), name,
+                                  self._token).get(timeout=timeout)
         except queue.Empty:
             raise TimeoutError(f"recv {name!r} from {src} timed out after "
                                f"{timeout}s") from None
+        if timeline.enabled():
+            timeline.event("recv", name, peer=str(src), nbytes=len(payload),
+                           conn=int(conn_type))
+        return payload
 
     def recv_into(self, src: PeerID, name: str, buf,
                   conn_type: ConnType = ConnType.COLLECTIVE,
@@ -464,6 +550,9 @@ class PyHostChannel(_ChannelOps):
             q.put(payload)
             return False
         mv[:] = payload
+        if timeline.enabled():
+            timeline.event("recv", name, peer=str(src), nbytes=mv.nbytes,
+                           conn=int(conn_type))
         return True
 
     def ping(self, peer: PeerID, timeout: float = 10.0) -> bool:
@@ -478,28 +567,123 @@ class PyHostChannel(_ChannelOps):
             return False
 
 
-def HostChannel(self_id: PeerID, token: int = 0, bind_host: str = ""):
-    """The host channel ``KF_TPU_HOST_TRANSPORT`` selects: ``python`` or
-    ``auto`` (the default) give :class:`PyHostChannel`; ``native`` raises,
-    as the C++ transport is not ported yet."""
+class NativeHostChannel(_ChannelOps):
+    """C++ backend (reference ``comm/host.py:697``): the same API and wire
+    format, served by native threads (:file:`native/transport.cpp`).
+    ``self_id.port == 0`` binds a port the OS assigns; :attr:`self_id`
+    then carries it.  Python is entered only for registered control
+    handlers."""
+
+    def __init__(self, self_id: PeerID, token: int = 0, bind_host: str = "",
+                 monitor=None):
+        from kungfu_tpu_torch.native.transport import NativeTransport
+
+        self.monitor = monitor
+        self._t = NativeTransport(
+            str(self_id), self_id.port, bind_host=bind_host, token=token,
+            use_unix=unixsock_enabled(),
+        )
+        self.self_id = PeerID(self_id.host, self._t.port)
+        self._control_handlers = []
+        self._t.set_control_handler(self._run_handlers(self._control_handlers))
+
+    @staticmethod
+    def _run_handlers(handlers):
+        def run(name: str, payload: bytes, src: str) -> bool:
+            if not handlers:
+                return False  # fall through to the C++ rendezvous queue
+            for h in list(handlers):
+                h(name, payload, src)
+            return True
+
+        return run
+
+    # -- lifecycle -------------------------------------------------------
+    def close(self) -> None:
+        self._t.close()
+
+    def set_token(self, token: int) -> None:
+        self._t.set_token(token)
+
+    @property
+    def token(self) -> int:
+        return self._t.token
+
+    def on_control(self, handler) -> None:
+        """Register ``handler(name, payload, src)`` for CONTROL messages."""
+        self._control_handlers.append(handler)
+
+    # -- client side -----------------------------------------------------
+    def send(self, peer: PeerID, name: str, payload,
+             conn_type: ConnType = ConnType.COLLECTIVE,
+             retries: int = CONNECT_RETRIES) -> None:
+        """Send ``payload`` (bytes or any contiguous buffer, passed by
+        pointer to the C++ writer) to ``peer`` under ``name``.  The
+        timeline mark covers frames that cross this wrapper; the engine's
+        fully native collectives show as their collective span."""
+        if timeline.enabled():
+            timeline.event("send", name, peer=str(peer),
+                           nbytes=_payload_nbytes(payload),
+                           conn=int(conn_type))
+        self._t.send(str(peer), name, payload, int(conn_type), retries)
+
+    def recv(self, src: PeerID, name: str,
+             conn_type: ConnType = ConnType.COLLECTIVE,
+             timeout: Optional[float] = 60.0) -> bytes:
+        payload = self._t.recv(str(src), name, int(conn_type), timeout)
+        if timeline.enabled():
+            timeline.event("recv", name, peer=str(src), nbytes=len(payload),
+                           conn=int(conn_type))
+        return payload
+
+    def recv_into(self, src: PeerID, name: str, buf,
+                  conn_type: ConnType = ConnType.COLLECTIVE,
+                  timeout: Optional[float] = 60.0) -> bool:
+        """Zero-copy receive into ``buf`` (a writable contiguous buffer):
+        socket to buffer in the C++ stream thread.  False on a size
+        mismatch, with the payload left queued for :meth:`recv`."""
+        return self._t.recv_into(str(src), name, int(conn_type), timeout, buf)
+
+    def ping(self, peer: PeerID, timeout: float = 10.0) -> bool:
+        return self._t.ping(str(peer), timeout)
+
+    def reset_connections(self) -> None:
+        self._t.reset_connections()
+
+
+def _backend() -> str:
+    """Reference ``comm/host.py:880``: ``KF_TPU_HOST_TRANSPORT`` names the
+    backend; ``auto`` takes native whenever the library loads."""
     mode = os.environ.get(envs.HOST_TRANSPORT, "auto").lower()
-    if mode == "native":
-        raise NotImplementedError(
-            f"{envs.HOST_TRANSPORT}=native: the native C++ host transport "
-            "(NativeHostChannel, native/transport.cpp) is not ported yet; "
-            "use python or auto")
-    return PyHostChannel(self_id, token=token, bind_host=bind_host)
+    if mode in ("native", "python"):
+        return mode
+    from kungfu_tpu_torch.native import transport as _nt
+
+    return "native" if _nt.available() else "python"
+
+
+def HostChannel(self_id: PeerID, token: int = 0, bind_host: str = "",
+                monitor=None):
+    """Factory: the native (C++) channel when available, else Python."""
+    if _backend() == "native":
+        try:
+            return NativeHostChannel(self_id, token=token,
+                                     bind_host=bind_host, monitor=monitor)
+        except RuntimeError:  # toolchain raced away; stay functional
+            _log.warning("native transport unavailable, using python "
+                         "backend")
+    return PyHostChannel(self_id, token=token, bind_host=bind_host,
+                         monitor=monitor)
 
 
 def tensor_buffer(t: torch.Tensor):
     """The bytes of a contiguous host tensor as a writable buffer (a
-    numpy view, no copy; bf16 as its 16-bit pattern) for :meth:`send`
+    numpy view, no copy; bf16 as its 16-bit patterns) for :meth:`send`
     and :meth:`recv_into`."""
     if t.device.type != "cpu" or not t.is_contiguous():
         raise ValueError(f"a host buffer needs a contiguous CPU tensor, got "
                          f"{t.device} stride {t.stride()}")
-    return t.view(torch.int16).numpy() if t.dtype == torch.bfloat16 \
-        else t.numpy()
+    return np_view(t)
 
 
 def _pack_list(items: List[bytes]) -> bytes:

@@ -7,16 +7,19 @@ norm the pulse monitor samples, ``global_noise_scale`` (:55) and
 gradients are stacked ``[n, ...]``; each rank's square norm is its own
 row's (:func:`rank_sq_norms`), never the sum over the stack, and every
 per-rank result is stacked ``[n]``, as each device holds its own in the
-reference.  ``host_noise_scale`` (:27) rides the host collective engine
-and comes with it.
+reference.  ``host_noise_scale`` (:27) runs the same estimator over the
+host collective engine (:mod:`kungfu_tpu_torch.comm.engine`), its square
+norms in f64 numpy as the reference takes them.
 """
 
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
+from kungfu_tpu_torch.monitor import pulse
 from kungfu_tpu_torch.monitor.pulse import GNS_EPS
 from kungfu_tpu_torch.ops.collective import (all_reduce, current_world,
                                              peer_size)
@@ -26,6 +29,41 @@ from kungfu_tpu_torch.utils.tree import tree_leaves
 def _sq_norm(tree) -> torch.Tensor:
     """Sum of squares over every leaf, in f32 (a 0-d tensor)."""
     return sum(torch.sum(torch.square(l.float())) for l in tree_leaves(tree))
+
+
+def _f64(x) -> np.ndarray:
+    """A host buffer (a CPU tensor of any float dtype, or an array) as
+    f64 numpy."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        if x.dtype in (torch.bfloat16, torch.float16):
+            x = x.float()
+        return x.numpy().astype(np.float64)
+    return np.asarray(x, np.float64)
+
+
+def host_noise_scale(engine, local_flat, avg_flat, local_batch_size):
+    """Gradient-noise-scale estimate over the host collective plane
+    (reference ``ops/monitor.py:27``): the OpenAI estimator of
+    :func:`global_noise_scale`, with the cross-peer mean of the local
+    square norms taken by the
+    :class:`~kungfu_tpu_torch.comm.engine.CollectiveEngine`.
+
+    ``local_flat``: this worker's fused local gradient; ``avg_flat``: the
+    allreduced mean gradient the step applied (CPU tensors or numpy
+    arrays).  Every worker calls this at the same step point, since the
+    inner mean is a collective.  Returns the raw estimate
+    (:func:`kungfu_tpu_torch.monitor.pulse.noise_scale`), ``None`` on a
+    single worker."""
+    n = len(engine.peers)
+    g_local_sq = float(np.sum(np.square(_f64(local_flat))))
+    g_local_sq = float(
+        engine.all_reduce(
+            np.array([g_local_sq], np.float64), op="mean", record=False
+        )[0]
+    )
+    g_global_sq = float(np.sum(np.square(_f64(avg_flat))))
+    return pulse.noise_scale(g_local_sq, g_global_sq, local_batch_size, n)
 
 
 def rank_sq_norms(tree) -> torch.Tensor:

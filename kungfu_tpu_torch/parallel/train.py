@@ -165,7 +165,7 @@ def _check_plan(zero_stage, plan):
             raise NotImplementedError(
                 f"dp_train_step is the dp-only entrypoint; a plan with "
                 f"tp={plan.tp} pp={plan.pp} sp={plan.sp} comes with the full "
-                "parallel plan (port slice 5)")
+                "parallel plan, which is not ported yet (ROADMAP A4)")
         if zero_stage is not None and zero_stage != plan.zero_stage:
             raise ValueError(f"zero_stage={zero_stage} disagrees with "
                              f"plan.zero_stage={plan.zero_stage}")

@@ -6,9 +6,9 @@ Port of ``kungfu_tpu/parallel/zero.py``: ``zero1_train_step``,
 ``zero_comm_bytes``, the optimizer-state byte counts, and the elastic
 movement of the sharded state (``zero1_reshard``, ``zero1_snapshot``/
 ``zero1_restore`` and their ``zero_*`` aliases, ``reshard_plan``,
-``zero_reshard_p2p``).  The host bucket pipelines
-(``host_bucket_pipeline``, ``host_bucket_all_gather``) come with the
-host collective engine.  For an
+``zero_reshard_p2p``), and the host-plane bucket loops over the host
+collective engine (``host_bucket_spans``, ``host_bucket_pipeline``,
+``host_bucket_all_gather``, on CPU tensors or numpy arrays).  For an
 elementwise inner transform the sharded update is the replicated update
 restricted to the shard, so every stage matches ``dp_train_step`` over
 ``synchronous_sgd`` to float tolerance:
@@ -753,3 +753,130 @@ def zero_reshard_p2p(opt_shard, params, new_comm, peer=None,
                               seg_name(i, s), buf[s - lo:s - lo + ln])
         out.append(_place_sharded(new_comm, my_chunk=buf))
     return tree_unflatten(treedef, out)
+
+
+# -- the host-plane bucket pipelines ---------------------------------------
+# The ZeRO bucket loops over the host collective engine
+# (:mod:`kungfu_tpu_torch.comm.engine`), where the wire is real wall time:
+# a depth-k software pipeline over the engine's async handles issues
+# bucket i+k while bucket i's math runs.  Bucket order, tags and per-bucket
+# arithmetic are those of the serial loop, so serial and pipelined runs
+# are bitwise equal (reference ``parallel/zero.py:936-1055``).
+
+
+def _contiguous(x):
+    return x.contiguous() if isinstance(x, torch.Tensor) \
+        else np.ascontiguousarray(x)
+
+
+def host_bucket_spans(chunk: int, widths) -> list:
+    """``[(offset, width)]`` bucket tiling of one rank's chunk, shared by
+    the serial and pipelined loops."""
+    spans = []
+    off = 0
+    for w in widths:
+        spans.append((off, int(w)))
+        off += int(w)
+    if off != chunk:
+        raise ValueError(f"widths {list(widths)} do not tile chunk {chunk}")
+    return spans
+
+
+def host_bucket_pipeline(engine, flat, widths, compute, *, op: str = "sum",
+                         pipelined: bool = True,
+                         depth: Optional[int] = None,
+                         name: str = "zp") -> list:
+    """Bucketed host-plane reduce-scatter with a depth-k software
+    pipeline: ``flat`` is this rank's full mesh-major ``[n*chunk]``
+    buffer (a CPU tensor or a numpy array), bucket b's operand the
+    ``[n, width_b]`` column slab, so the per-bucket results concatenate
+    to this rank's chunk.  ``compute(i, reduced)`` runs bucket i's local
+    math; its results return in bucket order.  ``pipelined=True`` issues
+    bucket ``i+depth`` before bucket ``i``'s compute; the serial form
+    issues, waits and computes in turn.  The tags are the same in both,
+    so the two are wire-compatible and bitwise equal."""
+    n = len(engine.peers)
+    if len(flat) % n:
+        raise ValueError(f"flat buffer ({len(flat)}) must tile {n} ranks")
+    chunk = len(flat) // n
+    if not isinstance(flat, torch.Tensor):
+        flat = np.asarray(flat)
+    g2 = flat.reshape(n, chunk)
+    spans = host_bucket_spans(chunk, widths)
+
+    def slab(i):
+        off, w = spans[i]
+        return _contiguous(g2[:, off:off + w]).reshape(-1)
+
+    if not pipelined:
+        return [compute(i, engine.reduce_scatter(
+                    slab(i), op=op, name=f"{name}.b{i}"))
+                for i in range(len(spans))]
+
+    if depth is None:
+        depth = engine.overlap_depth
+    if depth < 1:
+        raise ValueError(f"pipeline depth must be >= 1, got {depth}")
+    from collections import deque
+
+    handles = deque(
+        engine.reduce_scatter_async(slab(i), op=op, name=f"{name}.b{i}")
+        for i in range(min(depth, len(spans))))
+    outs = []
+    for i in range(len(spans)):
+        reduced = handles.popleft().wait()
+        nxt = i + depth
+        if nxt < len(spans):
+            # issued before compute: bucket nxt's wire time runs under
+            # bucket i's math
+            handles.append(engine.reduce_scatter_async(
+                slab(nxt), op=op, name=f"{name}.b{nxt}"))
+        outs.append(compute(i, reduced))
+    return outs
+
+
+def host_bucket_all_gather(engine, shard, widths, *, pipelined: bool = True,
+                           depth: Optional[int] = None, name: str = "zg"):
+    """Bucketed host-plane all-gather of this rank's ``[chunk]`` shard
+    back to the mesh-major ``[n*chunk]`` buffer (the ZeRO-3 parameter
+    path); the pipelined form keeps up to ``depth`` gathers in flight.
+    Results are assembled in bucket order either way (bitwise equal)."""
+    n = len(engine.peers)
+    chunk = len(shard)
+    spans = host_bucket_spans(chunk, widths)
+    if not isinstance(shard, torch.Tensor):
+        shard = np.asarray(shard)
+
+    def assemble(pieces):
+        full = (torch.empty((n, chunk), dtype=shard.dtype)
+                if isinstance(shard, torch.Tensor)
+                else np.empty((n, chunk), shard.dtype))
+        for (off, w), piece in zip(spans, pieces):
+            full[:, off:off + w] = piece.reshape(n, w)
+        return full.reshape(-1)
+
+    if not pipelined:
+        return assemble([
+            engine.all_gather(shard[off:off + w], name=f"{name}.b{i}")
+            for i, (off, w) in enumerate(spans)])
+
+    if depth is None:
+        depth = engine.overlap_depth
+    if depth < 1:
+        raise ValueError(f"pipeline depth must be >= 1, got {depth}")
+    from collections import deque
+
+    handles = deque(
+        engine.all_gather_async(shard[spans[i][0]:spans[i][0] + spans[i][1]],
+                                name=f"{name}.b{i}")
+        for i in range(min(depth, len(spans))))
+    pieces = []
+    for i in range(len(spans)):
+        got = handles.popleft().wait()
+        nxt = i + depth
+        if nxt < len(spans):
+            off, w = spans[nxt]
+            handles.append(engine.all_gather_async(
+                shard[off:off + w], name=f"{name}.b{nxt}"))
+        pieces.append(got)
+    return assemble(pieces)

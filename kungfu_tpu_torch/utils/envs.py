@@ -48,9 +48,35 @@
                                ``COLLECTIVES_ENV.reload()``
                                (ops/collectives.py)
 ``KF_TPU_HOST_TRANSPORT``      host channel backend: "auto"|"python"|"native";
-                               ``auto`` and ``python`` give the Python
-                               channel, ``native`` raises until the C++
-                               transport is ported (comm/host.py)
+                               ``auto`` gives the native C++ channel when the
+                               native library loads, else the Python one
+                               (comm/host.py)
+``KF_TPU_USE_UNIXSOCK``        "0"/"false"/"no": colocated native channels
+                               open no unix socket (comm/host.py)
+``KF_TPU_NO_NATIVE``           "1": no native library; numpy reductions and
+                               the Python channel (native/__init__.py)
+``KF_NATIVE_MARCH``            ``-march=`` of the native build, default
+                               ``-mtune=generic`` (native/__init__.py)
+``KF_NATIVE_ENGINE``           "0"/"false"/"no": the host engine's Python
+                               path even on a native channel (comm/engine.py)
+``KF_CONFIG_CHUNK_SIZE``       host-engine chunk bytes, default 256 KiB for
+                               one host, 1 MiB across hosts (comm/engine.py)
+``KF_CONFIG_ENGINE_THREADS``   C++ executor threads, default
+                               min(8, cpu count) (comm/engine.py)
+``KF_CONFIG_ENGINE_TIMEOUT``   C++ executor per-collective timeout s, default
+                               60 (comm/engine.py)
+``KF_CONFIG_PEER_DEADLINE``    per-peer send/recv deadline s, default the
+                               engine timeout (comm/engine.py)
+``KF_CONFIG_OVERLAP_DEPTH``    async handles in flight per engine, default 2
+                               (comm/engine.py)
+``KF_CONFIG_STRATEGY_HASH_METHOD``  "NAME": chunks hash onto graph pairs by
+                               tensor name, not index (comm/engine.py)
+``KF_CONFIG_HOST_POOL_MAX``    ceiling of the engine's chunk pool, default 16
+                               (comm/host.py)
+``KF_CHAOS_SPEC``              fault clauses (chaos/spec.py); unset: no
+                               injection
+``KF_CHAOS_SEED``              seed of the delay jitter, default 0
+                               (chaos/inject.py)
 =============================  ================================================
 """
 
@@ -73,6 +99,16 @@ PULSE_EVERY = "KF_PULSE_EVERY"
 PULSE_EMA = "KF_PULSE_EMA"
 PALLAS_COLLECTIVES = "KF_PALLAS_COLLECTIVES"
 HOST_TRANSPORT = "KF_TPU_HOST_TRANSPORT"
+USE_UNIXSOCK = "KF_TPU_USE_UNIXSOCK"
+STRATEGY_HASH_METHOD = "KF_CONFIG_STRATEGY_HASH_METHOD"
+CHUNK_SIZE = "KF_CONFIG_CHUNK_SIZE"
+ENGINE_THREADS = "KF_CONFIG_ENGINE_THREADS"
+ENGINE_TIMEOUT = "KF_CONFIG_ENGINE_TIMEOUT"
+PEER_DEADLINE = "KF_CONFIG_PEER_DEADLINE"
+HOST_POOL_MAX = "KF_CONFIG_HOST_POOL_MAX"
+OVERLAP_DEPTH = "KF_CONFIG_OVERLAP_DEPTH"
+CHAOS_SPEC = "KF_CHAOS_SPEC"
+CHAOS_SEED = "KF_CHAOS_SEED"
 
 #: the values of ``KF_PALLAS_COLLECTIVES``, as the reference names them
 COLLECTIVE_IMPLS = ("auto", "pallas", "lax")

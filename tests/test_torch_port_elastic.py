@@ -634,20 +634,22 @@ class TestHostChannel:
             ref.close()
 
     def test_factory(self, monkeypatch):
+        """``auto`` (the default) gives the native channel where the
+        native library loads, as the reference's does; ``python`` and
+        ``native`` name the backend."""
+        monkeypatch.setenv("KF_TPU_USE_UNIXSOCK", "0")
         monkeypatch.delenv("KF_TPU_HOST_TRANSPORT", raising=False)
-        ch = host.HostChannel(plan.PeerID("127.0.0.1", 0),
-                              bind_host="127.0.0.1")
-        try:
-            assert isinstance(ch, host.PyHostChannel)
-        finally:
-            ch.close()
-        monkeypatch.setenv("KF_TPU_HOST_TRANSPORT", "python")
-        ch = host.HostChannel(plan.PeerID("127.0.0.1", 0),
-                              bind_host="127.0.0.1")
-        ch.close()
-        monkeypatch.setenv("KF_TPU_HOST_TRANSPORT", "native")
-        with pytest.raises(NotImplementedError, match="native"):
-            host.HostChannel(plan.PeerID("127.0.0.1", 0))
+        for mode, cls in ((None, host.NativeHostChannel),
+                          ("python", host.PyHostChannel),
+                          ("native", host.NativeHostChannel)):
+            if mode is not None:
+                monkeypatch.setenv("KF_TPU_HOST_TRANSPORT", mode)
+            ch = host.HostChannel(plan.PeerID("127.0.0.1", 0),
+                                  bind_host="127.0.0.1")
+            try:
+                assert type(ch) is cls and ch.self_id.port > 0
+            finally:
+                ch.close()
 
     def test_close_ends_stream_threads(self):
         peers, chans, _ = _mk_world(2)

@@ -25,7 +25,8 @@ from kungfu_tpu_torch.utils.device import resolve_device
 
 ROOT = Path(__file__).resolve().parents[1]
 #: scripts that drive the port on the card, outside its package
-PORT_SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "scripts" / "flash_timing.py"]
+PORT_SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "scripts" / "flash_timing.py",
+                ROOT / "scripts" / "host_engine_timing.py"]
 PORT_FILES = sorted((ROOT / "kungfu_tpu_torch").rglob("*.py")) + PORT_SCRIPTS
 PORT_MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
@@ -104,6 +105,60 @@ class TestNoReferenceImports:
                              text=True, timeout=120)
         assert out.returncode == 0, out.stderr
         assert "ISOLATED" in out.stdout
+
+
+#: the modules of the host collective engine's slice, each in the scans
+HOST_ENGINE_MODULES = [
+    "kungfu_tpu_torch.plan.graph", "kungfu_tpu_torch.plan.topology",
+    "kungfu_tpu_torch.plan.strategy", "kungfu_tpu_torch.plan.mst",
+    "kungfu_tpu_torch.plan.hostfile", "kungfu_tpu_torch.native",
+    "kungfu_tpu_torch.native.transport", "kungfu_tpu_torch.chaos",
+    "kungfu_tpu_torch.chaos.spec", "kungfu_tpu_torch.chaos.inject",
+    "kungfu_tpu_torch.comm.engine",
+]
+
+
+class TestNativeBuild:
+    def test_host_engine_modules_are_scanned(self):
+        assert set(HOST_ENGINE_MODULES) <= set(PORT_MODULES)
+        for m in HOST_ENGINE_MODULES:
+            path = ROOT / (m.replace(".", "/") + ".py")
+            if not path.exists():
+                path = ROOT / m.replace(".", "/") / "__init__.py"
+            assert path in PORT_FILES
+
+    def test_native_build_writes_only_under_build_dir(self, tmp_path):
+        """A fresh copy of ``native/`` built from scratch in its own
+        interpreter: the library works, and every file the build wrote is
+        under ``native/_build/``."""
+        src = ROOT / "kungfu_tpu_torch" / "native"
+        dst = tmp_path / "native"
+        dst.mkdir()
+        for name in ("__init__.py", "reduce.cpp", "transport.cpp"):
+            (dst / name).write_bytes((src / name).read_bytes())
+        before = {p.relative_to(tmp_path) for p in tmp_path.rglob("*")}
+        code = (
+            "import importlib.util, sys, numpy as np\n"
+            f"spec = importlib.util.spec_from_file_location('kfn', "
+            f"{str(dst / '__init__.py')!r})\n"
+            "m = importlib.util.module_from_spec(spec)\n"
+            "spec.loader.exec_module(m)\n"
+            "a = np.ones(5, np.float32)\n"
+            "m.transform2(a, np.full(5, 2, np.float32), 'sum')\n"
+            "assert m.available() and a.tolist() == [3.0] * 5\n"
+            "print('BUILT', m.lib_path())\n")
+        out = subprocess.run([sys.executable, "-B", "-c", code],
+                             capture_output=True, text=True, timeout=300,
+                             cwd=tmp_path)
+        assert out.returncode == 0, out.stderr
+        assert str(dst / "_build" / "libkfnative.so") in out.stdout
+        new = {p.relative_to(tmp_path) for p in tmp_path.rglob("*")} - before
+        assert new and all(p.parts[:2] == ("native", "_build") for p in new), \
+            sorted(map(str, new))
+
+    def test_build_dir_is_ignored(self):
+        ignored = (ROOT / ".gitignore").read_text().splitlines()
+        assert "kungfu_tpu_torch/native/_build/" in ignored
 
 
 class TestDefaultDeviceIsTheCard:
