@@ -118,6 +118,40 @@ Phases (any failed check exits non-zero before the result line):
              allreduce and H2D + update, GB/s per strategy, pinned bytes,
              peak memory and launches per step.
 
+13. recover — the peer runtime and in-flight failure recovery on phase
+             6's gpt_small: four ``Peer``s (one thread each) from
+             ``parse_config_from_env`` over env dicts in
+             ``single_machine_env``'s shape on ports found free, under a
+             ``ConfigServer``; rank r takes row r of phase 6's batch.  A
+             step: each rank's gradient on the card, D2H into its pinned
+             buffer, ``host_bucket_pipeline``'s mean reduce-scatter over
+             ``peer.engine()``, ``sgd(0.05, momentum=0.9)`` on the rank's
+             chunks on the card, ``host_bucket_all_gather``; then
+             ``ZeroBoundary.commit_local`` with ring-buddy mirrors,
+             ``StepSnapshot.commit``, ``PersistPlane.commit`` (period 0)
+             and ``elastic_step``.  ``KF_CHAOS_SPEC`` kills old rank 3
+             (``mode=raise``) at its first engine collective of step 4;
+             the survivors call ``recover_from_failure``, replay from
+             step 3 at three ranks for steps 4-6; a ``preempt:all``
+             clause fires at ``elastic_step``'s announcement of step 6,
+             and two fresh peers with ``KF_PERSIST_RESTORE=1`` agree on
+             the step-6 manifest, restore their shares and take step 7.
+             Checks: (a) each survivor's ``PeerFailureError`` names rank
+             3 within the peer deadline plus slack, every thread join
+             bounded; (b) three peers at cluster version 1 with one
+             digest, the shrunk cluster on the config server; (c) the
+             agreed replay step 3, its params bitwise step 3's; (d) the
+             re-carved momentum bitwise the step-3 state repadded into
+             three chunks (rank 3's chunk from its ring buddy); (e)
+             steps 4-6 bitwise a fixed world of three fresh peers; (f)
+             the manifest's state bitwise step 6's repadded into two
+             chunks, and step 7 bitwise a fixed two-rank world; (g) exact
+             launches every step; (h) finite, falling loss.  Step ms at
+             4, 3 and 2 ranks split into grads, D2H, reduce-scatter,
+             update, all-gather and commits; detection, ping sweep,
+             consensus, replay, re-carve, place, persist and restore
+             times; pinned bytes, peak memory.
+
 Phase 3 also holds the ring reduce-scatter and all-gather kernels
 bitwise against their plain versions, at the main path's shapes (a
 262,144-column bucket over four ranks, and the fused [4, 134,404,608]
@@ -2282,12 +2316,43 @@ def phase_replicas(torch, np, kernels, tr, costmodel, spec, bert):
     out["launches"] = launches
     return out
 
-def _run_ranks(fns, timeout: float = 600.0) -> list:
-    """Each callable on a thread of its own (one a rank), their results
-    in order; the first exception any raised is raised here."""
-    with ThreadPoolExecutor(max_workers=len(fns)) as pool:
-        futures = [pool.submit(fn) for fn in fns]
-        return [f.result(timeout=timeout) for f in futures]
+def _run_ranks(fns, timeout: float = 600.0,
+               return_exceptions: bool = False) -> list:
+    """Each callable on a daemon thread of its own (one a rank), their
+    results in order; a thread still running after ``timeout`` fails the
+    run instead of hanging it.  The first exception any raised is raised
+    here, or with ``return_exceptions`` stands in the results."""
+    import threading
+
+    outs = [None] * len(fns)
+
+    def wrap(i, fn):
+        try:
+            outs[i] = fn()
+        except BaseException as e:  # noqa: BLE001 - raised or returned below
+            outs[i] = e
+
+    ts = [threading.Thread(target=wrap, args=(i, fn), daemon=True)
+          for i, fn in enumerate(fns)]
+    for t in ts:
+        t.start()
+    deadline = time.monotonic() + timeout
+    for t in ts:
+        t.join(max(0.0, deadline - time.monotonic()))
+    hung = [i for i, t in enumerate(ts) if t.is_alive()]
+    check(not hung, f"threads {hung} still running after {timeout} s")
+    if not return_exceptions:
+        for x in outs:
+            if isinstance(x, BaseException):
+                raise x
+    return outs
+
+
+def _host_zero_geometry(total: int, n: int):
+    """``(chunk, bucket widths)`` of an ``n``-rank host-plane ZeRO world."""
+    chunk = math.ceil(total / n)
+    nb, rem = divmod(chunk, HOST_BUCKET)
+    return chunk, [HOST_BUCKET] * nb + ([rem] if rem else [])
 
 
 def _host_sq_norms(np, bufs, avg) -> tuple:
@@ -2519,9 +2584,7 @@ def _host_engine_steps(torch, np, kernels, E, engines, model, params, batch,
     del p_dev, p_dev_leaves
 
     # (g) ZeRO-2 over the host plane on the same gradients
-    chunk = total // RANKS
-    nb, rem = divmod(chunk, HOST_BUCKET)
-    widths = [HOST_BUCKET] * nb + ([rem] if rem else [])
+    chunk, widths = _host_zero_geometry(total, RANKS)
     spans = host_bucket_spans(chunk, widths)
     p0_host = torch.cat([t.reshape(-1).cpu() for t in tree_flatten(
         params)[0]])
@@ -2660,6 +2723,638 @@ def _host_engine_steps(torch, np, kernels, E, engines, model, params, batch,
     out.update(losses=losses, step_rows=rows, median=med, first=rows[0],
                peak_gib=peak, launches=launches, per_step=want_step,
                native_runs=[e.native_runs for e in engines])
+    return out
+
+
+#: phase 13: sgd on the host plane's ZeRO-2 step through a kill, a shrink
+#: and a cold restore.  Steps 1-3 run at four ranks; old rank 3 dies in
+#: mode=raise at its first engine collective of step 4; the survivors
+#: replay from step 3 and run steps 4-6 at three ranks; a preempt:all
+#: clause fires at elastic_step's announcement of step 6, and two fresh
+#: peers restore the step-6 manifest and take step 7
+RECOVER_LR, RECOVER_MOMENTUM = 0.05, 0.9
+RECOVER_RANKS = (4, 3, 2)
+RECOVER_KILL_STEP, RECOVER_PREEMPT_STEP, RECOVER_LAST = 4, 6, 7
+RECOVER_VICTIM = 3
+#: per-peer deadline of the phase's engine collectives (s): above the
+#: largest skew of a healthy step (rank 0 waits out its params manifest
+#: before elastic_step's sync), below what a kill may cost
+RECOVER_DEADLINE_S = 20.0
+#: the kill's detection may take the deadline plus this (check (a))
+RECOVER_DETECT_SLACK_S = 15.0
+#: complete manifests kept by rank 0's GC
+RECOVER_KEEP = 2
+
+
+def _repad(torch, flat, total: int, n: int):
+    """``flat``'s first ``total`` elements zero-padded into ``n`` chunks,
+    ``[n, chunk]`` on the host: a state laid out for an ``n``-rank world
+    by hand, in plain torch."""
+    chunk = math.ceil(total / n)
+    out = torch.zeros(n * chunk, dtype=flat.dtype)
+    out[:total] = flat[:total].cpu()
+    return out.view(n, chunk)
+
+
+class _RecoverRank:
+    """One rank of phase 13's host-plane ZeRO-2 world: its peer, pinned
+    buffers, parameter and momentum chunks on the card, and (on the
+    main path) its boundary, snapshot and persist plane."""
+
+    def __init__(self, torch, peer, r: int, n: int, total: int, flat_params,
+                 mom_chunk):
+        from kungfu_tpu_torch.optimizers._transform import TraceState
+
+        self.peer, self.r, self.n = peer, r, n
+        self.chunk, self.widths = _host_zero_geometry(total, n)
+        c = self.chunk
+        self.gbuf = torch.zeros(n * c, dtype=torch.float32, pin_memory=True)
+        self.red = torch.empty(c, dtype=torch.float32, pin_memory=True)
+        self.own = torch.empty(c, dtype=torch.float32, pin_memory=True)
+        padded = _repad(torch, flat_params, total, n)
+        self.p_own = padded[r].to("cuda")
+        self.mom = TraceState(mom_chunk.reshape(-1).to("cuda"))
+        self.zb = self.snap = self.plane = self.full = self.times = None
+
+
+def _recover_body(torch, rk, k: int, inner, total: int, unflat, commit,
+                  state):
+    """Rank ``rk``'s part of step ``k`` on its own thread: the mean
+    reduce-scatter of its pinned gradient, the sgd update of its chunks
+    on the card, the all-gather of the params; on the main path the
+    commits and ``elastic_step``.  Returns ``(gathered params, times,
+    elastic state)``."""
+    from kungfu_tpu_torch.elastic.hooks import elastic_step
+    from kungfu_tpu_torch.optimizers import apply_updates
+    from kungfu_tpu_torch.parallel.zero import (host_bucket_all_gather,
+                                                host_bucket_pipeline,
+                                                host_bucket_spans)
+
+    eng = rk.peer.engine()
+    spans = host_bucket_spans(rk.chunk, rk.widths)
+
+    def keep(b, red):
+        off, w = spans[b]
+        rk.red[off:off + w].copy_(red)
+
+    t0 = time.perf_counter()
+    host_bucket_pipeline(eng, rk.gbuf, rk.widths, keep, op="mean",
+                         name=f"g{k}")
+    t1 = time.perf_counter()
+    u, rk.mom = inner.update(rk.red.to("cuda", non_blocking=True), rk.mom,
+                             rk.p_own)
+    rk.p_own = apply_updates(rk.p_own, u)
+    rk.own.copy_(rk.p_own)  # synchronises
+    t2 = time.perf_counter()
+    full = host_bucket_all_gather(eng, rk.own, rk.widths, name=f"p{k}")
+    t3 = time.perf_counter()
+    rk.full = full
+    times = {"reduce_scatter_ms": (t1 - t0) * 1e3,
+             "update_ms": (t2 - t1) * 1e3,
+             "all_gather_ms": (t3 - t2) * 1e3}
+    rk.times = times
+    if not commit:
+        return full, times, state
+    flat = full[:total]
+    rk.zb.commit_local(k, rk.mom, total=total, old_n=rk.n, my_old=rk.r)
+    t4 = time.perf_counter()
+    rk.zb.replicate_ring(rk.peer.channel, rk.peer.cluster.workers,
+                         tag=f"s{k}")
+    t5 = time.perf_counter()
+    rk.snap.commit(k, unflat(flat))
+    t6 = time.perf_counter()
+    rk.plane.commit(k, rk.zb, replicated={"params": flat}
+                    if rk.r == 0 else None)
+    t7 = time.perf_counter()
+    rk.plane.persist_fence()
+    t8 = time.perf_counter()
+    times.update(boundary_commit_ms=(t4 - t3) * 1e3,
+                 buddy_ms=(t5 - t4) * 1e3, snapshot_ms=(t6 - t5) * 1e3,
+                 persist_issue_ms=(t7 - t6) * 1e3,
+                 persist_fence_ms=(t8 - t7) * 1e3)
+    state, _, _ = elastic_step(rk.peer, state, None, unflat(flat),
+                               zero_boundary=rk.zb)
+    times["elastic_step_ms"] = (time.perf_counter() - t8) * 1e3
+    return full, times, state
+
+
+def _shrink_marks(events, ends) -> dict:
+    """Seconds between the shrink marks of the recovery: per old rank,
+    the ping sweep and the drain of in-flight handles (``ping-confirm``
+    to ``consensus``) and the exclusion consensus (``consensus`` to
+    ``propose``); over the ranks, the replay broadcast (first ``replay``
+    to last ``zero-recarve``) and the re-carve (last ``zero-recarve`` to
+    the last rank's return, ``ends`` on the timeline's clock)."""
+    by = {}
+    for ev in events:
+        if ev["kind"] == "shrink":
+            by.setdefault(ev["name"], []).append(
+                (ev["ts"], ev["rank"], ev["attrs"]))
+    out = {"find_dead_ranks_s": {}, "consensus_s": {}}
+    for ts, rank, _ in by.get("ping-confirm", []):
+        nxt = [t for t, r, _ in by.get("consensus", []) if r == rank]
+        prop = [t for t, r, _ in by.get("propose", []) if r == rank]
+        if nxt:
+            out["find_dead_ranks_s"][rank] = nxt[0] - ts
+            if prop:
+                out["consensus_s"][rank] = prop[0] - nxt[0]
+    rep = [t for t, _, _ in by.get("replay", [])]
+    rec = [t for t, _, _ in by.get("zero-recarve", [])]
+    if rep and rec:
+        out["replay_broadcast_s"] = max(rec) - min(rep)
+        out["recarve_s"] = max(ends) - max(rec)
+    out["marks"] = sorted(by)
+    return out
+
+
+def phase_recover(torch, np, kernels, tr):
+    """The peer runtime and in-flight failure recovery on gpt_small
+    (max_seq 2048, the build of phases 6, 8, 9 and 11): four Peers, one
+    thread each, made by ``parse_config_from_env`` from env dicts in
+    ``single_machine_env``'s shape on ports found free
+    (``start_local_cluster``), under a ConfigServer; rank r takes row r
+    of phase 6's batch.  A step: every rank's gradient on the card
+    (kernel rows 1-5), copied into its pinned buffer, mean
+    reduce-scattered by ``host_bucket_pipeline`` over ``peer.engine()``,
+    ``sgd(0.05, momentum=0.9)`` on the rank's chunks on the card, the
+    params regathered by ``host_bucket_all_gather``; then
+    ``ZeroBoundary.commit_local`` with ring-buddy mirrors,
+    ``StepSnapshot.commit``, ``PersistPlane.commit`` (period 0), the
+    fence and ``elastic_step``.  Old rank 3 dies at step 4's first
+    engine collective; the survivors recover, replay from step 3 and run
+    steps 4-6; a whole-job preemption after step 6 ends the run, and two
+    fresh peers restore the step-6 manifest and take step 7.  Checks
+    (a)-(h) of the module docstring, each fatal."""
+    import shutil
+    import tempfile
+    from dataclasses import replace
+
+    from kungfu_tpu_torch import chaos
+    from kungfu_tpu_torch.checkpoint import StepSnapshot
+    from kungfu_tpu_torch.comm.device import Communicator
+    from kungfu_tpu_torch.comm.faults import PeerFailureError
+    from kungfu_tpu_torch.elastic import ConfigServer, ZeroBoundary
+    from kungfu_tpu_torch.elastic.hooks import ElasticState
+    from kungfu_tpu_torch.elastic.persist import (PersistPlane,
+                                                  agreed_manifest_path,
+                                                  choose_manifest,
+                                                  restore_from_manifest)
+    from kungfu_tpu_torch.elastic.resize import fetch_cluster
+    from kungfu_tpu_torch.monitor import timeline
+    from kungfu_tpu_torch.optimizers import sgd
+    from kungfu_tpu_torch.parallel.train import per_rank_grads, split_batch
+    from kungfu_tpu_torch.parallel.zero import reshard_plan
+    from kungfu_tpu_torch.peer import start_local_cluster
+    from kungfu_tpu_torch.plan import Cluster, HostList
+    from kungfu_tpu_torch.utils import envs
+    from kungfu_tpu_torch.utils.tree import (tree_flatten, tree_leaves,
+                                             tree_unflatten)
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()  # stamped on every number the phase prints
+    model, params, batch, _, loss_fn = _flagship_train(torch, np, tr,
+                                                       kernels[0])
+    cfg = model.cfg
+    leaves, treedef = tree_flatten(params)
+    sizes = [t.numel() for t in leaves]
+    shapes = [t.shape for t in leaves]
+    total = sum(sizes)
+    check(total == FLAGSHIP_PARAMS, f"gpt_small has {total} params")
+    shards = split_batch(batch, TRAIN_BATCH)
+    inner = sgd(RECOVER_LR, momentum=RECOVER_MOMENTUM)
+    flat0 = torch.cat([t.reshape(-1) for t in leaves]).cpu()
+    del params, leaves
+
+    def unflat(flat):
+        parts, off = [], 0
+        for m, shape in zip(sizes, shapes):
+            parts.append(flat[off:off + m].view(shape))
+            off += m
+        return tree_unflatten(treedef, parts)
+
+    def flatten(tree):
+        return torch.cat([t.reshape(-1) for t in tree_leaves(tree)])
+
+    dev = torch.empty((RANKS, total), dtype=torch.float32, device="cuda")
+    launches = {key: 0 for key in _counts(kernels)}
+    rows, losses, writes = {}, {}, []
+    out = {"params": total, "deadline_s": RECOVER_DEADLINE_S}
+    saved_env = {k: os.environ.get(k) for k in (
+        "KF_CHAOS_SPEC", "KF_CONFIG_PEER_DEADLINE", "KF_PERSIST_PERIOD",
+        "KF_PERSIST_KEEP", "KF_PERSIST_RESTORE", "KF_CONFIG_ENABLE_TRACE",
+        "KF_TPU_USE_UNIXSOCK")}
+
+    def step(world, k, flat, body, what="main path"):
+        """Step ``k`` on ``world`` from the params ``flat``: the ranks'
+        gradients on the main thread (launches checked), then
+        ``body(rank)`` on a thread a rank; returns the loss, the bodies'
+        results (or exceptions) and the step's main-thread times."""
+        n = len(world)
+        _reset(kernels)
+        t0 = time.perf_counter()
+        p = unflat(flat.to("cuda"))
+
+        def sink(r, grads):
+            off = 0
+            for g, m in zip(grads, sizes):
+                dev[r, off:off + m].copy_(g.reshape(-1))
+                off += m
+
+        outs, _ = per_rank_grads(loss_fn, p, shards[:n], sink)
+        loss = sum(float(x) for x in outs) / n  # synchronises
+        t1 = time.perf_counter()
+        for r, rk in enumerate(world):
+            rk.gbuf[:total].copy_(dev[r])
+        t2 = time.perf_counter()
+        got = _counts(kernels)
+        want = {key: 0 for key in got}
+        want.update(_rank_launches(cfg, n))
+        check(got == want, f"(g) {what} step {k} at {n} ranks launched "
+              f"{got}, expected {want}")
+        if what == "main path":
+            for key, v in got.items():
+                launches[key] += v
+        check(math.isfinite(loss), f"(h) {what} step {k}: loss {loss}")
+        del p
+        res = _run_ranks([lambda rk=rk: body(rk) for rk in world],
+                         timeout=600, return_exceptions=True)
+        return loss, res, {"grads_ms": (t1 - t0) * 1e3,
+                           "d2h_ms": (t2 - t1) * 1e3,
+                           "ranks_ms": (time.perf_counter() - t2) * 1e3}
+
+    def plain_body(k, states=None):
+        commit = states is not None
+
+        def body(rk):
+            return _recover_body(torch, rk, k, inner, total, unflat, commit,
+                                 states[rk.r] if commit else None)
+        return body
+
+    def finish(world, res, k, loss, times, label):
+        """Every rank's gathered params bitwise alike; the step's row and
+        its persist writes (from the timeline's ckpt marks)."""
+        bad = [x for x in res if isinstance(x, BaseException)]
+        check(not bad, f"{label} step {k} raised {bad}")
+        fulls = [rk.full for rk in world]
+        check(all(torch.equal(f, fulls[0]) for f in fulls),
+              f"{label} step {k}: the ranks' gathered params differ")
+        row = dict(times)
+        for key in res[0][1]:
+            row[key] = statistics.median(x[1][key] for x in res
+                                         if key in x[1])
+        row["step_ms"] = sum(v for key, v in row.items()
+                             if key.endswith("_ms") and key != "ranks_ms")
+        row["loss"] = loss
+        rows.setdefault(label, []).append(row)
+        return fulls[0][:total].clone()
+
+    def ckpt_writes():
+        """(rank, step, s from issue to durable) of the persist marks
+        since the last call."""
+        issued = {}
+        for ev in timeline.snapshot():
+            if ev["kind"] != "ckpt":
+                continue
+            key = (ev["rank"], ev["attrs"].get("step"))
+            if ev["name"] == "persist-issue":
+                issued[key] = ev["ts"]
+            elif ev["name"] == "persist-done" and key in issued:
+                writes.append((key[0], key[1], ev["ts"] - issued[key],
+                               ev["attrs"].get("nbytes")))
+        timeline.reset()
+
+    def fixed_world(n, flat, mom_rows, steps, tag):
+        """``steps`` of a fresh ``n``-peer world (no commits) from the
+        params ``flat`` and momentum rows ``mom_rows``, as the main path
+        runs them: its engines, strategy and rows."""
+        ps = start_local_cluster(n, devices=["cuda"])
+        try:
+            w = [_RecoverRank(torch, p, r, n, total, flat, mom_rows[r])
+                 for r, p in enumerate(ps)]
+            for k in steps:
+                loss, res, times = step(w, k, flat, plain_body(k),
+                                        what=f"fixed {tag}")
+                flat = finish(w, res, k, loss, times, f"fixed_{n}")
+                losses[f"fixed_{n}_{k}"] = loss
+            return flat, torch.stack([rk.mom.trace.cpu() for rk in w])
+        finally:
+            for p in ps:
+                p.close()
+
+    hosts = HostList.parse(f"127.0.0.1:{RANKS}")
+    server = ConfigServer(port=0, host="127.0.0.1", cluster=Cluster(
+        hosts.gen_runner_list(), hosts.gen_peer_list(RANKS))).start()
+    root = tempfile.mkdtemp(prefix="kfpersist")
+    peers = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        chaos.reset()
+        timeline.reset()
+        os.environ["KF_TPU_USE_UNIXSOCK"] = "0"
+        os.environ["KF_CONFIG_PEER_DEADLINE"] = str(RECOVER_DEADLINE_S)
+        os.environ["KF_PERSIST_PERIOD"] = "0"
+        os.environ["KF_PERSIST_KEEP"] = str(RECOVER_KEEP)
+        os.environ["KF_CONFIG_ENABLE_TRACE"] = "1"
+        os.environ.pop("KF_PERSIST_RESTORE", None)
+        n4, n3, n2 = RECOVER_RANKS
+        c4, w4 = _host_zero_geometry(total, n4)
+        # the victim's Nth engine collective: a healthy step runs one
+        # reduce-scatter and one all-gather a bucket and elastic_step's
+        # step sync
+        kill_coll = (2 * len(w4) + 1) * (RECOVER_KILL_STEP - 1) + 1
+        spec = (f"die:coll={kill_coll},rank={RECOVER_VICTIM},mode=raise;"
+                f"preempt:all,step={RECOVER_PREEMPT_STEP},mode=raise")
+        os.environ["KF_CHAOS_SPEC"] = spec
+        t0 = time.perf_counter()
+        peers = start_local_cluster(
+            n4, env={envs.CONFIG_SERVER: server.url}, devices=["cuda"])
+        out["start_s"] = time.perf_counter() - t0
+        comm = peers[0].communicator()
+        check(comm.device.type == "cuda",
+              f"a peer's communicator is on {comm.device}")
+        print(f"recover: {n4} Peers {[str(p.config.self_id) for p in peers]}"
+              f" started in {out['start_s']:.2f} s under ConfigServer "
+              f"{server.url}; chaos {spec!r}; peer deadline "
+              f"{RECOVER_DEADLINE_S} s; {len(w4)} buckets a rank at 4")
+        world = [_RecoverRank(torch, p, r, n4, total, flat0,
+                              torch.zeros(c4)) for r, p in enumerate(peers)]
+        for rk in world:
+            rk.zb, rk.snap = ZeroBoundary(), StepSnapshot()
+            rk.plane = PersistPlane(root, rk.r, cluster_version=0)
+        out["pinned_bytes_4"] = sum(
+            b.numel() * 4 for rk in world for b in (rk.gbuf, rk.red, rk.own))
+        states = [ElasticState(step=1) for _ in world]
+        flat = flat0
+        for k in range(1, RECOVER_KILL_STEP):
+            loss, res, times = step(world, k, flat, plain_body(k, states))
+            flat = finish(world, res, k, loss, times, str(n4))
+            states = [x[2] for x in res]
+            losses[k] = loss
+            ckpt_writes()
+        ctl = chaos.controller_for(RECOVER_VICTIM)
+        check(ctl._colls == kill_coll - 1, f"the victim ran {ctl._colls} "
+              f"engine collectives in steps 1-3, not {kill_coll - 1}")
+        flat3 = flat
+        # the optimizer's own state, not the boundary under test
+        mom3 = torch.cat([rk.mom.trace.cpu() for rk in world])
+
+        # the kill: old rank 3 dies at step 4's first engine collective
+        deaths, errs, recov, ends = {}, {}, {}, []
+
+        def kill_body(rk):
+            try:
+                _recover_body(torch, rk, RECOVER_KILL_STEP, inner, total,
+                              unflat, True, states[rk.r])
+                return "no failure"
+            except chaos.InjectedDeath:
+                deaths[rk.r] = time.perf_counter()
+                rk.plane.close()
+                rk.peer.close()  # its sockets stop answering pings
+                return "died"
+            except PeerFailureError as err:
+                errs[rk.r] = (time.perf_counter(), err)
+                shrunk, replay = rk.peer.recover_from_failure(
+                    err, snapshot=rk.snap, zero_boundary=rk.zb)
+                recov[rk.r] = time.perf_counter()
+                ends.append(time.time())  # the timeline's clock
+                return shrunk, replay
+
+        loss4_dead, res, _ = step(world, RECOVER_KILL_STEP, flat, kill_body)
+        marks = _shrink_marks(timeline.snapshot(), ends)
+        timeline.reset()
+        survivors = [rk for rk in world if rk.r != RECOVER_VICTIM]
+        check(res[RECOVER_VICTIM] == "died" and set(deaths) ==
+              {RECOVER_VICTIM}, f"the victim: {res[RECOVER_VICTIM]}")
+        # (a) detection: a typed error naming the victim, in time
+        detect = {}
+        for rk in survivors:
+            check(rk.r in errs, f"(a) rank {rk.r} got no PeerFailureError: "
+                  f"{res[rk.r]}")
+            t_err, err = errs[rk.r]
+            detect[rk.r] = t_err - deaths[RECOVER_VICTIM]
+            check(err.rank == RECOVER_VICTIM, f"(a) rank {rk.r}'s "
+                  f"PeerFailureError names rank {err.rank}: {err}")
+            check(detect[rk.r] <= RECOVER_DEADLINE_S + RECOVER_DETECT_SLACK_S,
+                  f"(a) rank {rk.r} took {detect[rk.r]:.2f} s to detect")
+        # (b) membership: three peers at version 1, one digest, published
+        digests = {rk.peer.cluster.digest() for rk in survivors}
+        check(all(rk.peer.size() == n3 and rk.peer.cluster_version == 1
+                  and not rk.peer.detached for rk in survivors)
+              and len(digests) == 1,
+              f"(b) membership {[(rk.peer.size(), rk.peer.cluster_version) for rk in survivors]}, {len(digests)} digests")
+        published, pub_v = fetch_cluster(server.url)
+        check(published.workers == survivors[0].peer.cluster.workers,
+              f"(b) the config server holds {published} (version {pub_v})")
+        # (c) the agreed replay point: step 3's params, bitwise
+        replay_bytes = len(survivors[0].snap.serialize())
+        flat_r = None
+        for rk in survivors:
+            shrunk, replay = res[rk.r]
+            check(shrunk and replay is not None and replay[0] ==
+                  RECOVER_KILL_STEP - 1, f"(c) rank {rk.r}: shrunk "
+                  f"{shrunk}, replay step {replay and replay[0]}")
+            got = flatten(replay[1])
+            check(torch.equal(got, flat3), f"(c) rank {rk.r}'s replayed "
+                  "params differ from step 3's")
+            flat_r = got
+        # (d) the re-carve, the dead rank's chunk from its ring buddy
+        want3 = _repad(torch, mom3, total, n3)
+        for rk in survivors:
+            got = rk.zb.chunks()[1][0]
+            check(torch.equal(got, want3[rk.r]), f"(d) rank {rk.r}'s "
+                  "re-carved momentum chunk differs from step 3's state "
+                  "repadded into three chunks")
+        plan = reshard_plan(total, n4, n3)
+        moved = sum(ln for o, r, _, ln in plan
+                    if (o if o != RECOVER_VICTIM else o - 1) != r) * 4
+        comm3 = Communicator(devices=["cuda:0"] * n3, local_size=n3,
+                             version=1)
+        t0 = time.perf_counter()
+        rows3 = [rk.zb.place(comm3) for rk in survivors]
+        torch.cuda.synchronize()
+        place_s = time.perf_counter() - t0
+        world3 = []
+        for rk, st in zip(survivors, rows3):
+            nr = _RecoverRank(torch, rk.peer, rk.r, n3, total, flat_r,
+                              st.trace)
+            nr.zb, nr.snap = rk.zb, rk.snap
+            nr.plane = PersistPlane(root, rk.r,
+                                    cluster_version=rk.peer.cluster_version)
+            rk.plane.close()
+            world3.append(nr)
+        del world, rows3
+        out["pinned_bytes_3"] = sum(
+            b.numel() * 4 for rk in world3 for b in (rk.gbuf, rk.red, rk.own))
+        recover_s = {rk.r: recov[rk.r] - errs[rk.r][0] for rk in survivors}
+        out.update(detect_s=detect, recover_s=recover_s, shrink=marks,
+                   replay_bytes=replay_bytes, recarve_bytes=moved,
+                   place_s=place_s, kill_coll=kill_coll,
+                   replay_step=RECOVER_KILL_STEP - 1)
+        print(f"recover: old rank {RECOVER_VICTIM} died at its engine "
+              f"collective {kill_coll} (step {RECOVER_KILL_STEP}); kill -> "
+              f"PeerFailureError s {detect}; recover_from_failure s "
+              f"{recover_s}; ping sweep s {marks['find_dead_ranks_s']}, "
+              f"exclusion consensus s {marks['consensus_s']}, replay "
+              f"broadcast {marks.get('replay_broadcast_s', float('nan')):.3f}"
+              f" s for {replay_bytes} B; re-carve "
+              f"{marks.get('recarve_s', float('nan')):.3f} s, {moved} B "
+              f"moved; place {place_s:.3f} s; cluster version 1 of {n3} "
+              f"peers, published (config version {pub_v}); {smi}")
+
+        # steps 4-6 at three ranks, from the replay point
+        states = [replace(states[rk.r], step=RECOVER_KILL_STEP)
+                  for rk in world3]
+        flat = flat_r
+        preempted = {}
+
+        def last_body(rk):
+            try:
+                return _recover_body(torch, rk, RECOVER_PREEMPT_STEP, inner,
+                                     total, unflat, True, states[rk.r])
+            except chaos.InjectedDeath:
+                preempted[rk.r] = True
+                rk.plane.close()
+                rk.peer.close()
+                return (rk.full, rk.times, None)
+
+        for k in range(RECOVER_KILL_STEP, RECOVER_PREEMPT_STEP + 1):
+            body = (last_body if k == RECOVER_PREEMPT_STEP
+                    else plain_body(k, states))
+            loss, res, times = step(world3, k, flat, body)
+            flat = finish(world3, res, k, loss, times, str(n3))
+            states = [x[2] for x in res]
+            losses[k] = loss
+            ckpt_writes()
+        check(sorted(preempted) == list(range(n3)),
+              f"preempt:all fired on ranks {sorted(preempted)}")
+        flat6 = flat
+        mom6 = torch.cat([rk.mom.trace.cpu() for rk in world3])
+        mdir6 = os.path.join(root, f"step_{RECOVER_PREEMPT_STEP:08d}.v1")
+        manifest_bytes = sum(os.path.getsize(os.path.join(mdir6, f))
+                             for f in os.listdir(mdir6))
+        del world3
+        peers = []
+        chaos.reset()
+        os.environ.pop("KF_CHAOS_SPEC")
+        os.environ.pop("KF_CONFIG_ENABLE_TRACE")
+
+        # (e) a fixed three-rank world from (c) + (d), steps 4-6
+        fx6, fx_mom6 = fixed_world(n3, flat3, want3,
+                                   range(RECOVER_KILL_STEP,
+                                         RECOVER_PREEMPT_STEP + 1), "3")
+        _check_bitwise(torch, [flat6, mom6], [fx6, fx_mom6.reshape(-1)],
+                       "recover (e): params and momentum after steps 4-6 "
+                       "vs a fixed three-rank world")
+        for k in range(RECOVER_KILL_STEP, RECOVER_PREEMPT_STEP + 1):
+            check(losses[k] == losses[f"fixed_3_{k}"],
+                  f"(e) step {k} loss {losses[k]} != the fixed world's")
+
+        # (f) the cold restore: two fresh peers agree on the newest
+        # complete manifest and restore their shares of it
+        os.environ["KF_PERSIST_RESTORE"] = "1"
+        check(envs.persist_knobs()["restore"], "KF_PERSIST_RESTORE unarmed")
+        t0 = time.perf_counter()
+        peers = start_local_cluster(n2, devices=["cuda"])
+
+        def restore_body(p):
+            r = p.rank()
+            plane = PersistPlane(root, r, cluster_version=p.cluster_version)
+            s, v = choose_manifest(root) if r == 0 else (-1, -1)
+            s, v = plane.agree_manifest(p.channel, p.cluster.workers, r, s, v)
+            rs = restore_from_manifest(agreed_manifest_path(root, s, v), r,
+                                       n2)
+            zb = ZeroBoundary()
+            rs.install_into_boundary(zb)
+            plane.close()
+            return rs, zb
+
+        restored = _run_ranks([lambda p=p: restore_body(p) for p in peers],
+                              timeout=300, return_exceptions=True)
+        restore_s = time.perf_counter() - t0
+        want2 = _repad(torch, mom6, total, n2)
+        for r, x in enumerate(restored):
+            check(not isinstance(x, BaseException), f"(f) restore: {x}")
+            rs, zb = x
+            check(rs.step == RECOVER_PREEMPT_STEP and rs.meta["old_n"] == n3,
+                  f"(f) rank {r} restored step {rs.step} of "
+                  f"{rs.meta['old_n']} ranks")
+            check(torch.equal(rs.vec[0], want2[r]) and
+                  torch.equal(zb.chunks()[1][0], want2[r]),
+                  f"(f) rank {r}'s restored momentum differs from step 6's "
+                  "state repadded into two chunks")
+            check(torch.equal(rs.replicated["params"], flat6),
+                  f"(f) rank {r}'s restored params differ from step 6's")
+        world2 = [_RecoverRank(torch, p, r, n2, total,
+                               restored[r][0].replicated["params"],
+                               restored[r][0].vec[0])
+                  for r, p in enumerate(peers)]
+        k = RECOVER_LAST
+        loss, res, times = step(world2, k,
+                                restored[0][0].replicated["params"],
+                                plain_body(k))
+        flat7 = finish(world2, res, k, loss, times, str(n2))
+        losses[k] = loss
+        mom7 = torch.cat([rk.mom.trace.cpu() for rk in world2])
+        del world2
+        for p in peers:
+            p.close()
+        peers = []
+        fx7, fx_mom7 = fixed_world(n2, flat6, want2, [k], "2")
+        _check_bitwise(torch, [flat7, mom7], [fx7, fx_mom7.reshape(-1)],
+                       "recover (f): params and momentum after step 7 from "
+                       "the manifest vs a fixed two-rank world")
+        check(losses[k] == losses[f"fixed_2_{k}"],
+              f"(f) step {k} loss {losses[k]} != the fixed world's")
+    finally:
+        for p in peers:
+            p.close()
+        server.stop()
+        shutil.rmtree(root, ignore_errors=True)
+        for key, v in saved_env.items():
+            if v is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = v
+        chaos.reset()
+        timeline.reset()
+    # (h) the loss
+    main = [losses[k] for k in range(1, RECOVER_LAST + 1)]
+    print(f"recover (h): losses of steps 1-{RECOVER_LAST} "
+          f"{[round(x, 4) for x in main]}")
+    check(main[-1] < main[0], f"(h) the loss did not fall: {main}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    med = {}
+    for label, rs_ in rows.items():
+        keys = {key for r in rs_ for key in r if key != "loss"}
+        med[label] = {key: statistics.median(r[key] for r in rs_ if key in r)
+                      for key in keys}
+    w_rank0 = [w[2] for w in writes if w[0] == 0]
+    w_other = [w[2] for w in writes if w[0] != 0]
+    wall = time.perf_counter() - t_phase
+    for label in (str(n) for n in RECOVER_RANKS):
+        m = med[label]
+        print(f"recover step ms at {label} ranks (median of "
+              f"{len(rows[label])}): {m['step_ms']:.2f} = grads "
+              f"{m['grads_ms']:.2f} + D2H {m['d2h_ms']:.2f} + "
+              f"reduce-scatter {m['reduce_scatter_ms']:.2f} + update "
+              f"{m['update_ms']:.2f} + all-gather {m['all_gather_ms']:.2f}"
+              + "".join(f" + {key[:-3]} {m[key]:.2f}" for key in (
+                  "boundary_commit_ms", "buddy_ms", "snapshot_ms",
+                  "persist_issue_ms", "persist_fence_ms", "elastic_step_ms")
+                  if key in m) + f"; {smi}")
+    print(f"recover: persist {manifest_bytes} B in the step-6 manifest; "
+          f"writer-thread s per write rank 0 "
+          f"{[round(x, 3) for x in w_rank0]}, other ranks median "
+          f"{statistics.median(w_other) if w_other else float('nan'):.3f}; "
+          f"agree_manifest + restore {restore_s:.3f} s (2 peers started "
+          f"with it); pinned {out['pinned_bytes_4']} B at 4 ranks; peak "
+          f"device memory {peak:.2f} GiB; phase {wall:.1f} s; {smi}")
+    out.update(launches=launches, losses={str(k): v for k, v in
+                                          losses.items()},
+               step_rows=rows, median=med, persist_writes=writes,
+               manifest_bytes=manifest_bytes, restore_s=restore_s,
+               peak_gib=peak, wall_s=wall)
     return out
 
 
@@ -2859,8 +3554,14 @@ def main() -> int:
                                     replicas["gns"])
     print(f"host engine phase: {host_engine['phase_s']:.2f} s")
     del bert
+    torch.cuda.empty_cache()
+
+    # 13. the peer runtime: a rank killed mid-collective, the survivors
+    # shrunk and replayed, a whole-job preemption restored from manifests
+    recover = phase_recover(torch, np, kernels, tr)
+    print(f"recover phase: {recover['wall_s']:.2f} s")
     paths = (train, train_fused, ssgd, zero2, zero3, replicas, elastic,
-             host_engine)
+             host_engine, recover)
 
     def row(name, route, source, replaces, key, err, timing, bert=None):
         extra = {k: timing[k] for k in ("plain_head_ms", "bound_fp32_ms",
@@ -2938,12 +3639,15 @@ def main() -> int:
                 "xent_bwd"):
         check(host_engine["launches"][key] > 0,
               f"phase 12 never launched {key}")
+        check(recover["launches"][key] > 0,
+              f"phase 13 never launched {key}")
     print("details: " + json.dumps({
         "forward": fwd, "serve": serve, "train": train,
         "train_fused_head": train_fused, "ssgd_4_ranks": ssgd,
         "zero2_4_ranks": zero2, "zero3_4_ranks": zero3,
         "replicas_bert_4_ranks": replicas, "elastic_4_2_4": elastic,
         "host_engine_bert_4_ranks": host_engine,
+        "recover_gpt_4_3_2": recover,
         "ring_timing": ring_timing, "build": build,
         "flash_fwd_errors": fwd_errs, "flash_fwd_timing": fwd_timing,
         "flash_bwd_errors": bwd_errs, "flash_bwd_timing": bwd_timing,

@@ -27,6 +27,12 @@ The layout mirrors the reference so a reader finds each counterpart:
   ZeRO state for a new world size (with ``parallel/zero.py``'s
   ``zero1_reshard``, ``zero_snapshot``/``zero_restore`` and
   ``zero_reshard_p2p``);
+* ``peer.py``, ``python/``, ``store/``, ``elastic/{shrink,hooks,slices,
+  persist}.py``, ``monitor/{detector,signals}.py`` — the peer runtime
+  (``kf.init()``, ``current_rank()``, ``cluster_size()``, ``resize()``,
+  ``run_barrier()``) and in-flight failure recovery: a dead rank
+  detected by a typed error, the survivors shrunk and replayed, and a
+  cold restore from durable manifests;
 * ``interop.py`` — weights across from / back to the JAX param tree;
 * ``ops/costmodel.py``, ``monitor/``, ``utils/`` — trimmed copies of the
   reference's jax-free helpers.
@@ -35,3 +41,18 @@ Importing the package builds nothing and touches no GPU: CUDA kernels
 build with ``nvcc`` at first use (``ops/cuda/_build.py``), Triton
 kernels at first launch.
 """
+
+from kungfu_tpu_torch.python import (  # noqa: F401
+    cluster_size,
+    current_communicator,
+    current_local_rank,
+    current_local_size,
+    current_rank,
+    detached,
+    finalize,
+    init,
+    propose_new_size,
+    resize,
+    run_barrier,
+    uid,
+)

@@ -14,9 +14,9 @@ Hook sites in the port: the collective engine's send/recv and
 collective entry (:mod:`kungfu_tpu_torch.comm.engine`), the Python host
 channel's frame writer
 (:meth:`~kungfu_tpu_torch.comm.host.PyHostChannel.chaos_partial_send`),
-and the train loop's step announcement (:func:`note_step`).  The
-reference's other sites (the failure detector's fan-out, the elastic
-config fetch, the serving worker) come with their modules.
+the train loop's step announcement (:func:`note_step`), the failure
+detector's fan-out and the elastic config fetch.  The serving worker's
+site comes with the router.
 """
 
 from kungfu_tpu_torch.chaos.inject import (

@@ -2,13 +2,13 @@
 
 Trimmed copy of ``kungfu_tpu/chaos/inject.py``: the controller keeps
 the hooks the port's callers reach -- ``on_step`` (:func:`note_step`),
-and the engine's ``on_collective``, ``on_send`` and ``on_recv``.  The
-reference's other hooks come with their callers: the serving request
-hook with the router, the slice-scoped deaths (``die_slice``) with the
-slice topology of failure recovery, ``on_ping`` with the latency probe,
-``drop_fanout`` with the failure detector and ``config_unavailable``
-with the consensus config fetch; until then their clauses parse (the
-grammar is the reference's) and never fire.
+the engine's ``on_collective``, ``on_send`` and ``on_recv``, the
+slice-scoped deaths (``die_slice``), the failure detector's
+``drop_fanout`` and the consensus config fetch's
+``config_unavailable``.  The reference's other hooks come with their
+callers: the serving request hook with the router, ``on_ping`` with the
+latency probe (ROADMAP A9); until then their clauses parse (the grammar
+is the reference's) and never fire.
 
 One :class:`ChaosController` exists per (spec, seed, rank) — the engine
 holds the instance for its own rank, the detector and other rank-less
@@ -74,6 +74,8 @@ class ChaosController:
         self._colls = 0
         self._sends = 0
         self._recvs = 0
+        self._fetches = 0
+        self._fanout_dropped: dict = {}
         #: the last step the training loop announced (note_step) — the
         #: arming clock for ``delay:after_step=N`` mid-run onsets; None
         #: until the first announcement, so un-announced processes never
@@ -98,14 +100,32 @@ class ChaosController:
             raise InjectedDeath(why)
         os._exit(DIE_EXIT_CODE)
 
+    def _slice_matches(self, clause: Clause) -> bool:
+        """Does this controller's rank live in the clause's slice?  From
+        ``MEGASCALE_SLICE_ID`` (one process a worker), else ``rank //
+        rps`` for in-process clusters that share one environment."""
+        want = clause.get("slice")
+        if want is None:
+            return False
+        sid = (os.environ.get(envs.MEGASCALE_SLICE_ID, "") or "").strip()
+        if sid:
+            return int(sid) == want
+        rps = clause.get("rps")
+        if rps and self.rank is not None:
+            return self.rank // rps == want
+        return False
+
     def on_step(self, step: int) -> None:
-        """Training loop announced step ``step`` (``die:step=N``,
+        """Training loop announced step ``step`` (``die[_slice]:step=N``,
         ``preempt:all[,step=N]``, and the ``delay:after_step=N`` arming
         clock)."""
         self._step = step
         for c in self._clauses:
             if c.kind == "die" and c.get("step") == step:
                 self._die(c, f"step={step}")
+            elif (c.kind == "die_slice" and c.get("step") == step
+                    and self._slice_matches(c)):
+                self._die(c, f"slice={c.get('slice')} step={step}")
             elif c.kind == "preempt" and c.get("step") in (None, step):
                 # whole-job preemption: every rank's controller matches
                 # (no rank scope by grammar), so all processes die at the
@@ -120,6 +140,9 @@ class ChaosController:
         for c in self._clauses:
             if c.kind == "die" and c.get("coll") == n:
                 self._die(c, f"coll={n} ({tag!r})")
+            elif (c.kind == "die_slice" and c.get("coll") == n
+                    and self._slice_matches(c)):
+                self._die(c, f"slice={c.get('slice')} coll={n} ({tag!r})")
 
     # -- data-path perturbation -------------------------------------------
     def on_send(self, to_rank: int, name: str, payload, channel=None,
@@ -187,6 +210,42 @@ class ChaosController:
         timeline.event("chaos", "reset", rank=self.rank, coll=name,
                        sent=sent, nbytes=nbytes)
         raise InjectedReset(f"injected reset mid-chunk on {name!r}")
+
+    # -- control-plane faults ---------------------------------------------
+    def drop_fanout(self, host: str) -> bool:
+        """True = the detector's fan-out POST to ``host`` is lost."""
+        for i, c in enumerate(self._clauses):
+            if c.kind != "drop_fanout":
+                continue
+            if c.get("host") is not None and c.get("host") != host:
+                continue
+            budget = c.get("count")
+            if budget is not None:
+                with self._lock:
+                    used = self._fanout_dropped.get(i, 0)
+                    if used >= budget:
+                        continue
+                    self._fanout_dropped[i] = used + 1
+            _log.warning("chaos: dropping detector fan-out to %s", host)
+            timeline.event("chaos", "drop_fanout", rank=self.rank, host=host)
+            return True
+        return False
+
+    def config_unavailable(self) -> bool:
+        """True = this config-server fetch falls in a dark window
+        (counted in fetch attempts, not wall time)."""
+        with self._lock:
+            self._fetches += 1
+            n = self._fetches
+        for c in self._clauses:
+            if c.kind == "config_down":
+                after = c.get("after", 0)
+                if after < n <= after + c.get("count", 1):
+                    timeline.event("chaos", "config_down", rank=self.rank,
+                                   fetch=n)
+                    return True
+        return False
+
 
 # -- controller registry ----------------------------------------------------
 _cache_lock = threading.Lock()

@@ -1,21 +1,39 @@
-"""The in-memory replay point of elastic training (trimmed copy of
-``kungfu_tpu/checkpoint.py``: :class:`StepSnapshot`).
+"""Checkpoint and resume (trimmed copy of ``kungfu_tpu/checkpoint.py``).
 
-The disk checkpoints of the reference (``save``/``restore``, orbax, the
-pruning and async writers) are not ported.
+* :class:`StepSnapshot` -- the in-memory replay point of elastic
+  training;
+* disk checkpoints of a tree of tensors: :func:`save_checkpoint` (an
+  atomic numpy ``.npz``, ``ckpt_<step>.npz``, the reference's npz
+  backend file for file), :func:`latest_step`,
+  :func:`restore_checkpoint`, :func:`prune_checkpoints`, and
+  :func:`save_checkpoint_async` with :func:`wait_pending_checkpoints`,
+  which write on one ordered background thread after a synchronous host
+  snapshot.
+
+The reference's orbax backend is not ported: ``KF_TPU_CKPT_BACKEND=orbax``
+and an ``.orbax`` checkpoint raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import struct
+import tempfile
 import threading
+import time
+from concurrent.futures import Future, ThreadPoolExecutor
+from concurrent.futures import TimeoutError as _FutureTimeout
 from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
 
+from kungfu_tpu_torch.utils.log import get_logger
 from kungfu_tpu_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
+
+_log = get_logger("checkpoint")
 
 #: torch dtype -> the numpy ``dtype.name`` the reference's wire form
 #: writes (``bfloat16`` is ml_dtypes' name for it)
@@ -167,3 +185,174 @@ class StepSnapshot:
         tree = tree_unflatten(treedef, leaves)
         self.commit(int(head["step"]), tree, head.get("meta") or {})
         return self.last()
+
+
+# -- disk checkpoints -------------------------------------------------------
+CKPT_BACKEND = "KF_TPU_CKPT_BACKEND"
+
+
+def _backend() -> str:
+    """``KF_TPU_CKPT_BACKEND``: ``auto`` and ``npz`` write npz; the
+    reference's ``orbax`` is not ported."""
+    mode = os.environ.get(CKPT_BACKEND, "auto").lower()
+    if mode == "orbax":
+        raise NotImplementedError(
+            f"{CKPT_BACKEND}=orbax: the port writes npz checkpoints only")
+    return "npz"
+
+
+def _step_entries(ckpt_dir: str):
+    """``[(step, filename)]`` of every checkpoint, in either of the
+    reference's formats."""
+    out = []
+    for name in os.listdir(ckpt_dir):
+        if not name.startswith("ckpt_"):
+            continue
+        stem = name[5:]
+        for suffix in (".npz", ".orbax"):
+            if stem.endswith(suffix):
+                try:
+                    out.append((int(stem[:-len(suffix)]), name))
+                except ValueError:
+                    pass
+    return out
+
+
+def _to_npz_safe(t) -> np.ndarray:
+    """A host numpy copy of a leaf; bf16 widened to f32 (lossless; the
+    restore casts to the like tree's dtype)."""
+    t = torch.as_tensor(t).detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return np.array(t.numpy())
+
+
+def save_checkpoint(ckpt_dir: str, step: int, tree,
+                    meta: Optional[dict] = None) -> str:
+    """Atomically write ``tree`` (and ``meta``) as checkpoint ``step``;
+    returns its path."""
+    _backend()
+    os.makedirs(ckpt_dir, exist_ok=True)
+    leaves, _ = tree_flatten(tree)
+    arrays = {f"leaf_{i}": _to_npz_safe(l) for i, l in enumerate(leaves)}
+    path = os.path.join(ckpt_dir, f"ckpt_{step:08d}.npz")
+    fd, tmp = tempfile.mkstemp(dir=ckpt_dir, suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            np.savez(f, __meta__=json.dumps(meta or {}), **arrays)
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
+    _log.info("saved checkpoint %s", path)
+    return path
+
+
+def latest_step(ckpt_dir: str) -> Optional[int]:
+    if not os.path.isdir(ckpt_dir):
+        return None
+    steps = [s for s, _ in _step_entries(ckpt_dir)]
+    return max(steps) if steps else None
+
+
+def restore_checkpoint(ckpt_dir: str, like_tree, step: Optional[int] = None):
+    """The newest (or the given step's) checkpoint in the structure,
+    dtypes and devices of ``like_tree``: ``(tree, step, meta)``, or None
+    when there is none."""
+    if step is None:
+        step = latest_step(ckpt_dir)
+        if step is None:
+            return None
+    orbax_path = os.path.join(os.path.abspath(ckpt_dir),
+                              f"ckpt_{step:08d}.orbax")
+    if os.path.isdir(orbax_path):
+        raise NotImplementedError(
+            f"checkpoint {orbax_path} was written by the reference's orbax "
+            "backend; the port reads npz checkpoints only")
+    path = os.path.join(ckpt_dir, f"ckpt_{step:08d}.npz")
+    with np.load(path, allow_pickle=False) as data:
+        meta = json.loads(str(data["__meta__"]))
+        leaves, treedef = tree_flatten(like_tree)
+        restored = []
+        for i, like in enumerate(leaves):
+            like = torch.as_tensor(like)
+            arr = torch.from_numpy(np.array(data[f"leaf_{i}"]))
+            restored.append(arr.to(device=like.device, dtype=like.dtype))
+    _log.info("restored checkpoint %s (meta=%s)", path, meta)
+    return tree_unflatten(treedef, restored), step, meta
+
+
+# one background writer: checkpoints land in order
+_writer_lock = threading.Lock()
+_writer: Optional[ThreadPoolExecutor] = None
+_pending: list = []
+
+
+def _get_writer() -> ThreadPoolExecutor:
+    global _writer
+    with _writer_lock:
+        if _writer is None:
+            _writer = ThreadPoolExecutor(max_workers=1,
+                                         thread_name_prefix="kf-ckpt")
+        return _writer
+
+
+def save_checkpoint_async(ckpt_dir: str, step: int, tree,
+                          meta: Optional[dict] = None) -> "Future[str]":
+    """:func:`save_checkpoint` off the step path: the host snapshot is
+    taken here (a copy, so a later step cannot change it), the write
+    runs on one ordered background thread.  Returns a future of the
+    path; :func:`wait_pending_checkpoints` before anything reports
+    progress that relies on it."""
+    host_tree = tree_map(lambda t: torch.as_tensor(t).detach().cpu().clone(),
+                         tree)
+    fut = _get_writer().submit(save_checkpoint, ckpt_dir, step, host_tree,
+                               meta)
+    with _writer_lock:
+        # a failed write stays tracked, so the wait surfaces its error
+        _pending[:] = [f for f in _pending
+                       if not f.done() or f.exception() is not None]
+        _pending.append(fut)
+    return fut
+
+
+def wait_pending_checkpoints(timeout: Optional[float] = None) -> None:
+    """Block until every async checkpoint issued so far is durable;
+    raises the first write failure after waiting for all of them.
+    ``timeout`` is one deadline for all; writes still running when it
+    passes stay tracked."""
+    with _writer_lock:
+        pending = list(_pending)
+        _pending.clear()
+    deadline = None if timeout is None else time.monotonic() + timeout
+    first_err: Optional[BaseException] = None
+    for i, f in enumerate(pending):
+        left = (None if deadline is None
+                else max(0.0, deadline - time.monotonic()))
+        try:
+            f.result(left)
+        except _FutureTimeout:
+            with _writer_lock:
+                _pending.extend(pending[i:])
+            raise
+        except BaseException as e:  # noqa: BLE001 - raised after all wait
+            if first_err is None:
+                first_err = e
+    if first_err is not None:
+        raise first_err
+
+
+def prune_checkpoints(ckpt_dir: str, keep: int = 3) -> None:
+    """Keep the newest ``keep`` checkpoints."""
+    if not os.path.isdir(ckpt_dir):
+        return
+    entries = sorted(_step_entries(ckpt_dir))
+    for _, name in entries[:-keep]:
+        full = os.path.join(ckpt_dir, name)
+        if os.path.isdir(full):
+            shutil.rmtree(full)
+            if os.path.exists(full + ".meta.json"):
+                os.unlink(full + ".meta.json")
+        else:
+            os.unlink(full)

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import math
 import time
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import torch
 
@@ -34,7 +34,7 @@ from kungfu_tpu_torch.ops.schedules import (ALLREDUCE_SCHEDULES, SIZE_BUCKETS,
                                             size_bucket)
 from kungfu_tpu_torch.utils.device import resolve_device
 from kungfu_tpu_torch.utils.log import get_logger
-from kungfu_tpu_torch.utils.tree import tree_map
+from kungfu_tpu_torch.utils.tree import tree_leaves, tree_map
 
 _log = get_logger("kungfu_tpu_torch.comm")
 
@@ -65,7 +65,9 @@ class Communicator:
 
     def __init__(self, devices: Optional[Sequence] = None,
                  local_size: Optional[int] = None, strategy: str = "psum",
-                 version: int = 0):
+                 version: int = 0,
+                 on_strategy_change: Optional[Callable[[str], None]] = None):
+        self._on_strategy_change = on_strategy_change
         self.devices = _one_device(devices)
         n = len(self.devices)
         local = n if local_size is None else int(local_size)
@@ -124,6 +126,10 @@ class Communicator:
             raise ValueError(
                 f"unknown strategy {name!r}; one of {ALLREDUCE_SCHEDULES}")
         self._strategy = name
+        if self._on_strategy_change is not None:
+            # an owning Peer records the choice, so the next mesh epoch
+            # is built with it even if this one is being retired
+            self._on_strategy_change(name)
 
     def set_bucket_strategy(self, bucket: int, name: Optional[str]) -> None:
         """Install ``name`` as the schedule of one payload-size bucket
@@ -313,6 +319,63 @@ class Communicator:
         self._check(x)
         with self.world():
             return coll.broadcast(x, GLOBAL_AXES, root=root)
+
+    def broadcast_value(self, value, root_slot: int = 0):
+        """Rank ``root_slot``'s copy of one unstacked value, as every
+        rank receives it (reference ``comm/device.py:712``): the caller
+        holds every rank's value, so this is ``value`` itself, copied to
+        the communicator's device; a multi-controller mesh broadcasts
+        here."""
+        if not 0 <= root_slot < self._n:
+            raise ValueError(f"root {root_slot} out of range [0, {self._n})")
+        return torch.as_tensor(value).to(self.device, copy=True)
+
+    def local_broadcast(self, x):
+        """Each host's local-rank-0 row broadcast to the ranks of its
+        host (over the intra-host axis only)."""
+        self._check(x)
+        with self.world():
+            return coll.broadcast(x, (LOCAL_AXIS,), root=0)
+
+    def consensus(self, x) -> bool:
+        """True iff every rank's row of every leaf is bit-identical:
+        allreduce min equals allreduce max (reference
+        ``comm/device.py:955``)."""
+        self._check(x)
+        ok = True
+        for leaf in tree_leaves(x):
+            a = torch.as_tensor(leaf)
+            if a.dtype == torch.bool:
+                a = a.to(torch.int32)
+            lo = self._axis_reduce(a, "min", GLOBAL_AXES, schedule="psum")
+            hi = self._axis_reduce(a, "max", GLOBAL_AXES, schedule="psum")
+            ok = ok and bool(torch.equal(lo, hi))
+        return ok
+
+    def consensus_bytes(self, digests: Sequence[bytes]) -> bool:
+        """Consensus over one byte string per rank (cluster digests):
+        True iff all ``n`` agree, lengths included.  A single byte string
+        cannot witness agreement and raises ``TypeError``; cross-process
+        consensus is :meth:`kungfu_tpu_torch.peer.Peer.consensus_bytes`."""
+        if isinstance(digests, (bytes, bytearray)):
+            raise TypeError(
+                "consensus_bytes needs one digest per peer (a sequence of "
+                f"{self._n}); a single local byte string cannot witness "
+                "cross-peer agreement — use Peer.consensus_bytes for "
+                "host-plane consensus")
+        if len(digests) != self._n:
+            raise ValueError(f"expected {self._n} digests (one per "
+                             f"addressable peer slot), got {len(digests)}")
+        width = max((len(d) for d in digests), default=0)
+        lens = torch.tensor([[len(d)] for d in digests], dtype=torch.int32)
+        if width:
+            rows = torch.stack([torch.frombuffer(
+                bytearray(d.ljust(width, b"\0")), dtype=torch.uint8
+            ).to(torch.int32) for d in digests])
+            stacked = torch.cat([rows, lens], dim=1)
+        else:
+            stacked = lens
+        return self.consensus(stacked.to(self.device))
 
     def all_gather(self, x):
         """``out[i] = stack_j x[j]``: every rank sees every row,

@@ -79,6 +79,9 @@ USE_UNIXSOCK = envs.USE_UNIXSOCK
 
 #: default ceiling on the load-scaled pools (``KF_CONFIG_HOST_POOL_MAX``)
 HOST_POOL_CAP_DEFAULT = 16
+#: PEER_TO_PEER names reserved for the serving plane's frames: the blob
+#: store's p2p handler skips them (store/p2p.py)
+SERVE_NAME_PREFIX = "req.srv"
 
 
 def host_pool_size(n_peers: int, floor: int = 2,
@@ -319,6 +322,7 @@ class PyHostChannel(_ChannelOps):
         self._queues: Dict[Tuple[int, str, str, int], queue.Queue] = {}
         self._qlock = threading.Lock()
         self._control_handlers = []
+        self._p2p_handlers = []
         self._pool: Dict[PeerID, list] = {}
         self._pool_lock = threading.Lock()
         #: accepted sockets, shut down on close so their readers end
@@ -413,11 +417,21 @@ class PyHostChannel(_ChannelOps):
             for h in list(self._control_handlers):
                 h(msg.name, msg.payload, msg.src)
             return
+        if (msg.conn_type == ConnType.PEER_TO_PEER
+                and msg.name.startswith("req.") and self._p2p_handlers):
+            for h in list(self._p2p_handlers):
+                h(msg.name, msg.payload, msg.src)
+            return
         self._queue(msg.conn_type, msg.src, msg.name, msg.token).put(msg.payload)
 
     def on_control(self, handler) -> None:
         """Register ``handler(name, payload, src)`` for CONTROL messages."""
         self._control_handlers.append(handler)
+
+    def on_p2p_request(self, handler) -> None:
+        """Register ``handler(name, payload, src)`` for PEER_TO_PEER
+        messages named ``req.*`` (the blob store's responder)."""
+        self._p2p_handlers.append(handler)
 
     # -- client side -----------------------------------------------------
     def _connect(self, peer: PeerID, retries=CONNECT_RETRIES) -> socket.socket:
@@ -555,6 +569,21 @@ class PyHostChannel(_ChannelOps):
                            conn=int(conn_type))
         return True
 
+    def post_recv(self, src: PeerID, name: str, buf,
+                  conn_type: ConnType = ConnType.COLLECTIVE):
+        """The native channel's registered receive, in its API: this
+        backend registers nothing, so ``wait()`` is :meth:`recv_into`."""
+        chan = self
+
+        class _Posted:
+            def wait(self, timeout: Optional[float] = 60.0) -> bool:
+                return chan.recv_into(src, name, buf, conn_type, timeout)
+
+            def abort(self) -> None:
+                pass
+
+        return _Posted()
+
     def ping(self, peer: PeerID, timeout: float = 10.0) -> bool:
         try:
             with socket.create_connection((peer.host, peer.port),
@@ -585,7 +614,9 @@ class NativeHostChannel(_ChannelOps):
         )
         self.self_id = PeerID(self_id.host, self._t.port)
         self._control_handlers = []
+        self._p2p_handlers = []
         self._t.set_control_handler(self._run_handlers(self._control_handlers))
+        self._t.set_p2p_handler(self._run_handlers(self._p2p_handlers))
 
     @staticmethod
     def _run_handlers(handlers):
@@ -612,6 +643,11 @@ class NativeHostChannel(_ChannelOps):
     def on_control(self, handler) -> None:
         """Register ``handler(name, payload, src)`` for CONTROL messages."""
         self._control_handlers.append(handler)
+
+    def on_p2p_request(self, handler) -> None:
+        """Register ``handler(name, payload, src)`` for PEER_TO_PEER
+        messages named ``req.*`` (the blob store's responder)."""
+        self._p2p_handlers.append(handler)
 
     # -- client side -----------------------------------------------------
     def send(self, peer: PeerID, name: str, payload,
@@ -644,6 +680,39 @@ class NativeHostChannel(_ChannelOps):
         mismatch, with the payload left queued for :meth:`recv`."""
         return self._t.recv_into(str(src), name, int(conn_type), timeout, buf)
 
+    def post_recv(self, src: PeerID, name: str, buf,
+                  conn_type: ConnType = ConnType.COLLECTIVE):
+        """Register ``buf`` for a receive before the matching request
+        leaves, so the reply streams from the socket into ``buf`` even
+        when it arrives first.  ``wait()`` is True when filled, False on
+        a queued payload of another size (then :meth:`recv`); ``abort()``
+        when the request was never sent.  The handle keeps ``buf`` alive
+        until it resolves: the C++ stream thread writes into it."""
+        t, s, ct = self._t, str(src), int(conn_type)
+        handle = t.recv_begin(s, name, ct, buf)
+
+        class _Posted:
+            def __init__(self):
+                self._h = handle
+                self._buf = buf
+
+            def wait(self, timeout: Optional[float] = 60.0) -> bool:
+                if self._h is None:  # a payload of another size is queued
+                    return False
+                h, self._h = self._h, None
+                try:
+                    return t.recv_finish(s, name, ct, timeout, h)
+                finally:
+                    self._buf = None
+
+            def abort(self) -> None:
+                if self._h is not None:
+                    h, self._h = self._h, None
+                    t.recv_abort(s, name, ct, h)
+                    self._buf = None
+
+        return _Posted()
+
     def ping(self, peer: PeerID, timeout: float = 10.0) -> bool:
         return self._t.ping(str(peer), timeout)
 
@@ -674,6 +743,19 @@ def HostChannel(self_id: PeerID, token: int = 0, bind_host: str = "",
                          "backend")
     return PyHostChannel(self_id, token=token, bind_host=bind_host,
                          monitor=monitor)
+
+
+def bind_own_host_channel(self_id: PeerID, token: int = 0, monitor=None):
+    """The peer's channel, bound to its own advertised address (local
+    clusters of loopback aliases give every alias the same ports), or
+    to the wildcard when that address is not bindable here."""
+    try:
+        return HostChannel(self_id, token=token, bind_host=self_id.host,
+                           monitor=monitor)
+    except OSError as e:
+        _log.warning("cannot bind %s (%s); binding the wildcard instead",
+                     self_id.host, e)
+        return HostChannel(self_id, token=token, monitor=monitor)
 
 
 def tensor_buffer(t: torch.Tensor):

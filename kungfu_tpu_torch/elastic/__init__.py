@@ -9,10 +9,20 @@
 * :mod:`~kungfu_tpu_torch.elastic.reshard` — ``ZeroBoundary``: the
   committed ZeRO state, re-carved for the new world size, leaderless.
 
+* :mod:`~kungfu_tpu_torch.elastic.resize` also holds
+  ``fetch_cluster_with_consensus``, the peers' agreement on it;
+* :mod:`~kungfu_tpu_torch.elastic.hooks` — ``elastic_step``, the train
+  loop's per-step driver;
+* :mod:`~kungfu_tpu_torch.elastic.shrink` — in-flight failure recovery:
+  the dead set confirmed by ping, the survivors' exclusion consensus,
+  the shrink, the agreed replay point and the ZeRO re-carve;
+* :mod:`~kungfu_tpu_torch.elastic.slices` — the rank-to-slice mapping
+  that makes failures slice-granular on a multislice job;
+* :mod:`~kungfu_tpu_torch.elastic.persist` — durable manifests and the
+  cold restore onto any world size.
+
 The parameter replay point is
-:class:`kungfu_tpu_torch.checkpoint.StepSnapshot`.  The elastic train
-loop driver (``hooks.py``), shrink-to-survivors (``shrink.py``), slices
-and the durable persist plane come with the peer and the host engine.
+:class:`kungfu_tpu_torch.checkpoint.StepSnapshot`.
 """
 
 from kungfu_tpu_torch.elastic.configserver import ConfigServer

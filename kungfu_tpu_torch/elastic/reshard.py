@@ -38,6 +38,7 @@ import torch
 from kungfu_tpu_torch.checkpoint import StepSnapshot, host_copy
 from kungfu_tpu_torch.comm.faults import PeerFailureError
 from kungfu_tpu_torch.comm.host import tensor_buffer
+from kungfu_tpu_torch.monitor import timeline
 from kungfu_tpu_torch.parallel.zero import (_param_total, _place_sharded,
                                             _vector_indices, _world_of,
                                             reshard_plan)
@@ -230,6 +231,11 @@ class ZeroBoundary:
                 "of the whole ring mirrors a rank onto itself")
         pred = workers[(my_old - stride) % n]
         succ_rank = (my_old + stride) % n
+        # the reference's mark and fields; nbytes counts the raw chunk
+        # bytes this rank sends (the reference's, its npz blob's)
+        timeline.event("shrink", "buddy-replicate", rank=my_old,
+                       nbytes=sum(a.numel() * a.element_size()
+                                  for a in vec.values()), stride=stride)
         sent = 0
         for i, a in vec.items():
             chan.send(pred, f"kf.zbuddy.{tag}.v{i}", tensor_buffer(a))
@@ -284,6 +290,8 @@ class ZeroBoundary:
             raise ValueError(f"new_n must be >= 1, got {new_n}")
         plan = reshard_plan(total, old_n, new_n)
         new_chunk = math.ceil(total / new_n)
+        timeline.event("shrink", "zero-recarve", old_n=old_n, new_n=new_n,
+                       total=total, segments=len(plan))
         if full_mode:
             # local slicing only: keep [0, total), zero the padding
             with self._lock:

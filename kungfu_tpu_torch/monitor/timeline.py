@@ -13,8 +13,9 @@ tracing off), :func:`snapshot`, :func:`reset`, :func:`dump` and
 ``(ts, rank, step, kind, name, dur, attrs)`` in the reference's
 vocabulary, so the engine's ``collective``, ``overlap`` and ``deadline``
 events come out as the reference's do; recording is gated by
-``KF_CONFIG_ENABLE_TRACE``.  Not ported: ``trace_ctx``,
-``format_trace_context`` and ``events_tail`` (the live plane's cursor).
+``KF_CONFIG_ENABLE_TRACE``.  :func:`format_trace_context` is the wire
+form the p2p blob store's requests carry.  Not ported: ``trace_ctx``
+and ``events_tail`` (the live plane's cursor).
 """
 
 from __future__ import annotations
@@ -200,6 +201,14 @@ def parse_trace_context(tc) -> Tuple[Optional[str], Optional[str]]:
     if not trace:
         return None, None
     return trace, (parent or None) if sep else None
+
+
+def format_trace_context(trace: Optional[str],
+                         parent: Optional[str] = None) -> Optional[str]:
+    """The compact wire form :func:`parse_trace_context` reads."""
+    if not trace:
+        return None
+    return f"{trace}@{parent}" if parent else trace
 
 
 def context_attrs(trace: Optional[str],

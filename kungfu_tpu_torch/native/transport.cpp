@@ -1,10 +1,12 @@
 // Native host-side message transport — the C++ rchannel equivalent.
 //
-// Copy of kungfu_tpu/native/transport.cpp with one addition: a channel
+// Copy of kungfu_tpu/native/transport.cpp with two additions: a channel
 // created on port 0 binds a port the kernel assigns, takes it into its
 // own peer spec (the src field of every frame it sends, and its unix
-// socket path), and reports it through kf_host_port.  The wire format is
-// unchanged.
+// socket path), and reports it through kf_host_port; kf_host_shutdown
+// stops a channel without freeing it, so the Python wrapper can let
+// every call that entered leave before kf_host_close frees it.  The
+// wire format is unchanged.
 //
 // Wire-compatible with kungfu_tpu_torch/comm/host.py (little-endian framing:
 //   magic u32 | token u32 | conn_type u8 | src_len u16 | src
@@ -1362,6 +1364,11 @@ void kf_host_close(void *h) {
     ch->close_all();
     delete ch;
 }
+
+// stop the channel without freeing it: every blocked call wakes with the
+// closed status and has left when this returns, and later entries are
+// refused; kf_host_close then frees it (a second addition to the copy)
+void kf_host_shutdown(void *h) { static_cast<Channel *>(h)->close_all(); }
 
 void kf_host_set_token(void *h, uint32_t token) {
     static_cast<Channel *>(h)->set_token(token);

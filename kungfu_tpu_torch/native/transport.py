@@ -8,14 +8,15 @@ for control/p2p handler callbacks.  Falls back cleanly (``available()``
 False) when the toolchain is absent.  One addition to the reference: a
 transport made on port 0 binds a port the kernel assigns and reports it
 as :attr:`NativeTransport.port` (``kf_host_port``).  Not wrapped yet,
-for want of a caller in the port: the staged receive
-(``kf_host_recv_begin``/``_finish``/``_abort``, the blob store's pulls),
-the p2p handler and the ingress/egress byte snapshots (``NetMonitor``).
+for want of a caller in the port: the ingress/egress byte snapshots
+(``NetMonitor``, ROADMAP A9).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 from typing import Callable, List, Optional
 
 from kungfu_tpu_torch import native as _native
@@ -46,6 +47,7 @@ def _lib():
             ctypes.c_int,
         ]
         lib.kf_host_close.argtypes = [ctypes.c_void_p]
+        lib.kf_host_shutdown.argtypes = [ctypes.c_void_p]
         lib.kf_host_port.restype = ctypes.c_uint32
         lib.kf_host_port.argtypes = [ctypes.c_void_p]
         lib.kf_host_set_token.argtypes = [ctypes.c_void_p, ctypes.c_uint32]
@@ -70,10 +72,25 @@ def _lib():
             ctypes.c_double, ctypes.c_void_p, ctypes.c_uint32,
             ctypes.POINTER(ctypes.c_uint32),
         ]
+        lib.kf_host_recv_begin.restype = ctypes.c_void_p
+        lib.kf_host_recv_begin.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_uint32, ctypes.POINTER(ctypes.c_int),
+        ]
+        lib.kf_host_recv_finish.restype = ctypes.c_int
+        lib.kf_host_recv_finish.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int,
+            ctypes.c_double, ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint32),
+        ]
+        lib.kf_host_recv_abort.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int,
+            ctypes.c_void_p,
+        ]
         lib.kf_host_ping.restype = ctypes.c_int
         lib.kf_host_ping.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_double]
         lib.kf_host_reset_connections.argtypes = [ctypes.c_void_p]
         lib.kf_host_set_control_cb.argtypes = [ctypes.c_void_p, MSG_CB]
+        lib.kf_host_set_p2p_cb.argtypes = [ctypes.c_void_p, MSG_CB]
         lib.kf_engine_all_reduce.restype = ctypes.c_int
         lib.kf_engine_all_reduce.argtypes = [
             ctypes.c_void_p, ctypes.c_char_p, ctypes.c_void_p,
@@ -119,23 +136,59 @@ class NativeTransport:
             raise OSError(f"cannot bind native channel on port {port}")
         # CFUNCTYPE objects must outlive the channel
         self._cbs: List[object] = []
+        #: calls inside the C library; close() frees the channel only
+        #: once they have all left
+        self._guard = threading.Condition()
+        self._inflight = 0
+
+    @contextlib.contextmanager
+    def _live(self):
+        """The channel handle for one call into the library; a closed
+        channel raises ``ConnectionError``.  The reference's wrapper
+        reads the handle bare, so a call racing ``close()`` (a dying
+        peer closing its channel while its engine's pool threads still
+        receive) passes a freed or NULL handle and faults the process."""
+        with self._guard:
+            h = self._h
+            if not h:
+                raise ConnectionError("channel closed")
+            self._inflight += 1
+        try:
+            yield h
+        finally:
+            with self._guard:
+                self._inflight -= 1
+                if not self._inflight:
+                    self._guard.notify_all()
 
     def close(self) -> None:
-        if self._h:
-            self._libref.kf_host_close(self._h)
-            self._h = None
+        """Stop the channel (every blocked call wakes with the closed
+        status), wait until every call has left the library, then free
+        it."""
+        with self._guard:
+            h, self._h = self._h, None
+        if not h:
+            return
+        self._libref.kf_host_shutdown(h)
+        with self._guard:
+            while self._inflight:
+                self._guard.wait()
+        self._libref.kf_host_close(h)
 
     @property
     def port(self) -> int:
         """The port the TCP listener is bound to."""
-        return int(self._libref.kf_host_port(self._h))
+        with self._live() as h:
+            return int(self._libref.kf_host_port(h))
 
     def set_token(self, token: int) -> None:
-        self._libref.kf_host_set_token(self._h, token)
+        with self._live() as h:
+            self._libref.kf_host_set_token(h, token)
 
     @property
     def token(self) -> int:
-        return int(self._libref.kf_host_token(self._h))
+        with self._live() as h:
+            return int(self._libref.kf_host_token(h))
 
     def send(self, peer_spec: str, name: str, payload, conn_type: int,
              retries: int) -> None:
@@ -157,10 +210,11 @@ class NativeTransport:
             arr = _np.frombuffer(mv.cast("B"), _np.uint8)  # view, ro-safe
             ptr = ctypes.c_void_p(arr.ctypes.data)
             nbytes = arr.nbytes
-        rc = self._libref.kf_host_send(
-            self._h, peer_spec.encode(), name.encode(), ptr, nbytes,
-            conn_type, retries,
-        )
+        with self._live() as h:
+            rc = self._libref.kf_host_send(
+                h, peer_spec.encode(), name.encode(), ptr, nbytes,
+                conn_type, retries,
+            )
         if rc == -3:
             raise ValueError(
                 f"payload of {nbytes} bytes exceeds the 3 GiB frame "
@@ -175,11 +229,12 @@ class NativeTransport:
              timeout: Optional[float]) -> bytes:
         out = ctypes.POINTER(ctypes.c_ubyte)()
         out_len = ctypes.c_uint32()
-        rc = self._libref.kf_host_recv(
-            self._h, src_spec.encode(), name.encode(), conn_type,
-            -1.0 if timeout is None else float(timeout),
-            ctypes.byref(out), ctypes.byref(out_len),
-        )
+        with self._live() as h:
+            rc = self._libref.kf_host_recv(
+                h, src_spec.encode(), name.encode(), conn_type,
+                -1.0 if timeout is None else float(timeout),
+                ctypes.byref(out), ctypes.byref(out_len),
+            )
         if rc == 1:
             raise TimeoutError(
                 f"recv {name!r} from {src_spec} timed out after {timeout}s")
@@ -203,11 +258,12 @@ class NativeTransport:
         cap = mv.nbytes
         got = ctypes.c_uint32()
         addr = ctypes.addressof(ctypes.c_char.from_buffer(buf))
-        rc = self._libref.kf_host_recv_into(
-            self._h, src_spec.encode(), name.encode(), conn_type,
-            -1.0 if timeout is None else float(timeout),
-            addr, cap, ctypes.byref(got),
-        )
+        with self._live() as h:
+            rc = self._libref.kf_host_recv_into(
+                h, src_spec.encode(), name.encode(), conn_type,
+                -1.0 if timeout is None else float(timeout),
+                addr, cap, ctypes.byref(got),
+            )
         if rc == 0:
             return True
         if rc == -2:
@@ -217,16 +273,70 @@ class NativeTransport:
                 f"recv_into {name!r} from {src_spec} timed out after {timeout}s")
         raise ConnectionError("channel closed")
 
+    def recv_begin(self, src_spec: str, name: str, conn_type: int, buf):
+        """Register ``buf`` for a receive before the request leaves
+        (``kf_host_recv_begin``): an opaque handle for
+        :meth:`recv_finish`/:meth:`recv_abort`, or None when nothing was
+        registered (a queued payload of another size: :meth:`recv`)."""
+        mv = memoryview(buf)
+        if mv.readonly or not mv.contiguous:
+            raise ValueError("recv_begin needs a writable contiguous buffer")
+        addr = ctypes.addressof(ctypes.c_char.from_buffer(buf))
+        rc = ctypes.c_int()
+        with self._live() as h:
+            h = self._libref.kf_host_recv_begin(
+                h, src_spec.encode(), name.encode(), conn_type,
+                addr, mv.nbytes, ctypes.byref(rc))
+        if h is None:
+            if rc.value == 2:
+                raise ConnectionError("channel closed")
+            return None
+        return h
+
+    def recv_finish(self, src_spec: str, name: str, conn_type: int,
+                    timeout: Optional[float], handle) -> bool:
+        """Resolve a :meth:`recv_begin` registration: True when ``buf``
+        is filled, False on a queued payload of another size.  Consumes
+        the handle on every outcome."""
+        got = ctypes.c_uint32()
+        with self._live() as h:
+            rc = self._libref.kf_host_recv_finish(
+                h, src_spec.encode(), name.encode(), conn_type,
+                -1.0 if timeout is None else float(timeout),
+                handle, ctypes.byref(got))
+        if rc == 0:
+            return True
+        if rc == -2:
+            return False
+        if rc == 1:
+            raise TimeoutError(
+                f"recv_finish {name!r} from {src_spec} timed out after "
+                f"{timeout}s")
+        raise ConnectionError("channel closed")
+
+    def recv_abort(self, src_spec: str, name: str, conn_type: int,
+                   handle) -> None:
+        with self._live() as h:
+            self._libref.kf_host_recv_abort(
+                h, src_spec.encode(), name.encode(), conn_type, handle)
+
     def ping(self, peer_spec: str, timeout: float) -> bool:
-        return self._libref.kf_host_ping(self._h, peer_spec.encode(), timeout) == 0
+        with self._live() as h:
+            return self._libref.kf_host_ping(h, peer_spec.encode(), timeout) == 0
 
     def reset_connections(self) -> None:
-        self._libref.kf_host_reset_connections(self._h)
+        with self._live() as h:
+            self._libref.kf_host_reset_connections(h)
 
     def set_control_handler(self, fn: Callable[[str, bytes, str], bool]) -> None:
         """``fn(name, payload, src) -> consumed``; not-consumed falls
         through to the rendezvous queue."""
         self._set_cb(self._libref.kf_host_set_control_cb, fn)
+
+    def set_p2p_handler(self, fn: Callable[[str, bytes, str], bool]) -> None:
+        """``fn(name, payload, src) -> consumed`` for ``req.*``
+        PEER_TO_PEER frames."""
+        self._set_cb(self._libref.kf_host_set_p2p_cb, fn)
 
     def _set_cb(self, setter, fn) -> None:
         @MSG_CB
@@ -238,7 +348,8 @@ class NativeTransport:
                 return 1
 
         self._cbs.append(trampoline)
-        setter(self._h, trampoline)
+        with self._live() as h:
+            setter(h, trampoline)
 
     def engine_all_reduce(self, peers_csv: str, buf, elem_size: int,
                           dtype_code: int, op_code: int, graph_data,
@@ -251,15 +362,16 @@ class NativeTransport:
         Returns the raw C return code (0 ok / 1 timeout / 2 closed ...)."""
         mv = memoryview(buf)
         addr = ctypes.addressof(ctypes.c_char.from_buffer(buf))
-        return self._libref.kf_engine_all_reduce(
-            self._h, peers_csv.encode(), addr, mv.nbytes, elem_size,
-            dtype_code, op_code,
-            graph_data.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-            pair_offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-            n_pairs, tag.encode(), hash_mode, chunk_size, timeout,
-            max_threads,
-            stats.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
-        )
+        with self._live() as h:
+            return self._libref.kf_engine_all_reduce(
+                h, peers_csv.encode(), addr, mv.nbytes, elem_size,
+                dtype_code, op_code,
+                graph_data.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                pair_offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                n_pairs, tag.encode(), hash_mode, chunk_size, timeout,
+                max_threads,
+                stats.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+            )
 
     def __del__(self):  # pragma: no cover - GC timing
         try:

@@ -118,14 +118,36 @@ HOST_ENGINE_MODULES = [
 ]
 
 
+#: the modules of the peer runtime's and failure recovery's slice
+PEER_RUNTIME_MODULES = [
+    "kungfu_tpu_torch.peer", "kungfu_tpu_torch.python",
+    "kungfu_tpu_torch.store", "kungfu_tpu_torch.store.store",
+    "kungfu_tpu_torch.store.p2p", "kungfu_tpu_torch.utils.stall",
+    "kungfu_tpu_torch.utils.affinity", "kungfu_tpu_torch.utils.envs",
+    "kungfu_tpu_torch.monitor.detector", "kungfu_tpu_torch.monitor.signals",
+    "kungfu_tpu_torch.monitor.ledger", "kungfu_tpu_torch.monitor.aggregator",
+    "kungfu_tpu_torch.elastic.slices", "kungfu_tpu_torch.elastic.resize",
+    "kungfu_tpu_torch.elastic.shrink", "kungfu_tpu_torch.elastic.hooks",
+    "kungfu_tpu_torch.elastic.persist", "kungfu_tpu_torch.checkpoint",
+    "kungfu_tpu_torch.initializer",
+]
+
+
+def _check_scanned(modules):
+    assert set(modules) <= set(PORT_MODULES)
+    for m in modules:
+        path = ROOT / (m.replace(".", "/") + ".py")
+        if not path.exists():
+            path = ROOT / m.replace(".", "/") / "__init__.py"
+        assert path in PORT_FILES
+
+
 class TestNativeBuild:
+    def test_peer_runtime_modules_are_scanned(self):
+        _check_scanned(PEER_RUNTIME_MODULES)
+
     def test_host_engine_modules_are_scanned(self):
-        assert set(HOST_ENGINE_MODULES) <= set(PORT_MODULES)
-        for m in HOST_ENGINE_MODULES:
-            path = ROOT / (m.replace(".", "/") + ".py")
-            if not path.exists():
-                path = ROOT / m.replace(".", "/") / "__init__.py"
-            assert path in PORT_FILES
+        _check_scanned(HOST_ENGINE_MODULES)
 
     def test_native_build_writes_only_under_build_dir(self, tmp_path):
         """A fresh copy of ``native/`` built from scratch in its own
@@ -187,6 +209,17 @@ class TestDefaultDeviceIsTheCard:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             Communicator()
         assert Communicator(devices=["cpu"]).device == torch.device("cpu")
+
+    def test_peer_communicator_raises(self):
+        """A peer's device plane is the card unless the caller names the
+        CPU (``Peer(config, devices=["cpu"])``)."""
+        from kungfu_tpu_torch.peer import Peer
+        from kungfu_tpu_torch.utils.envs import parse_config_from_env
+
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Peer(parse_config_from_env({})).communicator()
+        assert Peer(parse_config_from_env({}), devices=["cpu"]) \
+            .communicator().device == torch.device("cpu")
 
     def test_converter_raises(self):
         cfg = TransformerConfig(vocab_size=8, d_model=8, n_layers=1,
