@@ -151,6 +151,55 @@ Phases (any failed check exits non-zero before the result line):
              update, all-gather and commits; detection, ping sweep,
              consensus, replay, re-carve, place, persist and restore
              times; pinned bytes, peak memory.
+14. gossip — pair averaging on phase 10's bert_base(), batch and loss
+             over four ``Peer``s from ``start_local_cluster(4,
+             devices=["cuda"])`` (native channels, TCP on loopback), one
+             thread each, inner ``sgd(1e-3, momentum=0.9)``, rank r's
+             params the shared init perturbed by its own generator; the
+             ranks' forward and backward run in turn on the main thread
+             (in (b) under one lock).  (a) ``PairAveragingOptimizer``, f32
+             wire, roundrobin, three steps in lockstep (a barrier after
+             the pulls and after every step): every pulled buffer bitwise
+             the version its target published, every peer's params
+             bitwise a single-thread replay of the recurrence on the card
+             with no wire, step 1's params within phase 10's tolerance of
+             the same step under ``KF_TPU_ATTN=xla`` (the gradient's
+             distance reported), exact launches.  (b)
+             ``AsyncPairAveragingOptimizer``, bf16 wire, random targets,
+             ``max_staleness=4``, ten free-running steps a peer: every
+             taken buffer bitwise one version another peer published (a
+             digest a version), at least nine averaged steps a peer, no
+             landing reused past the bound, every puller joined within
+             its bound at ``close()``, the cross-peer spread after ten
+             steps below ten local steps', a falling mean loss, exact
+             launches.  Step ms split into grads, pull, H2D, average +
+             update and D2H + publish, pull GB/s and its share of the
+             step, fused bytes, pinned bytes, peak memory;
+15. adapt  — (a) ``DeviceBanditDriver(comm, check_every=2, min_pulls=1)``
+             over psum, two_stage, ring and pallas_ring on S-SGD steps of
+             bert_base() over four co-resident ranks (the fused gradient
+             and the loss mean-allreduced through ``comm.all_reduce``, the
+             large and the small bucket), fourteen steps: every arm of
+             the large bucket measured; each arm's reduced gradient
+             within 1e-6 relative L2 of psum's; pallas_ring's ring
+             reduce-scatter and all-gather launches exact; every hook
+             latency at least the CUDA-event time of its own collective
+             (events recorded inside the hook's window); each bucket's
+             installed arm equal to ``ArmStats.select`` recomputed from
+             ``summary()``; one ``swap`` event per bucket and swap with
+             the reference's fields; falling loss.  (b) bench.py:1285
+             payload_adapt's scenario on three port peers: 200 KiB f32,
+             ``delay:ms=30`` on the 0<->1 link for send and ping,
+             ``KF_NATIVE_ENGINE=0``, ``HostBanditDriver(check_every=2,
+             min_pulls=1, min_swap_collectives=1)``, forty steps after
+             ten of each fixed strategy: lockstep swaps, one ``swap``
+             event a rank at every swap seq, one final arm, each MST
+             install equal to ``minimum_spanning_tree`` of the agreed
+             latency matrix and without the 0-1 edge, exact values; the
+             steady step against the best fixed strategy is recorded,
+             not checked.  (c) ``AdaptiveStrategyDriver`` and
+             ``monitored_all_reduce`` on the same peers: one interference
+             vote on every rank, lockstep swaps, exact values.
 
 Phase 3 also holds the ring reduce-scatter and all-gather kernels
 bitwise against their plain versions, at the main path's shapes (a
@@ -311,6 +360,38 @@ HOST_PARAMS_RTOL = 1e-5
 #: an allreduce mean under the autotuned schedule against psum's: four
 #: f32 values summed in another order, rounded once each
 AUTOTUNE_RTOL, AUTOTUNE_ATOL = 1e-5, 1e-6
+#: phase 14: pair-averaging gossip on bert_base() over four peers: the
+#: steps of the blocking optimizer (lockstep) and of the async one (free
+#: running), the async run's staleness bound, and the absolute
+#: perturbation of each rank's copy of the shared init (rank r draws
+#: from its own generator, so the models differ)
+GOSSIP_BLOCKING_STEPS = 3
+GOSSIP_ASYNC_STEPS = 10
+GOSSIP_STALENESS = 4
+GOSSIP_PERTURB = 1e-3
+#: async steps that must average with a landed model, of the ten: the
+#: first blocks for its landing, so all ten should
+GOSSIP_MIN_AVERAGED = 9
+#: phase 15: device-bandit steps at check_every 2, so that every arm of
+#: the large bucket is installed, settles for a window and is measured
+#: in the next (four arms x two checks, ending on a check), and the
+#: relative L2 of every arm's reduced gradient against psum's: four f32
+#: terms summed in another order, rounded once each
+ADAPT_STEPS = 14
+ADAPT_CHECK_EVERY = 2
+ADAPT_ARM_REL_L2 = 1e-6
+#: phase 15's CUDA events are recorded inside the latency hook's window,
+#: so the hook's seconds can fall short of the events' time only by the
+#: events' resolution (0.5 us)
+HOOK_EVENT_RESOLUTION_S = 1e-6
+#: phase 15 (b)-(c): bench.py:1285 payload_adapt's scenario (three
+#: peers, 200 KiB f32, 30 ms on the 0<->1 link for send and ping)
+HOST_ADAPT_ELEMS = 50_000
+HOST_ADAPT_WIRE_MS = 30
+HOST_ADAPT_FIXED_STEPS = 10
+HOST_ADAPT_STEPS = 40
+HOST_ADAPT_FIXED_ARMS = ("STAR", "RING", "BINARY_TREE_STAR")
+DRIVER_STEPS = 12
 
 
 class SmokeFailure(Exception):
@@ -3360,6 +3441,858 @@ def phase_recover(torch, np, kernels, tr):
 
 #: the wgmma/TMA kernels: their ptxas report must show no spills and
 #: their SASS must hold wgmma (HGMMA) and TMA load (UTMALDG) instructions
+def _loss_grads(fn, params, shard):
+    """``(loss, gradient tree)`` of ``fn(params, shard)``, one rank's pass."""
+    from kungfu_tpu_torch.parallel.train import per_rank_grads
+    from kungfu_tpu_torch.utils.tree import tree_flatten, tree_unflatten
+
+    grads = []
+    outs, _ = per_rank_grads(fn, params, [shard], lambda r, g: grads.extend(g))
+    return outs[0], tree_unflatten(tree_flatten(params)[1], grads)
+
+
+def _tree_rel_l2(got, ref) -> tuple:
+    """Worst relative L2 over the leaves of two trees (denominator
+    floored at 1e-3 of the largest leaf norm), with its leaf index."""
+    from kungfu_tpu_torch.utils.tree import tree_leaves
+
+    g, r = tree_leaves(got), tree_leaves(ref)
+    norms = [t.float().norm().item() for t in r]
+    floor = 1e-3 * max(norms)
+    return max(((a.float() - b.float()).norm().item() / max(nb, floor), i)
+               for i, (a, b, nb) in enumerate(zip(g, r, norms)))
+
+
+def _trees_equal(torch, a, b) -> bool:
+    from kungfu_tpu_torch.utils.tree import tree_leaves
+
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                  tree_leaves(b)))
+
+
+def _peer_spread(torch, trees) -> float:
+    """The spread across separate trees: the largest standard deviation
+    over the trees of any element of any leaf."""
+    from kungfu_tpu_torch.utils.tree import tree_leaves
+
+    leaves = [tree_leaves(t) for t in trees]
+    return max(float(torch.stack(ls).float().std(0).max())
+               for ls in zip(*leaves))
+
+
+def _device_digest(torch, t) -> tuple:
+    """A digest of a tensor's bytes, taken on the card in slices: two
+    weighted sums of its 16-bit words (int64 arithmetic a slice)."""
+    w = t.contiguous().view(torch.int16).reshape(-1)
+    a = b = 0
+    for off in range(0, w.numel(), 1 << 25):
+        x = w[off:off + (1 << 25)].to(torch.int64)
+        i = torch.arange(off, off + x.numel(), device=x.device,
+                         dtype=torch.int64)
+        a += int((x * (i % 65521 + 1)).sum())
+        b += int((x * (i * 2654435761 % 2147483647)).sum())
+    return a, b
+
+
+def _set_env(pairs: dict) -> dict:
+    """Set (or, for None, unset) env vars; returns the old values."""
+    old = {k: os.environ.get(k) for k in pairs}
+    for k, v in pairs.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    return old
+
+
+def _time_parts(torch, o, rows) -> dict:
+    """Wrap ``o``'s H2D of a pulled model, its average + update and its
+    publish with timers (the first two drain the card's queue, so the
+    card's time lands in its part); each step's parts in ms are appended
+    to ``rows`` at its publish.  Returns the open step's dict, for a
+    caller's own parts."""
+    t = {}
+
+    def timed(name, fn, drain):
+        def run(*a):
+            t0 = time.perf_counter()
+            res = fn(*a)
+            if drain:
+                torch.cuda.current_stream().synchronize()
+            t[name] = t.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+            return res
+
+        return run
+
+    o._deserialize_buf = timed("h2d_ms", o._deserialize_buf, True)
+    o._step_fn = timed("average_update_ms", o._step_fn, True)
+    publish = timed("publish_ms", o._publish_buf, False)
+
+    def publish_and_row(fused):
+        publish(fused)
+        rows.append(dict(t))
+        t.clear()
+
+    o._publish_buf = publish_and_row
+    return t
+
+
+def phase_gossip(torch, np, kernels, tr, bert):
+    """Pair-averaging gossip on bert_base() (phase 10's model, batch and
+    loss) over four ``Peer``s from ``start_local_cluster(4,
+    devices=["cuda"])``, one thread each, on HostChannel's default
+    ``auto`` (native) over TCP on loopback; inner ``sgd(1e-3,
+    momentum=0.9)``; rank r's params are the shared init perturbed by
+    its own generator.  The ranks' forward and backward run on the main
+    thread (in (b) under one lock), one after another, as on every
+    co-resident phase.  Checks (a)-(b) of the module docstring."""
+    from kungfu_tpu_torch.optimizers import (AsyncPairAveragingOptimizer,
+                                             PairAveragingOptimizer, sgd)
+    from kungfu_tpu_torch.parallel.train import split_batch
+    from kungfu_tpu_torch.peer import start_local_cluster
+    from kungfu_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi()
+    model, params, batch, loss_fn = bert
+    cfg = model.cfg
+    shards = split_batch(batch, RANKS)
+    inner = sgd(BERT_LR, momentum=BERT_MOMENTUM)
+    per_step = {key: 0 for key in _counts(kernels)}
+    per_step.update(_rank_launches(cfg))
+    launches = {key: 0 for key in per_step}
+    total = sum(t.numel() for t in tree_leaves(params))
+
+    def start(r):
+        gen = torch.Generator(device="cuda").manual_seed(1000 + r)
+        return tree_map(lambda t: t + GOSSIP_PERTURB * torch.randn(
+            t.shape, generator=gen, device=t.device, dtype=t.dtype), params)
+
+    starts = [start(r) for r in range(RANKS)]
+    out = {"params": total, "fused_bytes_f32": total * 4,
+           "fused_bytes_bf16": total * 2, "card": smi}
+    old = _set_env({"KF_TPU_USE_UNIXSOCK": "0", "KF_CHAOS_SPEC": None,
+                    "KF_NATIVE_ENGINE": None, "KF_TPU_HOST_TRANSPORT": None,
+                    "KF_CONFIG_ENABLE_TRACE": None})
+    try:
+        out["blocking"] = _gossip_blocking(
+            torch, np, kernels, start_local_cluster, PairAveragingOptimizer,
+            model, starts, shards, loss_fn, inner, per_step, launches)
+        torch.cuda.empty_cache()
+        out["async"] = _gossip_async(
+            torch, np, kernels, start_local_cluster,
+            AsyncPairAveragingOptimizer, starts, shards, loss_fn, inner,
+            per_step, launches)
+    finally:
+        _set_env(old)
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def _gossip_blocking(torch, np, kernels, start_local_cluster, Opt, model,
+                     starts, shards, loss_fn, inner, per_step, launches):
+    """(a): the blocking optimizer, f32 wire, roundrobin, three steps in
+    lockstep: every pulled buffer bitwise the version its target
+    published, every peer's params bitwise a single-thread replay of the
+    recurrence on the card with no wire, and step 1 held against the
+    same step under KF_TPU_ATTN=xla."""
+    import types
+
+    from kungfu_tpu_torch.ops import xent
+    from kungfu_tpu_torch.ops.fuse import fuse
+    from kungfu_tpu_torch.utils.tree import tree_map
+
+    n = RANKS
+    peers = start_local_cluster(n, devices=["cuda"])
+    try:
+        kinds = {type(p.channel).__name__ for p in peers}
+        check(kinds == {"NativeHostChannel"},
+              f"(a) gossip peers on {kinds}, expected the native channel")
+        opts = [Opt(inner, peer=p, name="model", selector="roundrobin")
+                for p in peers]
+        times = [[] for _ in range(n)]
+        pulled = []
+
+        def instrument(r, o):
+            t = _time_parts(torch, o, times[r])
+            o_pull = o._pull
+
+            def pull(target):
+                t0 = time.perf_counter()
+                got = o_pull(target)
+                t["pull_ms"] = (time.perf_counter() - t0) * 1e3
+                want = peers[target].store.get(o.name,
+                                               version=str(o._step_count))
+                pulled.append((r, target, o._step_count + 1,
+                               got is not None and want is not None
+                               and np.array_equal(np.asarray(got), want)))
+                # lockstep: every peer has pulled before any publishes
+                o.peer.barrier()
+                return got
+
+            o._pull = pull
+
+        for r, o in enumerate(opts):
+            instrument(r, o)
+        params = [tree_map(torch.clone, s) for s in starts]
+        states = _run_ranks([lambda r=r: opts[r].init(params[r])
+                             for r in range(n)], timeout=300)
+        # the replay: the same recurrence on the card, no wire
+        replay = types.SimpleNamespace(fuse_dtype=torch.float32, inner=inner)
+        rp = [tree_map(torch.clone, s) for s in starts]
+        rs = [inner.init(p) for p in rp]
+        rf = [fuse(p, dtype=torch.float32)[0] for p in rp]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, grads_ms, rows = [], [], []
+        for k in range(1, GOSSIP_BLOCKING_STEPS + 1):
+            _reset(kernels)
+            t0 = time.perf_counter()
+            outs = [_loss_grads(loss_fn, params[r], shards[r])
+                    for r in range(n)]
+            loss = sum(float(x) for x, _ in outs) / n  # synchronises
+            grads_ms.append((time.perf_counter() - t0) * 1e3)
+            got = _counts(kernels)
+            check(got == per_step, f"(a) gossip step {k} launched {got}, "
+                  f"expected {per_step}")
+            for key, v in got.items():
+                launches[key] += v
+            losses.append(loss)
+            grads = [g for _, g in outs]
+            t1 = time.perf_counter()
+            res = _run_ranks([lambda r=r: opts[r].step(params[r], grads[r],
+                                                       states[r])
+                              for r in range(n)], timeout=600)
+            rows.append((time.perf_counter() - t1) * 1e3)
+            params, states = [x[0] for x in res], [x[1] for x in res]
+            # the replay of step k: rank r averages with its roundrobin
+            # target's fused params of step k - 1
+            new = []
+            for r in range(n):
+                others = [j for j in range(n) if j != r]
+                tgt = others[(k - 1) % len(others)]
+                new.append(Opt._step_fn(replay, rp[r], grads[r], rs[r],
+                                        rf[tgt]))
+            rp, rs, rf = ([x[0] for x in new], [x[1] for x in new],
+                          [x[2] for x in new])
+            same = [_trees_equal(torch, params[r], rp[r]) for r in range(n)]
+            print(f"gossip (a) step {k}: loss {loss:.6f}; params bitwise "
+                  f"equal to the replay {same}")
+            check(all(same), f"(a) gossip step {k} params differ from the "
+                  f"replay: {same}")
+            if k == 1:
+                p1, g1 = params, grads
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        bad = [p for p in pulled if not p[3]]
+        print(f"gossip (a): {len(pulled)} pulls, each bitwise the version "
+              f"its target published: {not bad}")
+        check(len(pulled) == n * GOSSIP_BLOCKING_STEPS and not bad,
+              f"(a) pulled buffers differ from the published ones: {bad}")
+        check(all(o.averaged_steps == GOSSIP_BLOCKING_STEPS for o in opts),
+              f"(a) averaged steps {[o.averaged_steps for o in opts]}")
+        del rp, rs, rf
+
+        # step 1 under KF_TPU_ATTN=xla (not counted): the same average and
+        # update from the plain path's gradient
+        def loss_xla(p, b):
+            logits = model.apply(p, b[0], train=True)
+            return xent.softmax_cross_entropy(logits, b[1]).mean()
+
+        saved = _set_env({"KF_TPU_ATTN": "xla"})
+        p_rel, g_rel = (0.0, 0), (0.0, 0)
+        try:
+            for r in range(n):
+                _, gx = _loss_grads(loss_xla, starts[r], shards[r])
+                tgt = [j for j in range(n) if j != r][0]  # step 1's target
+                px = Opt._step_fn(replay, starts[r], gx, inner.init(starts[r]),
+                                  fuse(starts[tgt], dtype=torch.float32)[0])[0]
+                p_rel = max(p_rel, _tree_rel_l2(p1[r], px))
+                g_rel = max(g_rel, _tree_rel_l2(g1[r], gx))
+                del gx, px
+        finally:
+            _set_env(saved)
+        print(f"gossip (a) step 1 vs the same step under KF_TPU_ATTN=xla: "
+              f"each peer's params worst rel L2 {p_rel[0]:.3e} (leaf "
+              f"{p_rel[1]}; tol {TRAIN_GRAD_REL_L2}); each peer's gradient "
+              f"worst rel L2 {g_rel[0]:.3e} (leaf {g_rel[1]}, reported: the "
+              f"flash backward's q/k gradients at BERT's nearly uniform "
+              f"attention, PERF.md section 6)")
+        check(p_rel[0] <= TRAIN_GRAD_REL_L2,
+              f"(a) step 1 params differ from the xla step's: {p_rel}")
+        per = {key: statistics.median([t[key] for r in range(n)
+                                       for t in times[r]])
+               for key in times[0][0]}
+        grads_med = statistics.median(grads_ms)
+        step_ms = grads_med + sum(per.values())
+        pull_s = sum(o.pull_seconds for o in opts)
+        pull_b = sum(o.pull_bytes for o in opts)
+        res = {"losses": losses, "grads_ms": grads_ms,
+               "threads_wall_ms": rows, "per_peer_median_ms": per,
+               "step_ms": step_ms, "pull_gb_s": pull_b / pull_s / 1e9,
+               "pull_share_of_step": per["pull_ms"] / step_ms,
+               "pinned_landing_bytes": sum(o._recv_buf.nbytes for o in opts),
+               # the store's window of three versions a peer
+               "pinned_published_bytes": n * 3 * opts[0]._model_nbytes(
+                   starts[0]),
+               "peak_gib": peak, "params_rel_l2_vs_xla": p_rel[0],
+               "grads_rel_l2_vs_xla": g_rel[0]}
+        print(f"gossip (a) blocking, f32 wire, {n} peers: step "
+              f"{step_ms:.2f} ms = grads of the four ranks in turn "
+              f"{grads_med:.2f} ms + per peer (the four threads at once) "
+              f"pull {per['pull_ms']:.2f} ms, H2D {per['h2d_ms']:.2f} ms, "
+              f"average + update {per['average_update_ms']:.2f} ms, D2H + "
+              f"publish {per['publish_ms']:.2f} ms (threads' wall with the "
+              f"harness's checks {statistics.median(rows):.2f} ms); pulls "
+              f"at {res['pull_gb_s']:.3f} GB/s, "
+              f"{res['pull_share_of_step']:.3f} of the step; pinned landing "
+              f"buffers {res['pinned_landing_bytes']} B; peak {peak:.2f} GiB")
+        return res
+    finally:
+        for p in peers:
+            p.close()
+
+
+def _gossip_async(torch, np, kernels, start_local_cluster, Opt, starts,
+                  shards, loss_fn, inner, per_step, launches):
+    """(b): the async optimizer, bf16 wire, random targets, staleness
+    bound 4, ten free-running steps a peer: every taken buffer bitwise
+    one version a peer other than the taker published, at least nine
+    averaged steps a peer, no landing reused more than the bound in a
+    row, every puller joined within its bound, a cross-peer spread below
+    ten local steps', a falling loss and exact launches.  The digests are
+    taken on the card (the fused output before its publish, the copy of
+    a taken landing after its H2D) and left out of the step times."""
+    import threading
+
+    from kungfu_tpu_torch.ops.fuse import fuse
+    from kungfu_tpu_torch.optimizers import apply_updates
+    from kungfu_tpu_torch.utils.tree import tree_map
+
+    n = RANKS
+    peers = start_local_cluster(n, devices=["cuda"])
+    opts = []
+    try:
+        opts = [Opt(inner, peer=p, name="model-bf16", selector="random",
+                    fuse_dtype=torch.bfloat16,
+                    max_staleness=GOSSIP_STALENESS) for p in peers]
+        published = [set() for _ in range(n)]
+        taken = [[] for _ in range(n)]
+        parts = [[] for _ in range(n)]
+        digest_s = [0.0] * n
+
+        def note(r, t):
+            t0 = time.perf_counter()
+            d = _device_digest(torch, t)
+            digest_s[r] += time.perf_counter() - t0
+            return d
+
+        for r, o in enumerate(opts):
+            _time_parts(torch, o, parts[r])  # timers inside the digests
+            o_pub, o_pub_buf, o_h2d = (o._publish, o._publish_buf,
+                                       o._deserialize_buf)
+
+            def publish(params, r=r, orig=o_pub):  # the init's version
+                published[r].add(note(r, fuse(params,
+                                              dtype=torch.bfloat16)[0]))
+                orig(params)
+
+            def publish_buf(fused, r=r, orig=o_pub_buf):
+                published[r].add(note(r, fused))  # before it can be served
+                orig(fused)
+
+            def h2d(blob, device, r=r, orig=o_h2d):
+                other = orig(blob, device)
+                taken[r].append(note(r, other))
+                return other
+
+            o._publish, o._publish_buf = publish, publish_buf
+            o._deserialize_buf = h2d
+        params = [tree_map(torch.clone, s) for s in starts]
+        states = _run_ranks([lambda r=r: opts[r].init(params[r])
+                             for r in range(n)], timeout=300)
+        lock = threading.Lock()
+        losses = [[] for _ in range(n)]
+        reuse = [[] for _ in range(n)]
+        step_ms = [[] for _ in range(n)]
+        grads_ms = [[] for _ in range(n)]
+
+        def run(r):
+            p, s = params[r], states[r]
+            for _ in range(GOSSIP_ASYNC_STEPS):
+                t0 = time.perf_counter()
+                with lock:  # the ranks' passes run in turn on the card
+                    t1 = time.perf_counter()
+                    loss, g = _loss_grads(loss_fn, p, shards[r])
+                    losses[r].append(float(loss))  # synchronises
+                    t2 = time.perf_counter()
+                h0 = digest_s[r]
+                p, s = opts[r].step(p, g, s)
+                torch.cuda.current_stream().synchronize()
+                t3 = time.perf_counter()
+                grads_ms[r].append((t2 - t1) * 1e3)
+                # the step's wall, less the harness's digests
+                step_ms[r].append((t3 - t0 - (digest_s[r] - h0)) * 1e3)
+                reuse[r].append(opts[r]._consumed_same)
+            return p
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset(kernels)
+        t0 = time.perf_counter()
+        final = _run_ranks([lambda r=r: run(r) for r in range(n)],
+                           timeout=900)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        got = _counts(kernels)
+        want = {k: v * GOSSIP_ASYNC_STEPS for k, v in per_step.items()}
+        check(got == want, f"(b) async gossip launched {got}, expected "
+              f"{want}")
+        for key, v in got.items():
+            launches[key] += v
+        averaged = [o.averaged_steps for o in opts]
+        bad = [(r, i) for r in range(n) for i, d in enumerate(taken[r])
+               if not any(d in published[j] for j in range(n) if j != r)]
+        print(f"gossip (b): {sum(map(len, taken))} pulled models averaged "
+              f"with, each "
+              f"bitwise one version another peer published: {not bad}; "
+              f"averaged steps {averaged}; landing reuse per step {reuse}")
+        check(not bad and all(taken), f"(b) taken buffers match no "
+              f"published version: {bad}")
+        check(all(a >= GOSSIP_MIN_AVERAGED for a in averaged),
+              f"(b) averaged steps {averaged} < {GOSSIP_MIN_AVERAGED}")
+        check(max(max(x) for x in reuse) <= GOSSIP_STALENESS,
+              f"(b) a landing was reused past the bound: {reuse}")
+        pull_s = sum(o.pull_seconds for o in opts)
+        pull_b = sum(o.pull_bytes for o in opts)
+        landings = [o._puller.seq for o in opts]
+        slots = sum(sum(b.nbytes for b in o._puller._slots) for o in opts)
+        joins = []
+        for o in opts:
+            puller, bound = o._puller, 3.0 * o._pull_timeout + 5.0
+            t1 = time.perf_counter()
+            o.close()
+            joins.append(time.perf_counter() - t1)
+            check(not puller.is_alive() and joins[-1] <= bound,
+                  f"(b) a puller did not join within {bound} s "
+                  f"({joins[-1]:.2f} s)")
+        mean_loss = [sum(losses[r][k] for r in range(n)) / n
+                     for k in range(GOSSIP_ASYNC_STEPS)]
+        check(all(math.isfinite(x) for x in mean_loss)
+              and mean_loss[-1] < mean_loss[0],
+              f"(b) mean loss did not fall: {mean_loss}")
+        spread = _peer_spread(torch, final)
+        del final, params, states
+
+        # the same ten steps with gossip off (not counted)
+        local = []
+        for r in range(n):
+            p, s = tree_map(torch.clone, starts[r]), inner.init(starts[r])
+            for _ in range(GOSSIP_ASYNC_STEPS):
+                _, g = _loss_grads(loss_fn, p, shards[r])
+                u, s = inner.update(g, s, p)
+                p = apply_updates(p, u)
+            local.append(p)
+            del s
+        spread_local = _peer_spread(torch, local)
+        del local
+        print(f"gossip (b) cross-peer spread after {GOSSIP_ASYNC_STEPS} "
+              f"steps: {spread:.4e} with gossip, {spread_local:.4e} with "
+              f"local steps only; mean loss {[round(x, 4) for x in mean_loss]}")
+        check(spread < spread_local, "(b) gossip did not bring the peers "
+              "closer than local steps")
+        per = {key: statistics.median([row.get(key, 0.0) for r in range(n)
+                                       for row in parts[r]])
+               for key in ("h2d_ms", "average_update_ms", "publish_ms")}
+        res = {"mean_losses": mean_loss, "averaged_steps": averaged,
+               "per_peer_median_ms": per,
+               "landings": landings, "reuse": reuse,
+               "step_ms": statistics.median(sum(step_ms, [])),
+               "grads_ms": statistics.median(sum(grads_ms, [])),
+               "wall_s": wall, "pull_gb_s": pull_b / pull_s / 1e9,
+               "pull_bytes": pull_b, "close_s": joins,
+               "spread": spread, "spread_local": spread_local,
+               "pinned_slot_bytes": slots,
+               "pinned_published_bytes": n * 3 * opts[0]._model_nbytes(
+                   starts[0]),
+               "peak_gib": peak}
+        print(f"gossip (b) async, bf16 wire, {n} peers free-running: step "
+              f"{res['step_ms']:.2f} ms a peer (its own grads "
+              f"{res['grads_ms']:.2f} ms, under the lock the four peers "
+              f"share; H2D {per['h2d_ms']:.2f} ms, average + update "
+              f"{per['average_update_ms']:.2f} ms, D2H + publish "
+              f"{per['publish_ms']:.2f} ms; the rest waits for the lock or "
+              f"a landing), {GOSSIP_ASYNC_STEPS} steps in {wall:.2f} s; "
+              f"{landings} landings at {res['pull_gb_s']:.3f} GB/s per pull; "
+              f"close joins {[round(x, 3) for x in joins]} s; pinned slots "
+              f"{slots} B; peak {peak:.2f} GiB")
+        return res
+    finally:
+        for o in opts:
+            o.close()
+        for p in peers:
+            p.close()
+
+
+def phase_adapt(torch, np, kernels, tr, bert):
+    """The online adaptation plane: (a) the device bandit over the four
+    allreduce schedules on bert_base()'s S-SGD steps over four
+    co-resident ranks; (b) the host bandit under injected interference
+    (bench.py:1285 payload_adapt's scenario) on three port peers; (c)
+    ``AdaptiveStrategyDriver`` and ``monitored_all_reduce`` on the same
+    peers.  Checks of the module docstring."""
+    t_phase = time.perf_counter()
+    out = {"card": nvidia_smi()}
+    old = _set_env({"KF_CONFIG_ENABLE_TRACE": "1", "KF_TPU_USE_UNIXSOCK": "0",
+                    "KF_CHAOS_SPEC": None, "KF_NATIVE_ENGINE": None,
+                    "KF_TPU_HOST_TRANSPORT": None})
+    try:
+        out["device"] = _adapt_device(torch, np, kernels, bert)
+        torch.cuda.empty_cache()
+        out.update(_adapt_host(np))
+    finally:
+        _set_env(old)
+    out["launches"] = out["device"].pop("launches")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def _adapt_device(torch, np, kernels, bert):
+    """(a): S-SGD on four co-resident ranks of the card, the fused
+    gradient and the loss mean-allreduced through ``comm.all_reduce``,
+    ``DeviceBanditDriver(comm, check_every=2, min_pulls=1)`` over every
+    schedule."""
+    from kungfu_tpu_torch.comm.device import Communicator
+    from kungfu_tpu_torch.monitor import timeline
+    from kungfu_tpu_torch.monitor.adapt_device import DeviceBanditDriver
+    from kungfu_tpu_torch.ops.schedules import (ALLREDUCE_SCHEDULES,
+                                                SIZE_BUCKETS, size_bucket)
+    from kungfu_tpu_torch.optimizers import apply_updates, sgd
+    from kungfu_tpu_torch.parallel.train import per_rank_grads, split_batch
+    from kungfu_tpu_torch.policy import ArmStats
+    from kungfu_tpu_torch.utils.tree import tree_flatten, tree_unflatten
+
+    model, params, batch, loss_fn = bert
+    cfg = model.cfg
+    shards = split_batch(batch, RANKS)
+    inner = sgd(BERT_LR, momentum=BERT_MOMENTUM)
+    leaves, treedef = tree_flatten(params)
+    sizes, shapes = [t.numel() for t in leaves], [t.shape for t in leaves]
+    total = sum(sizes)
+    comm = Communicator(devices=["cuda:0"] * RANKS, local_size=RANKS)
+    timeline.reset()
+    drv = DeviceBanditDriver(comm, check_every=ADAPT_CHECK_EVERY, min_pulls=1)
+    check(drv.table.arms == ALLREDUCE_SCHEDULES,
+          f"(a) arms {drv.table.arms}")
+    # CUDA events around each allreduce's launches, inside the latency
+    # hook's window (the window drains the card's queue on both sides)
+    events, records = [], []
+    axis_reduce = comm._axis_reduce
+
+    def timed_axis_reduce(*a, **kw):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        res = axis_reduce(*a, **kw)
+        e1.record()
+        events.append((e0, e1))
+        return res
+
+    def hook(nbytes, sched, seconds):
+        e0, e1 = events[-1]
+        events.clear()
+        records.append((nbytes, sched, seconds, e0.elapsed_time(e1) / 1e3))
+        drv._on_collective(nbytes, sched, seconds)
+
+    comm._axis_reduce = timed_axis_reduce
+    comm.set_latency_hook(hook)
+    dev = torch.empty((RANKS, total), dtype=torch.float32, device="cuda")
+
+    def sink(r, grads):
+        off = 0
+        for g, m in zip(grads, sizes):
+            dev[r, off:off + m].copy_(g.reshape(-1))
+            off += m
+
+    def unflat(flat):
+        parts, off = [], 0
+        for m, shape in zip(sizes, shapes):
+            parts.append(flat[off:off + m].view(shape))
+            off += m
+        return tree_unflatten(treedef, parts)
+
+    per_step = {key: 0 for key in _counts(kernels)}
+    per_step.update(_rank_launches(cfg))
+    p, o = params, inner.init(params)
+    losses, step_ms, installs = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset(kernels)
+    for k in range(1, ADAPT_STEPS + 1):
+        t0 = time.perf_counter()
+        outs, _ = per_rank_grads(loss_fn, p, shards, sink)
+        loss = comm.all_reduce(torch.stack([x.float() for x in outs])[:, None],
+                               op="mean")
+        red = comm.all_reduce(dev, op="mean")
+        u, o = inner.update(unflat(red[0]), o, p)
+        p = apply_updates(p, u)
+        del red
+        losses.append(float(loss[0, 0]))
+        swapped = drv.step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        installs.append([comm.strategy_for_bucket(b)
+                         for b in range(len(SIZE_BUCKETS))])
+        print(f"adapt (a) step {k}: loss {losses[-1]:.6f}, installed "
+              f"{dict(zip(SIZE_BUCKETS, installs[-1]))}, swapped {swapped}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    comm.set_latency_hook(None)
+    comm._axis_reduce = axis_reduce
+    got = _counts(kernels)
+    ring = sum(1 for _, s, _, _ in records if s == "pallas_ring")
+    want = {key: v * ADAPT_STEPS for key, v in per_step.items()}
+    want.update(ring_rs=ring, ring_ag=ring)
+    print(f"adapt (a) launches {got}, expected {want} ({ring} allreduces "
+          f"under pallas_ring, one ring reduce-scatter and all-gather each)")
+    check(ring > 0 and got == want, f"(a) launches {got}, expected {want}")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"(a) loss did not fall: {losses}")
+    check(len(records) == 2 * ADAPT_STEPS,
+          f"(a) the hook saw {len(records)} allreduces")
+    short = [(n, s, t, e) for n, s, t, e in records
+             if t + HOOK_EVENT_RESOLUTION_S < e]
+    check(not short, f"(a) hook latencies below the CUDA-event time of the "
+          f"same collective: {short}")
+    # the bucket table against a select recomputed from the summary
+    summary = drv.summary()
+    for b, row in summary.items():
+        t = ArmStats(drv.table.arms, min_pulls=1)
+        for arm, st in row["arms"].items():
+            if st["count"]:
+                t.observe(arm, st["mean_s"], count=st["count"])
+        check(t.select() == row["active"] == comm.strategy_for_bucket(b),
+              f"(a) bucket {SIZE_BUCKETS[b]}: installed "
+              f"{comm.strategy_for_bucket(b)}, summary {row['active']}, "
+              f"recomputed {t.select()}")
+    large = summary[1]["arms"]
+    check(all(v["count"] > 0 for v in large.values()),
+          f"(a) an arm of the large bucket was never measured: {large}")
+    # one swap event per bucket per swap, with the reference's fields
+    swaps = [e for e in timeline.snapshot() if e["kind"] == "swap"]
+    keys = [(e["attrs"]["seq"], e["attrs"]["bucket"]) for e in swaps]
+    check(len(swaps) == drv.swaps > 0 and len(set(keys)) == len(keys)
+          and all(e["attrs"]["plane"] == "device"
+                  and {"plane", "bucket", "seq", "prev", "step"}
+                  <= set(e["attrs"]) for e in swaps),
+          f"(a) swap events {swaps} for {drv.swaps} swaps")
+    # every arm's reduced gradient against psum's (the last step's)
+    comm.set_bucket_strategy(0, None)
+    red = {}
+    ring_counts = {}
+    for arm in ALLREDUCE_SCHEDULES:
+        comm.set_bucket_strategy(1, arm)
+        _reset(kernels)
+        red[arm] = comm.all_reduce(dev, op="mean")[0].clone()
+        torch.cuda.synchronize()
+        ring_counts[arm] = (kernels[3].launch_counts["ring_rs"],
+                            kernels[3].launch_counts["ring_ag"])
+    rel = {arm: float(torch.linalg.vector_norm(red[arm] - red["psum"])
+                      / torch.linalg.vector_norm(red["psum"]))
+           for arm in ALLREDUCE_SCHEDULES}
+    del red
+    print(f"adapt (a) each arm's reduced gradient vs psum's, rel L2: {rel} "
+          f"(tol {ADAPT_ARM_REL_L2}); ring launches {ring_counts}")
+    check(all(v <= ADAPT_ARM_REL_L2 for v in rel.values()),
+          f"(a) an arm differs from psum: {rel}")
+    check(ring_counts["pallas_ring"] == (1, 1)
+          and all(ring_counts[a] == (0, 0) for a in ALLREDUCE_SCHEDULES
+                  if a != "pallas_ring"), f"(a) ring launches {ring_counts}")
+    lat = {}
+    for nbytes, sched, t, e in records:
+        b = SIZE_BUCKETS[size_bucket(nbytes)]
+        lat.setdefault(b, {}).setdefault(sched, []).append((t, e))
+    mean_ms = {b: {s: {"hook_ms": 1e3 * sum(t for t, _ in v) / len(v),
+                       "event_ms": 1e3 * sum(e for _, e in v) / len(v),
+                       "n": len(v)}
+                   for s, v in d.items()} for b, d in lat.items()}
+    winners = {SIZE_BUCKETS[b]: row["active"] for b, row in summary.items()}
+    print(f"adapt (a) mean latency per bucket and arm (hook, CUDA events): "
+          f"{json.dumps(mean_ms)}; winners {winners}; {drv.swaps} swaps; "
+          f"step {statistics.median(step_ms):.2f} ms median; peak "
+          f"{peak:.2f} GiB")
+    return {"losses": losses, "step_ms": step_ms, "installs": installs,
+            "latency": mean_ms, "winners": winners, "swaps": drv.swaps,
+            "rel_l2_vs_psum": rel, "summary": {SIZE_BUCKETS[b]: v for b, v in
+                                              summary.items()},
+            "peak_gib": peak, "launches": got}
+
+
+def _adapt_host(np):
+    """(b) and (c) on three port peers with 30 ms on the 0<->1 link for
+    send and ping; the engines on the Python path (the chaos hooks ride
+    it), as bench.py's."""
+    import threading
+    from collections import Counter
+
+    from kungfu_tpu_torch import chaos
+    from kungfu_tpu_torch.monitor import adapt, adaptive, timeline
+    from kungfu_tpu_torch.monitor.adapt_device import MST_ARM, HostBanditDriver
+    from kungfu_tpu_torch.peer import start_local_cluster
+    from kungfu_tpu_torch.plan.graph import Graph
+    from kungfu_tpu_torch.plan.mst import minimum_spanning_tree
+
+    os.environ["KF_NATIVE_ENGINE"] = "0"
+    os.environ["KF_CHAOS_SPEC"] = ";".join(
+        f"delay:ms={HOST_ADAPT_WIRE_MS},rank={a},peer={b},on={on}"
+        for a, b in ((0, 1), (1, 0)) for on in ("send", "ping"))
+    chaos.reset()
+    data = np.ones(HOST_ADAPT_ELEMS, np.float32)
+
+    def measure(p, driver=None):
+        t0 = time.perf_counter()
+        got = p.engine().all_reduce(data, op="sum")
+        dt = time.perf_counter() - t0
+        check(bool(np.all(got == 3.0)), f"(b) allreduce gave {got[:4]}")
+        return dt, driver.step(dt) if driver is not None else False
+
+    def peers_on(strategy):
+        return start_local_cluster(
+            3, env={"KF_ALLREDUCE_STRATEGY": strategy}, devices=["cuda"])
+
+    out = {}
+    try:
+        fixed = {}
+        for s in HOST_ADAPT_FIXED_ARMS:
+            ps = peers_on(s)
+            try:
+                times = []
+                for _ in range(HOST_ADAPT_FIXED_STEPS):
+                    dts = _run_ranks([lambda p=p: measure(p)[0] for p in ps],
+                                     timeout=120)
+                    times.append(max(dts))
+                fixed[s] = statistics.median(times[2:])
+            finally:
+                for p in ps:
+                    p.close()
+        timeline.reset()
+        ps = peers_on(HOST_ADAPT_FIXED_ARMS[0])
+        mats, trees = {}, []
+        lock = threading.Lock()
+        latency_matrix = adapt.latency_matrix
+
+        def recording_matrix(peer, samples=1):
+            m = latency_matrix(peer, samples)
+            with lock:
+                mats.setdefault(peer.rank(), []).append(m)
+            return m
+
+        adapt.latency_matrix = recording_matrix
+        for p in ps:
+            def set_tree(forest, p=p, orig=p.set_tree):
+                orig(forest)
+                with lock:  # the matrix this rank's MST was taken from
+                    trees.append((p.rank(), len(mats[p.rank()]) - 1,
+                                  list(forest),
+                                  p.engine()._graphs[0][1].digest_bytes()))
+
+            p.set_tree = set_tree
+        try:
+            drivers = [HostBanditDriver(p, check_every=2, min_pulls=1,
+                                        min_swap_collectives=1) for p in ps]
+            times, swap_steps, actives = [], [], []
+            for i in range(HOST_ADAPT_STEPS):
+                res = _run_ranks([lambda p=p, d=d: measure(p, d)
+                                  for p, d in zip(ps, drivers)], timeout=120)
+                flags = {s for _, s in res}
+                check(len(flags) == 1, f"(b) non-lockstep swap at step {i}")
+                times.append(max(dt for dt, _ in res))
+                actives.append(drivers[0].active)
+                if flags.pop():
+                    swap_steps.append(i)
+            check(len({d.active for d in drivers}) == 1,
+                  f"(b) ranks ended on {[d.active for d in drivers]}")
+            evs = [e for e in timeline.snapshot() if e["kind"] == "swap"]
+            by_seq = Counter((e["attrs"]["seq"], e["name"]) for e in evs)
+            seqs = Counter(e["attrs"]["seq"] for e in evs)
+            check(evs and all(v == 3 for v in by_seq.values())
+                  and all(v == 3 for v in seqs.values()),
+                  f"(b) swap events per seq {dict(by_seq)}")
+            check(trees, "(b) the bandit never installed the MST arm")
+            for r, k, forest, digest in trees:
+                m = mats[r][k]
+                check(all(np.array_equal(m, mats[j][k]) for j in mats),
+                      "(b) the ranks' latency matrices differ")
+                check(forest == minimum_spanning_tree(m)
+                      and digest == Graph.from_forest_array(
+                          forest).digest_bytes(),
+                      f"(b) rank {r} installed {forest}, the MST of its "
+                      f"matrix is {minimum_spanning_tree(m)}")
+                check(forest[1] != 0 and forest[0] != 1,
+                      f"(b) the MST {forest} keeps the 0-1 edge")
+            steady = statistics.median(times[-8:])
+            best = min(fixed.values())
+            print(f"adapt (b) host bandit: swaps at steps {swap_steps}, arms "
+                  f"per step {actives}; swap events per seq "
+                  f"{ {f'seq{s}:{a}': c for (s, a), c in sorted(by_seq.items())} }; "
+                  f"MST installs {[(r, f) for r, _, f, _ in trees]} of the "
+                  f"matrix {mats[0][-1].round(5).tolist()}; steady step "
+                  f"{steady * 1e3:.2f} ms against the best fixed strategy "
+                  f"{min(fixed, key=fixed.get)} "
+                  f"{best * 1e3:.2f} ms (fixed {[(k, round(v * 1e3, 2)) for k, v in fixed.items()]})"
+                  f"; a host timing, recorded only")
+            out["host_bandit"] = {
+                "fixed_ms": {k: v * 1e3 for k, v in fixed.items()},
+                "steady_ms": steady * 1e3, "step_ms": [t * 1e3 for t in times],
+                "swap_steps": swap_steps, "final_arm": drivers[0].active,
+                "mst_installs": [f for _, _, f, _ in trees],
+                "latency_matrix": mats[0][-1].tolist(),
+                "mst_installed": drivers[0].active == MST_ARM}
+
+            # (c) the interference driver on the same peers
+            votes = {}
+            vote = adaptive.majority_vote_interference
+
+            def recording_vote(peer, suspected):
+                agreed = vote(peer, suspected)
+                with lock:
+                    votes.setdefault(peer.rank(), []).append(agreed)
+                return agreed
+
+            adaptive.majority_vote_interference = recording_vote
+            try:
+                ds = [adaptive.AdaptiveStrategyDriver(p, check_every=2)
+                      for p in ps]
+                swaps = []
+                for i in range(DRIVER_STEPS):
+                    res = _run_ranks([lambda p=p, d=d: (
+                        adaptive.monitored_all_reduce(p.engine(), data, d),
+                        d.swaps) for p, d in zip(ps, ds)], timeout=120)
+                    for got, _ in res:
+                        check(bool(np.all(got == 3.0)),
+                              f"(c) allreduce gave {got[:4]}")
+                    swaps.append({s for _, s in res})
+                    check(len(swaps[-1]) == 1, f"(c) non-lockstep swap at "
+                          f"step {i}: {swaps[-1]}")
+            finally:
+                adaptive.majority_vote_interference = vote
+            check(len(votes) == 3 and all(votes[r] == votes[0]
+                                          for r in votes)
+                  and len(votes[0]) == DRIVER_STEPS // 2,
+                  f"(c) interference votes differ: {votes}")
+            print(f"adapt (c) AdaptiveStrategyDriver: votes {votes[0]} on "
+                  f"every rank, swaps {[s.pop() for s in swaps]}, strategy "
+                  f"{ps[0].engine().strategy}")
+            out["interference_driver"] = {"votes": votes[0],
+                                          "swaps": ds[0].swaps}
+        finally:
+            adapt.latency_matrix = latency_matrix
+            for p in ps:
+                p.close()
+    finally:
+        chaos.reset()
+    return out
+
+
 WGMMA_KERNELS = ("flash_fwd_bf16_wgmma_kernel",
                  "flash_bwd_dq_bf16_wgmma_kernel",
                  "flash_bwd_dkv_bf16_wgmma_kernel",
@@ -3553,15 +4486,27 @@ def main() -> int:
     host_engine = phase_host_engine(torch, np, kernels, tr, bert,
                                     replicas["gns"])
     print(f"host engine phase: {host_engine['phase_s']:.2f} s")
-    del bert
     torch.cuda.empty_cache()
 
     # 13. the peer runtime: a rank killed mid-collective, the survivors
     # shrunk and replayed, a whole-job preemption restored from manifests
     recover = phase_recover(torch, np, kernels, tr)
     print(f"recover phase: {recover['wall_s']:.2f} s")
+    torch.cuda.empty_cache()
+
+    # 14. pair-averaging gossip on bert_base() over four peers
+    gossip = phase_gossip(torch, np, kernels, tr, bert)
+    print(f"gossip phase: {gossip['phase_s']:.2f} s")
+    torch.cuda.empty_cache()
+
+    # 15. the adaptation plane: the device bandit on bert_base()'s S-SGD
+    # steps, the host bandit and the interference driver under chaos
+    adapt = phase_adapt(torch, np, kernels, tr, bert)
+    print(f"adapt phase: {adapt['phase_s']:.2f} s")
+    del bert
+    torch.cuda.empty_cache()
     paths = (train, train_fused, ssgd, zero2, zero3, replicas, elastic,
-             host_engine, recover)
+             host_engine, recover, gossip, adapt)
 
     def row(name, route, source, replaces, key, err, timing, bert=None):
         extra = {k: timing[k] for k in ("plain_head_ms", "bound_fp32_ms",
@@ -3641,13 +4586,19 @@ def main() -> int:
               f"phase 12 never launched {key}")
         check(recover["launches"][key] > 0,
               f"phase 13 never launched {key}")
+        check(gossip["launches"][key] > 0,
+              f"phase 14 never launched {key}")
+    for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "xent_fwd",
+                "xent_bwd", "ring_rs", "ring_ag"):
+        check(adapt["launches"][key] > 0, f"phase 15 never launched {key}")
     print("details: " + json.dumps({
         "forward": fwd, "serve": serve, "train": train,
         "train_fused_head": train_fused, "ssgd_4_ranks": ssgd,
         "zero2_4_ranks": zero2, "zero3_4_ranks": zero3,
         "replicas_bert_4_ranks": replicas, "elastic_4_2_4": elastic,
         "host_engine_bert_4_ranks": host_engine,
-        "recover_gpt_4_3_2": recover,
+        "recover_gpt_4_3_2": recover, "gossip_bert_4_peers": gossip,
+        "adapt_bert_4_ranks_3_peers": adapt,
         "ring_timing": ring_timing, "build": build,
         "flash_fwd_errors": fwd_errs, "flash_fwd_timing": fwd_timing,
         "flash_bwd_errors": bwd_errs, "flash_bwd_timing": bwd_timing,

@@ -5,10 +5,11 @@ the hooks the port's callers reach -- ``on_step`` (:func:`note_step`),
 the engine's ``on_collective``, ``on_send`` and ``on_recv``, the
 slice-scoped deaths (``die_slice``), the failure detector's
 ``drop_fanout`` and the consensus config fetch's
-``config_unavailable``.  The reference's other hooks come with their
-callers: the serving request hook with the router, ``on_ping`` with the
-latency probe (ROADMAP A9); until then their clauses parse (the grammar
-is the reference's) and never fire.
+``config_unavailable``, and the latency probe's ``on_ping``
+(``delay:on=ping``, :func:`kungfu_tpu_torch.monitor.adapt.
+get_peer_latencies`).  The serving request hook comes with the router
+(ROADMAP A3); until then its clauses parse (the grammar is the
+reference's) and never fire.
 
 One :class:`ChaosController` exists per (spec, seed, rank) — the engine
 holds the instance for its own rank, the detector and other rank-less
@@ -160,6 +161,14 @@ class ChaosController:
                 if c.get("peer") is not None and c.get("peer") != to_rank:
                     continue
                 self._reset(name, payload, channel, peer)
+
+    def on_ping(self, to_rank: int) -> None:
+        """Latency-probe hook (``delay:on=ping``), called inside the
+        probe's timed window: the MST re-carve must see an injected slow
+        link, or it routes straight back onto it."""
+        for ci, c in enumerate(self._clauses):
+            if c.kind == "delay" and c.get("on") == "ping":
+                self._maybe_delay(ci, c, to_rank)
 
     def on_recv(self, from_rank: int, name: str) -> None:
         """Engine receive hook (``delay:on=recv`` stragglers)."""

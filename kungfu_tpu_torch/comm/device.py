@@ -26,6 +26,7 @@ from typing import Callable, List, Optional, Sequence
 
 import torch
 
+from kungfu_tpu_torch.monitor import timeline
 from kungfu_tpu_torch.ops import collective as coll
 from kungfu_tpu_torch.ops.schedules import (ALLREDUCE_SCHEDULES, SIZE_BUCKETS,
                                             all_gather_flat,
@@ -43,6 +44,43 @@ LOCAL_AXIS = "kf_local"
 GLOBAL_AXES = (HOST_AXIS, LOCAL_AXIS)
 
 _REDUCE_OPS = ("sum", "min", "max", "prod", "mean")
+
+
+def _traced_collective(name: str, op: str, n: int, version: int, fn,
+                       device: torch.device, nbytes: Optional[int] = None,
+                       sched: Optional[str] = None, hook=None):
+    """Run an eager collective under a ``device`` timeline span
+    (reference ``comm/device.py:67``).  Launches return before the card
+    has run them, so a span or a latency measurement that did not wait
+    would time the launch: with tracing on or a latency ``hook``
+    installed, the card's queue is drained before the window opens (so
+    the window holds this collective alone) and again before it closes.
+    ``nbytes`` and ``sched`` stamp the span, and ``hook(nbytes, sched,
+    seconds)`` receives the measured execution time.  With neither, the
+    call is ``fn()`` and nothing waits."""
+    if not timeline.enabled() and hook is None:
+        return fn()
+    attrs = {"op": op, "n": n, "version": version,
+             "trace": timeline.collective_trace_id(
+                 version, timeline.current_step(), op, name)}
+    if nbytes is not None:
+        attrs["nbytes"] = nbytes
+    if sched is not None:
+        attrs["sched"] = sched
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    with timeline.span("device", name, **attrs):
+        out = fn()
+        if cuda:
+            torch.cuda.synchronize(device)
+    if hook is not None and nbytes is not None and sched is not None:
+        try:
+            hook(nbytes, sched, time.perf_counter() - t0)
+        except Exception as e:  # noqa: BLE001 - observers must not break comm
+            _log.warning("latency hook failed: %s", e)
+    return out
 
 
 def _one_device(devices: Sequence) -> List[torch.device]:
@@ -78,6 +116,7 @@ class Communicator:
         self._n, self._local, self._hosts = n, local, n // local
         self.axis = GLOBAL_AXES
         self._bucket_strategy: dict = {}
+        self._latency_hook: Optional[Callable] = None
         #: seconds per allreduce of each schedule, as the last
         #: :meth:`autotune_strategy` agreed them
         self.autotune_times: dict = {}
@@ -146,13 +185,31 @@ class Communicator:
                 f"unknown strategy {name!r}; one of {ALLREDUCE_SCHEDULES}")
         self._bucket_strategy[bucket] = name
 
+    def strategy_for_bucket(self, bucket: int) -> str:
+        """Active schedule of one payload bucket (the global strategy
+        where no override is installed)."""
+        return self._bucket_strategy.get(bucket, self._strategy)
+
     def strategy_for(self, nbytes: int) -> str:
         """Active schedule for a payload of ``nbytes``."""
-        return self._bucket_strategy.get(size_bucket(nbytes), self._strategy)
+        return self.strategy_for_bucket(size_bucket(nbytes))
 
     def bucket_strategies(self) -> dict:
         """Installed per-bucket overrides, ``{bucket_index: name}``."""
         return dict(self._bucket_strategy)
+
+    def bucket_summary(self) -> str:
+        """The installed bucket table as ``"small=psum,large=ring"``
+        (``""`` when none is installed)."""
+        return ",".join(f"{SIZE_BUCKETS[b]}={n}"
+                        for b, n in sorted(self._bucket_strategy.items()))
+
+    def set_latency_hook(self, fn: Optional[Callable]) -> None:
+        """Install ``fn(nbytes, sched, seconds)`` to receive the execution
+        time of every eager :meth:`all_reduce` (the device bandit's
+        feed); the measurement drains the card's queue around the
+        collective.  ``None`` restores the path that does not wait."""
+        self._latency_hook = fn
 
     def autotune_strategy(self, nbytes: int = 4 << 20, trials: int = 3) -> str:
         """Time every schedule of ``ALLREDUCE_SCHEDULES`` on an f32
@@ -200,15 +257,20 @@ class Communicator:
         plain ``psum`` path with the bucket overrides suspended (the
         machinery under measurement carries no agreement traffic).  One
         process holds every rank, so this is the identity; a
-        multi-controller mesh agrees here."""
+        multi-controller mesh agrees here.  The latency hook is
+        suspended too: agreement traffic must not land in the bandit's
+        windows."""
         stacked = torch.tensor([float(v) for v in row], dtype=torch.float32,
                                device=self.device).expand(self._n, len(row))
         prev, prev_buckets = self._strategy, self._bucket_strategy
+        prev_hook = self._latency_hook
         self._strategy, self._bucket_strategy = "psum", {}
+        self._latency_hook = None
         try:
             return self.all_reduce(stacked, op=op)[0].tolist()
         finally:
             self._strategy, self._bucket_strategy = prev, prev_buckets
+            self._latency_hook = prev_hook
 
     def _time_schedules(self, x, trials: int) -> List[Optional[float]]:
         """Seconds per allreduce of ``x`` for each schedule: one salted
@@ -288,8 +350,19 @@ class Communicator:
 
     def all_reduce(self, x, op: str = "sum"):
         """Stacked allreduce: ``out[i] = reduce_j x[j]``, each leaf with
-        the schedule of its payload bucket (:meth:`strategy_for`)."""
-        return self._axis_reduce(x, op, GLOBAL_AXES)
+        the schedule of its payload bucket (:meth:`strategy_for`).  The
+        span and the latency hook are attributed to the largest leaf,
+        the one that governs the time."""
+        if op not in _REDUCE_OPS:
+            raise ValueError(f"op {op!r} not in {_REDUCE_OPS}")
+        nbytes = max((a.numel() * a.element_size() for a in tree_leaves(x)),
+                     default=0)
+        return _traced_collective(
+            "device.all_reduce", "all_reduce", self._n, self.version,
+            lambda: self._axis_reduce(x, op, GLOBAL_AXES), self.device,
+            nbytes=nbytes,
+            sched=self.strategy_for(nbytes) if op != "prod" else "psum",
+            hook=self._latency_hook)
 
     def local_all_reduce(self, x, op: str = "sum"):
         """Reduce over the intra-host axis only."""
@@ -317,8 +390,13 @@ class Communicator:
         """``out[i] = x[root]`` for every rank."""
         self._check_root(root)
         self._check(x)
-        with self.world():
-            return coll.broadcast(x, GLOBAL_AXES, root=root)
+
+        def run():
+            with self.world():
+                return coll.broadcast(x, GLOBAL_AXES, root=root)
+
+        return _traced_collective("device.broadcast", "broadcast", self._n,
+                                  self.version, run, self.device)
 
     def broadcast_value(self, value, root_slot: int = 0):
         """Rank ``root_slot``'s copy of one unstacked value, as every
@@ -381,8 +459,13 @@ class Communicator:
         """``out[i] = stack_j x[j]``: every rank sees every row,
         ``[n, n, ...]``."""
         self._check(x)
-        with self.world():
-            return coll.all_gather(x, GLOBAL_AXES)
+
+        def run():
+            with self.world():
+                return coll.all_gather(x, GLOBAL_AXES)
+
+        return _traced_collective("device.all_gather", "all_gather", self._n,
+                                  self.version, run, self.device)
 
     def gather(self, x, root: int = 0):
         """Every rank receives the stacked copy (:meth:`all_gather`): the
@@ -412,8 +495,12 @@ class Communicator:
                                       schedule=self._flat_schedule(a))
             return out / n if op == "mean" else out
 
-        with self.world():
-            return tree_map(leaf, x)
+        def run():
+            with self.world():
+                return tree_map(leaf, x)
+
+        return _traced_collective("device.reduce_scatter", "reduce_scatter",
+                                  self._n, self.version, run, self.device)
 
     def all_gather_shard(self, x, bucket_bytes: int = 4 << 20):
         """Inverse of :meth:`reduce_scatter`: each rank's ``[chunk]`` row
@@ -429,8 +516,12 @@ class Communicator:
             return all_gather_flat(flat, self._mesh_axes(), widths,
                                    schedule=self._flat_schedule(a))
 
-        with self.world():
-            return tree_map(leaf, x)
+        def run():
+            with self.world():
+                return tree_map(leaf, x)
+
+        return _traced_collective("device.all_gather_shard", "all_gather",
+                                  self._n, self.version, run, self.device)
 
     def _flat_schedule(self, a: torch.Tensor) -> str:
         nbytes = a.numel() * a.element_size()

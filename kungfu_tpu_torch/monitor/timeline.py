@@ -8,14 +8,15 @@ host collective engine call: :func:`span`, :func:`event`,
 rank and step (:func:`set_rank`, :func:`set_step`, :func:`current_step`,
 :func:`current_rank`), the counted kinds (``retry``, ``deadline``,
 ``chaos``, ``swap`` and the rest tick their registry counters even with
-tracing off), :func:`snapshot`, :func:`reset`, :func:`dump` and
+tracing off), :func:`snapshot`, :func:`events_tail` (the cursor the
+bandit drivers read), :func:`reset`, :func:`dump` and
 :func:`maybe_dump` (``KF_CONFIG_TRACE_DUMP``, also at exit).  Events are
 ``(ts, rank, step, kind, name, dur, attrs)`` in the reference's
 vocabulary, so the engine's ``collective``, ``overlap`` and ``deadline``
 events come out as the reference's do; recording is gated by
 ``KF_CONFIG_ENABLE_TRACE``.  :func:`format_trace_context` is the wire
-form the p2p blob store's requests carry.  Not ported: ``trace_ctx``
-and ``events_tail`` (the live plane's cursor).
+form the p2p blob store's requests carry.  Not ported: ``trace_ctx``,
+which no ported module calls.
 """
 
 from __future__ import annotations
@@ -382,6 +383,25 @@ def snapshot() -> List[Dict]:
         evs = list(_ring)
     return [{"ts": ts, "rank": r, "step": s, "kind": k, "name": n, "dur": d,
              "attrs": a or {}} for ts, r, s, k, n, d, a in evs]
+
+
+def events_tail(since: int, kinds: Optional[frozenset] = None
+                ) -> Tuple[int, List[Dict]]:
+    """``(cursor, events)``: every event appended after the ``since``
+    cursor (0 = the beginning), optionally filtered by kind, oldest
+    first.  The cursor counts every append (evicted and live), so an
+    incremental reader never reads an event twice or misses one still in
+    the ring; events evicted before the read are gone (:func:`dropped`
+    says how many)."""
+    with _lock:
+        total = _dropped + len(_ring)
+        start = max(0, since - _dropped)
+        evs = list(_ring)[start:] if start < len(_ring) else []
+    if kinds is not None:
+        evs = [e for e in evs if e[3] in kinds]
+    return total, [{"ts": ts, "rank": r, "step": s, "kind": k, "name": n,
+                    "dur": d, "attrs": a or {}}
+                   for ts, r, s, k, n, d, a in evs]
 
 
 def reset(cap: Optional[int] = None) -> None:

@@ -7,10 +7,13 @@
   replica towards the average, apply local gradients;
 * :func:`adaptive_sgd` — SMA before ``change_step``, S-SGD after;
 * :func:`monitor_gradient_noise_scale` / :func:`monitor_gradient_variance`
-  — S-SGD whose state carries a training statistic.
-
-The two pair-averaging optimizers pull a peer's model over the host
-plane and come with it.
+  — S-SGD whose state carries a training statistic;
+* :class:`PairAveragingOptimizer` — AD-PSGD gossip: pull a peer's fused
+  model from its versioned store over the host channel, average
+  0.5/0.5, apply local gradients, publish;
+* :class:`AsyncPairAveragingOptimizer` — the same with the pull off the
+  critical path: a background thread keeps a triple-buffered receive in
+  flight, and the step averages with the last landed model.
 """
 
 from kungfu_tpu_torch.optimizers._transform import (GradientTransformation,
@@ -18,6 +21,8 @@ from kungfu_tpu_torch.optimizers._transform import (GradientTransformation,
                                                     apply_updates, chain,
                                                     scale_by_adam, sgd)
 from kungfu_tpu_torch.optimizers.ada_sgd import AdaptiveSGDState, adaptive_sgd
+from kungfu_tpu_torch.optimizers.async_sgd import (
+    AsyncPairAveragingOptimizer, PairAveragingOptimizer)
 from kungfu_tpu_torch.optimizers.monitors import (
     GNSState, GradVarianceState, monitor_gradient_noise_scale,
     monitor_gradient_variance)
@@ -27,5 +32,6 @@ from kungfu_tpu_torch.optimizers.sync_sgd import synchronous_sgd
 __all__ = ["GradientTransformation", "adam", "adamw", "apply_updates",
            "chain", "scale_by_adam", "sgd", "synchronous_sgd",
            "synchronous_averaging", "adaptive_sgd", "AdaptiveSGDState",
+           "PairAveragingOptimizer", "AsyncPairAveragingOptimizer",
            "monitor_gradient_noise_scale", "monitor_gradient_variance",
            "GNSState", "GradVarianceState"]

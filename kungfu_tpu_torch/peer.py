@@ -22,9 +22,9 @@ Where the port differs from the reference:
   ``NotImplementedError`` (the multi-card slice);
 * ``KF_CONFIG_ENABLE_MONITORING`` and ``KF_CONFIG_ENABLE_CLUSTER_MONITOR``
   raise ``NotImplementedError`` until ROADMAP A9 ports NetMonitor, the
-  metrics server and the rank reporter, as do the adaptation methods
-  (:meth:`Peer.get_peer_latencies`, :meth:`Peer.get_egress_rates`,
-  :meth:`Peer.check_interference`, :meth:`Peer.set_tree`).
+  metrics server and the rank reporter.  So no net monitor runs, and
+  :meth:`Peer.get_egress_rates` gives ``[0.0] * size()``, as the
+  reference's does without one.
 """
 
 from __future__ import annotations
@@ -46,9 +46,9 @@ from kungfu_tpu_torch.utils.trace import trace_scope
 
 _log = get_logger("peer")
 
-#: the message of every knob and method that waits for ROADMAP A9
-_A9 = ("waits for ROADMAP A9 (NetMonitor, the metrics server, the "
-       "cluster aggregator and monitor/adapt.py are not ported yet)")
+#: the message of every knob that waits for ROADMAP A9
+_A9 = ("waits for ROADMAP A9 (NetMonitor, the metrics server and the "
+       "cluster aggregator are not ported yet)")
 
 
 class Peer:
@@ -423,18 +423,45 @@ class Peer:
                                          zero_boundary=zero_boundary,
                                          stage_boundary=stage_boundary)
 
-    # -- monitoring / adaptation ------------------------------------------
+    # -- monitoring / adaptation (reference peer.hpp GetPeerLatencies /
+    # CheckInterference / GetEgressRates / SetTree) -----------------------
     def get_peer_latencies(self, samples: int = 1):
-        raise NotImplementedError(f"get_peer_latencies {_A9}")
+        """Ping RTT in seconds to every worker (0.0 for this peer, +inf
+        for one that does not answer)."""
+        from kungfu_tpu_torch.monitor.adapt import get_peer_latencies
+
+        return get_peer_latencies(self, samples)
 
     def get_egress_rates(self):
-        raise NotImplementedError(f"get_egress_rates {_A9}")
+        """Bytes/s sent to each worker, as a net monitor measures them:
+        without one (the knob that starts it raises until ROADMAP A9),
+        ``[0.0] * size()``, as the reference's."""
+        return [0.0] * self.size()
 
     def check_interference(self) -> bool:
-        raise NotImplementedError(f"check_interference {_A9}")
+        """The cluster's majority vote over each rank's interference
+        suspicion (a strategy under 0.8 of its best throughput)."""
+        from kungfu_tpu_torch.monitor.adapt import (check_interference,
+                                                    majority_vote_interference)
+
+        engine = self.engine()
+        suspected = bool(engine and check_interference(engine))
+        return majority_vote_interference(self, suspected)
 
     def set_tree(self, forest) -> None:
-        raise NotImplementedError(f"set_tree {_A9}")
+        """Install an explicit broadcast tree after cluster-wide
+        agreement (reference SetTree: consensus on the tree's digest,
+        barrier, swap)."""
+        from kungfu_tpu_torch.monitor.adapt import set_tree
+        from kungfu_tpu_torch.plan.graph import Graph
+
+        digest = Graph.from_forest_array(forest).digest_bytes()
+        if not self.consensus_bytes(digest, name="set-tree"):
+            raise RuntimeError("peers disagree on the proposed tree")
+        self.barrier()
+        engine = self.engine()
+        if engine is not None:
+            set_tree(engine, forest)
 
     # -- p2p blob store ----------------------------------------------------
     def save(self, name: str, blob, version: Optional[str] = None,

@@ -754,9 +754,12 @@ class TestNotPorted:
         lambda p: p.get_peer_latencies(), lambda p: p.get_egress_rates(),
         lambda p: p.check_interference(), lambda p: p.set_tree([0])])
     def test_adaptation_methods(self, call):
+        """Ported since: on a single-process peer each answers as the
+        reference's does (the cluster cases are in
+        test_torch_port_adapt.py)."""
         p = Peer(envs.parse_config_from_env({}), devices=["cpu"])
-        with pytest.raises(NotImplementedError, match="A9"):
-            call(p)
+        j = JPeer(jenvs.parse_config_from_env({}))
+        assert call(p) == call(j)
 
     def test_stage_recovery(self):
         from kungfu_tpu_torch.elastic import persist
