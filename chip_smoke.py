@@ -200,6 +200,52 @@ Phases (any failed check exits non-zero before the result line):
              not checked.  (c) ``AdaptiveStrategyDriver`` and
              ``monitored_all_reduce`` on the same peers: one interference
              vote on every rank, lockstep swaps, exact values.
+16. serve  — the serving plane on the flagship (bench.py:1869
+             payload_serve's deployment at full width and depth; bf16,
+             ``max_batch=4``, ``max_seq=512``, 16-token pages, 256 a
+             pool), on the Python transport.  (a) seven ``Peer``s from
+             ``start_local_cluster(7)``: six ``ServeWorker``s (one
+             ``InferenceEngine`` each on the card, one params tree,
+             flat out) and a ``ServeRouter`` with ``SliceTopology(3,
+             2)``, ``commit_every=4``, ``queue_depth=512``,
+             ``deadline_s=2.0``, ``strike_limit=2``; every request a
+             shared 64-token system prompt plus 8 seeded tokens, 24 new
+             tokens; each worker's thread warmed by traffic; the offered
+             rate (fixed period) half of what two workers sustain on a
+             saturating burst; S1 and S2 chosen from the decode cadence
+             measured at that rate; the arrivals submitted from a pool
+             of threads; ``KF_CHAOS_SPEC`` kills rank 1 at its
+             iteration S1 and slice 1 at S2.  Checks: no accepted request
+             lost; both kills observed in the router's dead set, slice 0
+             excluded whole at the first and slice 1 at the second; at
+             least one replay; p99 e2e after recovery at most 2.0 x p99
+             before the first kill, over at least 30 requests each (its
+             ratio to the p99 of ranks 4 and 5 alone at the offered rate
+             before the kills is reported);
+             computed prefill tokens below the no-cache cost; every
+             answer teacher-forced through ``model.apply`` (the flash
+             kernel) within ``GREEDY_MARGIN`` of top-1 at every
+             position; every replayed answer starting with its committed
+             tokens.  (b) a ``ConfigServer`` with a ``ClusterAggregator``
+             and four peers with ``KF_CONFIG_ENABLE_CLUSTER_MONITOR=1``:
+             ``ServeFleet`` with ``ServeAutoscalePolicy(scale_up_queue=2,
+             cooldown_steps=0)``, a ``BatchWidthController`` on each live
+             engine, a burst of 16 on the one live worker; fleet ticks
+             from ``GET /cluster`` spawn a worker (a new engine warmed on
+             the card), which serves, and idle ticks retire it; the
+             view's serving rollup counts completions, each live
+             worker's rank reports its own pool's ``kf_kv_cache_bytes``
+             and ``kv_bytes`` is their sum.  (c) a second ``warmup()``
+             to 512 tokens captures only the new prefill buckets; a
+             70-token answer's pages through ``PersistPlane`` to disk
+             and into a fresh engine's pool: restored with none
+             rejected, the prompt again reusing its four whole pages
+             within ``GREEDY_MARGIN``, a page with one flipped byte
+             rejected.  The served traffic launches no kernel (the
+             engines' attention is the plain softmax); the teacher-forced
+             checks launch the flash forward.  p50/p99 per phase, TTFT,
+             decode iteration ms per worker, tokens/s, kill -> dead s,
+             spawn s, widths, flash launches, peak memory.
 
 Phase 3 also holds the ring reduce-scatter and all-gather kernels
 bitwise against their plain versions, at the main path's shapes (a
@@ -4293,6 +4339,779 @@ def _adapt_host(np):
     return out
 
 
+#: phase 16: the reference's serving deployment (bench.py:1869
+#: payload_serve) at the flagship's width and depth — six workers over
+#: three emulated two-rank slices and one router, the reference's router
+#: settings, chat traffic with a shared 64-token system prompt
+SERVE_WORKERS = 6
+SERVE_SLICES = 3
+SERVE_SYSTEM_TOKENS = 64
+SERVE_USER_TOKENS = 8
+SERVE_NEW_TOKENS = 24
+SERVE_MAX_BATCH = 4
+SERVE_MAX_SEQ = 512
+SERVE_PAGE_TOKENS = 16
+SERVE_PAGES = 256
+SERVE_COMMIT_EVERY = 4
+SERVE_QUEUE_DEPTH = 512
+SERVE_DEADLINE_S = 2.0
+SERVE_STRIKES = 2
+#: the reference's gate: p99 e2e after both kills over p99 before them
+SERVE_RECOVERY_RATIO = 2.0
+#: requests that must finish before the first kill, and be submitted
+#: after the second recovery, for the p99s to mean something
+SERVE_MIN_PRE = 30
+SERVE_MIN_AFTER = 30
+#: the saturating burst two workers take to measure their capacity
+SERVE_CAPACITY_REQUESTS = 32
+#: requests two workers take at the offered rate before the kills: the
+#: p99 of the after phase's regime (two live workers), reported beside
+#: the reference's ratio to the pre-kill p99 of six workers
+SERVE_BASELINE_REQUESTS = 60
+#: seconds of load at the offered rate that measure each worker's
+#: decode cadence, from which the kills' steps are chosen
+SERVE_CALIBRATE_S = 3.0
+#: rank 1 dies at the tenth decode iteration of its first request in
+#: the timed load (two commits of four tokens made by then)
+SERVE_KILL1_ITERATIONS = 10
+#: seconds of decoding at the busiest worker's measured cadence after
+#: which rank 2, the dispatch's first choice once slice 0 is out, dies
+SERVE_KILL_GAP_S = 5.0
+#: requests submitted after the second recovery (the check asks for 30)
+SERVE_AFTER_TARGET = 60
+#: the whole timed load's ceiling: a kill that never fires fails here
+SERVE_LOAD_LIMIT_S = 120.0
+#: threads submitting the timed load's arrivals
+SERVE_SUBMITTERS = 8
+#: (b) the burst on the one live worker, the reporters' push period
+SERVE_BURST = 16
+SERVE_PUSH_PERIOD_S = 0.2
+#: (c) the prompt answered before the cold restart (four whole pages)
+SERVE_WARM_PROMPT = 70
+
+
+def _step_meter(eng) -> dict:
+    """Count and time ``eng.step`` calls: a serve worker's decode
+    iteration counter (the chaos ``die`` clock) equals the count, since
+    the worker calls ``step`` once an iteration."""
+    st = {"n": 0, "busy_s": 0.0}
+    inner = eng.step
+
+    def step():
+        t0 = time.perf_counter()
+        out = inner()
+        st["busy_s"] += time.perf_counter() - t0
+        st["n"] += 1
+        return out
+
+    eng.step = step
+    return st
+
+
+def _serve_engine(model, params, rank):
+    from kungfu_tpu_torch.serve.engine import InferenceEngine
+    from kungfu_tpu_torch.serve.kvcache import KVCachePool, PageSpec
+
+    pool = KVCachePool(PageSpec.for_model(model.cfg,
+                                          page_tokens=SERVE_PAGE_TOKENS),
+                       SERVE_PAGES)
+    eng = InferenceEngine(model, params, pool=pool,
+                          max_batch=SERVE_MAX_BATCH, max_seq=SERVE_MAX_SEQ,
+                          rank=rank)
+    eng.warmup(prompt_lens=(SERVE_SYSTEM_TOKENS + SERVE_USER_TOKENS
+                            + SERVE_NEW_TOKENS,))
+    return eng
+
+
+def _teacher_forced(torch, model, params, pairs) -> tuple:
+    """Every ``(prompt, tokens)`` through ``model.apply`` (the flash
+    kernel) on the full context: the largest top-1 margin over a served
+    token, per pair whether every token is the top-1, and the flash
+    forward launches this check made."""
+    from kungfu_tpu_torch.ops.cuda import attention
+
+    launches0 = attention.launch_counts["flash_fwd"]
+    dev = params["embed"]["table"].device
+    worst = 0.0
+    by_len: dict = {}
+    for i, (p, toks) in enumerate(pairs):
+        by_len.setdefault((len(p), len(toks)), []).append(i)
+    exact = [False] * len(pairs)
+    for (lp, _), idx in by_len.items():
+        for lo in range(0, len(idx), 32):
+            part = idx[lo:lo + 32]
+            ids = torch.tensor([pairs[i][0] + pairs[i][1][:-1] for i in part],
+                               device=dev)
+            with torch.no_grad():
+                logits = model.apply(params, ids)[:, lp - 1:].float()
+            got = torch.tensor([pairs[i][1] for i in part], device=dev)
+            top = logits.argmax(dim=-1)
+            gap = (logits.gather(2, top[..., None])
+                   - logits.gather(2, got[..., None]))[..., 0]
+            worst = max(worst, gap.max().item())
+            for j, i in enumerate(part):
+                exact[i] = bool((top[j] == got[j]).all())
+    return worst, exact, attention.launch_counts["flash_fwd"] - launches0
+
+
+def _pct(np, xs, q):
+    return float(np.percentile(np.asarray(xs), q)) if xs else None
+
+
+def phase_serve_plane(torch, np, attention, tr):
+    """The serving plane on the flagship (bench.py:1869 payload_serve's
+    deployment at full width and depth): (a) six ``ServeWorker``s and a
+    ``ServeRouter`` through a worker kill and a slice kill at half the
+    survivors' capacity; (b) ``ServeFleet`` autoscaling from the live
+    aggregator's ``/cluster`` view; (c) a warm KV cache across a cold
+    restart through the persist plane.  Checks of the module docstring."""
+    from kungfu_tpu_torch import chaos
+
+    t_phase = time.perf_counter()
+    out = {"card": nvidia_smi()}
+    torch.cuda.reset_peak_memory_stats()
+    attention.reset_launch_counts()
+    model = tr.Transformer(tr.TransformerConfig(**FLAGSHIP))
+    params = model.init(torch.Generator().manual_seed(0), device="cuda")
+    old = _set_env({"KF_TPU_HOST_TRANSPORT": "python",
+                    "KF_NATIVE_ENGINE": "0", "KF_TPU_USE_UNIXSOCK": "0",
+                    "KF_CHAOS_SPEC": None,
+                    "KF_CONFIG_ENABLE_CLUSTER_MONITOR": None,
+                    "KF_CONFIG_MONITOR_PUSH_PERIOD": None})
+    chaos.reset()
+    try:
+        # no inference_mode here: the engines' slabs are written in place
+        # by the worker threads, which do not inherit a thread-local mode
+        out["slo"] = _serve_slo(torch, np, model, params)
+        torch.cuda.empty_cache()
+        out["autoscale"] = _serve_autoscale(torch, np, model, params)
+        torch.cuda.empty_cache()
+    finally:
+        _set_env(old)
+        chaos.reset()
+    # the served traffic of (a)-(c) launches no kernel: the engines'
+    # attention is the plain softmax, as the reference's.  Only the
+    # teacher-forced checks run the flash forward
+    checked = (out["slo"]["teacher_forced_launches"]
+               + out["autoscale"]["warm"]["teacher_forced_launches"])
+    served = attention.launch_counts["flash_fwd"] - checked
+    out["launches"] = {"served": served, "teacher_forced": checked}
+    check(out["slo"]["served_launches"] == 0 and served == 0,
+          f"the served traffic launched flash_fwd {served} times")
+    check(checked > 0, "phase 16's teacher-forced check never launched "
+          "flash_fwd")
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"serve plane: flash_fwd launches: served traffic {served} (the "
+          f"engines' attention is the plain softmax), teacher-forced "
+          f"checks {checked}; peak {out['peak_gib']:.2f} GiB, phase "
+          f"{out['phase_s']:.2f} s ({out['card']})")
+    del model, params
+    return out
+
+
+def _serve_slo(torch, np, model, params) -> dict:
+    """(a) The SLO through two kills: seven peers, six workers on the
+    card (one engine each, one params tree), the router with
+    ``SliceTopology(3, 2)``; the offered rate is half of what two workers
+    sustain; rank 1 dies at its decode iteration S1 and slice 1 (ranks 2
+    and 3) at S2."""
+    from kungfu_tpu_torch import chaos
+    from kungfu_tpu_torch.elastic.slices import SliceTopology
+    from kungfu_tpu_torch.monitor.registry import REGISTRY
+    from kungfu_tpu_torch.ops.cuda import attention
+    from kungfu_tpu_torch.peer import start_local_cluster
+    from kungfu_tpu_torch.serve.router import ServeRouter, ServeWorker
+
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    vocab = model.cfg.vocab_size
+    rng = np.random.default_rng(16)
+    system = rng.integers(0, vocab, size=SERVE_SYSTEM_TOKENS).tolist()
+
+    def prompt(extra=0):
+        return system + rng.integers(
+            0, vocab, size=SERVE_USER_TOKENS + extra).tolist()
+
+    out = {}
+    t0 = time.perf_counter()
+    peers = start_local_cluster(SERVE_WORKERS + 1, devices=["cuda"])
+    engines, meters, servers, routers = [], [], [], []
+    try:
+        for r in range(SERVE_WORKERS):
+            eng = _serve_engine(model, params, r)
+            engines.append(eng)
+            meters.append(_step_meter(eng))
+            servers.append(ServeWorker(peers[r], eng,
+                                       commit_every=SERVE_COMMIT_EVERY,
+                                       step_period_s=0.0).start())
+        slab = engines[0]._k.numel() * engines[0]._k.element_size() * 2
+        out["slab_mb"] = slab / 1e6
+        rport = peers[SERVE_WORKERS]
+
+        def router(ranks, **kw):
+            r = ServeRouter(rport, worker_ranks=ranks,
+                            queue_depth=SERVE_QUEUE_DEPTH, **kw)
+            routers.append(r)
+            return r
+
+        # warm each worker's own thread (its first cuBLAS call makes the
+        # thread's handle and workspace): one request a worker through
+        # each prefill bucket the traffic and its replays reach
+        warm = router(list(range(SERVE_WORKERS)), deadline_s=60.0)
+        for extra in (0, 0, 16):
+            hs = [warm.submit(prompt(extra), SERVE_NEW_TOKENS)
+                  for _ in range(SERVE_WORKERS)]
+            for h in hs:
+                h.wait(120)
+        warm.close()
+        out["setup_s"] = time.perf_counter() - t0
+
+        # what two workers sustain: a saturating burst on ranks 4 and 5
+        cap = router([4, 5], deadline_s=60.0)
+        n45 = meters[4]["n"] + meters[5]["n"]
+        t1 = time.perf_counter()
+        hs = [cap.submit(prompt(), SERVE_NEW_TOKENS)
+              for _ in range(SERVE_CAPACITY_REQUESTS)]
+        for h in hs:
+            h.wait(120)
+        wall = time.perf_counter() - t1
+        cap.close()
+        capacity = SERVE_CAPACITY_REQUESTS / wall
+        r_max = (meters[4]["n"] + meters[5]["n"] - n45) / 2 / wall
+        rate = capacity / 2
+        period = 1.0 / rate
+        out.update(capacity_rps=capacity, rate_rps=rate,
+                   saturated_it_s=r_max)
+        print(f"serve (a): two workers sustain {capacity:.2f} req/s "
+              f"({r_max:.1f} decode iterations/s each); offered rate "
+              f"{rate:.2f} req/s (period {period * 1e3:.1f} ms)")
+
+        # the after phase's regime before any kill: ranks 4 and 5 alone
+        # at the offered rate
+        base = router([4, 5], deadline_s=SERVE_DEADLINE_S)
+        t1 = time.perf_counter()
+        hs = []
+        for i in range(SERVE_BASELINE_REQUESTS):
+            hs.append(base.submit(prompt(), SERVE_NEW_TOKENS))
+            time.sleep(max(0.0, t1 + (i + 1) * period - time.perf_counter()))
+        for h in hs:
+            h.wait(120)
+        base.close()
+        two = [h.done_s - h.submitted_s for h in hs]
+        out.update(p50_two_workers_ms=_pct(np, two, 50) * 1e3,
+                   p99_two_workers_ms=_pct(np, two, 99) * 1e3)
+        print(f"serve (a): two workers at the offered rate, before the "
+              f"kills: {len(two)} requests, p50 "
+              f"{out['p50_two_workers_ms']:.1f} ms, p99 "
+              f"{out['p99_two_workers_ms']:.1f} ms")
+
+        main = router(list(range(SERVE_WORKERS)),
+                      deadline_s=SERVE_DEADLINE_S, strike_limit=SERVE_STRIKES,
+                      topology=SliceTopology(SERVE_SLICES, 2))
+
+        # the decode cadence at the offered rate, each worker
+        before = [m["n"] for m in meters]
+        t1 = time.perf_counter()
+        cal = []
+        while time.perf_counter() - t1 < SERVE_CALIBRATE_S:
+            cal.append(main.submit(prompt(), SERVE_NEW_TOKENS))
+            time.sleep(max(0.0, t1 + len(cal) * period - time.perf_counter()))
+        cal_wall = time.perf_counter() - t1
+        r_cal = [(m["n"] - b) / cal_wall for m, b in zip(meters, before)]
+        for h in cal:
+            h.wait(120)
+        cal_e2e = [h.done_s - h.submitted_s for h in cal]
+        p50_cal = _pct(np, cal_e2e, 50)
+        # least-outstanding dispatch with the lowest-rank tie-break sends
+        # every request to the lowest live rank while one request is done
+        # before the next arrives; so rank 1 first decodes when it is
+        # handed the extra request of the pair below, and rank 2 decodes
+        # all the traffic once slice 0 is out.  Where a worker does decode
+        # at the offered rate (a slower host), its measured cadence
+        # carries it past the pre-kill window first.
+        now = [m["n"] for m in meters]
+        busiest = max(r_cal)
+        t_pre = (SERVE_MIN_PRE + 10) * period + 2 * p50_cal
+        s1 = now[1] + int(r_cal[1] * t_pre) + SERVE_KILL1_ITERATIONS
+        t_mid = t_pre + SERVE_DEADLINE_S + 1.0
+        s2 = max(now[2] + int(r_cal[2] * t_mid),
+                 now[3] + int(r_cal[3] * t_mid)) + int(
+                     busiest * SERVE_KILL_GAP_S)
+        spec = (f"die:rank=1,step={s1},mode=raise;"
+                f"die_slice:slice=1,step={s2},mode=raise,rps=2")
+        out.update(s1=s1, s2=s2, chaos_spec=spec,
+                   calibrate_it_s=r_cal, p50_calibrate_s=p50_cal)
+        print(f"serve (a): decode iterations/s at the offered rate "
+              f"{[round(x, 1) for x in r_cal]}; e2e p50 {p50_cal * 1e3:.1f} "
+              f"ms; S1 {s1} (rank 1 at {now[1]}, {SERVE_KILL1_ITERATIONS} "
+              f"iterations past its cadence over {t_pre:.2f} s), S2 {s2} (ranks 2, 3 at {now[2]}, "
+              f"{now[3]}: {SERVE_KILL_GAP_S} s at {busiest:.1f} "
+              f"iterations/s); KF_CHAOS_SPEC={spec!r}")
+
+        reused0 = REGISTRY.counter("kf_serve_prefill_tokens_total",
+                                   what="reused").value
+        computed0 = REGISTRY.counter("kf_serve_prefill_tokens_total",
+                                     what="computed").value
+        replayed0 = main.replayed
+        busy0 = [(m["n"], m["busy_s"]) for m in meters]
+        marks: dict = {}
+        stop = threading.Event()
+
+        def poll():
+            while not stop.is_set():
+                t = time.perf_counter()
+                dead = main.dead_workers
+                if "k1" not in marks and servers[1].dead:
+                    marks["k1"] = t
+                if "r1" not in marks and 1 in dead:
+                    marks["r1"] = t
+                    marks["dead_r1"] = dead
+                if "k2" not in marks and (servers[2].dead
+                                          or servers[3].dead):
+                    marks["k2"] = t
+                if "r2" not in marks and {2, 3} <= set(dead):
+                    marks["r2"] = t
+                    marks["dead_r2"] = dead
+                    marks["open_r2"] = sum(1 for _, h in list(sent)
+                                           if not h.done())
+                time.sleep(0.005)
+
+        os.environ["KF_CHAOS_SPEC"] = spec
+        sent = []  # (prompt, handle) as each submit returns
+        submits = []
+        # each arrival is submitted from a pool thread, as by a client of
+        # its own: a dispatch that waits out a dead worker's connect
+        # retries (about 0.6 s) delays its own request, not the arrivals
+        # behind it, which would otherwise land as one burst after it
+        pool = ThreadPoolExecutor(SERVE_SUBMITTERS,
+                                  thread_name_prefix="kf-smoke-submit")
+        poller = threading.Thread(target=poll, daemon=True)
+        poller.start()
+
+        def arrive():
+            p = prompt()
+            submits.append(pool.submit(lambda: sent.append(
+                (p, main.submit(p, SERVE_NEW_TOKENS)))))
+
+        t_load = time.perf_counter()
+        regular = 0
+        pair_at = None
+        while True:
+            now_t = time.perf_counter()
+            if now_t - t_load > SERVE_LOAD_LIMIT_S:
+                stop.set()
+                pool.shutdown(wait=False, cancel_futures=True)
+                raise SmokeFailure(
+                    f"(a) the kills did not both happen within "
+                    f"{SERVE_LOAD_LIMIT_S} s of load: marks {sorted(marks)}")
+            r2 = marks.get("r2")
+            if r2 is not None and sum(
+                    1 for _, h in list(sent) if h.submitted_s > r2) \
+                    >= SERVE_AFTER_TARGET:
+                break
+            if pair_at is None and sum(
+                    1 for _, h in list(sent) if h.done()) \
+                    >= SERVE_MIN_PRE + 5:
+                # one extra arrival beside the regular one: the pair
+                # overlaps, so the dispatch hands one of them to rank 1
+                pair_at = now_t - t_load
+                arrive()
+            arrive()
+            regular += 1
+            time.sleep(max(0.0, t_load + regular * period
+                           - time.perf_counter()))
+        pool.shutdown(wait=True)
+        for f in submits:
+            f.result()  # a failed admission fails the run
+        prompts = [p for p, _ in sent]
+        handles = [h for _, h in sent]
+        outs = []
+        for h in handles:
+            try:
+                outs.append(h.wait(120))
+            except Exception as e:  # noqa: BLE001 - counted as lost
+                outs.append(e)
+        load_wall = time.perf_counter() - t_load
+        stop.set()
+        poller.join(2.0)
+        os.environ.pop("KF_CHAOS_SPEC", None)
+        # every count was reset when the phase began: the launches of
+        # the served traffic alone, before any teacher forcing
+        out["served_launches"] = attention.launch_counts["flash_fwd"]
+
+        lost = [h.rid for h, o in zip(handles, outs)
+                if not isinstance(o, list) or len(o) != SERVE_NEW_TOKENS]
+        check(not lost, f"(a) {len(lost)} accepted requests lost: {lost[:5]}")
+        k1, r1, k2, r2 = (marks.get(k) for k in ("k1", "r1", "k2", "r2"))
+        check(None not in (k1, r1, k2, r2),
+              f"(a) kills not both observed: marks {sorted(marks)}")
+        check(set(marks["dead_r1"]) == {0, 1},
+              f"(a) after rank 1 died the router excluded "
+              f"{marks['dead_r1']}, not slice 0 (ranks 0 and 1) whole")
+        check(r1 < k2, "(a) the slice kill came before the first recovery")
+        check(set(marks["dead_r2"]) == {0, 1, 2, 3}
+              and main.dead_workers == [0, 1, 2, 3]
+              and main.live_workers == [4, 5],
+              f"(a) after the slice kill dead {main.dead_workers}, live "
+              f"{main.live_workers}")
+        replays = main.replayed - replayed0
+        check(replays >= 1, "(a) no request was replayed")
+
+        def overlaps(h, lo, hi):
+            return h.submitted_s <= hi and h.done_s >= lo
+
+        phases = {"pre": [], "during_worker_kill": [], "between": [],
+                  "during_slice_kill": [], "after": []}
+        for h in handles:
+            e2e = h.done_s - h.submitted_s
+            if overlaps(h, k1, r1):
+                phases["during_worker_kill"].append(e2e)
+            elif overlaps(h, k2, r2):
+                phases["during_slice_kill"].append(e2e)
+            elif h.done_s < k1:
+                phases["pre"].append(e2e)
+            elif h.submitted_s > r2:
+                phases["after"].append(e2e)
+            else:
+                phases["between"].append(e2e)
+        rows = {k: {"n": len(v), "p50_ms": (_pct(np, v, 50) or 0) * 1e3,
+                    "p99_ms": (_pct(np, v, 99) or 0) * 1e3}
+                for k, v in phases.items()}
+        for k, v in rows.items():
+            print(f"serve (a) {k}: n {v['n']}, p50 {v['p50_ms']:.1f} ms, "
+                  f"p99 {v['p99_ms']:.1f} ms")
+        slow = sorted((h for h in handles if h.submitted_s > r2),
+                      key=lambda h: h.submitted_s - h.done_s)[:5]
+        out["slowest_after"] = [
+            {"submitted_after_recovery_ms": (h.submitted_s - r2) * 1e3,
+             "e2e_ms": (h.done_s - h.submitted_s) * 1e3,
+             "ttft_ms": (h.ttft_s or 0) * 1e3, "worker": h.worker,
+             "queue_ms": ((h.stats or {}).get("queue_s") or 0) * 1e3}
+            for h in slow]
+        out["open_at_recovery"] = marks["open_r2"]
+        print(f"serve (a): {marks['open_r2']} requests open when slice 1 "
+              f"was marked dead; the slowest after the recovery "
+              f"{json.dumps(out['slowest_after'])}")
+        check(len(phases["pre"]) >= SERVE_MIN_PRE,
+              f"(a) {len(phases['pre'])} requests finished before the first "
+              f"kill, fewer than {SERVE_MIN_PRE}")
+        check(len(phases["after"]) >= SERVE_MIN_AFTER,
+              f"(a) {len(phases['after'])} requests after the recovery")
+        p99_after = _pct(np, phases["after"], 99)
+        ratio = p99_after / _pct(np, phases["pre"], 99)
+        check(ratio <= SERVE_RECOVERY_RATIO,
+              f"(a) p99 after / p99 before = {ratio:.3f} > "
+              f"{SERVE_RECOVERY_RATIO}")
+        # the pre-kill phase runs six engine threads and the after phase
+        # two, so the reference's ratio also compares two host regimes:
+        # the after phase against the two workers' own p99, reported
+        ratio_two = p99_after / (out["p99_two_workers_ms"] / 1e3)
+
+        reused = REGISTRY.counter("kf_serve_prefill_tokens_total",
+                                  what="reused").value - reused0
+        computed = REGISTRY.counter("kf_serve_prefill_tokens_total",
+                                    what="computed").value - computed0
+        # without the paged cache every admission, replays included,
+        # prefills its whole prompt
+        naive = sum(len(h.prompt) + len(h.committed) for h in handles)
+        check(reused > 0 and computed < naive,
+              f"(a) prefix reuse not engaged: computed {computed}, reused "
+              f"{reused}, no-cache cost {naive}")
+
+        worst, exact, out["teacher_forced_launches"] = _teacher_forced(
+            torch, model, params, [(p, o) for p, o in zip(prompts, outs)])
+        check(worst <= GREEDY_MARGIN,
+              f"(a) a served token loses to the full-context top-1 by "
+              f"{worst} > {GREEDY_MARGIN}")
+        replayed = [i for i, h in enumerate(handles) if h.replays]
+        for i in replayed:
+            h = handles[i]
+            check(outs[i][:len(h.committed)] == h.committed,
+                  f"(a) {h.rid}'s output does not start with its "
+                  f"{len(h.committed)} committed tokens")
+        replay_exact = sum(exact[i] for i in replayed)
+
+        ttft = [h.ttft_s for h in handles if h.ttft_s is not None]
+        step_ms = [((m["busy_s"] - b[1]) / max(1, m["n"] - b[0])) * 1e3
+                   for m, b in zip(meters, busy0)]
+        gen = SERVE_NEW_TOKENS * len(handles)
+        out.update(
+            pair_at_s=pair_at, kill1_at_s=k1 - t_load, kill2_at_s=k2 - t_load,
+            phases=rows, recovery_ratio=ratio,
+            recovery_ratio_two_workers=ratio_two, requests=len(handles),
+            replayed_requests=len(replayed), replays=replays,
+            replay_exact=replay_exact, exact=sum(exact),
+            kill1_to_dead_s=r1 - k1, kill2_to_dead_s=r2 - k2,
+            ttft_p50_ms=_pct(np, ttft, 50) * 1e3,
+            ttft_p99_ms=_pct(np, ttft, 99) * 1e3,
+            step_ms_per_worker=step_ms, tokens_per_s=gen / load_wall,
+            load_s=load_wall, worst_margin=worst,
+            prefill={"computed": computed, "reused": reused,
+                     "no_cache_cost": naive},
+            p50_pre_s=_pct(np, phases["pre"], 50))
+        print(f"serve (a): the pair arrived {pair_at:.2f} s into the load, "
+              f"rank 1 died at {k1 - t_load:.2f} s, slice 1 at "
+              f"{k2 - t_load:.2f} s")
+        print(f"serve (a): {len(handles)} requests over {load_wall:.2f} s, "
+              f"none lost; p99 after/before {ratio:.3f} (gate "
+              f"{SERVE_RECOVERY_RATIO}), after/two workers before the kills "
+              f"{ratio_two:.3f}; kill -> marked dead "
+              f"{r1 - k1:.3f} s (rank 1, slice 0 excluded), {r2 - k2:.3f} s "
+              f"(slice 1); {replays} replays of {len(replayed)} requests, "
+              f"{replay_exact} of them equal to full-context greedy, "
+              f"{sum(exact)}/{len(handles)} overall; worst top-1 margin "
+              f"{worst:.3e} (tol {GREEDY_MARGIN})")
+        print(f"serve (a): TTFT p50 {out['ttft_p50_ms']:.1f} ms p99 "
+              f"{out['ttft_p99_ms']:.1f} ms; decode iteration ms per worker "
+              f"{[round(x, 2) for x in step_ms]}; {gen / load_wall:.1f} "
+              f"generated tokens/s; prefill computed {computed}, reused "
+              f"{reused}, no-cache cost {naive}; slab {slab / 1e6:.1f} MB "
+              f"an engine")
+    finally:
+        os.environ.pop("KF_CHAOS_SPEC", None)
+        for r in routers:
+            r.close()
+        for s in servers:
+            if not s.dead:
+                s.stop()
+        for p in peers:
+            try:
+                p.close()
+            except Exception:  # noqa: BLE001 - the victims closed theirs
+                pass
+        chaos.reset()
+    return out
+
+
+def _get_json(url: str) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=10) as r:
+        return json.loads(r.read())
+
+
+def _serve_autoscale(torch, np, model, params) -> dict:
+    """(b) ``ServeFleet`` from the live aggregator: a router and three
+    provisioned worker ranks under a ``ConfigServer`` with a
+    ``ClusterAggregator``, every peer pushing snapshots; a burst on the
+    one live worker spawns a second, which serves; idle ticks retire it.
+    Then (c) on the same worker."""
+    from kungfu_tpu_torch.elastic.configserver import ConfigServer
+    from kungfu_tpu_torch.monitor.aggregator import ClusterAggregator
+    from kungfu_tpu_torch.peer import start_local_cluster
+    from kungfu_tpu_torch.policy.serve import (BatchWidthController,
+                                               ServeAutoscalePolicy)
+    from kungfu_tpu_torch.serve.router import ServeRouter, ServeWorker
+    from kungfu_tpu_torch.serve.scale import ServeFleet
+    from kungfu_tpu_torch.serve.slo import SLOTargets
+
+    vocab = model.cfg.vocab_size
+    rng = np.random.default_rng(17)
+    system = rng.integers(0, vocab, size=SERVE_SYSTEM_TOKENS).tolist()
+
+    def prompt():
+        return system + rng.integers(0, vocab,
+                                     size=SERVE_USER_TOKENS).tolist()
+
+    out = {}
+    srv = ConfigServer(port=0, aggregator=ClusterAggregator(
+        stale_after=60.0)).start()
+    old = _set_env({"KF_CONFIG_ENABLE_CLUSTER_MONITOR": "1",
+                    "KF_CONFIG_MONITOR_PUSH_PERIOD": str(SERVE_PUSH_PERIOD_S)})
+    cluster_url = f"http://127.0.0.1:{srv.port}/cluster"
+    peers, servers, router = [], {}, None
+    engines, widths, ctls = {}, [], {}
+    try:
+        peers = start_local_cluster(4, env={"KF_CONFIG_SERVER": srv.url},
+                                    devices=["cuda"])
+        router_peer = peers[3]
+
+        def start_worker(rank):
+            eng = _serve_engine(model, params, rank)
+            engines[rank] = eng
+            w = ServeWorker(peers[rank], eng,
+                            commit_every=SERVE_COMMIT_EVERY).start()
+            servers[rank] = w
+            return w
+
+        def control(rank):
+            eng = engines[rank]
+            ctls[rank] = BatchWidthController(
+                lambda w: (widths.append((rank, w)) or eng.set_width(w)),
+                lo=1, hi=SERVE_MAX_BATCH, targets=targets)
+
+        start_worker(0)
+        router = ServeRouter(router_peer, worker_ranks=[0],
+                             queue_depth=SERVE_QUEUE_DEPTH,
+                             deadline_s=SERVE_DEADLINE_S)
+        router.submit(prompt(), SERVE_NEW_TOKENS).wait(120)  # warm thread
+        h = router.submit(prompt(), SERVE_NEW_TOKENS)
+        h.wait(120)
+        alone = h.done_s - h.submitted_s
+        # a burst of 16 on one worker of width 4 completes about one
+        # batch per unloaded latency: the first batch finishes near 1.1 of
+        # it (admission takes a step a request), the second near 2, so a
+        # budget of 1.2 is blown while the queue still holds 8
+        targets = SLOTargets(ttft_s=0.5, e2e_s=1.2 * alone)
+        out.update(alone_ms=alone * 1e3, e2e_budget_ms=targets.e2e_s * 1e3)
+        control(0)
+        spawn_s = []
+
+        def spawn(rank):
+            w = start_worker(rank)
+            control(rank)
+            return w
+
+        fleet = ServeFleet(router, ServeAutoscalePolicy(
+            targets=targets, scale_up_queue=2, cooldown_steps=0), spawn)
+        burst = [router.submit(prompt(), SERVE_NEW_TOKENS)
+                 for _ in range(SERVE_BURST)]
+        t0 = time.perf_counter()
+        spawned = []
+        while not spawned:
+            check(time.perf_counter() - t0 < 60,
+                  "(b) the fleet did not spawn within 60 s of the burst")
+            view = _get_json(cluster_url)
+            for ctl in list(ctls.values()):
+                ctl.observe_view(view)
+            t1 = time.perf_counter()
+            spawned = fleet.tick(view)
+            if spawned:
+                spawn_s.append(time.perf_counter() - t1)
+            else:
+                time.sleep(SERVE_PUSH_PERIOD_S)
+        new = spawned[0]
+        check(router.live_workers == [0, new],
+              f"(b) live workers {router.live_workers} after the spawn")
+        extra = [router.submit(prompt(), SERVE_NEW_TOKENS) for _ in range(4)]
+        done = [h.wait(120) for h in burst + extra]
+        check(all(len(o) == SERVE_NEW_TOKENS for o in done),
+              "(b) a request was lost")
+        on_new = [h for h in extra if h.worker == new]
+        check(on_new, f"(b) no request completed on the spawned worker {new}")
+        # quiet: two push periods with no traffic, then the rollup
+        time.sleep(3 * SERVE_PUSH_PERIOD_S)
+        view = _get_json(cluster_url)
+        srv_view = view["serving"]
+        rows = {r["rank"]: r["gauges"].get("kf_kv_cache_bytes")
+                for r in view["ranks"]}
+        live_pools = {r: engines[r].pool.footprint_bytes
+                      for r in router.live_workers}
+        # each live worker's rank reports its own pool, the router's
+        # and the unspawned rank none
+        check(srv_view is not None and srv_view["completed"] > 0,
+              f"(b) no serving rollup with completions: {srv_view}")
+        check(rows == {**{r: None for r in range(4)}, **live_pools}
+              and srv_view["kv_bytes"] == sum(live_pools.values()),
+              f"(b) kv_bytes {srv_view['kv_bytes']}, rows {rows}, live "
+              f"pools {live_pools}")
+        t0 = time.perf_counter()
+        while router.live_workers != [0]:
+            check(time.perf_counter() - t0 < 30,
+                  f"(b) idle ticks did not retire worker {new}")
+            view = _get_json(cluster_url)
+            for r in router.live_workers:
+                ctls[r].observe_view(view)
+            fleet.tick(view)
+            time.sleep(SERVE_PUSH_PERIOD_S)
+        check(new not in fleet.workers, "(b) the retired worker is still owned")
+        out.update(spawned=new, spawn_s=spawn_s[0], widths=widths,
+                   kv_bytes_view=srv_view["kv_bytes"],
+                   live_pools_bytes=sum(live_pools.values()),
+                   completed_view=srv_view["completed"],
+                   served_by_new=len(on_new))
+        print(f"serve (b): burst of {SERVE_BURST} on one worker (e2e budget "
+              f"{targets.e2e_s * 1e3:.1f} ms) spawned worker {new} in "
+              f"{spawn_s[0]:.2f} s (engine build, warmup, admit); it served "
+              f"{len(on_new)} of 4 later requests; idle ticks retired it; "
+              f"widths set {widths}; view kv_bytes {srv_view['kv_bytes']} "
+              f"= the live pools {live_pools}, completed "
+              f"{srv_view['completed']}")
+        out["warm"] = _serve_warm(torch, np, model, params, router,
+                                  engines[0], vocab)
+    finally:
+        if router is not None:
+            router.close()
+        for w in servers.values():
+            if not w.dead:
+                w.stop()
+        for p in peers:
+            p.close()
+        _set_env(old)
+        srv.stop()
+    return out
+
+
+def _serve_warm(torch, np, model, params, router, eng, vocab) -> dict:
+    """(c) A warm cache across a cold restart: the worker's committed
+    pages through ``PersistPlane`` to disk and back into a fresh
+    engine's pool; the same prompt reuses its four whole pages."""
+    import shutil
+    import tempfile
+
+    from kungfu_tpu_torch.elastic.persist import (PersistPlane,
+                                                  restore_from_manifest)
+    from kungfu_tpu_torch.serve.kvcache import KVCachePool
+
+    rng = np.random.default_rng(18)
+    p = rng.integers(0, vocab, size=SERVE_WARM_PROMPT).tolist()
+    first = router.submit(p, SERVE_NEW_TOKENS).wait(120)
+    snap = eng.pool.snapshot_committed()
+    root = tempfile.mkdtemp(prefix="kf-serve-warm-")
+    try:
+        t0 = time.perf_counter()
+        plane = PersistPlane(root, 0, period_s=0.0)
+        mdir = plane.persist_async(1, replicated=snap).wait(120)
+        plane.close()
+        back = restore_from_manifest(mdir, 0, 1).replicated
+        disk_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    n_pages = sum(1 for k in back if k.endswith("_p"))
+    fresh = _serve_engine(model, params, 0)
+    # a second warmup with longer prompts captures only the new buckets
+    before, decode = set(fresh._prefill_graphs), fresh._decode_graph
+    fresh.warmup(prompt_lens=(SERVE_MAX_SEQ,))
+    added = sorted(set(fresh._prefill_graphs) - before)
+    check(before and max(fresh._prefill_graphs) == SERVE_MAX_SEQ
+          and before < set(fresh._prefill_graphs)
+          and fresh._decode_graph is decode,
+          f"(c) a second warmup captured {sorted(fresh._prefill_graphs)} "
+          f"after {sorted(before)}")
+    restored, rejected = fresh.pool.restore_committed(back)
+    check(restored > 0 and rejected == 0 and restored == n_pages,
+          f"(c) restore gave ({restored}, {rejected}) of {n_pages} pages")
+    fresh.submit("warm", p, SERVE_NEW_TOKENS)
+    done = [e for e in fresh.drain() if e["kind"] == "done"][0]
+    whole = (SERVE_WARM_PROMPT - 1) // SERVE_PAGE_TOKENS * SERVE_PAGE_TOKENS
+    check(done["reused_tokens"] == whole == 64,
+          f"(c) reused {done['reused_tokens']} tokens, expected {whole}")
+    worst, exact, checked = _teacher_forced(
+        torch, model, params, [(p, done["tokens"]), (p, first)])
+    check(worst <= GREEDY_MARGIN,
+          f"(c) a token loses to the full-context top-1 by {worst}")
+    same = sum(a == b for a, b in zip(done["tokens"], first))
+    bad = dict(back)
+    k = bad["kv0_k"].clone()
+    k.view(torch.uint8).view(-1)[0] ^= 1
+    bad["kv0_k"] = k
+    spoiled = KVCachePool(fresh.pool.spec, SERVE_PAGES).restore_committed(bad)
+    check(spoiled == (n_pages - 1, 1),
+          f"(c) a page with one flipped byte gave {spoiled}")
+    print(f"serve (c): {n_pages} committed pages through the persist plane "
+          f"in {disk_s:.2f} s, restored ({restored}, {rejected}); the "
+          f"{SERVE_WARM_PROMPT}-token prompt reused {done['reused_tokens']} "
+          f"tokens; {same}/{SERVE_NEW_TOKENS} tokens equal to the first "
+          f"answer; worst top-1 margin {worst:.3e}; one flipped byte -> "
+          f"{spoiled}; a second warmup added prefill graphs {added}")
+    return {"pages": n_pages, "restored": restored, "rejected": rejected,
+            "reused": done["reused_tokens"], "same_as_first": same,
+            "worst_margin": worst, "disk_s": disk_s, "flipped": spoiled,
+            "graphs_added": added, "teacher_forced_launches": checked}
+
+
 WGMMA_KERNELS = ("flash_fwd_bf16_wgmma_kernel",
                  "flash_bwd_dq_bf16_wgmma_kernel",
                  "flash_bwd_dkv_bf16_wgmma_kernel",
@@ -4505,6 +5324,12 @@ def main() -> int:
     print(f"adapt phase: {adapt['phase_s']:.2f} s")
     del bert
     torch.cuda.empty_cache()
+
+    # 16. the serving plane on the flagship: six workers and a router
+    # through a worker kill and a slice kill, the autoscale loop over the
+    # live aggregator, a warm KV cache across a cold restart
+    serve_plane = phase_serve_plane(torch, np, attention, tr)
+    torch.cuda.empty_cache()
     paths = (train, train_fused, ssgd, zero2, zero3, replicas, elastic,
              host_engine, recover, gossip, adapt)
 
@@ -4518,6 +5343,7 @@ def main() -> int:
         return {"name": name, "route": route, "source": source,
                 "replaces": replaces,
                 "launches": (fwd["launches"] + serve["launches"]
+                             + serve_plane["launches"]["served"]
                              if key == "flash_fwd" else 0)
                 + sum(path["launches"][key] for path in paths),
                 "max_abs_err": err,
@@ -4599,6 +5425,7 @@ def main() -> int:
         "host_engine_bert_4_ranks": host_engine,
         "recover_gpt_4_3_2": recover, "gossip_bert_4_peers": gossip,
         "adapt_bert_4_ranks_3_peers": adapt,
+        "serve_plane_flagship_6_workers": serve_plane,
         "ring_timing": ring_timing, "build": build,
         "flash_fwd_errors": fwd_errs, "flash_fwd_timing": fwd_timing,
         "flash_bwd_errors": bwd_errs, "flash_bwd_timing": bwd_timing,

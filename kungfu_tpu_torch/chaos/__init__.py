@@ -15,8 +15,8 @@ collective entry (:mod:`kungfu_tpu_torch.comm.engine`), the Python host
 channel's frame writer
 (:meth:`~kungfu_tpu_torch.comm.host.PyHostChannel.chaos_partial_send`),
 the train loop's step announcement (:func:`note_step`), the failure
-detector's fan-out and the elastic config fetch.  The serving worker's
-site comes with the router.
+detector's fan-out, the elastic config fetch and the serving worker's
+request handler (``on_serve_request``).
 """
 
 from kungfu_tpu_torch.chaos.inject import (

@@ -7,9 +7,8 @@ slice-scoped deaths (``die_slice``), the failure detector's
 ``drop_fanout`` and the consensus config fetch's
 ``config_unavailable``, and the latency probe's ``on_ping``
 (``delay:on=ping``, :func:`kungfu_tpu_torch.monitor.adapt.
-get_peer_latencies`).  The serving request hook comes with the router
-(ROADMAP A3); until then its clauses parse (the grammar is the
-reference's) and never fire.
+get_peer_latencies`) and the serving worker's ``on_serve_request``
+(``delay:on=serve``, ``drop_request``).
 
 One :class:`ChaosController` exists per (spec, seed, rank) — the engine
 holds the instance for its own rank, the detector and other rank-less
@@ -169,6 +168,34 @@ class ChaosController:
         for ci, c in enumerate(self._clauses):
             if c.kind == "delay" and c.get("on") == "ping":
                 self._maybe_delay(ci, c, to_rank)
+
+    def on_serve_request(self, rid: str) -> bool:
+        """Serving request-path hook (the serve worker's frame handler):
+        applies ``delay:on=serve`` stragglers, then ``drop_request``.
+        True = the frame is lost (the worker ignores it and the router's
+        deadline ladder re-admits the request).  Counted in matching
+        requests, like every other clause."""
+        dropped = False
+        for ci, c in enumerate(self._clauses):
+            if c.kind == "delay" and c.get("on") == "serve":
+                self._maybe_delay(ci, c, -1)
+            elif c.kind == "drop_request":
+                with self._lock:
+                    n = self._matched[ci] = self._matched.get(ci, 0) + 1
+                if n % max(1, c.get("every", 1)) != 0:
+                    continue
+                budget = c.get("count")
+                if budget is not None:
+                    with self._lock:
+                        used = self._fanout_dropped.get(("req", ci), 0)
+                        if used >= budget:
+                            continue
+                        self._fanout_dropped[("req", ci)] = used + 1
+                _log.warning("chaos: dropping serve request %s", rid)
+                timeline.event("chaos", "drop_request", rank=self.rank,
+                               rid=rid)
+                dropped = True
+        return dropped
 
     def on_recv(self, from_rank: int, name: str) -> None:
         """Engine receive hook (``delay:on=recv`` stragglers)."""

@@ -10,10 +10,16 @@ The reference's REST contract (``elastic/configserver/configserver.go:
 * ``DELETE /``    -> clear
 * ``GET  /stop``  -> shut the server down
 
-The live-monitoring routes the reference mounts beside these
-(``/push``, ``/cluster``, ``/metrics``, ``/alerts``, ``/decisions``)
-come with the cluster aggregator; until then they answer 404, as the
-reference's do when no aggregator is mounted.
+With a :class:`~kungfu_tpu_torch.monitor.aggregator.ClusterAggregator`
+mounted (``aggregator=``), two more routes serve the live cluster plane:
+
+* ``POST /push``    -> rank snapshot or control event into ``ingest``
+  (400 on a malformed payload)
+* ``GET  /cluster`` -> the rolling cluster view (JSON)
+
+Without one they answer 404, as the reference's do.  ``/metrics``,
+``/alerts`` and ``/decisions`` answer 404 until ROADMAP A9 ports the
+Prometheus rendering and the sentinel.
 """
 
 from __future__ import annotations
@@ -29,8 +35,8 @@ from kungfu_tpu_torch.utils.log import get_logger
 
 _log = get_logger("config-server")
 
-#: the reference's monitoring routes, 404 without an aggregator
-_MONITOR_ROUTES = ("/push", "/cluster", "/metrics", "/alerts", "/decisions")
+#: the reference's monitoring routes that wait for ROADMAP A9 (404)
+_A9_ROUTES = ("/metrics", "/alerts", "/decisions")
 
 
 class ConfigServer:
@@ -40,11 +46,13 @@ class ConfigServer:
     shuts it down."""
 
     def __init__(self, port: int = 9100, cluster: Optional[Cluster] = None,
-                 host: str = "0.0.0.0"):
+                 host: str = "0.0.0.0", aggregator=None):
         self._lock = threading.Lock()
         self._cluster = cluster
         self._version = 0
         self._thread: Optional[threading.Thread] = None
+        #: mounted live-monitoring plane (None: its routes answer 404)
+        self.aggregator = aggregator
         srv = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -72,7 +80,15 @@ class ConfigServer:
                     self._reply(200, b"{}")
                     threading.Thread(target=srv.stop, daemon=True).start()
                     return
-                if self.path.startswith(_MONITOR_ROUTES):
+                if self.path.startswith("/cluster"):
+                    agg = srv.aggregator
+                    if agg is None:
+                        self._reply(404, b'{"error": "no aggregator"}')
+                        return
+                    view = agg.cluster_view(srv._cluster_info())
+                    self._reply(200, json.dumps(view).encode())
+                    return
+                if self.path.startswith(_A9_ROUTES):
                     self._reply(404, b'{"error": "no aggregator"}')
                     return
                 with srv._lock:
@@ -98,8 +114,20 @@ class ConfigServer:
                 self._reply(200, json.dumps({"version": v}).encode())
 
             def do_POST(self):
-                if self.path.startswith(_MONITOR_ROUTES):
-                    self._reply(404, b'{"error": "no aggregator"}')
+                if self.path.startswith("/push"):
+                    agg = srv.aggregator
+                    n = int(self.headers.get("Content-Length", "0"))
+                    body = self.rfile.read(n)
+                    if agg is None:
+                        self._reply(404, b'{"error": "no aggregator"}')
+                        return
+                    try:
+                        agg.ingest(json.loads(body.decode()))
+                    except (ValueError, KeyError) as e:
+                        self._reply(400,
+                                    json.dumps({"error": str(e)}).encode())
+                        return
+                    self._reply(200, b"{}")
                     return
                 cluster = self._cluster_body()
                 if cluster is None:
@@ -137,3 +165,16 @@ class ConfigServer:
     def snapshot(self):
         with self._lock:
             return self._version, self._cluster
+
+    def _cluster_info(self) -> Optional[dict]:
+        """``{version, size, workers}`` for the aggregator's cluster
+        health, or None when no cluster is stored.  The config lock is
+        released before the aggregator's own lock is taken."""
+        version, cluster = self.snapshot()
+        if cluster is None:
+            return None
+        return {
+            "version": version,
+            "size": cluster.size(),
+            "workers": [str(w) for w in cluster.workers],
+        }

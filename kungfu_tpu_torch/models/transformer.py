@@ -53,15 +53,33 @@ class TransformerConfig:
         return dt
 
 
+#: (half, device) -> the rotary frequencies on that device
+_ROPE_FREQS: Dict[Tuple[int, str], torch.Tensor] = {}
+
+
+def _rope_freqs(half: int, device: torch.device) -> torch.Tensor:
+    """The rotary frequencies, computed once on the host (so every
+    device gets the same f32 values) and kept on ``device``: a CUDA graph
+    capturing the serving engine's decode step may not copy from the
+    host."""
+    key = (half, str(device))
+    freqs = _ROPE_FREQS.get(key)
+    if freqs is None:
+        log_base = torch.log(torch.tensor(10000.0, dtype=torch.float32)) / half
+        freqs = torch.exp(-torch.arange(0, half, dtype=torch.float32)
+                          * log_base).to(device)
+        _ROPE_FREQS[key] = freqs
+    return freqs
+
+
 def _rope(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Rotary position embedding on the head dim (half-split), angles in
     f32 then cast to the activation dtype.  q, k: [B, H, S, D];
     positions: [B, S]."""
     half = q.shape[-1] // 2
-    log_base = torch.log(torch.tensor(10000.0, dtype=torch.float32)) / half
-    freqs = torch.exp(-torch.arange(0, half, dtype=torch.float32) * log_base)
-    angles = positions[..., None].float() * freqs.to(positions.device)
+    angles = positions[..., None].float() * _rope_freqs(half,
+                                                        positions.device)
     cos, sin = torch.cos(angles), torch.sin(angles)
 
     def rot(x):

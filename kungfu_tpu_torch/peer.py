@@ -20,11 +20,18 @@ Where the port differs from the reference:
 * there is no counterpart of ``jax.distributed`` yet: a config with a
   coordinator and more than one process, or with ``world_peers``, raises
   ``NotImplementedError`` (the multi-card slice);
-* ``KF_CONFIG_ENABLE_MONITORING`` and ``KF_CONFIG_ENABLE_CLUSTER_MONITOR``
-  raise ``NotImplementedError`` until ROADMAP A9 ports NetMonitor, the
-  metrics server and the rank reporter.  So no net monitor runs, and
-  :meth:`Peer.get_egress_rates` gives ``[0.0] * size()``, as the
-  reference's does without one.
+* ``KF_CONFIG_ENABLE_MONITORING`` raises ``NotImplementedError`` until
+  ROADMAP A9 ports NetMonitor and the metrics server.  So no net monitor
+  runs, :meth:`Peer.get_egress_rates` gives ``[0.0] * size()`` as the
+  reference's does without one, and the rank reporter's snapshots carry
+  no net totals;
+* with ``KF_CONFIG_ENABLE_CLUSTER_MONITOR`` and a config server, the
+  peer pushes snapshots to the aggregator mounted there (a
+  :class:`~kungfu_tpu_torch.monitor.aggregator.RankReporter` under its
+  bootstrap rank and slice, refreshing the device-memory gauges before
+  each push) and stops it with a final push at :meth:`Peer.close`.  The
+  reference also installs a jax compile-metrics hook there; eager
+  PyTorch compiles nothing, so the port has no counterpart.
 """
 
 from __future__ import annotations
@@ -47,8 +54,8 @@ from kungfu_tpu_torch.utils.trace import trace_scope
 _log = get_logger("peer")
 
 #: the message of every knob that waits for ROADMAP A9
-_A9 = ("waits for ROADMAP A9 (NetMonitor, the metrics server and the "
-       "cluster aggregator are not ported yet)")
+_A9 = ("waits for ROADMAP A9 (NetMonitor and the metrics server are not "
+       "ported yet)")
 
 
 class Peer:
@@ -92,6 +99,8 @@ class Peer:
             "two_stage" if self._slice_boot is not None else "psum")
         self._engine = None
         self._engine_version = -1
+        #: the live cluster plane's snapshot pusher (cluster monitor on)
+        self._reporter = None
         self._lock = threading.RLock()
         self._started = False
         from kungfu_tpu_torch.store.store import VersionedStore
@@ -107,9 +116,8 @@ class Peer:
         with self._lock:
             if self._started:
                 return
-            for knob in (envs.ENABLE_MONITORING, envs.ENABLE_CLUSTER_MONITOR):
-                if envs.parse_bool_env(knob):
-                    raise NotImplementedError(f"{knob} {_A9}")
+            if envs.parse_bool_env(envs.ENABLE_MONITORING):
+                raise NotImplementedError(f"{envs.ENABLE_MONITORING} {_A9}")
             self._started = True
             if not self.config.single_process:
                 from kungfu_tpu_torch.comm.host import bind_own_host_channel
@@ -132,12 +140,55 @@ class Peer:
             from kungfu_tpu_torch.monitor import timeline
 
             timeline.set_rank(None if self.detached else self.rank())
+            # live cluster plane: snapshots to the aggregator co-hosted
+            # with the config server, under the stable bootstrap rank
+            # (a shrink must not make a survivor alias a dead rank's row)
+            if (envs.parse_bool_env(envs.ENABLE_CLUSTER_MONITOR)
+                    and self.config.config_server):
+                rank = self.chaos_rank()
+                if rank is None and not self.detached:
+                    rank = self.rank()
+                if rank is not None:
+                    from kungfu_tpu_torch.monitor.aggregator import \
+                        RankReporter
+                    from kungfu_tpu_torch.monitor.metrics import \
+                        publish_device_memory
+
+                    slice_id = (self._slice_boot.slice_of(rank)
+                                if self._slice_boot is not None else None)
+                    self._reporter = RankReporter(
+                        rank, self.config.config_server,
+                        strategy_fn=self._active_strategy,
+                        slice_id=slice_id,
+                        pre_snapshot_fn=publish_device_memory,
+                    ).start()
             log_event("peer-started")
+
+    def _active_strategy(self) -> str:
+        """The active strategy stamped on live snapshots: the host
+        engine's (``tree`` for an installed explicit tree), plus the
+        device communicator's per-bucket schedule table when the bandit
+        has installed one, e.g. ``STAR dev[small=psum,large=ring]``."""
+        engine = self._engine
+        s = engine.strategy if engine is not None else self.config.strategy
+        name = "tree" if (engine is not None and s is None) \
+            else getattr(s, "name", str(s))
+        comm = self._comm
+        if comm is not None:
+            buckets = comm.bucket_summary()
+            if buckets:
+                name = f"{name} dev[{buckets}]"
+        return name
 
     def close(self) -> None:
         from kungfu_tpu_torch.monitor import timeline
 
         timeline.maybe_dump()
+        if self._reporter is not None:
+            # final push before the channels go: a clean shutdown leaves
+            # fresh numbers on the aggregator, not a stale flag
+            self._reporter.stop(final_push=True)
+            self._reporter = None
         with self._lock:
             if self._channel is not None:
                 self._notify_done()

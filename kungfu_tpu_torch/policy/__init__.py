@@ -8,9 +8,9 @@ a :class:`PolicyRunner` drives them, keeps the named training globals
 resize and stop intents through the elastic protocol.
 
 The serving policies (``BatchWidthController``, ``ServeAutoscalePolicy``,
-``serve_signals``) come with the router (ROADMAP A3), and
-``sentinel_signals`` with the sentinel (ROADMAP A9); until then those
-names raise ``NotImplementedError``.
+``serve_signals``) steer the serving plane from the aggregator's view.
+``sentinel_signals`` comes with the sentinel (ROADMAP A9); until then
+that name raises ``NotImplementedError``.
 """
 
 from kungfu_tpu_torch.policy.base import BasePolicy, PolicyContext  # noqa: F401
@@ -25,13 +25,15 @@ from kungfu_tpu_torch.policy.policies import (  # noqa: F401
     ScheduledSizePolicy,
 )
 from kungfu_tpu_torch.policy.runner import PolicyRunner  # noqa: F401
+from kungfu_tpu_torch.policy.serve import (  # noqa: F401
+    BatchWidthController,
+    ServeAutoscalePolicy,
+    serve_signals,
+)
 
 #: lazy names of the reference's package, with the ROADMAP item that
 #: ports each
 _NOT_PORTED = {
-    "BatchWidthController": "A3 (policy/serve.py, with the router)",
-    "ServeAutoscalePolicy": "A3 (policy/serve.py, with the router)",
-    "serve_signals": "A3 (policy/serve.py, with the router)",
     "sentinel_signals": "A9 (policy/sentinel.py, with the sentinel)",
 }
 

@@ -225,6 +225,9 @@ def main(argv=None) -> int:
         out["forward_4x256"] = _profile(
             torch, lambda: model.apply(params, ids), args.steps)
         engine = InferenceEngine(model, params, max_batch=8, max_seq=512)
+        # the served path: on the card warmup() captures the decode step
+        # that step() then replays
+        engine.warmup(prompt_lens=(128,))
         for i in range(8):
             engine.submit(f"r{i}",
                           rng.integers(0, cfg.vocab_size, size=128).tolist(),

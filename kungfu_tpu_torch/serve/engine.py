@@ -15,6 +15,16 @@ into free slots, then runs ONE decode step for all active slots.
 * **decode** — one token for every slot: each slot's K/V lands at its
   own position, attention covers ``[0, pos]``, greedy argmax.
 
+On the card the decode step and every warmed prefill bucket run as CUDA
+graphs, captured by :meth:`InferenceEngine.warmup` over the live slab
+and replayed: the reference jit-compiles them, while an eager flagship
+step issues about 1,300 launches, and several engines stepping in
+threads of one interpreter then spend their time handing the interpreter
+lock back and forth (``scripts/serve_threads_timing.py`` measures both
+ways; PERF.md has the numbers).  A prefill takes its length, cached
+offset and slot as device tensors, so one graph a bucket serves them
+all.  Everything on the CPU runs eager.
+
 The engine runs where its params live (``cuda`` or, for tests, the
 CPU).  Its attention (``_attend``) is the plain masked softmax on both
 devices, as in the reference, where no Pallas kernel computes it either.
@@ -85,8 +95,22 @@ class InferenceEngine:
                  page_tokens: Optional[int] = None,
                  eos_id: Optional[int] = None,
                  admit_per_step: int = 1,
-                 rank: Optional[int] = None):
+                 rank: Optional[int] = None,
+                 plan=None):
         cfg = model.cfg
+        if plan is not None:
+            # a serving worker is one dp replica of the whole model; any
+            # object with the plan's pp/tp/sp/zero_stage attributes is
+            # read (the port's ParallelPlan comes with ROADMAP A4)
+            if plan.pp != 1 or plan.tp != 1 or plan.sp != 1:
+                raise NotImplementedError(
+                    f"InferenceEngine serves one full-model replica per "
+                    f"worker; plan carries pp={plan.pp} tp={plan.tp} "
+                    f"sp={plan.sp} (TP-sharded serving is ROADMAP work)")
+            if plan.zero_stage:
+                raise ValueError("serving holds no optimizer state — "
+                                 "plan.zero_stage must be 0")
+        self.plan = plan
         self.model = model
         self.params = params
         self.device = params["embed"]["table"].device
@@ -105,6 +129,7 @@ class InferenceEngine:
         self._page_tokens = self.pool.spec.page_tokens
         self._width = self.max_batch
         self._lock = threading.Lock()
+        self._wake = threading.Condition(self._lock)
         self._pending: "deque[_Req]" = deque()
         self._active: Dict[int, _Req] = {}       # slot -> request
         self._free_slots = list(range(self.max_batch - 1, -1, -1))
@@ -114,6 +139,13 @@ class InferenceEngine:
         self._k = torch.zeros(shape, dtype=cfg.compute_dtype,
                               device=self.device)
         self._v = torch.zeros_like(self._k)
+        #: the decode step captured on the card by warmup(): (graph,
+        #: last ids, positions, next ids), its static inputs and output
+        self._decode_graph = None
+        #: bucket -> (graph, ids, [n, start, slot], first token): each
+        #: warmed prefill bucket, captured the same way
+        self._prefill_graphs: Dict[int, tuple] = {}
+        self._graph_pool = None
         self._mfu = costmodel.MFUMeter(
             rank=rank, detect_peak=False,
             peak_flops=costmodel.chip_peak_flops(self.device))
@@ -156,21 +188,34 @@ class InferenceEngine:
         y = nn.gelu(nn.dense_apply(lp["ffn_in"], x, dtype=dt))
         return h + nn.dense_apply(lp["ffn_out"], y, dtype=dt)
 
-    @torch.no_grad()
-    def _prefill(self, params, k_slab, v_slab, ids: torch.Tensor, n: int,
-                 start: int, slot: int) -> torch.Tensor:
-        """ids [S_pad] (suffix, zero-padded past ``n``); writes K/V at
-        positions ``[start, start + S_pad)`` of ``slot`` in place and
-        returns the greedy next token after the last REAL row."""
-        cfg = self.model.cfg
-        dt = cfg.compute_dtype
-        s_pad = ids.shape[0]
-        s_max = k_slab.shape[3]
+    @staticmethod
+    def _check_prefill(s_pad: int, n: int, start: int, s_max: int) -> None:
         # the fit guard of _try_admit makes this hold; JAX would clamp
         # the write over the cached prefix, torch would fail on shapes
         if not (0 <= start and start + s_pad <= s_max and 0 < n <= s_pad):
             raise ValueError(f"prefill [{start}, {start + s_pad}) of {n} "
                              f"tokens does not fit the slab of {s_max}")
+
+    def _prefill(self, params, k_slab, v_slab, ids: torch.Tensor, n: int,
+                 start: int, slot: int) -> torch.Tensor:
+        """ids [S_pad] (suffix, zero-padded past ``n``); writes K/V at
+        positions ``[start, start + S_pad)`` of ``slot`` in place and
+        returns the greedy next token after the last REAL row."""
+        self._check_prefill(ids.shape[0], n, start, k_slab.shape[3])
+        meta = torch.tensor([n, start, slot]).to(ids.device)
+        return self._prefill_at(params, k_slab, v_slab, ids, meta)
+
+    @torch.no_grad()
+    def _prefill_at(self, params, k_slab, v_slab, ids: torch.Tensor,
+                    meta: torch.Tensor) -> torch.Tensor:
+        """:meth:`_prefill` with ``[n, start, slot]`` in the device tensor
+        ``meta``, so that one CUDA graph a bucket serves every length,
+        offset and slot (the caller has checked the bounds)."""
+        cfg = self.model.cfg
+        dt = cfg.compute_dtype
+        s_pad = ids.shape[0]
+        s_max = k_slab.shape[3]
+        n, start, slot = meta[0:1], meta[1:2], meta[2:3]
         positions = start + torch.arange(s_pad, device=ids.device)
         h = nn.embedding_apply(params["embed"], ids[None], dtype=dt)
         if cfg.pos == "learned":
@@ -182,13 +227,15 @@ class InferenceEngine:
             lp = params[f"layer_{li}"]
             x = nn.layernorm_apply(lp["ln1"], h)
             q, k, v = self._layer_qkv(lp, x, positions[None])
-            k_slab[li, slot, :, start:start + s_pad] = k[0]
-            v_slab[li, slot, :, start:start + s_pad] = v[0]
-            o = self._attend(q, k_slab[li, slot:slot + 1],
-                             v_slab[li, slot:slot + 1], mask)
+            # [B, S, H, D] views: rows (slot, position) take [S_pad, H, D]
+            k_slab[li].transpose(1, 2)[slot, positions] = k[0].transpose(0, 1)
+            v_slab[li].transpose(1, 2)[slot, positions] = v[0].transpose(0, 1)
+            o = self._attend(q, k_slab[li].index_select(0, slot),
+                             v_slab[li].index_select(0, slot), mask)
             h = self._block_tail(lp, h, o)
         h = nn.layernorm_apply(params["ln_f"], h)
-        logits = nn.dense_apply(params["head"], h[:, n - 1]).float()
+        last = h.index_select(1, n - 1)[:, 0]
+        logits = nn.dense_apply(params["head"], last).float()
         return torch.argmax(logits[0], dim=-1)
 
     @torch.no_grad()
@@ -235,10 +282,13 @@ class InferenceEngine:
     def warmup(self, prompt_lens: Sequence[int] = (8,)) -> None:
         """Run the decode step and EVERY prefill bucket up to the one
         covering ``max(prompt_lens)`` once before serving, on scratch
-        slabs (the live slab is untouched).  Eager PyTorch compiles
-        nothing, but first calls pay library and allocator set-up; every
-        smaller bucket is included because a prefix hit prefills only its
-        suffix."""
+        slabs.  Eager PyTorch compiles nothing, but first calls pay
+        library and allocator set-up; every smaller bucket is included
+        because a prefix hit prefills only its suffix.  On the card it
+        then captures the decode step and every one of these buckets
+        that has no graph yet over the live slab (:meth:`_capture`), so
+        a later call with longer prompts adds their buckets; call it
+        while the engine is idle."""
         top = self._prefill_bucket(max(max(prompt_lens), 1))
         buckets, b = [], max(self._page_tokens, 1)
         while b < top:
@@ -251,8 +301,93 @@ class InferenceEngine:
             int(self._prefill(self.params, k_scratch, v_scratch, ids, 1, 0, 0))
         zeros = torch.zeros(self.max_batch, dtype=torch.long, device=self.device)
         self._decode(self.params, k_scratch, v_scratch, zeros, zeros).cpu()
+        if self.device.type == "cuda":
+            self._capture([b for b in buckets
+                           if b not in self._prefill_graphs])
+
+    def _capture(self, buckets: Sequence[int]) -> None:
+        """Capture the decode step (once) and each prefill bucket of
+        ``buckets`` over the live slab as CUDA graphs sharing one memory
+        pool (one step thread replays them, never two at once).  Their
+        warm-up runs write slot 0's first positions and every slot's
+        position 0, which a request always rewrites before it attends to
+        them, so the engine must be idle.  Capture is thread-local:
+        engines of other threads keep launching on the default stream
+        meanwhile."""
+        if not buckets and self._decode_graph is not None:
+            return
+        with self._lock:
+            busy = bool(self._pending or self._active)
+        if busy:
+            raise RuntimeError("warmup() captures CUDA graphs over the live "
+                               "slab: call it while the engine is idle")
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        pool = self._graph_pool
+
+        def graphed(fn):
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                for _ in range(2):
+                    fn()
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=pool,
+                                  capture_error_mode="thread_local"):
+                out = fn()
+            return graph, out
+
+        for s_pad in buckets:
+            ids = torch.zeros(s_pad, dtype=torch.long, device=self.device)
+            meta = torch.tensor([1, 0, 0]).to(self.device)
+            graph, out = graphed(lambda ids=ids, meta=meta: self._prefill_at(
+                self.params, self._k, self._v, ids, meta))
+            self._prefill_graphs[s_pad] = (graph, ids, meta, out)
+        if self._decode_graph is not None:
+            return
+        B = self.max_batch
+        last = torch.zeros(B, dtype=torch.long, device=self.device)
+        pos = torch.zeros(B, dtype=torch.long, device=self.device)
+        graph, out = graphed(lambda: self._decode(self.params, self._k,
+                                                  self._v, last, pos))
+        self._decode_graph = (graph, last, pos, out)
+
+    def _run_prefill(self, ids: torch.Tensor, n: int, start: int,
+                     slot: int) -> int:
+        """A prefill of the host ``ids`` into the live slab: the bucket's
+        captured graph on the card (static inputs refilled, then one
+        replay), else eager.  Returns the first generated token."""
+        g = self._prefill_graphs.get(ids.shape[0])
+        if g is None:
+            return int(self._prefill(self.params, self._k, self._v,
+                                     ids.to(self.device), n, start, slot))
+        self._check_prefill(ids.shape[0], n, start, self.max_seq)
+        graph, s_ids, s_meta, out = g
+        s_ids.copy_(ids)
+        s_meta.copy_(torch.tensor([n, start, slot]))
+        graph.replay()
+        return int(out)
+
+    def _run_decode(self, last: np.ndarray, pos: np.ndarray) -> np.ndarray:
+        """One decode step for every slot: the captured graph on the card
+        (static inputs refilled, then one replay), else eager."""
+        if self._decode_graph is None:
+            return self._decode(self.params, self._k, self._v,
+                                torch.from_numpy(last).to(self.device),
+                                torch.from_numpy(pos).to(self.device)
+                                ).cpu().numpy()
+        graph, s_last, s_pos, out = self._decode_graph
+        s_last.copy_(torch.from_numpy(last))
+        s_pos.copy_(torch.from_numpy(pos))
+        graph.replay()
+        return out.cpu().numpy()
 
     # -- scheduling ------------------------------------------------------
+    @property
+    def width(self) -> int:
+        return self._width
+
     def set_width(self, w: int) -> int:
         """Admitted decode width (<= max_batch); never the slab shape."""
         with self._lock:
@@ -268,8 +403,9 @@ class InferenceEngine:
                 f"request {rid!r}: {len(tokens)} prompt + {max_new} new "
                 f"tokens exceeds max_seq {self.max_seq}")
         req = _Req(rid, tokens, max_new, trace=trace)
-        with self._lock:
+        with self._wake:
             self._pending.append(req)
+            self._wake.notify_all()
 
     def cancel(self, rid: str) -> bool:
         """Drop a request: pending ones leave now; an active one is only
@@ -294,6 +430,13 @@ class InferenceEngine:
     def active_count(self) -> int:
         with self._lock:
             return len(self._active)
+
+    def wait_for_work(self, timeout: float) -> bool:
+        """Park the loop thread until work arrives (bounded)."""
+        with self._wake:
+            if self._pending or self._active:
+                return True
+            return self._wake.wait(timeout)
 
     # -- admission (prefill phase) ---------------------------------------
     def _try_admit(self, req: _Req) -> bool:
@@ -344,9 +487,7 @@ class InferenceEngine:
         with timeline.span("serve", "prefill", rank=self.rank,
                            tokens=len(suffix), reused=n_cached,
                            rid=req.rid, **tc_attrs):
-            tok = int(self._prefill(self.params, self._k, self._v,
-                                    ids.to(self.device), len(suffix),
-                                    n_cached, slot))
+            tok = self._run_prefill(ids, len(suffix), n_cached, slot)
         req.computed = len(suffix)
         self._mfu.add_flops(costmodel.serve_prefill_flops(
             self.model.cfg, len(suffix), n_cached))
@@ -447,10 +588,7 @@ class InferenceEngine:
             t0 = time.perf_counter()
             with timeline.span("serve", "decode", rank=self.rank,
                                batch=len(active)):
-                nxt = self._decode(
-                    self.params, self._k, self._v,
-                    torch.from_numpy(last).to(self.device),
-                    torch.from_numpy(pos).to(self.device)).cpu().numpy()
+                nxt = self._run_decode(last, pos)
             slo.observe_token(time.perf_counter() - t0)
             cfg = self.model.cfg
             self._mfu.add_flops(sum(

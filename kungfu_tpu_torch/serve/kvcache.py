@@ -8,8 +8,17 @@ holds ``page_tokens`` consecutive tokens' K and V for every layer
 (``[n_layers, n_heads, page_tokens, head_dim]`` each), as CPU tensors in
 the compute dtype: bf16 pages stay bf16 (numpy has no bfloat16 without
 jax's ``ml_dtypes``, so sizes come from torch dtypes and data never
-passes through numpy).  The pool's durable snapshot/restore
-(``snapshot_committed``) comes with the persistence slice.
+passes through numpy).
+
+Durability: committed pages are portable.
+:meth:`KVCachePool.snapshot_committed` images them as a flat dict (per
+page its covering token prefix, K, V and a content digest, under the
+reference's names and in its page order) that rides a
+:class:`~kungfu_tpu_torch.elastic.persist.PersistPlane` manifest's
+``replicated`` payload; :meth:`KVCachePool.restore_committed` verifies
+each page and re-commits it into a fresh pool.  The digest covers the
+K/V bytes, bf16 as its 16-bit patterns, so it equals the reference's for
+the same page, and either package restores the other's snapshot.
 
 Invariants (tests/test_kvcache.py on the reference): a recycled page is
 never referenced by a live request; refcounts balance; eviction only
@@ -93,14 +102,51 @@ def chain_hashes(tokens: Sequence[int], page_tokens: int) -> List[bytes]:
     return out
 
 
+def _raw(t: torch.Tensor) -> bytes:
+    """A CPU tensor's bytes in memory order (bf16 as its bit patterns)."""
+    return t.contiguous().view(torch.uint8).numpy().tobytes()
+
+
+def _content_digest(k: torch.Tensor, v: torch.Tensor) -> bytes:
+    """Digest over a page's K/V bytes: the torn-write detector of a
+    snapshotted page (the chain hash covers only its tokens)."""
+    h = hashlib.blake2b(b"kf-kv-page", digest_size=16)
+    h.update(_raw(k))
+    h.update(_raw(v))
+    return h.digest()
+
+
+def _as_tensor(a, dtype: torch.dtype) -> torch.Tensor:
+    """A snapshot array as a contiguous CPU tensor of ``dtype``: torch
+    tensors and numpy arrays alike; a bf16 page also arrives as
+    ml_dtypes' bfloat16 or as its 16-bit patterns, which are viewed, not
+    converted.  Other dtypes are cast, as the reference's
+    ``np.ascontiguousarray(k, dtype)`` does."""
+    if not isinstance(a, torch.Tensor):
+        arr = np.ascontiguousarray(a)
+        if arr.dtype.name == "bfloat16" or (
+                dtype == torch.bfloat16
+                and arr.dtype in (np.uint16, np.int16)):
+            return torch.from_numpy(arr.view(np.int16).copy()).view(
+                torch.bfloat16)
+        a = torch.from_numpy(arr.copy())
+    t = a.detach().cpu()
+    if dtype == torch.bfloat16 and t.dtype in (torch.int16, torch.uint16):
+        return t.contiguous().view(torch.bfloat16)
+    return t.to(dtype).contiguous()
+
+
 class _Page:
-    __slots__ = ("k", "v", "key", "refs")
+    __slots__ = ("k", "v", "key", "refs", "prefix")
 
     def __init__(self):
         self.k: Optional[torch.Tensor] = None   # [L, H, T, D] on the CPU
         self.v: Optional[torch.Tensor] = None
         self.key: Optional[bytes] = None      # chain hash when committed
         self.refs = 0
+        #: the covering token prefix, so a committed page is portable: a
+        #: restoring pool re-derives the chain hash from the tokens
+        self.prefix: Optional[np.ndarray] = None
 
 
 class KVCachePool:
@@ -221,7 +267,7 @@ class KVCachePool:
         digests = chain_hashes(tokens, self.spec.page_tokens)
         committed = 0
         with self._lock:
-            for digest, pid in zip(digests, page_ids):
+            for i, (digest, pid) in enumerate(zip(digests, page_ids)):
                 page = self._pages.get(pid)
                 if page is None or page.refs <= 0:
                     raise ValueError(f"commit of non-live page {pid}")
@@ -230,6 +276,8 @@ class KVCachePool:
                 if digest in self._by_key:
                     continue
                 page.key = digest
+                page.prefix = np.asarray(
+                    tokens[:(i + 1) * self.spec.page_tokens], np.int64)
                 self._by_key[digest] = pid
                 committed += 1
         return committed
@@ -251,7 +299,102 @@ class KVCachePool:
                 out.append(pid)
             return out, len(out) * self.spec.page_tokens
 
+    # -- durable snapshot --------------------------------------------------
+    def snapshot_committed(self) -> Dict[str, object]:
+        """Portable image of every committed page that holds data, a flat
+        dict for a :class:`~kungfu_tpu_torch.elastic.persist.PersistPlane`
+        ``replicated`` payload.  Per page *j*: ``kv{j}_p`` the covering
+        token prefix (int64), ``kv{j}_k``/``kv{j}_v`` the K/V blocks (CPU
+        tensors in the pool's dtype), ``kv{j}_c`` the content digest
+        (uint8).  The chain hash is not stored: the restoring pool
+        recomputes it from the prefix tokens."""
+        out: Dict[str, object] = {}
+        with self._lock:
+            j = 0
+            for pid in self._by_key.values():
+                page = self._pages.get(pid)
+                if (page is None or page.k is None or page.v is None
+                        or page.prefix is None):
+                    continue
+                out[f"kv{j}_p"] = np.array(page.prefix, np.int64)
+                out[f"kv{j}_k"] = page.k.clone()
+                out[f"kv{j}_v"] = page.v.clone()
+                out[f"kv{j}_c"] = np.frombuffer(
+                    _content_digest(page.k, page.v), np.uint8).copy()
+                j += 1
+        return out
+
+    def restore_committed(self, snap: Dict[str, object]) -> Tuple[int, int]:
+        """Re-commit a :meth:`snapshot_committed` image (of either
+        package) into this pool: ``(restored, rejected)``.  A page is
+        adopted only if its prefix tiles whole pages, its K/V shapes
+        match this pool's spec and its content digest reproduces; the
+        chain hash comes from the prefix tokens; a digest already
+        committed here keeps the incumbent; a pool with only live pages
+        left rejects the page (restore never evicts live requests)."""
+        restored = rejected = 0
+        pt = self.spec.page_tokens
+        shape = (self.spec.n_layers, self.spec.n_heads, pt,
+                 self.spec.head_dim)
+        idx = sorted(int(name[2:-2]) for name in snap
+                     if name.startswith("kv") and name.endswith("_p")
+                     and name[2:-2].isdigit())
+        for j in idx:
+            prefix = snap.get(f"kv{j}_p")
+            k = snap.get(f"kv{j}_k")
+            v = snap.get(f"kv{j}_v")
+            want = snap.get(f"kv{j}_c")
+            if (prefix is None or k is None or v is None or want is None
+                    or len(prefix) == 0 or len(prefix) % pt
+                    or tuple(np.shape(k)) != shape
+                    or tuple(np.shape(v)) != shape):
+                rejected += 1
+                continue
+            k = _as_tensor(k, self.spec.torch_dtype)
+            v = _as_tensor(v, self.spec.torch_dtype)
+            want = (want.numpy() if isinstance(want, torch.Tensor)
+                    else np.asarray(want))
+            if _content_digest(k, v) != bytes(want.astype(np.uint8)):
+                rejected += 1
+                continue
+            prefix = (prefix.numpy() if isinstance(prefix, torch.Tensor)
+                      else np.asarray(prefix)).astype(np.int64)
+            digest = chain_hashes(prefix.tolist(), pt)[-1]
+            if self._adopt_committed(digest, prefix, k, v):
+                restored += 1
+            else:
+                rejected += 1
+        return restored, rejected
+
+    def _adopt_committed(self, digest: bytes, prefix: np.ndarray,
+                         k: torch.Tensor, v: torch.Tensor) -> bool:
+        """Install a verified page as committed and parked (zero refs, in
+        the LRU); True also when the digest is already committed."""
+        with self._lock:
+            if digest in self._by_key:
+                return True
+            if not self._free and not self._lru:
+                return False  # only live pages left; never steal those
+            pid = self._take_one_locked()
+            page = self._pages[pid]
+            page.k = k.contiguous()
+            page.v = v.contiguous()
+            page.prefix = np.asarray(prefix, np.int64)
+            page.key = digest
+            self._by_key[digest] = pid
+            page.refs = 0
+            self._lru[pid] = None
+            self._lru.move_to_end(pid)
+            self._update_gauge()
+            return True
+
     # -- introspection ---------------------------------------------------
+    def live_refs(self) -> Dict[int, int]:
+        """``{page id: refcount}`` for referenced pages (tests)."""
+        with self._lock:
+            return {pid: p.refs for pid, p in self._pages.items()
+                    if p.refs > 0}
+
     def stats(self) -> Dict[str, int]:
         with self._lock:
             return {

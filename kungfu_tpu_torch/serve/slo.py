@@ -1,12 +1,14 @@
 """Serving SLO surfaces: latency histograms, load gauges, targets.
 
 Port of ``kungfu_tpu/serve/slo.py`` under the same metric names:
-``kf_serve_ttft_seconds`` (admission to first token), ``kf_serve_token_
-seconds`` (decode-step wall time), the active-slots gauge and the
-prefill-token counter split into computed and reused.  The router-side
-metrics (``kf_serve_e2e_seconds`` is observed there, the queue gauge)
-come with the router, the sentinel's burn-rate rules (``SLORules``)
-with the monitoring slice.
+``kf_serve_ttft_seconds`` (admission to first token, at the worker),
+``kf_serve_token_seconds`` (decode-step wall time, at the worker),
+``kf_serve_e2e_seconds`` (submit to completion, at the router), the
+queue-depth and active-slots gauges and the prefill-token counter split
+into computed and reused.  Request accounting rides the timeline's
+counted ``request`` kind (``kf_serve_requests_total{what=...}``).
+:class:`SLORules` holds the sentinel's burn-rate budgets; the sentinel
+that evaluates them comes with ROADMAP A9.
 """
 
 from __future__ import annotations
@@ -20,7 +22,9 @@ from kungfu_tpu_torch.utils import envs
 TTFT_HIST = "kf_serve_ttft_seconds"
 TOKEN_HIST = "kf_serve_token_seconds"
 E2E_HIST = "kf_serve_e2e_seconds"
+QUEUE_GAUGE = "kf_serve_queue_depth"
 ACTIVE_GAUGE = "kf_serve_active_requests"
+REQUESTS_COUNTER = "kf_serve_requests_total"
 PREFILL_COUNTER = "kf_serve_prefill_tokens_total"
 
 DEFAULT_TTFT_MS = 500.0
@@ -33,6 +37,14 @@ def observe_ttft(seconds: float) -> None:
 
 def observe_token(seconds: float) -> None:
     REGISTRY.histogram(TOKEN_HIST).observe(seconds)
+
+
+def observe_e2e(seconds: float) -> None:
+    REGISTRY.histogram(E2E_HIST).observe(seconds)
+
+
+def note_queue_depth(n: int) -> None:
+    REGISTRY.gauge(QUEUE_GAUGE).set(n)
 
 
 def note_active(n: int) -> None:
@@ -63,6 +75,36 @@ class SLOTargets:
             e2e_s=envs.parse_float_env(envs.SERVE_SLO_E2E_MS,
                                        DEFAULT_E2E_MS) / 1e3,
         )
+
+
+@dataclass(frozen=True)
+class SLORules:
+    """Burn-rate rules for the sentinel: budgets in milliseconds (it
+    judges the aggregator's ``ttft_ms``/``e2e_ms`` rollups), and a
+    two-window test that alerts only when both the short and the long
+    window exceed their violation fractions."""
+
+    ttft_budget_ms: float = DEFAULT_TTFT_MS
+    e2e_budget_ms: float = DEFAULT_E2E_MS
+    short_window: int = 6
+    long_window: int = 24
+    short_frac: float = 0.5
+    long_frac: float = 0.25
+
+    @classmethod
+    def from_env(cls) -> "SLORules":
+        return cls(
+            ttft_budget_ms=envs.parse_float_env(envs.SERVE_SLO_TTFT_MS,
+                                                DEFAULT_TTFT_MS),
+            e2e_budget_ms=envs.parse_float_env(envs.SERVE_SLO_E2E_MS,
+                                               DEFAULT_E2E_MS),
+            short_window=envs.parse_int_env(envs.SENTINEL_SLO_SHORT, 6),
+            long_window=envs.parse_int_env(envs.SENTINEL_SLO_LONG, 24),
+        )
+
+    def budgets(self) -> Dict[str, float]:
+        """Rollup-series name -> ms budget."""
+        return {"ttft_ms": self.ttft_budget_ms, "e2e_ms": self.e2e_budget_ms}
 
 
 def slo_snapshot() -> Dict[str, Dict[str, float]]:

@@ -7,12 +7,24 @@
                                CUDA tensor and its plain version on a CPU one,
                                ``xla`` the plain softmax attention
                                (models/transformer.py)
+``KF_SERVE_QUEUE_DEPTH``       router admission bound: accepted-but-unfinished
+                               requests past it are rejected with the typed
+                               ``ServeOverloadError``; default 64
+                               (serve/router.py)
 ``KF_SERVE_PAGE_TOKENS``       tokens per KV-cache page, default 16
                                (serve/kvcache.py)
 ``KF_SERVE_KV_PAGES``          KV-cache pool capacity in pages, default 512
                                (serve/kvcache.py)
 ``KF_SERVE_MAX_BATCH``         decode batch width per engine, default 8
                                (serve/engine.py)
+``KF_SERVE_MAX_TOKENS``        per-request new-token cap, default 256
+                               (serve/router.py)
+``KF_SERVE_COMMIT_EVERY``      decode positions between progress commits to
+                               the router (the replay boundary after a worker
+                               death), default 8 (serve/router.py)
+``KF_SERVE_REQUEST_DEADLINE``  router per-request progress deadline seconds
+                               (no progress within it = a strike against the
+                               worker), default 60 (serve/router.py)
 ``KF_SERVE_SLO_TTFT_MS``       time-to-first-token SLO target ms, default 500
                                (serve/slo.py)
 ``KF_SERVE_SLO_E2E_MS``        end-to-end request SLO target ms, default 5000
@@ -103,8 +115,21 @@ alone), and the runtime knobs the peer and failure recovery read:
                                    raises until the multi-card slice
 ``KF_CONFIG_ENABLE_MONITORING``    truthy: NetMonitor and /metrics; the peer
                                    raises until ROADMAP A9 (peer.py)
-``KF_CONFIG_ENABLE_CLUSTER_MONITOR``  truthy: live snapshot pushes; the peer
-                                   raises until ROADMAP A9 (peer.py)
+``KF_CONFIG_ENABLE_CLUSTER_MONITOR``  truthy: with a config server, the peer
+                                   pushes snapshots to the cluster aggregator
+                                   mounted there (monitor/aggregator.py)
+``KF_CONFIG_MONITOR_PUSH_PERIOD``  snapshot push interval seconds, default 1
+                                   (monitor/aggregator.py)
+``KF_CONFIG_MONITOR_STALE_AFTER``  seconds without a snapshot before the
+                                   aggregator flags a rank stale; default 3x
+                                   the push period (monitor/aggregator.py)
+``KF_XRAY_WINDOW_STEPS``           steps in the online attribution window of
+                                   ``/cluster``'s xray section, default 32
+                                   (monitor/xray.py)
+``KF_SENTINEL_SLO_SHORT``          SLO burn-rate short window in samples,
+                                   default 6 (serve/slo.py SLORules)
+``KF_SENTINEL_SLO_LONG``           SLO burn-rate long window in samples,
+                                   default 24 (serve/slo.py SLORules)
 ``KF_CONFIG_ENABLE_STALL_DETECTION``  truthy: blocking peer operations log
                                    every 3 s they stall (utils/stall.py)
 ``KF_CONFIG_USE_AFFINITY``         truthy: pin the process to its local
@@ -146,9 +171,13 @@ from kungfu_tpu_torch.plan.peerlist import PeerList
 from kungfu_tpu_torch.plan.strategy import Strategy, parse_strategy
 
 ATTN = "KF_TPU_ATTN"
+SERVE_QUEUE_DEPTH = "KF_SERVE_QUEUE_DEPTH"
 SERVE_PAGE_TOKENS = "KF_SERVE_PAGE_TOKENS"
 SERVE_KV_PAGES = "KF_SERVE_KV_PAGES"
 SERVE_MAX_BATCH = "KF_SERVE_MAX_BATCH"
+SERVE_MAX_TOKENS = "KF_SERVE_MAX_TOKENS"
+SERVE_COMMIT_EVERY = "KF_SERVE_COMMIT_EVERY"
+SERVE_REQUEST_DEADLINE = "KF_SERVE_REQUEST_DEADLINE"
 SERVE_SLO_TTFT_MS = "KF_SERVE_SLO_TTFT_MS"
 SERVE_SLO_E2E_MS = "KF_SERVE_SLO_E2E_MS"
 XRAY_PEAK_FLOPS = "KF_XRAY_PEAK_FLOPS"
@@ -190,6 +219,11 @@ WORLD_PEERS = "KF_WORLD_PEERS"
 # the peer runtime and failure recovery
 ENABLE_MONITORING = "KF_CONFIG_ENABLE_MONITORING"
 ENABLE_CLUSTER_MONITOR = "KF_CONFIG_ENABLE_CLUSTER_MONITOR"
+MONITOR_PUSH_PERIOD = "KF_CONFIG_MONITOR_PUSH_PERIOD"
+MONITOR_STALE_AFTER = "KF_CONFIG_MONITOR_STALE_AFTER"
+XRAY_WINDOW_STEPS = "KF_XRAY_WINDOW_STEPS"
+SENTINEL_SLO_SHORT = "KF_SENTINEL_SLO_SHORT"
+SENTINEL_SLO_LONG = "KF_SENTINEL_SLO_LONG"
 ENABLE_STALL_DETECTION = "KF_CONFIG_ENABLE_STALL_DETECTION"
 USE_AFFINITY = "KF_CONFIG_USE_AFFINITY"
 WAIT_RUNNER_TIMEOUT = "KF_CONFIG_WAIT_RUNNER_TIMEOUT"

@@ -26,7 +26,8 @@ from kungfu_tpu_torch.utils.device import resolve_device
 ROOT = Path(__file__).resolve().parents[1]
 #: scripts that drive the port on the card, outside its package
 PORT_SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "scripts" / "flash_timing.py",
-                ROOT / "scripts" / "host_engine_timing.py"]
+                ROOT / "scripts" / "host_engine_timing.py",
+                ROOT / "scripts" / "serve_threads_timing.py"]
 PORT_FILES = sorted((ROOT / "kungfu_tpu_torch").rglob("*.py")) + PORT_SCRIPTS
 PORT_MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
@@ -133,6 +134,19 @@ PEER_RUNTIME_MODULES = [
 ]
 
 
+#: the modules of the serving plane's slice (router, fleet, policies,
+#: the cluster aggregator and xray)
+SERVE_PLANE_MODULES = [
+    "kungfu_tpu_torch.serve", "kungfu_tpu_torch.serve.router",
+    "kungfu_tpu_torch.serve.scale", "kungfu_tpu_torch.serve.slo",
+    "kungfu_tpu_torch.serve.engine", "kungfu_tpu_torch.serve.kvcache",
+    "kungfu_tpu_torch.policy", "kungfu_tpu_torch.policy.serve",
+    "kungfu_tpu_torch.monitor.aggregator", "kungfu_tpu_torch.monitor.xray",
+    "kungfu_tpu_torch.monitor.metrics", "kungfu_tpu_torch.elastic.configserver",
+    "kungfu_tpu_torch.chaos.inject",
+]
+
+
 def _check_scanned(modules):
     assert set(modules) <= set(PORT_MODULES)
     for m in modules:
@@ -148,6 +162,9 @@ class TestNativeBuild:
 
     def test_host_engine_modules_are_scanned(self):
         _check_scanned(HOST_ENGINE_MODULES)
+
+    def test_serve_plane_modules_are_scanned(self):
+        _check_scanned(SERVE_PLANE_MODULES)
 
     def test_native_build_writes_only_under_build_dir(self, tmp_path):
         """A fresh copy of ``native/`` built from scratch in its own

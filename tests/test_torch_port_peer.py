@@ -745,10 +745,24 @@ class TestNotPorted:
     @pytest.mark.parametrize("knob", ["KF_CONFIG_ENABLE_MONITORING",
                                       "KF_CONFIG_ENABLE_CLUSTER_MONITOR"])
     def test_monitoring_knobs(self, monkeypatch, knob):
+        """NetMonitor still waits for A9; the cluster monitor is ported
+        (A3 took the aggregator): without a config server it starts no
+        reporter, as the reference's does (the reporting cases are in
+        test_torch_port_aggregator.py)."""
         monkeypatch.setenv(knob, "1")
         p = Peer(envs.parse_config_from_env({}), devices=["cpu"])
-        with pytest.raises(NotImplementedError, match="A9"):
-            p.start()
+        if knob == "KF_CONFIG_ENABLE_MONITORING":
+            with pytest.raises(NotImplementedError, match="A9"):
+                p.start()
+            return
+        j = JPeer(jenvs.parse_config_from_env({}))
+        p.start()
+        j.start()
+        try:
+            assert p._reporter is None and j._reporter is None
+        finally:
+            p.close()
+            j.close()
 
     @pytest.mark.parametrize("call", [
         lambda p: p.get_peer_latencies(), lambda p: p.get_egress_rates(),
