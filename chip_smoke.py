@@ -19,12 +19,16 @@ Phases (any failed check exits non-zero before the result line):
 3. kernels — each kernel against its plain PyTorch version on the card,
              at the main path's shape and at the edge cases (for the
              flash kernels also a bf16 grid of sequence lengths around
-             their tile edges, head dims 32/64/128, causal and not),
-             with the tolerances below; timed (median of CUDA-event
-             windows) beside its plain version and one PyTorch library
-             call, the flash forward at its three main-path shapes and
-             dQ and dK/dV at the two training shapes, and all three
-             without a mask at one BERT-base rank's [96, 512, 64], the
+             their tile edges, head dims 32/64/128, causal and not, and
+             phase 17's ring rounds, the backward with a non-zero lse
+             cotangent; for the cross-entropy also phase 17 (a)'s
+             [16384, 32128]), with the tolerances below; timed (median
+             of CUDA-event windows) beside its plain version and one
+             PyTorch library call, the flash forward at its three
+             main-path shapes and dQ and dK/dV at the two training
+             shapes, and all three without a mask at one BERT-base
+             rank's [96, 512, 64], and at phase 17's ring rounds ([192,
+             512, 64] causal, [96, 1024, 64] without a mask), the
              cross-entropy at the flagship's [8192, 32128] and BERT's
              [4096, 30528], with the host µs per launch;
 4. forward — the flagship forward (vocab 32128, d_model 768, 12 layers,
@@ -246,11 +250,56 @@ Phases (any failed check exits non-zero before the result line):
              checks launch the flash forward.  p50/p99 per phase, TTFT,
              decode iteration ms per worker, tokens/s, kill -> dead s,
              spawn s, widths, flash launches, peak memory.
+17. sharded — the in-mesh 4-D plan (``ShardedTrainer``) in lockstep over
+             sixteen co-resident ranks of the card, under
+             ``KF_TPU_XENT=fused`` with TF32 off.  (a) the flagship at
+             full width and depth (``max_seq`` 1024),
+             ``ParallelPlan(dp=2, pp=2, sp=2, tp=2, n_micro=2,
+             collective_schedule="pallas_ring")``
+             (``MeshPlan.auto(16)``), ``sgd(0.01)``, the seeded batch
+             [8, 1024]; params carried from one rank's
+             ``Transformer.init`` by ``from_transformer_params``.  Its
+             references: the one-rank model (flash, fused xent) stepped
+             the same way, and the same sharded trainer run once through
+             the kernels' plain versions (``_PlainFlash``,
+             ``KF_TPU_XENT=plain``, the ``psum`` schedule; no launch).
+             Checks: ``trainer.loss`` against both within
+             ``SHARDED_LOSS_RTOL`` (beside two control readings, the
+             one-rank loss in f32 and without the causal mask); step 1's
+             launches exact (per layer and tick, one diagonal flash
+             launch over every rank's rows and one full launch over the
+             sp-1 ranks'; one xent launch each way over every last-stage
+             rank's rows; one ring reduce-scatter and all-gather per
+             leaf and dp group); every replica of the synchronized
+             first-step gradient and of the params after the steps
+             bitwise equal to its replica at index 0 of the axes that do
+             not shard its leaf; that gradient, reassembled, against
+             both references per leaf; five steps of finite, falling
+             loss, each within ``SHARDED_LOSS_RTOL`` of the one-rank
+             model's and the fall within ``SHARDED_GRAD_REL_L2`` of its
+             fall.  Step ms (median of CUDA-event windows over steps
+             2-5), tokens/s, peak memory, and a ``profile.py`` trace of
+             two more steps (kernels per step, device idle share).  (b)
+             the flagship's widths in f32, two layers a stage, on dp2
+             sp2 tp2 and dp2 pp2 tp2: loss within 1e-5 and the params
+             after one ``sgd(0.05)`` step within rtol 2e-4 / atol 2e-5
+             of the one-rank model's.  (c)
+             ``ring_attention(block_impl="flash")`` over four sp ranks
+             at [2, 12, 4096, 64] bf16, causal and bidirectional:
+             forward and q/k/v gradients against the same ring through
+             the plain flash versions (the same dlse shift) and against
+             dense f32 attention; ``kv_gather="pallas_ring"`` against
+             dense.  (d) ``moe_apply`` over dp against local routing at
+             f32 within 2e-5, and a four-expert MoE trainer on dp2 sp2
+             tp2 at the flagship's width, two layers, three steps of
+             falling loss. The phase's main path is (a)'s loss and five
+             steps.
 
 Phase 3 also holds the ring reduce-scatter and all-gather kernels
 bitwise against their plain versions, at the main path's shapes (a
-262,144-column bucket over four ranks, and the fused [4, 134,404,608]
-gradient), at the reference suite's edges and at rows the kernels'
+262,144-column bucket over four ranks, the fused [4, 134,404,608]
+gradient, and phase 17 (a)'s widest leaf, the embedding table, over two
+ranks), at the reference suite's edges and at rows the kernels'
 vector loads cannot take whole (a base off 16 bytes, a row stride off 4
 elements, odd chunks and cuts, k = 16; 2-, 4- and 8-byte elements for
 the all-gather), and times each with its host µs per launch, also at
@@ -507,9 +556,16 @@ EDGE_DIMS = (32, 64, 128)
 FLASH_SHAPES = {"s256": (48, 256, 64, True),
                 "s2048": (48, TRAIN_SEQ, 64, True),
                 "rank_s2048": (12, TRAIN_SEQ, 64, True),
-                "bert_s512": (8 * 12, 512, 64, False)}
-#: the backward's timed shapes: the two causal training shapes and BERT's
-FLASH_BWD_SHAPES = ("s2048", "rank_s2048", "bert_s512")
+                "bert_s512": (8 * 12, 512, 64, False),
+                # phase 17's ring rounds: (a)'s diagonal round over all
+                # sixteen ranks' rows (16 x 2 x 6 heads, 512 a rank), and
+                # (c)'s bidirectional round (4 x 2 x 12 heads, 1024)
+                "ring_s512": (16 * 2 * 6, 512, 64, True),
+                "ring_s1024": (4 * 2 * 12, 1024, 64, False)}
+#: the backward's timed shapes: the two causal training shapes, BERT's
+#: and the ring's
+FLASH_BWD_SHAPES = ("s2048", "rank_s2048", "bert_s512", "ring_s512",
+                    "ring_s1024")
 
 
 def _edge_cases():
@@ -554,6 +610,12 @@ def phase_flash_forward(torch, attention, spec):
         ("bf16_d32_ragged_noncausal", (2, 4, 130, 32), torch.bfloat16, False),
         ("f32_d128_noncausal", (1, 2, 100, 128), torch.float32, False),
         ("f32_d32", (1, 3, 70, 32), torch.float32, True),
+        # phase 17's ring rounds: (a)'s diagonal round over all sixteen
+        # ranks' rows and its full round over the eight ranks of sp
+        # index 1, and (c)'s bidirectional round over four ranks
+        ("ring_diag", (16 * 2, 6, 512, 64), torch.bfloat16, True),
+        ("ring_full", (8 * 2, 6, 512, 64), torch.bfloat16, False),
+        ("ring_s1024_full", (4 * 2, 12, 1024, 64), torch.bfloat16, False),
     ]
     cases = ([(n, sh, dt, c, 1.0) for n, sh, dt, c in cases]
              + [(n, (1, *sh), torch.bfloat16, c, x)
@@ -643,6 +705,12 @@ def phase_flash_backward(torch, attention, spec):
         ("f32_causal_ragged", (2, 4, 200, 64), torch.float32, True, True),
         ("f32_noncausal", (1, 3, 130, 32), torch.float32, False, True),
         ("f32_d128", (1, 2, 100, 128), torch.float32, True, False),
+        # phase 17's ring rounds, as the forward's, with the non-zero lse
+        # cotangent the merge over rounds gives them
+        ("ring_diag", (16 * 2, 6, 512, 64), torch.bfloat16, True, True),
+        ("ring_full", (8 * 2, 6, 512, 64), torch.bfloat16, False, True),
+        ("ring_s1024_full", (4 * 2, 12, 1024, 64), torch.bfloat16, False,
+         True),
     ]
     cases = ([(*c, 1.0) for c in cases]
              + [(n, (1, *sh), torch.bfloat16, c, False, x)
@@ -772,6 +840,9 @@ def phase_xent(torch, xk, spec):
         ("ragged_v", 300, 1000, torch.float32),
         ("ragged_n", 8191, 2048, torch.float32),
         ("bf16_ragged", 517, 1000, torch.bfloat16),
+        # phase 17 (a): every last-stage rank's rows in one launch (eight
+        # ranks x two microbatches x [2, 512])
+        ("sharded_main", 8 * 2 * 2 * 512, v_main, torch.float32),
     ]
     gen = torch.Generator(device="cuda").manual_seed(2)
     results = {}
@@ -1459,13 +1530,18 @@ def phase_ring(torch, ringk, rc, spec):
           f"versions")
 
     # the main path's shapes: the ZeRO bucket at four ranks, the fused
-    # S-SGD gradient, and phase 11's bucket at two ranks
+    # S-SGD gradient, phase 11's bucket at two ranks, and phase 17's
+    # widest leaf at two
     from kungfu_tpu_torch.ops.schedules import bucket_widths
 
     shapes = {"bucket": (RANKS, 262_144),
               "fused": (RANKS, FLAGSHIP_PARAMS // RANKS),
               "bucket_k2": (2, bucket_widths(FLAGSHIP_PARAMS // 2, 2, 4,
-                                             4 << 20)[0])}
+                                             4 << 20)[0]),
+              # phase 17 (a)'s widest leaf (the embedding table, and the
+              # head) over one dp ring of two ranks
+              "leaf_k2": (2, FLAGSHIP["vocab_size"] * FLAGSHIP["d_model"]
+                          // 2)}
     timing = {}
     for label, (k, chunk) in shapes.items():
         x = data(k, k * chunk, torch.float32)
@@ -5112,6 +5188,608 @@ def _serve_warm(torch, np, model, params, router, eng, vocab) -> dict:
             "graphs_added": added, "teacher_forced_launches": checked}
 
 
+#: phase 17: the in-mesh 4-D plan on the flagship.  MeshPlan.auto(16)'s
+#: factorization over sixteen co-resident ranks of the card, the batch
+#: [8, 1024] (each rank [4, 512] in two microbatches of [2, 512], six
+#: local heads, six layers a stage), the reference trainer's default
+#: optimizer sgd(0.01), the loss through the fused cross-entropy
+SHARDED_PLAN = dict(dp=2, pp=2, sp=2, tp=2, n_micro=2)
+SHARDED_BATCH, SHARDED_SEQ = 8, 1024
+SHARDED_STEPS = 5
+SHARDED_LR = 0.01
+#: trainer.loss (and the loss before each of the five steps) against the
+#: one-rank model's, and trainer.loss against the plain sharded run's:
+#: tp sums two bf16 partial products where the one rank rounds one full
+#: product, the ring merges two flash blocks by lse, and the plain run's
+#: attention rounds otherwise than the kernels'.  Set from readings on an
+#: H100 (deterministic kernels, so each run reads the same): 1.56e-6,
+#: 4.6e-7 and 2.8e-6 at most over the trajectory.  At init the loss sits
+#: near ln(32128) whatever attention computes (the one-rank f32 loss is
+#: 9.2e-7 from the bf16 one; the loss without the causal mask, an
+#: attention fault, is printed beside it), so this limit catches gross
+#: faults only; the gradient checks below are the ones that see attention
+SHARDED_LOSS_RTOL = 1e-5
+#: the synchronized first-step gradient against the one-rank gradient
+#: and the plain sharded run's, relative L2 per leaf, floored at 1e-3 of
+#: the largest leaf's norm as RANKS_GRAD_REL_L2 is (the key biases'
+#: gradient is rounding noise on both sides), for the reasons of
+#: SHARDED_LOSS_RTOL (readings: worst leaves 2.3e-2 and 1.8e-2, medians
+#: 8.7e-3 and 8.1e-3); and the loss's fall over the five steps against
+#: the one-rank model's (reading 3.8e-3), a sum of products of the two
+SHARDED_GRAD_REL_L2 = 5e-2
+#: (b): f32 at the reference's own tolerances (tests/test_parallel.py:
+#: 165, 248-267): the loss, and the params after one sgd(0.05) step
+SHARDED_F32_LAYERS_A_STAGE = 2
+SHARDED_F32_LR = 0.05
+SHARDED_F32_LOSS_RTOL = 1e-5
+SHARDED_F32_RTOL, SHARDED_F32_ATOL = 2e-4, 2e-5
+#: (c): ring attention alone over four sp ranks, [B, H, S, D] bf16
+RING_SP = 4
+RING_SHAPE = (2, 12, 4096, 64)
+#: (d): MoE on dp2 x sp2 x tp2 at the flagship's width, two layers, four
+#: experts; EP over dp against local routing at the reference's own
+#: tolerance (tests/test_parallel.py:298), f32
+MOE_EXPERTS = 4
+MOE_TOKENS = 4096
+MOE_RTOL = MOE_ATOL = 2e-5
+MOE_STEPS = 3
+
+
+class _PlainFlash:
+    """``flash_attention_with_lse`` through the plain versions on CUDA
+    tensors: ``flash_attention_reference`` forward and
+    ``flash_attention_backward_reference`` with ``delta = rowsum(dO * O)
+    - dlse``, the shift the kernels' wrapper forms."""
+
+    def __init__(self, torch, attention):
+        class Fn(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, q, k, v, causal):
+                out, lse = attention.flash_attention_reference(q, k, v,
+                                                               causal)
+                ctx.save_for_backward(q, k, v, out, lse)
+                ctx.causal = causal
+                return out, lse
+
+            @staticmethod
+            def backward(ctx, dout, dlse):
+                q, k, v, out, lse = ctx.saved_tensors
+                delta = (dout.float() * out.float()).sum(-1) - dlse.float()
+                return (*attention.flash_attention_backward_reference(
+                    q, k, v, out, lse, dout, ctx.causal, delta=delta), None)
+
+        self.fn = Fn
+
+    def __call__(self, q, k, v, causal=True):
+        return self.fn.apply(q, k, v, causal)
+
+
+def _rel_l2_leaves(got: dict, ref: dict) -> dict:
+    """Relative L2 per leaf of two flat trees, the denominator floored at
+    1e-3 of the largest leaf norm."""
+    norms = {k: t.float().norm().item() for k, t in ref.items()}
+    floor = 1e-3 * max(norms.values())
+    return {k: (got[k].float() - ref[k].float()).norm().item()
+            / max(norms[k], floor) for k in ref}
+
+
+def _global_flat(trainer, tree, L: int) -> dict:
+    """A sharded trainer's tree (params or gradients) as the one-rank
+    Transformer's flat ``layer_{i}/...`` keys, reassembled from the
+    ranks' blocks."""
+    from kungfu_tpu_torch.models.transformer import flatten
+
+    glob = flatten(trainer.gather_params(tree))
+    out = {}
+    for key, t in glob.items():
+        if key.startswith("layers/"):
+            for i in range(L):
+                out[f"layer_{i}/{key[len('layers/'):]}"] = t[i]
+        else:
+            out[key] = t
+    return out
+
+
+def _sharded_batch(torch, np, vocab: int, seed: int = 0):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.integers(
+        0, vocab, size=(SHARDED_BATCH, SHARDED_SEQ))).cuda()
+        for _ in range(2))
+
+
+def phase_sharded(torch, np, kernels, tr, spec):
+    """Phase 17: the in-mesh 4-D ShardedTrainer on the card; see the
+    module docstring.  Returns the result; its ``launches`` are (a)'s
+    main path: the loss and the five steps."""
+    from kungfu_tpu_torch import profile
+    from kungfu_tpu_torch.ops import xent
+    from kungfu_tpu_torch.optimizers import GradientTransformation, sgd
+    from kungfu_tpu_torch.parallel import MeshPlan, ParallelPlan, ShardedTrainer
+
+    t_phase = time.perf_counter()
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is on: the f32 products must not run as TF32")
+    check(MeshPlan.auto(16) == MeshPlan(**{k: SHARDED_PLAN[k] for k in (
+        "dp", "pp", "sp", "tp")}), "MeshPlan.auto(16) is not the plan")
+    saved = os.environ.get("KF_TPU_XENT")
+    os.environ["KF_TPU_XENT"] = "fused"
+    xent.XENT_ENV.reload()
+    try:
+        out = {"a": _sharded_flagship(torch, np, kernels, tr, spec, profile,
+                                      GradientTransformation, sgd,
+                                      ParallelPlan, ShardedTrainer)}
+        torch.cuda.empty_cache()
+        out["b"] = _sharded_f32(torch, np, kernels, tr, sgd, MeshPlan,
+                                ShardedTrainer)
+        torch.cuda.empty_cache()
+        out["c"] = _ring_alone(torch, np, kernels)
+        torch.cuda.empty_cache()
+        out["d"] = _moe_flagship(torch, np, kernels, tr, MeshPlan,
+                                 ShardedTrainer)
+    finally:
+        if saved is None:
+            os.environ.pop("KF_TPU_XENT")
+        else:
+            os.environ["KF_TPU_XENT"] = saved
+        xent.XENT_ENV.reload()
+    out["launches"] = out["a"]["launches"]
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def _one_rank_sgd(torch, loss_fn, tparams, batch):
+    """The one-rank model stepped as (a)'s trainer steps: the loss before
+    each of ``SHARDED_STEPS`` sgd(``SHARDED_LR``) updates, and the first
+    gradient."""
+    from kungfu_tpu_torch.utils.tree import tree_flatten, tree_unflatten
+
+    leaves, treedef = tree_flatten(tparams)
+    losses, first = [], None
+    for _ in range(SHARDED_STEPS):
+        own = [t.detach().requires_grad_(True) for t in leaves]
+        loss = loss_fn(tree_unflatten(treedef, own), batch)
+        grads = torch.autograd.grad(loss, own)
+        losses.append(float(loss.detach()))
+        if first is None:
+            first = tree_unflatten(treedef, list(grads))
+        leaves = [t.detach() - SHARDED_LR * g for t, g in zip(own, grads)]
+        del own, loss, grads
+    return losses, first
+
+
+def _replica_diff(torch, trainer, tree) -> tuple:
+    """(largest |difference| of any leaf's replica from the replica at
+    index 0 of every mesh axis that does not shard the leaf, its leaf,
+    replica pairs compared) over a stacked tree: after ``sync_grads``
+    every replica holds the same bits."""
+    from kungfu_tpu_torch.models.transformer import flatten
+    from kungfu_tpu_torch.parallel import AXES
+    from kungfu_tpu_torch.parallel.train import _rank_coords
+
+    coords = _rank_coords(trainer.plan)
+    index = {tuple(c[a] for a in AXES): r for r, c in enumerate(coords)}
+    specs = flatten(trainer.param_specs)
+    worst, worst_leaf, pairs = 0.0, None, 0
+    for name, x in flatten(tree).items():
+        used = {a for a in specs[name].names if a is not None}
+        for r, c in enumerate(coords):
+            r0 = index[tuple(c[a] if a in used else 0 for a in AXES)]
+            if r0 == r:
+                continue
+            pairs += 1
+            if not torch.equal(x[r], x[r0]):
+                d = (x[r] - x[r0]).abs().max().item()
+                d = math.inf if math.isnan(d) else d
+                if d >= worst:
+                    worst, worst_leaf = d, name
+    return worst, worst_leaf, pairs
+
+
+def _sharded_plain(torch, kernels, attention, xent, cfg, tparams, batch, GT,
+                   sgd, ParallelPlan, ShardedTrainer):
+    """(a)'s loss and first synchronized gradient with no hand-written
+    kernel: the same sharded trainer with the flash kernels' plain
+    versions (``_PlainFlash``), ``KF_TPU_XENT=plain`` and the ``psum``
+    schedule."""
+    inner = sgd(SHARDED_LR)
+    seen = {}
+
+    def update(grads, state, p=None):
+        seen.setdefault("grads", grads)
+        return inner.update(grads, state, p)
+
+    plan = ParallelPlan(**SHARDED_PLAN, collective_schedule="psum")
+    trainer = ShardedTrainer(cfg, plan, tx=GT(inner.init, update),
+                             devices=["cuda:0"] * plan.size)
+    params = trainer.from_transformer_params(tparams)
+    state = {"params": params, "opt_state": trainer.tx.init(params),
+             "step": 0}
+    real = attention.flash_attention_with_lse
+    attention.flash_attention_with_lse = _PlainFlash(torch, attention)
+    os.environ["KF_TPU_XENT"] = "plain"
+    xent.XENT_ENV.reload()
+    before = _counts(kernels)
+    try:
+        loss = float(trainer.loss(state, batch))
+        trainer.step(state, batch)
+        torch.cuda.synchronize()
+    finally:
+        attention.flash_attention_with_lse = real
+        os.environ["KF_TPU_XENT"] = "fused"
+        xent.XENT_ENV.reload()
+    after = _counts(kernels)
+    launched = {k: after[k] - before[k] for k in after
+                if after[k] != before[k]}
+    check(not launched, f"(a)'s plain run launched kernels: {launched}")
+    grads = _global_flat(trainer, seen.pop("grads"), cfg.n_layers)
+    return loss, grads
+
+
+def _sharded_flagship(torch, np, kernels, tr, spec, profile, GT, sgd,
+                      ParallelPlan, ShardedTrainer):
+    """(a): the flagship over sixteen co-resident ranks, held against the
+    one-rank model stepped the same way and against the same sharded
+    step through the kernels' plain versions."""
+    from dataclasses import replace
+
+    from kungfu_tpu_torch.ops import xent
+    from kungfu_tpu_torch.ops.cuda import attention
+
+    cfg = tr.TransformerConfig(**{**FLAGSHIP, "max_seq": SHARDED_SEQ})
+    model = tr.Transformer(cfg)
+    tparams = model.init(torch.Generator().manual_seed(0), device="cuda")
+    batch = _sharded_batch(torch, np, cfg.vocab_size)
+    flash = attention.make_flash_attn()
+
+    def one_loss(p, b):
+        return model.loss(p, b, train=False, attn_fn=flash)
+
+    want_losses, g_one = _one_rank_sgd(torch, one_loss, tparams, batch)
+    g_one = tr.flatten(g_one)
+    want_loss = want_losses[0]
+    # controls for the loss limit: the same one-rank loss with every
+    # product in f32 instead of bf16, and with attention that sees the
+    # future (an attention fault)
+    f32_loss, nc_loss = (float(tr.Transformer(replace(cfg, **kw)).loss(
+        tparams, batch, train=False, attn_fn=flash))
+        for kw in ({"dtype": "float32"}, {"causal": False}))
+    plain_loss, g_plain = _sharded_plain(
+        torch, kernels, attention, xent, cfg, tparams, batch, GT, sgd,
+        ParallelPlan, ShardedTrainer)
+    torch.cuda.empty_cache()
+
+    inner = sgd(SHARDED_LR)
+    seen = {}
+
+    def update(grads, state, p=None):
+        # keep the first synchronized gradient the optimizer receives
+        seen.setdefault("grads", grads)
+        return inner.update(grads, state, p)
+
+    plan = ParallelPlan(**SHARDED_PLAN, collective_schedule="pallas_ring")
+    t0 = time.perf_counter()
+    trainer = ShardedTrainer(cfg, plan, tx=GT(inner.init, update),
+                             devices=["cuda:0"] * plan.size)
+    params = trainer.from_transformer_params(tparams)
+    state = {"params": params, "opt_state": trainer.tx.init(params),
+             "step": 0}
+    torch.cuda.synchronize()
+    param_gib = sum(t.numel() * 4 for t in tr.flatten(params).values()) / 2**30
+    print(f"sharded (a): {plan.size} ranks dp{plan.dp} pp{plan.pp} "
+          f"sp{plan.sp} tp{plan.tp}, n_micro {trainer.n_micro}, stacked f32 "
+          f"params {param_gib:.2f} GiB, set-up "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # the main path, launches counted from zero: the loss, five steps
+    _reset(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    loss0 = float(trainer.loss(state, batch))
+    loss_rel = abs(loss0 - want_loss) / abs(want_loss)
+    plain_rel = abs(loss0 - plain_loss) / abs(plain_loss)
+    f32_rel = abs(f32_loss - want_loss) / abs(want_loss)
+    nc_rel = abs(nc_loss - want_loss) / abs(want_loss)
+    print(f"sharded (a) loss {loss0:.7f}: vs one rank {want_loss:.7f} rel "
+          f"{loss_rel:.3e}, vs the plain sharded run {plain_loss:.7f} rel "
+          f"{plain_rel:.3e} (tol {SHARDED_LOSS_RTOL}); controls, one rank's "
+          f"loss in f32 {f32_loss:.7f} rel {f32_rel:.3e}, without the "
+          f"causal mask {nc_loss:.7f} rel {nc_rel:.3e}; launches of the "
+          f"loss {_counts(kernels)}")
+    check(np.isfinite(loss0) and loss_rel <= SHARDED_LOSS_RTOL,
+          f"sharded loss {loss0} != one rank's {want_loss}")
+    check(plain_rel <= SHARDED_LOSS_RTOL,
+          f"sharded loss {loss0} != the plain sharded run's {plain_loss}")
+
+    losses, times = [], []
+    before = _counts(kernels)
+    for i in range(SHARDED_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, loss = trainer.step(state, batch)
+        end.record()
+        losses.append(float(loss))  # synchronises
+        times.append(start.elapsed_time(end))
+        if i == 0:
+            after = _counts(kernels)
+            per_step = {k: after[k] - before[k] for k in after}
+    main = _counts(kernels)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_layers_stage = cfg.n_layers // plan.pp
+    ticks = trainer.n_micro + plan.pp - 1
+    # a causal ring over two sp ranks: round 0 one diagonal launch over
+    # every rank's rows, round 1 one full launch over the sp-1 ranks'
+    n_flash = ticks * n_layers_stage * plan.sp
+    n_leaves = len(tr.flatten(params))
+    groups = plan.size // plan.dp
+    want = {k: 0 for k in per_step}
+    want.update(flash_fwd=n_flash, flash_bwd_dq=n_flash,
+                flash_bwd_dkv=n_flash,
+                xent_fwd=1, xent_bwd=1, ring_rs=n_leaves * groups,
+                ring_ag=n_leaves * groups)
+    print(f"sharded (a) step 1 launches {per_step} (expected {want})")
+    check(per_step == want, f"sharded step launched {per_step}, expected "
+          f"{want}")
+
+    # every replica of the synchronized gradient and of the params after
+    # the steps holds the same bits as its replica at index 0
+    first = seen.pop("grads")
+    for what, tree in (("first-step gradient", first),
+                       (f"params after {SHARDED_STEPS} steps",
+                        state["params"])):
+        d, leaf, pairs = _replica_diff(torch, trainer, tree)
+        print(f"sharded (a) {what}: {pairs} replica pairs over the axes "
+              f"that do not shard each leaf, largest |difference| {d} "
+              f"({leaf})")
+        check(d == 0.0, f"the {what}'s replicas of {leaf} differ by {d}")
+
+    # the synchronized first-step gradient, reassembled, against one rank
+    # and against the plain sharded run
+    got = _global_flat(trainer, first, cfg.n_layers)
+    del first
+    grad = {}
+    for label, ref in (("one rank", g_one), ("the plain sharded run",
+                                             g_plain)):
+        rel = _rel_l2_leaves(got, ref)
+        worst = max(rel, key=rel.get)
+        med = statistics.median(rel.values())
+        print(f"sharded (a) first-step gradient vs {label}: worst leaf "
+              f"{worst} rel L2 {rel[worst]:.3e} (tol {SHARDED_GRAD_REL_L2}); "
+              f"median {med:.3e} over {len(rel)} leaves; head/w "
+              f"{rel['head/w']:.3e}")
+        check(rel[worst] <= SHARDED_GRAD_REL_L2,
+              f"sharded gradient of {worst} differs from {label}'s by "
+              f"{rel[worst]}")
+        grad[label] = {"worst": rel[worst], "leaf": worst, "median": med}
+    del got, g_one, g_plain
+
+    traj = max(abs(a - b) / abs(b) for a, b in zip(losses, want_losses))
+    fall, want_fall = losses[0] - losses[-1], want_losses[0] - want_losses[-1]
+    fall_rel = abs(fall - want_fall) / abs(want_fall)
+    print(f"sharded (a) losses: {losses}; one rank stepped the same way: "
+          f"{want_losses}; largest rel difference {traj:.3e} (tol "
+          f"{SHARDED_LOSS_RTOL}); fall over the steps {fall:.6e} vs one "
+          f"rank's {want_fall:.6e}, rel {fall_rel:.3e} (tol "
+          f"{SHARDED_GRAD_REL_L2})")
+    check(all(np.isfinite(losses)), f"non-finite sharded loss {losses}")
+    check(losses[-1] < losses[0],
+          f"sharded loss did not fall over {SHARDED_STEPS} steps: {losses}")
+    check(traj <= SHARDED_LOSS_RTOL,
+          f"sharded losses {losses} != one rank's {want_losses}")
+    check(fall_rel <= SHARDED_GRAD_REL_L2,
+          f"sharded loss fell by {fall}, one rank's by {want_fall}")
+    step_ms = statistics.median(times[1:])
+    toks = SHARDED_BATCH * SHARDED_SEQ / (step_ms / 1e3)
+
+    def run():
+        nonlocal state
+        state, _ = trainer.step(state, batch)
+
+    prof = profile._profile(torch, run, 2)
+    print(f"sharded (a): {step_ms:.2f} ms/step (median of CUDA-event "
+          f"windows over steps 2-{SHARDED_STEPS}: {times[1:]}), {toks:.0f} "
+          f"tokens/s, peak memory {peak:.2f} GiB; profiled step: "
+          f"{prof['kernels_per_call']:.0f} kernels, device busy "
+          f"{prof['device_busy_ms_per_call']:.2f} of "
+          f"{prof['wall_ms_per_call']:.2f} ms, idle share "
+          f"{prof['device_idle_share']:.4f}; by family "
+          f"{prof['device_ms_by_family']}")
+    return {"launches": main, "per_step": per_step, "loss": loss0,
+            "one_rank_loss": want_loss, "loss_rel": loss_rel,
+            "plain_loss": plain_loss, "plain_loss_rel": plain_rel,
+            "f32_control_rel": f32_rel, "noncausal_control_rel": nc_rel,
+            "losses": losses,
+            "one_rank_losses": want_losses, "trajectory_rel": traj,
+            "fall_rel": fall_rel, "grad_rel_l2": grad,
+            "step_ms": step_ms, "step_ms_all": times, "tokens_s": toks,
+            "peak_gib": peak, "param_gib": param_gib, "profile": prof}
+
+
+def _sharded_f32(torch, np, kernels, tr, sgd, MeshPlan, ShardedTrainer):
+    """(b): the flagship's widths in f32, two layers a stage, on
+    dp2 x sp2 x tp2 and dp2 x pp2 x tp2: the loss and the params after
+    one step against the one-rank model's at the reference's tolerances."""
+    from kungfu_tpu_torch.ops.cuda import attention
+
+    flash = attention.make_flash_attn()
+    out = {}
+    for plan in (MeshPlan(dp=2, sp=2, tp=2), MeshPlan(dp=2, pp=2, tp=2)):
+        L = SHARDED_F32_LAYERS_A_STAGE * plan.pp
+        cfg = tr.TransformerConfig(**{**FLAGSHIP, "dtype": "float32",
+                                      "n_layers": L, "max_seq": SHARDED_SEQ})
+        model = tr.Transformer(cfg)
+        tparams = model.init(torch.Generator().manual_seed(1), device="cuda")
+        batch = _sharded_batch(torch, np, cfg.vocab_size, seed=1)
+
+        def loss_fn(p, b):
+            return model.loss(p, b, train=False, attn_fn=flash)
+
+        want_loss = float(loss_fn(tparams, batch))
+        g = tr.flatten(_grads(loss_fn, tparams, batch))
+        want = {k: t - SHARDED_F32_LR * g[k]
+                for k, t in tr.flatten(tparams).items()}
+        del g
+        trainer = ShardedTrainer(cfg, plan, tx=sgd(SHARDED_F32_LR),
+                                 n_micro=2 if plan.pp > 1 else 1,
+                                 devices=["cuda:0"] * plan.size)
+        params = trainer.from_transformer_params(tparams)
+        state = {"params": params, "opt_state": trainer.tx.init(params),
+                 "step": 0}
+        loss = float(trainer.loss(state, batch))
+        state, _ = trainer.step(state, batch)
+        got = _global_flat(trainer, state["params"], L)
+        ratio = {k: ((got[k] - want[k]).abs() / (
+            SHARDED_F32_ATOL + SHARDED_F32_RTOL * want[k].abs())).max().item()
+            for k in want}
+        worst = max(ratio, key=ratio.get)
+        loss_rel = abs(loss - want_loss) / abs(want_loss)
+        label = f"dp{plan.dp}pp{plan.pp}sp{plan.sp}tp{plan.tp}"
+        print(f"sharded (b) f32 {label}, {L} layers: loss {loss:.7f} vs one "
+              f"rank {want_loss:.7f}, rel {loss_rel:.3e} (tol "
+              f"{SHARDED_F32_LOSS_RTOL}); params after one step: worst leaf "
+              f"{worst} at {ratio[worst]:.3f} of |d| <= {SHARDED_F32_ATOL} + "
+              f"{SHARDED_F32_RTOL}|ref|")
+        check(loss_rel <= SHARDED_F32_LOSS_RTOL,
+              f"f32 {label} loss {loss} != one rank's {want_loss}")
+        check(ratio[worst] <= 1.0,
+              f"f32 {label} params of {worst} off by {ratio[worst]} of the "
+              "tolerance")
+        out[label] = {"loss_rel": loss_rel, "param_worst_leaf": worst,
+                      "param_tol_share": ratio[worst]}
+        del model, tparams, trainer, params, state, got, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def _ring_alone(torch, np, kernels):
+    """(c): ring attention over four sp ranks, bf16, causal and
+    bidirectional: the flash kernels (non-zero lse cotangent) against the
+    same ring through the plain flash versions and against dense f32
+    attention on the whole sequence; the gathered path over the ring
+    kernels against dense."""
+    from kungfu_tpu_torch.models.transformer import default_attention
+    from kungfu_tpu_torch.ops import collective
+    from kungfu_tpu_torch.ops.cuda import attention
+    from kungfu_tpu_torch.parallel import ring
+
+    B, H, S, D = RING_SHAPE
+    n = RING_SP
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v, do = (torch.randn((B, H, S, D), generator=gen, device="cuda"
+                               ).to(torch.bfloat16) for _ in range(4))
+
+    def stack(t):
+        return t.reshape(B, H, n, S // n, D).permute(2, 0, 1, 3, 4).contiguous()
+
+    def unstack(t):
+        return t.permute(1, 2, 0, 3, 4).reshape(B, H, S, D)
+
+    def run(causal, **kw):
+        leaves = [stack(t).requires_grad_(True) for t in (q, k, v)]
+        before = _counts(kernels)
+        with collective.rank_world([("sp", n)]):
+            o = ring.ring_attention(*leaves, causal=causal, axis="sp", **kw)
+            grads = torch.autograd.grad(o, leaves, stack(do))
+        torch.cuda.synchronize()
+        after = _counts(kernels)
+        return (unstack(o.detach()), [unstack(g) for g in grads],
+                {key: after[key] - before[key] for key in after
+                 if after[key] != before[key]})
+
+    out = {}
+    plain = _PlainFlash(torch, attention)
+    for causal in (True, False):
+        f32 = [t.float().requires_grad_(True) for t in (q, k, v)]
+        ro = default_attention(*f32, causal)
+        rg = torch.autograd.grad(ro, f32, do.float())
+        ro = ro.detach()
+        top = max(g.abs().max().item() for g in rg)
+        g_tol = BF16_GRAD_RTOL * top
+        ko, kg, k_launch = run(causal, block_impl="flash")
+        real = attention.flash_attention_with_lse
+        attention.flash_attention_with_lse = plain
+        try:
+            po, pg, p_launch = run(causal, block_impl="flash")
+        finally:
+            attention.flash_attention_with_lse = real
+        go, gg, g_launch = run(causal, kv_gather="pallas_ring")
+        errs = {
+            "o_vs_plain": (ko.float() - po.float()).abs().max().item(),
+            "o_vs_dense": (ko.float() - ro).abs().max().item(),
+            "grad_vs_plain": _grad_err(kg, pg),
+            "grad_vs_dense": _grad_err(kg, rg),
+            "gathered_o_vs_dense": (go.float() - ro).abs().max().item(),
+            "gathered_grad_vs_dense": _grad_err(gg, rg)}
+        label = "causal" if causal else "full"
+        print(f"sharded (c) ring {label} over {n} sp ranks {RING_SHAPE}: "
+              f"{errs} (O tol {BF16_O_ATOL}, gradient tol {g_tol:.3e} = "
+              f"{BF16_GRAD_RTOL} of max|grad| {top:.3e}); kernel launches "
+              f"{k_launch}, plain run {p_launch}, gathered {g_launch}")
+        for key, err in errs.items():
+            tol = g_tol if "grad" in key else BF16_O_ATOL
+            check(err <= tol, f"ring {label} {key}: {err} > {tol}")
+        for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            check(k_launch.get(key, 0) > 0, f"ring {label}: no {key} launch")
+        check(not p_launch, f"the plain ring launched kernels: {p_launch}")
+        check(g_launch.get("ring_ag", 0) > 0 and g_launch.get("ring_rs", 0)
+              > 0, f"gathered ring {label}: ring kernels {g_launch}")
+        out[label] = {**errs, "grad_tol": g_tol, "kernel_launches": k_launch,
+                      "gathered_launches": g_launch}
+        del f32, ro, rg, ko, kg, po, pg, go, gg
+        torch.cuda.empty_cache()
+    return out
+
+
+def _moe_flagship(torch, np, kernels, tr, MeshPlan, ShardedTrainer):
+    """(d): moe_apply over dp against local routing at f32, then a MoE
+    ShardedTrainer on dp2 x sp2 x tp2 at the flagship's width, two
+    layers, three steps."""
+    from kungfu_tpu_torch.ops import collective
+    from kungfu_tpu_torch.optimizers import adam
+    from kungfu_tpu_torch.parallel import moe_apply, moe_init
+    from kungfu_tpu_torch.utils.tree import tree_map
+
+    D, F, E = FLAGSHIP["d_model"], FLAGSHIP["d_ff"], MOE_EXPERTS
+    params = tree_map(lambda t: t.cuda(), moe_init(
+        torch.Generator().manual_seed(3), E, D, F, E))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((MOE_TOKENS, D), generator=gen, device="cuda")
+    y_loc, _ = moe_apply(params, x, None, E, capacity_factor=float(E))
+    ep = 2
+    stacked = {"gate": {"w": params["gate"]["w"].expand(ep, D, E).clone()},
+               "w_in": params["w_in"].reshape(ep, E // ep, D, F),
+               "w_out": params["w_out"].reshape(ep, E // ep, F, D)}
+    with collective.rank_world([("dp", ep)]):
+        y_ep, aux = moe_apply(stacked, x.reshape(ep, MOE_TOKENS // ep, D),
+                              "dp", E, capacity_factor=float(E))
+    y_ep = y_ep.reshape(MOE_TOKENS, D)
+    ratio = ((y_ep - y_loc).abs() / (MOE_ATOL + MOE_RTOL * y_loc.abs())
+             ).max().item()
+    print(f"sharded (d) moe_apply over dp={ep} vs local, [{MOE_TOKENS}, {D}] "
+          f"f32, {E} experts: worst |d| at {ratio:.3f} of {MOE_ATOL} + "
+          f"{MOE_RTOL}|ref|; aux {aux.tolist()}")
+    check(ratio <= 1.0, f"moe_apply EP differs from local by {ratio} of "
+          "the tolerance")
+
+    cfg = tr.TransformerConfig(**{**FLAGSHIP, "n_layers": 2,
+                                  "max_seq": SHARDED_SEQ})
+    trainer = ShardedTrainer(cfg, MeshPlan(dp=2, sp=2, tp=2), n_experts=E,
+                             tx=adam(1e-3), devices=["cuda:0"] * 8)
+    state = trainer.init(torch.Generator().manual_seed(4))
+    batch = _sharded_batch(torch, np, cfg.vocab_size, seed=4)
+    losses = []
+    before = _counts(kernels)
+    for _ in range(MOE_STEPS):
+        state, loss = trainer.step(state, batch)
+        losses.append(float(loss))
+    after = _counts(kernels)
+    launches = {key: after[key] - before[key] for key in after}
+    print(f"sharded (d) MoE trainer dp2 sp2 tp2, {E} experts, 2 layers: "
+          f"losses {losses}; launches {launches}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"MoE trainer loss did not fall: {losses}")
+    return {"ep_tol_share": ratio, "losses": losses, "launches": launches}
+
+
 WGMMA_KERNELS = ("flash_fwd_bf16_wgmma_kernel",
                  "flash_bwd_dq_bf16_wgmma_kernel",
                  "flash_bwd_dkv_bf16_wgmma_kernel",
@@ -5330,15 +6008,22 @@ def main() -> int:
     # live aggregator, a warm KV cache across a cold restart
     serve_plane = phase_serve_plane(torch, np, attention, tr)
     torch.cuda.empty_cache()
-    paths = (train, train_fused, ssgd, zero2, zero3, replicas, elastic,
-             host_engine, recover, gossip, adapt)
 
-    def row(name, route, source, replaces, key, err, timing, bert=None):
+    # 17. the in-mesh 4-D plan: the flagship over sixteen co-resident
+    # ranks, f32 at the reference's tolerances, ring attention alone, MoE
+    sharded = phase_sharded(torch, np, kernels, tr, spec)
+    print(f"sharded phase: {sharded['phase_s']:.2f} s")
+    torch.cuda.empty_cache()
+    paths = (train, train_fused, ssgd, zero2, zero3, replicas, elastic,
+             host_engine, recover, gossip, adapt, sharded)
+
+    def row(name, route, source, replaces, key, err, timing, others=None):
         extra = {k: timing[k] for k in ("plain_head_ms", "bound_fp32_ms",
                                         "bound_executed_ms", "split_ms",
                                         "host_us") if k in timing}
-        if bert is not None:  # the same kernel at phase 10's shape
-            extra.update({f"bert_{k}": bert[k] for k in (
+        # the same kernel at other main-path shapes: phase 10's, phase 17's
+        for label, other in (others or {}).items():
+            extra.update({f"{label}_{k}": other[k] for k in (
                 "ms", "plain_ms", "bound_ms", "library_ms", "host_us")})
         return {"name": name, "route": route, "source": source,
                 "replaces": replaces,
@@ -5353,37 +6038,39 @@ def main() -> int:
 
     def ring_row(name, replaces, key, kind):
         # the fused S-SGD shape; the 4 MiB ZeRO bucket at four ranks and
-        # at two (phase 11) beside it.  Both kernels are held bitwise, so
-        # the error is 0
+        # at two (phase 11) and phase 17's widest leaf at two beside it.
+        # Both kernels are held bitwise, so the error is 0
         out = row(name, "cuda", cu + "ring.cu", replaces, key, 0.0,
                   ring_timing["fused"][kind])
-        for label in ("bucket", "bucket_k2"):
+        for label in ("bucket", "bucket_k2", "leaf_k2"):
             out.update({f"{label}_{k}": ring_timing[label][kind][k] for k in (
                 "ms", "plain_ms", "bound_ms", "library_ms", "host_us")})
         return out
 
     cu = "kungfu_tpu_torch/ops/cuda/csrc/"
     tri = "kungfu_tpu_torch/ops/triton/xent.py"
+    other_flash = (("bert", "bert_s512"), ("ring_s512", "ring_s512"),
+                   ("ring_s1024", "ring_s1024"))
     pal = "kungfu_tpu/ops/pallas/"
     rows = [
         row("attention._fwd_kernel", "cuda", cu + "flash_fwd.cu",
             pal + "attention.py:77", "flash_fwd",
             fwd_errs["train_main"]["o_err"], fwd_timing["s2048"],
-            fwd_timing["bert_s512"]),
+            {lb: fwd_timing[sh] for lb, sh in other_flash}),
         row("attention._bwd_dq_kernel", "cuda", cu + "flash_bwd.cu",
             pal + "attention.py:241", "flash_bwd_dq",
             bwd_errs["main"]["dq_err"], bwd_timing["s2048"]["dq"],
-            bwd_timing["bert_s512"]["dq"]),
+            {lb: bwd_timing[sh]["dq"] for lb, sh in other_flash}),
         row("attention._bwd_dkv_kernel", "cuda", cu + "flash_bwd.cu",
             pal + "attention.py:288", "flash_bwd_dkv",
             bwd_errs["main"]["dkv_err"], bwd_timing["s2048"]["dkv"],
-            bwd_timing["bert_s512"]["dkv"]),
+            {lb: bwd_timing[sh]["dkv"] for lb, sh in other_flash}),
         row("xent._fwd_kernel", "triton", tri, pal + "xent.py:49",
             "xent_fwd", xent_errs["main"]["loss_err"],
-            xent_timing["main"]["fwd"], xent_timing["bert"]["fwd"]),
+            xent_timing["main"]["fwd"], {"bert": xent_timing["bert"]["fwd"]}),
         row("xent._bwd_kernel", "triton", tri, pal + "xent.py:163",
             "xent_bwd", xent_errs["main"]["dlogits_err"],
-            xent_timing["main"]["bwd"], xent_timing["bert"]["bwd"]),
+            xent_timing["main"]["bwd"], {"bert": xent_timing["bert"]["bwd"]}),
         row("lm_head._fwd_kernel", "cuda", cu + "lm_head.cu",
             pal + "lm_head.py:60", "lm_head_fwd",
             lmh_errs["main"]["loss_err"], lmh_timing["fwd"]),
@@ -5417,6 +6104,7 @@ def main() -> int:
     for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "xent_fwd",
                 "xent_bwd", "ring_rs", "ring_ag"):
         check(adapt["launches"][key] > 0, f"phase 15 never launched {key}")
+        check(sharded["launches"][key] > 0, f"phase 17 never launched {key}")
     print("details: " + json.dumps({
         "forward": fwd, "serve": serve, "train": train,
         "train_fused_head": train_fused, "ssgd_4_ranks": ssgd,
@@ -5426,6 +6114,7 @@ def main() -> int:
         "recover_gpt_4_3_2": recover, "gossip_bert_4_peers": gossip,
         "adapt_bert_4_ranks_3_peers": adapt,
         "serve_plane_flagship_6_workers": serve_plane,
+        "sharded_flagship_16_ranks": sharded,
         "ring_timing": ring_timing, "build": build,
         "flash_fwd_errors": fwd_errs, "flash_fwd_timing": fwd_timing,
         "flash_bwd_errors": bwd_errs, "flash_bwd_timing": bwd_timing,

@@ -32,7 +32,7 @@ The disk format is the reference's, file for file: ``meta.json``,
 recorded) and ``rank<r>.ok.json``, under ``manifest_name(step,
 version)``, so a manifest written by either package restores in the
 other.  Pipeline-stage geometry (:func:`stage_restore_plan`) raises
-``NotImplementedError`` until ROADMAP A4.
+``NotImplementedError`` until ROADMAP A4b.
 """
 
 from __future__ import annotations
@@ -378,11 +378,11 @@ def stage_restore_plan(n_layers: int, old_stages: int, new_stages: int
                        ) -> List[Tuple[int, int, int]]:
     """The pipeline-stage analog of the restore re-carve (reference
     ``persist.py:391``, over ``parallel/pp.py stage_recarve_plan``):
-    raises until ROADMAP A4 ports the pipeline."""
+    raises until ROADMAP A4b ports the cross-host pipeline."""
     raise NotImplementedError(
         f"restoring {n_layers} layers from {old_stages} onto {new_stages} "
-        "pipeline stages waits for ROADMAP A4: parallel/pp.py is not "
-        "ported yet")
+        "pipeline stages waits for ROADMAP A4b: parallel/pp.py's "
+        "stage re-carve is not ported yet")
 
 
 # -- the async persist plane -------------------------------------------------

@@ -39,7 +39,7 @@ leaders with a relay to their members.  Single-slice jobs never touch
 any of it.
 
 Pipeline stages (``stage_boundary``) raise ``NotImplementedError`` until
-ROADMAP A4 ports ``parallel/pp.py``.
+ROADMAP A4b ports the cross-host pipeline of ``parallel/pp.py``.
 """
 
 from __future__ import annotations
@@ -410,7 +410,8 @@ def recover_from_peer_failure(
 
     ``stage_boundary`` (the reference's ``parallel.pp.StageBoundary``,
     which carries a pipeline stage through the shrink) raises
-    ``NotImplementedError`` until ROADMAP A4 ports the pipeline.
+    ``NotImplementedError`` until ROADMAP A4b ports the cross-host
+    pipeline.
 
     ``shrunk=False`` means nothing provably died (a transient — the
     caller may simply retry the collective).  On quorum loss this
@@ -421,7 +422,7 @@ def recover_from_peer_failure(
     if stage_boundary is not None:
         raise NotImplementedError(
             "recovering a pipeline stage (stage_boundary) waits for ROADMAP "
-            "A4: parallel/pp.py is not ported yet")
+            "A4b: parallel/pp.py's StageBoundary is not ported yet")
     if zero_boundary is not None and snapshot is None:
         # checked before anything destructive: the recarve must be gated
         # on the leader-agreed replay step (survivors' boundaries can

@@ -14,6 +14,12 @@ leaf for leaf with :func:`tree_from_jax` and :func:`tree_to_jax`: the
 port's states keep the reference's fields in its order, and both
 packages visit dict keys sorted.
 
+A reference ``ShardedTrainer``'s params (the global arrays of its
+sharded layout, stacked layers ``[L, ...]``, dense or MoE) cross with
+:func:`sharded_params_from_jax` and :func:`sharded_params_to_jax` into
+and out of the port's stacked per-rank blocks ``[n, *local]``, with the
+port trainer's layout.
+
 The caller hands the JAX tree over as numpy arrays (``np.asarray`` on
 each leaf): this module, like the whole port, never imports jax.
 """
@@ -63,6 +69,31 @@ def params_to_jax(params) -> dict:
     ``jax.tree_util.tree_map(jnp.asarray, ...)`` on the JAX side."""
     return unflatten({path: t.detach().to("cpu", torch.float32).numpy()
                       for path, t in flatten(params).items()})
+
+
+def sharded_params_from_jax(tree, trainer) -> dict:
+    """The port's stacked per-rank params for ``trainer`` (a
+    :class:`~kungfu_tpu_torch.parallel.train.ShardedTrainer`) from a
+    reference ``ShardedTrainer``'s params on the same plan: its global
+    arrays as numpy (``jax.device_get``), each cut into the blocks the
+    port's ranks hold.  The trees must match leaf for leaf
+    (``ValueError`` otherwise), dense or MoE."""
+    flat, want = flatten(tree), flatten(trainer.param_specs)
+    if set(flat) != set(want):
+        raise ValueError(f"parameter trees differ: missing "
+                         f"{sorted(set(want) - set(flat))}, unexpected "
+                         f"{sorted(set(flat) - set(want))}")
+    return trainer.shard_params(unflatten(
+        {k: np.asarray(v, dtype=np.float32) for k, v in flat.items()}))
+
+
+def sharded_params_to_jax(params, trainer) -> dict:
+    """The reference's global param tree (nested dict of f32 numpy
+    arrays) from the port trainer's stacked per-rank params; feed it to
+    the reference trainer's ``shard_params``."""
+    return unflatten({path: t.detach().to("cpu", torch.float32).numpy()
+                      for path, t in flatten(
+                          trainer.gather_params(params)).items()})
 
 
 def tree_from_jax(leaves: Sequence, template):

@@ -88,6 +88,16 @@ class PulseMonitor:
         a = self.ema_alpha
         return (1.0 - a) * prev + a * x
 
+    def publish_norms(self, group_norms: Dict[str, float],
+                      step: Optional[int] = None) -> None:
+        """Per-group norm gauges only: for meshes where the two-batch
+        GNS pair is undefined (tp/pp/sp/expert sharding) but the
+        per-kind ``|g|`` of the reduced gradients is exact."""
+        for group, norm in (group_norms or {}).items():
+            REGISTRY.gauge("kf_grad_norm", group=str(group)).set(float(norm))
+        timeline.event("pulse", "norms",
+                       **({} if step is None else {"pulse_step": int(step)}))
+
     def update(self, g_local_sq: float, g_global_sq: float,
                b_small: float, n: int,
                group_norms: Optional[Dict[str, float]] = None,

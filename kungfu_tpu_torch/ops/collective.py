@@ -123,6 +123,31 @@ def peer_rank(axis: Axis):
     return idx.reshape(-1)
 
 
+_INDEX: dict = {}
+
+
+def index_tensor(values: Sequence[int], device) -> torch.Tensor:
+    """An int64 tensor of ``values`` on ``device``, copied there once and
+    kept: the lockstep ops index the rank axis with the same few index
+    lists every step, and a host-to-device copy per op would hold the
+    host until the stream drained."""
+    key = (tuple(int(v) for v in values), str(device))
+    t = _INDEX.get(key)
+    if t is None:
+        t = torch.tensor(key[0], dtype=torch.long, device=device)
+        _INDEX[key] = t
+    return t
+
+
+def axis_index(axis: Axis, device=None):
+    """``lax.axis_index``: each rank's index along ``axis``, an int64
+    ``[n]`` tensor on ``device`` in a rank world (``0`` outside one)."""
+    idx = peer_rank(axis)
+    if isinstance(idx, int) or device is None:
+        return idx
+    return index_tensor(idx.tolist(), device)
+
+
 def check_stacked(x, n: Optional[int] = None) -> None:
     """Every leaf of ``x`` has the leading rank axis of the current
     world (or of ``n``)."""
@@ -276,3 +301,73 @@ def barrier_value(axis: Axis):
     if world is None:
         return torch.tensor(1, dtype=torch.int32)
     return all_reduce(torch.ones(world.n, dtype=torch.int32), axis)
+
+
+def ppermute(x, axis: str, perm: Sequence[Tuple[int, int]]):
+    """``lax.ppermute`` on the stacked rank axis: within each group of
+    ``axis``, the rank at index ``dst`` receives the value of the rank at
+    index ``src`` for every ``(src, dst)`` in ``perm``; a rank that
+    receives nothing gets zeros.  Differentiable through autograd's
+    gather/scatter pair, so the gradient is the inverse permutation, the
+    reference's transpose.  Outside a world (or over one peer) a
+    permutation that keeps index 0 returns ``x``."""
+    k = peer_size(axis)
+    pairs = [(int(s), int(d)) for s, d in perm]
+    srcs, dsts = [s for s, _ in pairs], [d for _, d in pairs]
+    if (len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts)
+            or any(not 0 <= i < k for i in srcs + dsts)):
+        raise ValueError(f"ppermute over {k} ranks needs distinct sources "
+                         f"and destinations in [0, {k}), got {pairs}")
+    if k == 1:
+        return x if pairs else tree_map(torch.zeros_like, x)
+    check_stacked(x)
+
+    inv = [0] * k
+    for s, d in pairs:
+        inv[d] = s
+
+    def leaf(a):
+        g = group_view(a, axis)
+        if len(pairs) == k:  # a permutation: one gather
+            out = g.index_select(1, index_tensor(inv, a.device))
+        else:
+            out = torch.zeros_like(g).index_copy(
+                1, index_tensor(dsts, a.device),
+                g.index_select(1, index_tensor(srcs, a.device)))
+        return ungroup(out, axis)
+
+    return tree_map(leaf, x)
+
+
+def all_to_all(x, axis: str, split_axis: int, concat_axis: int):
+    """``lax.all_to_all(tiled=True)`` on the stacked rank axis: each
+    rank's value (``split_axis`` and ``concat_axis`` count its own dims,
+    without the rank axis) is cut into ``k`` chunks along ``split_axis``;
+    chunk ``j`` goes to the group's rank ``j``, which concatenates what
+    it receives along ``concat_axis`` in source-rank order.  Pure
+    reshapes and permutes, so autograd's gradient is the inverse
+    all-to-all, the reference's transpose.  Over one peer returns
+    ``x``."""
+    k = peer_size(axis)
+    if k == 1:
+        return x
+    check_stacked(x)
+
+    def leaf(a):
+        shape = list(a.shape[1:])
+        m = len(shape)
+        sa, ca = split_axis % m, concat_axis % m
+        if shape[sa] % k:
+            raise ValueError(f"all_to_all split axis {sa} of size "
+                             f"{shape[sa]} is not divisible by {k} ranks")
+        g = group_view(a, axis)                       # [G, k_src, *shape]
+        G = g.shape[0]
+        g = g.reshape(G, k, *shape[:sa], k, shape[sa] // k, *shape[sa + 1:])
+        g = g.movedim(2 + sa, 1)                      # [G, k_dst, k_src, ...]
+        g = g.movedim(2, 2 + ca)                      # k_src before concat
+        out = list(shape)
+        out[sa] //= k
+        out[ca] *= k
+        return ungroup(g.reshape(G, k, *out), axis)
+
+    return tree_map(leaf, x)

@@ -103,9 +103,18 @@ def token_nll(logits: torch.Tensor, targets: torch.Tensor,
     The plain branch picks the target as ``jnp.take_along_axis`` does:
     a target in ``[-V, -1]`` wraps, one outside ``[-V, V)`` gives NaN."""
     del training
+    return token_nll_rows(logits, targets).mean()
+
+
+def token_nll_rows(logits: torch.Tensor,
+                   targets: torch.Tensor) -> torch.Tensor:
+    """Per-token NLL ``[...]`` under the same ``KF_TPU_XENT`` dispatch as
+    :func:`token_nll`, before its mean: a caller holding several ranks'
+    tokens in one tensor takes its own means (one kernel launch over
+    every rank's rows)."""
     if XENT_ENV.mode == "fused":
-        return softmax_cross_entropy(logits, targets).mean()
+        return softmax_cross_entropy(logits, targets)
     logp = torch.log_softmax(logits, dim=-1)
     safe, ok = take_index(targets, logits.shape[-1])
     nll = -logp.gather(-1, safe[..., None]).squeeze(-1)
-    return torch.where(ok, nll, float("nan")).mean()
+    return torch.where(ok, nll, float("nan"))

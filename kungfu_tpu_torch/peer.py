@@ -467,7 +467,7 @@ class Peer:
         :func:`kungfu_tpu_torch.elastic.shrink.recover_from_peer_failure`).
         ``zero_boundary`` re-carves chunk-mode ZeRO state across the
         survivors, a dead rank's chunk from its ring buddy.
-        ``stage_boundary`` (pipeline stages) raises until ROADMAP A4."""
+        ``stage_boundary`` (pipeline stages) raises until ROADMAP A4b."""
         from kungfu_tpu_torch.elastic.shrink import recover_from_peer_failure
 
         return recover_from_peer_failure(self, failure, snapshot,

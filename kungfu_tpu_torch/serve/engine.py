@@ -99,9 +99,7 @@ class InferenceEngine:
                  plan=None):
         cfg = model.cfg
         if plan is not None:
-            # a serving worker is one dp replica of the whole model; any
-            # object with the plan's pp/tp/sp/zero_stage attributes is
-            # read (the port's ParallelPlan comes with ROADMAP A4)
+            # a serving worker is one dp replica of the whole model
             if plan.pp != 1 or plan.tp != 1 or plan.sp != 1:
                 raise NotImplementedError(
                     f"InferenceEngine serves one full-model replica per "

@@ -17,9 +17,8 @@ PolicyContext`; :class:`ServeFleet` executes them:
    scale-in retires whole failure domains, highest first, once drained,
    through the router's exclusion.
 
-``plan=`` is read duck-typed (``pp`` must be 1, ``zero_stage`` 0, ``dp``
-floors the replica count); the port's ``ParallelPlan`` comes with
-ROADMAP A4.
+``plan=`` is a :class:`~kungfu_tpu_torch.parallel.train.ParallelPlan`
+(``pp`` must be 1, ``zero_stage`` 0, ``dp`` floors the replica count).
 """
 
 from __future__ import annotations

@@ -155,6 +155,13 @@ alone), and the runtime knobs the peer and failure recovery read:
 ``KF_PERSIST_RESTORE``             truthy: the worker agrees on and restores
                                    the newest complete manifest before
                                    training (elastic/persist.py)
+``KF_PP_STAGES``                   pipeline stages, default 1
+                                   (``ParallelPlan.from_env``)
+``KF_PP_MICROBATCHES``             pipeline microbatches; 0 or unset: one a
+                                   stage (``ParallelPlan.from_env``)
+``KF_PP_SCHEDULE``                 ``1f1b`` | ``interleaved`` |
+                                   ``sequential``, default 1f1b
+                                   (``ParallelPlan.from_env``, parallel/pp.py)
 =================================  ============================================
 """
 
@@ -237,6 +244,11 @@ PERSIST_PERIOD = "KF_PERSIST_PERIOD"
 PERSIST_ASYNC_DEPTH = "KF_PERSIST_ASYNC_DEPTH"
 PERSIST_KEEP = "KF_PERSIST_KEEP"
 PERSIST_RESTORE = "KF_PERSIST_RESTORE"
+
+# the pipeline axis of the parallel plan (ParallelPlan.from_env)
+PP_STAGES = "KF_PP_STAGES"
+PP_MICROBATCHES = "KF_PP_MICROBATCHES"
+PP_SCHEDULE = "KF_PP_SCHEDULE"
 
 #: the values of ``KF_PALLAS_COLLECTIVES``, as the reference names them
 COLLECTIVE_IMPLS = ("auto", "pallas", "lax")

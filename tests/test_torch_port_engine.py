@@ -1102,14 +1102,25 @@ class TestRepairs:
             jtimeline.collective_trace_id(1, 2, "op", "t")
 
     def test_plan_message_points_at_the_roadmap(self):
-        cfg = ttr.TransformerConfig(vocab_size=8, d_model=8, n_layers=1,
-                                    n_heads=2, d_ff=8)
+        """A tp/pp/sp plan raises the reference's ValueError, with its
+        message naming the entry points that consume those axes."""
+        from kungfu_tpu.comm.device import Communicator as JCommunicator
+        from kungfu_tpu.parallel.train import ParallelPlan as JPlan
+        from kungfu_tpu.parallel.train import dp_train_step as jdp_train_step
         from kungfu_tpu_torch.comm.device import Communicator
 
-        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+        cfg = ttr.TransformerConfig(vocab_size=8, d_model=8, n_layers=1,
+                                    n_heads=2, d_ff=8)
+        jcfg = jtr.TransformerConfig(vocab_size=8, d_model=8, n_layers=1,
+                                     n_heads=2, d_ff=8)
+        with pytest.raises(ValueError) as want:
+            jdp_train_step(jtr.Transformer(jcfg).loss, optax.sgd(0.1),
+                           JCommunicator(), plan=JPlan(tp=2))
+        with pytest.raises(ValueError, match="ShardedTrainer") as got:
             dp_train_step(ttr.Transformer(cfg).loss, sgd(0.1),
                           Communicator(devices=["cpu"]),
                           plan=ParallelPlan(tp=2))
+        assert str(got.value) == str(want.value)
 
 
 # ==========================================================================

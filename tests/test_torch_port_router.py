@@ -51,7 +51,7 @@ from kungfu_tpu.elastic.slices import SliceTopology as JSliceTopology
 from kungfu_tpu.models.transformer import Transformer as JTransformer
 from kungfu_tpu.models.transformer import TransformerConfig as JConfig
 from kungfu_tpu.monitor import timeline as jtimeline
-from kungfu_tpu.parallel.train import ParallelPlan
+from kungfu_tpu.parallel.train import ParallelPlan as JPlan
 from kungfu_tpu.peer import Peer as JPeer
 from kungfu_tpu.plan import PeerID as JPeerID
 from kungfu_tpu.plan import PeerList as JPeerList
@@ -64,6 +64,7 @@ from kungfu_tpu.serve.engine import InferenceEngine as JEngine
 from kungfu_tpu.serve.kvcache import KVCachePool as JPool
 from kungfu_tpu.serve.kvcache import PageSpec as JPageSpec
 from kungfu_tpu.utils import envs as jenvs
+from kungfu_tpu_torch.parallel.train import ParallelPlan
 from kungfu_tpu_torch import chaos, interop
 from kungfu_tpu_torch import policy as tpolicy
 from kungfu_tpu_torch.comm.faults import (RequestLostError,
@@ -585,15 +586,15 @@ class TestServeFleet:
     @pytest.mark.parametrize("busy", [{2}, {1, 2}, set()])
     def test_slice_scale_in_matches_reference(self, busy):
         runs = []
-        for mod, pl, pid, topo in (
-                (tscale, PeerList, PeerID, SliceTopology(2, 2)),
-                (jscale, JPeerList, JPeerID, JSliceTopology(2, 2))):
+        for mod, pl, pid, topo, plan in (
+                (tscale, PeerList, PeerID, SliceTopology(2, 2), ParallelPlan),
+                (jscale, JPeerList, JPeerID, JSliceTopology(2, 2), JPlan)):
             workers = pl.of(*(pid("127.0.0.1", 20000 + i) for i in range(5)))
             router = _StubSliceRouter(_StubSlicePeer(workers), [0, 1, 2, 3],
                                       topo)
             router.busy = set(busy)
             fleet = mod.ServeFleet(router, None, lambda r: _W(),
-                                   plan=ParallelPlan(dp=2))
+                                   plan=plan(dp=2))
             fleet.workers = {r: _W() for r in (0, 1, 2, 3)}
             fleet.scale_to(2)
             runs.append((router.live_workers, router.replays,
@@ -605,12 +606,14 @@ class TestServeFleet:
 
     def test_plan_guard(self):
         router = SimpleNamespace(peer=None)
-        for bad, exc in ((ParallelPlan(pp=2), ValueError),
-                         (ParallelPlan(zero_stage=1), ValueError)):
+        for bad, exc in ((dict(pp=2), ValueError),
+                         (dict(zero_stage=1), ValueError)):
             with pytest.raises(exc):
-                tscale.ServeFleet(router, None, lambda r: None, plan=bad)
+                tscale.ServeFleet(router, None, lambda r: None,
+                                  plan=ParallelPlan(**bad))
             with pytest.raises(exc):
-                jscale.ServeFleet(router, None, lambda r: None, plan=bad)
+                jscale.ServeFleet(router, None, lambda r: None,
+                                  plan=JPlan(**bad))
 
     def test_intent_spawns_real_worker(self, weights):
         peers = start_local_cluster(3, devices=["cpu"])
@@ -832,18 +835,19 @@ class TestEngineSurface:
             eng.drain()
 
     @pytest.mark.parametrize("plan,exc", [
-        (ParallelPlan(pp=2), NotImplementedError),
-        (ParallelPlan(tp=2), NotImplementedError),
-        (ParallelPlan(sp=2), NotImplementedError),
-        (ParallelPlan(zero_stage=2), ValueError),
-        (ParallelPlan(dp=4), None)])
+        (dict(pp=2), NotImplementedError),
+        (dict(tp=2), NotImplementedError),
+        (dict(sp=2), NotImplementedError),
+        (dict(zero_stage=2), ValueError),
+        (dict(dp=4), None)])
     def test_plan_guard(self, weights, plan, exc):
-        for make in (_engine, _jengine):
+        for make, cls in ((_engine, ParallelPlan), (_jengine, JPlan)):
+            value = cls(**plan)
             if exc is None:
-                assert make(weights, plan=plan).plan is plan
+                assert make(weights, plan=value).plan is value
             else:
                 with pytest.raises(exc):
-                    make(weights, plan=plan)
+                    make(weights, plan=value)
 
 
 class TestSLOAndKnobs:

@@ -470,10 +470,15 @@ class TestPlanRouting:
             zero.zero_train_step(lambda p, b: 0.0, sgd(0.1), tcomm, **kwargs)
 
     def test_plan_validation(self):
-        for bad in (dict(dp=0), dict(zero_stage=4),
-                    dict(collective_schedule="bogus")):
+        for bad in (dict(dp=0), dict(zero_stage=4)):
             with pytest.raises(ValueError):
                 ParallelPlan(**bad)
+        # the arm is checked by the consumers, as in the reference
+        ParallelPlan(collective_schedule="bogus")
+        JPlan(collective_schedule="bogus")
+        with pytest.raises(ValueError, match="arm"):
+            dp_train_step(lambda p, b: 0.0, sgd(0.1), _comms()[1],
+                          plan=ParallelPlan(collective_schedule="bogus"))
         assert ParallelPlan(dp=2, tp=2).size == 4
 
 
