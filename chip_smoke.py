@@ -294,6 +294,48 @@ Phases (any failed check exits non-zero before the result line):
              tp2 at the flagship's width, two layers, three steps of
              falling loss. The phase's main path is (a)'s loss and five
              steps.
+18. pipeline — the cross-host pipeline (``parallel/pp.py``) on the
+             flagship at full width and depth (``max_seq`` 1024), under
+             ``KF_TPU_XENT=fused`` with TF32 off: ``HostPipeline`` over
+             four ``Peer``s from ``start_local_cluster(4,
+             devices=["cuda"])`` in two emulated slices of two
+             (``MEGASCALE_NUM_SLICES=2``, ``KF_SLICE_RANKS=2``), one
+             thread a rank, the Python transport with
+             ``KF_NATIVE_ENGINE=0`` and 30 ms of chaos delay on every
+             engine send (bench.py:2099 payload_pp's wire);
+             ``ParallelPlan(pp=2, dp=2, n_micro=4, zero_stage=2)``,
+             ``sgd(0.05, momentum=0.9)``, each dp lane a [8, 1024]
+             batch from seed 0; every rank runs ``warmup`` first.  (a)
+             three steps of 1F1B, three of sequential and two of
+             interleaved (two chunks a stage), each from the same start:
+             1F1B and sequential params bitwise equal; each schedule's
+             params and losses bitwise ``reference_pipeline_step`` run on
+             the card for its plan; launches of rows 1-5 exact per step
+             (per lane, the flash forward m(2 L0 + L1), dQ and dK/dV m(L0
+             + L1), each xent kernel m); the first loss within
+             ``PIPE_LOSS_RTOL`` of the one-rank flagship
+             ``Transformer.loss`` on each lane's rows; the first loss and
+             reduced gradient (``pipeline_gradients``) against the same
+             step through the flash kernels' plain versions and
+             ``KF_TPU_XENT=plain``, no launch (phase 17's limits).  Step
+             ms (median), 1F1B over sequential, xray's ``pp_bubble``
+             share of the ranks' wall, tokens/s over both lanes, peak
+             memory.  The four ranks share the card, its default stream
+             and autograd's device thread (ROADMAP C8), so these are
+             the port's own times, not a cross-host pipeline's.  (b) two
+             steps, then ``commit_boundary``, ``StepSnapshot.commit`` and
+             ``replicate_ring``; ``die_slice:slice=1,step=2,mode=raise,
+             rps=2`` with ``KF_CONFIG_PEER_DEADLINE=12``
+             (tests/test_pp.py:761's drill); the survivors call
+             ``Peer.recover_from_failure(stage_boundary=...,
+             snapshot=...)`` to one stage on dp 2 (the dead stage's
+             params from the lane's own mirror: no param byte on the
+             wire) and take two steps, bitwise a fixed one-stage world
+             replayed from the same boundary; kill -> PeerFailureError
+             s, the re-carve's s and bytes, step ms at pp 2 and pp 1.
+             (c) ``pp=2, dp=1, tp=2`` at the flagship's widths with four
+             layers, one step bitwise ``reference_pipeline_step`` with
+             the same plan.  The phase's main path is (a)'s timed steps.
 
 Phase 3 also holds the ring reduce-scatter and all-gather kernels
 bitwise against their plain versions, at the main path's shapes (a
@@ -5790,6 +5832,553 @@ def _moe_flagship(torch, np, kernels, tr, MeshPlan, ShardedTrainer):
     return {"ep_tol_share": ratio, "losses": losses, "launches": launches}
 
 
+#: phase 18 (a): the flagship (max_seq 1024) through HostPipeline over
+#: four in-process Peers in two emulated slices of two: pp across the
+#: slices, dp lanes within, ZeRO-2 with sgd(0.05, momentum=0.9), each dp
+#: lane a [8, 1024] batch from seed 0 in four microbatches, and 30 ms of
+#: chaos delay on every engine send (bench.py:2099 payload_pp's wire)
+PIPE_PLAN = dict(pp=2, dp=2, n_micro=4, zero_stage=2)
+PIPE_BATCH, PIPE_SEQ = 8, 1024
+PIPE_LR, PIPE_MOMENTUM = 0.05, 0.9
+PIPE_WIRE_MS = 30
+#: steps of each schedule, each from the same start; interleaved with
+#: two chunks a stage
+PIPE_STEPS = {"1f1b": 3, "sequential": 3, "interleaved": 2}
+PIPE_INTERLEAVE = 2
+#: the first loss against the one-rank flagship Transformer.loss on the
+#: same rows, and the first loss and reduced gradient against the same
+#: step through the kernels' plain versions: phase 17's limits.
+#: Readings on an H100 (run 1 of the phase): the loss 0 and 2.3e-8 from
+#: the one-rank model's, 5.7e-7 and 1.2e-6 from the plain versions'; the
+#: gradient's worst leaf 1.8e-2 (a key weight), median 7.8e-3
+PIPE_LOSS_RTOL = SHARDED_LOSS_RTOL
+PIPE_GRAD_REL_L2 = SHARDED_GRAD_REL_L2
+#: (b): slice 1 dies as step 2 begins (tests/test_pp.py:761's drill and
+#: its peer deadline: detection read 12.01-12.02 s); two steps at one
+#: stage after the re-carve
+PIPE_KILL_STEP = 2
+PIPE_DEADLINE_S = 12
+PIPE_AFTER_STEPS = 2
+#: (c): tensor parallelism within each stage at the flagship's widths
+PIPE_TP_LAYERS = 4
+PIPE_TP_PLAN = dict(pp=2, dp=1, tp=2, n_micro=4)
+
+
+def _pipe_batches(np, vocab: int, lanes: int) -> list:
+    """Each dp lane's ``[PIPE_BATCH, PIPE_SEQ]`` ids and targets from
+    seed 0, as host int32 arrays."""
+    rng = np.random.default_rng(0)
+    return [tuple(rng.integers(0, vocab, size=(PIPE_BATCH, PIPE_SEQ))
+                  .astype(np.int32) for _ in range(2))
+            for _ in range(lanes)]
+
+
+def _pipe_launches(pp, cfg, plan) -> dict:
+    """Launches of rows 1-5 in one step, derived from the schedule: per
+    lane and microbatch, every layer of a virtual stage before the last
+    runs the flash forward twice (F, and its recompute in B), the last
+    virtual stage's once (its F is fused into the loss gradient); every
+    layer dQ and dK/dV once; the loss one xent launch each way."""
+    v = plan.interleave if plan.pp_schedule == "interleaved" else 1
+    lo, hi = pp.stage_partition(cfg.n_layers, plan.pp * v)[-1]
+    L, m = cfg.n_layers, plan.n_micro
+    lane = {"flash_fwd": m * (2 * (L - (hi - lo)) + (hi - lo)),
+            "flash_bwd_dq": m * L, "flash_bwd_dkv": m * L,
+            "xent_fwd": m, "xent_bwd": m}
+    return {k: n * plan.dp for k, n in lane.items()}
+
+
+def _close_peers(peers) -> None:
+    for p in peers:
+        try:
+            p.close()
+        except Exception:  # noqa: BLE001 - a dead peer closed itself
+            pass
+
+
+def _stage_trees(pipes) -> list:
+    """Each rank's stage params (every chunk), global layout."""
+    return [[pipe.mods[c].gather(pipe.params[c]) for c in range(pipe.v)]
+            for pipe in pipes]
+
+
+def _pipe_against(torch, pp, cfg, pipes, full, what: str) -> None:
+    """Every rank's stage (every chunk) bitwise the slice of ``full``."""
+    for pipe in pipes:
+        part = pp.interleaved_partition(cfg.n_layers, pipe._S, pipe.v)
+        for c in range(pipe.v):
+            lo, hi = part[pipe.stage][c]
+            vs = c * pipe._S + pipe.stage
+            want = pp.slice_stage_params(cfg, full, lo, hi, vs == 0,
+                                         vs == pipe._V - 1)
+            same, n = _trees_bitwise(torch, pipe.mods[c].gather(
+                pipe.params[c]), want)
+            check(same == n, f"{what}: rank {pipe.rank} chunk {c}: "
+                  f"{n - same} of {n} leaves differ")
+
+
+def _timed(obj, name: str, acc: dict) -> None:
+    """Accumulate the host seconds of ``obj.name(...)`` calls in
+    ``acc[name]`` (the instance's method, wrapped in place)."""
+    fn = getattr(obj, name)
+
+    def wrapped(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            acc[name] = acc.get(name, 0.0) + time.perf_counter() - t0
+
+    setattr(obj, name, wrapped)
+
+
+def _pipe_breakdown(evs, accs, steps: int, step_ms: float) -> dict:
+    """Each rank's host ms a step, averaged over the ranks: the ``pp``
+    spans (``fwd`` and ``bwd`` enqueue their stage's math; ``bubble`` is
+    the wait for a hop), the dp sync's issue (flatten and D2H of the
+    stage gradient, the bucket sends) and finish (the peers' buckets,
+    the sum, the update, the all-gather of the new chunk and the H2D),
+    and the rest of the step (activation D2H, sends, the host's share
+    of the stage math)."""
+    out = {}
+    for r, acc in enumerate(accs):
+        parts = {n: sum(e["dur"] for e in evs if e.get("kind") == "pp"
+                        and e.get("name") == n and e.get("rank") == r)
+                 for n in ("fwd", "bwd", "bubble")}
+        parts["dp_sync_begin"] = acc.get("_dp_sync_begin", 0.0)
+        parts["dp_sync_finish"] = acc.get("_dp_sync_finish", 0.0)
+        for k, v in parts.items():
+            out[k] = out.get(k, 0.0) + 1e3 * v / steps / len(accs)
+    out["other"] = step_ms - sum(out.values())
+    return out
+
+
+def phase_pipeline(torch, np, kernels, tr, spec):
+    """Phase 18: the cross-host pipeline on the card; see the module
+    docstring.  Returns the result; its ``launches`` are (a)'s main
+    path: the timed steps of the three schedules."""
+    from kungfu_tpu_torch.ops import xent
+
+    t_phase = time.perf_counter()
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is on: the f32 products must not run as TF32")
+    old = _set_env({"KF_TPU_XENT": "fused", "KF_TPU_ATTN": None,
+                    "KF_NATIVE_ENGINE": "0",
+                    "KF_TPU_HOST_TRANSPORT": "python",
+                    "MEGASCALE_NUM_SLICES": "2", "KF_SLICE_RANKS": "2",
+                    "MEGASCALE_SLICE_ID": None,
+                    "KF_CONFIG_ENABLE_TRACE": "1",
+                    "KF_CONFIG_PEER_DEADLINE": str(PIPE_DEADLINE_S),
+                    "KF_CHAOS_SPEC": None})
+    xent.XENT_ENV.reload()
+    try:
+        cfg = tr.TransformerConfig(**{**FLAGSHIP, "max_seq": PIPE_SEQ})
+        gen = torch.Generator().manual_seed(0)
+        tparams = tr.Transformer(cfg).init(gen, device="cuda")
+        batches = _pipe_batches(np, cfg.vocab_size, PIPE_PLAN["dp"])
+        out = {"a": _pipe_schedules(torch, np, kernels, tr, spec, cfg,
+                                    tparams, batches)}
+        torch.cuda.empty_cache()
+        out["b"] = _pipe_slice_kill(torch, np, cfg, tparams, batches)
+        del tparams
+        torch.cuda.empty_cache()
+        _set_env({"MEGASCALE_NUM_SLICES": None, "KF_SLICE_RANKS": None,
+                  "KF_CONFIG_ENABLE_TRACE": None})
+        out["c"] = _pipe_tp(torch, np, tr, batches)
+    finally:
+        _set_env(old)
+        xent.XENT_ENV.reload()
+    out["launches"] = out["a"]["launches"]
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"pipeline phase: {out['phase_s']:.2f} s")
+    return out
+
+
+def _pipe_schedules(torch, np, kernels, tr, spec, cfg, tparams, batches):
+    """(a): three schedules from the same start on one four-peer
+    cluster, each bitwise its reference_pipeline_step on the card, with
+    exact launches; the first step against the one-rank model and the
+    plain versions."""
+    from kungfu_tpu_torch import chaos
+    from kungfu_tpu_torch.monitor import timeline, xray
+    from kungfu_tpu_torch.ops.cuda import attention
+    from kungfu_tpu_torch.optimizers import sgd
+    from kungfu_tpu_torch.parallel import pp
+    from kungfu_tpu_torch.parallel.train import ParallelPlan
+    from kungfu_tpu_torch.peer import start_local_cluster
+
+    full = pp.stacked_from_transformer(cfg, tparams)
+    lanes = len(batches)
+    tokens = lanes * PIPE_BATCH * PIPE_SEQ
+    inner = lambda: sgd(PIPE_LR, momentum=PIPE_MOMENTUM)  # noqa: E731
+    plans = {s: ParallelPlan(**PIPE_PLAN, pp_schedule=s, interleave=(
+        PIPE_INTERLEAVE if s == "interleaved" else 1)) for s in PIPE_STEPS}
+    old = _set_env({"KF_CHAOS_SPEC": f"delay:ms={PIPE_WIRE_MS},on=send"})
+    chaos.reset()
+    peers = start_local_cluster(4, env={"KF_ALLREDUCE_STRATEGY": "STAR"},
+                                devices=["cuda"])
+    out, finals, first_losses = {}, {}, {}
+    launches = {k: 0 for k in _counts(kernels)}
+    try:
+        check(peers[0].slice_topology() is not None
+              and peers[0].slice_topology().num_slices == 2,
+              f"not two emulated slices: {peers[0].slice_topology()}")
+        for sched, steps in PIPE_STEPS.items():
+            plan = plans[sched]
+            pipes = [pp.HostPipeline(p.engine(), plan, cfg, full_params=full,
+                                     inner=inner(), peer=p, device="cuda")
+                     for p in peers]
+            t0 = time.perf_counter()
+            for pipe in pipes:
+                pipe.warmup(PIPE_BATCH, PIPE_SEQ)
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            accs = [{} for _ in pipes]
+            for pipe, acc in zip(pipes, accs):
+                _timed(pipe, "_dp_sync_begin", acc)
+                _timed(pipe, "_dp_sync_finish", acc)
+            torch.cuda.reset_peak_memory_stats()
+            cursor, _ = timeline.events_tail(0)
+            _reset(kernels)
+            walls, losses = [], []
+            for _ in range(steps):
+                t0 = time.perf_counter()
+                outs = _run_ranks([lambda i=i: pipes[i].train_step(
+                    *batches[i % lanes]) for i in range(len(pipes))],
+                    timeout=300)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                losses.append([o for o in outs if o is not None])
+            counts = _counts(kernels)
+            _, evs = timeline.events_tail(cursor)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            want = {k: n * steps for k, n in
+                    _pipe_launches(pp, cfg, plan).items()}
+            got = {k: counts[k] for k in want}
+            print(f"pipeline (a) {sched}: launches {got}, expected {want}")
+            check(got == want, f"(a) {sched}: launches {got} != {want}")
+            check(all(counts[k] == 0 for k in counts if k not in want),
+                  f"(a) {sched}: unexpected launches {counts}")
+            for k, n in counts.items():
+                launches[k] += n
+            bubble = wall = 0.0
+            for r in range(len(pipes)):
+                split = xray.rank_phase_split(
+                    [e for e in evs if e.get("rank") == r])
+                bubble += split["pp_bubble"]
+                wall += split["wall_s"]
+            step_ms = 1e3 * statistics.median(walls)
+            parts = _pipe_breakdown(evs, accs, steps,
+                                    1e3 * sum(walls) / steps)
+            out[sched] = {
+                "step_ms": step_ms, "step_ms_all": [1e3 * w for w in walls],
+                "rank_ms_per_step": parts,
+                "tokens_per_s": tokens / (step_ms / 1e3),
+                "pp_bubble_fraction": bubble / wall if wall else None,
+                "peak_gib": peak, "warmup_s": warm_s, "losses": losses,
+                "launches_per_step": _pipe_launches(pp, cfg, plan)}
+            res = out[sched]
+            print(f"pipeline (a) {sched}: step {step_ms:.1f} ms (median "
+                  f"of {steps}: {[round(1e3 * w, 1) for w in walls]}), "
+                  f"{res['tokens_per_s']:.0f} tokens/s over {lanes} lanes, "
+                  f"pp_bubble {res['pp_bubble_fraction']:.3f} of the ranks' "
+                  f"wall, peak {peak:.2f} GiB, losses {losses}; a rank's "
+                  f"ms a step: { {k: round(v, 1) for k, v in parts.items()} }")
+            for step_losses in losses:
+                check(all(np.isfinite(step_losses)),
+                      f"(a) {sched}: loss not finite: {losses}")
+            first_losses[sched] = losses[0]
+            finals[sched] = _stage_trees(pipes)
+            # the reference step on the card for the same plan
+            ref, states = full, None
+            for _ in range(steps):
+                ref, ref_losses, states = pp.reference_pipeline_step(
+                    cfg, plan, ref, batches, inner(), opt_states=states,
+                    device="cuda")
+            _pipe_against(torch, pp, cfg, pipes, ref,
+                          f"(a) {sched} against reference_pipeline_step")
+            check(losses[-1] == ref_losses, f"(a) {sched}: losses "
+                  f"{losses[-1]} != the reference step's {ref_losses}")
+            del pipes, ref, states
+            torch.cuda.empty_cache()
+        differ = [r for r, (ra, rb) in enumerate(zip(
+            finals["1f1b"], finals["sequential"])) for a, b in zip(ra, rb)
+            if len(set(_trees_bitwise(torch, a, b))) != 1]
+        print(f"pipeline (a): 1F1B and sequential params bitwise equal on "
+              f"{len(finals['1f1b']) - len(differ)} of "
+              f"{len(finals['1f1b'])} ranks")
+        check(not differ, f"(a): 1F1B and sequential params differ on "
+              f"ranks {differ}")
+        check(first_losses["1f1b"] == first_losses["sequential"],
+              f"(a): first losses differ: {first_losses}")
+        out["ratio_1f1b_over_sequential"] = (out["1f1b"]["step_ms"]
+                                             / out["sequential"]["step_ms"])
+        print(f"pipeline (a): 1F1B over sequential step time "
+              f"{out['ratio_1f1b_over_sequential']:.3f}")
+    finally:
+        _close_peers(peers)
+        _set_env(old)
+        chaos.reset()
+    del finals
+    torch.cuda.empty_cache()
+    out.update(_pipe_first_step(torch, np, kernels, tr, attention, pp, cfg,
+                                tparams, full, plans["1f1b"], batches,
+                                first_losses["1f1b"]))
+    out["launches"] = launches
+    return out
+
+
+def _per_layer(tr, stacked) -> dict:
+    """A stacked tree as the one-rank model's flat ``layer_{i}/...``
+    keys, one entry a layer's leaf."""
+    out = {}
+    for key, t in tr.flatten(stacked).items():
+        if key.startswith("layers/"):
+            for i in range(t.shape[0]):
+                out[f"layer_{i}/{key[len('layers/'):]}"] = t[i]
+        else:
+            out[key] = t
+    return out
+
+
+def _pipe_first_step(torch, np, kernels, tr, attention, pp, cfg, tparams,
+                     full, plan, batches, pipe_losses) -> dict:
+    """(a)'s first step against the one-rank flagship loss on each lane's
+    rows, and its loss and reduced gradient against the same step
+    through the flash kernels' plain versions and ``KF_TPU_XENT=plain``
+    (no launch)."""
+    from kungfu_tpu_torch.ops import xent
+
+    model = tr.Transformer(cfg)
+    one_rank = []
+    with torch.no_grad():
+        for ids, tgt in batches:
+            one_rank.append(float(model.loss(tparams, (
+                torch.from_numpy(ids).cuda(), torch.from_numpy(tgt).cuda()),
+                train=False)))
+    rel = [abs(a - b) / abs(b) for a, b in zip(pipe_losses, one_rank)]
+    print(f"pipeline (a): first losses {pipe_losses}, the one-rank model's "
+          f"{one_rank}, relative {rel}")
+    check(max(rel) <= PIPE_LOSS_RTOL,
+          f"(a): first loss {rel} from the one-rank model's")
+    grads, losses = pp.pipeline_gradients(cfg, plan, full, batches,
+                                          device="cuda")
+    check(losses == pipe_losses,
+          f"(a): pipeline_gradients' losses {losses} != {pipe_losses}")
+    flash = _PlainFlash(torch, attention)
+
+    def plain_attn(q, k, v, causal):
+        b, h, s, d = q.shape
+        o, _ = flash(q.reshape(b * h, s, d), k.reshape(b * h, s, d),
+                     v.reshape(b * h, s, d), causal)
+        return o.reshape(b, h, s, d)
+
+    real = pp.pick_attention
+    pp.pick_attention = lambda: plain_attn
+    os.environ["KF_TPU_XENT"] = "plain"
+    xent.XENT_ENV.reload()
+    before = _counts(kernels)
+    try:
+        pgrads, plosses = pp.pipeline_gradients(cfg, plan, full, batches,
+                                                device="cuda")
+        torch.cuda.synchronize()
+    finally:
+        pp.pick_attention = real
+        os.environ["KF_TPU_XENT"] = "fused"
+        xent.XENT_ENV.reload()
+    after = _counts(kernels)
+    check(after == before, f"(a)'s plain step launched kernels: "
+          f"{ {k: after[k] - before[k] for k in after} }")
+    lrel = [abs(a - b) / abs(b) for a, b in zip(losses, plosses)]
+    errs = _rel_l2_leaves(_per_layer(tr, grads), _per_layer(tr, pgrads))
+    worst = max(errs, key=errs.get)
+    print(f"pipeline (a): first loss against the plain versions' {lrel}; "
+          f"reduced gradient relative L2 per leaf: worst {worst} "
+          f"{errs[worst]:.3e}, median {statistics.median(errs.values()):.3e}")
+    check(max(lrel) <= PIPE_LOSS_RTOL, f"(a): loss {lrel} from the plain's")
+    check(errs[worst] <= PIPE_GRAD_REL_L2,
+          f"(a): gradient {worst} {errs[worst]:.3e} from the plain's")
+    return {"one_rank_losses": one_rank, "one_rank_loss_rel": rel,
+            "plain_loss_rel": lrel, "plain_grad_rel_l2_worst":
+            [worst, errs[worst]],
+            "plain_grad_rel_l2_median": statistics.median(errs.values())}
+
+
+def _pipe_slice_kill(torch, np, cfg, tparams, batches) -> dict:
+    """(b): two steps, the boundary and snapshot committed and mirrored,
+    slice 1 killed as step 2 begins; the survivors recover through
+    ``Peer.recover_from_failure(stage_boundary=...)`` to one stage on
+    dp 2 and take two steps, bitwise a fixed one-stage world replayed
+    from the same boundary."""
+    from kungfu_tpu_torch import chaos
+    from kungfu_tpu_torch.checkpoint import StepSnapshot
+    from kungfu_tpu_torch.comm.faults import PeerFailureError
+    from kungfu_tpu_torch.optimizers import sgd
+    from kungfu_tpu_torch.optimizers._transform import TraceState
+    from kungfu_tpu_torch.parallel import pp
+    from kungfu_tpu_torch.parallel.train import ParallelPlan
+    from kungfu_tpu_torch.peer import start_local_cluster
+
+    full = pp.stacked_from_transformer(cfg, tparams)
+    plan = ParallelPlan(**PIPE_PLAN)
+    inner = lambda: sgd(PIPE_LR, momentum=PIPE_MOMENTUM)  # noqa: E731
+    lanes = len(batches)
+    old = _set_env({"KF_CHAOS_SPEC": (
+        f"delay:ms={PIPE_WIRE_MS},on=send;die_slice:slice=1,"
+        f"step={PIPE_KILL_STEP},mode=raise,rps=2")})
+    chaos.reset()
+    peers = start_local_cluster(4, env={"KF_ALLREDUCE_STRATEGY": "STAR"},
+                                devices=["cuda"])
+
+    def worker(i):
+        pipe = pp.HostPipeline(peers[i].engine(), plan, cfg, full_params=full,
+                               inner=inner(), peer=peers[i], device="cuda")
+        sb, snap = pp.StageBoundary(), StepSnapshot()
+        ids, tgt = batches[i % lanes]
+        pipe.warmup(PIPE_BATCH, PIPE_SEQ)
+        torch.cuda.synchronize()
+        res = {"walls_pp2": [], "walls_pp1": []}
+        try:
+            for s in range(PIPE_KILL_STEP):
+                chaos.note_step(peers[i].chaos_rank(), s)
+                t0 = time.perf_counter()
+                pipe.train_step(ids, tgt)
+                torch.cuda.synchronize()
+                res["walls_pp2"].append(time.perf_counter() - t0)
+            pipe.commit_boundary(sb)
+            res["mirror_bytes"] = sb.replicate_ring(
+                peers[i].channel, peers[i].cluster.workers,
+                tag=f"b{PIPE_KILL_STEP}")
+            snap.commit(PIPE_KILL_STEP, {"anchor": np.int64(PIPE_KILL_STEP)})
+            chaos.note_step(peers[i].chaos_rank(), PIPE_KILL_STEP)
+            pipe.train_step(ids, tgt)
+            res["status"] = "no-death"
+        except chaos.InjectedDeath:
+            res["t_kill"] = time.perf_counter()
+            peers[i].close()
+            res["status"] = "died"
+        except PeerFailureError as err:
+            res["t_detect"] = time.perf_counter()
+            res["suspect"] = err.rank
+            t0 = time.perf_counter()
+            shrunk, replay = peers[i].recover_from_failure(
+                err, snapshot=snap, stage_boundary=sb)
+            res["recover_s"] = time.perf_counter() - t0
+            res["shrunk"], res["replay_step"] = shrunk, (
+                replay[0] if replay else None)
+            res["recarve"] = dict(sb.last_recarve)
+            pipe2 = pp.HostPipeline.from_boundary(
+                peers[i].engine(), plan.with_stages(1), cfg, sb,
+                inner=inner(), peer=peers[i], device="cuda")
+            res["layers"] = pipe2.stage_layers()
+            pipe2.warmup(PIPE_BATCH, PIPE_SEQ)
+            for _ in range(PIPE_AFTER_STEPS):
+                t0 = time.perf_counter()
+                pipe2.train_step(ids, tgt)
+                torch.cuda.synchronize()
+                res["walls_pp1"].append(time.perf_counter() - t0)
+            res["params"] = pipe2.mods[0].gather(pipe2.params[0])
+            res["status"] = "recovered"
+        return res
+
+    try:
+        res = _run_ranks([lambda i=i: worker(i) for i in range(4)],
+                         timeout=400)
+    finally:
+        _close_peers(peers[:2])
+        _set_env(old)
+        chaos.reset()
+    status = [r["status"] for r in res]
+    print(f"pipeline (b): {status}")
+    check(status == ["recovered", "recovered", "died", "died"],
+          f"(b): {status}")
+    t_kill = min(r["t_kill"] for r in res[2:])
+    for i in (0, 1):
+        r = res[i]
+        check(r["shrunk"] and r["replay_step"] == PIPE_KILL_STEP,
+              f"(b) rank {i}: shrunk {r['shrunk']} replay {r['replay_step']}")
+        check(r["layers"] == (0, cfg.n_layers), f"(b): layers {r['layers']}")
+        check(r["recarve"]["sent_param_bytes"] == 0,
+              f"(b) rank {i}: the dead stage's params crossed the wire: "
+              f"{r['recarve']}")
+    full1, states1 = full, None
+    for _ in range(PIPE_KILL_STEP):
+        full1, _, states1 = pp.reference_pipeline_step(
+            cfg, plan, full1, batches, inner(), opt_states=states1,
+            device="cuda")
+    state = [TraceState(pp.merge_stage_trees(
+        cfg, 2, 1, [states1[0].trace, states1[1].trace]))]
+    plan1 = plan.with_stages(1)
+    for _ in range(PIPE_AFTER_STEPS):
+        full1, _, state = pp.reference_pipeline_step(
+            cfg, plan1, full1, batches, inner(), opt_states=state,
+            device="cuda")
+    want = pp.slice_stage_params(cfg, full1, 0, cfg.n_layers, True, True)
+    for i in (0, 1):
+        same, n = _trees_bitwise(torch, res[i]["params"], want)
+        print(f"pipeline (b) rank {i}: {same}/{n} leaves bitwise the "
+              "fixed one-stage world")
+        check(same == n, f"(b) rank {i}: {n - same} leaves differ from the "
+              "fixed-world replay")
+    pp2 = [max(res[i]["walls_pp2"][s] for i in range(4))
+           for s in range(PIPE_KILL_STEP)]
+    pp1 = [max(res[i]["walls_pp1"][s] for i in (0, 1))
+           for s in range(PIPE_AFTER_STEPS)]
+    out = {
+        "detect_s": [res[i]["t_detect"] - t_kill for i in (0, 1)],
+        "suspects": [res[i]["suspect"] for i in (0, 1)],
+        "recover_s": [res[i]["recover_s"] for i in (0, 1)],
+        "recarve": [res[i]["recarve"] for i in (0, 1)],
+        "mirror_bytes": [r.get("mirror_bytes") for r in res],
+        "step_ms_pp2": [1e3 * w for w in pp2],
+        "step_ms_pp1": [1e3 * w for w in pp1]}
+    print(f"pipeline (b): kill -> PeerFailureError {out['detect_s']} s "
+          f"(peer deadline {PIPE_DEADLINE_S} s), recover_from_failure "
+          f"{out['recover_s']} s, re-carve {out['recarve']}, mirror "
+          f"blobs {out['mirror_bytes']} B, step ms at pp 2 "
+          f"{out['step_ms_pp2']} and at pp 1 {out['step_ms_pp1']}")
+    return out
+
+
+def _pipe_tp(torch, np, tr, batches) -> dict:
+    """(c): pp 2 x tp 2 at the flagship's widths, four layers, one step,
+    bitwise reference_pipeline_step with the same plan."""
+    from kungfu_tpu_torch.optimizers import sgd
+    from kungfu_tpu_torch.parallel import pp
+    from kungfu_tpu_torch.parallel.train import ParallelPlan
+    from kungfu_tpu_torch.peer import start_local_cluster
+
+    cfg = tr.TransformerConfig(**{**FLAGSHIP, "max_seq": PIPE_SEQ,
+                                  "n_layers": PIPE_TP_LAYERS})
+    full = pp.init_stacked_params(cfg, torch.Generator().manual_seed(1),
+                                  device="cuda")
+    plan = ParallelPlan(**PIPE_TP_PLAN)
+    inner = lambda: sgd(PIPE_LR, momentum=PIPE_MOMENTUM)  # noqa: E731
+    peers = start_local_cluster(2, env={"KF_ALLREDUCE_STRATEGY": "STAR"},
+                                devices=["cuda"])
+    try:
+        pipes = [pp.HostPipeline(p.engine(), plan, cfg, full_params=full,
+                                 inner=inner(), peer=p, device="cuda")
+                 for p in peers]
+        for pipe in pipes:
+            pipe.warmup(PIPE_BATCH, PIPE_SEQ)
+        t0 = time.perf_counter()
+        outs = _run_ranks([lambda i=i: pipes[i].train_step(*batches[0])
+                           for i in range(2)], timeout=300)
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        _close_peers(peers)
+    ref, losses, _ = pp.reference_pipeline_step(
+        cfg, plan, full, batches[:1], inner(), device="cuda")
+    _pipe_against(torch, pp, cfg, pipes, ref, "(c) tp 2")
+    check(outs[1] == losses[0], f"(c): loss {outs[1]} != {losses[0]}")
+    print(f"pipeline (c): pp 2 x tp 2, {PIPE_TP_LAYERS} layers: loss "
+          f"{outs[1]:.6f}, bitwise reference_pipeline_step, step "
+          f"{step_ms:.1f} ms")
+    return {"loss": outs[1], "step_ms": step_ms}
+
+
 WGMMA_KERNELS = ("flash_fwd_bf16_wgmma_kernel",
                  "flash_bwd_dq_bf16_wgmma_kernel",
                  "flash_bwd_dkv_bf16_wgmma_kernel",
@@ -6014,8 +6603,13 @@ def main() -> int:
     sharded = phase_sharded(torch, np, kernels, tr, spec)
     print(f"sharded phase: {sharded['phase_s']:.2f} s")
     torch.cuda.empty_cache()
+
+    # 18. the cross-host pipeline: the flagship over two emulated slices
+    # of two peers, three schedules, a slice kill re-carved, tp in a stage
+    pipeline = phase_pipeline(torch, np, kernels, tr, spec)
+    torch.cuda.empty_cache()
     paths = (train, train_fused, ssgd, zero2, zero3, replicas, elastic,
-             host_engine, recover, gossip, adapt, sharded)
+             host_engine, recover, gossip, adapt, sharded, pipeline)
 
     def row(name, route, source, replaces, key, err, timing, others=None):
         extra = {k: timing[k] for k in ("plain_head_ms", "bound_fp32_ms",
@@ -6105,6 +6699,9 @@ def main() -> int:
                 "xent_bwd", "ring_rs", "ring_ag"):
         check(adapt["launches"][key] > 0, f"phase 15 never launched {key}")
         check(sharded["launches"][key] > 0, f"phase 17 never launched {key}")
+    for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "xent_fwd",
+                "xent_bwd"):
+        check(pipeline["launches"][key] > 0, f"phase 18 never launched {key}")
     print("details: " + json.dumps({
         "forward": fwd, "serve": serve, "train": train,
         "train_fused_head": train_fused, "ssgd_4_ranks": ssgd,
@@ -6115,6 +6712,7 @@ def main() -> int:
         "adapt_bert_4_ranks_3_peers": adapt,
         "serve_plane_flagship_6_workers": serve_plane,
         "sharded_flagship_16_ranks": sharded,
+        "pipeline_flagship_2_slices_of_2": pipeline,
         "ring_timing": ring_timing, "build": build,
         "flash_fwd_errors": fwd_errs, "flash_fwd_timing": fwd_timing,
         "flash_bwd_errors": bwd_errs, "flash_bwd_timing": bwd_timing,

@@ -31,8 +31,8 @@ The disk format is the reference's, file for file: ``meta.json``,
 ``rank<r>.seg.npz`` (numpy ``.npz``; bf16 widened to f32, its dtype name
 recorded) and ``rank<r>.ok.json``, under ``manifest_name(step,
 version)``, so a manifest written by either package restores in the
-other.  Pipeline-stage geometry (:func:`stage_restore_plan`) raises
-``NotImplementedError`` until ROADMAP A4b.
+other.  :func:`stage_restore_plan` is the pipeline-stage analog: which
+layer units a new stage loads from which old stage's file.
 """
 
 from __future__ import annotations
@@ -376,13 +376,16 @@ def restore_from_manifest(mdir: str, my_new: int, new_n: int
 
 def stage_restore_plan(n_layers: int, old_stages: int, new_stages: int
                        ) -> List[Tuple[int, int, int]]:
-    """The pipeline-stage analog of the restore re-carve (reference
-    ``persist.py:391``, over ``parallel/pp.py stage_recarve_plan``):
-    raises until ROADMAP A4b ports the cross-host pipeline."""
-    raise NotImplementedError(
-        f"restoring {n_layers} layers from {old_stages} onto {new_stages} "
-        "pipeline stages waits for ROADMAP A4b: parallel/pp.py's "
-        "stage re-carve is not ported yet")
+    """The pipeline-stage analog of the restore re-carve:
+    ``[(unit, old_stage, new_stage)]`` telling a new stage which layer
+    units (and the embed/final blocks, units -1/-2) to load from which
+    OLD stage's persisted file — the pure
+    :func:`~kungfu_tpu_torch.parallel.pp.stage_recarve_plan`, so
+    restoring a checkpoint written under S stages onto S' stages moves
+    exactly the units the live elastic stage re-carve would have."""
+    from kungfu_tpu_torch.parallel.pp import stage_recarve_plan
+
+    return stage_recarve_plan(n_layers, old_stages, new_stages)
 
 
 # -- the async persist plane -------------------------------------------------

@@ -38,8 +38,10 @@ half, and the exclusion consensus runs over the surviving slices'
 leaders with a relay to their members.  Single-slice jobs never touch
 any of it.
 
-Pipeline stages (``stage_boundary``) raise ``NotImplementedError`` until
-ROADMAP A4b ports the cross-host pipeline of ``parallel/pp.py``.
+A pipeline stage (``stage_boundary``, a
+:class:`~kungfu_tpu_torch.parallel.pp.StageBoundary`) rides the same
+ladder as rung 10: the surviving stages re-balance the layers over
+themselves, a whole dead stage served from its predecessor's mirror.
 """
 
 from __future__ import annotations
@@ -408,10 +410,14 @@ def recover_from_peer_failure(
     their ring-buddy mirrors — and the caller restores the sharded state
     for the shrunk epoch with ``zero_boundary.place(new_comm)``.
 
-    ``stage_boundary`` (the reference's ``parallel.pp.StageBoundary``,
-    which carries a pipeline stage through the shrink) raises
-    ``NotImplementedError`` until ROADMAP A4b ports the cross-host
-    pipeline.
+    ``stage_boundary`` (a :class:`kungfu_tpu_torch.parallel.pp.StageBoundary`,
+    same all-or-none symmetry AND the same snapshot requirement) carries
+    a pipeline stage's params + ZeRO-2 optimizer chunks through the
+    shrink: after the membership is applied, the surviving stages
+    re-balance the LAYERS over themselves via the pure stage re-carve
+    plan — a whole dead stage (= a dead slice under the PP-across-slices
+    mapping) is restored from the ring-buddy mirror on its predecessor
+    stage instead of aborting the job.  Recovery-ladder rung 10.
 
     ``shrunk=False`` means nothing provably died (a transient — the
     caller may simply retry the collective).  On quorum loss this
@@ -419,10 +425,11 @@ def recover_from_peer_failure(
     relaunch, the pre-existing last resort) and re-raises
     :class:`QuorumLostError`.
     """
-    if stage_boundary is not None:
-        raise NotImplementedError(
-            "recovering a pipeline stage (stage_boundary) waits for ROADMAP "
-            "A4b: parallel/pp.py's StageBoundary is not ported yet")
+    if stage_boundary is not None and snapshot is None:
+        raise ValueError(
+            "stage_boundary needs a StepSnapshot alongside it — the "
+            "leader-agreed replay step gates the stage re-carve against "
+            "survivors whose boundaries committed different steps")
     if zero_boundary is not None and snapshot is None:
         # checked before anything destructive: the recarve must be gated
         # on the leader-agreed replay step (survivors' boundaries can
@@ -476,6 +483,19 @@ def recover_from_peer_failure(
                 "may diverge — escalate to the checkpoint restart")
         recarve_after_shrink(peer, zero_boundary, old_workers,
                              expect_step=replay[0])
+    if shrunk and stage_boundary is not None:
+        from kungfu_tpu_torch.parallel.pp import recarve_stages_after_shrink
+
+        # rung 10: re-balance pipeline stages over the survivors — the
+        # same step gate as the ZeRO re-carve, for the same reason
+        if replay is None:
+            raise RuntimeError(
+                "replay-point sync yielded no agreed step (broadcast "
+                "failed or no boundary was committed): the stage "
+                "re-carve cannot be step-gated and survivors' boundaries "
+                "may diverge — escalate to the checkpoint restart")
+        recarve_stages_after_shrink(peer, stage_boundary, old_workers,
+                                    expect_step=replay[0])
     return shrunk, replay
 
 

@@ -14,6 +14,11 @@ leaf for leaf with :func:`tree_from_jax` and :func:`tree_to_jax`: the
 port's states keep the reference's fields in its order, and both
 packages visit dict keys sorted.
 
+A pipeline's stacked full-model tree (``parallel/pp.py``: ``embed``,
+``layers`` with every leaf stacked ``[L, ...]``, ``ln_f``, ``head``)
+comes in with :func:`stacked_params_from_jax`, through the same
+key-for-key check, and goes back with :func:`params_to_jax`.
+
 A reference ``ShardedTrainer``'s params (the global arrays of its
 sharded layout, stacked layers ``[L, ...]``, dense or MoE) cross with
 :func:`sharded_params_from_jax` and :func:`sharded_params_to_jax` into
@@ -69,6 +74,27 @@ def params_to_jax(params) -> dict:
     ``jax.tree_util.tree_map(jnp.asarray, ...)`` on the JAX side."""
     return unflatten({path: t.detach().to("cpu", torch.float32).numpy()
                       for path, t in flatten(params).items()})
+
+
+def stacked_params_from_jax(tree, cfg: TransformerConfig,
+                            device=None) -> dict:
+    """The port's stacked full-model tree (``parallel.pp``'s layout) from
+    the reference's (``pp.init_stacked_params``' tree as numpy arrays),
+    as f32 tensors on ``device``: each layer row is checked and carried
+    by :func:`params_from_jax`, then stacked again."""
+    from kungfu_tpu_torch.parallel.pp import stacked_from_transformer
+
+    per_layer = {k: v for k, v in tree.items() if k != "layers"}
+    layers = tree["layers"]
+    n = {np.asarray(a).shape[0] for a in tree_leaves(layers)}
+    if n != {cfg.n_layers}:
+        raise ValueError(f"stacked layers of {sorted(n)} rows for "
+                         f"{cfg.n_layers} layers")
+    for i in range(cfg.n_layers):
+        per_layer[f"layer_{i}"] = unflatten(
+            {k: np.asarray(a)[i] for k, a in flatten(layers).items()})
+    return stacked_from_transformer(cfg, params_from_jax(per_layer, cfg,
+                                                         device))
 
 
 def sharded_params_from_jax(tree, trainer) -> dict:

@@ -47,9 +47,19 @@ _lock = threading.Lock()
 _built: Dict[str, _build.Built] = {}
 
 
+#: guards the counts: ranks in threads of one process launch at once
+_count_lock = threading.Lock()
+
+
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    with _count_lock:
+        for name in launch_counts:
+            launch_counts[name] = 0
+
+
+def _count(name: str) -> None:
+    with _count_lock:
+        launch_counts[name] += 1
 
 
 def _load(source: str, signatures: Dict[str, int]) -> _build.Built:
@@ -183,7 +193,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lse.data_ptr(), bh, s, d, int(bool(causal)),
             int(q.dtype == torch.bfloat16), 1.0 / (d ** 0.5), stream)
     _raise_on(lib, err, "forward")
-    launch_counts["flash_fwd"] += 1
+    _count("flash_fwd")
     return out, lse
 
 
@@ -211,7 +221,7 @@ def _launch_bwd_kernel(name: str, q, k, v, dout, lse, delta, causal: bool,
             bh, s, d, int(bool(causal)), int(q.dtype == torch.bfloat16),
             1.0 / (d ** 0.5), stream)
     _raise_on(lib, err, name)
-    launch_counts[name] += 1
+    _count(name)
 
 
 def _launch_bwd_dq(q, k, v, dout, lse, delta, causal: bool) -> torch.Tensor:

@@ -50,9 +50,19 @@ _lock = threading.Lock()
 _jitted = None
 
 
+#: guards the counts: ranks in threads of one process launch at once
+_count_lock = threading.Lock()
+
+
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    with _count_lock:
+        for name in launch_counts:
+            launch_counts[name] = 0
+
+
+def _count(name: str) -> None:
+    with _count_lock:
+        launch_counts[name] += 1
 
 
 # -- the kernels (Triton source; compiled at first launch) ----------------
@@ -188,7 +198,7 @@ def forward(logits: torch.Tensor, targets: torch.Tensor
             logits, targets, loss, lse, n, v, logits.stride(0),
             BLOCK_N=FWD_BLOCK_N, BLOCK_V=FWD_BLOCK_V,
             MASKED=v % FWD_BLOCK_V != 0, num_warps=4)
-    launch_counts["xent_fwd"] += 1
+    _count("xent_fwd")
     return loss, lse
 
 
@@ -210,5 +220,5 @@ def backward(logits, targets, lse, g) -> torch.Tensor:
             logits, targets, lse, g, dlogits, n, v, logits.stride(0),
             dlogits.stride(0), BLOCK_N=BWD_BLOCK_N, BLOCK_V=BWD_BLOCK_V,
             num_warps=4)
-    launch_counts["xent_bwd"] += 1
+    _count("xent_bwd")
     return dlogits

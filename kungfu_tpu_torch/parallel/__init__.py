@@ -4,7 +4,9 @@
 Port of ``kungfu_tpu/parallel/__init__.py``: ``mesh.py`` (the four mesh
 axes), ``tp.py`` (Megatron column/row products), ``ring.py`` (ring
 attention over the flash kernels), ``moe.py`` (switch MoE with an
-all-to-all over dp), ``pp.py`` (the stage and schedule geometry),
+all-to-all over dp), ``pp.py`` (the cross-host pipeline: stage and
+schedule geometry, ``StageModule``, ``HostPipeline``, ``StageBoundary``;
+imported as a module, as the reference's is),
 ``train.py`` (``ParallelPlan``, the in-mesh 4-D ``ShardedTrainer``, the
 data-parallel step) and ``zero.py`` (ZeRO stages 1-3 and the re-carve of
 their state).

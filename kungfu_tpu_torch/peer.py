@@ -467,7 +467,11 @@ class Peer:
         :func:`kungfu_tpu_torch.elastic.shrink.recover_from_peer_failure`).
         ``zero_boundary`` re-carves chunk-mode ZeRO state across the
         survivors, a dead rank's chunk from its ring buddy.
-        ``stage_boundary`` (pipeline stages) raises until ROADMAP A4b."""
+        ``stage_boundary`` (a :class:`kungfu_tpu_torch.parallel.pp.
+        StageBoundary`) carries a pipeline stage through it the same
+        way: the survivors re-balance layers over the remaining stages,
+        a whole dead stage restored from its predecessor's ring-buddy
+        mirror (recovery-ladder rung 10)."""
         from kungfu_tpu_torch.elastic.shrink import recover_from_peer_failure
 
         return recover_from_peer_failure(self, failure, snapshot,

@@ -33,6 +33,31 @@ def tree_flatten(tree) -> Tuple[List[Any], TreeDef]:
     return [tree], ("leaf",)
 
 
+def tree_flatten_with_path(tree, _prefix: tuple = ()
+                           ) -> Tuple[List[Tuple[tuple, Any]], TreeDef]:
+    """``([(path, leaf)], treedef)`` in :func:`tree_flatten`'s order, as
+    ``jax.tree_util.tree_flatten_with_path`` gives it; a path is the
+    tuple of keys from the root: the dict key, the sequence index, or
+    the named tuple's field name."""
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        parts = [tree_flatten_with_path(tree[k], _prefix + (k,))
+                 for k in keys]
+        return ([l for ls, _ in parts for l in ls],
+                ("dict", tuple(keys), tuple(d for _, d in parts)))
+    if isinstance(tree, (list, tuple)):
+        names = getattr(tree, "_fields", None) or range(len(tree))
+        parts = [tree_flatten_with_path(t, _prefix + (k,))
+                 for k, t in zip(names, tree)]
+        kind = ("namedtuple", type(tree)) if hasattr(tree, "_fields") else \
+            (type(tree).__name__, len(tree))
+        return ([l for ls, _ in parts for l in ls],
+                kind + (tuple(d for _, d in parts),))
+    if tree is None:
+        return [], ("none",)
+    return [(_prefix, tree)], ("leaf",)
+
+
 def _count(treedef: TreeDef) -> int:
     kind = treedef[0]
     if kind == "leaf":
@@ -40,6 +65,11 @@ def _count(treedef: TreeDef) -> int:
     if kind == "none":
         return 0
     return sum(_count(d) for d in treedef[2])
+
+
+def num_leaves(treedef: TreeDef) -> int:
+    """The leaf count of a structure (``treedef.num_leaves`` in jax)."""
+    return _count(treedef)
 
 
 def tree_unflatten(treedef: TreeDef, leaves) -> Any:

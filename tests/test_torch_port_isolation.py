@@ -147,6 +147,17 @@ SERVE_PLANE_MODULES = [
 ]
 
 
+#: the modules of the cross-host pipeline's slice (the pipeline, the
+#: stacked-tree interop, the path-keyed flatten, and the recovery rung
+#: and restore plan it lifts)
+PIPELINE_MODULES = [
+    "kungfu_tpu_torch.parallel.pp", "kungfu_tpu_torch.parallel",
+    "kungfu_tpu_torch.interop", "kungfu_tpu_torch.utils.tree",
+    "kungfu_tpu_torch.elastic.shrink", "kungfu_tpu_torch.elastic.persist",
+    "kungfu_tpu_torch.peer",
+]
+
+
 def _check_scanned(modules):
     assert set(modules) <= set(PORT_MODULES)
     for m in modules:
@@ -165,6 +176,9 @@ class TestNativeBuild:
 
     def test_serve_plane_modules_are_scanned(self):
         _check_scanned(SERVE_PLANE_MODULES)
+
+    def test_pipeline_modules_are_scanned(self):
+        _check_scanned(PIPELINE_MODULES)
 
     def test_native_build_writes_only_under_build_dir(self, tmp_path):
         """A fresh copy of ``native/`` built from scratch in its own
@@ -237,6 +251,20 @@ class TestDefaultDeviceIsTheCard:
             Peer(parse_config_from_env({})).communicator()
         assert Peer(parse_config_from_env({}), devices=["cpu"]) \
             .communicator().device == torch.device("cpu")
+
+    def test_pipeline_stage_raises(self):
+        """A pipeline stage, and the stacked init, run on the card unless
+        the caller names the CPU."""
+        from kungfu_tpu_torch.parallel import pp
+
+        cfg = TransformerConfig(vocab_size=8, d_model=8, n_layers=2,
+                                n_heads=2, d_ff=8)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            pp.StageModule(cfg, 0, 1, first=True, last=False)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            pp.init_stacked_params(cfg)
+        assert pp.StageModule(cfg, 0, 1, first=True, last=False,
+                              device="cpu").device == torch.device("cpu")
 
     def test_converter_raises(self):
         cfg = TransformerConfig(vocab_size=8, d_model=8, n_layers=1,

@@ -776,13 +776,21 @@ class TestNotPorted:
         assert call(p) == call(j)
 
     def test_stage_recovery(self):
+        """Ported since (the cross-host pipeline): a stage boundary
+        without a snapshot is refused before anything moves, as the
+        reference's is, and the stage restore plan is the reference's
+        (the live drills are in test_torch_port_pp.py)."""
+        from kungfu_tpu.elastic import persist as jpersist
         from kungfu_tpu_torch.elastic import persist
 
         p = Peer(envs.parse_config_from_env({}), devices=["cpu"])
-        with pytest.raises(NotImplementedError, match="A4"):
-            p.recover_from_failure(stage_boundary=object())
-        with pytest.raises(NotImplementedError, match="A4"):
-            persist.stage_restore_plan(12, 4, 2)
+        j = JPeer(jenvs.parse_config_from_env({}))
+        for peer in (p, j):
+            with pytest.raises(ValueError, match="StepSnapshot"):
+                peer.recover_from_failure(stage_boundary=object())
+        for old_n, new_n in [(4, 2), (2, 1), (3, 4)]:
+            assert persist.stage_restore_plan(12, old_n, new_n) == \
+                jpersist.stage_restore_plan(12, old_n, new_n)
 
     def test_orbax_backend(self, monkeypatch, tmp_path):
         from kungfu_tpu_torch import checkpoint
