@@ -337,6 +337,52 @@ Phases (any failed check exits non-zero before the result line):
              layers, one step bitwise ``reference_pipeline_step`` with
              the same plan.  The phase's main path is (a)'s timed steps.
 
+19. images — the image models and the data plane, seeded from numpy
+             seed 0, under TF32 off.  (a) bench.py:165 payload_resnet's
+             step at full width: ``ResNet(50, 1000)`` (width 64), f32
+             params, bf16 compute, 64 standard-normal images at 224 x 224
+             and random labels, ``dp_train_step(loss_fn,
+             synchronous_sgd(sgd(0.1, momentum=0.9), comm.axis), comm,
+             has_aux=True)`` over ``Communicator(devices=["cuda:0"])``:
+             three warm-up steps, eight timed by CUDA events, one under the
+             profiler; images/s, TFLOP/s from the conv and dense shapes (2
+             per multiply-add, the training step 3x the forward: 24.5
+             GFLOP an image), peak memory, kernels a step, falling loss,
+             and no ``aten::clone`` of an activation but the backward of
+             the four asymmetric SAME pads (convolutions run on permuted
+             ``channels_last`` views).  (b) the same step on four
+             co-resident ranks of the card, 64 images each,
+             ``schedule="pallas_ring"``: one ring reduce-scatter and one
+             all-gather for each of ResNet-50's 161 gradient leaves (f32,
+             64 to 2,359,296 elements), exactly 161 launches of each a
+             step; the reduced gradient bitwise the plain ring's on the
+             same stacked per-rank gradients (reduced twice, not
+             recomputed: cuDNN's backward is not deterministic); the
+             params replicated bitwise (``CHECK_REPLICAS``), the BN aux the
+             mean of the four ranks'; images/s on the card, the reduce's
+             and the ring kernels' share of the step.  (c) f32, 8 images:
+             the card's eval logits, training loss and new BN state
+             within ``IMG_F32_REL_L2`` relative L2 per leaf of the CPU
+             path's (the one tier-1 holds against the JAX package), each
+             leaf of its first gradients within ``IMG_F32_COND`` times
+             the card's own spread on that leaf when the params move by
+             6e-8 (floored at ``IMG_F32_REL_L2``: the train-mode gradient
+             at init is that ill-conditioned in its batch-norm leaves),
+             and the gradients of one full-width block (s1b0) in train
+             mode within ``IMG_F32_REL_L2``; sync-BN over four lockstep
+             ranks against one BN on the concatenated batch at ``rtol
+             2e-5``.  (d)
+             ``ImageNetFolder``'s synthetic fallback at 224, rank 0 of 4
+             through its ``ElasticDataset``, feeds three of (a)'s steps
+             through ``prefetch_to_device(device="cuda")`` (pinned copies
+             on a side stream), with the ``input`` span's stall per step;
+             ``mnist_slp()`` under ``synchronous_sgd(pallas_ring)`` over
+             four co-resident ranks on ``synthetic_mnist``, each rank an
+             ``ElasticDataset`` shard, through ``prefetch_to_device``:
+             accuracy rises.  (e) VGG-16 with batch norm, batch 32 at 224,
+             S-SGD on one rank: falling loss, images/s, peak memory.  The
+             phase's main path is (b)'s steps.
+
 Phase 3 also holds the ring reduce-scatter and all-gather kernels
 bitwise against their plain versions, at the main path's shapes (a
 262,144-column bucket over four ranks, the fused [4, 134,404,608]
@@ -529,6 +575,27 @@ HOST_ADAPT_FIXED_STEPS = 10
 HOST_ADAPT_STEPS = 40
 HOST_ADAPT_FIXED_ARMS = ("STAR", "RING", "BINARY_TREE_STAR")
 DRIVER_STEPS = 12
+#: phase 19: bench.py:165 payload_resnet's step at full width (ResNet-50,
+#: width 64, 1000 classes, 224 x 224, bf16 compute over f32 params, batch
+#: 64 a rank, sgd(0.1, momentum=0.9)); its 161 parameter leaves, each one
+#: ring reduce-scatter and one all-gather under pallas_ring
+IMG_HW, IMG_BATCH, IMG_CLASSES, IMG_LR = 224, 64, 1000, 0.1
+IMG_WARMUP, IMG_STEPS, IMG_RANK_STEPS, IMG_DATA_STEPS = 3, 8, 3, 3
+RESNET_LEAVES = 161
+#: (c): the card's f32 path (TF32 off) against the CPU's on 8 images,
+#: relative L2 per leaf: cuDNN and the CPU's convolutions sum in other
+#: orders (about 1e-6 a layer).  The forward (logits, loss, BN state)
+#: holds 1e-3.  The first gradients at init do not: params nudged by 6e-8
+#: move the card's own gradient by 3.4% (a batch-norm scale or bias sums
+#: terms the next batch norm cancels), and the CPU's with and without
+#: oneDNN differ by 2.1% (both on the H100's host), so each leaf is held
+#: within IMG_F32_COND times the card's own spread on it under such a
+#: nudge, and one well-conditioned block's gradients hold 1e-3
+IMG_F32_BATCH, IMG_F32_REL_L2, IMG_F32_COND = 8, 1e-3, 4.0
+#: (d): the SLP on synthetic_mnist, 64 rows a rank, two epochs
+MNIST_BATCH, MNIST_EPOCHS, MNIST_LR = 64, 2, 0.5
+#: (e): VGG-16 with batch norm, one rank
+VGG_BATCH, VGG_STEPS, VGG_LR = 32, 4, 0.01
 
 
 class SmokeFailure(Exception):
@@ -1583,7 +1650,12 @@ def phase_ring(torch, ringk, rc, spec):
               # phase 17 (a)'s widest leaf (the embedding table, and the
               # head) over one dp ring of two ranks
               "leaf_k2": (2, FLAGSHIP["vocab_size"] * FLAGSHIP["d_model"]
-                          // 2)}
+                          // 2),
+              # phase 19 (b)'s widest ResNet-50 leaf (a 3x3 512 -> 512
+              # kernel) and its narrowest (a 64-channel BN vector) over
+              # the four ranks
+              "resnet_leaf": (RANKS, 3 * 3 * 512 * 512 // RANKS),
+              "resnet_small": (RANKS, 64 // RANKS)}
     timing = {}
     for label, (k, chunk) in shapes.items():
         x = data(k, k * chunk, torch.float32)
@@ -6390,6 +6462,648 @@ WGMMA_KERNELS = ("flash_fwd_bf16_wgmma_kernel",
 WGMMA_INSTANTIATIONS = 3 * 3 + 3 * 2
 
 
+def _resnet_macs(model, hw: int) -> int:
+    """Multiply-adds of one image through ``model``'s forward at
+    ``hw`` x ``hw``, counted from its conv and dense shapes (SAME convs:
+    ``ceil(H / s)`` outputs).  The stem counts as the 7x7/s2 conv it
+    computes (the s2d form's zero taps are not counted)."""
+    w, h = model.width, -(-hw // 2)
+    macs = h * h * 49 * 3 * w
+    h = -(-h // 2)                                  # the 3x3/s2 max pool
+    in_ch = w
+    for s, nblocks in enumerate(model.blocks_per_stage):
+        mid = w * 2 ** s
+        out = mid * 4
+        for b in range(nblocks):
+            ho = -(-h // (2 if (b == 0 and s > 0) else 1))
+            macs += h * h * in_ch * mid + ho * ho * (9 * mid * mid + mid * out)
+            if b == 0:
+                macs += ho * ho * in_ch * out
+            h, in_ch = ho, out
+    return macs + in_ch * model.num_classes
+
+
+def _vgg_macs(model, hw: int) -> int:
+    """Multiply-adds of one image through a VGG forward (3x3 SAME convs,
+    2x2 pools, the GAP head)."""
+    macs, h, in_ch = 0, hw, 3
+    for c in model.cfg:
+        if c == "M":
+            h //= 2
+            continue
+        macs += h * h * 9 * in_ch * c
+        in_ch = c
+    return macs + in_ch * model.hidden + model.hidden * model.num_classes
+
+
+def _image_batch(torch, np, rng, n: int, hw: int, classes: int):
+    """``n`` standard-normal NHWC images as bf16 on the card (as bench.py's
+    payload_resnet draws them) and int64 labels."""
+    images = torch.from_numpy(rng.standard_normal(
+        (n, hw, hw, 3), dtype=np.float32)).to("cuda", torch.bfloat16)
+    labels = torch.from_numpy(rng.integers(0, classes, size=(n,))).cuda()
+    return images, labels
+
+
+def _event_steps(torch, step, carry, batch, steps: int, losses: list):
+    """``steps`` steps of ``step(p, s, o, batch)`` timed by CUDA events
+    (ms each) and on the host clock; returns the device ms, host ms and
+    the memory of those steps: the card's peak allocation, what was held
+    when they began (params, optimizer state, the batch and what earlier
+    phases keep) and the steps' own peak above that."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    dev, host = [], []
+    for _ in range(steps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        *carry[:], loss = step(*carry, batch)
+        b.record()
+        losses.append(float(loss))  # synchronises
+        host.append((time.perf_counter() - t0) * 1e3)
+        dev.append(a.elapsed_time(b))
+    peak = torch.cuda.max_memory_allocated()
+    return dev, host, {"peak_gib": peak / 2 ** 30, "held_gib": held / 2 ** 30,
+                       "step_peak_gib": (peak - held) / 2 ** 30}
+
+
+def _mem_text(mem: dict) -> str:
+    return (f"peak {mem['peak_gib']:.2f} GiB ({mem['step_peak_gib']:.2f} "
+            f"above the {mem['held_gib']:.2f} held when the steps began)")
+
+
+def _activation_copies(torch, step, carry, batch, n: int) -> dict:
+    """One step under the profiler with shapes: its kernels, cuDNN's
+    layout-transform kernels, and the ``aten::clone`` calls whose input is
+    a 4-D activation (batch ``n`` first, both other spatial axes >= 7).
+    A clone under ``aten::constant_pad_nd`` is the backward of an
+    asymmetric SAME pad (a negative pad is a narrow and a clone: one per
+    pad, the stem's max pool and the three 3x3/s2 convs); any other is
+    an NHWC <-> NCHW copy that a conv on permuted views must not make."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        *carry[:], loss = step(*carry, batch)
+        torch.cuda.synchronize()
+
+    def under_pad(evt):
+        while evt is not None:
+            if evt.name == "aten::constant_pad_nd":
+                return True
+            evt = evt.cpu_parent
+        return False
+
+    kernels, transforms, pads, clones, shapes = 0, 0, 0, 0, []
+    for evt in prof.events():
+        if getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA:
+            kernels += 1
+            low = evt.name.lower()
+            transforms += ("nchwtonhwc" in low or "nhwctonchw" in low)
+        elif evt.name == "aten::clone" and evt.input_shapes:
+            shp = list(evt.input_shapes[0])
+            if len(shp) == 4 and shp[0] == n and min(shp[2], shp[3]) >= 7:
+                if under_pad(evt.cpu_parent):
+                    pads += 1
+                else:
+                    clones += 1
+                    shapes.append(shp)
+    return {"kernels_per_step": kernels, "layout_transform_kernels":
+            transforms, "pad_backward_clones": pads,
+            "activation_clones": clones,
+            "activation_clone_shapes": shapes[:8], "loss": float(loss)}
+
+
+def phase_images(torch, np, kernels, spec) -> dict:
+    """Phase 19: ResNet-50 S-SGD (bench.py:165 payload_resnet) on one and
+    on four co-resident ranks, the card's f32 path against the CPU's,
+    the data plane, and VGG-16; see the module docstring."""
+    from kungfu_tpu_torch.comm.device import Communicator
+    from kungfu_tpu_torch.models import mnist_slp
+    from kungfu_tpu_torch.models.resnet import ResNet
+    from kungfu_tpu_torch.models.vgg import VGG
+    from kungfu_tpu_torch.optimizers import sgd, synchronous_sgd
+    from kungfu_tpu_torch.parallel.train import dp_train_step
+
+    t_phase = time.perf_counter()
+    out = {}
+    model = ResNet(50, num_classes=IMG_CLASSES)
+    rng = np.random.default_rng(0)
+    params, state = model.init(torch.Generator().manual_seed(0),
+                               device="cuda")
+    init_cpu = tuple(_to_cpu(torch, t) for t in (params, state))
+    step_flops = 3 * 2 * _resnet_macs(model, IMG_HW)
+
+    def loss_fn(p, s, b):
+        return model.loss(p, s, b, train=True)
+
+    # (a) one rank: payload_resnet's step
+    comm = Communicator(devices=["cuda:0"])
+    tx = synchronous_sgd(sgd(IMG_LR, momentum=0.9), comm.axis)
+    step = dp_train_step(loss_fn, tx, comm, has_aux=True)
+    batch = _image_batch(torch, np, rng, IMG_BATCH, IMG_HW, IMG_CLASSES)
+    carry = [params, state, tx.init(params)]
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(IMG_WARMUP):
+        *carry[:], loss = step(*carry, batch)
+        losses.append(float(loss))
+    warm_s = time.perf_counter() - t0
+    dev, host, mem = _event_steps(torch, step, carry, batch, IMG_STEPS,
+                                  losses)
+    prof = _activation_copies(torch, step, carry, batch, IMG_BATCH)
+    losses.append(prof["loss"])
+    step_ms = statistics.median(dev)
+    ips = IMG_BATCH / (step_ms / 1e3)
+    tflops = step_flops * IMG_BATCH / (step_ms / 1e3) / 1e12
+    check(all(math.isfinite(x) for x in losses), f"ResNet-50 losses {losses}")
+    check(losses[-1] < losses[0],
+          f"ResNet-50 loss did not fall over {len(losses)} steps: {losses}")
+    check(prof["activation_clones"] == 0,
+          f"the step copies activations: {prof['activation_clone_shapes']}")
+    check(prof["pad_backward_clones"] == 4, f"{prof['pad_backward_clones']} "
+          "pad-backward copies, expected the 4 asymmetric pads'")
+    out["one_rank"] = {
+        "images_s": ips, "step_ms": step_ms, "step_ms_all": dev,
+        "host_ms_all": host, "warmup_s": warm_s, **mem,
+        "train_flops_per_image": step_flops, "tflops": tflops,
+        "bf16_peak_share": tflops * 1e12 / spec["bf16_flops"],
+        "losses": losses, **prof}
+    print(f"images (a) ResNet-50 one rank, batch {IMG_BATCH} at {IMG_HW}, "
+          f"bf16: {step_ms:.2f} ms/step (CUDA events, median of "
+          f"{IMG_STEPS}; host {statistics.median(host):.2f}), {ips:.1f} "
+          f"images/s, {tflops:.1f} TFLOP/s of {step_flops / 1e9:.2f} "
+          f"GFLOP an image a step ({tflops * 1e12 / spec['bf16_flops']:.3f} "
+          f"of the bf16 peak), {_mem_text(mem)}, "
+          f"{prof['kernels_per_step']} kernels a step, "
+          f"{prof['layout_transform_kernels']} cuDNN layout transforms, "
+          f"{prof['activation_clones']} activation copies (and "
+          f"{prof['pad_backward_clones']} pad-backward copies); losses "
+          f"{[round(x, 4) for x in losses]}")
+    del batch
+
+    # (b) four co-resident ranks under pallas_ring
+    out["four_ranks"], launches = _images_four_ranks(
+        torch, np, kernels, model, loss_fn, init_cpu, rng)
+
+    # (c) the card's f32 path against the CPU's
+    out["f32_vs_cpu"] = _images_f32_vs_cpu(torch, np, model, init_cpu, rng)
+    del init_cpu
+
+    # (d) the data plane, from (a)'s params on
+    out["data"] = _images_data_plane(torch, np, step, carry, mnist_slp)
+    del carry, params, state
+    torch.cuda.empty_cache()
+
+    # (e) VGG-16 (BN), one rank
+    out["vgg16"] = _images_vgg(torch, np, VGG, spec, rng)
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["launches"] = launches
+    print(f"images phase: {out['phase_s']:.2f} s")
+    return out
+
+
+def _to_cpu(torch, tree):
+    from kungfu_tpu_torch.utils.tree import tree_map
+
+    return tree_map(lambda t: t.detach().to("cpu", copy=True), tree)
+
+
+def _images_four_ranks(torch, np, kernels, model, loss_fn, init_cpu, rng):
+    """(b): the step on four co-resident ranks of the card, each its own
+    64 images, ``schedule="pallas_ring"``: one ring reduce-scatter and one
+    all-gather per gradient leaf; the reduced gradient bitwise the ring's
+    plain version on the same per-rank gradients, the aux the mean of the
+    ranks' rows, the params replicated."""
+    from kungfu_tpu_torch.comm.device import Communicator
+    from kungfu_tpu_torch.ops import collective
+    from kungfu_tpu_torch.ops.collectives import ring_all_reduce
+    from kungfu_tpu_torch.optimizers import (GradientTransformation, sgd,
+                                             synchronous_sgd)
+    from kungfu_tpu_torch.parallel.train import dp_train_step
+    from kungfu_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    comm = Communicator(devices=["cuda:0"] * RANKS, local_size=RANKS)
+    inner = sgd(IMG_LR, momentum=0.9)
+    # the first step keeps its stacked and reduced gradients and the
+    # ranks' new BN state
+    seen, marks, rows, first = {}, [], [], [True]
+
+    def inner_update(g, s, p=None):
+        marks[-1][1].record()          # the reduce ends here
+        if first[0]:
+            seen["reduced"] = tree_map(lambda t: t.clone(), g)
+        return inner.update(g, s, p)
+
+    sync = synchronous_sgd(GradientTransformation(inner.init, inner_update),
+                           comm.axis, schedule="pallas_ring")
+
+    def update(g, s, p=None):
+        marks.append((torch.cuda.Event(enable_timing=True),
+                       torch.cuda.Event(enable_timing=True)))
+        marks[-1][0].record()          # the per-rank gradients are done
+        if first[0]:
+            seen["stacked"] = tree_map(lambda t: t.clone(), g)
+        return sync.update(g, s, p)
+
+    def loss4(p, s, b):
+        loss, new = loss_fn(p, s, b)
+        if first[0]:
+            rows.append(tree_map(lambda t: t.detach().clone(), new))
+        return loss, new
+
+    tx = GradientTransformation(sync.init, update)
+    step = dp_train_step(loss4, tx, comm, has_aux=True)
+    params, state = (tree_map(lambda t: t.cuda(), x) for x in init_cpu)
+    carry = [params, state, tx.init(params)]
+    batch = _image_batch(torch, np, rng, RANKS * IMG_BATCH, IMG_HW,
+                         IMG_CLASSES)
+    n_leaves = len(tree_leaves(params))
+    check(n_leaves == RESNET_LEAVES, f"ResNet-50 has {n_leaves} leaves")
+
+    _reset(kernels)
+    collective.CHECK_REPLICAS = True
+    try:
+        *carry[:], loss = step(*carry, batch)
+        torch.cuda.synchronize()
+    finally:
+        collective.CHECK_REPLICAS = False
+        first[0] = False
+    per_step = _counts(kernels)
+    want = {key: 0 for key in per_step}
+    want.update(ring_rs=RESNET_LEAVES, ring_ag=RESNET_LEAVES)
+    check(per_step == want, f"one four-rank ResNet-50 step launched "
+          f"{per_step}, expected {want}")
+    losses = [float(loss)]
+
+    # the same stacked gradients reduced again through the plain ring
+    with comm.world():
+        plain = collective.replicated(tree_map(
+            lambda a: ring_all_reduce(a, "kf_local", impl="lax") / RANKS,
+            seen.pop("stacked")))
+    same = [torch.equal(a, b) for a, b in zip(tree_leaves(seen["reduced"]),
+                                              tree_leaves(plain))]
+    check(all(same), f"{same.count(False)} reduced gradient leaves differ "
+          "from the plain ring's")
+    del plain, seen["reduced"]
+    # the aux: the mean of the four ranks' new BN state
+    mean = tree_map(lambda *r: torch.stack(r).sum(0) / RANKS, *rows)
+    aux_rel = max(float((a - b).norm() / b.norm().clamp_min(1e-30))
+                  for a, b in zip(tree_leaves(carry[1]), tree_leaves(mean)))
+    check(aux_rel <= 1e-6, f"the BN aux is not the ranks' mean: {aux_rel}")
+    del rows[:], mean
+
+    _reset(kernels)
+    marks.clear()
+    dev, host, mem = _event_steps(torch, step, carry, batch,
+                                  IMG_RANK_STEPS, losses)
+    timed = _counts(kernels)
+    want_t = {key: v * IMG_RANK_STEPS for key, v in want.items()}
+    check(timed == want_t, f"{IMG_RANK_STEPS} four-rank steps launched "
+          f"{timed}, expected {want_t}")
+    launches = {key: per_step[key] + timed[key] for key in per_step}
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"four-rank losses did not fall: {losses}")
+    ring_ms = [a.elapsed_time(b) for a, b in marks]
+    step_ms = statistics.median(dev)
+    ips = RANKS * IMG_BATCH / (step_ms / 1e3)
+    ring_kernel_ms = _ring_kernel_ms(torch, step, carry, batch)
+    res = {"images_s_per_card": ips, "step_ms": step_ms, "step_ms_all": dev,
+           "host_ms_all": host, **mem, "losses": losses,
+           "per_step_launches": per_step,
+           "reduce_ms": statistics.median(ring_ms),
+           "reduce_share": statistics.median(ring_ms) / step_ms,
+           "ring_kernel_ms": ring_kernel_ms,
+           "ring_kernel_share": ring_kernel_ms / step_ms,
+           "aux_rel": aux_rel}
+    print(f"images (b) ResNet-50 on {RANKS} co-resident ranks, {IMG_BATCH} "
+          f"images each, pallas_ring: {step_ms:.2f} ms/step, {ips:.1f} "
+          f"images/s on the card, reduce (pad, {RESNET_LEAVES} ring "
+          f"reduce-scatters and all-gathers, mean) "
+          f"{res['reduce_ms']:.2f} ms = {res['reduce_share']:.3f} of the "
+          f"step, ring kernels alone {ring_kernel_ms:.3f} ms = "
+          f"{res['ring_kernel_share']:.4f}; launches a step {per_step}; "
+          f"reduced gradient bitwise the plain ring's; aux rel "
+          f"{aux_rel:.1e}; {_mem_text(mem)}; losses "
+          f"{[round(x, 4) for x in losses]}")
+    del carry, batch
+    torch.cuda.empty_cache()
+    return res, launches
+
+
+def _ring_kernel_ms(torch, step, carry, batch) -> float:
+    """Device ms of the ring kernels in one step (profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        *carry[:], _ = step(*carry, batch)
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if getattr(e, "device_type", None)
+             == torch.autograd.DeviceType.CUDA and "ring_" in e.name)
+    return us / 1e3
+
+
+def _images_f32_vs_cpu(torch, np, model, init_cpu, rng) -> dict:
+    """(c): the same params and 8 images in f32 on the card (TF32 off)
+    and on the CPU: eval logits, the training loss, the new BN state and
+    the first gradients per leaf, and one block's gradients; then sync-BN
+    over four lockstep ranks against one BN on the concatenated batch."""
+    from kungfu_tpu_torch.models import nn
+    from kungfu_tpu_torch.models.resnet import bottleneck
+    from kungfu_tpu_torch.ops import collective
+    from kungfu_tpu_torch.parallel.train import per_rank_grads
+    from kungfu_tpu_torch.utils.tree import (tree_flatten_with_path,
+                                             tree_leaves, tree_map)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    check(not torch.backends.cudnn.allow_tf32
+          and not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    x = torch.from_numpy(rng.standard_normal((IMG_F32_BATCH, IMG_HW, IMG_HW,
+                                              3), dtype=np.float32))
+    y = torch.from_numpy(rng.integers(0, IMG_CLASSES, size=(IMG_F32_BATCH,)))
+
+    def run(dev, trees=init_cpu):
+        p, s = (tree_map(lambda t: t.to(dev), a) for a in trees)
+        b = (x.to(dev), y.to(dev))
+        with torch.no_grad():
+            logits, _ = model.apply(p, s, b[0], train=False,
+                                    dtype=torch.float32)
+        grads = []
+        outs, _ = per_rank_grads(
+            lambda pp, bb: model.loss(pp, s, bb, dtype=torch.float32), p,
+            [b], lambda r, g: grads.extend(g))
+        loss, new_state = outs[0]
+        return {"logits": logits.cpu(), "loss": loss.cpu(),
+                "state": _to_cpu(torch, new_state),
+                "grads": [g.cpu() for g in grads]}
+
+    t0 = time.perf_counter()
+    card = run("cuda")
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = run("cpu")
+    t_cpu = time.perf_counter() - t0
+    # the conditioning: the card again on params moved by 6e-8 relative
+    # (one f32 ulp's order), whose gradients move by a few percent at
+    # init (train-mode batch norm through 53 layers)
+    g = torch.Generator().manual_seed(1)
+    moved = tuple(tree_map(lambda t: t * (1 + 6e-8 * torch.randn(
+        t.shape, generator=g)), a) if i == 0 else a
+        for i, a in enumerate(init_cpu))
+    nudged = run("cuda", moved)
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    paths = ["/".join(p) for p, _ in tree_flatten_with_path(init_cpu[0])[0]]
+    # relative L2 per leaf, the denominator floored at 1e-3 of the
+    # largest leaf's norm (phase 6's convention): a batch-norm scale or
+    # bias gradient sums terms that cancel (the next batch norm removes
+    # each channel's mean), so where it is small both paths return
+    # mostly rounding
+    floor = 1e-3 * max(float(b.norm()) for b in host["grads"])
+
+    def floored(got, want):
+        return {path: float((a - b).norm()) / max(float(b.norm()), floor)
+                for path, a, b in zip(paths, got, want)}
+
+    g_rel = floored(card["grads"], host["grads"])
+    g_self = floored(nudged["grads"], card["grads"])
+    # each leaf is held within the larger of IMG_F32_REL_L2 and four times
+    # the card's own spread under that nudge on that leaf
+    tol = {k: max(IMG_F32_REL_L2, IMG_F32_COND * g_self[k]) for k in paths}
+    share = {k: g_rel[k] / tol[k] for k in paths}
+    worst = max(share, key=share.get)
+    at_floor = [k for k in paths if tol[k] == IMG_F32_REL_L2]
+    # (median rel, median tol) of the weights (conv, head) and of the
+    # batch-norm scales and biases
+    kinds = {kind: [k for k in paths if (k.rsplit("/", 1)[1] in ("w", "b"))
+                    == (kind == "weights")] for kind in ("weights", "bn")}
+    by_kind = {kind: (statistics.median(g_rel[k] for k in ks),
+                      statistics.median(tol[k] for k in ks))
+               for kind, ks in kinds.items()}
+    raw = {path: rel(a, b) for path, a, b in zip(paths, card["grads"],
+                                                 host["grads"])}
+    s_rel = max(rel(a, b) for a, b in zip(tree_leaves(card["state"]),
+                                          tree_leaves(host["state"])))
+    raw_worst = sorted(raw, key=raw.get, reverse=True)[:5]
+    res = {"logits_rel": rel(card["logits"], host["logits"]),
+           "loss_rel": rel(card["loss"], host["loss"]),
+           "state_rel_worst": s_rel, "grad_worst_leaf": worst,
+           "grad_rel_worst": g_rel[worst], "grad_tol_worst": tol[worst],
+           "grad_tol_share_worst": share[worst],
+           "grad_rel_median": statistics.median(g_rel.values()),
+           "grad_tol_max": max(tol.values()), "grad_by_kind": by_kind,
+           "grad_leaves_at_floor": len(at_floor),
+           "grad_rel_worst_at_floor": max((g_rel[k] for k in at_floor),
+                                          default=0.0),
+           "grad_unfloored_worst": [(k, raw[k], float(
+               host["grads"][paths.index(k)].norm())) for k in raw_worst],
+           "grad_floor": floor, "card_s": t_card, "cpu_s": t_cpu}
+    print(f"images (c) unfloored worst gradient leaves (rel, |g|): "
+          f"{res['grad_unfloored_worst']}, floor {floor:.3e}")
+    for key in ("logits_rel", "loss_rel", "state_rel_worst"):
+        check(res[key] <= IMG_F32_REL_L2, f"f32 card vs CPU {key} "
+              f"{res[key]}")
+    check(share[worst] <= 1.0, f"f32 card vs CPU gradient {g_rel[worst]} "
+          f"at {worst}, beyond its {tol[worst]}")
+
+    # one full-width block in train mode (s1b0: the 3x3/s2 and the
+    # projection, batch norm over 8 x 28 x 28 samples a channel) is well
+    # conditioned: its gradients hold IMG_F32_REL_L2 per leaf, unfloored
+    h = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (IMG_F32_BATCH, IMG_HW // 4, IMG_HW // 4, 4 * model.width),
+        dtype=np.float32))
+
+    def block_grads(dev):
+        blk = tree_map(lambda t: t.detach().to(dev).requires_grad_(True),
+                       init_cpu[0]["s1b0"])
+        bst = tree_map(lambda t: t.to(dev), init_cpu[1]["s1b0"])
+        y, _ = bottleneck(blk, bst, h.to(dev), stride=2, train=True,
+                          dtype=torch.float32)
+        return [g.cpu() for g in torch.autograd.grad(y.sin().sum(),
+                                                     tree_leaves(blk))]
+
+    b_rel = [rel(a, b) for a, b in zip(block_grads("cuda"),
+                                       block_grads("cpu"))]
+    res["block_grad_rel_worst"] = max(b_rel)
+    check(max(b_rel) <= IMG_F32_REL_L2, f"f32 card vs CPU s1b0 block "
+          f"gradient {max(b_rel)}, beyond {IMG_F32_REL_L2}")
+
+    # sync-BN over four lockstep ranks against one BN on the whole batch
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    xs = torch.randn((RANKS, 16, 56, 56, 64), generator=gen, device="cuda")
+    p = {"scale": torch.rand(64, generator=gen, device="cuda") + 0.5,
+         "bias": torch.randn(64, generator=gen, device="cuda")}
+    st = nn.batchnorm_state_init(64)
+    st = tree_map(lambda t: t.cuda(), st)
+    with collective.rank_world([("dp", RANKS)]):
+        ys, ss = nn.batchnorm_apply(p, st, xs, True, axis_name="dp")
+    yw, sw = nn.batchnorm_apply(p, st, xs.reshape(-1, 56, 56, 64), True)
+    ok = torch.allclose(ys.reshape(yw.shape), yw, rtol=2e-5, atol=2e-5)
+    for k in ("mean", "var"):
+        ok = ok and all(torch.allclose(ss[k][r], sw[k], rtol=2e-5, atol=2e-5)
+                        for r in range(RANKS))
+    check(ok, "sync-BN over four ranks != one BN on the concatenated batch")
+    res["sync_bn_max_abs"] = float((ys.reshape(yw.shape) - yw).abs().max())
+    print(f"images (c) f32, TF32 off, {IMG_F32_BATCH} images at {IMG_HW}: "
+          f"card vs CPU relative L2 logits {res['logits_rel']:.2e}, loss "
+          f"{res['loss_rel']:.2e}, BN state {s_rel:.2e}; gradients "
+          f"(floored) median {res['grad_rel_median']:.2e}, closest to its "
+          f"tolerance {worst} {g_rel[worst]:.2e} of {tol[worst]:.2e} (each "
+          f"leaf's: {IMG_F32_COND:g}x the card's own spread under a 6e-8 "
+          f"nudge of the params, at least {IMG_F32_REL_L2:g}; the largest "
+          f"{res['grad_tol_max']:.2e}; median rel and tol: conv and head "
+          f"weights {by_kind['weights'][0]:.2e}, {by_kind['weights'][1]:.2e}"
+          f", batch norm {by_kind['bn'][0]:.2e}, {by_kind['bn'][1]:.2e}), "
+          f"{len(at_floor)} of {len(paths)} "
+          f"leaves at {IMG_F32_REL_L2:g}, worst of them "
+          f"{res['grad_rel_worst_at_floor']:.2e}; s1b0 block gradients "
+          f"worst {max(b_rel):.2e} (tol {IMG_F32_REL_L2:g}); card "
+          f"{t_card:.1f} s, CPU {t_cpu:.1f} s; sync-BN over {RANKS} ranks = "
+          f"one BN on the batch (max |d| {res['sync_bn_max_abs']:.1e}, "
+          f"rtol 2e-5)")
+    return res
+
+
+def _images_data_plane(torch, np, step, carry, mnist_slp) -> dict:
+    """(d): ImageNetFolder's synthetic fallback at 224, rank 0 of 4,
+    through prefetch_to_device into three of (a)'s steps, the input stall
+    per step from the ``input`` span; then the SLP under S-SGD over four
+    co-resident ranks on synthetic_mnist, each rank an ElasticDataset
+    shard, through prefetch_to_device."""
+    import shutil
+    import tempfile
+
+    from kungfu_tpu_torch.comm.device import Communicator
+    from kungfu_tpu_torch.datasets import (ElasticDataset, ImageNetFolder,
+                                           prefetch_to_device,
+                                           synthetic_mnist)
+    from kungfu_tpu_torch.monitor import timeline
+    from kungfu_tpu_torch.optimizers import sgd, synchronous_sgd
+    from kungfu_tpu_torch.parallel.train import dp_train_step
+
+    saved = _set_env({"KF_CONFIG_ENABLE_TRACE": "1"})
+    root = tempfile.mkdtemp(prefix="kfimg")
+    try:
+        timeline.reset()
+        folder = ImageNetFolder(root=root, image_size=IMG_HW,
+                                batch_size=IMG_BATCH, rank=0, size=RANKS,
+                                seed=0, n_synthetic=16 * IMG_BATCH,
+                                synthetic_classes=IMG_CLASSES, device="cpu")
+        losses, step_ms = [], []
+        batches = (folder.next_batch() for _ in range(IMG_DATA_STEPS))
+        t_prev = time.perf_counter()
+        for b in prefetch_to_device(batches, size=2, device="cuda"):
+            check(b[0].is_cuda and tuple(b[0].shape) == (IMG_BATCH, IMG_HW,
+                                                          IMG_HW, 3),
+                  f"staged batch {tuple(b[0].shape)} on {b[0].device}")
+            *carry[:], loss = step(*carry, b)
+            losses.append(float(loss))
+            now = time.perf_counter()
+            step_ms.append((now - t_prev) * 1e3)
+            t_prev = now
+        stalls = [e["dur"] * 1e3 for e in timeline.snapshot()
+                  if e["kind"] == "input" and e["name"] == "prefetch.next"]
+        check(len(losses) == IMG_DATA_STEPS
+              and all(math.isfinite(x) for x in losses),
+              f"ImageNet-fed losses {losses}")
+        check(folder.consumed == IMG_DATA_STEPS * IMG_BATCH * RANKS,
+              f"folder consumed {folder.consumed}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        _set_env(saved)
+        timeline.reset()
+    imagenet = {"losses": losses, "input_stall_ms": stalls[:IMG_DATA_STEPS],
+                "loop_ms": step_ms}
+    print(f"images (d) ImageNetFolder synthetic at {IMG_HW}, rank 0 of "
+          f"{RANKS}, {IMG_BATCH} a batch, prefetch_to_device(cuda): losses "
+          f"{[round(x, 4) for x in losses]}, input stall per step "
+          f"{[round(x, 2) for x in stalls[:IMG_DATA_STEPS]]} ms (decode on "
+          f"the host), loop ms {[round(x, 1) for x in step_ms]}")
+
+    # the SLP over four co-resident ranks
+    x, y = synthetic_mnist()
+    slp = mnist_slp()
+    p = slp.init(torch.Generator().manual_seed(0), device="cuda")
+    comm4 = Communicator(devices=["cuda:0"] * RANKS, local_size=RANKS)
+    tx = synchronous_sgd(sgd(MNIST_LR), comm4.axis, schedule="pallas_ring")
+    step4 = dp_train_step(lambda pp, b: slp.loss(pp, b), tx, comm4)
+    shards = [ElasticDataset([x, y], MNIST_BATCH, rank=r, size=RANKS,
+                             seed=0) for r in range(RANKS)]
+
+    def global_batches():
+        for parts in zip(*(s.epochs(MNIST_EPOCHS) for s in shards)):
+            yield (np.concatenate([q[0] for q in parts]),
+                   np.concatenate([q[1] for q in parts]))
+
+    full = (torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+    acc0 = float(slp.accuracy(p, full))
+    o = tx.init(p)
+    n_steps = 0
+    for b in prefetch_to_device(global_batches(), device="cuda"):
+        p, o, loss = step4(p, o, b)
+        n_steps += 1
+    acc1 = float(slp.accuracy(p, full))
+    check(n_steps == MNIST_EPOCHS * len(x) // (MNIST_BATCH * RANKS),
+          f"{n_steps} SLP steps")
+    check(acc1 > acc0 + 0.3, f"SLP accuracy did not rise: {acc0} -> {acc1}")
+    print(f"images (d) mnist_slp on {RANKS} co-resident ranks, "
+          f"synthetic_mnist through ElasticDataset shards and "
+          f"prefetch_to_device, pallas_ring: accuracy {acc0:.3f} -> "
+          f"{acc1:.3f} over {n_steps} steps, last loss {float(loss):.4f}")
+    return {"imagenet": imagenet, "slp_accuracy": [acc0, acc1],
+            "slp_steps": n_steps, "slp_last_loss": float(loss)}
+
+
+def _images_vgg(torch, np, VGG, spec, rng) -> dict:
+    """(e): VGG-16 with batch norm on one rank, batch 32 at 224, bf16:
+    S-SGD steps on a fixed batch, falling loss, images/s, peak memory."""
+    from kungfu_tpu_torch.comm.device import Communicator
+    from kungfu_tpu_torch.optimizers import sgd, synchronous_sgd
+    from kungfu_tpu_torch.parallel.train import dp_train_step
+
+    model = VGG(16, num_classes=IMG_CLASSES)
+    params, state = model.init(torch.Generator().manual_seed(0),
+                               device="cuda")
+    comm = Communicator(devices=["cuda:0"])
+    tx = synchronous_sgd(sgd(VGG_LR, momentum=0.9), comm.axis)
+    step = dp_train_step(lambda p, s, b: model.loss(p, s, b, train=True),
+                         tx, comm, has_aux=True)
+    batch = _image_batch(torch, np, rng, VGG_BATCH, IMG_HW, IMG_CLASSES)
+    carry = [params, state, tx.init(params)]
+    losses = []
+    for _ in range(2):
+        *carry[:], loss = step(*carry, batch)
+        losses.append(float(loss))
+    dev, host, mem = _event_steps(torch, step, carry, batch, VGG_STEPS,
+                                  losses)
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"VGG-16 loss did not fall: {losses}")
+    step_ms = statistics.median(dev)
+    flops = 3 * 2 * _vgg_macs(model, IMG_HW)
+    tflops = flops * VGG_BATCH / (step_ms / 1e3) / 1e12
+    res = {"images_s": VGG_BATCH / (step_ms / 1e3), "step_ms": step_ms,
+           "step_ms_all": dev, **mem, "losses": losses,
+           "train_flops_per_image": flops, "tflops": tflops}
+    print(f"images (e) VGG-16 BN one rank, batch {VGG_BATCH} at {IMG_HW}, "
+          f"bf16: {step_ms:.2f} ms/step, {res['images_s']:.1f} images/s, "
+          f"{tflops:.1f} TFLOP/s of {flops / 1e9:.2f} GFLOP an image a "
+          f"step, {_mem_text(mem)}; losses "
+          f"{[round(x, 4) for x in losses]}")
+    del carry, batch
+    torch.cuda.empty_cache()
+    return res
+
+
 def _ptxas_report(log: str) -> dict:
     """{mangled kernel name: its ptxas lines} from an ``-Xptxas -v`` log."""
     import re
@@ -6608,8 +7322,13 @@ def main() -> int:
     # of two peers, three schedules, a slice kill re-carved, tp in a stage
     pipeline = phase_pipeline(torch, np, kernels, tr, spec)
     torch.cuda.empty_cache()
+
+    # 19. the image models and the data plane: ResNet-50 S-SGD on one and
+    # four ranks, f32 card vs CPU, ImageNet/MNIST through prefetch, VGG-16
+    images = phase_images(torch, np, kernels, spec)
+    torch.cuda.empty_cache()
     paths = (train, train_fused, ssgd, zero2, zero3, replicas, elastic,
-             host_engine, recover, gossip, adapt, sharded, pipeline)
+             host_engine, recover, gossip, adapt, sharded, pipeline, images)
 
     def row(name, route, source, replaces, key, err, timing, others=None):
         extra = {k: timing[k] for k in ("plain_head_ms", "bound_fp32_ms",
@@ -6632,11 +7351,13 @@ def main() -> int:
 
     def ring_row(name, replaces, key, kind):
         # the fused S-SGD shape; the 4 MiB ZeRO bucket at four ranks and
-        # at two (phase 11) and phase 17's widest leaf at two beside it.
-        # Both kernels are held bitwise, so the error is 0
+        # at two (phase 11), phase 17's widest leaf at two, and phase 19's
+        # widest and narrowest ResNet-50 leaf at four beside it.  Both
+        # kernels are held bitwise, so the error is 0
         out = row(name, "cuda", cu + "ring.cu", replaces, key, 0.0,
                   ring_timing["fused"][kind])
-        for label in ("bucket", "bucket_k2", "leaf_k2"):
+        for label in ("bucket", "bucket_k2", "leaf_k2", "resnet_leaf",
+                      "resnet_small"):
             out.update({f"{label}_{k}": ring_timing[label][kind][k] for k in (
                 "ms", "plain_ms", "bound_ms", "library_ms", "host_us")})
         return out
@@ -6702,6 +7423,8 @@ def main() -> int:
     for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "xent_fwd",
                 "xent_bwd"):
         check(pipeline["launches"][key] > 0, f"phase 18 never launched {key}")
+    for key in ("ring_rs", "ring_ag"):
+        check(images["launches"][key] > 0, f"phase 19 never launched {key}")
     print("details: " + json.dumps({
         "forward": fwd, "serve": serve, "train": train,
         "train_fused_head": train_fused, "ssgd_4_ranks": ssgd,
@@ -6713,6 +7436,7 @@ def main() -> int:
         "serve_plane_flagship_6_workers": serve_plane,
         "sharded_flagship_16_ranks": sharded,
         "pipeline_flagship_2_slices_of_2": pipeline,
+        "images_resnet50_vgg16_data": images,
         "ring_timing": ring_timing, "build": build,
         "flash_fwd_errors": fwd_errs, "flash_fwd_timing": fwd_timing,
         "flash_bwd_errors": bwd_errs, "flash_bwd_timing": bwd_timing,

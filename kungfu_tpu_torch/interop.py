@@ -25,6 +25,11 @@ sharded layout, stacked layers ``[L, ...]``, dense or MoE) cross with
 and out of the port's stacked per-rank blocks ``[n, *local]``, with the
 port trainer's layout.
 
+The image models' ``(params, bn_state)`` pair (ResNet, VGG, MLP: nested
+dicts of f32 arrays, HWIO conv kernels, ``[in, out]`` dense weights)
+crosses with :func:`image_params_from_jax` and
+:func:`image_params_to_jax`, layouts unchanged.
+
 The caller hands the JAX tree over as numpy arrays (``np.asarray`` on
 each leaf): this module, like the whole port, never imports jax.
 """
@@ -40,7 +45,7 @@ from kungfu_tpu_torch.models.transformer import (TransformerConfig, flatten,
                                                  param_spec, unflatten)
 from kungfu_tpu_torch.utils.device import resolve_device
 from kungfu_tpu_torch.utils.tree import (tree_flatten, tree_leaves,
-                                         tree_unflatten)
+                                         tree_map, tree_unflatten)
 
 
 def params_from_jax(tree, cfg: TransformerConfig, device=None,
@@ -120,6 +125,32 @@ def sharded_params_to_jax(params, trainer) -> dict:
     return unflatten({path: t.detach().to("cpu", torch.float32).numpy()
                       for path, t in flatten(
                           trainer.gather_params(params)).items()})
+
+
+def image_params_from_jax(params, bn_state=None, device=None):
+    """``(params, bn_state)`` of a ResNet, VGG or MLP from the reference's
+    trees (nested dicts of numpy arrays), as f32 tensors on ``device``
+    (default ``cuda``), key for key and layout for layout; ``bn_state``
+    ``None`` (an MLP) comes back ``None``.  A leaf that is not floating
+    raises ``ValueError``."""
+    dev = resolve_device(device)
+
+    def put(a):
+        arr = np.asarray(a)
+        if not np.issubdtype(arr.dtype, np.floating):
+            raise ValueError(f"image model leaf of dtype {arr.dtype}")
+        return torch.from_numpy(arr.astype(np.float32)).to(dev)
+
+    out = tree_map(put, params)
+    return out, (None if bn_state is None else tree_map(put, bn_state))
+
+
+def image_params_to_jax(params, bn_state=None):
+    """The inverse of :func:`image_params_from_jax`: nested dicts of
+    numpy f32 arrays the reference's ``apply`` takes."""
+    get = lambda t: t.detach().to("cpu", torch.float32).numpy()  # noqa: E731
+    return (tree_map(get, params),
+            None if bn_state is None else tree_map(get, bn_state))
 
 
 def tree_from_jax(leaves: Sequence, template):

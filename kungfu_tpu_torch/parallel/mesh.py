@@ -118,15 +118,17 @@ class MeshPlan:
         (default ``["cuda"] * size``; raises without a GPU unless given
         CPU devices).  Every rank must sit on the same card or on the
         host.  On a multislice pod (``MEGASCALE_NUM_SLICES`` > 1) the
-        reference orders its devices slice-major; the port's ranks share
-        one card, so that raises, naming the multi-card slice."""
+        reference orders its devices slice-major; the port has that
+        layout (``platforms.tpu_pod.slice_mesh_layout``), but its ranks
+        share one card, so that raises, naming the multi-card slice."""
         from kungfu_tpu_torch.comm.device import _one_device
 
         if int(os.environ.get(envs.MEGASCALE_NUM_SLICES, "0") or 0) > 1:
             raise NotImplementedError(
-                "a slice-major mesh over a multislice pod needs the "
-                "platform's slice layout and ranks on more than one card: "
-                "the multi-card slice (ROADMAP A5)")
+                "a slice-major mesh over a multislice pod: the layout is "
+                "platforms.tpu_pod.slice_mesh_layout, but each slice's "
+                "ranks need a card of their own, which needs ranks on "
+                "more than one card: the multi-card slice")
         names = (list(devices) if devices is not None
                  else ["cuda"] * self.size)
         if len(names) < self.size:

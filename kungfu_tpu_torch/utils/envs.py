@@ -143,6 +143,8 @@ alone), and the runtime knobs the peer and failure recovery read:
 ``MEGASCALE_NUM_SLICES``           slice count; > 1 makes failures and
                                    resizes slice-granular (elastic/slices.py)
 ``MEGASCALE_SLICE_ID``             this worker's slice (chaos ``die_slice``)
+``MEGASCALE_COORDINATOR_ADDRESS``  multislice coordinator (slice 0 host 0;
+                                   platforms/tpu_pod.py)
 ``KF_SLICE_RANKS``                 worker ranks per slice, pinned by the
                                    launcher (elastic/slices.py)
 ``KF_PERSIST_DIR``                 manifest root of durable checkpoints
@@ -238,6 +240,7 @@ P2P_RESPONDERS = "KF_CONFIG_P2P_RESPONDERS"
 MONITOR_ADDR = "KF_MONITOR_ADDR"
 MEGASCALE_SLICE_ID = "MEGASCALE_SLICE_ID"
 MEGASCALE_NUM_SLICES = "MEGASCALE_NUM_SLICES"
+MEGASCALE_COORDINATOR = "MEGASCALE_COORDINATOR_ADDRESS"
 SLICE_RANKS = "KF_SLICE_RANKS"
 PERSIST_DIR = "KF_PERSIST_DIR"
 PERSIST_PERIOD = "KF_PERSIST_PERIOD"

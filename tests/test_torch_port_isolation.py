@@ -158,6 +158,19 @@ PIPELINE_MODULES = [
 ]
 
 
+#: the modules of the image models' and the data plane's slice
+IMAGE_DATA_MODULES = [
+    "kungfu_tpu_torch.models", "kungfu_tpu_torch.models.nn",
+    "kungfu_tpu_torch.models.resnet", "kungfu_tpu_torch.models.vgg",
+    "kungfu_tpu_torch.models.mlp", "kungfu_tpu_torch.models.fake",
+    "kungfu_tpu_torch.datasets", "kungfu_tpu_torch.datasets.cache",
+    "kungfu_tpu_torch.datasets.adaptor", "kungfu_tpu_torch.datasets.mnist",
+    "kungfu_tpu_torch.datasets.cifar", "kungfu_tpu_torch.datasets.imagenet",
+    "kungfu_tpu_torch.datasets.prefetch", "kungfu_tpu_torch.platforms",
+    "kungfu_tpu_torch.platforms.tpu_pod", "kungfu_tpu_torch.interop",
+]
+
+
 def _check_scanned(modules):
     assert set(modules) <= set(PORT_MODULES)
     for m in modules:
@@ -179,6 +192,9 @@ class TestNativeBuild:
 
     def test_pipeline_modules_are_scanned(self):
         _check_scanned(PIPELINE_MODULES)
+
+    def test_image_data_modules_are_scanned(self):
+        _check_scanned(IMAGE_DATA_MODULES)
 
     def test_native_build_writes_only_under_build_dir(self, tmp_path):
         """A fresh copy of ``native/`` built from scratch in its own
@@ -265,6 +281,38 @@ class TestDefaultDeviceIsTheCard:
             pp.init_stacked_params(cfg)
         assert pp.StageModule(cfg, 0, 1, first=True, last=False,
                               device="cpu").device == torch.device("cpu")
+
+    def test_image_entry_points_raise(self):
+        """The image models' init, the ImageNet folder, device prefetch,
+        the fake gradients and the image weights carrier run on the card
+        unless the caller names the CPU."""
+        from kungfu_tpu_torch.datasets import ImageNetFolder, prefetch_to_device
+        from kungfu_tpu_torch.models import (VGG, ResNet, fake_grads,
+                                             mnist_slp)
+
+        model = ResNet(50, num_classes=10, width=8)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            model.init()
+        params, state = model.init(device="cpu")
+        assert params["stem"]["w"].device.type == "cpu"
+        for make in (lambda d: VGG(11, 10, hidden=8).init(device=d),
+                     lambda d: mnist_slp().init(device=d),
+                     lambda d: fake_grads("slp-mnist", device=d),
+                     lambda d: interop.image_params_from_jax(
+                         {"w": np.zeros(2, np.float32)}, None, device=d)):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                make(None)
+            make("cpu")
+        kw = dict(root=str(ROOT / "no-such-imagenet"), image_size=8,
+                  batch_size=2, n_synthetic=8, synthetic_classes=2)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            ImageNetFolder(**kw)
+        x, y = ImageNetFolder(**kw, device="cpu").next_batch()
+        assert x.device.type == "cpu" and tuple(x.shape) == (2, 8, 8, 3)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            prefetch_to_device(iter([np.zeros(1)]))
+        (got,) = list(prefetch_to_device(iter([np.zeros(1)]), device="cpu"))
+        assert got.device.type == "cpu"
 
     def test_converter_raises(self):
         cfg = TransformerConfig(vocab_size=8, d_model=8, n_layers=1,
