@@ -383,6 +383,36 @@ Phases (any failed check exits non-zero before the result line):
              S-SGD on one rank: falling loss, images/s, peak memory.  The
              phase's main path is (b)'s steps.
 
+20. kfrun  — the port's launcher on the card.  (a) ``python -m
+             kungfu_tpu_torch -np 4 -H 127.0.0.1:4 -monitor`` runs four
+             processes of this script in its worker mode
+             (``--kfrun-worker``): each builds phase 10's bert_base() with
+             seed 0 on the card, takes KFRUN_STEPS steps an epoch for
+             KFRUN_EPOCHS epochs on [BERT_ROWS, BERT_SEQ] batches drawn
+             from (seed, epoch, step, rank), flash attention and the xent
+             kernels, its gradient D2H into a pinned buffer,
+             mean-allreduced by ``kf.init()``'s ``peer.engine()`` and
+             applied with ``sgd(1e-3, momentum=0.9)``; heartbeats through
+             ``monitor/signals.py``; rank 0 writes an npz checkpoint of
+             the params, the momentum and the epoch at each epoch end.
+             Every step's net-monitor egress equals the bytes the engine's
+             graphs send, exactly (both count payload bytes, no frame
+             header); rank 0's first step is held against the kernels'
+             plain versions.  While it runs the phase scrapes the builtin
+             config server's ``/cluster`` (four fresh ranks) and
+             ``/metrics`` and each worker's metrics server (egress and
+             ingress per peer, a rate).  (b) the same with ``-auto-recover
+             30s`` and ``--die-at-epoch 1``: rank 1 exits with
+             ``DIE_EXIT_CODE`` after its first step of epoch 1 while its
+             peers wait in the engine; the runner kills the group, waits
+             for its exit and relaunches with ``--n-epochs 2 --restart
+             1``; the workers restore the checkpoint and finish, and every
+             epoch's losses and every rank's final params (device
+             digests) equal (a)'s bit for bit.  Spawn to first step, step
+             ms and the allreduce's share, death to the runner's verdict
+             and to the group's exit, exit to the relaunched first step,
+             the restore's ms and both walls are printed.
+
 Phase 3 also holds the ring reduce-scatter and all-gather kernels
 bitwise against their plain versions, at the main path's shapes (a
 262,144-column bucket over four ranks, the fused [4, 134,404,608]
@@ -7104,6 +7134,633 @@ def _images_vgg(torch, np, VGG, spec, rng) -> dict:
     return res
 
 
+#: phase 20: bert_base() under the port's launcher, one worker process a
+#: rank on the card (``python -m kungfu_tpu_torch -np 4 -monitor``); each
+#: epoch takes KFRUN_STEPS steps on KFRUN_BATCH-seeded [BERT_ROWS,
+#: BERT_SEQ] batches a rank and ends in an npz checkpoint of the params,
+#: the momentum and the epoch (rank 0 writes it)
+KFRUN_NP, KFRUN_EPOCHS, KFRUN_STEPS = 4, 3, 2
+#: (b): rank 1 exits with DIE_EXIT_CODE after its first step of this
+#: epoch; the monitored runner's failure-detection period
+KFRUN_DIE_EPOCH, KFRUN_PERIOD = 1, "30s"
+#: rank 0's first step against the same step through the kernels' plain
+#: versions, phase 10's tolerances: the loss as the four ranks' against
+#: one rank's; the params after one SGD step, and every gradient leaf but
+#: the attention's q and k weights, 5e-2 relative L2 per leaf.  The q and
+#: k weight gradients are reported: at bert_base()'s nearly uniform
+#: attention they stand 0.10-0.13 from the plain path's (ROADMAP C10)
+KFRUN_LOSS_RTOL, KFRUN_GRAD_REL_L2 = RANKS_LOSS_RTOL, RANKS_GRAD_REL_L2
+KFRUN_QK_LEAVES = ("/wq/", "/wk/")
+#: one launch of the launcher (a or b), command included, at most
+KFRUN_TIMEOUT_S = 300
+
+
+def _kfrun_batch(torch, np, vocab: int, epoch: int, step: int, rank: int):
+    """A worker's batch: ids and targets [BERT_ROWS, BERT_SEQ], a function
+    of (seed 0, epoch, step, rank) only, so a relaunched round draws the
+    batches the first round drew."""
+    rng = np.random.default_rng([0, epoch, step, rank])
+    return tuple(torch.from_numpy(rng.integers(
+        0, vocab, size=(BERT_ROWS, BERT_SEQ))).cuda() for _ in range(2))
+
+
+def _plain_flash_attn(torch, attention):
+    """The ``attn_fn`` of ``Transformer.apply`` through the flash kernels'
+    plain versions (``_PlainFlash``) on ``[B, H, S, D]`` operands."""
+    plain = _PlainFlash(torch, attention)
+
+    def attn(q, k, v, causal):
+        b, h, s, d = q.shape
+        out = plain(q.reshape(b * h, s, d), k.reshape(b * h, s, d),
+                    v.reshape(b * h, s, d), causal)[0]
+        return out.reshape(b, h, s, d)
+
+    return attn
+
+
+def _kfrun_plain_check(torch, kernels, model, params, batch, loss_k,
+                       grads_k) -> dict:
+    """Rank 0's first step through the kernels' plain versions (flash
+    reference forward and backward, ``token_nll_rows`` under
+    ``KF_TPU_XENT=plain``), held against
+    the kernels' loss and gradients; no kernel may launch."""
+    from kungfu_tpu_torch.ops import xent
+    from kungfu_tpu_torch.ops.cuda import attention
+    from kungfu_tpu_torch.parallel.train import per_rank_grads
+    from kungfu_tpu_torch.utils.tree import tree_flatten_with_path
+
+    plain_attn = _plain_flash_attn(torch, attention)
+
+    def loss_plain(p, b):  # the xent kernels' plain version: log_softmax
+        logits = model.apply(p, b[0], train=True, attn_fn=plain_attn)
+        return xent.token_nll_rows(logits, b[1]).mean()
+
+    old = _set_env({"KF_TPU_XENT": "plain"})
+    xent.XENT_ENV.reload()
+    before = _counts(kernels)
+    try:
+        grads = []
+        outs, _ = per_rank_grads(loss_plain, params, [batch],
+                                 lambda r, g: grads.extend(g))
+        torch.cuda.synchronize()
+    finally:
+        _set_env(old)
+        xent.XENT_ENV.reload()
+    launched = {k: v - before[k] for k, v in _counts(kernels).items()
+                if v != before[k]}
+    check(not launched, f"the plain first step launched kernels: {launched}")
+    loss_p = float(outs[0])
+    pairs = [("/".join(map(str, path)), p)
+             for path, p in tree_flatten_with_path(params)[0]]
+    names = [n for n, _ in pairs]
+    rel = _rel_l2_leaves(dict(zip(names, grads_k)), dict(zip(names, grads)))
+    # the params after one SGD step from the same start (phase 10's check)
+    step_k = {n: p - BERT_LR * g for (n, p), g in zip(pairs, grads_k)}
+    step_p = {n: p - BERT_LR * g for (n, p), g in zip(pairs, grads)}
+    rel_p = _rel_l2_leaves(step_k, step_p)
+    qk = {n: v for n, v in rel.items()
+          if any(k in f"/{n}/" for k in KFRUN_QK_LEAVES)}
+    rest = {n: v for n, v in rel.items() if n not in qk}
+    worst = max(rest, key=rest.get)
+    worst_qk = max(qk, key=qk.get)
+    out = {"loss": loss_k, "loss_plain": loss_p,
+           "loss_rel": abs(loss_k - loss_p) / abs(loss_p),
+           "grad_rel_l2_worst": rest[worst], "grad_rel_l2_worst_leaf": worst,
+           "qk_grad_rel_l2_worst": qk[worst_qk],
+           "qk_grad_rel_l2_worst_leaf": worst_qk,
+           "params_rel_l2_worst": max(rel_p.values())}
+    check(out["loss_rel"] <= KFRUN_LOSS_RTOL,
+          f"worker first loss {loss_k} vs plain {loss_p}: rel "
+          f"{out['loss_rel']:.3e} > {KFRUN_LOSS_RTOL}")
+    check(out["grad_rel_l2_worst"] <= KFRUN_GRAD_REL_L2
+          and out["params_rel_l2_worst"] <= KFRUN_GRAD_REL_L2,
+          f"worker first step vs plain: {out}")
+    return out
+
+
+def kfrun_worker_main(argv) -> int:
+    """``--kfrun-worker``: phase 20's training program, one rank a
+    process under the port's launcher (see :func:`phase_kfrun`).  Writes
+    one JSON object a line to ``--out``/rank{r}.jsonl (appended, so a
+    relaunched round adds to the first round's lines): ``up`` at start,
+    one ``epoch`` line an epoch, ``die`` before a deliberate exit, and
+    ``done``."""
+    import argparse
+
+    import numpy as np
+    import torch
+
+    ap = argparse.ArgumentParser(prog="chip_smoke.py --kfrun-worker")
+    ap.add_argument("--n-epochs", type=int, default=KFRUN_EPOCHS)
+    ap.add_argument("--steps", type=int, default=KFRUN_STEPS)
+    ap.add_argument("--restart", type=int, default=0)
+    ap.add_argument("--die-at-epoch", type=int, default=-1)
+    ap.add_argument("--ckpt-dir", required=True)
+    ap.add_argument("--out", required=True)
+    args = ap.parse_args(argv)
+    proc0 = float(os.environ["KF_PROC_START_TIMESTAMP"])
+    sys.path.insert(0, HERE)
+    import kungfu_tpu_torch as kf
+    from kungfu_tpu_torch.chaos import DIE_EXIT_CODE
+    from kungfu_tpu_torch.checkpoint import (restore_checkpoint,
+                                             save_checkpoint)
+    from kungfu_tpu_torch.models import transformer as tr
+    from kungfu_tpu_torch.monitor.signals import (monitor_batch_begin,
+                                                  monitor_batch_end,
+                                                  monitor_epoch_end,
+                                                  monitor_train_end)
+    from kungfu_tpu_torch.ops import xent
+    from kungfu_tpu_torch.ops.cuda import attention
+    from kungfu_tpu_torch.ops.cuda import collectives as ringk
+    from kungfu_tpu_torch.ops.cuda import lm_head as lmk
+    from kungfu_tpu_torch.ops.triton import xent as xk
+    from kungfu_tpu_torch.optimizers import apply_updates, sgd
+    from kungfu_tpu_torch.parallel.train import per_rank_grads
+    from kungfu_tpu_torch.utils.tree import tree_flatten, tree_unflatten
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels = (attention, xk, lmk, ringk)
+    peer = kf.init()
+    device = peer.device()  # the card: raises without one
+    rank, size = peer.rank(), peer.size()
+    engine = peer.engine()
+    chan, mon = peer.channel, peer.net_monitor
+    check(engine is not None and mon is not None,
+          "the worker needs a host engine and KF_CONFIG_ENABLE_MONITORING")
+    path = os.path.join(args.out, f"rank{rank}.jsonl")
+
+    def emit(kind: str, **rec) -> None:
+        line = json.dumps({"kind": kind, "rank": rank, "wall": time.time(),
+                           "restart": args.restart, **rec})
+        with open(path, "a") as f:
+            f.write(line + "\n")
+        print("KFRUN " + line, flush=True)
+
+    emit("up", size=size, self=str(peer.config.self_id), device=str(device),
+         metrics_port=peer._metrics_server.port, pid=os.getpid(),
+         up_s=time.time() - proc0)
+    model = tr.bert_base()
+    params = model.init(torch.Generator().manual_seed(0), device="cuda")
+    flash = attention.make_flash_attn()
+
+    def loss_fn(p, b):
+        logits = model.apply(p, b[0], train=True, attn_fn=flash)
+        return xent.softmax_cross_entropy(logits, b[1]).mean()
+
+    opt = sgd(BERT_LR, momentum=BERT_MOMENTUM)
+    o = opt.init(params)
+    leaves, treedef = tree_flatten(params)
+    sizes = [t.numel() for t in leaves]
+    total = sum(sizes)
+    check(total == BERT_PARAMS, f"{total} params, expected {BERT_PARAMS}")
+    buf = torch.empty(total, dtype=torch.float32, pin_memory=True)
+    start, restore_ms = 0, None
+    if args.restart:
+        t0 = time.perf_counter()
+        got = restore_checkpoint(args.ckpt_dir, {"params": params, "opt": o})
+        check(got is not None, f"restart without a checkpoint in "
+              f"{args.ckpt_dir}")
+        tree, _, meta = got
+        params, o = tree["params"], tree["opt"]
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        start = int(meta["epochs_done"])
+    elif rank == 0:
+        for name in os.listdir(args.ckpt_dir):
+            os.unlink(os.path.join(args.ckpt_dir, name))
+    want_step = {key: 0 for key in _counts(kernels)}
+    want_step.update(flash_fwd=model.cfg.n_layers,
+                     flash_bwd_dq=model.cfg.n_layers,
+                     flash_bwd_dkv=model.cfg.n_layers,
+                     xent_fwd=1, xent_bwd=1)
+
+    def unflat(flat):
+        parts, off = [], 0
+        for t, n in zip(leaves, sizes):
+            parts.append(flat[off:off + n].view(t.shape))
+            off += n
+        return tree_unflatten(treedef, parts)
+
+    def egress_total() -> int:
+        chan.poll_counters()  # the C++ counters, now
+        return sum(mon.totals()["egress"].values())
+
+    first_step_s = None
+    plain = None
+    for e in range(start, start + args.n_epochs):
+        losses, rows = [], []
+        launches = {key: 0 for key in want_step}
+        for s in range(args.steps):
+            monitor_batch_begin(rank)
+            batch = _kfrun_batch(torch, np, model.cfg.vocab_size, e, s, rank)
+            _reset(kernels)
+            t0 = time.perf_counter()
+            grads = []
+            outs, _ = per_rank_grads(loss_fn, params, [batch],
+                                     lambda r, g: grads.extend(g))
+            loss = float(outs[0])  # synchronises
+            t1 = time.perf_counter()
+            per = _counts(kernels)
+            check(per == want_step, f"rank {rank} step ({e}, {s}) launched "
+                  f"{per}, expected {want_step}")
+            for key, v in per.items():
+                launches[key] += v
+            if plain is None and rank == 0 and not args.restart:
+                plain = _kfrun_plain_check(torch, kernels, model, params,
+                                           batch, loss, grads)
+            t1b = time.perf_counter()
+            off = 0
+            for g, n in zip(grads, sizes):
+                buf[off:off + n].copy_(g.reshape(-1))
+                off += n
+            del grads
+            t2 = time.perf_counter()
+            name = f"g{e}.{s}"
+            eg0 = egress_total()
+            engine.all_reduce(buf, op="mean", inplace=True, name=name)
+            t3 = time.perf_counter()
+            egress = egress_total() - eg0
+            want_egress = sum(engine.all_reduce_egress(
+                total * 4, 4, name).values())
+            check(egress == want_egress, f"rank {rank}: the net monitor "
+                  f"counted {egress} B of {name}, its engine sent "
+                  f"{want_egress} B")
+            u, o = opt.update(unflat(buf.to("cuda", non_blocking=True)), o,
+                              params)
+            params = apply_updates(params, u)
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            monitor_batch_end(rank)
+            losses.append(loss)
+            rows.append({"grads_ms": (t1 - t0) * 1e3,
+                         "d2h_ms": (t2 - t1b) * 1e3,
+                         "allreduce_ms": (t3 - t2) * 1e3,
+                         "h2d_update_ms": (t4 - t3) * 1e3,
+                         "step_ms": (t4 - t0 - (t1b - t1)) * 1e3,
+                         "egress_bytes": egress,
+                         "rates": mon.egress_rates()})
+            if first_step_s is None:
+                first_step_s = time.time() - proc0
+                emit("first", first_step_s=first_step_s)
+            if (e == args.die_at_epoch and s == 0 and rank == 1
+                    and not args.restart):
+                emit("die", epoch=e, step=s, losses=losses, steps=rows,
+                     launches=launches)
+                os._exit(DIE_EXIT_CODE)
+        monitor_epoch_end(rank, e)
+        ckpt_ms = None
+        if rank == 0:
+            t0 = time.perf_counter()
+            save_checkpoint(args.ckpt_dir, e, {"params": params, "opt": o},
+                            meta={"epochs_done": e + 1})
+            ckpt_ms = (time.perf_counter() - t0) * 1e3
+        emit("epoch", epoch=e, losses=losses, steps=rows, launches=launches,
+             ckpt_ms=ckpt_ms)
+    digest = [0, 0]
+    for t in tree_flatten(params)[0]:
+        a, b = _device_digest(torch, t)
+        digest = [digest[0] + a, digest[1] + b]
+    monitor_train_end(rank)
+    emit("done", digest=digest, restore_ms=restore_ms, plain=plain,
+         start_epoch=start,
+         totals={k: sum(v.values()) for k, v in mon.totals().items()})
+    kf.finalize()
+    return 0
+
+
+def _free_port(host: str = "127.0.0.1") -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind((host, 0))
+        return s.getsockname()[1]
+
+
+def _free_port_range(n: int, host: str = "127.0.0.1") -> int:
+    """A base port whose next ``n`` ports and their metrics ports (+10000)
+    were free when probed."""
+    import random
+    import socket
+
+    for _ in range(200):
+        base = random.randrange(20000, 30000)
+        try:
+            socks = []
+            for p in [base + i for i in range(n)] + \
+                    [base + 10000 + i for i in range(n)]:
+                s = socket.socket()
+                socks.append(s)
+                s.bind((host, p))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    raise SmokeFailure(f"no free range of {n} ports")
+
+
+def _kfrun_records(out_dir: str) -> list:
+    recs = []
+    for name in sorted(os.listdir(out_dir)):
+        if name.endswith(".jsonl"):
+            with open(os.path.join(out_dir, name)) as f:
+                recs += [json.loads(ln) for ln in f if ln.strip()]
+    return recs
+
+
+def _http(url: str, timeout: float = 2.0):
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, ""
+    except OSError:
+        return None, ""
+
+
+def _prom(text: str, name: str) -> dict:
+    """``{labels: value}`` of one Prometheus series family."""
+    out = {}
+    for ln in text.splitlines():
+        if ln.startswith(name + "{") or ln.startswith(name + " "):
+            key, _, val = ln.rpartition(" ")
+            out[key[len(name):]] = float(val)
+    return out
+
+
+def _kfrun_launch(root: str, name: str, runner_args: list,
+                  worker_args: list, scrape: bool) -> dict:
+    """One run of ``python -m kungfu_tpu_torch -np 4 -H 127.0.0.1:4
+    -monitor ... python3 chip_smoke.py --kfrun-worker``; while it runs,
+    with ``scrape``, polls the builtin config server's ``/cluster`` and
+    ``/metrics`` and every worker's metrics server."""
+    base = _free_port_range(KFRUN_NP)
+    cfg_port = _free_port()
+    d = os.path.join(root, name)
+    out_dir, ckpt, logdir = (os.path.join(d, x) for x in ("out", "ckpt",
+                                                           "logs"))
+    for x in (out_dir, ckpt):
+        os.makedirs(x)
+    cmd = [sys.executable, "-m", "kungfu_tpu_torch", "-np", str(KFRUN_NP),
+           "-H", f"127.0.0.1:{KFRUN_NP}", "-monitor", "-q",
+           "-builtin-config-port", str(cfg_port), "-logdir", logdir,
+           "-port-range", f"{base}-{base + 1000}", *runner_args,
+           sys.executable, os.path.abspath(__file__), "--kfrun-worker",
+           "--n-epochs", str(KFRUN_EPOCHS), "--steps", str(KFRUN_STEPS),
+           "--ckpt-dir", ckpt, "--out", out_dir, *worker_args]
+    env = dict(os.environ, PYTHONPATH=HERE, KF_SOCK_DIR=root,
+               KF_TPU_USE_UNIXSOCK="1" if len(root) < 64 else "0")
+    runner_log = os.path.join(d, "runner.log")
+    print(f"kfrun {name}: {' '.join(cmd[2:])}")
+    t0 = time.time()
+    with open(runner_log, "w") as f:
+        proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT,
+                                cwd=HERE, env=env, start_new_session=True)
+    cfg = f"http://127.0.0.1:{cfg_port}"
+    scrapes = {"cluster": None, "metrics": None, "workers": {}}
+    try:
+        while proc.poll() is None:
+            if time.time() - t0 > KFRUN_TIMEOUT_S:
+                raise SmokeFailure(f"kfrun {name} ran past "
+                                   f"{KFRUN_TIMEOUT_S} s")
+            time.sleep(0.5)
+            if not scrape:
+                continue
+            code, text = _http(cfg + "/cluster")
+            if code == 200:
+                view = json.loads(text)
+                fresh = [r["rank"] for r in view["ranks"]
+                         if r["rank"] not in view["stale"]]
+                if len(fresh) >= len(
+                        (scrapes["cluster"] or {}).get("fresh", [])):
+                    scrapes["cluster"] = {"fresh": fresh,
+                                          "stale": view["stale"]}
+            code, text = _http(cfg + "/metrics")
+            if code == 200 and "kf_cluster_ranks" in text:
+                scrapes["metrics"] = {
+                    "ranks": _prom(text, "kf_cluster_ranks").get("", 0),
+                    "series": sum(1 for ln in text.splitlines()
+                                  if ln and not ln.startswith("#"))}
+            for rec in _kfrun_records(out_dir):
+                if rec["kind"] != "up":
+                    continue
+                code, text = _http(
+                    f"http://127.0.0.1:{rec['metrics_port']}/metrics")
+                if code != 200:
+                    continue
+                w = scrapes["workers"].setdefault(
+                    rec["rank"], {"max_rate": 0.0, "egress": {},
+                                  "ingress": {}})
+                rate = sum(_prom(text, "kf_egress_bytes_per_sec").values())
+                w["max_rate"] = max(w["max_rate"], rate)
+                # the scrape with the most bytes (totals only grow)
+                eg = _prom(text, "kf_egress_bytes_total")
+                if sum(eg.values()) >= sum(w["egress"].values()):
+                    w["egress"] = eg
+                    w["ingress"] = _prom(text, "kf_ingress_bytes_total")
+        rc = proc.wait()
+    finally:
+        if proc.poll() is None:
+            # the runner's group, then each worker's: a worker runs in a
+            # process group of its own
+            os.killpg(proc.pid, 9)
+            proc.wait()
+            for rec in _kfrun_records(out_dir):
+                if rec["kind"] == "up":
+                    try:
+                        os.killpg(rec["pid"], 9)
+                    except (ProcessLookupError, PermissionError):
+                        pass
+    wall = time.time() - t0
+    with open(runner_log) as f:
+        log = f.read()
+    events = {}
+    for ln in log.splitlines():
+        if "event: monitored-round-" in ln:
+            ev = ln.split("event: ", 1)[1].split(" |", 1)[0]
+            events[ev] = float(ln.split("wall=", 1)[1].split()[0])
+    print(f"kfrun {name}: exit {rc} after {wall:.2f} s; runner log tail:\n"
+          + "\n".join(log.splitlines()[-8:]))
+    if rc != 0 and os.path.isdir(logdir):
+        for fn in sorted(os.listdir(logdir)):
+            if fn.endswith(".stderr.log"):
+                with open(os.path.join(logdir, fn)) as f:
+                    tail = f.read().splitlines()[-12:]
+                print(f"kfrun {name} {fn}:\n" + "\n".join(tail))
+    return {"rc": rc, "wall_s": wall, "records": _kfrun_records(out_dir),
+            "scrapes": scrapes, "events": events, "t0": t0}
+
+
+def _kfrun_epochs(recs, restart=None) -> dict:
+    """``{(rank, epoch): record}`` of the epoch lines (of one round)."""
+    return {(r["rank"], r["epoch"]): r for r in recs
+            if r["kind"] == "epoch"
+            and (restart is None or r["restart"] == restart)}
+
+
+def phase_kfrun(torch, np, kernels) -> dict:
+    """Phase 20: the launcher on the card.  (a) SimpleRun with -monitor:
+    four worker processes of ``chip_smoke.py --kfrun-worker`` train
+    bert_base() for KFRUN_EPOCHS epochs over the host engine while the
+    phase scrapes ``/cluster``, ``/metrics`` and each worker's metrics
+    server.  (b) MonitoredRun (``-auto-recover``): rank 1 exits with
+    DIE_EXIT_CODE after its first step of epoch 1, the runner kills the
+    group and relaunches it with ``--n-epochs 2 --restart 1``, the
+    workers restore the epoch checkpoint and finish: every epoch's
+    losses and every rank's final params equal (a)'s bit for bit."""
+    import shutil
+    import tempfile
+
+    from kungfu_tpu_torch.chaos import DIE_EXIT_CODE
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="kfr")
+    out = {}
+    try:
+        a = _kfrun_launch(root, "a", [], [], scrape=True)
+        check(a["rc"] == 0, f"(a) exited {a['rc']}")
+        b = _kfrun_launch(root, "b", ["-auto-recover", KFRUN_PERIOD],
+                          ["--die-at-epoch", str(KFRUN_DIE_EPOCH)],
+                          scrape=False)
+        check(b["rc"] == 0, f"(b)'s runner exited {b['rc']}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    ranks = range(KFRUN_NP)
+    epochs = range(KFRUN_EPOCHS)
+    ea = _kfrun_epochs(a["records"])
+    done_a = {r["rank"]: r for r in a["records"] if r["kind"] == "done"}
+    check(set(ea) == {(r, e) for r in ranks for e in epochs}
+          and set(done_a) == set(ranks),
+          f"(a) is missing JSON lines: epochs {sorted(ea)}, done "
+          f"{sorted(done_a)}")
+    plain = done_a[0]["plain"]
+    print(f"kfrun (a) rank 0 first step vs the plain versions: loss "
+          f"{plain['loss']:.6f} vs {plain['loss_plain']:.6f} (rel "
+          f"{plain['loss_rel']:.3e}, tol {KFRUN_LOSS_RTOL}); worst gradient "
+          f"leaf but q/k {plain['grad_rel_l2_worst_leaf']} rel L2 "
+          f"{plain['grad_rel_l2_worst']:.3e}, params after one step "
+          f"{plain['params_rel_l2_worst']:.3e} (tol {KFRUN_GRAD_REL_L2}); "
+          f"q/k weights {plain['qk_grad_rel_l2_worst_leaf']} "
+          f"{plain['qk_grad_rel_l2_worst']:.3e} (C10)")
+    # (a)'s scrapes
+    sc = a["scrapes"]
+    check(sc["cluster"] is not None
+          and sorted(sc["cluster"]["fresh"]) == list(ranks),
+          f"/cluster never showed {KFRUN_NP} fresh ranks: {sc['cluster']}")
+    check(sc["metrics"] is not None
+          and sc["metrics"]["ranks"] == KFRUN_NP,
+          f"/metrics never rendered {KFRUN_NP} ranks: {sc['metrics']}")
+    for r in ranks:
+        w = sc["workers"].get(r)
+        check(w is not None and w["egress"] and w["ingress"]
+              and all(v > 0 for v in w["egress"].values())
+              and all(v > 0 for v in w["ingress"].values())
+              and w["max_rate"] > 0,
+              f"rank {r}'s metrics server: {w}")
+    warm = [row for e in epochs for r in ranks
+            for i, row in enumerate(ea[(r, e)]["steps"]) if (e, i) != (0, 0)]
+    med = {k: statistics.median(row[k] for row in warm) for k in (
+        "step_ms", "grads_ms", "d2h_ms", "allreduce_ms", "h2d_update_ms")}
+    per_step_bytes = statistics.median(row["egress_bytes"] for row in warm)
+    max_rate = {r: sc["workers"][r]["max_rate"] for r in ranks}
+    out["a"] = {"wall_s": a["wall_s"], "plain": plain,
+                "first_step_s": {x["rank"]: x["first_step_s"]
+                                 for x in a["records"]
+                                 if x["kind"] == "first"},
+                "up_s": {x["rank"]: x["up_s"] for x in a["records"]
+                         if x["kind"] == "up"},
+                "median_ms": med,
+                "allreduce_share": med["allreduce_ms"] / med["step_ms"],
+                "egress_bytes_per_step": per_step_bytes,
+                "egress_bytes_per_s_of_step": per_step_bytes
+                / (med["step_ms"] / 1e3),
+                "egress_bytes_per_s_of_allreduce": per_step_bytes
+                / (med["allreduce_ms"] / 1e3),
+                "monitor_max_egress_rate": max_rate,
+                "ckpt_ms": [ea[(0, e)]["ckpt_ms"] for e in epochs],
+                "cluster": sc["cluster"], "metrics": sc["metrics"],
+                "totals": {r: done_a[r]["totals"] for r in ranks}}
+    print(f"kfrun (a): {KFRUN_NP} workers x {KFRUN_EPOCHS} epochs x "
+          f"{KFRUN_STEPS} steps in {a['wall_s']:.2f} s; spawn to first "
+          f"step {out['a']['first_step_s']}; step {med['step_ms']:.1f} ms "
+          f"median (allreduce {med['allreduce_ms']:.1f} ms, "
+          f"{out['a']['allreduce_share']:.3f} of it; grads "
+          f"{med['grads_ms']:.1f}, D2H {med['d2h_ms']:.1f}, H2D+update "
+          f"{med['h2d_update_ms']:.1f}); egress {per_step_bytes:.0f} B a "
+          f"step a rank = {out['a']['egress_bytes_per_s_of_step']:.3e} B/s "
+          f"of step time, {out['a']['egress_bytes_per_s_of_allreduce']:.3e}"
+          f" B/s of allreduce; the monitor's highest egress rate "
+          f"{max_rate}; checkpoints {out['a']['ckpt_ms']} ms; /cluster "
+          f"{sc['cluster']}, /metrics {sc['metrics']}")
+    # (b): a real process death and the relaunch
+    recs = b["records"]
+    die = [x for x in recs if x["kind"] == "die"]
+    check(len(die) == 1 and die[0]["rank"] == 1
+          and die[0]["epoch"] == KFRUN_DIE_EPOCH,
+          f"(b) expected rank 1's death in epoch {KFRUN_DIE_EPOCH}: {die}")
+    e0 = _kfrun_epochs(recs, restart=0)
+    e1 = _kfrun_epochs(recs, restart=1)
+    done_b = {x["rank"]: x for x in recs if x["kind"] == "done"}
+    check(set(e0) == {(r, 0) for r in ranks}
+          and set(e1) == {(r, e) for r in ranks for e in epochs if e >= 1}
+          and set(done_b) == set(ranks)
+          and all(x["restart"] == 1 and x["start_epoch"] == KFRUN_DIE_EPOCH
+                  for x in done_b.values()),
+          f"(b) is missing JSON lines: round 0 {sorted(e0)}, round 1 "
+          f"{sorted(e1)}, done {sorted(done_b)}")
+    eb = {**e0, **e1}
+    diff = [(r, e) for r in ranks for e in epochs
+            if eb[(r, e)]["losses"] != ea[(r, e)]["losses"]]
+    check(not diff, f"(b)'s losses differ from (a)'s at (rank, epoch) {diff}")
+    digests = {r: done_b[r]["digest"] for r in ranks}
+    check(all(digests[r] == done_a[r]["digest"] for r in ranks)
+          and len({tuple(d) for d in digests.values()}) == 1,
+          f"(b)'s final params differ from (a)'s: {digests} vs "
+          f"{ {r: done_a[r]['digest'] for r in ranks} }")
+    ev = b["events"]
+    check({"monitored-round-0-down", "monitored-round-0-exited",
+           "monitored-round-1-spawn"} <= set(ev), f"runner events {ev}")
+    first = {(x["restart"], x["rank"]): x for x in recs
+             if x["kind"] == "first"}
+    check(all((1, r) in first for r in ranks), f"(b) first steps {first}")
+    out["b"] = {"wall_s": b["wall_s"], "wall_vs_a": b["wall_s"] / a["wall_s"],
+                "death_to_detect_s": ev["monitored-round-0-down"]
+                - die[0]["wall"],
+                "death_to_group_exit_s": ev["monitored-round-0-exited"]
+                - die[0]["wall"],
+                "exit_to_relaunched_first_step_s": max(
+                    first[(1, r)]["wall"] for r in ranks)
+                - ev["monitored-round-0-exited"],
+                "first_step_s": {
+                    f"round{k}": {r: first[(k, r)]["first_step_s"]
+                                  for r in ranks if (k, r) in first}
+                    for k in (0, 1)},
+                "restore_ms": {r: done_b[r]["restore_ms"] for r in ranks},
+                "exit_code": DIE_EXIT_CODE}
+    print(f"kfrun (b): {b['wall_s']:.2f} s ({out['b']['wall_vs_a']:.3f}x "
+          f"(a)); rank 1's death to the runner's verdict "
+          f"{out['b']['death_to_detect_s']:.3f} s, to the group's exit "
+          f"{out['b']['death_to_group_exit_s']:.3f} s; exit to the "
+          f"relaunched first step {out['b']['exit_to_relaunched_first_step_s']:.2f}"
+          f" s; restore {out['b']['restore_ms']} ms; every epoch's losses "
+          f"and every rank's final params bitwise (a)'s")
+    # every step's launches in both runs; the killed round's partial
+    # epochs report none but the dying rank's
+    launches = {k: 0 for k in _counts(kernels)}
+    for rec in a["records"] + recs:
+        if rec["kind"] in ("epoch", "die"):
+            for k, v in rec["launches"].items():
+                launches[k] += v
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"kfrun phase: {out['phase_s']:.2f} s; launches {launches}")
+    return out
+
+
 def _ptxas_report(log: str) -> dict:
     """{mangled kernel name: its ptxas lines} from an ``-Xptxas -v`` log."""
     import re
@@ -7327,8 +7984,14 @@ def main() -> int:
     # four ranks, f32 card vs CPU, ImageNet/MNIST through prefetch, VGG-16
     images = phase_images(torch, np, kernels, spec)
     torch.cuda.empty_cache()
+
+    # 20. the launcher: bert_base() in four worker processes under
+    # `python -m kungfu_tpu_torch -monitor`, then a real worker death
+    # relaunched from the epoch checkpoint by -auto-recover
+    kfrun = phase_kfrun(torch, np, kernels)
     paths = (train, train_fused, ssgd, zero2, zero3, replicas, elastic,
-             host_engine, recover, gossip, adapt, sharded, pipeline, images)
+             host_engine, recover, gossip, adapt, sharded, pipeline, images,
+             kfrun)
 
     def row(name, route, source, replaces, key, err, timing, others=None):
         extra = {k: timing[k] for k in ("plain_head_ms", "bound_fp32_ms",
@@ -7425,6 +8088,9 @@ def main() -> int:
         check(pipeline["launches"][key] > 0, f"phase 18 never launched {key}")
     for key in ("ring_rs", "ring_ag"):
         check(images["launches"][key] > 0, f"phase 19 never launched {key}")
+    for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "xent_fwd",
+                "xent_bwd"):
+        check(kfrun["launches"][key] > 0, f"phase 20 never launched {key}")
     print("details: " + json.dumps({
         "forward": fwd, "serve": serve, "train": train,
         "train_fused_head": train_fused, "ssgd_4_ranks": ssgd,
@@ -7437,6 +8103,7 @@ def main() -> int:
         "sharded_flagship_16_ranks": sharded,
         "pipeline_flagship_2_slices_of_2": pipeline,
         "images_resnet50_vgg16_data": images,
+        "kfrun_bert_4_processes": kfrun,
         "ring_timing": ring_timing, "build": build,
         "flash_fwd_errors": fwd_errs, "flash_fwd_timing": fwd_timing,
         "flash_bwd_errors": bwd_errs, "flash_bwd_timing": bwd_timing,
@@ -7469,6 +8136,8 @@ if __name__ == "__main__":
     try:
         if sys.argv[1:2] == ["--lm-head-case"]:
             sys.exit(lm_head_case_main(sys.argv[2]))
+        if sys.argv[1:2] == ["--kfrun-worker"]:
+            sys.exit(kfrun_worker_main(sys.argv[2:]))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)

@@ -1054,6 +1054,29 @@ class CollectiveEngine:
             return name_based_hash(name) % n
         return chunk_idx % n
 
+    def all_reduce_egress(self, nbytes: int, elem_size: int,
+                          name: str) -> Dict[str, int]:
+        """The payload bytes this rank sends to each peer in one
+        :meth:`all_reduce` of ``nbytes`` under ``name`` over the current
+        graphs, by peer address: what a ``NetMonitor`` on the channel
+        counts for it.  Both executors chunk (``np.array_split`` over
+        ``ceil(nbytes / chunk)`` chunks) and route a chunk to its graph
+        pair alike; each chunk goes once along every reduce and every
+        broadcast edge out of this rank."""
+        n = nbytes // elem_size
+        n_chunks = max(1, -(-nbytes // engine_chunk_size(self._colocated)))
+        base, extra = divmod(n, n_chunks)
+        out: Dict[str, int] = {}
+        for i in range(n_chunks):
+            size = (base + (i < extra)) * elem_size
+            reduce_g, bcast_g = self._graphs[
+                self._choose(i, name, len(self._graphs))]
+            for nxt in (list(reduce_g.nexts(self.rank))
+                        + list(bcast_g.nexts(self.rank))):
+                key = str(self.peers[nxt])
+                out[key] = out.get(key, 0) + size
+        return out
+
     def _send(self, rank: int, name: str, payload):
         """Send under a per-peer deadline: transient wire faults retry
         with jittered backoff; past the deadline :class:`PeerFailureError`

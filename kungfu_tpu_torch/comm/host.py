@@ -33,9 +33,11 @@ socket listener for colocated peers: a sender falls back to TCP when it
 finds no socket file); it reads a payload with ``recv_into`` into one
 ``bytearray`` and queues that buffer, with no copy per chunk.  Either
 backend made with port 0 binds a port the OS assigns and reports it in
-``self_id``.  ``monitor=`` is accepted and kept as ``channel.monitor``
-(the engine reads it), but nothing feeds it egress or ingress bytes
-yet: that comes with the port of ``monitor/metrics.py NetMonitor``.
+``self_id``.  ``monitor=`` takes a
+:class:`~kungfu_tpu_torch.monitor.metrics.NetMonitor`: both backends
+count payload bytes per remote peer into it where the reference's do,
+the Python one on each send and each dispatched frame, the native one
+from the C++ counters, polled every 0.5 s.
 """
 
 from __future__ import annotations
@@ -403,6 +405,8 @@ class PyHostChannel(_ChannelOps):
             return q
 
     def _dispatch(self, msg: _Msg, sock: socket.socket) -> None:
+        if self.monitor is not None:
+            self.monitor.ingress(msg.src, len(msg.payload))
         if msg.conn_type == ConnType.PING:
             try:
                 sock.sendall(_encode(self._token, ConnType.PING,
@@ -468,6 +472,10 @@ class PyHostChannel(_ChannelOps):
         if timeline.enabled():
             timeline.event("send", name, peer=str(peer), nbytes=nbytes,
                            conn=int(conn_type))
+        if self.monitor is not None:
+            # payload bytes on both sides (ingress counts the same), so
+            # the totals of a symmetric exchange match
+            self.monitor.egress(str(peer), nbytes)
         entry = self._pooled(peer)
         with entry[1]:
             if entry[0] is None:
@@ -617,6 +625,17 @@ class NativeHostChannel(_ChannelOps):
         self._p2p_handlers = []
         self._t.set_control_handler(self._run_handlers(self._control_handlers))
         self._t.set_p2p_handler(self._run_handlers(self._p2p_handlers))
+        self._ingress_seen: Dict[str, int] = {}
+        self._egress_seen: Dict[str, int] = {}
+        self._poll_stop = threading.Event()
+        self._poll_thread: Optional[threading.Thread] = None
+        if monitor is not None:
+            # the C++ side counts both directions (the native executor
+            # sends without crossing this wrapper); a thread feeds the
+            # deltas to the monitor
+            self._poll_thread = threading.Thread(target=self._counter_poll,
+                                                 daemon=True)
+            self._poll_thread.start()
 
     @staticmethod
     def _run_handlers(handlers):
@@ -629,8 +648,34 @@ class NativeHostChannel(_ChannelOps):
 
         return run
 
+    def poll_counters(self) -> None:
+        """Feed the C++ byte counters' growth since the last poll to the
+        monitor (the poll thread calls it every 0.5 s; :meth:`close`
+        calls it once more)."""
+        try:
+            ingress = self._t.ingress_totals()
+            egress = self._t.egress_totals()
+        except ConnectionError:  # closed under the poll
+            return
+        for seen, totals, kind in ((self._ingress_seen, ingress, "ingress"),
+                                   (self._egress_seen, egress, "egress")):
+            for addr, total in totals.items():
+                delta = total - seen.get(addr, 0)
+                if delta > 0:
+                    seen[addr] = total
+                    getattr(self.monitor, kind)(addr, delta)
+
+    def _counter_poll(self) -> None:
+        while not self._poll_stop.wait(0.5):
+            self.poll_counters()
+
     # -- lifecycle -------------------------------------------------------
     def close(self) -> None:
+        self._poll_stop.set()
+        if self._poll_thread is not None:
+            self._poll_thread.join(timeout=5)
+            self._poll_thread = None
+            self.poll_counters()
         self._t.close()
 
     def set_token(self, token: int) -> None:

@@ -17,9 +17,14 @@ mounted (``aggregator=``), two more routes serve the live cluster plane:
   (400 on a malformed payload)
 * ``GET  /cluster`` -> the rolling cluster view (JSON)
 
-Without one they answer 404, as the reference's do.  ``/metrics``,
-``/alerts`` and ``/decisions`` answer 404 until ROADMAP A9 ports the
-Prometheus rendering and the sentinel.
+* ``GET  /metrics`` -> the cluster plane's Prometheus text followed by
+  this process's registry
+
+Without one they answer 404, as the reference's do.  ``/alerts`` and
+``/decisions`` answer 404 until ROADMAP A9b ports the sentinel.
+
+``python -m kungfu_tpu_torch.elastic.configserver [-port P] [-host H]
+[-monitor]`` runs one alone (the reference's ``kf-config-server``).
 """
 
 from __future__ import annotations
@@ -30,13 +35,14 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
 from kungfu_tpu_torch.comm.host import POLL_INTERVAL_S
+from kungfu_tpu_torch.monitor.registry import REGISTRY
 from kungfu_tpu_torch.plan.cluster import Cluster
 from kungfu_tpu_torch.utils.log import get_logger
 
 _log = get_logger("config-server")
 
-#: the reference's monitoring routes that wait for ROADMAP A9 (404)
-_A9_ROUTES = ("/metrics", "/alerts", "/decisions")
+#: the reference's sentinel routes, which wait for ROADMAP A9b (404)
+_A9B_ROUTES = ("/alerts", "/decisions")
 
 
 class ConfigServer:
@@ -59,9 +65,10 @@ class ConfigServer:
             def log_message(self, fmt, *args):  # quiet
                 _log.debug(fmt, *args)
 
-            def _reply(self, code: int, body: bytes = b""):
+            def _reply(self, code: int, body: bytes = b"",
+                       content_type: str = "application/json"):
                 self.send_response(code)
-                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Type", content_type)
                 self.send_header("Content-Length", str(len(body)))
                 self.end_headers()
                 if body:
@@ -88,8 +95,20 @@ class ConfigServer:
                     view = agg.cluster_view(srv._cluster_info())
                     self._reply(200, json.dumps(view).encode())
                     return
-                if self.path.startswith(_A9_ROUTES):
-                    self._reply(404, b'{"error": "no aggregator"}')
+                if self.path.startswith(_A9B_ROUTES):
+                    self._reply(404, b'{"error": "no sentinel"}')
+                    return
+                if self.path.startswith("/metrics"):
+                    agg = srv.aggregator
+                    if agg is None:
+                        self._reply(404, b'{"error": "no aggregator"}')
+                        return
+                    # the cluster view and this process's own registry
+                    # (the aggregator ticks its control-event counter there)
+                    text = (agg.render_prometheus(srv._cluster_info())
+                            + REGISTRY.render_prometheus())
+                    self._reply(200, text.encode(),
+                                content_type="text/plain; version=0.0.4")
                     return
                 with srv._lock:
                     if srv._cluster is None:
@@ -178,3 +197,37 @@ class ConfigServer:
             "size": cluster.size(),
             "workers": [str(w) for w in cluster.workers],
         }
+
+
+def main(argv=None) -> int:
+    """A config server alone (reference ``configserver.py:205``, the
+    ``kf-config-server`` entry).  ``-monitor`` mounts the cluster
+    aggregator (``/push``, ``/cluster``, ``/metrics``)."""
+    import argparse
+    import time
+
+    p = argparse.ArgumentParser(prog="kf-config-server")
+    p.add_argument("-port", type=int, default=9100)
+    p.add_argument("-host", default="0.0.0.0")
+    p.add_argument("-monitor", action="store_true",
+                   help="mount the live cluster aggregator "
+                        "(/push, /cluster, /metrics)")
+    ns = p.parse_args(argv)
+    aggregator = None
+    if ns.monitor:
+        from kungfu_tpu_torch.monitor.aggregator import ClusterAggregator
+
+        aggregator = ClusterAggregator()
+    srv = ConfigServer(port=ns.port, host=ns.host,
+                       aggregator=aggregator).start()
+    _log.info("config server listening on %s:%d", ns.host, srv.port)
+    try:
+        while srv._thread is not None and srv._thread.is_alive():
+            time.sleep(0.5)
+    except KeyboardInterrupt:
+        srv.stop()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

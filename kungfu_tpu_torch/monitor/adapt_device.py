@@ -40,7 +40,7 @@ notice ``peer.cluster_version`` move by themselves).
 
 Each swap calls :func:`kungfu_tpu_torch.monitor.ledger.record_decision`
 where the reference writes its decision ledger; the port's is a
-do-nothing hook until ROADMAP A9 ports the ledger.
+do-nothing hook until ROADMAP A9b ports the ledger.
 """
 
 from __future__ import annotations
@@ -276,7 +276,7 @@ class HostBanditDriver:
             seq=self._seq, prev=prev, step=timeline.current_step(),
         )
         # the decision ledger's record (a do-nothing hook until ROADMAP
-        # A9); the digest seq is the consensus round that agreed on it
+        # A9b); the digest seq is the consensus round that agreed on it
         ledger.record_decision(
             "bandit-host", "strategy", prev, proposal,
             consensus_seq=self._seq, evidence={"plane": "host"})

@@ -18,10 +18,11 @@ and the wire is the reference's JSON, so either package's reporter
 pushes to either package's aggregator.  The plane is off unless
 ``KF_CONFIG_ENABLE_CLUSTER_MONITOR`` is truthy.
 
-Left out until ROADMAP A9: the Prometheus rendering
-(:meth:`ClusterAggregator.render_prometheus`, the config server's
-``/metrics``) and the sentinel (:meth:`ClusterAggregator.attach_sentinel`,
-``/alerts``, ``/decisions``); both methods raise ``NotImplementedError``.
+:meth:`ClusterAggregator.render_prometheus` gives the cluster plane's
+Prometheus series, which the config server merges into ``/metrics``.
+Left out until ROADMAP A9b: the sentinel
+(:meth:`ClusterAggregator.attach_sentinel` raises ``NotImplementedError``;
+``/alerts`` and ``/decisions`` answer 404).
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ from typing import Callable, Dict, List, Optional
 
 from kungfu_tpu_torch.monitor import skew as skewlib
 from kungfu_tpu_torch.monitor import xray as xraylib
-from kungfu_tpu_torch.monitor.registry import REGISTRY
+from kungfu_tpu_torch.monitor.registry import REGISTRY, _escape_label_value
 from kungfu_tpu_torch.utils.log import get_logger
 
 _log = get_logger("kfmon")
@@ -119,6 +120,12 @@ VIEW_FIELDS = frozenset({
     "dominant", "steps_seen", "wall_s", "mfu", "model_flops_s",
     "phase_seconds", "dropped_events",
 })
+
+
+def _esc_label(v) -> str:
+    """Prometheus exposition-format label-value escaping (one rule set
+    for the whole package — registry.py owns it)."""
+    return _escape_label_value(str(v))
 
 
 def _parse_float_env(name: str, default: float) -> float:
@@ -256,9 +263,9 @@ class ClusterAggregator:
         self._controls: deque = deque(maxlen=max_controls)
 
     def attach_sentinel(self, sentinel) -> None:
-        """The sentinel's judging plane comes with ROADMAP A9."""
+        """The sentinel's judging plane comes with ROADMAP A9b."""
         raise NotImplementedError(
-            "ClusterAggregator.attach_sentinel waits for ROADMAP A9 (the "
+            "ClusterAggregator.attach_sentinel waits for ROADMAP A9b (the "
             "sentinel is not ported yet)")
 
     # -- ingest ----------------------------------------------------------
@@ -524,16 +531,141 @@ class ClusterAggregator:
             "controls": controls[-top:],
         }
         # the alerts section exists only with a sentinel attached, which
-        # the port cannot do before ROADMAP A9
+        # the port cannot do before ROADMAP A9b
         return view
 
     def render_prometheus(self, cluster_info: Optional[dict] = None,
                           top: int = 20) -> str:
-        """The cluster plane's Prometheus series come with ROADMAP A9."""
-        raise NotImplementedError(
-            "ClusterAggregator.render_prometheus waits for ROADMAP A9 (the "
-            "metrics server and the registry's Prometheus rendering are "
-            "not ported yet)")
+        """Cluster-plane series merged into the config server's
+        ``/metrics`` so one stock-Prometheus scrape of the control
+        process covers the whole job."""
+        view = self.cluster_view(cluster_info, top=top)
+        lines = [
+            "# HELP kf_cluster_ranks ranks that have pushed a snapshot",
+            "# TYPE kf_cluster_ranks gauge",
+            f"kf_cluster_ranks {len(view['ranks'])}",
+            "# HELP kf_cluster_stale_ranks ranks past the staleness threshold",
+            "# TYPE kf_cluster_stale_ranks gauge",
+            f"kf_cluster_stale_ranks {len(view['stale'])}",
+        ]
+        if view["slices"]:
+            lines += [
+                "# HELP kf_cluster_stale_slices slices whose EVERY rank "
+                "is stale (slice-loss signature)",
+                "# TYPE kf_cluster_stale_slices gauge",
+                f"kf_cluster_stale_slices {len(view['stale_slices'])}",
+            ]
+        if view["serving"]:
+            srv = view["serving"]
+            lines += [
+                "# HELP kf_cluster_serve_active decode slots occupied "
+                "across the serving deployment",
+                "# TYPE kf_cluster_serve_active gauge",
+                f"kf_cluster_serve_active {srv['active']}",
+                "# HELP kf_cluster_serve_queued accepted-but-unfinished "
+                "requests across routers",
+                "# TYPE kf_cluster_serve_queued gauge",
+                f"kf_cluster_serve_queued {srv['queued']}",
+                "# HELP kf_cluster_kv_cache_bytes paged KV-cache "
+                "footprint summed over serving ranks",
+                "# TYPE kf_cluster_kv_cache_bytes gauge",
+                f"kf_cluster_kv_cache_bytes {srv['kv_bytes']}",
+            ]
+        if view["pulse"]:
+            pl = view["pulse"]
+            if pl.get("gns") is not None:
+                lines += [
+                    "# HELP kf_cluster_gns gradient noise scale, mean "
+                    "over reporting ranks (kf-pulse)",
+                    "# TYPE kf_cluster_gns gauge",
+                    f"kf_cluster_gns {pl['gns']:.6g}",
+                ]
+            if pl.get("grad_variance") is not None:
+                lines += [
+                    "# HELP kf_cluster_grad_variance cross-peer gradient "
+                    "variance, mean over reporting ranks (kf-pulse)",
+                    "# TYPE kf_cluster_grad_variance gauge",
+                    f"kf_cluster_grad_variance {pl['grad_variance']:.6g}",
+                ]
+        if view["xray"]:
+            xr = view["xray"]
+            if xr.get("mfu"):
+                lines += [
+                    "# HELP kf_cluster_mfu model-FLOPs utilization per "
+                    "rank (analytic FLOPs / detected chip peak)",
+                    "# TYPE kf_cluster_mfu gauge",
+                ]
+                for r in sorted(xr["mfu"]):
+                    lines.append(
+                        f'kf_cluster_mfu{{rank="{r}"}} {xr["mfu"][r]:.6g}')
+            if xr.get("model_flops_s"):
+                lines += [
+                    "# HELP kf_cluster_model_flops_s analytic model "
+                    "FLOP/s summed over reporting ranks",
+                    "# TYPE kf_cluster_model_flops_s gauge",
+                    f"kf_cluster_model_flops_s {xr['model_flops_s']:.6g}",
+                ]
+            if xr.get("phase_seconds"):
+                lines += [
+                    "# HELP kf_cluster_step_phase_seconds per-phase step-"
+                    "time decomposition, mean over reporting ranks "
+                    "(kf-xray taxonomy)",
+                    "# TYPE kf_cluster_step_phase_seconds gauge",
+                ]
+                for ph in sorted(xr["phase_seconds"]):
+                    lines.append(
+                        f'kf_cluster_step_phase_seconds'
+                        f'{{phase="{_esc_label(ph)}"}} '
+                        f'{xr["phase_seconds"][ph]:.6g}')
+        version = (view["cluster"] or {}).get("version")
+        if version is not None:
+            lines += [
+                "# HELP kf_cluster_config_version current cluster config version",
+                "# TYPE kf_cluster_config_version gauge",
+                f"kf_cluster_config_version {version}",
+            ]
+        if view["ranks"]:
+            lines += [
+                "# HELP kf_cluster_rank_age_seconds seconds since a rank's last snapshot",
+                "# TYPE kf_cluster_rank_age_seconds gauge",
+            ]
+            for row in view["ranks"]:
+                lines.append(
+                    f'kf_cluster_rank_age_seconds{{rank="{row["rank"]}"}} '
+                    f'{row["age_s"]:.6g}')
+            lines += [
+                "# HELP kf_cluster_rank_step a rank's last reported training step",
+                "# TYPE kf_cluster_rank_step gauge",
+            ]
+            for row in view["ranks"]:
+                if row["step"] is not None:
+                    lines.append(
+                        f'kf_cluster_rank_step{{rank="{row["rank"]}"}} '
+                        f'{row["step"]}')
+            st_rows = [r for r in view["ranks"]
+                       if r["step_time_s"] is not None]
+            if st_rows:
+                lines += [
+                    "# HELP kf_cluster_rank_step_time_seconds EMA step time per rank",
+                    "# TYPE kf_cluster_rank_step_time_seconds gauge",
+                ]
+                for row in st_rows:
+                    lines.append(
+                        f'kf_cluster_rank_step_time_seconds'
+                        f'{{rank="{row["rank"]}"}} {row["step_time_s"]:.6g}')
+        if view["skew"]:
+            lines += [
+                "# HELP kf_cluster_skew_seconds cross-rank duration skew per collective tag",
+                "# TYPE kf_cluster_skew_seconds gauge",
+            ]
+            for row in view["skew"]:
+                # op/tag are user-supplied collective names — escape per
+                # the exposition format or one odd name (quote, newline)
+                # invalidates the entire cluster-plane scrape
+                lines.append(
+                    f'kf_cluster_skew_seconds{{op="{_esc_label(row["op"])}",'
+                    f'tag="{_esc_label(row["tag"])}"}} {row["skew_s"]:.6g}')
+        return "\n".join(lines) + "\n"
 
 
 # -- reporter (rank side) --------------------------------------------------

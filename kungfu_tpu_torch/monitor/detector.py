@@ -15,7 +15,8 @@ Parity with the fork's monitor server
   (``monitor.go:116-167``);
 * ``trainend`` from all ranks → finish flag.
 
-Consumed by the monitored runner's relaunch driver (ROADMAP A9) and by
+Consumed by the monitored runner's relaunch loop
+(:mod:`kungfu_tpu_torch.runner.monitored`) and by
 the quorum-loss escalation of :mod:`kungfu_tpu_torch.elastic.shrink`.
 
 Copy of ``kungfu_tpu/monitor/detector.py`` with one addition:

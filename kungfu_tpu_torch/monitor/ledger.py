@@ -1,5 +1,5 @@
 """The decision ledger's actor hook, a trimmed stand-in for
-``kungfu_tpu/monitor/ledger.py`` until ROADMAP A9 ports the ledger.
+``kungfu_tpu/monitor/ledger.py`` until ROADMAP A9b ports the ledger.
 """
 
 from __future__ import annotations
@@ -11,7 +11,7 @@ def record_decision(actor: str, knob: str, old, new,
                     **kwargs) -> Optional[dict]:
     """Does nothing and returns None: the reference's hook returns None
     whenever its ledger plane is off, and the port has no ledger plane
-    yet (ROADMAP A9).  Kept so that the shrink path calls it where the
+    yet (ROADMAP A9b).  Kept so that the shrink path calls it where the
     reference does."""
     del actor, knob, old, new, kwargs
     return None

@@ -27,7 +27,7 @@ Buffers are contiguous CPU ``torch.Tensor`` s (pinned or not) or numpy
 arrays; a bfloat16 buffer is a ``torch.bfloat16`` tensor, or a numpy
 array whose dtype is named ``bfloat16`` (ml_dtypes', as the reference's
 tests feed it), both reduced as code 11.  The sanitizer builds of the
-reference (``KF_NATIVE_SANITIZE``) are not ported.
+reference (``KF_NATIVE_SANITIZE``) come with ROADMAP A9c.
 """
 
 from __future__ import annotations

@@ -7,9 +7,9 @@ and the pooled sender all run in C++ threads, with Python entering only
 for control/p2p handler callbacks.  Falls back cleanly (``available()``
 False) when the toolchain is absent.  One addition to the reference: a
 transport made on port 0 binds a port the kernel assigns and reports it
-as :attr:`NativeTransport.port` (``kf_host_port``).  Not wrapped yet,
-for want of a caller in the port: the ingress/egress byte snapshots
-(``NetMonitor``, ROADMAP A9).
+as :attr:`NativeTransport.port` (``kf_host_port``).
+:meth:`NativeTransport.ingress_totals` and :meth:`egress_totals` read the
+C++ per-peer byte counters that feed a ``NetMonitor``.
 """
 
 from __future__ import annotations
@@ -91,6 +91,9 @@ def _lib():
         lib.kf_host_reset_connections.argtypes = [ctypes.c_void_p]
         lib.kf_host_set_control_cb.argtypes = [ctypes.c_void_p, MSG_CB]
         lib.kf_host_set_p2p_cb.argtypes = [ctypes.c_void_p, MSG_CB]
+        for fn in (lib.kf_host_ingress_snapshot, lib.kf_host_egress_snapshot):
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int]
         lib.kf_engine_all_reduce.restype = ctypes.c_int
         lib.kf_engine_all_reduce.argtypes = [
             ctypes.c_void_p, ctypes.c_char_p, ctypes.c_void_p,
@@ -372,6 +375,32 @@ class NativeTransport:
                 max_threads,
                 stats.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
             )
+
+    def ingress_totals(self) -> dict:
+        """Payload bytes received so far, by source spec."""
+        return self._counter_totals(self._libref.kf_host_ingress_snapshot)
+
+    def egress_totals(self) -> dict:
+        """Payload bytes sent so far, by destination spec."""
+        return self._counter_totals(self._libref.kf_host_egress_snapshot)
+
+    def _counter_totals(self, snapshot_fn) -> dict:
+        """One ``"addr total"`` line per peer from the C++ counters; a
+        negative return asks for that many bytes of buffer."""
+        cap = 1 << 16
+        while True:
+            buf = ctypes.create_string_buffer(cap)
+            with self._live() as h:
+                n = snapshot_fn(h, buf, cap)
+            if n >= 0:
+                break
+            cap = -n + 1
+        out = {}
+        for line in buf.value.decode().splitlines():
+            src, _, num = line.rpartition(" ")
+            if src:
+                out[src] = int(num)
+        return out
 
     def __del__(self):  # pragma: no cover - GC timing
         try:

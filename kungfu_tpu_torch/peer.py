@@ -16,15 +16,19 @@ Where the port differs from the reference:
 
 * the device plane is explicit: ``Peer(config, devices=None)`` gives
   :meth:`Peer.communicator` a communicator on the card (``devices``
-  names its ranks' devices; the tests pass ``["cpu"]``);
+  names its ranks' devices; the tests pass ``["cpu"]``).  The launcher's
+  ``-backend cpu`` stamps ``KF_JAX_PLATFORM=cpu``, which the peer reads
+  as ``devices=["cpu"]``, as the reference reads it as its jax platform;
+  :meth:`Peer.device` is the worker's device, and raises without a card
+  unless the CPU was asked for (ROADMAP C24);
 * there is no counterpart of ``jax.distributed`` yet: a config with a
   coordinator and more than one process, or with ``world_peers``, raises
   ``NotImplementedError`` (the multi-card slice);
-* ``KF_CONFIG_ENABLE_MONITORING`` raises ``NotImplementedError`` until
-  ROADMAP A9 ports NetMonitor and the metrics server.  So no net monitor
-  runs, :meth:`Peer.get_egress_rates` gives ``[0.0] * size()`` as the
-  reference's does without one, and the rank reporter's snapshots carry
-  no net totals;
+* ``KF_CONFIG_ENABLE_MONITORING`` starts a
+  :class:`~kungfu_tpu_torch.monitor.metrics.NetMonitor` over the peer's
+  channel and a ``/metrics`` server at the worker port + 10000, as the
+  reference's does: :meth:`Peer.get_egress_rates` returns its measured
+  rates and the rank reporter's snapshots carry its byte totals;
 * with ``KF_CONFIG_ENABLE_CLUSTER_MONITOR`` and a config server, the
   peer pushes snapshots to the aggregator mounted there (a
   :class:`~kungfu_tpu_torch.monitor.aggregator.RankReporter` under its
@@ -37,6 +41,7 @@ Where the port differs from the reference:
 from __future__ import annotations
 
 import json
+import os
 import socket
 import threading
 import time
@@ -52,10 +57,6 @@ from kungfu_tpu_torch.utils.stall import stall_detector
 from kungfu_tpu_torch.utils.trace import trace_scope
 
 _log = get_logger("peer")
-
-#: the message of every knob that waits for ROADMAP A9
-_A9 = ("waits for ROADMAP A9 (NetMonitor and the metrics server are not "
-       "ported yet)")
 
 
 class Peer:
@@ -76,6 +77,8 @@ class Peer:
         self.cluster: Cluster = self.config.cluster
         self.cluster_version: int = self.config.init_version
         self.detached: bool = False
+        if devices is None and os.environ.get(envs.JAX_PLATFORM) == "cpu":
+            devices = ["cpu"]  # the launcher's -backend cpu
         #: the devices of the communicator's ranks (None: one on the card)
         self._devices = list(devices) if devices is not None else None
         self._channel = None
@@ -101,6 +104,10 @@ class Peer:
         self._engine_version = -1
         #: the live cluster plane's snapshot pusher (cluster monitor on)
         self._reporter = None
+        #: the byte counters of this peer's channel and their /metrics
+        #: server (KF_CONFIG_ENABLE_MONITORING)
+        self.net_monitor = None
+        self._metrics_server = None
         self._lock = threading.RLock()
         self._started = False
         from kungfu_tpu_torch.store.store import VersionedStore
@@ -116,15 +123,30 @@ class Peer:
         with self._lock:
             if self._started:
                 return
-            if envs.parse_bool_env(envs.ENABLE_MONITORING):
-                raise NotImplementedError(f"{envs.ENABLE_MONITORING} {_A9}")
             self._started = True
+            monitor = None
+            if envs.parse_bool_env(envs.ENABLE_MONITORING):
+                from kungfu_tpu_torch.monitor.metrics import (
+                    METRICS_PORT_OFFSET, MetricsServer, NetMonitor,
+                    monitoring_period_from_env)
+
+                monitor = NetMonitor(monitoring_period_from_env()).start()
+                self.net_monitor = monitor
+                try:
+                    self._metrics_server = MetricsServer(
+                        monitor,
+                        self.config.self_id.port + METRICS_PORT_OFFSET,
+                    ).start()
+                    _log.info("/metrics on port %d", self._metrics_server.port)
+                except OSError as e:
+                    _log.warning("metrics server not started: %s", e)
             if not self.config.single_process:
                 from kungfu_tpu_torch.comm.host import bind_own_host_channel
                 from kungfu_tpu_torch.store import install_p2p_handler
 
                 self._channel = bind_own_host_channel(
-                    self.config.self_id, token=self.cluster_version)
+                    self.config.self_id, token=self.cluster_version,
+                    monitor=monitor)
                 self._p2p_stop = install_p2p_handler(
                     self._channel, self.store, self._ctrl_store,
                     n_peers=self.size())
@@ -159,6 +181,8 @@ class Peer:
                     self._reporter = RankReporter(
                         rank, self.config.config_server,
                         strategy_fn=self._active_strategy,
+                        net_totals_fn=(self._net_totals
+                                       if monitor is not None else None),
                         slice_id=slice_id,
                         pre_snapshot_fn=publish_device_memory,
                     ).start()
@@ -180,6 +204,24 @@ class Peer:
                 name = f"{name} dev[{buckets}]"
         return name
 
+    def _net_totals(self) -> dict:
+        """The net monitor's byte totals summed over peers, for the rank
+        reporter's snapshots."""
+        mon = self.net_monitor
+        if mon is None:
+            return {}
+        totals = mon.totals()
+        return {"egress_bytes": sum(totals["egress"].values()),
+                "ingress_bytes": sum(totals["ingress"].values())}
+
+    def device(self):
+        """The worker's device: the CPU where the caller asked for it
+        (``devices=["cpu"]`` or ``KF_JAX_PLATFORM=cpu``), else the card;
+        raises without a card rather than carrying on on the host."""
+        from kungfu_tpu_torch.utils.device import resolve_device
+
+        return resolve_device(self._devices[0] if self._devices else None)
+
     def close(self) -> None:
         from kungfu_tpu_torch.monitor import timeline
 
@@ -197,6 +239,12 @@ class Peer:
                     self._p2p_stop = None
                 self._channel.close()
                 self._channel = None
+            if self._metrics_server is not None:
+                self._metrics_server.stop()
+                self._metrics_server = None
+            if self.net_monitor is not None:
+                self.net_monitor.stop()
+                self.net_monitor = None
             if self._engine is not None:
                 self._engine.close()
             self._engine = None
@@ -488,10 +536,13 @@ class Peer:
         return get_peer_latencies(self, samples)
 
     def get_egress_rates(self):
-        """Bytes/s sent to each worker, as a net monitor measures them:
-        without one (the knob that starts it raises until ROADMAP A9),
-        ``[0.0] * size()``, as the reference's."""
-        return [0.0] * self.size()
+        """Bytes/s sent to each worker over the net monitor's last
+        sampling period; ``[0.0] * size()`` without a monitor, as the
+        reference's."""
+        if self.net_monitor is None:
+            return [0.0] * self.size()
+        return self.net_monitor.egress_rates(
+            [str(w) for w in self.cluster.workers])
 
     def check_interference(self) -> bool:
         """The cluster's majority vote over each rank's interference

@@ -9,7 +9,7 @@ resize and stop intents through the elastic protocol.
 
 The serving policies (``BatchWidthController``, ``ServeAutoscalePolicy``,
 ``serve_signals``) steer the serving plane from the aggregator's view.
-``sentinel_signals`` comes with the sentinel (ROADMAP A9); until then
+``sentinel_signals`` comes with the sentinel (ROADMAP A9b); until then
 that name raises ``NotImplementedError``.
 """
 
@@ -34,7 +34,7 @@ from kungfu_tpu_torch.policy.serve import (  # noqa: F401
 #: lazy names of the reference's package, with the ROADMAP item that
 #: ports each
 _NOT_PORTED = {
-    "sentinel_signals": "A9 (policy/sentinel.py, with the sentinel)",
+    "sentinel_signals": "A9b (policy/sentinel.py, with the sentinel)",
 }
 
 

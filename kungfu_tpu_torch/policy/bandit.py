@@ -218,7 +218,7 @@ class OverlapDepthBandit:
 
         # depth changes are local (no consensus fence: the depth does not
         # shape a collective), so consensus_seq=None; the ledger is a
-        # do-nothing hook until ROADMAP A9
+        # do-nothing hook until ROADMAP A9b
         ledger.record_decision(
             "overlap-depth", "depth", int(self.active), int(pick),
             evidence={"checks": self._n // self.check_every})

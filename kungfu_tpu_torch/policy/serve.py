@@ -16,7 +16,7 @@ Both read the aggregator's ``/cluster`` view through
   with a wide margin releases one.  A cooldown keeps it from flapping.
 
 Their decisions go to ``ledger.record_decision``, a do-nothing hook in
-the port until ROADMAP A9 ports the ledger.
+the port until ROADMAP A9b ports the ledger.
 """
 
 from __future__ import annotations

@@ -8,7 +8,7 @@ queue-depth and active-slots gauges and the prefill-token counter split
 into computed and reused.  Request accounting rides the timeline's
 counted ``request`` kind (``kf_serve_requests_total{what=...}``).
 :class:`SLORules` holds the sentinel's burn-rate budgets; the sentinel
-that evaluates them comes with ROADMAP A9.
+that evaluates them comes with ROADMAP A9b.
 """
 
 from __future__ import annotations

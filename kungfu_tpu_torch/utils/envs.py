@@ -113,8 +113,15 @@ alone), and the runtime knobs the peer and failure recovery read:
 ``KF_PROCESS_ID``                  this process's index in it
 ``KF_WORLD_PEERS``                 provisioned worker-slot list: the peer
                                    raises until the multi-card slice
-``KF_CONFIG_ENABLE_MONITORING``    truthy: NetMonitor and /metrics; the peer
-                                   raises until ROADMAP A9 (peer.py)
+``KF_CONFIG_ENABLE_MONITORING``    truthy: the peer runs a NetMonitor over its
+                                   channel and serves ``/metrics`` at its
+                                   port + 10000 (monitor/metrics.py)
+``KF_CONFIG_MONITORING_PERIOD``    NetMonitor's rate sampling period, seconds,
+                                   default 1
+``KF_JAX_PLATFORM``                ``cpu``: the launcher's ``-backend cpu``;
+                                   the peer's device plane is then the host
+                                   (``devices=["cpu"]``), as the reference
+                                   reads it; unset, the card
 ``KF_CONFIG_ENABLE_CLUSTER_MONITOR``  truthy: with a config server, the peer
                                    pushes snapshots to the cluster aggregator
                                    mounted there (monitor/aggregator.py)
@@ -227,6 +234,9 @@ WORLD_PEERS = "KF_WORLD_PEERS"
 
 # the peer runtime and failure recovery
 ENABLE_MONITORING = "KF_CONFIG_ENABLE_MONITORING"
+MONITORING_PERIOD = "KF_CONFIG_MONITORING_PERIOD"
+#: the worker platform the launcher stamps (``-backend cpu``: ``cpu``)
+JAX_PLATFORM = "KF_JAX_PLATFORM"
 ENABLE_CLUSTER_MONITOR = "KF_CONFIG_ENABLE_CLUSTER_MONITOR"
 MONITOR_PUSH_PERIOD = "KF_CONFIG_MONITOR_PUSH_PERIOD"
 MONITOR_STALE_AFTER = "KF_CONFIG_MONITOR_STALE_AFTER"

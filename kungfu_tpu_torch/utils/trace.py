@@ -1,6 +1,7 @@
 """Trace gate and per-scope duration aggregates (trimmed copy of
-``kungfu_tpu/utils/trace.py``; its ``device_trace`` is ``jax.profiler``
-and has no counterpart here — ``torch.profiler`` is used directly)."""
+``kungfu_tpu/utils/trace.py``; its ``traced``, ``trace_report``,
+``reset_trace_stats`` and ``device_trace``, the last over
+``torch.profiler``, come with ROADMAP A9c)."""
 
 from __future__ import annotations
 

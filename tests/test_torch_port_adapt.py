@@ -1151,11 +1151,11 @@ class TestPolicy:
 
     @pytest.mark.parametrize("name,item", [
         ("BatchWidthController", "A3"), ("ServeAutoscalePolicy", "A3"),
-        ("serve_signals", "A3"), ("sentinel_signals", "A9")])
+        ("serve_signals", "A3"), ("sentinel_signals", "A9b")])
     def test_not_ported_names_raise(self, name, item):
         """The serving names came with A3 and are the reference's
         policy/serve.py objects' counterparts; the sentinel's still
-        raises, naming A9."""
+        raises, naming A9b."""
         if item == "A3":
             from kungfu_tpu.policy import serve as jserve
             from kungfu_tpu_torch.policy import serve as tserve

@@ -234,10 +234,16 @@ class TestClusterView:
         assert v["serving"] is None and v["xray"] is None
 
     def test_a9_parts_raise(self):
+        """The Prometheus rendering came with A9a and is the reference's
+        byte for byte (the pushed cases are in
+        test_torch_port_metrics.py); the sentinel still raises, naming
+        A9b."""
         agg = tagg.ClusterAggregator()
-        with pytest.raises(NotImplementedError, match="A9"):
-            agg.render_prometheus()
-        with pytest.raises(NotImplementedError, match="A9"):
+        assert agg.render_prometheus() == \
+            jagg.ClusterAggregator().render_prometheus()
+        assert agg.render_prometheus(CLUSTER_INFO) == \
+            jagg.ClusterAggregator().render_prometheus(CLUSTER_INFO)
+        with pytest.raises(NotImplementedError, match="A9b"):
             agg.attach_sentinel(object())
 
 
@@ -357,7 +363,11 @@ class TestConfigServerMounts:
             with pytest.raises(urllib.error.HTTPError) as e:
                 _post(srv.port, "/push", {"kfmon": 1})
             assert e.value.code == 400
-            for route in ("/metrics", "/alerts", "/decisions"):
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{srv.port}/metrics", timeout=10) as r:
+                assert r.status == 200
+                assert "kf_cluster_ranks 2" in r.read().decode()
+            for route in ("/alerts", "/decisions"):
                 with pytest.raises(urllib.error.HTTPError) as e:
                     _get(srv.port, route)
                 assert e.value.code == 404

@@ -171,6 +171,25 @@ IMAGE_DATA_MODULES = [
 ]
 
 
+#: the modules of the launcher's and the net monitor's slice
+LAUNCHER_MODULES = [
+    "kungfu_tpu_torch.__main__", "kungfu_tpu_torch.runner",
+    "kungfu_tpu_torch.runner.proc", "kungfu_tpu_torch.runner.job",
+    "kungfu_tpu_torch.runner.discovery", "kungfu_tpu_torch.runner.cli",
+    "kungfu_tpu_torch.runner.monitored", "kungfu_tpu_torch.runner.supervise",
+    "kungfu_tpu_torch.runner.watch", "kungfu_tpu_torch.runner.mp",
+    "kungfu_tpu_torch.runner.remote", "kungfu_tpu_torch.examples",
+    "kungfu_tpu_torch.examples.mnist_slp",
+    "kungfu_tpu_torch.examples.failure_recovery",
+    "kungfu_tpu_torch.examples.elastic_mnist",
+    "kungfu_tpu_torch.examples.preempt_restore",
+    "kungfu_tpu_torch.monitor.metrics", "kungfu_tpu_torch.monitor.registry",
+    "kungfu_tpu_torch.monitor.aggregator",
+    "kungfu_tpu_torch.elastic.configserver", "kungfu_tpu_torch.comm.host",
+    "kungfu_tpu_torch.native.transport", "kungfu_tpu_torch.peer",
+]
+
+
 def _check_scanned(modules):
     assert set(modules) <= set(PORT_MODULES)
     for m in modules:
@@ -195,6 +214,9 @@ class TestNativeBuild:
 
     def test_image_data_modules_are_scanned(self):
         _check_scanned(IMAGE_DATA_MODULES)
+
+    def test_launcher_modules_are_scanned(self):
+        _check_scanned(LAUNCHER_MODULES)
 
     def test_native_build_writes_only_under_build_dir(self, tmp_path):
         """A fresh copy of ``native/`` built from scratch in its own

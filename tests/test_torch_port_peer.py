@@ -745,24 +745,27 @@ class TestNotPorted:
     @pytest.mark.parametrize("knob", ["KF_CONFIG_ENABLE_MONITORING",
                                       "KF_CONFIG_ENABLE_CLUSTER_MONITOR"])
     def test_monitoring_knobs(self, monkeypatch, knob):
-        """NetMonitor still waits for A9; the cluster monitor is ported
-        (A3 took the aggregator): without a config server it starts no
-        reporter, as the reference's does (the reporting cases are in
-        test_torch_port_aggregator.py)."""
+        """Both knobs are ported (A9a took NetMonitor, A3 the
+        aggregator): the net monitor starts with its metrics server, as
+        the reference's does; without a config server the cluster
+        monitor starts no reporter (the measuring and reporting cases are
+        in test_torch_port_metrics.py and test_torch_port_aggregator.py)."""
         monkeypatch.setenv(knob, "1")
         p = Peer(envs.parse_config_from_env({}), devices=["cpu"])
-        if knob == "KF_CONFIG_ENABLE_MONITORING":
-            with pytest.raises(NotImplementedError, match="A9"):
-                p.start()
-            return
         j = JPeer(jenvs.parse_config_from_env({}))
         p.start()
         j.start()
         try:
             assert p._reporter is None and j._reporter is None
+            monitoring = knob == "KF_CONFIG_ENABLE_MONITORING"
+            assert (p.net_monitor is not None) == monitoring
+            assert (j.net_monitor is not None) == monitoring
+            assert (p._metrics_server is not None) == monitoring
+            assert p.get_egress_rates() == j.get_egress_rates() == [0.0]
         finally:
             p.close()
             j.close()
+        assert p.net_monitor is None and p._metrics_server is None
 
     @pytest.mark.parametrize("call", [
         lambda p: p.get_peer_latencies(), lambda p: p.get_egress_rates(),
