@@ -110,7 +110,7 @@ Phases (any failed check exits non-zero before the result line):
              Checks: (a) native channels and executor; (b) the four
              reduced buffers bitwise equal to each other and to the
              plain graph walk; (c) the C++ executor and the Python path
-             bitwise equal for all eight strategies on 64 MiB a rank,
+             bitwise equal for all eight strategies on 16 MiB a rank,
              and on the whole buffer under AUTO; (d) params after step 1
              within 1e-5 relative L2 per leaf of the device-plane S-SGD
              step; (e) falling loss; (f) ``set_strategy`` at a step
@@ -384,7 +384,8 @@ Phases (any failed check exits non-zero before the result line):
              phase's main path is (b)'s steps.
 
 20. kfrun  — the port's launcher on the card.  (a) ``python -m
-             kungfu_tpu_torch -np 4 -H 127.0.0.1:4 -monitor`` runs four
+             kungfu_tpu_torch -np 4 -H 127.0.0.1:4 -monitor -sentinel
+             DIR`` runs four
              processes of this script in its worker mode
              (``--kfrun-worker``): each builds phase 10's bert_base() with
              seed 0 on the card, takes KFRUN_STEPS steps an epoch for
@@ -401,7 +402,11 @@ Phases (any failed check exits non-zero before the result line):
              plain versions.  While it runs the phase scrapes the builtin
              config server's ``/cluster`` (four fresh ranks) and
              ``/metrics`` and each worker's metrics server (egress and
-             ingress per peer, a rate).  (b) the same with ``-auto-recover
+             ingress per peer, a rate) and ``/alerts`` (200); after it
+             the sentinel's ``cluster`` stream under DIR holds a sample
+             for each push period and ``python -m
+             kungfu_tpu_torch.monitor.kfhist --dir DIR --verdict`` exits
+             0.  (b) the same with ``-auto-recover
              30s`` and ``--die-at-epoch 1``: rank 1 exits with
              ``DIE_EXIT_CODE`` after its first step of epoch 1 while its
              peers wait in the engine; the runner kills the group, waits
@@ -412,6 +417,45 @@ Phases (any failed check exits non-zero before the result line):
              ms and the allreduce's share, death to the runner's verdict
              and to the group's exit, exit to the relaunched first step,
              the restore's ms and both walls are printed.
+
+21. sentinel — the sentinel plane and the trace tools on the flagship
+             (seed 0, ``KF_TPU_XENT=fused``).  (a) bench.py:2714
+             payload_sentinel: three port peers (``KF_NATIVE_ENGINE=0``,
+             the Python transport) each take the flagship's forward and
+             backward at [P21_BATCH, P21_SEQ] (rows 1-5) and allreduce the
+             first P21_GRAD_ELEMS f32 of the flat gradient on the host
+             with STAR (held to the three slices' sum), paced at
+             P21_PACE_X times the slowest of P21_WARM warm steps; a
+             fake-clock ``ClusterAggregator`` with ``Sentinel.from_env()``
+             (window P21_WINDOW) takes one sample a step.  Three chaos
+             ``delay`` clauses on the 0<->1 link arm at step P21_CLEAN,
+             ``wire_ms`` chosen so rank 1's legs exceed the pad by
+             P21_WIRE_MARGIN of the pace.  No alert before the onset;
+             ``regress:step_time_s`` exactly once within two windows;
+             ``kf_alerts_total`` and the ``alert`` event; the incident's
+             xray culprit rank 1 over chaos events on 0<->1 only;
+             ``kfhist --verdict --upto`` equal to the incident's
+             verdicts; a ``ConfigServer`` answering ``/alerts`` and
+             ``/decisions``; kftop's alerts section; ``sentinel_signals``.
+             (b) payload_pulse part B: ``HostBanditDriver`` on three
+             peers under a 30 ms 0<->1 delay, one ledger record a step;
+             the ranks agree on the arm, a ``bandit-host`` swap onto it
+             is judged ``improved``, ``replay_effects`` recomputes every
+             verdict, one ``decision`` event a swap.  (c) an
+             ``InferenceEngine`` warmed before the sentinel's warmup, then
+             one capture after it: ``watermark:recompile_steady`` fires
+             once, a later sample fires nothing.  (d) ``device_trace``
+             around one training step of rank 0: rows 1-5 in the trace
+             with the wrappers' launch counts, ``trace_report()``'s
+             ``@traced`` count; kftrace over (a)'s three dumps names rank
+             1 the slowest in the faulted steps and the incident's
+             culprit, and its Chrome trace loads back.  (e) the torch
+             shim on three peers: ``broadcast_parameters`` makes the
+             ranks' flagship params bitwise equal on the card, one
+             ``SynchronousSGDOptimizer(torch.optim.SGD)`` step on three
+             batches leaves them bitwise equal and within ``rtol`` 1e-6
+             of plain SGD on the mean gradient, every tensor on the card.
+             The phase's main path is (a), (d) and (e).
 
 Phase 3 also holds the ring reduce-scatter and all-gather kernels
 bitwise against their plain versions, at the main path's shapes (a
@@ -566,7 +610,7 @@ GNS_RTOL = 1e-2
 #: swaps; ZeRO-2's host bucket (columns a rank) and (c)'s slice
 HOST_STEPS = 6
 HOST_BUCKET = 1 << 20
-HOST_SLICE_BYTES = 64 << 20
+HOST_SLICE_BYTES = 16 << 20
 #: phase 12's params after one step against the device-plane S-SGD step,
 #: relative L2 per leaf: only the order of the f32 four-term mean differs
 HOST_PARAMS_RTOL = 1e-5
@@ -654,15 +698,20 @@ def device_ms(torch, fn, iters: int = 20, windows: int = 21) -> float:
     """Median over ``windows`` CUDA-event windows of the device time of
     one ``fn()`` in ms.  A sleep kernel holds the stream while the host
     enqueues ``iters`` calls, so the events time back-to-back device
-    work, not the host's launch overhead."""
+    work, not the host's launch overhead.  The sleep lasts three times
+    the host time of the window's calls (from the warm calls), at least
+    ~10 ms and at most ~50 ms at H100 clocks (~2e6 cycles a ms)."""
+    t0 = time.perf_counter()
     for _ in range(3):
         fn()
+    host_ms = (time.perf_counter() - t0) / 3 * 1e3
     torch.cuda.synchronize()
+    sleep = int(2e6 * min(50.0, max(10.0, 3 * iters * host_ms)))
     times = []
     for _ in range(windows):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(100_000_000)  # ~50 ms at H100 clocks
+        torch.cuda._sleep(sleep)
         start.record()
         for _ in range(iters):
             fn()
@@ -724,7 +773,8 @@ def host_us(torch, fn, calls: int = 200) -> float:
     sleep kernel so the launch queue never blocks."""
     fn()
     torch.cuda.synchronize()
-    torch.cuda._sleep(400_000_000)
+    # ~50 ms at H100 clocks: 2.5x the 200 calls of the slowest wrapper
+    torch.cuda._sleep(100_000_000)
     t0 = time.perf_counter()
     for _ in range(calls):
         fn()
@@ -755,6 +805,8 @@ def phase_flash_forward(torch, attention, spec):
         ("ring_diag", (16 * 2, 6, 512, 64), torch.bfloat16, True),
         ("ring_full", (8 * 2, 6, 512, 64), torch.bfloat16, False),
         ("ring_s1024_full", (4 * 2, 12, 1024, 64), torch.bfloat16, False),
+        # phase 21's rank step
+        ("p21_main", (P21_BATCH, 12, P21_SEQ, 64), torch.bfloat16, True),
     ]
     cases = ([(n, sh, dt, c, 1.0) for n, sh, dt, c in cases]
              + [(n, (1, *sh), torch.bfloat16, c, x)
@@ -850,6 +902,8 @@ def phase_flash_backward(torch, attention, spec):
         ("ring_full", (8 * 2, 6, 512, 64), torch.bfloat16, False, True),
         ("ring_s1024_full", (4 * 2, 12, 1024, 64), torch.bfloat16, False,
          True),
+        ("p21_main", (P21_BATCH, 12, P21_SEQ, 64), torch.bfloat16, True,
+         False),
     ]
     cases = ([(*c, 1.0) for c in cases]
              + [(n, (1, *sh), torch.bfloat16, c, False, x)
@@ -982,6 +1036,8 @@ def phase_xent(torch, xk, spec):
         # phase 17 (a): every last-stage rank's rows in one launch (eight
         # ranks x two microbatches x [2, 512])
         ("sharded_main", 8 * 2 * 2 * 512, v_main, torch.float32),
+        # phase 21's rank step
+        ("p21_main", P21_BATCH * P21_SEQ, v_main, torch.float32),
     ]
     gen = torch.Generator(device="cuda").manual_seed(2)
     results = {}
@@ -2721,7 +2777,7 @@ def phase_host_engine(torch, np, kernels, tr, bert, gns10):
     ``sgd(1e-3, momentum=0.9)``.  Checks (a)-(h), each fatal: (a) native
     channels and the C++ executor; (b) the four reduced buffers bitwise
     equal to each other and to the plain graph walk; (c) the C++ executor
-    and the Python path bitwise equal for every strategy on a 64 MiB
+    and the Python path bitwise equal for every strategy on a 16 MiB
     slice, and on the whole buffer for the default strategy; (d) the
     params after step 1 against the device-plane S-SGD step; (e) falling
     loss; (f) a strategy swap at a step boundary; (g) ZeRO-2 over the
@@ -2978,7 +3034,7 @@ def _host_engine_steps(torch, np, kernels, E, engines, model, params, batch,
     del zero, p0_host, p1_host
 
     # (c) the C++ executor against the Python path, every strategy on a
-    # 64 MiB slice of step 1's gradients, the whole buffer for AUTO
+    # 16 MiB slice of step 1's gradients, the whole buffer for AUTO
     cut = HOST_SLICE_BYTES // 4
     sl = [x[:cut].clone() for x in inputs]
     strategies = {}
@@ -5945,7 +6001,7 @@ PIPE_LR, PIPE_MOMENTUM = 0.05, 0.9
 PIPE_WIRE_MS = 30
 #: steps of each schedule, each from the same start; interleaved with
 #: two chunks a stage
-PIPE_STEPS = {"1f1b": 3, "sequential": 3, "interleaved": 2}
+PIPE_STEPS = {"1f1b": 2, "sequential": 2, "interleaved": 2}
 PIPE_INTERLEAVE = 2
 #: the first loss against the one-rank flagship Transformer.loss on the
 #: same rows, and the first loss and reduced gradient against the same
@@ -7139,7 +7195,7 @@ def _images_vgg(torch, np, VGG, spec, rng) -> dict:
 #: epoch takes KFRUN_STEPS steps on KFRUN_BATCH-seeded [BERT_ROWS,
 #: BERT_SEQ] batches a rank and ends in an npz checkpoint of the params,
 #: the momentum and the epoch (rank 0 writes it)
-KFRUN_NP, KFRUN_EPOCHS, KFRUN_STEPS = 4, 3, 2
+KFRUN_NP, KFRUN_EPOCHS, KFRUN_STEPS = 4, 2, 2
 #: (b): rank 1 exits with DIE_EXIT_CODE after its first step of this
 #: epoch; the monitored runner's failure-detection period
 KFRUN_DIE_EPOCH, KFRUN_PERIOD = 1, "30s"
@@ -7153,6 +7209,11 @@ KFRUN_LOSS_RTOL, KFRUN_GRAD_REL_L2 = RANKS_LOSS_RTOL, RANKS_GRAD_REL_L2
 KFRUN_QK_LEAVES = ("/wq/", "/wk/")
 #: one launch of the launcher (a or b), command included, at most
 KFRUN_TIMEOUT_S = 300
+#: (a) runs under ``-sentinel``: the ranks push every
+#: KF_CONFIG_MONITOR_PUSH_PERIOD (1 s by default) and the sentinel samples
+#: at most once a KF_SENTINEL_PERIOD (1 s) on an ingest, so consecutive
+#: samples of the cluster stream stand at most this many periods apart
+KFRUN_PUSH_PERIOD_S, KFRUN_SENTINEL_GAP = 1.0, 3.0
 
 
 def _kfrun_batch(torch, np, vocab: int, epoch: int, step: int, rank: int):
@@ -7179,11 +7240,13 @@ def _plain_flash_attn(torch, attention):
 
 
 def _kfrun_plain_check(torch, kernels, model, params, batch, loss_k,
-                       grads_k) -> dict:
+                       grads_k, lr: float = BERT_LR,
+                       what: str = "worker") -> dict:
     """Rank 0's first step through the kernels' plain versions (flash
     reference forward and backward, ``token_nll_rows`` under
     ``KF_TPU_XENT=plain``), held against
-    the kernels' loss and gradients; no kernel may launch."""
+    the kernels' loss and gradients, and the params after one SGD step of
+    rate ``lr`` from each; no kernel may launch."""
     from kungfu_tpu_torch.ops import xent
     from kungfu_tpu_torch.ops.cuda import attention
     from kungfu_tpu_torch.parallel.train import per_rank_grads
@@ -7215,8 +7278,8 @@ def _kfrun_plain_check(torch, kernels, model, params, batch, loss_k,
     names = [n for n, _ in pairs]
     rel = _rel_l2_leaves(dict(zip(names, grads_k)), dict(zip(names, grads)))
     # the params after one SGD step from the same start (phase 10's check)
-    step_k = {n: p - BERT_LR * g for (n, p), g in zip(pairs, grads_k)}
-    step_p = {n: p - BERT_LR * g for (n, p), g in zip(pairs, grads)}
+    step_k = {n: p - lr * g for (n, p), g in zip(pairs, grads_k)}
+    step_p = {n: p - lr * g for (n, p), g in zip(pairs, grads)}
     rel_p = _rel_l2_leaves(step_k, step_p)
     qk = {n: v for n, v in rel.items()
           if any(k in f"/{n}/" for k in KFRUN_QK_LEAVES)}
@@ -7230,11 +7293,11 @@ def _kfrun_plain_check(torch, kernels, model, params, batch, loss_k,
            "qk_grad_rel_l2_worst_leaf": worst_qk,
            "params_rel_l2_worst": max(rel_p.values())}
     check(out["loss_rel"] <= KFRUN_LOSS_RTOL,
-          f"worker first loss {loss_k} vs plain {loss_p}: rel "
+          f"{what} first loss {loss_k} vs plain {loss_p}: rel "
           f"{out['loss_rel']:.3e} > {KFRUN_LOSS_RTOL}")
     check(out["grad_rel_l2_worst"] <= KFRUN_GRAD_REL_L2
           and out["params_rel_l2_worst"] <= KFRUN_GRAD_REL_L2,
-          f"worker first step vs plain: {out}")
+          f"{what} first step vs plain: {out}")
     return out
 
 
@@ -7521,7 +7584,8 @@ def _kfrun_launch(root: str, name: str, runner_args: list,
         proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT,
                                 cwd=HERE, env=env, start_new_session=True)
     cfg = f"http://127.0.0.1:{cfg_port}"
-    scrapes = {"cluster": None, "metrics": None, "workers": {}}
+    scrapes = {"cluster": None, "metrics": None, "workers": {},
+               "alerts": []}
     try:
         while proc.poll() is None:
             if time.time() - t0 > KFRUN_TIMEOUT_S:
@@ -7539,6 +7603,9 @@ def _kfrun_launch(root: str, name: str, runner_args: list,
                         (scrapes["cluster"] or {}).get("fresh", [])):
                     scrapes["cluster"] = {"fresh": fresh,
                                           "stale": view["stale"]}
+            code, _ = _http(cfg + "/alerts")
+            if code not in scrapes["alerts"]:
+                scrapes["alerts"].append(code)
             code, text = _http(cfg + "/metrics")
             if code == 200 and "kf_cluster_ranks" in text:
                 scrapes["metrics"] = {
@@ -7602,6 +7669,40 @@ def _kfrun_epochs(recs, restart=None) -> dict:
             and (restart is None or r["restart"] == restart)}
 
 
+def _kfrun_sentinel(sdir: str, a: dict) -> dict:
+    """(a) under ``-sentinel DIR``: ``/alerts`` answered 200, the
+    ``cluster`` stream holds a sample for each push period the run
+    lasted (no gap between samples past KFRUN_SENTINEL_GAP periods), and
+    ``python -m kungfu_tpu_torch.monitor.kfhist --dir DIR --verdict``
+    exits 0."""
+    from kungfu_tpu_torch.monitor import history
+
+    recs = history.read_stream(sdir, "cluster")
+    walls = [r["wall"] for r in recs]
+    gaps = [b - w for w, b in zip(walls, walls[1:])]
+    rep = subprocess.run(
+        [sys.executable, "-m", "kungfu_tpu_torch.monitor.kfhist", "--dir",
+         sdir, "--verdict"], capture_output=True, text=True, timeout=120,
+        cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE))
+    out = {"alerts_codes": a["scrapes"]["alerts"], "records": len(recs),
+           "span_s": walls[-1] - walls[0] if walls else 0.0,
+           "max_gap_s": max(gaps) if gaps else None,
+           "kfhist_rc": rep.returncode,
+           "kfhist": rep.stdout.splitlines()[:1]}
+    check(200 in a["scrapes"]["alerts"],
+          f"(a) /alerts answered {a['scrapes']['alerts']}, never 200")
+    check(len(recs) > 1 and out["max_gap_s"]
+          <= KFRUN_SENTINEL_GAP * KFRUN_PUSH_PERIOD_S,
+          f"(a) the sentinel's cluster stream: {out}")
+    check(rep.returncode == 0, f"kfhist --verdict exited {rep.returncode}: "
+          f"{rep.stderr[-1500:]}")
+    print(f"kfrun (a) -sentinel: /alerts {a['scrapes']['alerts']}; "
+          f"{out['records']} cluster samples over {out['span_s']:.1f} s, "
+          f"largest gap {out['max_gap_s']:.2f} s; kfhist --verdict exit 0: "
+          f"{out['kfhist']}")
+    return out
+
+
 def phase_kfrun(torch, np, kernels) -> dict:
     """Phase 20: the launcher on the card.  (a) SimpleRun with -monitor:
     four worker processes of ``chip_smoke.py --kfrun-worker`` train
@@ -7621,8 +7722,10 @@ def phase_kfrun(torch, np, kernels) -> dict:
     root = tempfile.mkdtemp(prefix="kfr")
     out = {}
     try:
-        a = _kfrun_launch(root, "a", [], [], scrape=True)
+        sdir = os.path.join(root, "sentinel")
+        a = _kfrun_launch(root, "a", ["-sentinel", sdir], [], scrape=True)
         check(a["rc"] == 0, f"(a) exited {a['rc']}")
+        out["a_sentinel"] = _kfrun_sentinel(sdir, a)
         b = _kfrun_launch(root, "b", ["-auto-recover", KFRUN_PERIOD],
                           ["--die-at-epoch", str(KFRUN_DIE_EPOCH)],
                           scrape=False)
@@ -7758,6 +7861,723 @@ def phase_kfrun(torch, np, kernels) -> dict:
     out["launches"] = launches
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"kfrun phase: {out['phase_s']:.2f} s; launches {launches}")
+    return out
+
+
+#: phase 21: the sentinel plane and the trace tools on the flagship.  Each
+#: of three port peers (the Python engine path, so the chaos hooks apply)
+#: runs the flagship's forward and backward at [P21_BATCH, P21_SEQ] a step
+#: and allreduces the first P21_GRAD_ELEMS f32 of its flat gradient on the
+#: host with STAR (bench.py:2714 payload_sentinel's scenario)
+P21_RANKS, P21_BATCH, P21_SEQ = 3, 2, 128
+P21_GRAD_ELEMS = 50_000
+#: the allreduced slice against the three slices' sum
+P21_ALLREDUCE_RTOL = 1e-6
+#: (a): unsampled warm steps the pace is taken from, the pace as a
+#: multiple of their slowest, the sentinel's window, the clean and the
+#: faulted steps, and the detection budget in windows
+P21_WARM, P21_PACE_X, P21_WINDOW = 4, 1.5, 4
+P21_CLEAN, P21_CHAOS, P21_K_WINDOWS = 16, 10, 2
+#: rank 1's two legs (its send, then its receive at twice the delay)
+#: exceed the pad (the pace less a step's compute) by at least this share
+#: of the pace
+P21_WIRE_MARGIN = 0.3
+#: (b): bench.py:3110-3230 part B of payload_pulse: the host bandit under
+#: a 30 ms 0<->1 delay on send and ping, a two-sample ledger window
+P21_LEDGER_STEPS, P21_LEDGER_WINDOW, P21_LEDGER_WIRE_MS = 36, 2, 30
+#: (c): the sentinel's warmup in steps, and the prefill lengths warmed
+#: before it (buckets 16 and 32) and after it (one new bucket, 64)
+P21_WARMUP_STEPS, P21_PROMPT_EARLY, P21_PROMPT_LATE = 2, 32, 48
+#: (e): one SynchronousSGDOptimizer(torch.optim.SGD) step against a plain
+#: SGD step on the mean of the three gradients
+P21_SGD_LR, P21_SGD_RTOL = 0.05, 1e-6
+#: the rows of the TPU kernel table phase 21 launches, by their names in
+#: the wrappers' counts and a substring of each CUDA kernel's name in the
+#: profiler's device events
+P21_KERNELS = {"flash_fwd": "flash_fwd_", "flash_bwd_dq": "flash_bwd_dq_",
+               "flash_bwd_dkv": "flash_bwd_dkv_",
+               "xent_fwd": "_xent_fwd_kernel", "xent_bwd": "_xent_bwd_kernel"}
+#: every sentinel and chaos token the phase sets, unset around it
+P21_ENVS = ("KF_SENTINEL_DIR", "KF_SENTINEL_PERIOD", "KF_SENTINEL_WINDOW",
+            "KF_SENTINEL_THRESHOLD", "KF_SENTINEL_WARMUP_STEPS",
+            "KF_SENTINEL_MFU_FLOOR", "KF_SENTINEL_STEP_CEILING_S",
+            "KF_SENTINEL_KEEP_BYTES", "KF_SENTINEL_INCIDENT_WINDOW",
+            "KF_CHAOS_SPEC")
+
+
+def _p21_batch(torch, np, vocab: int, rank: int, step: int):
+    """Rank ``rank``'s ids and targets at ``step``, from a seed."""
+    rng = np.random.default_rng([21, rank, step + 1000])
+    ids, tg = (torch.from_numpy(rng.integers(0, vocab, size=(
+        P21_BATCH, P21_SEQ))).cuda() for _ in range(2))
+    return ids, tg
+
+
+def _p21_sentinel(torch, np, ctx, root: str) -> dict:
+    """(a): payload_sentinel on the card; see phase_sentinel."""
+    from kungfu_tpu_torch import chaos
+    from kungfu_tpu_torch.elastic.configserver import ConfigServer
+    from kungfu_tpu_torch.monitor import kftop, timeline
+    from kungfu_tpu_torch.monitor.aggregator import (REPORT_KINDS,
+                                                     ClusterAggregator,
+                                                     make_snapshot)
+    from kungfu_tpu_torch.monitor.registry import REGISTRY
+    from kungfu_tpu_torch.monitor.sentinel import Sentinel
+    from kungfu_tpu_torch.peer import start_local_cluster
+    from kungfu_tpu_torch.policy import sentinel_signals
+
+    ranks = range(P21_RANKS)
+    vocab = ctx["model"].cfg.vocab_size
+    slices, sums = {}, {}
+    rank_steps = [0]  # forward and backward passes, for the launch count
+
+    def rank_step(p, r, step, pace):
+        t0 = time.perf_counter()
+        with timeline.span("input", "batch.next", rank=r):
+            batch = _p21_batch(torch, np, vocab, r, step)
+        g = ctx["grad_slice"](batch)
+        out = p.engine().all_reduce(g, op="sum")
+        slices[r], sums[r] = g, out
+        pad = pace - (time.perf_counter() - t0)
+        if pad > 0:
+            time.sleep(pad)
+        return time.perf_counter() - t0
+
+    def world(peers, step, pace):
+        walls = _run_ranks([lambda p=p, r=r: rank_step(p, r, step, pace)
+                            for r, p in zip(ranks, peers)], timeout=300)
+        rank_steps[0] += len(walls)
+        want = slices[0] + slices[1] + slices[2]
+        for r in ranks:
+            check(np.allclose(sums[r], want, rtol=P21_ALLREDUCE_RTOL, atol=0),
+                  f"(a) rank {r}'s allreduce at step {step} is not the "
+                  f"three slices' sum")
+        return walls
+
+    env = {"KF_ALLREDUCE_STRATEGY": "STAR"}
+    # the pace: the slowest of four unsampled warm steps, without faults
+    peers = start_local_cluster(P21_RANKS, env=env, devices=["cuda"])
+    try:
+        world(peers, -1, 0.0)  # first launches of this process's shapes
+        warm = [max(world(peers, -1, 0.0)) for _ in range(P21_WARM)]
+    finally:
+        for p in peers:
+            p.close()
+    pace = P21_PACE_X * max(warm)
+    # rank 1's legs are its send (wire) and its receive (twice the wire);
+    # the pad is at most the whole pace (a step that computes nothing), so
+    # legs of (1 + margin) x pace exceed any pad by the margin x pace
+    wire_ms = math.ceil((1 + P21_WIRE_MARGIN) * pace / 3 * 1e3)
+    print(f"phase 21 (a): warm steps {[round(w * 1e3, 2) for w in warm]} ms, "
+          f"pace {pace * 1e3:.2f} ms, pad below {pace * 1e3:.2f} ms, "
+          f"wire_ms {wire_ms} (rank 1's legs {3 * wire_ms} ms >= the pad + "
+          f"{P21_WIRE_MARGIN} x the pace)")
+    d = os.path.join(root, "a")
+    _set_env({"KF_SENTINEL_DIR": d, "KF_SENTINEL_PERIOD": "1",
+              "KF_SENTINEL_WINDOW": str(P21_WINDOW),
+              "KF_CHAOS_SPEC": (
+                  f"delay:ms={wire_ms},rank=0,peer=1,on=send,"
+                  f"after_step={P21_CLEAN};"
+                  f"delay:ms={wire_ms},rank=1,peer=0,on=send,"
+                  f"after_step={P21_CLEAN};"
+                  f"delay:ms={2 * wire_ms},rank=1,peer=0,on=recv,"
+                  f"after_step={P21_CLEAN}")})
+    chaos.reset()
+    clock = [1000.0]
+    agg = ClusterAggregator(stale_after=3600.0, time_fn=lambda: clock[0])
+    sentinel = Sentinel.from_env()
+    check(sentinel is not None and sentinel.window == P21_WINDOW,
+          "Sentinel.from_env() did not read KF_SENTINEL_DIR/WINDOW")
+    agg.attach_sentinel(sentinel)
+    counter = REGISTRY.counter("kf_alerts_total", rule="regress:step_time_s")
+    alerts0 = counter.value
+
+    def ingest(r, step, wall_s, events):
+        agg.ingest(make_snapshot(
+            rank=r, pid=os.getpid(), wall=clock[0], step=step,
+            step_time_s=wall_s, counters={}, gauges={}, latency={},
+            events=[e for e in events if e["rank"] == r
+                    and e["kind"] in REPORT_KINDS
+                    and e.get("step", -1) >= step - 1],
+            net={}, strategy="STAR"))
+
+    # the operator's view while the alert is live: the routes, kftop's
+    # frame and the policy signals, read once the rule first turns active
+    srv = ConfigServer(port=0, aggregator=agg).start()
+    live = {}
+
+    def scrape():
+        for route in ("/alerts", "/decisions", "/cluster"):
+            code, text = _http(f"http://127.0.0.1:{srv.port}{route}")
+            live[route] = code
+        live["view"] = json.loads(text) if code == 200 else None
+
+    peers = start_local_cluster(P21_RANKS, env=env, devices=["cuda"])
+    walls_by_step = []
+    try:
+        for _ in range(2):
+            world(peers, -1, pace)
+        timeline.reset()
+        onset_records, early = None, None
+        t0 = time.perf_counter()
+        for i in range(P21_CLEAN + P21_CHAOS):
+            if i == P21_CLEAN:
+                early = [a["rule"] for a in sentinel.alerts_view()["alerts"]]
+                onset_records = sentinel.alerts_view()["records"]
+            for r in ranks:
+                chaos.note_step(r, i)
+            walls = world(peers, i, pace)
+            walls_by_step.append(walls)
+            events = timeline.snapshot()
+            for r in ranks:
+                ingest(r, i, walls[r], events)
+            # past the sample period, then rank 0 again: the sentinel's
+            # sample of step i sees every rank's row fresh
+            clock[0] += 1.0
+            ingest(0, i, walls[0], events)
+            if not live and "regress:step_time_s" in \
+                    sentinel.alerts_view()["active"]:
+                scrape()
+        loop_s = time.perf_counter() - t0
+    finally:
+        srv.stop()
+        for p in peers:
+            p.close()
+        os.environ.pop("KF_CHAOS_SPEC", None)
+        chaos.reset()
+    check(early == [], f"(a) alerts before the onset: {early}")
+    av = sentinel.alerts_view()
+    fired = [a for a in av["alerts"] if a["rule"] == "regress:step_time_s"]
+    check(len(fired) == 1 and fired[0].get("incident"),
+          f"(a) regress:step_time_s fired {len(fired)} times: {av['alerts']}")
+    with open(fired[0]["incident"]) as f:
+        incident = json.load(f)
+    latency = incident["history_n"] - onset_records
+    check(0 < latency <= P21_K_WINDOWS * P21_WINDOW,
+          f"(a) alert {latency} samples after the onset (budget "
+          f"{P21_K_WINDOWS * P21_WINDOW})")
+    check(counter.value - alerts0 == 1,
+          f"kf_alerts_total{{rule=regress:step_time_s}} moved by "
+          f"{counter.value - alerts0}")
+    check(any(e["kind"] == "alert" and e["name"] == "regress:step_time_s"
+              for e in timeline.snapshot()), "(a) no alert timeline event")
+    culprit = ((incident.get("xray") or {}).get("verdict") or {}).get(
+        "culprit") or {}
+    links = {(e["rank"], e["attrs"].get("peer"))
+             for e in incident["timeline_tail"]
+             if e["kind"] == "chaos" and e["name"] == "delay"}
+    check(culprit.get("slowest_rank") == 1 and links
+          and links <= {(0, 1), (1, 0)},
+          f"(a) the incident names {culprit} over chaos links {links}, not "
+          f"rank 1 and the 0<->1 edge")
+    # the offline replay, the tool as an operator runs it (its window
+    # and threshold from the same env knobs)
+    rep = subprocess.run(
+        [sys.executable, "-m", "kungfu_tpu_torch.monitor.kfhist", "--dir", d,
+         "--verdict", "--upto", str(incident["history_n"]), "--json"],
+        capture_output=True, text=True, timeout=120, cwd=HERE,
+        env=dict(os.environ, PYTHONPATH=HERE))
+    check(rep.returncode == 0, f"kfhist --verdict exited {rep.returncode}: "
+          f"{rep.stderr[-1500:]}")
+    offline = json.loads(rep.stdout)["verdicts"]
+    check(json.dumps(offline, sort_keys=True)
+          == json.dumps(incident["verdicts"], sort_keys=True),
+          f"(a) kfhist's replay {offline} differs from the incident's "
+          f"{incident['verdicts']}")
+    codes = {k: v for k, v in live.items() if k != "view"}
+    check(codes == {"/alerts": 200, "/decisions": 200, "/cluster": 200},
+          f"(a) the config server answered {codes}")
+    view = live["view"]
+    frame = kftop.render_view(view)
+    check("== ALERTS" in frame and "regress:step_time_s" in frame,
+          "(a) kftop's frame has no alerts section")
+    sig = sentinel_signals(view)
+    check(sig is not None and "step_time_s" in sig["regressing"],
+          f"(a) sentinel_signals: {sig}")
+    clean = [max(w) for w in walls_by_step[:P21_CLEAN]]
+    faulted = [max(w) for w in walls_by_step[P21_CLEAN:]]
+    v = incident["verdicts"]["step_time_s"]
+    # each rank's dump of the shared recorder, as its own process writes it
+    dumps = [os.path.join(root, f"trace-rank{r}.jsonl") for r in ranks]
+    for r, path in zip(ranks, dumps):
+        timeline.dump(path, rank=r)
+    out = {"warm_ms": [w * 1e3 for w in warm], "pace_ms": pace * 1e3,
+           "wire_ms": wire_ms,
+           "clean_step_ms_median": statistics.median(clean) * 1e3,
+           "faulted_step_ms_median": statistics.median(faulted) * 1e3,
+           "onset_records": onset_records,
+           "alert_history_n": incident["history_n"],
+           "samples_onset_to_alert": latency, "score": v["score"],
+           "base_median_s": v["base_median"],
+           "recent_median_s": v["recent_median"], "culprit": culprit,
+           "chaos_links": sorted(links), "loop_s": loop_s,
+           "rules_fired": [a["rule"] for a in av["alerts"]],
+           "incident": os.path.basename(fired[0]["incident"]),
+           "dumps": dumps,
+           "culprit_rank": culprit.get("slowest_rank"),
+           "rank_steps": rank_steps[0]}
+    print(f"phase 21 (a): clean step {out['clean_step_ms_median']:.2f} ms, "
+          f"faulted {out['faulted_step_ms_median']:.2f} ms (median of the "
+          f"slowest rank); regress:step_time_s {latency} samples after the "
+          f"onset (score {v['score']}, baseline {v['base_median']} s -> "
+          f"{v['recent_median']} s); incident culprit {culprit}; chaos "
+          f"links {sorted(links)}; kfhist replay equal; /alerts "
+          f"/decisions 200; rules fired {out['rules_fired']}")
+    return out
+
+
+def _p21_ledger(np, root: str, data) -> dict:
+    """(b): payload_pulse part B over three peers; see phase_sentinel."""
+    from kungfu_tpu_torch import chaos
+    from kungfu_tpu_torch.monitor import history, ledger, timeline
+    from kungfu_tpu_torch.monitor.adapt_device import HostBanditDriver
+    from kungfu_tpu_torch.peer import start_local_cluster
+
+    d = os.path.join(root, "b")
+    _set_env({"KF_SENTINEL_DIR": d,
+              "KF_SENTINEL_WINDOW": str(P21_LEDGER_WINDOW),
+              "KF_CHAOS_SPEC": ";".join(
+                  f"delay:ms={P21_LEDGER_WIRE_MS},rank={a},peer={b},on={on}"
+                  for a, b in ((0, 1), (1, 0)) for on in ("send", "ping"))})
+    chaos.reset()
+    ledger.reset()
+    timeline.reset()
+    led = ledger.ledger_for(d)
+    check(led.window == P21_LEDGER_WINDOW, f"ledger window {led.window}")
+    ring = history.HistoryRing(d, "cluster")
+    peers = start_local_cluster(
+        P21_RANKS, env={"KF_ALLREDUCE_STRATEGY": "STAR"}, devices=["cuda"])
+    want = data + data + data
+    try:
+        drivers = [HostBanditDriver(p, check_every=2, min_pulls=1,
+                                    min_swap_collectives=1) for p in peers]
+
+        def measure(p, drv):
+            t0 = time.perf_counter()
+            got = p.engine().all_reduce(data, op="sum")
+            dt = time.perf_counter() - t0
+            check(np.allclose(got, want, rtol=P21_ALLREDUCE_RTOL, atol=0),
+                  "(b) allreduce is not the three slices' sum")
+            drv.step(dt)
+            return dt
+
+        times = []
+        for _ in range(P21_LEDGER_STEPS):
+            dts = _run_ranks([lambda p=p, drv=drv: measure(p, drv)
+                              for p, drv in zip(peers, drivers)],
+                             timeout=120)
+            rec = {"series": {"step_time_s": max(dts)}}
+            ring.append(rec)
+            led.on_sample(rec)
+            times.append(max(dts))
+        active = {drv.active for drv in drivers}
+        swaps = sum(drv.swaps for drv in drivers)
+    finally:
+        for p in peers:
+            p.close()
+        os.environ.pop("KF_CHAOS_SPEC", None)
+        chaos.reset()
+    check(len(active) == 1, f"(b) the ranks diverged on the arm: {active}")
+    arm = next(iter(active))
+    view = led.view()
+    verdicts = [(ledger.lfield(row["decision"], "actor"),
+                 ledger.lfield(row["decision"], "new"),
+                 ledger.lfield(row["effect"], "verdict"))
+                for row in view["decisions"]]
+    check(any(a == "bandit-host" and new == arm and v == "improved"
+              for a, new, v in verdicts)
+          and all(ledger.lfield(row["decision"], "knob") == "strategy"
+                  for row in view["decisions"]),
+          f"(b) no bandit-host/strategy decision onto {arm} judged improved: "
+          f"{verdicts}")
+    rep = ledger.replay_effects(d)
+    judged = [r for r in rep["decisions"] if r["online"] is not None]
+    check(judged and all(json.dumps(r["online"], sort_keys=True)
+                         == json.dumps(r["replayed"], sort_keys=True)
+                         for r in judged),
+          "(b) replay_effects does not recompute every judged verdict")
+    evs = timeline.snapshot()
+    decisions = [e for e in evs if e["kind"] == "decision"]
+    swap_events = [e for e in evs if e["kind"] == "swap"]
+    check(len(decisions) == swaps == len(swap_events) > 0,
+          f"(b) {len(decisions)} decision events, {len(swap_events)} swap "
+          f"events, {swaps} swaps")
+    out = {"arm": arm, "swaps": swaps, "decisions": verdicts,
+           "judged": len(judged), "summary": view["summary"],
+           "step_ms_first": times[0] * 1e3,
+           "step_ms_last8_median": statistics.median(times[-8:]) * 1e3}
+    print(f"phase 21 (b): arm {arm} on every rank, {swaps} swaps (and as "
+          f"many decision events), verdicts {verdicts}, replay identical "
+          f"for {len(judged)} judged; step {out['step_ms_first']:.1f} -> "
+          f"{out['step_ms_last8_median']:.1f} ms")
+    return out
+
+
+def _p21_recompile(torch, ctx, root: str) -> dict:
+    """(c): the recompile watermark over a CUDA-graph capture after the
+    sentinel's warmup; see phase_sentinel."""
+    from kungfu_tpu_torch.monitor import timeline
+    from kungfu_tpu_torch.monitor.aggregator import (ClusterAggregator,
+                                                     RankReporter)
+    from kungfu_tpu_torch.monitor.metrics import install_compile_metrics
+    from kungfu_tpu_torch.monitor.registry import REGISTRY
+    from kungfu_tpu_torch.monitor.sentinel import Sentinel
+    from kungfu_tpu_torch.serve.engine import InferenceEngine
+    from kungfu_tpu_torch.serve.kvcache import KVCachePool, PageSpec
+
+    _set_env({"KF_SENTINEL_DIR": os.path.join(root, "c"),
+              "KF_SENTINEL_PERIOD": "1", "KF_SENTINEL_WINDOW": "4",
+              "KF_SENTINEL_WARMUP_STEPS": str(P21_WARMUP_STEPS)})
+    print(f"phase 21 (c): KF_SENTINEL_WARMUP_STEPS={P21_WARMUP_STEPS}")
+    check(install_compile_metrics() and install_compile_metrics(),
+          "install_compile_metrics")
+    counter = REGISTRY.counter("kf_jit_compiles_total")
+    hist = REGISTRY.histogram("kf_jit_compile_seconds")
+    model, params = ctx["model"], ctx["params"]
+    pool = KVCachePool(PageSpec.for_model(model.cfg,
+                                          page_tokens=SERVE_PAGE_TOKENS),
+                       SERVE_PAGES)
+    n0 = counter.value
+    eng = InferenceEngine(model, params, pool=pool, max_batch=SERVE_MAX_BATCH,
+                          max_seq=SERVE_MAX_SEQ, rank=0)
+    eng.warmup(prompt_lens=(P21_PROMPT_EARLY,))
+    early = counter.value - n0
+    check(early >= 2, f"(c) the first warmup captured {early} graphs")
+    clock = [1000.0]
+    agg = ClusterAggregator(stale_after=3600.0, time_fn=lambda: clock[0])
+    sentinel = Sentinel.from_env()
+    check(sentinel.warmup_steps == P21_WARMUP_STEPS, "warmup steps")
+    agg.attach_sentinel(sentinel)
+    reporter = RankReporter(0, "http://127.0.0.1:1/get")
+    fired, rows = [], []
+    late = None
+    for step in range(P21_WARMUP_STEPS + 4):
+        if step == P21_WARMUP_STEPS + 2:
+            c0, s0 = counter.value, hist.sum
+            eng.warmup(prompt_lens=(P21_PROMPT_LATE,))
+            late = {"captures": counter.value - c0,
+                    "capture_ms": (hist.sum - s0) * 1e3}
+        timeline.set_step(step)
+        agg.ingest(reporter.snapshot_once())
+        clock[0] += 1.0
+        rows.append(agg.cluster_view()["ranks"][0]["counters"].get(
+            "kf_jit_compiles_total"))
+        fired.append([a["rule"] for a in sentinel.alerts_view()["alerts"]])
+    timeline.set_step(-1)
+    del eng
+    want = [[]] * (P21_WARMUP_STEPS + 2) + [["watermark:recompile_steady"]] * 2
+    check(fired == want and late["captures"] == 1
+          and rows[-2] == rows[-3] + 1,
+          f"(c) alerts by sample {fired}, the late warmup's captures "
+          f"{late}, the rank row's compiles {rows}")
+    out = {"warmup_steps": P21_WARMUP_STEPS, "early_captures": early,
+           "late": late, "row_compiles": rows,
+           "alerts": fired[-1]}
+    print(f"phase 21 (c): {early} captures before the sentinel's warmup; "
+          f"one capture at step {P21_WARMUP_STEPS + 2} "
+          f"({late['capture_ms']:.1f} ms) fired watermark:recompile_steady "
+          f"once; the next sample fired nothing; the rank row's "
+          f"kf_jit_compiles_total {rows}")
+    return out
+
+
+def _p21_trace(torch, np, kernels, ctx, root: str, a: dict) -> dict:
+    """(d): device_trace around one training step of rank 0, and kftrace
+    over (a)'s dumps; see phase_sentinel."""
+    import contextlib
+    import io
+
+    from kungfu_tpu_torch.monitor import skew, traceview, xray
+    from kungfu_tpu_torch.parallel.train import per_rank_grads
+    from kungfu_tpu_torch.utils import trace
+
+    trace.reset_trace_stats()
+    model, params = ctx["model"], ctx["params"]
+    batch = _p21_batch(torch, np, model.cfg.vocab_size, 0, 0)
+
+    @trace.traced(name="phase21.train_step")
+    def step():
+        return ctx["grads"](batch)
+
+    # the same step outside the trace, held against the plain versions
+    grads_k = []
+    outs, _ = per_rank_grads(ctx["loss_fn"], params, [batch],
+                             lambda r, g: grads_k.extend(g))
+    plain = _kfrun_plain_check(torch, kernels, model, params, batch,
+                               float(outs[0]), grads_k, lr=P21_SGD_LR,
+                               what="phase 21 (d) rank 0")
+    del grads_k, outs
+    print(f"phase 21 (d): rank 0's step vs the plain versions: loss "
+          f"{plain['loss']:.6f} vs {plain['loss_plain']:.6f} (rel "
+          f"{plain['loss_rel']:.3e}, tol {KFRUN_LOSS_RTOL}); worst gradient "
+          f"leaf {plain['grad_rel_l2_worst_leaf']} rel L2 "
+          f"{plain['grad_rel_l2_worst']:.3e}, q/k "
+          f"{plain['qk_grad_rel_l2_worst']:.3e}, params after an SGD step "
+          f"{plain['params_rel_l2_worst']:.3e} (tol {KFRUN_GRAD_REL_L2})")
+    torch.cuda.synchronize()
+    _reset(kernels)
+    logdir = os.path.join(root, "device_trace")
+    with trace.device_trace(logdir, force=True) as prof:
+        step()
+    counts = _counts(kernels)
+    check(counts == ctx["want"](1), f"(d) one step launched {counts}, "
+          f"expected {ctx['want'](1)}")
+    files = os.listdir(logdir)
+    check(len(files) == 1 and files[0].endswith(".json"),
+          f"(d) device_trace wrote {files}")
+    with open(os.path.join(logdir, files[0])) as f:
+        doc = json.load(f)
+    check(doc.get("traceEvents"), "(d) the Chrome trace has no events")
+    seen = {k: [0, 0.0] for k in P21_KERNELS}
+    for evt in prof.events():
+        if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        for k, sub in P21_KERNELS.items():
+            if sub in evt.name:
+                seen[k][0] += 1
+                seen[k][1] += evt.time_range.elapsed_us() / 1e3
+    per_kernel = {k: {"launches": n, "wrapper_launches": counts[k],
+                      "device_ms_per_launch": ms / n if n else None}
+                  for k, (n, ms) in seen.items()}
+    check(all(seen[k][0] == counts[k] > 0 for k in P21_KERNELS),
+          f"(d) the device trace's launches {per_kernel} are not the "
+          f"wrappers' counts")
+    rep = trace.trace_report()
+    check(rep.get("phase21.train_step", {}).get("count") == 1,
+          f"(d) trace_report: {rep}")
+    # kftrace over (a)'s three dumps
+    events = traceview.load_all(a["dumps"])
+    text = traceview.render_report(events, top=P21_CLEAN + P21_CHAOS)
+    chaos_steps = [row for row in skew.slowest_rank_per_step(events)
+                   if row["step"] >= P21_CLEAN]
+    slow1 = [row["step"] for row in chaos_steps if row["slowest_rank"] == 1]
+    check(len(slow1) * 2 > len(chaos_steps) > 0
+          and all(f"step {s}: rank 1 " in text for s in slow1),
+          f"(d) kftrace's report does not name rank 1 the slowest in the "
+          f"faulted steps: {chaos_steps}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = traceview.main(["--critical-path", *a["dumps"]])
+    culprit = xray.verdict(events)["culprit"]
+    check(rc == 0 and culprit["slowest_rank"] == a["culprit_rank"]
+          and f"culprit edge: all_reduce/{culprit['tag']} rank "
+              f"{culprit['slowest_rank']} " in buf.getvalue(),
+          f"(d) --critical-path names {culprit}, the incident rank "
+          f"{a['culprit_rank']}")
+    merged = os.path.join(root, "merged.json")
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = traceview.main(["merge", "-o", merged, *a["dumps"]])
+    with open(merged) as f:
+        chrome = json.load(f)
+    check(rc == 0 and chrome == traceview.chrome_trace(events),
+          "(d) kftrace merge did not write the Chrome trace that loads back")
+    launches = dict(counts)
+    out = {"per_kernel": per_kernel,
+           "trace_events": len(doc["traceEvents"]),
+           "traced_count": rep["phase21.train_step"]["count"],
+           "kftrace_slowest_rank1_steps": slow1,
+           "critical_path_culprit": culprit,
+           "chrome_events": len(chrome["traceEvents"]),
+           "plain": plain, "launches": launches}
+    print(f"phase 21 (d): device trace {files[0]} "
+          f"({out['trace_events']} events): "
+          + ", ".join(f"{k} {v['launches']} launches, "
+                      f"{v['device_ms_per_launch'] or 0.0:.4f} ms"
+                      for k, v in per_kernel.items())
+          + f"; kftrace names rank 1 the slowest in faulted steps {slow1}; "
+          f"--critical-path culprit {culprit['slowest_rank']} -> "
+          f"{culprit['fastest_rank']}")
+    return out
+
+
+def _p21_shim(torch, np, ctx) -> dict:
+    """(e): the torch shim on the card over three port peers; see
+    phase_sentinel."""
+    from kungfu_tpu_torch import torch as kt
+    from kungfu_tpu_torch.peer import start_local_cluster
+    from kungfu_tpu_torch.utils.tree import tree_flatten, tree_unflatten
+
+    model = ctx["model"]
+    vocab = model.cfg.vocab_size
+    ranks = range(P21_RANKS)
+    trees = [model.init(torch.Generator().manual_seed(100 + r),
+                        device="cuda") for r in ranks]
+    treedef = tree_flatten(trees[0])[1]
+    leaves = [[t.detach().clone().requires_grad_(True)
+               for t in tree_flatten(tr)[0]] for tr in trees]
+    del trees
+    peers = start_local_cluster(
+        P21_RANKS, env={"KF_ALLREDUCE_STRATEGY": "STAR"}, devices=["cuda"])
+    grads0 = {}
+    try:
+        t0 = time.perf_counter()
+        _run_ranks([lambda p=p, r=r: kt.broadcast_parameters(
+            leaves[r], engine=p.engine()) for p, r in zip(peers, ranks)],
+            timeout=600)
+        bcast_s = time.perf_counter() - t0
+        diff = [(r, i) for r in ranks for i, t in enumerate(leaves[r])
+                if not torch.equal(t, leaves[0][i])]
+        check(not diff, f"(e) after broadcast_parameters leaves differ: "
+                        f"{diff[:4]}")
+        before = [t.detach().clone() for t in leaves[0]]
+
+        def rank_step(p, r):
+            opt = kt.SynchronousSGDOptimizer(
+                torch.optim.SGD(leaves[r], lr=P21_SGD_LR), engine=p.engine())
+            ids, tg = _p21_batch(torch, np, vocab, r, 100)
+            logits = model.apply(tree_unflatten(treedef, leaves[r]), ids,
+                                 train=True, attn_fn=ctx["flash"])
+            ctx["xent"].softmax_cross_entropy(logits, tg).mean().backward()
+            grads0[r] = [t.grad.detach().clone() for t in leaves[r]]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            opt.step()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t1
+
+        step_s = _run_ranks([lambda p=p, r=r: rank_step(p, r)
+                             for p, r in zip(peers, ranks)], timeout=600)
+    finally:
+        for p in peers:
+            p.close()
+    diff = [(r, i) for r in ranks for i, t in enumerate(leaves[r])
+            if not torch.equal(t, leaves[0][i])]
+    check(not diff, f"(e) params differ across ranks after the step: "
+                    f"{diff[:4]}")
+    # the plain step: torch.optim.SGD on a copy of the start, its gradient
+    # the mean of the three ranks' own.  The mean divides by a tensor: a
+    # CUDA division by a Python number multiplies by its reciprocal, one
+    # more rounding than the engine's (numpy's) division
+    plain = [t.clone().requires_grad_(True) for t in before]
+    three = torch.tensor(3.0, device=before[0].device)
+    for i, t in enumerate(plain):
+        t.grad = (grads0[0][i] + grads0[1][i] + grads0[2][i]) / three
+    torch.optim.SGD(plain, lr=P21_SGD_LR).step()
+    worst = 0.0
+    for i, (t, want) in enumerate(zip(leaves[0], plain)):
+        t, want = t.detach(), want.detach()
+        check(torch.allclose(t, want, rtol=P21_SGD_RTOL, atol=0),
+              f"(e) leaf {i} differs from a plain SGD step on the mean "
+              f"gradient")
+        worst = max(worst, ((t - want).abs()
+                            / want.abs().clamp_min(1e-30)).max().item())
+    on_card = all(t.is_cuda and t.grad is not None and t.grad.is_cuda
+                  for r in ranks for t in leaves[r])
+    check(on_card, "(e) a tensor left the card")
+    out = {"broadcast_s": bcast_s,
+           "step_ms": [s * 1e3 for s in step_s],
+           "worst_rel_vs_plain": worst,
+           "bitwise_vs_plain": all(torch.equal(t.detach(), w.detach())
+                                   for t, w in zip(leaves[0], plain)),
+           "leaves": len(leaves[0]),
+           "params": sum(t.numel() for t in leaves[0])}
+    print(f"phase 21 (e): broadcast_parameters of {out['params']} params in "
+          f"{out['leaves']} leaves {bcast_s:.2f} s, the three ranks bitwise "
+          f"equal; SynchronousSGDOptimizer(SGD) step "
+          f"{[round(s, 1) for s in out['step_ms']]} ms, ranks bitwise equal,"
+          f" worst relative difference from plain SGD on the mean gradient "
+          f"{worst:.3e} (rtol {P21_SGD_RTOL}); every tensor on the card")
+    return out
+
+
+def phase_sentinel(torch, np, kernels, tr) -> dict:
+    """Phase 21: the sentinel plane and the trace tools on the flagship.
+    (a) three peers train the flagship at [P21_BATCH, P21_SEQ] a rank,
+    allreduce a gradient slice on the host, paced, sampled by a fake-clock
+    aggregator with ``Sentinel.from_env()``; a 0<->1 delay armed at step
+    P21_CLEAN must raise ``regress:step_time_s`` once within two windows,
+    with an incident naming rank 1, kfhist's replay equal, ``/alerts``,
+    ``/decisions``, kftop and ``sentinel_signals``.  (b) the host bandit's
+    swaps judged by the decision ledger.  (c) a CUDA-graph capture after
+    the sentinel's warmup fires ``watermark:recompile_steady`` once.  (d)
+    ``device_trace`` over one training step names rows 1-5 with the
+    wrappers' counts; kftrace over (a)'s dumps.  (e) the torch shim:
+    ``broadcast_parameters`` and one ``SynchronousSGDOptimizer`` step.
+    Returns the result; its ``launches`` are (a), (d) and (e)'s."""
+    import shutil
+    import tempfile
+
+    from kungfu_tpu_torch import chaos
+    from kungfu_tpu_torch.monitor import ledger, timeline
+    from kungfu_tpu_torch.ops import xent
+    from kungfu_tpu_torch.ops.cuda import attention
+    from kungfu_tpu_torch.utils.tree import tree_flatten
+
+    t_phase = time.perf_counter()
+    old = _set_env({**{k: None for k in P21_ENVS},
+                    "KF_TPU_XENT": "fused", "KF_TPU_ATTN": None,
+                    "KF_NATIVE_ENGINE": "0",
+                    "KF_TPU_HOST_TRANSPORT": "python",
+                    "KF_CONFIG_ENABLE_TRACE": "1"})
+    xent.XENT_ENV.reload()
+    ledger.reset()
+    timeline.reset()
+    chaos.reset()
+    root = tempfile.mkdtemp(prefix="kfs")
+    out = {}
+    try:
+        model = tr.Transformer(tr.TransformerConfig(**FLAGSHIP))
+        params = model.init(torch.Generator().manual_seed(0), device="cuda")
+        flash = attention.make_flash_attn()
+
+        def loss_fn(p, b):
+            logits = model.apply(p, b[0], train=True, attn_fn=flash)
+            return xent.softmax_cross_entropy(logits, b[1]).mean()
+
+        def grads(batch):
+            return _grads(loss_fn, params, batch)
+
+        def grad_slice(batch):
+            # the first P21_GRAD_ELEMS of the flat gradient, to the host
+            g = tree_flatten(grads(batch))[0][0].reshape(-1)
+            return g[:P21_GRAD_ELEMS].float().cpu().numpy()
+
+        def want(rank_steps):
+            # every kernel's launches over ``rank_steps`` forward and
+            # backward passes; no other kernel launches
+            return {**{k: 0 for k in _counts(kernels)},
+                    **_rank_launches(model.cfg, rank_steps)}
+
+        ctx = {"model": model, "params": params, "flash": flash,
+               "xent": xent, "loss_fn": loss_fn, "grads": grads,
+               "grad_slice": grad_slice, "want": want}
+        _reset(kernels)
+        out["a"] = _p21_sentinel(torch, np, ctx, root)
+        launches = _counts(kernels)
+        check(launches == want(out["a"]["rank_steps"]),
+              f"(a) {out['a']['rank_steps']} rank steps launched "
+              f"{launches}, expected {want(out['a']['rank_steps'])}")
+        data = grad_slice(_p21_batch(torch, np, model.cfg.vocab_size, 0, 0))
+        _reset(kernels)
+        out["b"] = _p21_ledger(np, root, data)
+        _set_env({k: None for k in P21_ENVS})
+        out["c"] = _p21_recompile(torch, ctx, root)
+        _set_env({k: None for k in P21_ENVS})
+        out["d"] = _p21_trace(torch, np, kernels, ctx, root, out["a"])
+        launches = {k: v + out["d"]["launches"][k]
+                    for k, v in launches.items()}
+        del params
+        torch.cuda.empty_cache()
+        _set_env({"KF_NATIVE_ENGINE": None, "KF_TPU_HOST_TRANSPORT": None})
+        _reset(kernels)
+        out["e"] = _p21_shim(torch, np, ctx)
+        check(_counts(kernels) == want(P21_RANKS),
+              f"(e) one step on {P21_RANKS} ranks launched "
+              f"{_counts(kernels)}, expected {want(P21_RANKS)}")
+        launches = {k: v + n for (k, v), n in zip(
+            launches.items(), (_counts(kernels)[k] for k in launches))}
+    finally:
+        _set_env(old)
+        xent.XENT_ENV.reload()
+        ledger.reset()
+        chaos.reset()
+        shutil.rmtree(root, ignore_errors=True)
+    out["a"].pop("dumps")
+    for k in P21_KERNELS:
+        check(launches[k] > 0, f"phase 21 never launched {k}")
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"sentinel phase: {out['phase_s']:.2f} s; launches {launches}")
     return out
 
 
@@ -7989,9 +8809,16 @@ def main() -> int:
     # `python -m kungfu_tpu_torch -monitor`, then a real worker death
     # relaunched from the epoch checkpoint by -auto-recover
     kfrun = phase_kfrun(torch, np, kernels)
+    torch.cuda.empty_cache()
+
+    # 21. the sentinel plane and the trace tools on the flagship: a planted
+    # step-time regression caught online and replayed offline, the
+    # decision ledger, the recompile watermark, device_trace and kftrace,
+    # the torch shim
+    sentinel = phase_sentinel(torch, np, kernels, tr)
     paths = (train, train_fused, ssgd, zero2, zero3, replicas, elastic,
              host_engine, recover, gossip, adapt, sharded, pipeline, images,
-             kfrun)
+             kfrun, sentinel)
 
     def row(name, route, source, replaces, key, err, timing, others=None):
         extra = {k: timing[k] for k in ("plain_head_ms", "bound_fp32_ms",
@@ -8091,6 +8918,7 @@ def main() -> int:
     for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "xent_fwd",
                 "xent_bwd"):
         check(kfrun["launches"][key] > 0, f"phase 20 never launched {key}")
+        check(sentinel["launches"][key] > 0, f"phase 21 never launched {key}")
     print("details: " + json.dumps({
         "forward": fwd, "serve": serve, "train": train,
         "train_fused_head": train_fused, "ssgd_4_ranks": ssgd,
@@ -8104,6 +8932,7 @@ def main() -> int:
         "pipeline_flagship_2_slices_of_2": pipeline,
         "images_resnet50_vgg16_data": images,
         "kfrun_bert_4_processes": kfrun,
+        "sentinel_flagship_3_peers": sentinel,
         "ring_timing": ring_timing, "build": build,
         "flash_fwd_errors": fwd_errs, "flash_fwd_timing": fwd_timing,
         "flash_bwd_errors": bwd_errs, "flash_bwd_timing": bwd_timing,

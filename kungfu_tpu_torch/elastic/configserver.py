@@ -19,9 +19,14 @@ mounted (``aggregator=``), two more routes serve the live cluster plane:
 
 * ``GET  /metrics`` -> the cluster plane's Prometheus text followed by
   this process's registry
+* ``GET  /alerts`` -> the kf-sentinel alert state (active rules, fired
+  alerts, detector verdicts), 404 unless a
+  :class:`~kungfu_tpu_torch.monitor.sentinel.Sentinel` is attached to the
+  mounted aggregator
+* ``GET  /decisions`` -> the kf-ledger view (recent decision records
+  joined to their measured effects, and the summary), the same 404 rule
 
-Without one they answer 404, as the reference's do.  ``/alerts`` and
-``/decisions`` answer 404 until ROADMAP A9b ports the sentinel.
+Without an aggregator they answer 404, as the reference's do.
 
 ``python -m kungfu_tpu_torch.elastic.configserver [-port P] [-host H]
 [-monitor]`` runs one alone (the reference's ``kf-config-server``).
@@ -40,9 +45,6 @@ from kungfu_tpu_torch.plan.cluster import Cluster
 from kungfu_tpu_torch.utils.log import get_logger
 
 _log = get_logger("config-server")
-
-#: the reference's sentinel routes, which wait for ROADMAP A9b (404)
-_A9B_ROUTES = ("/alerts", "/decisions")
 
 
 class ConfigServer:
@@ -95,8 +97,15 @@ class ConfigServer:
                     view = agg.cluster_view(srv._cluster_info())
                     self._reply(200, json.dumps(view).encode())
                     return
-                if self.path.startswith(_A9B_ROUTES):
-                    self._reply(404, b'{"error": "no sentinel"}')
+                if self.path.startswith(("/alerts", "/decisions")):
+                    sentinel = getattr(srv.aggregator, "_sentinel", None)
+                    if sentinel is None:
+                        self._reply(404, b'{"error": "no sentinel"}')
+                        return
+                    view = (sentinel.alerts_view()
+                            if self.path.startswith("/alerts")
+                            else sentinel.ledger.view())
+                    self._reply(200, json.dumps(view).encode())
                     return
                 if self.path.startswith("/metrics"):
                     agg = srv.aggregator
@@ -202,7 +211,9 @@ class ConfigServer:
 def main(argv=None) -> int:
     """A config server alone (reference ``configserver.py:205``, the
     ``kf-config-server`` entry).  ``-monitor`` mounts the cluster
-    aggregator (``/push``, ``/cluster``, ``/metrics``)."""
+    aggregator (``/push``, ``/cluster``, ``/metrics``), and with
+    ``KF_SENTINEL_DIR`` set attaches the sentinel (``/alerts``,
+    ``/decisions``)."""
     import argparse
     import time
 
@@ -218,6 +229,13 @@ def main(argv=None) -> int:
         from kungfu_tpu_torch.monitor.aggregator import ClusterAggregator
 
         aggregator = ClusterAggregator()
+        # KF_SENTINEL_DIR attaches the judging plane; unset, the
+        # aggregator is what it was before the sentinel
+        from kungfu_tpu_torch.monitor.sentinel import Sentinel
+
+        sentinel = Sentinel.from_env()
+        if sentinel is not None:
+            aggregator.attach_sentinel(sentinel)
     srv = ConfigServer(port=ns.port, host=ns.host,
                        aggregator=aggregator).start()
     _log.info("config server listening on %s:%d", ns.host, srv.port)

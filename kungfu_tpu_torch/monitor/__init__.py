@@ -1,7 +1,10 @@
 """Metrics registry, flight-recorder timeline and pulse (trimmed copies),
 the straggler math (:mod:`~kungfu_tpu_torch.monitor.skew`), the
 adaptation signals (:mod:`~kungfu_tpu_torch.monitor.adapt`), the
-strategy drivers of both planes and the UCB bandit drivers."""
+strategy drivers of both planes and the UCB bandit drivers; the
+sentinel plane (:mod:`~kungfu_tpu_torch.monitor.sentinel` over
+``detect``, ``history`` and the decision ``ledger``) and its tools, run
+as ``python -m kungfu_tpu_torch.monitor.{kfhist,kftop,traceview}``."""
 
 from kungfu_tpu_torch.monitor.adaptive import (
     AdaptiveStrategyDriver,

@@ -38,9 +38,9 @@ version moves (``elastic_step(bandit=)`` calls
 :meth:`HostBanditDriver.on_membership_change`, and both drivers also
 notice ``peer.cluster_version`` move by themselves).
 
-Each swap calls :func:`kungfu_tpu_torch.monitor.ledger.record_decision`
-where the reference writes its decision ledger; the port's is a
-do-nothing hook until ROADMAP A9b ports the ledger.
+Each swap writes a decision record through
+:func:`kungfu_tpu_torch.monitor.ledger.record_decision`, as the
+reference's does.
 """
 
 from __future__ import annotations
@@ -275,8 +275,8 @@ class HostBanditDriver:
             "swap", proposal, rank=self._rank(), plane="host",
             seq=self._seq, prev=prev, step=timeline.current_step(),
         )
-        # the decision ledger's record (a do-nothing hook until ROADMAP
-        # A9b); the digest seq is the consensus round that agreed on it
+        # the decision ledger's record; the digest seq is the consensus
+        # round that agreed on it
         ledger.record_decision(
             "bandit-host", "strategy", prev, proposal,
             consensus_seq=self._seq, evidence={"plane": "host"})

@@ -20,9 +20,11 @@ pushes to either package's aggregator.  The plane is off unless
 
 :meth:`ClusterAggregator.render_prometheus` gives the cluster plane's
 Prometheus series, which the config server merges into ``/metrics``.
-Left out until ROADMAP A9b: the sentinel
-(:meth:`ClusterAggregator.attach_sentinel` raises ``NotImplementedError``;
-``/alerts`` and ``/decisions`` answer 404).
+:meth:`ClusterAggregator.attach_sentinel` attaches the judging plane
+(:mod:`~kungfu_tpu_torch.monitor.sentinel`): it samples after each
+ingest and adds the ``alerts`` section to ``/cluster`` and
+``kf_cluster_alerts_active`` to ``/metrics``.  Without one, both are
+what they were before the sentinel existed.
 """
 
 from __future__ import annotations
@@ -261,12 +263,28 @@ class ClusterAggregator:
         self._events: Dict[int, deque] = {}      # rank -> recent events
         self._max_events = max_events_per_rank
         self._controls: deque = deque(maxlen=max_controls)
+        #: the attached kf-sentinel (None: off, and every view is what it
+        #: was before the sentinel existed)
+        self._sentinel = None
 
     def attach_sentinel(self, sentinel) -> None:
-        """The sentinel's judging plane comes with ROADMAP A9b."""
-        raise NotImplementedError(
-            "ClusterAggregator.attach_sentinel waits for ROADMAP A9b (the "
-            "sentinel is not ported yet)")
+        """Attach the kf-sentinel judging plane (duck-typed: this module
+        must not import :mod:`~kungfu_tpu_torch.monitor.sentinel`, which
+        imports it).  The sentinel samples after ingests and contributes
+        the ``alerts`` section of ``/cluster``."""
+        self._sentinel = sentinel
+
+    def _notify_sentinel(self) -> None:
+        """Post-ingest sentinel hook, outside the aggregator lock (the
+        sentinel calls back into ``cluster_view``) and guarded: the
+        judging plane must never take the ingest path down."""
+        s = self._sentinel
+        if s is None:
+            return
+        try:
+            s.on_ingest(self)
+        except Exception as e:  # noqa: BLE001 - monitoring must not raise
+            _log.debug("sentinel sample failed: %s", e)
 
     # -- ingest ----------------------------------------------------------
     def ingest(self, obj: dict) -> None:
@@ -290,6 +308,7 @@ class ClusterAggregator:
                     self._seen.pop(r, None)
             REGISTRY.counter("kf_cluster_control_events_total",
                              what=str(obj.get("kind"))).inc()
+            self._notify_sentinel()
             return
         if not obj.get("kfmon"):
             raise ValueError("push payload is neither snapshot nor control")
@@ -313,6 +332,7 @@ class ClusterAggregator:
                 if ev.get("rank") is None:
                     ev = dict(ev, rank=rank)
                 win.append(ev)
+        self._notify_sentinel()
 
     # -- views -----------------------------------------------------------
     @staticmethod
@@ -530,8 +550,11 @@ class ClusterAggregator:
             "straggler": skewlib.straggler_verdict(events),
             "controls": controls[-top:],
         }
-        # the alerts section exists only with a sentinel attached, which
-        # the port cannot do before ROADMAP A9b
+        # the alerts section exists only with a sentinel attached: with
+        # the plane off, /cluster is what it was before the sentinel
+        s = self._sentinel
+        if s is not None:
+            view["alerts"] = s.alerts_view()
         return view
 
     def render_prometheus(self, cluster_info: Optional[dict] = None,
@@ -617,6 +640,14 @@ class ClusterAggregator:
                         f'kf_cluster_step_phase_seconds'
                         f'{{phase="{_esc_label(ph)}"}} '
                         f'{xr["phase_seconds"][ph]:.6g}')
+        if view.get("alerts"):
+            lines += [
+                "# HELP kf_cluster_alerts_active kf-sentinel rules "
+                "currently firing",
+                "# TYPE kf_cluster_alerts_active gauge",
+                f"kf_cluster_alerts_active "
+                f"{len(view['alerts']['active'])}",
+            ]
         version = (view["cluster"] or {}).get("version")
         if version is not None:
             lines += [

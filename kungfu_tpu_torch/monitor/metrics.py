@@ -7,7 +7,9 @@ channels (:mod:`kungfu_tpu_torch.comm.host`) and exposed through an HTTP
 ``/metrics`` endpoint at ``worker port + 10000`` and through
 :meth:`NetMonitor.egress_rates` (``Peer.get_egress_rates``).  Enabled by
 ``KF_CONFIG_ENABLE_MONITORING``.  :func:`publish_device_memory` feeds the
-card's allocator gauges to the rank reporter.
+card's allocator gauges to the rank reporter, and
+:func:`install_compile_metrics` turns each CUDA-graph capture into the
+reference's compile series.
 """
 
 from __future__ import annotations
@@ -235,3 +237,31 @@ def publish_device_memory() -> bool:
     if limit:
         REGISTRY.gauge("kf_device_memory_bytes", kind="limit").set(limit)
     return True
+
+
+#: set once by :func:`install_compile_metrics` (a second install must not
+#: double-count a compile)
+_COMPILE_METRICS_INSTALLED = False
+
+
+def install_compile_metrics() -> bool:
+    """Mirror the port's compiles into the registry under the reference's
+    names (``utils/jaxcompat.py:94``): from now on every
+    :func:`note_compile` ticks ``kf_jit_compiles_total`` and observes
+    ``kf_jit_compile_seconds``, so the rank snapshots carry them and the
+    sentinel's recompile-steady watermark can judge them.  Eager PyTorch
+    compiles nothing; the port's counterpart of an XLA compile is a
+    CUDA-graph capture (``InferenceEngine._capture``, ROADMAP C26).
+    Idempotent; returns True."""
+    global _COMPILE_METRICS_INSTALLED
+    _COMPILE_METRICS_INSTALLED = True
+    return True
+
+
+def note_compile(seconds: float) -> None:
+    """One compile of ``seconds`` wall time (a CUDA graph captured); a
+    no-op until :func:`install_compile_metrics`, as the reference's
+    listener is."""
+    if _COMPILE_METRICS_INSTALLED:
+        REGISTRY.counter("kf_jit_compiles_total").inc()
+        REGISTRY.histogram("kf_jit_compile_seconds").observe(float(seconds))

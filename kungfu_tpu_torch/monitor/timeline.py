@@ -15,8 +15,10 @@ bandit drivers read), :func:`reset`, :func:`dump` and
 vocabulary, so the engine's ``collective``, ``overlap`` and ``deadline``
 events come out as the reference's do; recording is gated by
 ``KF_CONFIG_ENABLE_TRACE``.  :func:`format_trace_context` is the wire
-form the p2p blob store's requests carry.  Not ported: ``trace_ctx``,
-which no ported module calls.
+form the p2p blob store's requests carry, and :class:`trace_ctx`
+re-enters a received context.  Dumps are the reference's JSONL, so
+either package's kftrace (:mod:`kungfu_tpu_torch.monitor.traceview`)
+reads them.
 """
 
 from __future__ import annotations
@@ -191,6 +193,26 @@ def current_trace() -> Tuple[Optional[str], Optional[str]]:
     """``(trace_id, span_id)`` of the innermost ambient span on this thread."""
     st = _ctx_stack()
     return st[-1] if st else (None, None)
+
+
+class trace_ctx:
+    """Re-enter a received trace context: spans and events recorded
+    inside join ``trace`` as children of ``parent`` (reference
+    ``timeline.py:238``)."""
+
+    __slots__ = ("trace", "parent")
+
+    def __init__(self, trace: Optional[str], parent: Optional[str] = None):
+        self.trace = trace
+        self.parent = parent
+
+    def __enter__(self):
+        _ctx_stack().append((self.trace, self.parent))
+        return self
+
+    def __exit__(self, *exc):
+        _ctx_stack().pop()
+        return False
 
 
 def parse_trace_context(tc) -> Tuple[Optional[str], Optional[str]]:
@@ -415,10 +437,15 @@ def reset(cap: Optional[int] = None) -> None:
         _span_seq = itertools.count(1)
 
 
-def dump(path: str) -> int:
-    """Write the ring as JSONL (header line first); returns the count."""
+def dump(path: str, rank: Optional[int] = None) -> int:
+    """Write the ring as JSONL (header line first); returns the count.
+    With ``rank``, only that rank's events under a header naming it: the
+    dump its own process would write, where ranks share one process."""
     events = snapshot()
-    header = {"kftrace": 1, "rank": _rank, "pid": os.getpid(),
+    if rank is not None:
+        events = [ev for ev in events if ev["rank"] == rank]
+    header = {"kftrace": 1, "rank": _rank if rank is None else rank,
+              "pid": os.getpid(),
               "dropped": dropped(), "wall": time.time()}
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w", encoding="utf-8") as f:

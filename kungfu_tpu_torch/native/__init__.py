@@ -26,8 +26,20 @@ vector body and the scalar tail differ), and numpy's may differ again.
 Buffers are contiguous CPU ``torch.Tensor`` s (pinned or not) or numpy
 arrays; a bfloat16 buffer is a ``torch.bfloat16`` tensor, or a numpy
 array whose dtype is named ``bfloat16`` (ml_dtypes', as the reference's
-tests feed it), both reduced as code 11.  The sanitizer builds of the
-reference (``KF_NATIVE_SANITIZE``) come with ROADMAP A9c.
+tests feed it), both reduced as code 11.
+
+``KF_NATIVE_SANITIZE=tsan|asan`` selects an instrumented variant, as the
+reference Makefile's ``tsan``/``asan`` targets build it
+(``kungfu_tpu/native/Makefile:27-58``): its own output
+(``libkfnative-tsan.so``, ``libkfnative-asan.so``) and its own stamp
+(``.buildflags-tsan``, ``.buildflags-asan``), so a variant is never
+loaded as another.  A variant that does not build or load raises; the
+loader never falls back to the plain library for it.  The sanitizer's
+runtime must be in the process from its start (``LD_PRELOAD`` of
+``libtsan``/``libasan``): a bare dlopen of an instrumented library into
+an uninstrumented python aborts.  :func:`build_stress` builds
+``kfstress-tsan`` from :file:`stress.cpp`, the transport churn under
+ThreadSanitizer as a standalone binary.
 """
 
 from __future__ import annotations
@@ -48,6 +60,9 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(_HERE, "_build")
 SOURCES = ("reduce.cpp", "transport.cpp")
 LIB_NAME = "libkfnative.so"
+SANITIZE_ENV = "KF_NATIVE_SANITIZE"
+#: the reference Makefile's BASEFLAGS after ARCHFLAGS
+_BASE_FLAGS = ["-fPIC", "-pthread", "-std=c++17", "-Wall", "-Wextra"]
 
 #: reference ``native/__init__.py:46``, keyed by torch dtype
 _DTYPE_CODES = {
@@ -80,80 +95,145 @@ REDUCE_OPS = frozenset(_NP_REDUCERS)
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
+#: why the selected sanitizer variant could not be loaded (raised again
+#: by every later load, never replaced by the plain library)
+_variant_error: Optional[RuntimeError] = None
 
 
-def lib_path() -> str:
-    return os.path.join(BUILD_DIR, LIB_NAME)
+def _variant() -> str:
+    """The sanitizer variant ``KF_NATIVE_SANITIZE`` selects: ``tsan``,
+    ``asan``, or ``""`` (the plain build) for anything else, as the
+    reference's loader reads it."""
+    v = os.environ.get(SANITIZE_ENV, "").strip().lower()
+    return v if v in ("tsan", "asan") else ""
 
 
-def _cxx_flags() -> list:
+def lib_path(variant: Optional[str] = None) -> str:
+    """The library of ``variant`` (default: the one the env selects)."""
+    v = _variant() if variant is None else variant
+    return os.path.join(BUILD_DIR,
+                        f"libkfnative-{v}.so" if v else LIB_NAME)
+
+
+def _stamp_path(variant: str) -> str:
+    return os.path.join(BUILD_DIR,
+                        f".buildflags-{variant}" if variant else ".buildflags")
+
+
+def _cxx_flags(variant: str = "") -> list:
+    """The reference Makefile's CXXFLAGS, TSANFLAGS or ASANFLAGS."""
     march = os.environ.get("KF_NATIVE_MARCH")
-    arch = f"-march={march}" if march else "-mtune=generic"
-    return ["-O3", arch, "-fPIC", "-pthread", "-std=c++17", "-Wall",
-            "-Wextra", "-shared"]
+    base = [f"-march={march}" if march else "-mtune=generic", *_BASE_FLAGS]
+    if variant == "tsan":
+        return ["-O1", "-g", "-fsanitize=thread", *base]
+    if variant == "asan":
+        return ["-O1", "-g", "-fsanitize=address", "-fno-omit-frame-pointer",
+                *base]
+    return ["-O3", *base]
 
 
-def _stamp(cxx: str, flags: list) -> str:
+def _stamp(cxx: str, flags: list, sources=SOURCES) -> str:
+    """The flags, for a reader, then a hash of them and the sources."""
     h = hashlib.sha256(" ".join([cxx] + flags).encode())
-    for src in SOURCES:
+    for src in sources:
         with open(os.path.join(_HERE, src), "rb") as f:
             h.update(f.read())
-    return h.hexdigest()
+    return " ".join([cxx] + flags) + "\n" + h.hexdigest() + "\n"
 
 
-def _build() -> bool:
-    """Build ``_build/libkfnative.so`` unless its stamp is current; True
-    when a current library is there afterwards."""
+def _build_target(out: str, flags: list, sources, stamp_path: str) -> None:
+    """Compile ``sources`` with ``flags`` into ``out`` unless its stamp is
+    current; raises ``RuntimeError`` with the compiler's message."""
     cxx = os.environ.get("CXX", "g++")
-    flags = _cxx_flags()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    stamp_path = os.path.join(BUILD_DIR, ".buildflags")
-    try:
-        want = _stamp(cxx, flags)
-        with open(os.path.join(BUILD_DIR, ".build.lock"), "w") as lockf:
-            # racing builders wait here for the winner's rename
-            fcntl.flock(lockf, fcntl.LOCK_EX)
+    want = _stamp(cxx, flags, sources)
+    with open(os.path.join(BUILD_DIR, ".build.lock"), "w") as lockf:
+        # racing builders wait here for the winner's rename
+        fcntl.flock(lockf, fcntl.LOCK_EX)
+        try:
             try:
-                try:
-                    with open(stamp_path) as f:
-                        have = f.read()
-                except OSError:
-                    have = ""
-                if have == want and os.path.exists(lib_path()):
-                    return True
-                tmp = f"{lib_path()}.tmp.{os.getpid()}"
-                subprocess.run(
-                    [cxx, *flags, *(os.path.join(_HERE, s) for s in SOURCES),
-                     "-o", tmp],
-                    check=True, capture_output=True, timeout=300)
-                os.replace(tmp, lib_path())
-                with open(stamp_path + ".tmp", "w") as f:
-                    f.write(want)
-                os.replace(stamp_path + ".tmp", stamp_path)
-                return True
-            finally:
-                fcntl.flock(lockf, fcntl.LOCK_UN)
-    except (OSError, subprocess.SubprocessError):
+                with open(stamp_path) as f:
+                    have = f.read()
+            except OSError:
+                have = ""
+            if have == want and os.path.exists(out):
+                return
+            tmp = f"{out}.tmp.{os.getpid()}"
+            r = subprocess.run(
+                [cxx, *flags, *(os.path.join(_HERE, s) for s in sources),
+                 "-o", tmp], capture_output=True, timeout=300)
+            if r.returncode != 0:
+                raise RuntimeError(
+                    f"{cxx} {' '.join(flags)} failed for "
+                    f"{os.path.basename(out)}: "
+                    f"{r.stderr.decode(errors='replace')[-2000:]}")
+            os.replace(tmp, out)
+            with open(stamp_path + ".tmp", "w") as f:
+                f.write(want)
+            os.replace(stamp_path + ".tmp", stamp_path)
+        finally:
+            fcntl.flock(lockf, fcntl.LOCK_UN)
+
+
+def _build(variant: str = "") -> bool:
+    """Build ``variant``'s library unless its stamp is current.  The
+    plain build answers False on failure (the numpy fallback takes
+    over); a sanitizer variant raises."""
+    try:
+        _build_target(lib_path(variant), [*_cxx_flags(variant), "-shared"],
+                      SOURCES, _stamp_path(variant))
+        return True
+    except (OSError, subprocess.SubprocessError, RuntimeError) as e:
+        if variant:
+            raise RuntimeError(f"{SANITIZE_ENV}={variant}: the instrumented "
+                               f"library did not build: {e}") from e
         return False
 
 
+def build_stress() -> str:
+    """Build ``_build/kfstress-tsan`` (the sources and :file:`stress.cpp`
+    under the TSan flags, the reference Makefile's ``stress`` target,
+    with a stamp of its own) and return its path; raises
+    ``RuntimeError`` if it does not build."""
+    out = os.path.join(BUILD_DIR, "kfstress-tsan")
+    _build_target(out, _cxx_flags("tsan"), (*SOURCES, "stress.cpp"),
+                  os.path.join(BUILD_DIR, ".buildflags-stress"))
+    return out
+
+
 def load() -> Optional[ctypes.CDLL]:
-    """The native library, built on first call; None if unavailable."""
-    global _lib, _tried
+    """The native library, built on first call; None if unavailable.
+    With ``KF_NATIVE_SANITIZE`` set, the instrumented variant or a
+    ``RuntimeError``."""
+    global _lib, _tried, _variant_error
+    if _variant_error is not None:
+        raise _variant_error
     if _lib is not None or _tried:  # lock-free fast path: per-chunk callers
         return _lib
     with _lock:
+        if _variant_error is not None:
+            raise _variant_error
         if _lib is not None or _tried:
             return _lib
         _tried = True
         if os.environ.get("KF_TPU_NO_NATIVE") == "1":
             return None
-        if not _build():
-            return None
+        variant = _variant()
         try:
-            lib = ctypes.CDLL(lib_path())
-        except OSError:
-            return None
+            if not _build(variant):
+                return None
+            try:
+                lib = ctypes.CDLL(lib_path(variant))
+            except OSError as e:
+                if variant:
+                    raise RuntimeError(
+                        f"{SANITIZE_ENV}={variant}: {lib_path(variant)} did "
+                        f"not load ({e}); preload the sanitizer runtime") \
+                        from e
+                return None
+        except RuntimeError as e:
+            _variant_error = e
+            raise
         lib.kf_transform2.restype = ctypes.c_int
         lib.kf_transform2.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,

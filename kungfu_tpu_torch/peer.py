@@ -33,9 +33,9 @@ Where the port differs from the reference:
   peer pushes snapshots to the aggregator mounted there (a
   :class:`~kungfu_tpu_torch.monitor.aggregator.RankReporter` under its
   bootstrap rank and slice, refreshing the device-memory gauges before
-  each push) and stops it with a final push at :meth:`Peer.close`.  The
-  reference also installs a jax compile-metrics hook there; eager
-  PyTorch compiles nothing, so the port has no counterpart.
+  each push) and stops it with a final push at :meth:`Peer.close`.  It
+  also installs the compile metrics there, as the reference does: in the
+  port a compile is a CUDA-graph capture (ROADMAP C26).
 """
 
 from __future__ import annotations
@@ -173,9 +173,12 @@ class Peer:
                 if rank is not None:
                     from kungfu_tpu_torch.monitor.aggregator import \
                         RankReporter
-                    from kungfu_tpu_torch.monitor.metrics import \
-                        publish_device_memory
+                    from kungfu_tpu_torch.monitor.metrics import (
+                        install_compile_metrics, publish_device_memory)
 
+                    # CUDA-graph captures become kf_jit_compiles_total,
+                    # the recompile-steady watermark's feed (C26)
+                    install_compile_metrics()
                     slice_id = (self._slice_boot.slice_of(rank)
                                 if self._slice_boot is not None else None)
                     self._reporter = RankReporter(

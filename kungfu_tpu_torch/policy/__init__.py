@@ -8,9 +8,8 @@ a :class:`PolicyRunner` drives them, keeps the named training globals
 resize and stop intents through the elastic protocol.
 
 The serving policies (``BatchWidthController``, ``ServeAutoscalePolicy``,
-``serve_signals``) steer the serving plane from the aggregator's view.
-``sentinel_signals`` comes with the sentinel (ROADMAP A9b); until then
-that name raises ``NotImplementedError``.
+``serve_signals``) steer the serving plane from the aggregator's view;
+``sentinel_signals`` reads the sentinel's alert state from it.
 """
 
 from kungfu_tpu_torch.policy.base import BasePolicy, PolicyContext  # noqa: F401
@@ -31,16 +30,11 @@ from kungfu_tpu_torch.policy.serve import (  # noqa: F401
     serve_signals,
 )
 
-#: lazy names of the reference's package, with the ROADMAP item that
-#: ports each
-_NOT_PORTED = {
-    "sentinel_signals": "A9b (policy/sentinel.py, with the sentinel)",
-}
-
 
 def __getattr__(name):
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"kungfu_tpu_torch.policy.{name} waits for ROADMAP "
-            f"{_NOT_PORTED[name]}")
+    # lazy, as the reference's export is
+    if name == "sentinel_signals":
+        from kungfu_tpu_torch.policy.sentinel import sentinel_signals
+
+        return sentinel_signals
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -217,8 +217,7 @@ class OverlapDepthBandit:
         from kungfu_tpu_torch.monitor import ledger
 
         # depth changes are local (no consensus fence: the depth does not
-        # shape a collective), so consensus_seq=None; the ledger is a
-        # do-nothing hook until ROADMAP A9b
+        # shape a collective), so consensus_seq=None
         ledger.record_decision(
             "overlap-depth", "depth", int(self.active), int(pick),
             evidence={"checks": self._n // self.check_every})

@@ -15,8 +15,8 @@ Both read the aggregator's ``/cluster`` view through
   pressure with the SLO blown asks for one more worker, a drained queue
   with a wide margin releases one.  A cooldown keeps it from flapping.
 
-Their decisions go to ``ledger.record_decision``, a do-nothing hook in
-the port until ROADMAP A9b ports the ledger.
+Their decisions go to :func:`kungfu_tpu_torch.monitor.ledger.
+record_decision`, which records them when ``KF_SENTINEL_DIR`` is set.
 """
 
 from __future__ import annotations

@@ -16,8 +16,10 @@ The reference's flags, and its dispatch:
 Where the port differs (ROADMAP C24): ``-backend`` is ``gpu`` (the
 default: every worker of a host runs on its one card) or ``cpu`` (a
 host-only cluster, ``KF_JAX_PLATFORM=cpu``).  ``-device-world`` raises
-``NotImplementedError`` (the multi-card slice), and so does
-``-sentinel`` (ROADMAP A9b).  The wire defaults stay the reference's:
+``NotImplementedError`` (the multi-card slice).  ``-sentinel DIR`` turns
+on ``-monitor``, publishes ``KF_SENTINEL_DIR`` and attaches
+``Sentinel.from_env()`` to the builtin server's aggregator, as the
+reference's does.  The wire defaults stay the reference's:
 the runner at port 38080, the failure detector at 7756, a worker's
 ``/metrics`` at its port + 10000.
 
@@ -136,8 +138,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "ephemeral builtin config server when none is "
                         "configured")
     p.add_argument("-sentinel", dest="sentinel", default="",
-                   help="kf-sentinel judging plane under DIR (raises: "
-                        "comes with ROADMAP A9b)")
+                   help="kf-sentinel judging plane: durable metrics "
+                        "history, changepoint/SLO-burn/watermark alerts "
+                        "and incident bundles under DIR, served as "
+                        "/alerts and /decisions (implies -monitor; sets "
+                        "KF_SENTINEL_DIR for Sentinel.from_env)")
     p.add_argument("-monitor-interval", dest="monitor_interval", type=float,
                    default=0.0,
                    help="snapshot push period seconds "
@@ -269,10 +274,6 @@ def apply_platform(ns) -> None:
 
 def main(argv: Optional[List[str]] = None) -> int:
     ns = build_parser().parse_args(argv)
-    if ns.sentinel:
-        raise NotImplementedError(
-            "-sentinel: the sentinel plane (history, detectors, /alerts, "
-            "/decisions) comes with ROADMAP A9b")
     apply_platform(ns)
     if ns.self_host == "auto":
         # the same command line on every host: each runner works out
@@ -306,6 +307,9 @@ def main(argv: Optional[List[str]] = None) -> int:
 
         raise NotImplementedError(
             f"-device-world: a provisioned device world {MULTI_CARD}")
+    if ns.sentinel:
+        # the judge needs the aggregator it attaches to
+        ns.monitor = True
 
     config_server_url = ns.config_server
     builtin = None
@@ -325,6 +329,19 @@ def main(argv: Optional[List[str]] = None) -> int:
             aggregator = ClusterAggregator(
                 stale_after=(STALE_PERIODS * ns.monitor_interval
                              if ns.monitor_interval > 0 else None))
+            if ns.sentinel:
+                from kungfu_tpu_torch.monitor.sentinel import Sentinel
+                from kungfu_tpu_torch.utils.envs import SENTINEL_DIR
+
+                root = os.path.abspath(ns.sentinel)
+                os.makedirs(root, exist_ok=True)
+                # publish the root so Sentinel.from_env reads the whole
+                # sentinel knob family from the environment
+                os.environ[SENTINEL_DIR] = root
+                aggregator.attach_sentinel(Sentinel.from_env())
+                _log.info("sentinel history -> %s (replay: python -m "
+                          "kungfu_tpu_torch.monitor.kfhist --dir %s "
+                          "--verdict)", root, root)
         # -monitor with no config server still needs a push target: an
         # ephemeral builtin server carries the aggregator (port 0)
         builtin = ConfigServer(port=ns.builtin_config_port, cluster=cluster,

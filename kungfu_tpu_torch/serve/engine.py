@@ -49,6 +49,7 @@ import torch
 from kungfu_tpu_torch.models import nn
 from kungfu_tpu_torch.models.transformer import Transformer, _rope
 from kungfu_tpu_torch.monitor import timeline
+from kungfu_tpu_torch.monitor.metrics import note_compile
 from kungfu_tpu_torch.ops import costmodel
 from kungfu_tpu_torch.serve import slo
 from kungfu_tpu_torch.serve.kvcache import (CacheExhausted, KVCachePool,
@@ -311,7 +312,8 @@ class InferenceEngine:
         position 0, which a request always rewrites before it attends to
         them, so the engine must be idle.  Capture is thread-local:
         engines of other threads keep launching on the default stream
-        meanwhile."""
+        meanwhile.  Each capture counts as one compile
+        (:func:`~kungfu_tpu_torch.monitor.metrics.note_compile`)."""
         if not buckets and self._decode_graph is not None:
             return
         with self._lock:
@@ -324,6 +326,9 @@ class InferenceEngine:
         pool = self._graph_pool
 
         def graphed(fn):
+            # one capture is the port's compile: its wall time feeds
+            # kf_jit_compile_seconds once install_compile_metrics is on
+            t0 = time.perf_counter()
             side = torch.cuda.Stream(self.device)
             side.wait_stream(torch.cuda.current_stream(self.device))
             with torch.cuda.stream(side):
@@ -334,6 +339,7 @@ class InferenceEngine:
             with torch.cuda.graph(graph, pool=pool,
                                   capture_error_mode="thread_local"):
                 out = fn()
+            note_compile(time.perf_counter() - t0)
             return graph, out
 
         for s_pad in buckets:

@@ -7,8 +7,8 @@ Port of ``kungfu_tpu/serve/slo.py`` under the same metric names:
 queue-depth and active-slots gauges and the prefill-token counter split
 into computed and reused.  Request accounting rides the timeline's
 counted ``request`` kind (``kf_serve_requests_total{what=...}``).
-:class:`SLORules` holds the sentinel's burn-rate budgets; the sentinel
-that evaluates them comes with ROADMAP A9b.
+:class:`SLORules` holds the burn-rate budgets that
+:class:`~kungfu_tpu_torch.monitor.sentinel.Sentinel` evaluates.
 """
 
 from __future__ import annotations

@@ -133,6 +133,25 @@ alone), and the runtime knobs the peer and failure recovery read:
 ``KF_XRAY_WINDOW_STEPS``           steps in the online attribution window of
                                    ``/cluster``'s xray section, default 32
                                    (monitor/xray.py)
+``KF_SENTINEL_DIR``                durable metrics-history root; unset, the
+                                   sentinel plane is off and the aggregator's
+                                   views are unchanged (the launcher's
+                                   ``-sentinel`` sets it; monitor/sentinel.py)
+``KF_SENTINEL_KEEP_BYTES``         per-stream history ring byte budget,
+                                   default 8 MiB (monitor/history.py)
+``KF_SENTINEL_PERIOD``             seconds between sentinel samples, default
+                                   1.0; <= 0 samples on every ingest
+``KF_SENTINEL_WINDOW``             changepoint window in samples, default 8
+                                   (monitor/detect.py)
+``KF_SENTINEL_THRESHOLD``          median-shift score (MAD multiples) before
+                                   a series alerts, default 4.0
+``KF_SENTINEL_MFU_FLOOR``          MFU watermark, default 0 = off
+``KF_SENTINEL_STEP_CEILING_S``     step-time watermark seconds, default 0 = off
+``KF_SENTINEL_WARMUP_STEPS``       steps considered warmup, default 32; a
+                                   compile (a CUDA-graph capture) after it
+                                   raises the recompile-steady alert
+``KF_SENTINEL_INCIDENT_WINDOW``    history records in an incident bundle,
+                                   default 64
 ``KF_SENTINEL_SLO_SHORT``          SLO burn-rate short window in samples,
                                    default 6 (serve/slo.py SLORules)
 ``KF_SENTINEL_SLO_LONG``           SLO burn-rate long window in samples,
@@ -241,6 +260,17 @@ ENABLE_CLUSTER_MONITOR = "KF_CONFIG_ENABLE_CLUSTER_MONITOR"
 MONITOR_PUSH_PERIOD = "KF_CONFIG_MONITOR_PUSH_PERIOD"
 MONITOR_STALE_AFTER = "KF_CONFIG_MONITOR_STALE_AFTER"
 XRAY_WINDOW_STEPS = "KF_XRAY_WINDOW_STEPS"
+# the sentinel plane (monitor/sentinel.py and monitor/history.py read the
+# same tokens through mirror constants; sentinel_knobs() pins the defaults)
+SENTINEL_DIR = "KF_SENTINEL_DIR"
+SENTINEL_KEEP_BYTES = "KF_SENTINEL_KEEP_BYTES"
+SENTINEL_PERIOD = "KF_SENTINEL_PERIOD"
+SENTINEL_WINDOW = "KF_SENTINEL_WINDOW"
+SENTINEL_THRESHOLD = "KF_SENTINEL_THRESHOLD"
+SENTINEL_MFU_FLOOR = "KF_SENTINEL_MFU_FLOOR"
+SENTINEL_STEP_CEILING_S = "KF_SENTINEL_STEP_CEILING_S"
+SENTINEL_WARMUP_STEPS = "KF_SENTINEL_WARMUP_STEPS"
+SENTINEL_INCIDENT_WINDOW = "KF_SENTINEL_INCIDENT_WINDOW"
 SENTINEL_SLO_SHORT = "KF_SENTINEL_SLO_SHORT"
 SENTINEL_SLO_LONG = "KF_SENTINEL_SLO_LONG"
 ENABLE_STALL_DETECTION = "KF_CONFIG_ENABLE_STALL_DETECTION"
@@ -331,6 +361,25 @@ def persist_knobs() -> dict:
         "depth": parse_int_env(PERSIST_ASYNC_DEPTH, 2),
         "keep": parse_int_env(PERSIST_KEEP, 3),
         "restore": parse_bool_env(PERSIST_RESTORE, False),
+    }
+
+
+def sentinel_knobs() -> dict:
+    """The kf-sentinel plane's knobs with their defaults (reference
+    ``utils/envs.py:581``), as ``Sentinel.from_env``, the decision ledger
+    and kfhist read them."""
+    return {
+        "dir": os.environ.get(SENTINEL_DIR, ""),
+        "keep_bytes": parse_int_env(SENTINEL_KEEP_BYTES, 8 << 20),
+        "period_s": parse_float_env(SENTINEL_PERIOD, 1.0),
+        "window": parse_int_env(SENTINEL_WINDOW, 8),
+        "threshold": parse_float_env(SENTINEL_THRESHOLD, 4.0),
+        "mfu_floor": parse_float_env(SENTINEL_MFU_FLOOR, 0.0),
+        "step_ceiling_s": parse_float_env(SENTINEL_STEP_CEILING_S, 0.0),
+        "warmup_steps": parse_int_env(SENTINEL_WARMUP_STEPS, 32),
+        "incident_window": parse_int_env(SENTINEL_INCIDENT_WINDOW, 64),
+        "slo_short": parse_int_env(SENTINEL_SLO_SHORT, 6),
+        "slo_long": parse_int_env(SENTINEL_SLO_LONG, 24),
     }
 
 

@@ -1153,18 +1153,15 @@ class TestPolicy:
         ("BatchWidthController", "A3"), ("ServeAutoscalePolicy", "A3"),
         ("serve_signals", "A3"), ("sentinel_signals", "A9b")])
     def test_not_ported_names_raise(self, name, item):
-        """The serving names came with A3 and are the reference's
-        policy/serve.py objects' counterparts; the sentinel's still
-        raises, naming A9b."""
-        if item == "A3":
-            from kungfu_tpu.policy import serve as jserve
-            from kungfu_tpu_torch.policy import serve as tserve
+        """The lazy names: the serving ones came with A3, the sentinel's
+        with A9b; each is the counterpart of the reference's object of
+        the same name.  An unknown name raises AttributeError."""
+        from kungfu_tpu import policy as jpolicy
+        from kungfu_tpu_torch.policy import sentinel as tsentinel
+        from kungfu_tpu_torch.policy import serve as tserve
 
-            got = getattr(policy, name)
-            assert got is getattr(tserve, name)
-            assert got.__name__ == getattr(jserve, name).__name__
-        else:
-            with pytest.raises(NotImplementedError, match=item):
-                getattr(policy, name)
+        got = getattr(policy, name)
+        assert got is getattr(tserve if item == "A3" else tsentinel, name)
+        assert got.__name__ == getattr(jpolicy, name).__name__
         with pytest.raises(AttributeError):
             policy.no_such_name  # noqa: B018

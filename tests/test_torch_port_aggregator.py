@@ -236,15 +236,23 @@ class TestClusterView:
     def test_a9_parts_raise(self):
         """The Prometheus rendering came with A9a and is the reference's
         byte for byte (the pushed cases are in
-        test_torch_port_metrics.py); the sentinel still raises, naming
-        A9b."""
+        test_torch_port_metrics.py); the sentinel came with A9b and no
+        longer raises: attached, it adds the alerts section (its cases
+        are in test_torch_port_sentinel.py)."""
         agg = tagg.ClusterAggregator()
         assert agg.render_prometheus() == \
             jagg.ClusterAggregator().render_prometheus()
         assert agg.render_prometheus(CLUSTER_INFO) == \
             jagg.ClusterAggregator().render_prometheus(CLUSTER_INFO)
-        with pytest.raises(NotImplementedError, match="A9b"):
-            agg.attach_sentinel(object())
+
+        class _Stub:
+            def alerts_view(self):
+                return {"active": ["watermark:mfu"]}
+
+        assert "alerts" not in agg.cluster_view()
+        agg.attach_sentinel(_Stub())
+        assert agg.cluster_view()["alerts"] == {"active": ["watermark:mfu"]}
+        assert "kf_cluster_alerts_active 1" in agg.render_prometheus()
 
 
 class TestXray:

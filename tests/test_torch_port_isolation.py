@@ -190,6 +190,21 @@ LAUNCHER_MODULES = [
 ]
 
 
+#: the modules of the sentinel plane's and the trace tools' slice
+SENTINEL_TRACE_MODULES = [
+    "kungfu_tpu_torch.monitor.detect", "kungfu_tpu_torch.monitor.history",
+    "kungfu_tpu_torch.monitor.ledger", "kungfu_tpu_torch.monitor.sentinel",
+    "kungfu_tpu_torch.monitor.kfhist", "kungfu_tpu_torch.monitor.kftop",
+    "kungfu_tpu_torch.monitor.traceview", "kungfu_tpu_torch.monitor.timeline",
+    "kungfu_tpu_torch.policy.sentinel", "kungfu_tpu_torch.utils.trace",
+    "kungfu_tpu_torch.native", "kungfu_tpu_torch.torch",
+    "kungfu_tpu_torch.torch.ops", "kungfu_tpu_torch.torch.ops.clib",
+    "kungfu_tpu_torch.torch.ops.collective",
+    "kungfu_tpu_torch.torch.optimizers",
+    "kungfu_tpu_torch.torch.optimizers.sync_sgd",
+]
+
+
 def _check_scanned(modules):
     assert set(modules) <= set(PORT_MODULES)
     for m in modules:
@@ -217,6 +232,9 @@ class TestNativeBuild:
 
     def test_launcher_modules_are_scanned(self):
         _check_scanned(LAUNCHER_MODULES)
+
+    def test_sentinel_trace_modules_are_scanned(self):
+        _check_scanned(SENTINEL_TRACE_MODULES)
 
     def test_native_build_writes_only_under_build_dir(self, tmp_path):
         """A fresh copy of ``native/`` built from scratch in its own
@@ -335,6 +353,18 @@ class TestDefaultDeviceIsTheCard:
             prefetch_to_device(iter([np.zeros(1)]))
         (got,) = list(prefetch_to_device(iter([np.zeros(1)]), device="cpu"))
         assert got.device.type == "cpu"
+
+    def test_device_trace_raises(self, tmp_path):
+        """``device_trace`` records the card by default and raises without
+        one; only a caller that names the CPU gets a host-only trace."""
+        from kungfu_tpu_torch.utils.trace import device_trace
+
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            with device_trace(str(tmp_path), force=True):
+                pass
+        with device_trace(str(tmp_path), force=True, device="cpu") as prof:
+            torch.ones(2).sum()
+        assert prof is not None
 
     def test_converter_raises(self):
         cfg = TransformerConfig(vocab_size=8, d_model=8, n_layers=1,

@@ -166,7 +166,6 @@ def test_job_refuses_multi_card():
 
 @pytest.mark.parametrize("argv,match", [
     (["-device-world", "python3", "x"], "multi-card"),
-    (["-sentinel", "/tmp/s", "python3", "x"], "A9b"),
 ])
 def test_main_refuses(argv, match):
     with pytest.raises(NotImplementedError, match=match):
