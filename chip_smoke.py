@@ -456,6 +456,17 @@ Phases (any failed check exits non-zero before the result line):
              batches leaves them bitwise equal and within ``rtol`` 1e-6
              of plain SGD on the mean gradient, every tensor on the card.
              The phase's main path is (a), (d) and (e).
+22. analysis — the port's kf-lint and kf-verify (``python -m
+             kungfu_tpu_torch.analysis``) in subprocesses over this
+             checkout: (a) every ported rule with no baseline, and (b)
+             ``--proto`` (the protocols proved over every
+             ``ParallelPlan`` geometry up to 16 ranks), each exit 0 with
+             no finding, each checker's findings and seconds printed;
+             (c) the same linter over a tmp copy of ``kungfu_tpu_torch/``
+             with one planted fault per rule family
+             (``kungfu_tpu_torch.analysis.mutations``) exits 1 with
+             exactly those findings.  The three runs start together.
+             Launches no kernel.
 
 Phase 3 also holds the ring reduce-scatter and all-gather kernels
 bitwise against their plain versions, at the main path's shapes (a
@@ -8581,6 +8592,100 @@ def phase_sentinel(torch, np, kernels, tr) -> dict:
     return out
 
 
+#: phase 22: the linter runs' time limit, seconds each
+P22_TIMEOUT_S = 300
+
+
+def phase_analysis() -> dict:
+    """Phase 22: kf-lint and kf-verify over this checkout and over a
+    planted copy; see the module docstring.  Each run is a subprocess
+    of ``python -m kungfu_tpu_torch.analysis --json --timing``; all
+    three start together and every one is stopped before this returns."""
+    import re
+    import shutil
+    import tempfile
+
+    from kungfu_tpu_torch.analysis import mutations
+    from kungfu_tpu_torch.analysis.cli import CHECKERS, PROTO_CHECKERS
+
+    timing_re = re.compile(r"^kflint: (\S+) (\d+) finding\(s\) in "
+                             r"([0-9.]+) s$", re.M)
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="kf-p22-")
+    procs = {}
+    try:
+        mutations.plant_all(mutations.copy_port(HERE, tmp))
+        cmd = [sys.executable, "-m", "kungfu_tpu_torch.analysis", "--json",
+               "--timing"]
+        runs = {"tree": cmd + ["--root", HERE],
+                "proto": cmd + ["--root", HERE, "--proto"],
+                "planted": cmd + ["--root", tmp]}
+
+        def run(key):
+            t0 = time.perf_counter()
+            proc = procs[key] = subprocess.Popen(
+                runs[key], cwd=HERE, text=True, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE)
+            try:
+                so, se = proc.communicate(timeout=P22_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                raise SmokeFailure(f"phase 22 ({key}): the linter ran past "
+                                   f"{P22_TIMEOUT_S} s") from None
+            return {"rc": proc.returncode, "out": so, "err": se,
+                    "wall_s": time.perf_counter() - t0}
+
+        with ThreadPoolExecutor(max_workers=len(runs)) as pool:
+            futs = {key: pool.submit(run, key) for key in runs}
+            res = {key: f.result() for key, f in futs.items()}
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    out = {}
+    want = {"tree": (0, sorted(CHECKERS)), "proto": (0, list(PROTO_CHECKERS)),
+            "planted": (1, sorted(CHECKERS))}
+    for label, key in (("a", "tree"), ("b", "proto"), ("c", "planted")):
+        r = res[key]
+        try:
+            findings = json.loads(r["out"])
+        except ValueError:
+            raise SmokeFailure(f"phase 22 ({label}): no JSON findings, "
+                               f"rc {r['rc']}: {r['err'][-2000:]}") from None
+        timing = {m.group(1): (int(m.group(2)), float(m.group(3)))
+                  for m in timing_re.finditer(r["err"])}
+        for name in sorted(timing):
+            n, secs = timing[name]
+            print(f"phase 22 ({label}) {key}: {name} {n} finding(s) "
+                  f"in {secs:.3f} s")
+        rc, names = want[key]
+        check(r["rc"] == rc, f"phase 22 ({label}): the linter exited "
+                             f"{r['rc']}, expected {rc}: {r['err'][-2000:]}")
+        check(sorted(timing) == names,
+              f"phase 22 ({label}): ran {sorted(timing)}, expected {names}")
+        if key == "planted":
+            missed = mutations.unexplained(findings)
+            check(not missed, f"phase 22 (c): the planted copy's findings "
+                              f"are not the plants: {missed}")
+        else:
+            check(findings == [], f"phase 22 ({label}): {len(findings)} "
+                                  f"finding(s) on the tree: "
+                                  f"{findings[:5]}")
+        print(f"phase 22 ({label}) {key}: exit {r['rc']}, "
+              f"{len(findings)} finding(s), wall {r['wall_s']:.2f} s")
+        out[key] = {"rc": r["rc"], "findings": len(findings),
+                    "wall_s": r["wall_s"],
+                    "checkers": {k: {"findings": v[0], "s": v[1]}
+                                 for k, v in timing.items()}}
+    out["plants"] = [{"checker": p.checker, "path": p.path,
+                      "findings": p.count} for p in mutations.PLANTS]
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"analysis phase: {out['phase_s']:.2f} s")
+    return out
+
+
 def _ptxas_report(log: str) -> dict:
     """{mangled kernel name: its ptxas lines} from an ``-Xptxas -v`` log."""
     import re
@@ -8816,6 +8921,11 @@ def main() -> int:
     # decision ledger, the recompile watermark, device_trace and kftrace,
     # the torch shim
     sentinel = phase_sentinel(torch, np, kernels, tr)
+    torch.cuda.empty_cache()
+
+    # 22. the port's kf-lint and kf-verify over this checkout and over a
+    # copy with one planted fault per rule family; no kernel launches
+    analysis = phase_analysis()
     paths = (train, train_fused, ssgd, zero2, zero3, replicas, elastic,
              host_engine, recover, gossip, adapt, sharded, pipeline, images,
              kfrun, sentinel)
@@ -8933,6 +9043,7 @@ def main() -> int:
         "images_resnet50_vgg16_data": images,
         "kfrun_bert_4_processes": kfrun,
         "sentinel_flagship_3_peers": sentinel,
+        "analysis_lint_verify": analysis,
         "ring_timing": ring_timing, "build": build,
         "flash_fwd_errors": fwd_errs, "flash_fwd_timing": fwd_timing,
         "flash_bwd_errors": bwd_errs, "flash_bwd_timing": bwd_timing,

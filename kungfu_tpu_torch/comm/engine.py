@@ -23,8 +23,7 @@ the path.
 
 Buffers are contiguous CPU ``torch.Tensor`` s (pinned or not), or numpy
 arrays as in the reference (a numpy input gives numpy outputs, bf16 as
-ml_dtypes' when the input was).  Differences from the reference: the
-``COMM_OP_SPECS`` table of its static protocol checker is not ported;
+ml_dtypes' when the input was).  Differences from the reference:
 ``native_runs`` counts the collectives the C++ executor ran; and ``mean``
 is divided in numpy on the result's buffer, as the reference divides
 (``np.divide(out, n)``: an integer input gives float64 and a bf16 input
@@ -124,6 +123,76 @@ REDUCE_OPS = native.REDUCE_OPS
 #: worker count of :meth:`CollectiveEngine.async_pool`: the ceiling on
 #: concurrently running caller-level async ops per engine
 ASYNC_POOL_WORKERS = 8
+
+
+#: Static protocol metadata for every public wire op of
+#: :class:`CollectiveEngine` — the declarative issue-site table the
+#: kf-verify abstract interpreter (``analysis/commgraph.py``) extracts
+#: comm sequences from.  MUST stay a pure literal dict: the analysis
+#: layer reads it via ``ast.literal_eval`` without importing this
+#: module (kflint runs in bare CI images with no numpy/torch).
+#:
+#: Per op: ``kind`` ("collective" = group rendezvous over every engine
+#: peer; "p2p-send"/"p2p-recv" = point-to-point toward the rank in the
+#: first positional arg), ``group`` (the membership axis a collective
+#: rendezvouses over), ``tag`` (how the caller ``name`` becomes the
+#: wire rendezvous tag; ``{name}`` is the caller's argument), and
+#: ``blocking`` (False = returns a :class:`CollectiveHandle`; the
+#: wait/fence discipline is checked by handle-discipline and the
+#: kf-verify wait-for-graph pass).  ``analysis/protoverify.py``
+#: cross-checks this table against the actual method defs both ways,
+#: so drift (new wire op without metadata, metadata for a removed op)
+#: is a lint finding, not silent rot.
+COMM_OP_SPECS = {
+    "all_reduce":          {"kind": "collective", "group": "world",
+                            "tag": "{name}", "blocking": True,
+                            "name_pos": 2, "peer_pos": None},
+    "broadcast":           {"kind": "collective", "group": "world",
+                            "tag": "{name}", "blocking": True,
+                            "name_pos": 2, "peer_pos": None},
+    "reduce":              {"kind": "collective", "group": "world",
+                            "tag": "{name}.r", "blocking": True,
+                            "name_pos": 3, "peer_pos": None},
+    "gather":              {"kind": "collective", "group": "world",
+                            "tag": "{name}.g", "blocking": True,
+                            "name_pos": 2, "peer_pos": None},
+    "all_gather":          {"kind": "collective", "group": "world",
+                            "tag": "{name}.ag", "blocking": True,
+                            "name_pos": 1, "peer_pos": None},
+    "reduce_scatter":      {"kind": "collective", "group": "world",
+                            "tag": "{name}.rs", "blocking": True,
+                            "name_pos": 2, "peer_pos": None},
+    "local_reduce":        {"kind": "collective", "group": "slice",
+                            "tag": "{name}.lr", "blocking": True,
+                            "name_pos": 2, "peer_pos": None},
+    "local_broadcast":     {"kind": "collective", "group": "slice",
+                            "tag": "{name}.lb", "blocking": True,
+                            "name_pos": 1, "peer_pos": None},
+    "cross_all_reduce":    {"kind": "collective", "group": "cross",
+                            "tag": "{name}.x", "blocking": True,
+                            "name_pos": 2, "peer_pos": None},
+    "send_to":             {"kind": "p2p-send", "group": "pair",
+                            "tag": "{name}", "blocking": True,
+                            "name_pos": 2, "peer_pos": 0},
+    "recv_from":           {"kind": "p2p-recv", "group": "pair",
+                            "tag": "{name}", "blocking": True,
+                            "name_pos": 1, "peer_pos": 0},
+    "send_async":          {"kind": "p2p-send", "group": "pair",
+                            "tag": "{name}", "blocking": False,
+                            "name_pos": 2, "peer_pos": 0},
+    "recv_async":          {"kind": "p2p-recv", "group": "pair",
+                            "tag": "{name}", "blocking": False,
+                            "name_pos": 1, "peer_pos": 0},
+    "all_reduce_async":    {"kind": "collective", "group": "world",
+                            "tag": "{name}", "blocking": False,
+                            "name_pos": 2, "peer_pos": None},
+    "reduce_scatter_async": {"kind": "collective", "group": "world",
+                             "tag": "{name}.rs", "blocking": False,
+                             "name_pos": 2, "peer_pos": None},
+    "all_gather_async":    {"kind": "collective", "group": "world",
+                            "tag": "{name}.ag", "blocking": False,
+                            "name_pos": 1, "peer_pos": None},
+}
 
 
 def build_strategy_graphs(

@@ -118,7 +118,7 @@ def prefetch_to_device(it: Iterable, size: int = 2, device=None) -> Iterator:
                 # producer does; the `input` span times it (the input
                 # stall a step pays: ~0 for a warm queue)
                 with timeline.span("input", "prefetch.next"):
-                    got = q.get()
+                    got = q.get()  # kflint: allow(blocking-io)
                 if got is _SENTINEL:
                     return
                 if isinstance(got, BaseException):

@@ -29,10 +29,12 @@ world restored from the same boundary would.
 
 from __future__ import annotations
 
+import io
 import math
 import threading
 from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from kungfu_tpu_torch.checkpoint import StepSnapshot, host_copy
@@ -66,6 +68,24 @@ def _recv_or_fail(chan, addr, old_rank: int, op: str, name: str, buf=None):
     except (TimeoutError, OSError) as e:
         raise PeerFailureError(old_rank, peer=addr, op=op,
                                phase=f"recv {name!r}", cause=e) from e
+
+
+def _npz_array(t: torch.Tensor) -> np.ndarray:
+    """A host chunk as the array the reference's npz blob holds: a
+    bfloat16 chunk as its 16-bit patterns under the ``|V2`` descriptor
+    numpy writes for ml_dtypes' bfloat16."""
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("V2")
+    return t.numpy()
+
+
+def _npz_tensor(a: np.ndarray) -> torch.Tensor:
+    """The inverse of :func:`_npz_array` for an array read back from a
+    blob of either package (``|V2`` is bfloat16)."""
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
 
 
 def _chunk_leaves(leaves, chunk: Optional[int] = None) -> set:
@@ -213,8 +233,11 @@ class ZeroBoundary:
         positions behind it and adopt the chunks of the rank ``stride``
         ahead, so any single dead rank's chunk survives ``stride``
         positions away.  ``tag`` and ``stride`` must match on every rank
-        (they are part of the exchange).  Returns the bytes this rank
-        sent (0 in full mode, where nothing can be lost)."""
+        (they are part of the exchange).  The chunks travel as the
+        reference's one npz blob (``v{i}`` arrays) under
+        ``kf.zbuddy.{tag}``, so port and reference ranks mirror each
+        other.  Returns the bytes this rank sent (0 in full mode, where
+        nothing can be lost)."""
         with self._lock:
             if self._step is None:
                 raise ValueError("replicate_ring before any commit")
@@ -231,24 +254,23 @@ class ZeroBoundary:
                 "of the whole ring mirrors a rank onto itself")
         pred = workers[(my_old - stride) % n]
         succ_rank = (my_old + stride) % n
-        # the reference's mark and fields; nbytes counts the raw chunk
-        # bytes this rank sends (the reference's, its npz blob's)
+        # the reference's wire form: one npz blob of the chunks as v{i}
+        bio = io.BytesIO()
+        np.savez(bio, **{f"v{i}": _npz_array(a) for i, a in vec.items()})
+        blob = bio.getvalue()
+        name = f"kf.zbuddy.{tag}"
         timeline.event("shrink", "buddy-replicate", rank=my_old,
-                       nbytes=sum(a.numel() * a.element_size()
-                                  for a in vec.values()), stride=stride)
-        sent = 0
-        for i, a in vec.items():
-            chan.send(pred, f"kf.zbuddy.{tag}.v{i}", tensor_buffer(a))
-            sent += a.numel() * a.element_size()
-        buddy = {i: _recv_or_fail(chan, workers[succ_rank], succ_rank,
-                                  "zero-buddy", f"kf.zbuddy.{tag}.v{i}",
-                                  torch.empty_like(a))
-                 for i, a in vec.items()}
+                       nbytes=len(blob), stride=stride)
+        chan.send(pred, name, blob)
+        with np.load(io.BytesIO(_recv_or_fail(
+                chan, workers[succ_rank], succ_rank, "zero-buddy",
+                name))) as z:
+            buddy = {int(k[1:]): _npz_tensor(z[k]) for k in z.files}
         with self._lock:
             self._buddy = buddy
             self._buddy_of = succ_rank
             self._buddy_stride = stride
-        return sent
+        return len(blob)
 
     # -- re-carve ---------------------------------------------------------
     def recarve(self, new_n: int, peer=None, old_workers=None,

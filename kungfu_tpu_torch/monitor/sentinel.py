@@ -41,7 +41,8 @@ from kungfu_tpu_torch.monitor import ledger as ledgerlib
 from kungfu_tpu_torch.monitor.aggregator import field, sum_metric
 from kungfu_tpu_torch.utils import envs
 
-# the KF_SENTINEL_* knobs are read through envs.sentinel_knobs(); the
+# the sentinel's knobs (KF_SENTINEL_DIR and the rest of its rows in
+# utils/envs.py) are read through envs.sentinel_knobs(); the
 # serving SLO budgets are the SAME tokens serve/slo.py steers by: one
 # knob, two consumers (target and alarm must never disagree)
 TTFT_BUDGET_ENV = envs.SERVE_SLO_TTFT_MS

@@ -9,7 +9,8 @@ for a group and, fail-fast, kills the rest when one worker fails.
 
 One addition to the reference: :func:`wait_group` waits for a killed
 group's exit and escalates to ``SIGKILL`` after a grace, so that a
-relaunch never starts while a worker still holds its card memory.
+relaunch never starts while a worker still holds its card memory (and
+raises if even ``SIGKILL`` does not end a worker).
 """
 
 from __future__ import annotations
@@ -102,16 +103,30 @@ def kill_group(running: _Running, sig: int = signal.SIGTERM) -> None:
         pass
 
 
+#: seconds a worker has to be reaped after ``SIGKILL``
+KILL_REAP_S = 10.0
+
+
 def wait_group(running: Sequence[_Running], grace: float = 10.0) -> List[int]:
     """Wait for every worker of ``running`` to exit, sending ``SIGKILL``
-    to those still alive after ``grace`` seconds; their exit codes."""
+    to those still alive after ``grace`` seconds; their exit codes.
+
+    A worker still alive :data:`KILL_REAP_S` seconds after ``SIGKILL`` is
+    stuck in the kernel (uninterruptible sleep) and may still hold its
+    card: that raises ``RuntimeError`` rather than hang the launcher or
+    relaunch beside it."""
     deadline = time.monotonic() + grace
     for r in running:
         try:
             r.popen.wait(timeout=max(deadline - time.monotonic(), 0.0))
         except subprocess.TimeoutExpired:
             kill_group(r, signal.SIGKILL)
-            r.popen.wait()
+            try:
+                r.popen.wait(timeout=KILL_REAP_S)
+            except subprocess.TimeoutExpired:
+                raise RuntimeError(
+                    f"worker {r.proc.name} (pid {r.popen.pid}) did not exit "
+                    f"{KILL_REAP_S} s after SIGKILL") from None
     return [r.popen.returncode for r in running]
 
 

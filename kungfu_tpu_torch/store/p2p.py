@@ -78,7 +78,9 @@ def install_p2p_handler(channel, store=None, control_store=None,
 
     def responder():
         while True:
-            item = serve_q.get()  # stop() enqueues one None a thread
+            # sentinel-terminated worker loop: stop() enqueues one None
+            # per thread, so the forever-block is the shutdown protocol
+            item = serve_q.get()  # kflint: allow(blocking-io)
             if item is None:
                 return
             try:

@@ -89,7 +89,38 @@
                                injection
 ``KF_CHAOS_SEED``              seed of the delay jitter, default 0
                                (chaos/inject.py)
+``KF_SOCK_DIR``                unix sockfile directory override; default
+                               /tmp/kf-tpu-<uid> (comm/host.py AND
+                               native/transport.cpp — keep in lockstep)
+``KF_NATIVE_SANITIZE``         "tsan"|"asan": load the sanitizer-instrumented
+                               native build variant (libkfnative-<v>.so) for
+                               race/memory debugging (native/__init__.py)
+``KF_DATA_DIR``                dataset cache root, default ~/.cache/kungfu_tpu
+                               (datasets/cache.py)
+``KF_TPU_CKPT_BACKEND``        checkpoint backend: "auto"|"orbax"|"npz"; the
+                               port writes npz only and ``orbax`` raises
+                               ``NotImplementedError`` (checkpoint.py)
+``KF_TPU_BN_COMPUTE``          "f32" restores legacy f32 batch-norm compute
+                               (models/nn.py)
 =============================  ================================================
+
+Protocol-verifier envs (the kf-verify static SPMD checker,
+:mod:`kungfu_tpu_torch.analysis.protoverify`):
+
+=============================  ================================================
+``KF_VERIFY_MAX_RANKS``        largest world size the geometry sweep
+                               enumerates ParallelPlans for, default 16
+``KF_VERIFY_GEOMETRY_CAP``     hard cap on geometries simulated per family
+                               (0 = unlimited), default 0
+``KF_VERIFY_TIMEOUT_S``        wall-clock budget for the whole geometry
+                               sweep in seconds, default 60.0; on expiry
+                               the sweep reports how many geometries it
+                               covered instead of silently truncating
+=============================  ================================================
+
+Not an env var (registered so the ``KF_*`` contract scan covers C++):
+``KF_SIMD_CLONES`` is a compile-time macro in native/reduce.cpp selecting
+per-ISA function cloning.
 
 The worker bootstrap contract (written by a launcher, read once by
 :func:`parse_config_from_env`; unset ``KF_SELF_SPEC`` means one process
@@ -118,6 +149,22 @@ alone), and the runtime knobs the peer and failure recovery read:
                                    port + 10000 (monitor/metrics.py)
 ``KF_CONFIG_MONITORING_PERIOD``    NetMonitor's rate sampling period, seconds,
                                    default 1
+``KF_CONFIG_LOG_LEVEL``            DEBUG/INFO/WARN/ERROR (utils/log.py)
+``KF_CONFIG_ENABLE_TRACE``         truthy: log scope entry depth +
+                                   duration (utils/trace.py) AND record
+                                   flight-recorder timeline events
+                                   (monitor/timeline.py)
+``KF_CONFIG_TRACE_DUMP``           timeline JSONL dump target: a
+                                   directory (one trace-*.jsonl per
+                                   process) or an exact *.jsonl path;
+                                   written on Peer.close/exit and merged
+                                   by kftrace (monitor/timeline.py)
+``KF_CONFIG_TIMELINE_CAP``         flight-recorder ring capacity in
+                                   events, default 65536; evictions are
+                                   counted in kf_timeline_dropped_total
+                                   (monitor/timeline.py)
+``KF_CONFIG_WATCH_GRACE``          runner natural-end grace window s,
+                                   default 10 (runner/watch.py)
 ``KF_JAX_PLATFORM``                ``cpu``: the launcher's ``-backend cpu``;
                                    the peer's device plane is then the host
                                    (``devices=["cpu"]``), as the reference
@@ -293,6 +340,15 @@ PP_STAGES = "KF_PP_STAGES"
 PP_MICROBATCHES = "KF_PP_MICROBATCHES"
 PP_SCHEDULE = "KF_PP_SCHEDULE"
 
+# protocol-verifier envs (read by kungfu_tpu_torch/analysis/protoverify.py
+# via os.environ directly — the analysis package is stdlib-only and must
+# not import this module; registered here so the env-contract scan
+# anchors the kf-verify knobs to the same registry, and verify_knobs()
+# below pins the defaults both sides must agree on)
+VERIFY_MAX_RANKS = "KF_VERIFY_MAX_RANKS"
+VERIFY_GEOMETRY_CAP = "KF_VERIFY_GEOMETRY_CAP"
+VERIFY_TIMEOUT_S = "KF_VERIFY_TIMEOUT_S"
+
 #: the values of ``KF_PALLAS_COLLECTIVES``, as the reference names them
 COLLECTIVE_IMPLS = ("auto", "pallas", "lax")
 
@@ -349,6 +405,20 @@ class _CollectiveKnobs(LaunchKnobs):
 
 
 COLLECTIVES_ENV = _CollectiveKnobs()
+
+
+def verify_knobs() -> dict:
+    """The kf-verify geometry-sweep knobs, parsed with their defaults.
+
+    protoverify._knobs() reads the same tokens from ``os.environ``
+    directly (it cannot import this module); tests pin that both sides
+    use these exact defaults so the documented contract cannot drift.
+    """
+    return {
+        "max_ranks": parse_int_env(VERIFY_MAX_RANKS, 16),
+        "geometry_cap": parse_int_env(VERIFY_GEOMETRY_CAP, 0),
+        "timeout_s": parse_float_env(VERIFY_TIMEOUT_S, 60.0),
+    }
 
 
 def persist_knobs() -> dict:

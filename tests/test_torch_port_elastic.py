@@ -15,6 +15,7 @@ is safe under xdist.
 """
 
 import errno
+import io
 import json
 import math
 import socket
@@ -1247,6 +1248,13 @@ class TestZeroBoundaryChunkMode:
         vecs = self._vectors()
         peers, chans, fakes = _mk_world(4)
         bs = self._boundaries(vecs, 4)
+        # each rank sends the reference's one npz blob of its chunks
+        want = []
+        for b in bs:
+            bio = io.BytesIO()
+            np.savez(bio, **{f"v{i}": a.numpy()
+                             for i, a in b.chunks()[1].items()})
+            want.append(len(bio.getvalue()))
         try:
             sent = run_all([lambda b=b, f=f: b.replicate_ring(
                 f.channel, peers, tag="rb", stride=stride)
@@ -1260,7 +1268,7 @@ class TestZeroBoundaryChunkMode:
                 for r in survivors], timeout=60)
         finally:
             _close(chans)
-        assert sent == [3 * 4 * 2] * 4  # two chunk leaves of 3 f32 each
+        assert sent == want  # two chunk leaves of 3 f32 each
         self._check([bs[r] for r in survivors], vecs, 2)
         return [bs[r] for r in survivors]
 
@@ -1380,6 +1388,112 @@ class TestZeroBoundaryChunkMode:
         finally:
             _close(chans)
         self._check([bs[0], bs[2]], vecs, 2)
+
+
+class TestZeroBuddyWire:
+    """``ZeroBoundary.replicate_ring`` speaks the reference's wire: one
+    npz blob of ``v{i}`` arrays under ``kf.zbuddy.{tag}``.  Port and
+    reference ranks alternate on one ring and mirror each other's
+    chunks, both ways, bitwise."""
+
+    TOTAL = 10
+    KINDS = ("port", "ref", "port", "ref")
+
+    def _world(self, dtype):
+        rng = np.random.RandomState(21)
+        full = {k: torch.from_numpy(rng.randn(self.TOTAL).astype(np.float32))
+                .to(dtype) for k in ("mu", "nu")}
+        chunks = {k: _chunks_of(v, self.TOTAL, 4) for k, v in full.items()}
+        chans = [host.PyHostChannel(plan.PeerID("127.0.0.1", 0),
+                                    bind_host="127.0.0.1") if k == "port"
+                 else _ref_channel() for k in self.KINDS]
+        ids = [(c.self_id.host, c.self_id.port) for c in chans]
+        port_peers = plan.PeerList.of(*(plan.PeerID(h, p) for h, p in ids))
+        ref_peers = jplan.PeerList.of(*(jplan.PeerID(h, p) for h, p in ids))
+        bs = []
+        for r, kind in enumerate(self.KINDS):
+            tree = {"mu": chunks["mu"][r], "nu": chunks["nu"][r],
+                    "count": torch.tensor(5)}
+            if kind == "port":
+                b = ZeroBoundary()
+            else:
+                b = jreshard.ZeroBoundary()
+                tree = {k: _ref_array(v) for k, v in tree.items()}
+            b.commit_local(5, tree, total=self.TOTAL, old_n=4, my_old=r)
+            bs.append(b)
+        return full, chunks, chans, port_peers, ref_peers, bs
+
+    def _replicate(self, chans, port_peers, ref_peers, bs):
+        run_all([lambda b=b, c=c, k=k: b.replicate_ring(
+            c, port_peers if k == "port" else ref_peers, tag="mx")
+            for b, c, k in zip(bs, chans, self.KINDS)], timeout=60)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                             ids=["f32", "bf16"])
+    def test_mixed_ring_mirrors_bitwise(self, dtype, no_unixsock):
+        full, chunks, chans, pp, rp, bs = self._world(dtype)
+        try:
+            self._replicate(chans, pp, rp, bs)
+        finally:
+            _close(chans)
+        for r, b in enumerate(bs):
+            succ = (r + 1) % 4
+            assert b._buddy_of == succ
+            # leaves flatten sorted: 0 = count, 1/2 = mu/nu
+            for i, k in ((1, "mu"), (2, "nu")):
+                assert _bits16(b._buddy[i]) == _bits16(chunks[k][succ]), \
+                    (r, k)
+
+    @pytest.mark.parametrize("survivors", [(0, 2), (1, 3)],
+                             ids=["port-serves-ref", "ref-serves-port"])
+    def test_dead_ranks_served_across_packages(self, survivors,
+                                               no_unixsock):
+        """The mirrors one package received re-carve the other
+        package's dead chunks: survivors of one kind rebuild the full
+        vectors from buddies the other kind sent."""
+        full, _, chans, pp, rp, bs = self._world(torch.float32)
+        dead = tuple(r for r in range(4) if r not in survivors)
+        kind = self.KINDS[survivors[0]]
+        peers = pp if kind == "port" else rp
+        fakes = [type("P", (), {"channel": c, "config": type(
+            "C", (), {"self_id": peers[r]})()})()
+            for r, c in enumerate(chans)]
+        try:
+            self._replicate(chans, pp, rp, bs)
+            for r in dead:
+                chans[r].close()
+            new_workers = peers.select(list(survivors)) \
+                if kind == "port" else jplan.PeerList.of(
+                    *(peers[r] for r in survivors))
+            run_all([lambda r=r: bs[r].recarve(
+                2, peer=fakes[r], old_workers=peers,
+                new_workers=new_workers, tag="mxd", dead=dead)
+                for r in survivors], timeout=60)
+        finally:
+            _close(chans)
+        for k, i in (("mu", 1), ("nu", 2)):
+            want = _chunks_of(full[k], self.TOTAL, 2)
+            for j, r in enumerate(survivors):
+                got = bs[r].chunks()[1][i]
+                assert _bits16(got) == _bits16(want[j]), (k, r)
+
+
+def _ref_array(t):
+    """A port tensor as the reference's host array (bf16 via
+    ml_dtypes, bit for bit)."""
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def _bits16(a):
+    """The bytes of a chunk of either package."""
+    if isinstance(a, torch.Tensor):
+        a = a.view(torch.int16) if a.dtype == torch.bfloat16 else a
+        return a.numpy().tobytes()
+    return np.asarray(a).tobytes()
 
 
 # ==========================================================================

@@ -379,3 +379,92 @@ class TestDefaultDeviceIsTheCard:
             node[leaf] = arr
         with pytest.raises(RuntimeError):
             interop.params_from_jax(tree, cfg)
+
+
+#: the modules of the analysis plane's slice (kf-lint and kf-verify)
+ANALYSIS_MODULES = [
+    "kungfu_tpu_torch.analysis", "kungfu_tpu_torch.analysis.__main__",
+    "kungfu_tpu_torch.analysis.core", "kungfu_tpu_torch.analysis.callgraph",
+    "kungfu_tpu_torch.analysis.cli", "kungfu_tpu_torch.analysis.envcheck",
+    "kungfu_tpu_torch.analysis.blockingio",
+    "kungfu_tpu_torch.analysis.lockcheck",
+    "kungfu_tpu_torch.analysis.retrydiscipline",
+    "kungfu_tpu_torch.analysis.handlecheck",
+    "kungfu_tpu_torch.analysis.tracevocab",
+    "kungfu_tpu_torch.analysis.aggschema",
+    "kungfu_tpu_torch.analysis.ledgerschema",
+    "kungfu_tpu_torch.analysis.collectives",
+    "kungfu_tpu_torch.analysis.wirecontract",
+    "kungfu_tpu_torch.analysis.pylockorder",
+    "kungfu_tpu_torch.analysis.commgraph",
+    "kungfu_tpu_torch.analysis.protoverify",
+    "kungfu_tpu_torch.analysis.mutations",
+]
+
+ANALYSIS_FILES = sorted((ROOT / "kungfu_tpu_torch" / "analysis").glob("*.py"))
+
+#: a fresh interpreter in which torch, numpy and jax cannot be imported
+_BLOCKED = (
+    "import sys\n"
+    "class _Block:\n"
+    "    def find_spec(self, name, path=None, target=None):\n"
+    "        if name.split('.')[0] in ('torch', 'numpy', 'jax'):\n"
+    "            raise ImportError('blocked: ' + name)\n"
+    "sys.meta_path.insert(0, _Block())\n"
+)
+
+
+class TestAnalysisStandalone:
+    """kf-lint over the port is stdlib-only, as the reference's is: it
+    loads and runs where torch and numpy cannot be imported."""
+
+    def test_analysis_modules_are_scanned(self):
+        _check_scanned(ANALYSIS_MODULES)
+        assert {p.stem for p in ANALYSIS_FILES} == {
+            m.rsplit(".", 1)[-1] for m in ANALYSIS_MODULES
+            if m != "kungfu_tpu_torch.analysis"} | {"__init__"}
+
+    @pytest.mark.parametrize("path", ANALYSIS_FILES, ids=lambda p: p.name)
+    def test_imports_only_the_stdlib_and_itself(self, path):
+        bad = [n for n in _imports(path)
+               if n.split(".")[0] not in sys.stdlib_module_names
+               and not (n == "kungfu_tpu_torch.analysis"
+                        or n.startswith("kungfu_tpu_torch.analysis."))]
+        assert not bad, f"{path.name} imports {bad}"
+
+    def test_launcher_runs_list_with_torch_and_numpy_blocked(self):
+        code = _BLOCKED + (
+            "import runpy\n"
+            f"sys.argv = [{str(ROOT / 'scripts' / 'kflint_torch')!r}, "
+            "'--list']\n"
+            "try:\n"
+            f"    runpy.run_path(sys.argv[0], run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert e.code == 0, e.code\n"
+            "assert not [m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'numpy', 'jax', 'kungfu_tpu')]\n"
+            "print('STANDALONE')\n")
+        out = subprocess.run([sys.executable, "-c", code],
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode == 0, out.stderr
+        assert "proto-verify" in out.stdout and "STANDALONE" in out.stdout
+
+    def test_cli_main_lints_the_tree_with_torch_and_numpy_blocked(self):
+        """Through a stub package object, as ``scripts/kflint`` loads the
+        reference's: the whole protocol proof runs without torch."""
+        code = _BLOCKED + (
+            "import types\n"
+            f"sys.path.insert(0, {str(ROOT)!r})\n"
+            "pkg = types.ModuleType('kungfu_tpu_torch')\n"
+            f"pkg.__path__ = [{str(ROOT / 'kungfu_tpu_torch')!r}]\n"
+            "sys.modules['kungfu_tpu_torch'] = pkg\n"
+            "from kungfu_tpu_torch.analysis import cli\n"
+            "assert cli.main(['--list']) == 0\n"
+            f"assert cli.main(['--root', {str(ROOT)!r}, '--proto', "
+            "'--checker', 'env-contract', '--checker', 'wire-contract']) "
+            "== 0\n"
+            "print('STANDALONE')\n")
+        out = subprocess.run([sys.executable, "-c", code],
+                             capture_output=True, text=True, timeout=300)
+        assert out.returncode == 0, out.stdout + out.stderr
+        assert "STANDALONE" in out.stdout
