@@ -466,7 +466,15 @@ Phases (any failed check exits non-zero before the result line):
              with one planted fault per rule family
              (``kungfu_tpu_torch.analysis.mutations``) exits 1 with
              exactly those findings.  The three runs start together.
-             Launches no kernel.
+             (a) runs all nineteen rules.  (d), on the card meanwhile,
+             the capture rule's premise: a tiny function with an
+             ``.item()`` fails to capture under ``torch.cuda.graph``
+             (its capture runs on a thread of its own, thread-local
+             capture mode, so nothing of it outlives the failure), the
+             same function without the sync captures and replays with
+             the right values, and jit-sync over the same source
+             flags exactly the ``.item()`` line.  Launches no kernel of
+             the port.
 
 Phase 3 also holds the ring reduce-scatter and all-gather kernels
 bitwise against their plain versions, at the main path's shapes (a
@@ -2142,8 +2150,12 @@ def phase_elastic(torch, np, kernels, tr):
     def buckets(n):
         return len(bucket_widths(math.ceil(total / n), n, 4, 4 << 20))
 
+    timed = []
+
     def counted_step(z, p, o, n, stage, what):
-        """One step, its launches checked against the exact count."""
+        """One step, its launches checked against the exact count; its
+        ms goes to ``timed``, apart from the state the boundaries
+        commit."""
         _reset(kernels)
         t0 = time.perf_counter()
         p, o, loss = z.step(p, o, batch)
@@ -2158,7 +2170,8 @@ def phase_elastic(torch, np, kernels, tr):
         for key, v in got.items():
             launches[key] += v
         check(math.isfinite(loss), f"{what}: loss {loss}")
-        return p, o, loss, ms
+        timed.append(ms)
+        return p, o, loss
 
     def world(n, version, strategy):
         comm = Communicator(devices=["cuda:0"] * n, local_size=n,
@@ -2274,10 +2287,9 @@ def phase_elastic(torch, np, kernels, tr):
                       f"(config version {version}): " + ", ".join(
                           f"{k} {v:.3f}" for k, v in rec.items()
                           if k.endswith("_s")))
-            p, o, loss, ms = counted_step(z, p, o, n, 2,
-                                          f"elastic step {step}")
+            p, o, loss = counted_step(z, p, o, n, 2, f"elastic step {step}")
             losses.append(loss)
-            step_ms.setdefault(n, []).append(ms)
+            step_ms.setdefault(n, []).append(timed[-1])
             if fixed is not None:
                 _check_bitwise(torch, (p, o), fixed[:2], f"step {step} "
                                f"after the resize to {n} vs the fixed world")
@@ -2305,9 +2317,9 @@ def phase_elastic(torch, np, kernels, tr):
     c4 = Communicator(devices=["cuda:0"] * RANKS, local_size=RANKS)
     z3 = zero.zero_train_step(loss_fn, adam(ELASTIC_LR), c4, stage=3,
                               schedule="pallas_ring")
-    ps, o3, loss3, ms3 = counted_step(z3, z3.init_params(params),
-                                      z3.init_opt(params), RANKS, 3,
-                                      "ZeRO-3 step")
+    ps, o3, loss3 = counted_step(z3, z3.init_params(params),
+                                 z3.init_opt(params), RANKS, 3, "ZeRO-3 step")
+    ms3 = timed[-1]
     b3 = ZeroBoundary()
     b3.commit(0, {"opt": o3, "p": ps}, params)
     full_old = tree_map(torch.clone, z3.gather_params(ps))
@@ -2323,8 +2335,9 @@ def phase_elastic(torch, np, kernels, tr):
                    "ZeRO-3 params gathered after the 4 -> 2 re-carve vs "
                    "before")
     del full_old
-    _, _, loss32, ms32 = counted_step(z32, st["p"], st["opt"], 2, 3,
-                                      "ZeRO-3 step at 2 ranks")
+    _, _, loss32 = counted_step(z32, st["p"], st["opt"], 2, 3,
+                                "ZeRO-3 step at 2 ranks")
+    ms32 = timed[-1]
     del z32, st, b3
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     wall = time.perf_counter() - t_phase
@@ -8595,6 +8608,109 @@ def phase_sentinel(torch, np, kernels, tr) -> dict:
 #: phase 22: the linter runs' time limit, seconds each
 P22_TIMEOUT_S = 300
 
+#: phase 22 (d): the source jit-sync reads and the card runs.  ``capture``
+#: calls its parameter inside the capture, so both functions passed to it
+#: are in capture scope; only ``scaled`` syncs
+P22_CAPTURE_SRC = '''import torch
+
+
+def scaled(x):
+    s = x.sum()
+    return x * s.item()
+
+
+def scaled_on_device(x):
+    s = x.sum()
+    return x * s
+
+
+def capture(fn, x):
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        out = fn(x)
+    return graph, out
+
+
+def both(x):
+    return capture(scaled, x), capture(scaled_on_device, x)
+'''
+
+
+def _p22_capture(tmp: str) -> dict:
+    """Phase 22 (d): the sync refused under capture, the same function
+    without it captured and replayed, and jit-sync's view of the same
+    source (see the module docstring)."""
+    import importlib.util
+    import threading
+
+    import torch
+
+    from kungfu_tpu_torch.analysis import core, jitpurity
+
+    t0 = time.perf_counter()
+    pkg = os.path.join(tmp, "kungfu_tpu_torch")
+    os.makedirs(pkg)
+    path = os.path.join(pkg, "p22_capture.py")
+    with open(path, "w") as f:
+        f.write(P22_CAPTURE_SRC)
+    item_line = next(i + 1 for i, line in enumerate(
+        P22_CAPTURE_SRC.splitlines()) if ".item()" in line)
+    found = [(v.line, v.message) for v in jitpurity.check(tmp)]
+    core.clear_parse_cache()
+    check(len(found) == 1 and found[0][0] == item_line
+          and "in capture scope `scaled`" in found[0][1],
+          f"phase 22 (d): jit-sync over the capture source found {found}, "
+          f"expected the .item() at line {item_line}")
+    spec = importlib.util.spec_from_file_location("p22_capture", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+
+    x = torch.arange(1, 1025, dtype=torch.float32, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm both up before any capture
+        for fn in (mod.scaled, mod.scaled_on_device):
+            fn(x)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    refused = {}
+
+    def sync_capture():
+        try:
+            refused["graph"] = mod.capture(mod.scaled, x)
+        except Exception as e:  # noqa: BLE001 - the refusal is the check
+            # the sync's own error, which the capture's end then reports
+            # as "a previous error during capture"
+            first = e.__context__ or e
+            refused["error"] = f"{type(first).__name__}: {first}"
+
+    th = threading.Thread(target=sync_capture, name="p22-capture")
+    th.start()
+    th.join(timeout=60)
+    check(not th.is_alive(), "phase 22 (d): the refused capture hung")
+    check("error" in refused and "graph" not in refused,
+          "phase 22 (d): a capture with .item() inside succeeded")
+    refused.pop("graph", None)
+    torch.cuda.synchronize()
+
+    graph, out = mod.capture(mod.scaled_on_device, x)
+    x.copy_(torch.arange(1025, 1, -1, dtype=torch.float32, device="cuda"))
+    graph.replay()
+    torch.cuda.synchronize()
+    want = x * x.sum()
+    err = float((out - want).abs().max())
+    check(err == 0.0, f"phase 22 (d): the replayed graph is off by {err}")
+    del graph, out, mod
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    check(wall < 5.0, f"phase 22 (d) took {wall:.2f} s, over 5 s")
+    first = refused["error"].splitlines()[0][:200]
+    print(f"phase 22 (d): .item() under capture refused ({first}); the "
+          f"clean function captured and replayed (max abs err {err}); "
+          f"jit-sync flags line {item_line} only; {wall:.2f} s")
+    return {"refused": first, "replay_max_abs_err": err,
+            "jit_sync_line": item_line, "wall_s": wall}
+
 
 def phase_analysis() -> dict:
     """Phase 22: kf-lint and kf-verify over this checkout and over a
@@ -8612,6 +8728,7 @@ def phase_analysis() -> dict:
                              r"([0-9.]+) s$", re.M)
     t_phase = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="kf-p22-")
+    tmp_d = tempfile.mkdtemp(prefix="kf-p22d-")
     procs = {}
     try:
         mutations.plant_all(mutations.copy_port(HERE, tmp))
@@ -8636,6 +8753,8 @@ def phase_analysis() -> dict:
 
         with ThreadPoolExecutor(max_workers=len(runs)) as pool:
             futs = {key: pool.submit(run, key) for key in runs}
+            # (d) on the card while the linters run
+            capture = _p22_capture(tmp_d)
             res = {key: f.result() for key, f in futs.items()}
     finally:
         for proc in procs.values():
@@ -8643,6 +8762,7 @@ def phase_analysis() -> dict:
                 proc.kill()
                 proc.wait()
         shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(tmp_d, ignore_errors=True)
 
     out = {}
     want = {"tree": (0, sorted(CHECKERS)), "proto": (0, list(PROTO_CHECKERS)),
@@ -8681,6 +8801,7 @@ def phase_analysis() -> dict:
                                  for k, v in timing.items()}}
     out["plants"] = [{"checker": p.checker, "path": p.path,
                       "findings": p.count} for p in mutations.PLANTS]
+    out["capture"] = capture
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"analysis phase: {out['phase_s']:.2f} s")
     return out

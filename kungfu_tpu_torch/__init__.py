@@ -56,3 +56,23 @@ from kungfu_tpu_torch.python import (  # noqa: F401
     run_barrier,
     uid,
 )
+
+
+def launch_multiprocess(fn, np_, *args, **kwargs):
+    """Single-machine multi-process launch (reference
+    ``kungfu.cmd.launch_multiprocess``); see
+    :func:`kungfu_tpu_torch.runner.mp.launch_multiprocess`."""
+    from kungfu_tpu_torch.runner.mp import launch_multiprocess as _lm
+
+    return _lm(fn, np_, *args, **kwargs)
+
+
+def __getattr__(name):
+    # the reference imports its ops subpackage here; the port's loads on
+    # first use, as it imports torch and this package imports nothing
+    # heavy (``python -m kungfu_tpu_torch.analysis`` starts without torch)
+    if name == "ops":
+        import importlib
+
+        return importlib.import_module("kungfu_tpu_torch.ops")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,7 +1,7 @@
-"""kf-lint and kf-verify over the port's tree (port of
-``kungfu_tpu/analysis/``, part 1).
+"""kf-lint, kf-verify, kf-shard and kf-det over the port's tree (port
+of ``kungfu_tpu/analysis/``).
 
-Twelve AST/structural checkers enforce the invariants of the reference's
+Nineteen AST/structural checkers enforce the invariants of the reference's
 catalog (``docs/lint.md``) over ``kungfu_tpu_torch/``, ``chip_smoke.py``
 and the port's timing scripts.  The messages are the reference's; they
 name the port's paths.
@@ -11,6 +11,10 @@ The single-function and schema rules:
 * ``env-contract``  — every ``KF_*`` env read (Python and C++) appears in
   the :mod:`kungfu_tpu_torch.utils.envs` registry, and every registry
   entry has a reader (:mod:`kungfu_tpu_torch.analysis.envcheck`).
+* ``jit-sync``      — no host-sync / side-effect calls inside jitted
+  code or inside capture scope (a ``torch.cuda.graph`` block, what it
+  calls, and the functions handed to a capture-entry parameter), at any
+  call depth (:mod:`kungfu_tpu_torch.analysis.jitpurity`).
 * ``blocking-io``   — no timeout-less blocking calls in modules that run
   background threads (:mod:`kungfu_tpu_torch.analysis.blockingio`).
 * ``lock-discipline`` — every write to a ``// guarded_by(<mutex>)``
@@ -45,10 +49,33 @@ graph (:mod:`kungfu_tpu_torch.analysis.callgraph`):
   :mod:`kungfu_tpu_torch.analysis.protoverify`); the tags it proves are
   the reference's wire tags.
 
-The reference's axis-environment rules (jit-sync, shard-axis,
-shard-spec, recompile-hazard) and kf-det (replay-taint, rng-discipline,
-reduction-order) are part 2; asking for one exits 2 and names its
-ROADMAP item (:data:`kungfu_tpu_torch.analysis.cli.PART2_CHECKERS`).
+The kf-shard rules, on the axis environment
+(:mod:`kungfu_tpu_torch.analysis.axisenv`: the rank worlds of
+``Mesh.world()``, ``Communicator.world()`` and ``rank_world([...])``,
+the ``with <world>:`` contexts and capture scope, beside the
+reference's jax idioms):
+
+* ``shard-axis`` — every collective's literal axis is declared by a
+  rank world and bound where the call runs
+  (:mod:`kungfu_tpu_torch.analysis.shardaxis`).
+* ``shard-spec`` — the port's ``PartitionSpec`` names declared axes,
+  each once (:mod:`kungfu_tpu_torch.analysis.shardspec`).
+* ``recompile-hazard`` — no membership constant (``device_count()``,
+  ``os.environ``, ``len(peers)``, ``.rank()``) is frozen into a captured
+  graph (:mod:`kungfu_tpu_torch.analysis.recompilehazard`).
+
+The replay-determinism (kf-det) rules, on the interprocedural taint
+engine (:mod:`kungfu_tpu_torch.analysis.taint`, rules in
+:mod:`kungfu_tpu_torch.analysis.detrules`):
+
+* ``replay-taint`` — entropy (clocks, unseeded RNG draws including
+  ``torch``'s global generator, uuid, os entropy, set order) must not
+  reach a replay-critical sink.
+* ``rng-discipline`` — no process-global draw in capture scope, and
+  ``manual_seed`` material derives from agreed values (the jax key
+  checks are kept for jax code).
+* ``reduction-order`` — no order-sensitive accumulation over unordered
+  iteration in the bitwise-pinned directories.
 
 This package is stdlib-only (no torch/numpy import) so
 ``scripts/kflint_torch`` runs in any environment, including bare CI
@@ -58,11 +85,11 @@ images; ``python -m kungfu_tpu_torch.analysis`` runs the same CLI.
 from kungfu_tpu_torch.analysis.core import Violation, repo_root
 from kungfu_tpu_torch.analysis.cli import (
     CHECKERS,
-    PART2_CHECKERS,
+    DET_CHECKERS,
     PROTO_CHECKERS,
     VERIFY_CHECKERS,
     run_checkers,
 )
 
-__all__ = ["Violation", "repo_root", "CHECKERS", "PART2_CHECKERS",
+__all__ = ["Violation", "repo_root", "CHECKERS", "DET_CHECKERS",
            "PROTO_CHECKERS", "VERIFY_CHECKERS", "run_checkers"]

@@ -311,7 +311,12 @@ def project_graph(root: str) -> CallGraph:
 
 
 def invalidate_cache() -> None:
-    """Tests that rewrite a tree between checks call this.  The
-    protocol verifier's cache is keyed on this graph's identity, so it
-    goes stale with it."""
+    """Tests that rewrite a tree between checks call this.  The axis
+    environment and the taint engine are derived from this graph and
+    cascade with it; the protocol verifier's cache is keyed on this
+    graph's identity, so it goes stale with it."""
     _GRAPH_CACHE.clear()
+    from kungfu_tpu_torch.analysis import axisenv, taint
+
+    axisenv.invalidate_cache()
+    taint.invalidate_cache()

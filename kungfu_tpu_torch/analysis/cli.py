@@ -32,8 +32,7 @@ instead of blocking on them.  ``--write-baseline`` snapshots the current
 findings into that format.
 
 Exit code 0 = clean (or fully baselined), 1 = violations, 2 =
-usage/internal error, or a rule of the reference that the port has not
-taken yet (``PART2_CHECKERS``).
+usage/internal error.
 """
 
 from __future__ import annotations
@@ -48,13 +47,18 @@ from kungfu_tpu_torch.analysis import (
     aggschema,
     blockingio,
     collectives,
+    detrules,
     envcheck,
     handlecheck,
+    jitpurity,
     ledgerschema,
     lockcheck,
     protoverify,
     pylockorder,
+    recompilehazard,
     retrydiscipline,
+    shardaxis,
+    shardspec,
     tracevocab,
     wirecontract,
 )
@@ -62,6 +66,7 @@ from kungfu_tpu_torch.analysis.core import Violation, repo_root
 
 CHECKERS: Dict[str, object] = {
     envcheck.CHECKER: envcheck.check,
+    jitpurity.CHECKER: jitpurity.check,
     blockingio.CHECKER: blockingio.check,
     lockcheck.CHECKER: lockcheck.check,
     retrydiscipline.CHECKER: retrydiscipline.check,
@@ -72,7 +77,13 @@ CHECKERS: Dict[str, object] = {
     tracevocab.CHECKER: tracevocab.check,
     aggschema.CHECKER: aggschema.check,
     ledgerschema.CHECKER: ledgerschema.check,
+    shardaxis.CHECKER: shardaxis.check,
+    shardspec.CHECKER: shardspec.check,
+    recompilehazard.CHECKER: recompilehazard.check,
     protoverify.CHECKER: protoverify.check,
+    detrules.CHECKER_TAINT: detrules.check_replay_taint,
+    detrules.CHECKER_RNG: detrules.check_rng_discipline,
+    detrules.CHECKER_RED: detrules.check_reduction_order,
 }
 
 #: the kf-verify subset: the interprocedural rules built on the shared
@@ -81,21 +92,19 @@ CHECKERS: Dict[str, object] = {
 VERIFY_CHECKERS = (collectives.CHECKER, wirecontract.CHECKER,
                    pylockorder.CHECKER)
 
+#: the kf-shard subset: the axis-environment rules
+SHARD_CHECKERS = (shardaxis.CHECKER, shardspec.CHECKER,
+                  recompilehazard.CHECKER)
+
 #: the protocol verifier (``--proto``): gates with an EMPTY baseline —
 #: a collective-ordering divergence, an orphan p2p tag, or a wait-for
 #: cycle can never land as "legacy debt"
 PROTO_CHECKERS = (protoverify.CHECKER,)
 
-#: the reference's rules that the port has not taken yet: the axis
-#: environment (jit-sync, shard-axis, shard-spec, recompile-hazard) and
-#: kf-det over the taint engine.  Asking for one exits 2 — it never
-#: passes silently.
-PART2_CHECKERS = ("jit-sync", "shard-axis", "shard-spec",
-                  "recompile-hazard", "replay-taint", "rng-discipline",
-                  "reduction-order")
-PART2_ITEM = ("ROADMAP Queue A, A14 (the analysis plane, part 2: "
-              "axisenv over the port's Mesh and CUDA-graph captures, "
-              "taint and kf-det)")
+#: the kf-det subset: the replay-determinism rules over the taint
+#: engine (a determinism finding never ratchets)
+DET_CHECKERS = (detrules.CHECKER_TAINT, detrules.CHECKER_RNG,
+                detrules.CHECKER_RED)
 
 #: cross-language rule contracts: a change to EITHER side must surface
 #: the findings the rule reports on the other side — ``--changed``
@@ -185,8 +194,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         "(the PyTorch/CUDA port's tree)")
     p.add_argument("--root", default=None,
                    help="tree to lint (default: auto-detected repo root)")
-    p.add_argument("--checker", action="append",
-                   choices=sorted(CHECKERS) + sorted(PART2_CHECKERS),
+    p.add_argument("--checker", action="append", choices=sorted(CHECKERS),
                    help="run only this checker (repeatable)")
     p.add_argument("--proto", action="store_true",
                    help="run only the kf-verify protocol verifier "
@@ -213,11 +221,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             print(name)
         return 0
     names = args.checker
-    missing = sorted(set(names or ()) & set(PART2_CHECKERS))
-    if missing:
-        print(f"kflint: {', '.join(missing)} not ported to "
-              f"kungfu_tpu_torch yet — see {PART2_ITEM}", file=sys.stderr)
-        return 2
     if args.proto:
         names = list(names or []) + [c for c in PROTO_CHECKERS
                                      if c not in (names or [])]

@@ -124,21 +124,10 @@ def _constant_readers(root: str, constants: Dict[str, str]) -> Set[str]:
 
 
 def check(root: str) -> List[Violation]:
-    out: List[Violation] = []
-    # an unparseable file is invisible to every AST rule.  The
-    # reference's jit-sync owns surfacing it; until that rule is ported
-    # (ROADMAP A14) this one does, so the suite cannot go green on a
-    # tree it could not actually analyze
-    for path in iter_py_files(root):
-        err = parse_module(path).error
-        if err is not None:
-            out.append(Violation(
-                CHECKER, relpath(root, path), err.lineno or 1,
-                f"syntax error prevents analysis: {err.msg}"))
-
     registry = _registry_tokens(root)
     reads = _tree_reads(root)
     constants = _registry_constants(root)
+    out: List[Violation] = []
 
     for tok in sorted(reads):
         if tok not in registry:

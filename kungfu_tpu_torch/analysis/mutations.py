@@ -4,8 +4,14 @@ One fault per rule family, each a small edit of a real module of
 ``kungfu_tpu_torch/``: an unregistered knob (env-contract), a
 rank-conditional collective (collective-consistency), a reversed lock
 pair (lock-order), a renamed ZeRO buddy tag (proto-verify: the wire no
-longer matches the protocol model) and a dropped ``HeaderCodec`` field
-(wire-contract).  :func:`plant_all` applies them to a copy made by
+longer matches the protocol model), a dropped ``HeaderCodec`` field
+(wire-contract), a ``.item()`` in the captured decode step (jit-sync),
+a typo'd pipeline axis (shard-axis), a duplicated axis in a
+``ShardedTrainer`` spec (shard-spec), a ``torch.cuda.device_count()``
+read in a captured lambda (recompile-hazard), the clock in the ZeRO
+buddy tag (replay-taint), an unseeded global ``torch.randn`` in the
+captured decode step (rng-discipline) and a ``+=`` over set iteration
+in ``parallel/`` (reduction-order).  :func:`plant_all` applies them to a copy made by
 :func:`copy_port`; a linter run over that copy must then report exactly
 the plants' findings (:func:`unexplained` is empty) — no fault missed,
 nothing else found.  The tests and ``chip_smoke.py`` phase 22 run it.
@@ -61,6 +67,34 @@ PLANTS: Tuple[Plant, ...] = (
           2, "protocol model drift"),
     Plant("wire-contract", "kungfu_tpu_torch/comm/host.py",
           'HEAD_FMT = "<IIBH"', 'HEAD_FMT = "<IIB"', 2, "transport.cpp"),
+    Plant("jit-sync", "kungfu_tpu_torch/serve/engine.py",
+          "        B = last_ids.shape[0]\n",
+          "        B = last_ids.shape[0]\n        last_ids.max().item()\n",
+          1, "in capture scope `_decode`"),
+    Plant("shard-axis", "kungfu_tpu_torch/parallel/train.py",
+          "buf = coll.ppermute(out, AXIS_PP, perm)",
+          'buf = coll.ppermute(out, "ppx", perm)', 1, "'ppx'"),
+    Plant("shard-spec", "kungfu_tpu_torch/parallel/train.py",
+          '"wq": {"w": (P(AXIS_PP, None, AXIS_TP), "tp_sharded"),',
+          '"wq": {"w": (P(AXIS_PP, AXIS_TP, AXIS_TP), "tp_sharded"),',
+          1, "names axis 'tp' twice"),
+    Plant("recompile-hazard", "kungfu_tpu_torch/serve/engine.py",
+          "self._v, last, pos))",
+          "self._v, last, pos[:torch.cuda.device_count()]))",
+          1, "frozen into the CUDA graph"),
+    Plant("replay-taint", "kungfu_tpu_torch/elastic/reshard.py",
+          "        stride = int(stride)\n",
+          "        stride = int(stride)\n"
+          "        tag = f\"{tag}.{__import__('time').time()}\"\n",
+          1, "time.time()"),
+    Plant("rng-discipline", "kungfu_tpu_torch/serve/engine.py",
+          "        slots = torch.arange(B, device=pos.device)\n",
+          "        slots = torch.arange(B, device=pos.device)\n"
+          "        h = h + torch.randn(h.shape, device=h.device, dtype=h.dtype)"
+          "\n", 1, "torch.randn() (process-global RNG)"),
+    Plant("reduction-order", "kungfu_tpu_torch/parallel/zero.py",
+          "    for l in tree_leaves(opt_state):",
+          "    for l in set(tree_leaves(opt_state)):", 1, "set(...)"),
 )
 
 

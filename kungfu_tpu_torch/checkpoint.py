@@ -356,3 +356,7 @@ def prune_checkpoints(ckpt_dir: str, keep: int = 3) -> None:
                 os.unlink(full + ".meta.json")
         else:
             os.unlink(full)
+
+
+#: default snapshot for the one-trainer-per-process case
+step_snapshot = StepSnapshot()

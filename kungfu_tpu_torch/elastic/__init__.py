@@ -33,6 +33,34 @@ from kungfu_tpu_torch.elastic.schedule import (parse_schedule,
                                                step_based_schedule,
                                                total_steps)
 
+#: the reference's other exports, loaded on first use: the loop driver,
+#: the shrink and the persist plane import the chaos and monitor planes,
+#: which import this package back
+_LAZY = {
+    "ElasticState": "kungfu_tpu_torch.elastic.hooks",
+    "elastic_step": "kungfu_tpu_torch.elastic.hooks",
+    "find_dead_ranks": "kungfu_tpu_torch.elastic.shrink",
+    "recover_from_peer_failure": "kungfu_tpu_torch.elastic.shrink",
+    "shrink_to_survivors": "kungfu_tpu_torch.elastic.shrink",
+    "PersistPlane": "kungfu_tpu_torch.elastic.persist",
+    "RestoredState": "kungfu_tpu_torch.elastic.persist",
+    "newest_complete_manifest": "kungfu_tpu_torch.elastic.persist",
+    "restore_from_manifest": "kungfu_tpu_torch.elastic.persist",
+}
+
 __all__ = ["ConfigServer", "fetch_cluster", "parse_schedule",
            "step_based_schedule", "total_steps", "ZeroBoundary",
-           "place_stacked", "recarve_after_shrink"]
+           "place_stacked", "recarve_after_shrink", *_LAZY]
+
+
+def __getattr__(name):
+    # each name of _LAZY loads its module on first use, so no import
+    # cycle can close through this package
+    src = _LAZY.get(name)
+    if src is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+
+    value = getattr(importlib.import_module(src), name)
+    globals()[name] = value
+    return value

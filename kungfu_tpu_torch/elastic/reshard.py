@@ -530,6 +530,11 @@ def place_stacked(boundaries: Sequence[ZeroBoundary], new_comm):
         for i, l in enumerate(first)])
 
 
+#: default boundary for the one-trainer-per-process case (mirrors
+#: ``checkpoint.step_snapshot``)
+zero_boundary = ZeroBoundary()
+
+
 def recarve_after_shrink(peer, boundary: ZeroBoundary, old_workers,
                          expect_step: Optional[int] = None) -> None:
     """Shrink-recovery hook: re-carve ``boundary`` across the survivors.

@@ -18,6 +18,12 @@ from kungfu_tpu_torch.monitor import timeline
 from kungfu_tpu_torch.monitor.registry import REGISTRY
 from kungfu_tpu_torch.utils import envs
 
+# the knobs' names, as the reference's mirror constants name them
+# (utils/envs.py registers the tokens; pulse_knobs() there pins the
+# defaults both sides use)
+EVERY_ENV = envs.PULSE_EVERY
+EMA_ENV = envs.PULSE_EMA
+
 #: sample every N steps; 0 disables the plane entirely
 DEFAULT_EVERY = 10
 #: EMA weight for the published estimates

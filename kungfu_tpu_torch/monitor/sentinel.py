@@ -47,6 +47,17 @@ from kungfu_tpu_torch.utils import envs
 # knob, two consumers (target and alarm must never disagree)
 TTFT_BUDGET_ENV = envs.SERVE_SLO_TTFT_MS
 E2E_BUDGET_ENV = envs.SERVE_SLO_E2E_MS
+# the knobs' names, as the reference's mirror constants name them
+DIR_ENV = envs.SENTINEL_DIR
+PERIOD_ENV = envs.SENTINEL_PERIOD
+WINDOW_ENV = envs.SENTINEL_WINDOW
+THRESHOLD_ENV = envs.SENTINEL_THRESHOLD
+MFU_FLOOR_ENV = envs.SENTINEL_MFU_FLOOR
+STEP_CEILING_ENV = envs.SENTINEL_STEP_CEILING_S
+WARMUP_ENV = envs.SENTINEL_WARMUP_STEPS
+INCIDENT_WINDOW_ENV = envs.SENTINEL_INCIDENT_WINDOW
+SLO_SHORT_ENV = envs.SENTINEL_SLO_SHORT
+SLO_LONG_ENV = envs.SENTINEL_SLO_LONG
 
 DEFAULT_PERIOD_S = 1.0
 DEFAULT_WARMUP_STEPS = 32

@@ -33,6 +33,12 @@ CARD_SPECS = {
 }
 
 
+#: per-card bf16 dense peak FLOP/s by device-name substring, the
+#: reference's table (there per TPU chip) over ``CARD_SPECS``: the
+#: H100's 989 TFLOP/s
+CHIP_PEAK_FLOPS = {key: spec["bf16_flops"] for key, spec in CARD_SPECS.items()}
+
+
 def card_spec(name: str) -> Optional[Dict[str, float]]:
     """Datasheet peaks for a device name, or ``None`` when unknown."""
     for key, spec in CARD_SPECS.items():
@@ -50,6 +56,19 @@ def transformer_param_count(cfg) -> int:
     if cfg.pos == "learned":
         total += cfg.max_seq * d
     return total + d * v  # untied head, no bias
+
+
+def matmul_param_count(cfg) -> int:
+    """Parameters that participate in matmuls (the ``2 * P * tokens``
+    denominator of the classic FLOPs estimate): everything except the
+    embedding lookup table, positions, layernorms, and biases."""
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    return cfg.n_layers * (4 * d * d + 2 * d * f) + d * v
+
+
+def param_bytes(cfg, dtype_bytes: int = 4) -> int:
+    """Model parameter footprint (f32 master params by default)."""
+    return transformer_param_count(cfg) * dtype_bytes
 
 
 def kv_bytes_per_token(cfg, dtype_bytes: int = 2) -> int:
@@ -118,6 +137,15 @@ def chip_peak_flops(device=None) -> Optional[float]:
 
 
 # -- live meter -------------------------------------------------------------
+def record_phases(phases: Dict[str, float]) -> None:
+    """Export a per-step phase split as the
+    ``kf_step_phase_seconds{phase=...}`` gauges (the continuous
+    decomposition kftop's XRAY section renders cluster-wide)."""
+    for phase, seconds in phases.items():
+        REGISTRY.gauge("kf_step_phase_seconds", phase=phase).set(
+            float(seconds))
+
+
 class MFUMeter:
     """Continuous MFU / model-FLOPs-rate accounting for one loop: each
     :meth:`step` turns the FLOPs added since the last one and the wall

@@ -23,7 +23,6 @@ import os
 import torch
 from torch.autograd.function import once_differentiable
 
-from kungfu_tpu_torch.models.nn import take_index
 from kungfu_tpu_torch.ops.triton import xent as kernels
 from kungfu_tpu_torch.utils import envs
 
@@ -114,6 +113,10 @@ def token_nll_rows(logits: torch.Tensor,
     every rank's rows)."""
     if XENT_ENV.mode == "fused":
         return softmax_cross_entropy(logits, targets)
+    # imported here: models/ imports this module, so a module-level
+    # import would fail whenever this module is imported first
+    from kungfu_tpu_torch.models.nn import take_index
+
     logp = torch.log_softmax(logits, dim=-1)
     safe, ok = take_index(targets, logits.shape[-1])
     nll = -logp.gather(-1, safe[..., None]).squeeze(-1)

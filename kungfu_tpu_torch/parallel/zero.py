@@ -409,7 +409,9 @@ def _world_of(leaves, vec_idx) -> Optional[int]:
     if len(ns) > 1:
         raise ValueError(f"state leaves are carved for different world "
                          f"sizes {sorted(ns)}")
-    return ns.pop() if ns else None
+    # max() of the one size, not pop(): the value is fixed either way,
+    # and an order-insensitive reduction says so to replay-taint
+    return max(ns) if ns else None
 
 
 def _repad(full: torch.Tensor, total: int, new_padded: int) -> torch.Tensor:

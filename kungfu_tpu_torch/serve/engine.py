@@ -57,6 +57,8 @@ from kungfu_tpu_torch.serve.kvcache import (CacheExhausted, KVCachePool,
 from kungfu_tpu_torch.utils import envs
 
 DEFAULT_MAX_BATCH = 8
+#: the per-request new-token cap ``KF_SERVE_MAX_TOKENS`` defaults to
+DEFAULT_MAX_TOKENS = 256
 
 
 class _Req:

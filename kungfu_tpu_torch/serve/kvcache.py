@@ -178,6 +178,17 @@ class KVCachePool:
             return (self.capacity - len(self._free)) * self.spec.page_bytes
 
     @property
+    def cached_pages(self) -> int:
+        """Committed pages currently parked with zero references."""
+        with self._lock:
+            return len(self._lru)
+
+    @property
+    def evictions(self) -> int:
+        with self._lock:
+            return self._evictions
+
+    @property
     def free_pages(self) -> int:
         with self._lock:
             return len(self._free)

@@ -349,6 +349,22 @@ VERIFY_MAX_RANKS = "KF_VERIFY_MAX_RANKS"
 VERIFY_GEOMETRY_CAP = "KF_VERIFY_GEOMETRY_CAP"
 VERIFY_TIMEOUT_S = "KF_VERIFY_TIMEOUT_S"
 
+# observability envs (read by utils/log.py and monitor/timeline.py,
+# which name the same tokens beside their readers)
+LOG_LEVEL = "KF_CONFIG_LOG_LEVEL"
+TRACE_DUMP = "KF_CONFIG_TRACE_DUMP"
+TIMELINE_CAP = "KF_CONFIG_TIMELINE_CAP"
+
+#: the bootstrap envs a launcher sets for every worker: the reference's
+#: list without its NUM_DEVICES, which sizes jax's CPU device count and
+#: has no counterpart here (a worker's device is its backend's)
+ALL_BOOTSTRAP_ENVS = [
+    SELF_SPEC, INIT_PEERS, INIT_RUNNERS, PARENT_ID, INIT_CLUSTER_VERSION,
+    ALLREDUCE_STRATEGY, CONFIG_SERVER, JOB_START_TIMESTAMP,
+    PROC_START_TIMESTAMP, COORDINATOR, NUM_PROCESSES, PROCESS_ID,
+    WORLD_PEERS,
+]
+
 #: the values of ``KF_PALLAS_COLLECTIVES``, as the reference names them
 COLLECTIVE_IMPLS = ("auto", "pallas", "lax")
 
@@ -374,14 +390,27 @@ def parse_float_env(name: str, default: float) -> float:
         return default
 
 
+#: every :class:`LaunchKnobs` instance, so that tooling which changes
+#: the environment (tests above all) can re-read them all
+LAUNCH_KNOBS: list = []
+
+
+def register_launch_knobs(knobs):
+    """Track a reload()-able launch-knob object; returns it."""
+    LAUNCH_KNOBS.append(knobs)
+    return knobs
+
+
 class LaunchKnobs:
     """Knobs read when their module is imported and on :meth:`reload`,
     never per call, as the reference's launch-set knobs are: a mid-run
     change of the environment changes nothing until ``reload()``.
-    Subclasses read their variables in ``_read``."""
+    Subclasses read their variables in ``_read``; every instance
+    registers for :func:`reload_launch_knobs`."""
 
     def __init__(self):
         self._read()
+        register_launch_knobs(self)
 
     def reload(self):
         self._read()
@@ -389,6 +418,13 @@ class LaunchKnobs:
 
     def _read(self) -> None:
         raise NotImplementedError
+
+
+def reload_launch_knobs() -> None:
+    """Re-read every registered launch-set knob from the current
+    environment."""
+    for k in LAUNCH_KNOBS:
+        k.reload()
 
 
 class _CollectiveKnobs(LaunchKnobs):
@@ -431,6 +467,15 @@ def persist_knobs() -> dict:
         "depth": parse_int_env(PERSIST_ASYNC_DEPTH, 2),
         "keep": parse_int_env(PERSIST_KEEP, 3),
         "restore": parse_bool_env(PERSIST_RESTORE, False),
+    }
+
+
+def pulse_knobs() -> dict:
+    """The kf-pulse plane's knobs with their defaults (reference
+    ``utils/envs.py:604``), as ``monitor/pulse.py`` reads them."""
+    return {
+        "every": parse_int_env(PULSE_EVERY, 10),
+        "ema": parse_float_env(PULSE_EMA, 0.2),
     }
 
 

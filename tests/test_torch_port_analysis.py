@@ -8,8 +8,8 @@ held against the reference's (``kungfu_tpu/analysis/``), rule by rule.
   the port; both packages' checkers give the same ``(checker, path,
   line, message)`` set once the package prefix is mapped, and the
   reference's line pins hold for the port;
-* the gate: every ported rule over the port's tree, no baseline, no
-  finding; the CLI's exit codes (0 tree, 1 fixture, 2 part-2 rule);
+* the gate: every rule over the port's tree, no baseline, no finding;
+  the CLI's exit codes (0 tree, 1 fixture);
 * each protocol entrypoint extracts the reference's protocol: the same
   comm ops and tag skeletons in order;
 * the planted faults of :mod:`kungfu_tpu_torch.analysis.mutations` in a
@@ -31,18 +31,14 @@ from kungfu_tpu.analysis import commgraph as rcommgraph
 from kungfu_tpu.analysis import protoverify as rprotoverify
 from kungfu_tpu_torch.analysis import (callgraph, cli, commgraph, core,
                                        envcheck, mutations, protoverify)
-from kungfu_tpu_torch.analysis.cli import (CHECKERS, PART2_CHECKERS,
-                                           PROTO_CHECKERS, VERIFY_CHECKERS,
-                                           expand_coupled, run_checkers)
+from kungfu_tpu_torch.analysis.cli import (CHECKERS, DET_CHECKERS,
+                                           PROTO_CHECKERS, SHARD_CHECKERS,
+                                           VERIFY_CHECKERS, expand_coupled,
+                                           run_checkers)
 
 ROOT = Path(__file__).resolve().parents[1]
 FIXTURES = ROOT / "tests" / "lint_fixtures"
 PKGS = {"ref": "kungfu_tpu", "port": "kungfu_tpu_torch"}
-
-#: the reference rules this slice does not port (part 2, ROADMAP A14)
-REFERENCE_ONLY = {"jit-sync", "shard-axis", "shard-spec",
-                  "recompile-hazard", "replay-taint", "rng-discipline",
-                  "reduction-order"}
 
 #: messages the port words differently, because they name a jax
 #: construct the port does not have: (reference text, port text)
@@ -124,8 +120,14 @@ def _both(tmp_path, checker, files):
 
 class TestCatalog:
     def test_ported_rules_are_the_reference_rules_minus_part_2(self):
-        assert set(CHECKERS) == set(rcli.CHECKERS) - REFERENCE_ONLY
-        assert set(PART2_CHECKERS) == REFERENCE_ONLY
+        """Part 2 is ported: the port's catalog is the reference's, in
+        its order, and so is every subset."""
+        assert list(CHECKERS) == list(rcli.CHECKERS)
+        assert len(CHECKERS) == 19
+        assert not hasattr(cli, "PART2_CHECKERS")
+        assert not hasattr(cli, "PART2_ITEM")
+        assert SHARD_CHECKERS == rcli.SHARD_CHECKERS
+        assert DET_CHECKERS == rcli.DET_CHECKERS
         assert VERIFY_CHECKERS == rcli.VERIFY_CHECKERS
         assert PROTO_CHECKERS == rcli.PROTO_CHECKERS == (protoverify.CHECKER,)
 
@@ -264,23 +266,29 @@ def test_findings_match_reference(tmp_path, case):
 
 
 def test_every_ported_fixture_is_covered():
-    used = {c for case in CASES for c in case[2].values()
-            if (FIXTURES / str(c)).is_file()}
-    ported = {"blocking_io_bad.py", "lock_bad.cpp", "retry_bad.py",
-              "handle_bad.py", "handle_good.py", "persist_bad.py",
-              "persist_good.py", "collective_bad.py", "collective_good.py",
-              "lockorder_bad.py", "lockorder_good.py", "tracevocab_bad.py",
-              "aggschema_bad.py", "ledgerschema_bad.py", "env_bad.py",
-              "proto_bad_cycle.py", "proto_bad_order.py",
-              "proto_bad_orphan.py", "proto_good_mirror.py"}
-    assert used == ported
-    # the rest of the fixtures belong to the part-2 rules
-    rest = {p.name for p in FIXTURES.iterdir()} - ported
-    assert rest == {"jit_sync_bad.py", "jit_sync_deep.py",
-                    "recompile_bad.py", "redorder_bad.py",
-                    "redorder_good.py", "rng_bad.py", "rng_good.py",
-                    "shard_axis_bad.py", "shard_good.py",
-                    "shard_spec_bad.py", "taint_bad.py", "taint_good.py"}
+    """Every fixture of tests/lint_fixtures/ goes through both packages:
+    the part-1 rules' here, the part-2 rules' in
+    tests/test_torch_port_analysis_part2.py."""
+    from tests.test_torch_port_analysis_part2 import CASES as PART2_CASES
+
+    def used(cases):
+        return {c for case in cases for c in case[2].values()
+                if "\n" not in c and (FIXTURES / c).is_file()}
+
+    part1 = {"blocking_io_bad.py", "lock_bad.cpp", "retry_bad.py",
+             "handle_bad.py", "handle_good.py", "persist_bad.py",
+             "persist_good.py", "collective_bad.py", "collective_good.py",
+             "lockorder_bad.py", "lockorder_good.py", "tracevocab_bad.py",
+             "aggschema_bad.py", "ledgerschema_bad.py", "env_bad.py",
+             "proto_bad_cycle.py", "proto_bad_order.py",
+             "proto_bad_orphan.py", "proto_good_mirror.py"}
+    part2 = {"jit_sync_bad.py", "jit_sync_deep.py", "recompile_bad.py",
+             "redorder_bad.py", "redorder_good.py", "rng_bad.py",
+             "rng_good.py", "shard_axis_bad.py", "shard_good.py",
+             "shard_spec_bad.py", "taint_bad.py", "taint_good.py"}
+    assert used(CASES) == part1
+    assert used(PART2_CASES) == part2
+    assert part1 | part2 == {p.name for p in FIXTURES.iterdir()}
 
 
 # -- the reference's message assertions, on the port --------------------
@@ -334,12 +342,15 @@ class TestMessages:
         assert "other_mu_" in dict(got)[27]
 
     def test_syntax_error_fails_the_suite(self, tmp_path):
-        """The reference's jit-sync surfaces an unparseable module; the
-        port's env-contract owns it until jit-sync is ported."""
-        got = _port(tmp_path, "env-contract", {
-            "PKG/utils/envs.py": MINI_REGISTRY,
-            "PKG/mod.py": "def broken(:\n    pass\n"})
-        assert (1, "syntax error prevents analysis: invalid syntax") in got
+        """jit-sync surfaces an unparseable module, as the reference's
+        does; env-contract no longer reports it."""
+        files = {"PKG/utils/envs.py": MINI_REGISTRY,
+                 "PKG/mod.py": "def broken(:\n    pass\n"}
+        got = _port(tmp_path, "jit-sync", files)
+        assert got == [(1, "syntax error prevents analysis: invalid syntax")]
+        core.clear_parse_cache()
+        assert not [m for _, m in _port(tmp_path, "env-contract", files)
+                    if "syntax error" in m]
 
     def test_seeding_a_real_module_fails_the_gate(self, tmp_path):
         real = (ROOT / "kungfu_tpu_torch" / "utils" / "trace.py").read_text()
@@ -533,17 +544,6 @@ def _bad_json(base: Path) -> Path:
 
 
 class TestExitCodes:
-    @pytest.mark.parametrize("name", sorted(REFERENCE_ONLY))
-    def test_part_2_rule_exits_2_and_names_its_item(self, name, capsys):
-        assert cli.main(["--checker", name]) == 2
-        err = capsys.readouterr().err
-        assert name in err and "ROADMAP" in err and "A14" in err
-
-    def test_part_2_rule_with_a_ported_one_still_exits_2(self, capsys):
-        assert cli.main(["--checker", "env-contract",
-                         "--checker", "shard-axis"]) == 2
-        capsys.readouterr()
-
     def test_timing_prints_each_checker(self, tmp_path, capsys):
         root = _tree(tmp_path, "kungfu_tpu_torch", SEEDED)
         assert cli.main(["--root", root, "--checker", "lock-order",
@@ -567,12 +567,17 @@ class TestExitCodes:
         assert r.returncode == 1, r.stdout + r.stderr
         assert "4 violation(s)" in r.stderr
 
-    def test_module_entry_point_exit_2_for_part_2(self):
+    def test_module_entry_point_exit_1_for_jit_sync(self, tmp_path):
+        """A part-2 rule through ``-m kungfu_tpu_torch.analysis`` on a
+        fixture tree: exit 1 with the reference's count."""
+        root = _tree(tmp_path, "kungfu_tpu_torch",
+                     {"PKG/mod.py": "jit_sync_bad.py"})
         r = subprocess.run(
-            [sys.executable, "-m", "kungfu_tpu_torch.analysis", "--checker",
-             "jit-sync"], capture_output=True, text=True, timeout=120,
-            cwd=ROOT)
-        assert r.returncode == 2 and "A14" in r.stderr
+            [sys.executable, "-m", "kungfu_tpu_torch.analysis", "--root",
+             root, "--checker", "jit-sync"], capture_output=True, text=True,
+            timeout=120, cwd=ROOT)
+        assert r.returncode == 1, r.stdout + r.stderr
+        assert "8 violation(s)" in r.stderr
 
 
 class TestChangedCoupled:
@@ -930,7 +935,9 @@ class TestPlantedFaults:
     def test_one_plant_per_family(self):
         assert [p.checker for p in mutations.PLANTS] == [
             "env-contract", "collective-consistency", "lock-order",
-            "proto-verify", "wire-contract"]
+            "proto-verify", "wire-contract", "jit-sync", "shard-axis",
+            "shard-spec", "recompile-hazard", "replay-taint",
+            "rng-discipline", "reduction-order"]
 
 
 # ==========================================================================

@@ -399,6 +399,13 @@ ANALYSIS_MODULES = [
     "kungfu_tpu_torch.analysis.commgraph",
     "kungfu_tpu_torch.analysis.protoverify",
     "kungfu_tpu_torch.analysis.mutations",
+    "kungfu_tpu_torch.analysis.axisenv",
+    "kungfu_tpu_torch.analysis.jitpurity",
+    "kungfu_tpu_torch.analysis.shardaxis",
+    "kungfu_tpu_torch.analysis.shardspec",
+    "kungfu_tpu_torch.analysis.recompilehazard",
+    "kungfu_tpu_torch.analysis.taint",
+    "kungfu_tpu_torch.analysis.detrules",
 ]
 
 ANALYSIS_FILES = sorted((ROOT / "kungfu_tpu_torch" / "analysis").glob("*.py"))
@@ -423,6 +430,10 @@ class TestAnalysisStandalone:
         assert {p.stem for p in ANALYSIS_FILES} == {
             m.rsplit(".", 1)[-1] for m in ANALYSIS_MODULES
             if m != "kungfu_tpu_torch.analysis"} | {"__init__"}
+        assert len(ANALYSIS_MODULES) == len(set(ANALYSIS_MODULES))
+        # every module of the reference's analysis package has its port
+        ref = {p.stem for p in (ROOT / "kungfu_tpu" / "analysis").glob("*.py")}
+        assert ref <= {p.stem for p in ANALYSIS_FILES}
 
     @pytest.mark.parametrize("path", ANALYSIS_FILES, ids=lambda p: p.name)
     def test_imports_only_the_stdlib_and_itself(self, path):

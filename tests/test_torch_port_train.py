@@ -37,8 +37,9 @@ from kungfu_tpu_torch.monitor import pulse as tpulse
 from kungfu_tpu_torch.monitor.registry import REGISTRY
 from kungfu_tpu_torch.ops import collective, schedules
 from kungfu_tpu_torch.ops import costmodel as tcost
-from kungfu_tpu_torch.ops import fuse as tfuse
 from kungfu_tpu_torch.ops.cuda.attention import make_flash_attn
+from kungfu_tpu_torch.ops.fuse import defuse as tdefuse
+from kungfu_tpu_torch.ops.fuse import fuse as tfuse
 from kungfu_tpu_torch.ops.monitor import _sq_norm
 from kungfu_tpu_torch.ops.xent import XENT_ENV, softmax_cross_entropy
 from kungfu_tpu_torch.optimizers import apply_updates, sgd, synchronous_sgd
@@ -392,10 +393,10 @@ class TestFuseAndOptimizer:
 
     def test_fuse_layout_matches_jax(self):
         tree = self._tree()
-        buf, spec = tfuse.fuse(tree_map(torch.from_numpy, tree))
+        buf, spec = tfuse(tree_map(torch.from_numpy, tree))
         jbuf, _ = jfuse(jax.tree_util.tree_map(jnp.asarray, tree))
         np.testing.assert_array_equal(buf.numpy(), np.asarray(jbuf))
-        back = tfuse.defuse(buf * 2, spec)
+        back = tdefuse(buf * 2, spec)
         for k, v in ttr.flatten(back).items():
             np.testing.assert_array_equal(v.numpy(),
                                           2 * ttr.flatten(tree)[k])
