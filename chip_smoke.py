@@ -502,6 +502,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -8892,6 +8893,480 @@ def build_all(torch, attention, lmk, ringk) -> dict:
     return info
 
 
+#: phase 23: bert_base() in a provisioned world of WORLD_SLOTS worker
+#: processes on the card (``python -m kungfu_tpu_torch -np 2 -H
+#: 127.0.0.1:4 -w -device-world``), active in turn per WORLD_SCHEDULE,
+#: WORLD_STEPS S-SGD steps an epoch under pallas_ring on [BERT_ROWS,
+#: BERT_SEQ] a rank: the ring kernels across processes
+WORLD_SLOTS, WORLD_SCHEDULE, WORLD_STEPS = 4, (2, 4, 2), 2
+#: the launch of phase 23, command included, at most
+WORLD_TIMEOUT_S = 300
+#: launches a rank's S-SGD step makes of each ring kernel: one fused
+#: gradient, one reduce-scatter and one all-gather
+WORLD_RING_PER_STEP = 1
+#: timed launches of each ring kernel at the process-spanning shape
+WORLD_TIMED = 10
+
+
+def _world_batch(torch, np, vocab: int, epoch: int, step: int, ranks: int):
+    """The global batch of one step of phase 23: ids and targets
+    [ranks * BERT_ROWS, BERT_SEQ], a function of (23, epoch, step) only,
+    so every process passes the same one."""
+    rng = np.random.default_rng([23, epoch, step])
+    return tuple(torch.from_numpy(rng.integers(
+        0, vocab, size=(ranks * BERT_ROWS, BERT_SEQ))).cuda()
+        for _ in range(2))
+
+
+def _world_ring_check(torch, comm, kernels, loss_fn, params, shard) -> dict:
+    """Phase 23's check of the ring kernels across processes, run by every
+    active process of the four-process epoch after its steps (its
+    launches are not the main path's): one rank's fused gradient through
+    the cross-process reduce-scatter and all-gather, each timed on the
+    host with its barrier waits, held bitwise against the single-process
+    stacked kernels and the plain versions on the four gathered buffers;
+    then each kernel timed at this shape, every process launching at
+    once, and (process 0, the others waiting) the stacked single call,
+    the plain version and the PyTorch call on the same buffers."""
+    from kungfu_tpu_torch.ops import collectives as rc
+    from kungfu_tpu_torch.ops.cuda import collectives as ringk
+    from kungfu_tpu_torch.ops.fuse import fuse
+    from kungfu_tpu_torch.ops.schedules import _flatten_pad
+    from kungfu_tpu_torch.parallel.train import per_rank_grads
+
+    span, k, first = comm.span, comm.size, comm.first_rank
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grads = []
+    per_rank_grads(loss_fn, params, [shard], lambda r, g: grads.extend(g))
+    buf, _ = fuse(grads)
+    del grads
+    parts, _ = _flatten_pad(buf[None], k, "sum")
+    flat = parts.reshape(1, -1)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    chunk = flat.shape[1] // k
+    cut = rc.band_cut(chunk, flat.dtype, False)
+    b0 = span.stats["barrier_s"]
+    with comm.world():
+        rs = rc.ring_reduce_scatter(flat, "kf_local", impl="pallas")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        b1 = span.stats["barrier_s"]
+        ag = rc.ring_all_gather(rs, "kf_local", impl="pallas")
+        torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    b2 = span.stats["barrier_s"]
+    full = span.gather([flat])[0]
+    st_rs = ringk.reduce_scatter(full, cut)
+    st_ag = ringk.all_gather(st_rs, cut)
+    pl_rs = rc.ring_reduce_scatter_reference(full, cut)
+    pl_ag = rc.ring_all_gather_reference(pl_rs, cut)
+    torch.cuda.synchronize()
+    out = {"k": k, "chunk": chunk, "cut": cut,
+           "grads_ms": (t1 - t0) * 1e3, "rs_step_ms": (t2 - t1) * 1e3,
+           "ag_step_ms": (t3 - t2) * 1e3,
+           "rs_barrier_ms": (b1 - b0) * 1e3, "ag_barrier_ms": (b2 - b1) * 1e3,
+           "rs_digest": _device_digest(torch, rs[0]),
+           "ag_digest": _device_digest(torch, ag[0]),
+           "stacked_rs_digest": _device_digest(torch, st_rs[first]),
+           "stacked_ag_digest": _device_digest(torch, st_ag[first]),
+           "rs_vs_stacked": bool(torch.equal(rs[0], st_rs[first])),
+           "ag_vs_stacked": bool(torch.equal(ag[0], st_ag[first])),
+           "rs_vs_plain": bool(torch.equal(rs[0], pl_rs[first])),
+           "ag_vs_plain": bool(torch.equal(ag[0], pl_ag[first]))}
+    del st_ag, pl_rs, pl_ag, ag
+    rows = span.rows
+
+    def timed(x, launch):
+        # every process launches WORLD_TIMED times on the rows it
+        # published; the reads end and all meet before anyone publishes
+        (views,) = span.publish([x])
+        ring = [views[g // rows][g % rows] for g in range(k)]
+        launch(ring)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        start.record()
+        for _ in range(WORLD_TIMED):
+            launch(ring)
+        end.record()
+        end.synchronize()
+        wall = time.perf_counter() - t
+        span.barrier()
+        return start.elapsed_time(end) / WORLD_TIMED, wall * 1e3 / WORLD_TIMED
+
+    rs_out = torch.empty((1, chunk), dtype=flat.dtype, device=flat.device)
+    ag_out = torch.empty((1, k * chunk), dtype=flat.dtype, device=flat.device)
+    out["rs_ms"], out["rs_wall_ms"] = timed(flat, lambda ring: (
+        ringk.reduce_scatter_rows(ring, [rs_out[0]], first, cut)))
+    out["ag_ms"], out["ag_wall_ms"] = timed(rs, lambda ring: (
+        ringk.all_gather_rows(ring, [ag_out[0]], first, cut)))
+    if first == 0:
+        out["stacked_rs_ms"] = device_ms(
+            torch, lambda: ringk.reduce_scatter(full, cut), 3, 5)
+        out["stacked_ag_ms"] = device_ms(
+            torch, lambda: ringk.all_gather(st_rs, cut), 3, 5)
+        out["plain_rs_ms"] = device_ms(
+            torch, lambda: rc.ring_reduce_scatter_reference(full, cut), 1, 3)
+        out["plain_ag_ms"] = device_ms(
+            torch, lambda: rc.ring_all_gather_reference(st_rs, cut), 1, 3)
+        out["library_rs_ms"] = device_ms(
+            torch, lambda: full.view(k, k, chunk).sum(0), 3, 5)
+        out["library_ag_ms"] = device_ms(
+            torch, lambda: st_rs.reshape(1, -1).expand(k, -1).contiguous(),
+            3, 5)
+    span.barrier()
+    del full, st_rs, flat, rs, rs_out, ag_out
+    torch.cuda.empty_cache()
+    return out
+
+
+def world_worker_main(argv) -> int:
+    """``--world-worker``: phase 23's program, one process a world slot
+    under ``python -m kungfu_tpu_torch -w -device-world``: the reference's
+    ``examples/device_elastic.py`` loop (a psum of world_rank + 1 an
+    epoch, standby slots waiting in ``await_rejoin``) with bert_base()
+    S-SGD steps under pallas_ring over the re-carved communicator.  It
+    prints the ``KFEPOCH`` and ``KFDONE`` lines and writes one JSON object
+    a line to ``--out``/slot{world_rank}.jsonl."""
+    import argparse
+
+    import numpy as np
+    import torch
+
+    ap = argparse.ArgumentParser(prog="chip_smoke.py --world-worker")
+    ap.add_argument("--out", required=True)
+    args = ap.parse_args(argv)
+    sys.path.insert(0, HERE)
+    from kungfu_tpu_torch.initializer import resync_parameters
+    from kungfu_tpu_torch.models import transformer as tr
+    from kungfu_tpu_torch.ops import xent
+    from kungfu_tpu_torch.ops.cuda import attention
+    from kungfu_tpu_torch.ops.cuda import collectives as ringk
+    from kungfu_tpu_torch.ops.cuda import lm_head as lmk
+    from kungfu_tpu_torch.ops.triton import xent as xk
+    from kungfu_tpu_torch.optimizers import sgd, synchronous_sgd
+    from kungfu_tpu_torch.parallel.train import (dp_train_step,
+                                                 per_rank_grads, split_batch)
+    from kungfu_tpu_torch.peer import Peer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels = (attention, xk, lmk, ringk)
+    proc0 = float(os.environ["KF_PROC_START_TIMESTAMP"])
+    peer = Peer()
+    peer.start()
+    world = peer.config.world_peers
+    check(world is not None, "phase 23's worker runs under -device-world")
+    wr = world.rank(peer.config.self_id)
+    path = os.path.join(args.out, f"slot{wr}.jsonl")
+
+    def emit(kind: str, **rec) -> None:
+        with open(path, "a") as f:
+            f.write(json.dumps({"kind": kind, "slot": wr,
+                                "wall": time.time(), **rec}) + "\n")
+
+    emit("up", pid=os.getpid(), up_s=time.time() - proc0,
+         boot_ms=peer._pworld.boot_s * 1e3)  # noqa: SLF001
+    model = tr.bert_base()
+    params = model.init(torch.Generator().manual_seed(0), device="cuda")
+    flash = attention.make_flash_attn()
+
+    def loss_fn(p, b):
+        logits = model.apply(p, b[0], train=True, attn_fn=flash)
+        return xent.softmax_cross_entropy(logits, b[1]).mean()
+
+    opt = sgd(BERT_LR, momentum=BERT_MOMENTUM)
+    opt_state = None
+    want = {key: 0 for key in _counts(kernels)}
+    want.update(flash_fwd=model.cfg.n_layers, flash_bwd_dq=model.cfg.n_layers,
+                flash_bwd_dkv=model.cfg.n_layers, xent_fwd=1, xent_bwd=1,
+                ring_rs=WORLD_RING_PER_STEP, ring_ag=WORLD_RING_PER_STEP)
+    schedule = list(WORLD_SCHEDULE)
+    deadline = time.time() + WORLD_TIMEOUT_S
+    while time.time() < deadline:
+        if peer.standby:
+            try:
+                _, version = peer.observe_stage()
+            except (OSError, ValueError, KeyError):
+                time.sleep(0.2)
+                continue
+            if version >= len(schedule):
+                break
+            peer.await_rejoin(timeout=2.0)
+            continue
+        v = peer.cluster_version
+        comm = peer.communicator()
+        if v == 0:
+            comm.set_strategy("pallas_ring")
+        x = torch.full((comm.addressable_n,), float(wr + 1), device="cuda")
+        got = float(comm.all_reduce(x)[0])
+        expect = float(sum(world.rank(w) + 1 for w in peer.cluster.workers))
+        check(got == expect, f"slot {wr} epoch {v}: psum {got} != {expect}")
+        tx = synchronous_sgd(opt, comm.axis, schedule="pallas_ring",
+                             fuse_grads=True)
+        step = dp_train_step(loss_fn, tx, comm)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = opt_state if opt_state is not None else tx.init(params)
+        params, opt_state = resync_parameters((params, state), peer,
+                                              comm=comm, root=0)
+        torch.cuda.synchronize()
+        resync_ms = (time.perf_counter() - t0) * 1e3
+        plain = None
+        if v == 0 and comm.first_rank == 0:
+            # rank 0's first step through the kernels, then the same step
+            # through their plain versions (phase 20's check)
+            batch = _world_batch(torch, np, model.cfg.vocab_size, v, 0,
+                                 comm.size)
+            shard = split_batch(batch, comm.size)[0]
+            grads = []
+            outs, _ = per_rank_grads(loss_fn, params, [shard],
+                                     lambda r, g: grads.extend(g))
+            plain = _kfrun_plain_check(torch, kernels, model, params, shard,
+                                       float(outs[0]), grads,
+                                       what="phase 23 rank 0")
+            del grads
+        span = comm.span
+        b0, open_s = span.stats["barrier_s"], span.stats["open_s"]
+        losses, step_ms, first_wall = [], [], None
+        launches = {key: 0 for key in want}
+        for s in range(WORLD_STEPS):
+            batch = _world_batch(torch, np, model.cfg.vocab_size, v, s,
+                                 comm.size)
+            _reset(kernels)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt_state, loss = step(params, opt_state, batch)
+            losses.append(float(loss))  # synchronises
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if first_wall is None:
+                first_wall = time.time()
+            per = _counts(kernels)
+            check(per == want, f"slot {wr} epoch {v} step {s} launched "
+                  f"{per}, expected {want}")
+            for key, n in per.items():
+                launches[key] += n
+        barrier_ms = (span.stats["barrier_s"] - b0) * 1e3
+        ring = None
+        if comm.size == WORLD_SLOTS:
+            shard = split_batch(batch, comm.size)[comm.first_rank]
+            ring = _world_ring_check(torch, comm, kernels, loss_fn, params,
+                                     shard)
+        emit("epoch", v=v, size=peer.size(), rank=peer.rank(), psum=got,
+             losses=[repr(x) for x in losses], step_ms=step_ms,
+             step_barrier_ms=barrier_ms, resync_ms=resync_ms,
+             open_ms=span.stats["open_s"] * 1e3, open_ms_before=open_s * 1e3,
+             opens=span.stats["opens"], first_step_wall=first_wall,
+             launches=launches, plain=plain, ring=ring,
+             strategy=comm.strategy)
+        print(f"KFEPOCH v={v} size={peer.size()} rank={peer.rank()} "
+              f"world_rank={wr} psum={got} expect={expect} pid={os.getpid()} "
+              f"ok=True strategy={comm.strategy} loss={losses[-1]:.17g}",
+              flush=True)
+        if v + 1 < len(schedule):
+            if peer.rank() == 0:
+                emit("propose", v=v, size=schedule[v + 1])
+                peer.propose_new_size(schedule[v + 1])
+            while (peer.cluster_version <= v and not peer.standby
+                   and time.time() < deadline):
+                peer.resize_cluster_from_url()
+        else:
+            if peer.rank() == 0:
+                peer.propose_new_size(peer.size())  # the shutdown sentinel
+            break
+    else:
+        raise SmokeFailure(f"slot {wr}: phase 23 timed out")
+    peer.close()
+    emit("done", pid=os.getpid())
+    print(f"KFDONE world_rank={wr} pid={os.getpid()}", flush=True)
+    return 0
+
+
+def phase_world(torch, np, kernels, spec, kfrun) -> dict:
+    """Phase 23: the multi-process device world.  bert_base() S-SGD under
+    pallas_ring in a provisioned world of four worker processes on the
+    card, active 2 -> 4 -> 2 (``python -m kungfu_tpu_torch -np 2 -H
+    127.0.0.1:4 -w -device-world``, one process a slot, a communicator
+    across the active processes through CUDA IPC).  Checks: the psums
+    name the active slots, every replica's loss is bitwise its epoch's,
+    rank 0's first step against the plain versions, exact launches a
+    step, the cross-process ring kernels bitwise the single-process
+    stacked ring and the plain versions on the same four gradient
+    buffers, worker 0 keeps one pid, KFDONE from every slot."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="kfw")
+    try:
+        base = _free_port_range(WORLD_SLOTS)
+        cfg_port = _free_port()
+        out_dir, logdir = (os.path.join(root, x) for x in ("out", "logs"))
+        os.makedirs(out_dir)
+        cmd = [sys.executable, "-m", "kungfu_tpu_torch", "-np",
+               str(WORLD_SCHEDULE[0]), "-H", f"127.0.0.1:{WORLD_SLOTS}", "-w",
+               "-device-world", "-q", "-builtin-config-port", str(cfg_port),
+               "-logdir", logdir, "-port-range", f"{base}-{base + 1000}",
+               sys.executable, os.path.abspath(__file__), "--world-worker",
+               "--out", out_dir]
+        env = dict(os.environ, PYTHONPATH=HERE, KF_SOCK_DIR=root,
+                   KF_TPU_USE_UNIXSOCK="1" if len(root) < 64 else "0")
+        print(f"world: {' '.join(cmd[2:])}")
+        t0 = time.time()
+        with open(os.path.join(root, "runner.log"), "w") as f:
+            proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT,
+                                    cwd=HERE, env=env, start_new_session=True)
+        try:
+            rc = proc.wait(timeout=WORLD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+            rc = None
+        wall_s = time.time() - t0
+        logs = ""
+        for name in sorted(os.listdir(logdir)) if os.path.isdir(logdir) \
+                else []:
+            with open(os.path.join(logdir, name)) as f:
+                logs += f.read()
+        if rc != 0:
+            with open(os.path.join(root, "runner.log")) as f:
+                tail = (f.read() + logs)[-6000:]
+            raise SmokeFailure(f"phase 23's launch exited {rc}: {tail}")
+        recs = _kfrun_records(out_dir)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    epochs = {}
+    for r in recs:
+        if r["kind"] == "epoch":
+            epochs.setdefault(r["v"], []).append(r)
+    check(sorted(epochs) == [0, 1, 2], f"epochs {sorted(epochs)}")
+    sizes = [len(epochs[v]) for v in (0, 1, 2)]
+    check(sizes == list(WORLD_SCHEDULE), f"active slots an epoch {sizes}")
+    want_psum = {v: float(sum(range(1, n + 1)))
+                 for v, n in enumerate(WORLD_SCHEDULE)}
+    check(all(r["psum"] == want_psum[v] for v, rs in epochs.items()
+              for r in rs), "psums " + str(
+        {v: [r["psum"] for r in rs] for v, rs in epochs.items()}))
+    check(sorted(r["slot"] for r in epochs[1]) == [0, 1, 2, 3]
+          and all(sorted(r["slot"] for r in epochs[v]) == [0, 1]
+                  for v in (0, 2)), "slots an epoch")
+    for v, rs in epochs.items():
+        check(len({tuple(r["losses"]) for r in rs}) == 1,
+              f"epoch {v}'s replicas diverged: {[r['losses'] for r in rs]}")
+        check(all(r["strategy"] == "pallas_ring" for r in rs),
+              f"epoch {v} strategies {[r['strategy'] for r in rs]}")
+    losses = [[float(x) for x in epochs[v][0]["losses"]] for v in (0, 1, 2)]
+    check(all(np.isfinite(x) for ls in losses for x in ls),
+          f"non-finite losses {losses}")
+    pids = {r["slot"]: {x["pid"] for x in recs
+                        if x["slot"] == r["slot"] and "pid" in x}
+            for r in recs}
+    check(all(len(p) == 1 for p in pids.values()), f"pids {pids}")
+    done = {r["slot"] for r in recs if r["kind"] == "done"}
+    check(done == set(range(WORLD_SLOTS)), f"done from slots {done}")
+    check(len(re.findall(r"^KFDONE world_rank=\d+", logs, re.M))
+          == WORLD_SLOTS and len(re.findall(r"^KFEPOCH ", logs, re.M))
+          == sum(WORLD_SCHEDULE), "KFEPOCH / KFDONE lines in the logs")
+    check("keep their original device world" not in logs,
+          "the fixed-world warning in a provisioned world")
+    plain = [r["plain"] for r in epochs[0] if r["plain"]]
+    check(len(plain) == 1, f"rank 0's plain check {plain}")
+    plain = plain[0]
+    # the ring across the four processes
+    rings = [r["ring"] for r in epochs[1]]
+    check(all(x["rs_vs_stacked"] and x["ag_vs_stacked"] and x["rs_vs_plain"]
+              and x["ag_vs_plain"] for x in rings),
+          f"cross-process ring vs stacked/plain: {rings}")
+    check(all(x["rs_digest"] == x["stacked_rs_digest"]
+              and x["ag_digest"] == x["stacked_ag_digest"] for x in rings)
+          and len({tuple(x["ag_digest"]) for x in rings}) == 1,
+          "ring digests")
+    r0 = [x for x in rings if "stacked_rs_ms" in x]
+    check(len(r0) == 1, "process 0's stacked timing")
+    r0 = r0[0]
+    k, chunk = r0["k"], r0["chunk"]
+    # the four processes' launches together read every rank's buffer
+    # once and write every output once: the stacked launch's bytes
+    nbytes = (k * k * chunk + k * chunk) * 4
+    t = bound(spec, 0, nbytes)
+    med = statistics.median
+    launches = {key: sum(r["launches"][key] for rs in epochs.values()
+                         for r in rs) for key in epochs[0][0]["launches"]}
+    n_steps = sum(WORLD_SCHEDULE) * WORLD_STEPS
+    check(launches["ring_rs"] == launches["ring_ag"]
+          == n_steps * WORLD_RING_PER_STEP, f"ring launches {launches}")
+    props = {r["v"]: r["wall"] for r in recs if r["kind"] == "propose"}
+    resize_s = {v: max(r["first_step_wall"] for r in epochs[v])
+                - props[v - 1] for v in (1, 2)}
+    warm = [ms for v in (0, 1, 2) for r in epochs[v]
+            for i, ms in enumerate(r["step_ms"]) if i]
+    out = {
+        "wall_s": wall_s, "losses": losses, "plain": plain,
+        "launches": launches,
+        "step_ms": {v: [r["step_ms"] for r in epochs[v]] for v in epochs},
+        "step_ms_warm_median": med(warm),
+        "step_barrier_ms": {v: [r["step_barrier_ms"] for r in epochs[v]]
+                            for v in epochs},
+        "split_4proc": {key: med(x[key] for x in rings) for key in (
+            "grads_ms", "rs_step_ms", "ag_step_ms", "rs_barrier_ms",
+            "ag_barrier_ms")},
+        "ipc_open_ms": {v: [r["open_ms"] for r in epochs[v]] for v in epochs},
+        "resync_ms": {v: [r["resync_ms"] for r in epochs[v]] for v in epochs},
+        "propose_to_first_step_s": resize_s,
+        "boot_ms": [r["boot_ms"] for r in recs if r["kind"] == "up"],
+        "ring_span": {
+            "k": k, "chunk": chunk,
+            "rs": {"ms": med(x["rs_ms"] for x in rings),
+                   "wall_ms": med(x["rs_wall_ms"] for x in rings),
+                   "stacked_ms": r0["stacked_rs_ms"],
+                   "plain_ms": r0["plain_rs_ms"],
+                   "library_ms": r0["library_rs_ms"], **t},
+            "ag": {"ms": med(x["ag_ms"] for x in rings),
+                   "wall_ms": med(x["ag_wall_ms"] for x in rings),
+                   "stacked_ms": r0["stacked_ag_ms"],
+                   "plain_ms": r0["plain_ag_ms"],
+                   "library_ms": r0["library_ag_ms"], **t}},
+        "kfrun_host_engine": {
+            "step_ms": kfrun["a"]["median_ms"]["step_ms"],
+            "allreduce_share": kfrun["a"]["allreduce_share"]},
+    }
+    sp = out["split_4proc"]
+    rsx, agx = out["ring_span"]["rs"], out["ring_span"]["ag"]
+    print(f"world (phase 23): {WORLD_SLOTS} slots, schedule "
+          f"{list(WORLD_SCHEDULE)}, {WORLD_STEPS} steps an epoch, "
+          f"{wall_s:.2f} s; losses {losses} (every replica bitwise its "
+          f"epoch's); rank 0's first step vs plain: loss rel "
+          f"{plain['loss_rel']:.3e}, worst gradient leaf but q/k "
+          f"{plain['grad_rel_l2_worst']:.3e}")
+    print(f"world step: {out['step_ms_warm_median']:.1f} ms median warm "
+          f"(every epoch {out['step_ms']}); barrier waits in the steps "
+          f"{out['step_barrier_ms']} ms; at four processes: grads "
+          f"{sp['grads_ms']:.1f} ms, cross-process reduce-scatter "
+          f"{sp['rs_step_ms']:.2f} ms (barrier {sp['rs_barrier_ms']:.2f}), "
+          f"all-gather {sp['ag_step_ms']:.2f} ms (barrier "
+          f"{sp['ag_barrier_ms']:.2f})")
+    print(f"world epochs: IPC open ms {out['ipc_open_ms']}; resync ms "
+          f"{out['resync_ms']}; propose -> first step of the new epoch "
+          f"{ {v: round(s, 3) for v, s in resize_s.items()} } s; boot ms "
+          f"{out['boot_ms']}")
+    print(f"world ring at k={k} chunk={chunk} f32 across four processes: "
+          f"reduce-scatter {rsx['ms']:.4f} ms a launch in each process "
+          f"(wall {rsx['wall_ms']:.4f}), all-gather {agx['ms']:.4f} ms (wall "
+          f"{agx['wall_ms']:.4f}); the stacked single call "
+          f"{rsx['stacked_ms']:.4f} and {agx['stacked_ms']:.4f} ms, plain "
+          f"{rsx['plain_ms']:.4f} and {agx['plain_ms']:.4f} ms, PyTorch "
+          f"{rsx['library_ms']:.4f} and {agx['library_ms']:.4f} ms; bound "
+          f"{t['bound_ms']:.4f} ms ({nbytes} bytes); launches {launches}")
+    print(f"world beside phase 20's host engine (for reading): "
+          f"{out['kfrun_host_engine']['step_ms']:.1f} ms a step, allreduce "
+          f"{out['kfrun_host_engine']['allreduce_share']:.3f} of it")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"world phase: {out['phase_s']:.2f} s")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -9047,9 +9522,15 @@ def main() -> int:
     # 22. the port's kf-lint and kf-verify over this checkout and over a
     # copy with one planted fault per rule family; no kernel launches
     analysis = phase_analysis()
+
+    # 23. the multi-process device world: bert_base() in four worker
+    # processes of one provisioned world, re-carved 2 -> 4 -> 2, the ring
+    # kernels across processes through CUDA IPC
+    world = phase_world(torch, np, kernels, spec, kfrun)
+    torch.cuda.empty_cache()
     paths = (train, train_fused, ssgd, zero2, zero3, replicas, elastic,
              host_engine, recover, gossip, adapt, sharded, pipeline, images,
-             kfrun, sentinel)
+             kfrun, sentinel, world)
 
     def row(name, route, source, replaces, key, err, timing, others=None):
         extra = {k: timing[k] for k in ("plain_head_ms", "bound_fp32_ms",
@@ -9081,6 +9562,13 @@ def main() -> int:
                       "resnet_small"):
             out.update({f"{label}_{k}": ring_timing[label][kind][k] for k in (
                 "ms", "plain_ms", "bound_ms", "library_ms", "host_us")})
+        # phase 23's process-spanning shape: one launch a process, four
+        # processes, and the stacked single call on the same buffers
+        span = world["ring_span"][kind]
+        out.update({f"span_{k}": span[k] for k in (
+            "ms", "wall_ms", "stacked_ms", "plain_ms", "library_ms",
+            "bound_ms")})
+        out["span_launches"] = world["launches"][key]
         return out
 
     cu = "kungfu_tpu_torch/ops/cuda/csrc/"
@@ -9150,6 +9638,9 @@ def main() -> int:
                 "xent_bwd"):
         check(kfrun["launches"][key] > 0, f"phase 20 never launched {key}")
         check(sentinel["launches"][key] > 0, f"phase 21 never launched {key}")
+    for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "xent_fwd",
+                "xent_bwd", "ring_rs", "ring_ag"):
+        check(world["launches"][key] > 0, f"phase 23 never launched {key}")
     print("details: " + json.dumps({
         "forward": fwd, "serve": serve, "train": train,
         "train_fused_head": train_fused, "ssgd_4_ranks": ssgd,
@@ -9165,6 +9656,7 @@ def main() -> int:
         "kfrun_bert_4_processes": kfrun,
         "sentinel_flagship_3_peers": sentinel,
         "analysis_lint_verify": analysis,
+        "world_bert_4_processes": world,
         "ring_timing": ring_timing, "build": build,
         "flash_fwd_errors": fwd_errs, "flash_fwd_timing": fwd_timing,
         "flash_bwd_errors": bwd_errs, "flash_bwd_timing": bwd_timing,
@@ -9199,6 +9691,8 @@ if __name__ == "__main__":
             sys.exit(lm_head_case_main(sys.argv[2]))
         if sys.argv[1:2] == ["--kfrun-worker"]:
             sys.exit(kfrun_worker_main(sys.argv[2:]))
+        if sys.argv[1:2] == ["--world-worker"]:
+            sys.exit(world_worker_main(sys.argv[2:]))
         sys.exit(main())
     except SmokeFailure as e:
         print(f"FAIL: {e}", file=sys.stderr)

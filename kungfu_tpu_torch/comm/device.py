@@ -1,14 +1,22 @@
-"""The device-plane communicator over co-resident stacked ranks.
+"""The device-plane communicator over stacked ranks.
 
-Port of ``kungfu_tpu/comm/device.py:116 Communicator``.  The reference
-is single-controller: one process holds the whole mesh, and its eager
-collectives take values **stacked** on a leading peer axis of size
-``n`` (``out[i] = reduce_j x[j]``).  The port keeps that convention with
-``n`` ranks in one process: their tensors share one card
+Port of ``kungfu_tpu/comm/device.py:116 Communicator``.  Its eager
+collectives take values **stacked** on a leading peer axis
+(``out[i] = reduce_j x[j]``).  The ranks share one card
 (``devices=["cuda:0"] * n``), where the ring kernels run every rank's
-program in one launch, or the host (``devices=["cpu"] * n``).  Distinct
-cards (peer pointers over NVLink) and the multi-controller mode (one
-process per host) come with the multi-card slice.
+program in one launch, or the host (``devices=["cpu"] * n``).
+
+Single-controller, one process holds all ``n`` ranks.  Multi-controller
+(the reference's ``_multiproc``), the ranks live in several worker
+processes on the one card: a :class:`~kungfu_tpu_torch.comm.world.
+ProcessSpan` (``span=``) names them, each process holds
+:attr:`Communicator.addressable_n` ranks from
+:attr:`Communicator.first_rank`, and every eager collective takes and
+returns those rows (the reference's addressable slice), crossing
+processes through the span's symmetric buffers.  Every collective gives
+each process the rows the one-process communicator of ``n`` ranks gives
+them, bit for bit.  Ranks on distinct cards (peer pointers over NVLink)
+come with the multi-card slice.
 
 The mesh is the reference's 2-D ``(kf_host, kf_local)``: ``local_size``
 ranks per host, ``local_*`` collectives over the intra-host axis,
@@ -104,10 +112,19 @@ class Communicator:
     def __init__(self, devices: Optional[Sequence] = None,
                  local_size: Optional[int] = None, strategy: str = "psum",
                  version: int = 0,
-                 on_strategy_change: Optional[Callable[[str], None]] = None):
+                 on_strategy_change: Optional[Callable[[str], None]] = None,
+                 span=None):
         self._on_strategy_change = on_strategy_change
+        #: this process's devices, one a rank it holds
         self.devices = _one_device(devices)
-        n = len(self.devices)
+        self._local_n = len(self.devices)
+        #: the ProcessSpan of a multi-controller mesh (None: one process)
+        self.span = span
+        self._multiproc = span is not None
+        if span is not None and span.rows != self._local_n:
+            raise ValueError(f"{self._local_n} devices for a span whose "
+                             f"processes hold {span.rows} rank(s) each")
+        n = span.n if span is not None else self._local_n
         local = n if local_size is None else int(local_size)
         if local < 1 or n % local:
             raise ValueError(f"{n} devices not divisible by "
@@ -136,9 +153,22 @@ class Communicator:
         return self._hosts
 
     @property
+    def addressable_n(self) -> int:
+        """The ranks this process holds: the leading axis of every eager
+        collective's input and output (``size`` with one controller)."""
+        return self._local_n
+
+    @property
+    def first_rank(self) -> int:
+        """The first rank this process holds (0 with one controller)."""
+        return 0 if self.span is None else self.span.first
+
+    @property
     def rank(self) -> int:
-        """The controller's rank: one process holds every rank's value."""
-        return 0
+        """The controller's first rank: one process holds every rank's
+        value (0), or a multi-controller process holds
+        :attr:`addressable_n` from here."""
+        return self.first_rank
 
     @property
     def device(self) -> torch.device:
@@ -148,11 +178,27 @@ class Communicator:
         """The rank world of this mesh (``(kf_host, num_hosts),
         (kf_local, local_size)``), entered around a step's collectives."""
         return coll.rank_world([(HOST_AXIS, self._hosts),
-                                (LOCAL_AXIS, self._local)])
+                                (LOCAL_AXIS, self._local)], span=self.span)
+
+    def first_slot_of_process(self, proc: int) -> int:
+        """The first rank (flat slot) held by process ``proc`` (its world
+        slot, the reference's ``jax.process_index``): the root a
+        :meth:`broadcast_value` takes to broadcast that process's value.
+        The mesh is carved in worker-rank order, so a process's ranks are
+        contiguous."""
+        slots = [0] if self.span is None else self.span.slots
+        if proc not in slots:
+            raise ValueError(
+                f"process {proc} owns no device in this communicator")
+        return slots.index(proc) * self._local_n
 
     def __repr__(self):
+        where = (f"on {self.device}" if self.span is None else
+                 f"over {self.span.procs} processes on {self.device}, "
+                 f"ranks [{self.first_rank}, "
+                 f"{self.first_rank + self._local_n}) here")
         return (f"Communicator(v{self.version}, {self._n} ranks as "
-                f"{self._hosts}x{self._local} on {self.device})")
+                f"{self._hosts}x{self._local} {where})")
 
     # -- strategy ----------------------------------------------------------
     @property
@@ -218,7 +264,7 @@ class Communicator:
         is not a credible measurement keeps the incumbent.  Call it at
         the same point on every controller: the times are agreed over
         the mesh (:meth:`_agree`) before the choice."""
-        x = torch.randn((self._n, max(1, nbytes // 4)),
+        x = torch.randn((self._local_n, max(1, nbytes // 4)),
                         generator=torch.Generator().manual_seed(0)
                         ).to(self.device)
         prev = self._strategy
@@ -261,7 +307,8 @@ class Communicator:
         suspended too: agreement traffic must not land in the bandit's
         windows."""
         stacked = torch.tensor([float(v) for v in row], dtype=torch.float32,
-                               device=self.device).expand(self._n, len(row))
+                               device=self.device).expand(self._local_n,
+                                                          len(row))
         prev, prev_buckets = self._strategy, self._bucket_strategy
         prev_hook = self._latency_hook
         self._strategy, self._bucket_strategy = "psum", {}
@@ -310,6 +357,13 @@ class Communicator:
                 ok[sched] = True
             except RuntimeError as e:
                 _log.warning("autotune: schedule %s failed: %s", sched, e)
+        if self._multiproc:
+            # a schedule that failed in any process is dropped in all, so
+            # every process times the same chains
+            agreed = self._agree([1.0 if s in ok else 0.0
+                                  for s in ALLREDUCE_SCHEDULES], op="min")
+            ok = {s: True for s, v in zip(ALLREDUCE_SCHEDULES, agreed)
+                  if v >= 1.0}
         salts = torch.Generator().manual_seed(1234)
         best = {s: [math.inf, math.inf] for s in ok}
         for _ in range(trials):
@@ -323,7 +377,7 @@ class Communicator:
 
     # -- eager collectives on stacked values --------------------------------
     def _check(self, x) -> None:
-        coll.check_stacked(x, self._n)
+        coll.check_stacked(x, self._local_n)
 
     def _mesh_axes(self) -> List[str]:
         return [ax for ax, size in zip(GLOBAL_AXES, (self._hosts, self._local))
@@ -332,8 +386,7 @@ class Communicator:
     def _reduce_leaf(self, a: torch.Tensor, op: str, axes,
                      schedule: Optional[str]) -> torch.Tensor:
         if op == "prod":
-            g = coll.group_view(a, axes)
-            return coll.ungroup(g.prod(1, keepdim=True).expand_as(g), axes)
+            return coll.all_reduce_prod(a, axes)
         if schedule is None:
             schedule = self.strategy_for(a.numel() * a.element_size())
         return all_reduce_scheduled(a, axes, op=op, schedule=schedule)
@@ -378,9 +431,11 @@ class Communicator:
         input."""
         self._check_root(root)
         red = self._axis_reduce(x, op, GLOBAL_AXES, schedule="psum")
+        lo = self.first_rank
 
         def leaf(a, r):
-            keep = torch.arange(self._n, device=a.device) == root
+            keep = torch.arange(lo, lo + self._local_n, device=a.device) \
+                == root
             return torch.where(keep.reshape((-1,) + (1,) * (a.dim() - 1)),
                                r, a)
 
@@ -400,13 +455,21 @@ class Communicator:
 
     def broadcast_value(self, value, root_slot: int = 0):
         """Rank ``root_slot``'s copy of one unstacked value, as every
-        rank receives it (reference ``comm/device.py:712``): the caller
-        holds every rank's value, so this is ``value`` itself, copied to
-        the communicator's device; a multi-controller mesh broadcasts
-        here."""
+        rank receives it (reference ``comm/device.py:712``), on the
+        communicator's device.  One controller holds every rank's value,
+        so this is ``value`` itself; a multi-controller mesh sends the
+        one row of the process that holds ``root_slot`` (every process
+        passes a value of the same shape and dtype), never ``n`` stacked
+        copies."""
         if not 0 <= root_slot < self._n:
             raise ValueError(f"root {root_slot} out of range [0, {self._n})")
-        return torch.as_tensor(value).to(self.device, copy=True)
+        value = torch.as_tensor(value).to(self.device, copy=True)
+        if self.span is None:
+            return value
+        return _traced_collective(
+            "device.broadcast_value", "broadcast", self._n, self.version,
+            lambda: self.span.broadcast(value, root_slot // self._local_n),
+            self.device)
 
     def local_broadcast(self, x):
         """Each host's local-rank-0 row broadcast to the ranks of its
@@ -441,8 +504,8 @@ class Communicator:
                 f"{self._n}); a single local byte string cannot witness "
                 "cross-peer agreement — use Peer.consensus_bytes for "
                 "host-plane consensus")
-        if len(digests) != self._n:
-            raise ValueError(f"expected {self._n} digests (one per "
+        if len(digests) != self._local_n:
+            raise ValueError(f"expected {self._local_n} digests (one per "
                              f"addressable peer slot), got {len(digests)}")
         width = max((len(d) for d in digests), default=0)
         lens = torch.tensor([[len(d)] for d in digests], dtype=torch.int32)
@@ -482,14 +545,15 @@ class Communicator:
         if op not in ("sum", "mean"):
             raise ValueError(f"reduce_scatter supports sum/mean, got {op!r}")
         self._check(x)
-        n = self._n
+        n, rows = self._n, self._local_n
 
         def leaf(a):
-            flat = a.reshape(n, -1)
+            flat = a.reshape(rows, -1)
             size = flat.shape[1]
             chunk = math.ceil(size / n) if size else 0
             if chunk * n > size:
-                flat = torch.cat([flat, flat.new_zeros(n, chunk * n - size)], 1)
+                flat = torch.cat([flat, flat.new_zeros(rows, chunk * n - size)],
+                                 1)
             widths = bucket_widths(chunk, n, a.element_size(), bucket_bytes)
             out = reduce_scatter_flat(flat, self._mesh_axes(), chunk, widths,
                                       schedule=self._flat_schedule(a))
@@ -510,7 +574,7 @@ class Communicator:
         n = self._n
 
         def leaf(a):
-            flat = a.reshape(n, -1)
+            flat = a.reshape(self._local_n, -1)
             widths = bucket_widths(flat.shape[1], n, a.element_size(),
                                    bucket_bytes)
             return all_gather_flat(flat, self._mesh_axes(), widths,
@@ -541,10 +605,17 @@ class Communicator:
 
     def barrier(self) -> None:
         """A one-element allreduce, then the card's queue drains."""
-        out = self.all_reduce(torch.ones((self._n, 1), dtype=torch.int32,
+        out = self.all_reduce(torch.ones((self._local_n, 1),
+                                         dtype=torch.int32,
                                          device=self.device))
         if out.device.type == "cuda":
             torch.cuda.synchronize(out.device)
+
+    def close(self) -> None:
+        """Let the epoch's symmetric buffers go (a multi-controller mesh
+        being retired); the communicator takes no collective after."""
+        if self.span is not None:
+            self.span.close()
 
     def _check_root(self, root: int) -> None:
         if not 0 <= root < self._n:

@@ -125,7 +125,10 @@ def elastic_step(
                 new_workers=peer.cluster.workers,
                 tag=f"v{peer.cluster_version}",
             )
-        if peer.detached:
+        if peer.detached or peer.standby:
+            # a provisioned world's dropped worker stays alive as standby:
+            # it stops stepping here and comes back through
+            # peer.await_rejoin(), adopting the cluster it is carved into
             log_event("detached-stopping")
             return replace(state, detached=True), params, True
         if bandit is not None:

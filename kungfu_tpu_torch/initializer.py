@@ -54,11 +54,19 @@ def device_broadcast(params, axis, root: int = 0):
 
 
 def resync_parameters(params, peer=None, comm=None, root: int = 0):
-    """The post-resize re-sync (reference ``initializer.py:55``): with a
-    communicator (``comm``, or the peer's) the params are placed on its
-    device, since one controller holds every rank of it and rank
-    ``root``'s weights are the ones passed; without one (a detached
-    peer) :func:`broadcast_parameters` over the host channel."""
+    """The post-resize re-sync (reference ``initializer.py:55``):
+
+    * one controller holds every rank of the communicator (``comm``, or
+      the peer's): rank ``root``'s weights are the ones passed, placed on
+      its device;
+    * a communicator across processes: one :meth:`~kungfu_tpu_torch.comm.
+      device.Communicator.broadcast_value` a mesh epoch of the params
+      fused to one f32 row, from the process of worker ``root`` (its
+      world slot; ``root`` itself names the process without a ``peer``),
+      so that every process, a joiner too, continues from its weights;
+      every process passes a tree of the same structure;
+    * no communicator (a detached or standby peer):
+      :func:`broadcast_parameters` over the host channel."""
     if comm is None and peer is not None:
         try:
             comm = peer.communicator()
@@ -66,4 +74,16 @@ def resync_parameters(params, peer=None, comm=None, root: int = 0):
             comm = None
     if comm is None:
         return broadcast_parameters(params, peer, root=root)
-    return tree_map(lambda a: a.to(comm.device, copy=True), params)
+    if comm.span is None:
+        return tree_map(lambda a: a.to(comm.device, copy=True), params)
+    root_proc = root
+    if peer is not None:
+        # worker rank -> its process: the span is carved over the workers
+        # in rank order, so worker `root` is the span's process `root`
+        if not 0 <= root < len(comm.span.slots):
+            raise ValueError(f"resync root {root} is outside the "
+                             f"{len(comm.span.slots)} active workers")
+        root_proc = comm.span.slots[root]
+    buf, spec = fuse(params, dtype=torch.float32)
+    out = comm.broadcast_value(buf, comm.first_slot_of_process(root_proc))
+    return defuse(out, spec)

@@ -16,6 +16,16 @@ reduction returns its input, as it does over one peer in the reference.
 Inside a world of size ``n`` every leaf passed to a collective has a
 leading axis of ``n`` and the result is stacked the same way, each rank's
 row holding what that rank's device would hold in the reference.
+
+A world may span processes (a :class:`~kungfu_tpu_torch.comm.world.
+ProcessSpan`, the reference's multi-controller mode): each process then
+holds the rows of its own ranks only, ``[first, first + rows)`` of ``n``,
+and passes and receives those (the reference's addressable slice).  Each
+collective here gathers every rank's rows through the span's symmetric
+buffers, computes what the world of one process computes over them, and
+keeps its own rows (:func:`lift`), so its result is that world's bit for
+bit.  The ring kernels read the peers' rows in place instead
+(:mod:`kungfu_tpu_torch.ops.collectives`).
 """
 
 from __future__ import annotations
@@ -27,7 +37,8 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
-from kungfu_tpu_torch.utils.tree import tree_leaves, tree_map
+from kungfu_tpu_torch.utils.tree import (tree_flatten, tree_leaves,
+                                        tree_map, tree_unflatten)
 
 Axis = Union[str, Tuple[str, ...]]
 
@@ -36,14 +47,32 @@ _OPS = ("sum", "mean", "min", "max")
 
 class RankWorld:
     """The mesh axes of a stacked world, outer to inner, with their
-    sizes; rank ``r`` is the mesh-major index of its coordinates."""
+    sizes; rank ``r`` is the mesh-major index of its coordinates.  With a
+    ``span`` the ranks live in several processes and this one holds the
+    rows of ranks ``[first, first + rows)``; otherwise it holds all
+    ``n``."""
 
-    def __init__(self, axes: Sequence[Tuple[str, int]]):
+    def __init__(self, axes: Sequence[Tuple[str, int]], span=None):
         self.names = tuple(name for name, _ in axes)
         self.sizes = tuple(int(size) for _, size in axes)
         if len(set(self.names)) != len(self.names) or min(self.sizes) < 1:
             raise ValueError(f"bad rank-world axes {list(axes)}")
         self.n = math.prod(self.sizes)
+        self.span = span
+        if span is not None and span.n != self.n:
+            raise ValueError(f"a span of {span.n} ranks under rank-world "
+                             f"axes of {self.n}")
+        #: the first rank whose row this process holds, and how many
+        self.first = 0 if span is None else span.first
+        self.rows = self.n if span is None else span.rows
+        self._whole = self if span is None else None
+
+    def whole(self) -> "RankWorld":
+        """The same axes with every rank's row held here: the world a
+        collective computes in once it has gathered every row."""
+        if self._whole is None:
+            self._whole = RankWorld(list(zip(self.names, self.sizes)))
+        return self._whole
 
     def index(self, name: str) -> int:
         try:
@@ -66,11 +95,13 @@ def _stack():
 
 
 @contextlib.contextmanager
-def rank_world(axes: Sequence[Tuple[str, int]]):
+def rank_world(axes: Sequence[Tuple[str, int]], span=None):
     """Bind ``axes`` (``[(name, size), ...]``, outer first) for the
     collectives called inside: the counterpart of ``shard_map``'s axis
-    environment.  Worlds nest; the innermost one is read."""
-    with use_world(RankWorld(axes)) as world:
+    environment.  Worlds nest; the innermost one is read.  ``span``: the
+    :class:`~kungfu_tpu_torch.comm.world.ProcessSpan` of a world across
+    processes."""
+    with use_world(RankWorld(axes, span=span)) as world:
         yield world
 
 
@@ -92,6 +123,34 @@ def current_world() -> Optional[RankWorld]:
     """The innermost :func:`rank_world`, or ``None`` outside any."""
     stack = _stack()
     return stack[-1] if stack else None
+
+
+def spanning() -> bool:
+    """True inside a world whose ranks live in several processes."""
+    world = current_world()
+    return world is not None and world.span is not None
+
+
+def lift(x, fn):
+    """``fn`` -- a collective over the stacked rows of all ``n`` ranks --
+    run in a world that spans processes: every rank's rows of each leaf
+    of ``x`` are gathered through the span (one exchange for the tree),
+    ``fn`` runs on them in :meth:`RankWorld.whole`, and this process's
+    rows of its result are returned.  The result is the one-process
+    world's, bit for bit.  Not differentiable: a collective that autograd
+    would trace through across processes raises."""
+    world = current_world()
+    leaves, treedef = tree_flatten(x)
+    if torch.is_grad_enabled() and any(l.requires_grad for l in leaves):
+        raise NotImplementedError(
+            "differentiating through a collective over a process-spanning "
+            "communicator is not ported (ROADMAP A17)")
+    check_stacked(x)
+    full = world.span.gather(leaves)
+    with use_world(world.whole()):
+        out = fn(tree_unflatten(treedef, full))
+    lo, hi = world.first, world.first + world.rows
+    return tree_map(lambda a: a[lo:hi].clone(), out)
 
 
 def _names(axis: Axis) -> Tuple[str, ...]:
@@ -120,7 +179,7 @@ def peer_rank(axis: Axis):
         shape = [1] * len(world.sizes)
         shape[i] = world.sizes[i]
         idx = idx * world.sizes[i] + torch.arange(world.sizes[i]).reshape(shape)
-    return idx.reshape(-1)
+    return idx.reshape(-1)[world.first:world.first + world.rows]
 
 
 _INDEX: dict = {}
@@ -141,7 +200,7 @@ def index_tensor(values: Sequence[int], device) -> torch.Tensor:
 
 def axis_index(axis: Axis, device=None):
     """``lax.axis_index``: each rank's index along ``axis``, an int64
-    ``[n]`` tensor on ``device`` in a rank world (``0`` outside one)."""
+    ``[rows]`` tensor on ``device`` in a rank world (``0`` outside one)."""
     idx = peer_rank(axis)
     if isinstance(idx, int) or device is None:
         return idx
@@ -150,10 +209,10 @@ def axis_index(axis: Axis, device=None):
 
 def check_stacked(x, n: Optional[int] = None) -> None:
     """Every leaf of ``x`` has the leading rank axis of the current
-    world (or of ``n``)."""
+    world (the rows this process holds), or of ``n``."""
     if n is None:
         world = current_world()
-        n = 1 if world is None else world.n
+        n = 1 if world is None else world.rows
     for leaf in tree_leaves(x):
         if leaf.dim() == 0 or leaf.shape[0] != n:
             raise ValueError(f"stacked collective input must have leading "
@@ -215,8 +274,20 @@ def all_reduce(x, axis: Axis, op: str = "sum"):
         raise ValueError(f"unsupported op {op!r}")
     if peer_size(axis) == 1:
         return x
+    if spanning():
+        return lift(x, lambda full: all_reduce(full, axis, op))
     check_stacked(x)
     return tree_map(lambda a: _all_reduce_leaf(a, axis, op), x)
+
+
+def all_reduce_prod(a: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """The product over ``axis`` of a stacked tensor, on every rank's row
+    (the communicator's ``prod``, which the reference reduces through a
+    plain gather)."""
+    if spanning():
+        return lift(a, lambda full: all_reduce_prod(full, axis))
+    g = group_view(a, axis)
+    return ungroup(g.prod(1, keepdim=True).expand_as(g), axis)
 
 
 def group_all_reduce(tensors, axis: Axis, op: str = "sum"):
@@ -230,6 +301,8 @@ def all_gather(x, axis: Axis, tiled: bool = False):
     world, ``[1, *shape]`` (or ``x`` tiled)."""
     if current_world() is None:
         return x if tiled else tree_map(lambda a: a[None], x)
+    if spanning():
+        return lift(x, lambda full: all_gather(full, axis, tiled))
     check_stacked(x)
 
     def leaf(a):
@@ -250,6 +323,8 @@ def broadcast(x, axis: Axis, root: int = 0):
     ``kungfu_tpu/ops/collective.py:72-77``)."""
     if peer_size(axis) == 1:
         return x
+    if spanning():
+        return lift(x, lambda full: broadcast(full, axis, root))
     check_stacked(x)
     is_root = peer_rank(axis) == root
 
@@ -300,7 +375,7 @@ def barrier_value(axis: Axis):
     world = current_world()
     if world is None:
         return torch.tensor(1, dtype=torch.int32)
-    return all_reduce(torch.ones(world.n, dtype=torch.int32), axis)
+    return all_reduce(torch.ones(world.rows, dtype=torch.int32), axis)
 
 
 def ppermute(x, axis: str, perm: Sequence[Tuple[int, int]]):
@@ -320,6 +395,8 @@ def ppermute(x, axis: str, perm: Sequence[Tuple[int, int]]):
                          f"and destinations in [0, {k}), got {pairs}")
     if k == 1:
         return x if pairs else tree_map(torch.zeros_like, x)
+    if spanning():
+        return lift(x, lambda full: ppermute(full, axis, pairs))
     check_stacked(x)
 
     inv = [0] * k
@@ -351,6 +428,9 @@ def all_to_all(x, axis: str, split_axis: int, concat_axis: int):
     k = peer_size(axis)
     if k == 1:
         return x
+    if spanning():
+        return lift(x, lambda full: all_to_all(full, axis, split_axis,
+                                               concat_axis))
     check_stacked(x)
 
     def leaf(a):

@@ -30,6 +30,14 @@ kernels (a CPU tensor raises: the port has no interpreter); ``lax`` runs
 the plain versions.  A CUDA tensor under ``auto`` or ``pallas`` launches
 the kernel or raises.
 
+Over a world that spans processes each process passes and receives its
+own ranks' rows.  The kernels then read every rank's row where it lies,
+in the peers' symmetric buffers (:meth:`~kungfu_tpu_torch.comm.world.
+ProcessSpan.publish`), and one launch a ring writes this process's
+outputs; the plain versions gather the rows and fold as one process does
+(:func:`~kungfu_tpu_torch.ops.collective.lift`).  Either way a process's
+rows are bit for bit the one-process world's.
+
 Both collectives are differentiable as a pair, as the reference's
 custom-vjp pair: the backward of the all-gather is the ring
 reduce-scatter of the cotangent, and the reverse.  Every call adds its
@@ -188,6 +196,44 @@ def _per_ring(x: torch.Tensor, axis: str, fn) -> torch.Tensor:
                         axis)
 
 
+def _span_rings(axis: str):
+    """Each ring of ``axis`` in a world that spans processes: its global
+    ranks in ring order, and the ring indices ``[j0, j0 + count)`` whose
+    rows this process holds (``count`` 0 when it holds none)."""
+    world = coll.current_world()
+    with coll.use_world(world.whole()):
+        ids = coll.group_view(torch.arange(world.n).reshape(world.n, 1),
+                              axis)[:, :, 0].tolist()
+    lo, hi = world.first, world.first + world.rows
+    out = []
+    for ring in ids:
+        local = [j for j, g in enumerate(ring) if lo <= g < hi]
+        if local and local != list(range(local[0], local[0] + len(local))):
+            raise NotImplementedError(
+                f"a ring over {axis!r} holds this process's ranks at ring "
+                f"indices {local}, not one run: the ring kernels launch "
+                "for a contiguous window of ranks")
+        out.append((ring, local[0] if local else 0, len(local)))
+    return out
+
+
+def _span_launch(x: torch.Tensor, axis: str, out: torch.Tensor,
+                 launch) -> torch.Tensor:
+    """Publish this process's rows of ``x`` and launch ``launch(rows,
+    outs, j0)`` once a ring that holds any of them: ``rows`` every rank's
+    row in ring order (the peers' mapped in place), ``outs`` this
+    process's rows of ``out`` at ring indices ``[j0, j0 + len(outs))``."""
+    world = coll.current_world()
+    span, rows = world.span, world.rows
+    (views,) = span.publish([x])
+    for ring, j0, count in _span_rings(axis):
+        if count:
+            launch([views[g // rows][g % rows] for g in ring],
+                   [out[g - world.first] for g in ring[j0:j0 + count]], j0)
+    span.drain()  # the reads of the peers' rows end before this returns
+    return out
+
+
 def _rs(flat: torch.Tensor, axis: str, bidirectional: bool,
         use_kernel: bool) -> torch.Tensor:
     k = coll.peer_size(axis)
@@ -198,7 +244,15 @@ def _rs(flat: torch.Tensor, axis: str, bidirectional: bool,
         fn = lambda p: kernels.reduce_scatter(p, cut)  # noqa: E731
     else:
         fn = lambda p: ring_reduce_scatter_reference(p, cut)  # noqa: E731
-    out = _per_ring(flat, axis, fn)
+    if coll.spanning() and use_kernel:
+        out = _span_launch(
+            flat, axis, flat.new_empty((flat.shape[0], chunk)),
+            lambda rows, outs, j0: kernels.reduce_scatter_rows(
+                rows, outs, j0, cut))
+    elif coll.spanning():
+        out = coll.lift(flat, lambda full: _per_ring(full, axis, fn))
+    else:
+        out = _per_ring(flat, axis, fn)
     ring_bytes["reduce_scatter"] += ring_wire_bytes(
         flat.shape[1] * flat.element_size(), k, "reduce_scatter")
     return out
@@ -214,7 +268,15 @@ def _ag(shard: torch.Tensor, axis: str, bidirectional: bool,
         fn = lambda s: kernels.all_gather(s, cut)  # noqa: E731
     else:
         fn = lambda s: ring_all_gather_reference(s, cut)  # noqa: E731
-    out = _per_ring(shard, axis, fn)
+    if coll.spanning() and use_kernel:
+        out = _span_launch(
+            shard, axis, shard.new_empty((shard.shape[0], k * chunk)),
+            lambda rows, outs, j0: kernels.all_gather_rows(
+                rows, outs, j0, cut))
+    elif coll.spanning():
+        out = coll.lift(shard, lambda full: _per_ring(full, axis, fn))
+    else:
+        out = _per_ring(shard, axis, fn)
     ring_bytes["all_gather"] += ring_wire_bytes(
         chunk * shard.element_size(), k, "all_gather")
     return out

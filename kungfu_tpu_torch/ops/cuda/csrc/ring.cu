@@ -47,6 +47,18 @@
 // band cut does not change the values of a gather (both bands land in
 // the same places), so the all-gather takes none.
 //
+// Across processes (one communicator over several worker processes on one
+// card): each process holds the buffers of its own ranks only, in a
+// symmetric buffer the other processes have mapped through CUDA IPC
+// (kf_sym_alloc / kf_sym_open below).  The in[] tables then hold every
+// rank's buffer, this process's and its peers' mapped ones, and a launch
+// covers only the process's own ranks r0 .. r0+count-1: the reduce-scatter
+// folds their chunks, the all-gather writes their outputs.  The fold order
+// does not depend on r0 or count, so each chunk is bit for bit the chunk
+// of the launch over all k ranks.  Nothing here waits for another process:
+// the caller drains its stream and meets the others at a host barrier
+// before a launch reads their buffers.
+//
 // What bounds both: bytes.  Reduce-scatter reads k*k*chunk elements and
 // writes k*chunk; all-gather reads k*chunk and writes k*k*chunk.  Each
 // kernel moves exactly those bytes once.
@@ -55,6 +67,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
 
 namespace {
 
@@ -97,10 +110,11 @@ constexpr int FOLD_BLOCKS_PER_SM = 4;
 
 struct FoldArgs {
   const void* in[KMAX];   // rank j's flat buffer: k chunks
-  void* out[KMAX];        // rank r's chunk of the sum
+  void* out[KMAX];        // rank r0 + i's chunk of the sum
   long long chunk, cut;
-  int k, nband;
-  // per segment blockIdx.y = r * nband + band: the scalar elements before
+  int k, nband, r0;
+  // per segment blockIdx.y = i * nband + band (rank r0 + i): the scalar
+  // elements before
   // the first 16-byte vector, or -1 when the k sources and the output do
   // not share their offset mod 16 bytes (the segment runs scalar)
   signed char head[2 * KMAX];
@@ -119,7 +133,8 @@ ring_rs_fold_kernel(const FoldArgs a) {
   constexpr int VEC = 16 / sizeof(T);
   __shared__ const T* src[KMAX];  // fold order: rank r + s j, j = 1..k
   const int seg = blockIdx.y;
-  const int r = seg / a.nband, band = seg % a.nband;
+  const int li = seg / a.nband, band = seg % a.nband;
+  const int r = a.r0 + li;
   const int sign = band == 0 ? 1 : -1;
   const long long lo = band == 0 ? 0 : a.cut;
   const long long n = (band == 0 ? a.cut : a.chunk) - lo;
@@ -130,7 +145,7 @@ ring_rs_fold_kernel(const FoldArgs a) {
     src[threadIdx.x] = static_cast<const T*>(a.in[rank]) + r * a.chunk + lo;
   }
   __syncthreads();
-  T* out = static_cast<T*>(a.out[r]) + lo;
+  T* out = static_cast<T*>(a.out[li]) + lo;
   const long long head = a.head[seg] < 0 ? n : min((long long)a.head[seg], n);
   const long long nvec = (n - head) / VEC;
   const long long body_end = head + nvec * VEC;  // the scalar tail's start
@@ -173,23 +188,24 @@ constexpr int COPY_BLOCKS_PER_SM = 8;
 
 struct CopyArgs {
   const void* in[KMAX];   // rank j's shard: chunk elements
-  void* out[KMAX];        // rank r's gathered buffer: k chunks
+  void* out[KMAX];        // rank r0 + i's gathered buffer: k chunks
   long long chunk;
-  int k;
+  int k, count;
   // per shard blockIdx.y = j: the scalar elements before the first
   // 16-byte vector, or -1 when the source and the k destinations do not
   // share their offset mod 16 bytes (the shard runs scalar)
   signed char head[KMAX];
 };
 
-// out[r][j*chunk + e] = in[j][e] for every r: one load, k stores.
+// out[i][j*chunk + e] = in[j][e] for each of the count outputs: one load,
+// count stores.
 template <typename T>
 __global__ void __launch_bounds__(THREADS, COPY_BLOCKS_PER_SM)
 ring_ag_copy_kernel(const CopyArgs a) {
   constexpr int VEC = 16 / sizeof(T);
-  __shared__ T* dst[KMAX];  // shard j's place in each rank's output
-  const int j = blockIdx.y, k = a.k;
-  if (threadIdx.x < k) {
+  __shared__ T* dst[KMAX];  // shard j's place in each output
+  const int j = blockIdx.y, count = a.count;
+  if (threadIdx.x < count) {
     dst[threadIdx.x] = static_cast<T*>(a.out[threadIdx.x]) + j * a.chunk;
   }
   __syncthreads();
@@ -209,7 +225,7 @@ ring_ag_copy_kernel(const CopyArgs a) {
     const uint4 a0 = __ldg(reinterpret_cast<const uint4*>(src + e0));
     uint4 a1;
     if (two) a1 = __ldg(reinterpret_cast<const uint4*>(src + e1));
-    for (int r = 0; r < k; ++r) {
+    for (int r = 0; r < count; ++r) {
       __stcs(reinterpret_cast<uint4*>(dst[r] + e0), a0);
       if (two) __stcs(reinterpret_cast<uint4*>(dst[r] + e1), a1);
     }
@@ -220,7 +236,7 @@ ring_ag_copy_kernel(const CopyArgs a) {
        i < scalars; i += stride) {
     const long long e = i < head ? i : body_end + (i - head);
     const T v = src[e];
-    for (int r = 0; r < k; ++r) dst[r][e] = v;
+    for (int r = 0; r < count; ++r) dst[r][e] = v;
   }
 }
 
@@ -253,16 +269,17 @@ int sm_count(int* sms) {
 
 }  // namespace
 
-// One launch of the reduce-scatter over k co-resident ranks: in/out are k
-// device pointers each (rank j's k*chunk elements, rank r's chunk), code
-// 0 f32, 1 bf16, 2 int32.  Any element-aligned bases; nothing to keep
-// between launches.
+// One launch of the reduce-scatter over k ranks of one card: in holds k
+// device pointers (rank j's k*chunk elements), out count of them (the
+// chunk of rank r0 + i); code 0 f32, 1 bf16, 2 int32.  r0 = 0, count = k
+// is every rank.  Any element-aligned bases; nothing to keep between
+// launches.
 extern "C" int kf_ring_rs(int code, const void* const* in, void* const* out,
-                          int k, long long chunk, long long cut,
-                          void* stream) {
+                          int k, int r0, int count, long long chunk,
+                          long long cut, void* stream) {
   const FoldKernel kernel = pick_fold(code);
-  if (kernel == nullptr || k < 2 || k > KMAX || chunk <= 0 || cut <= 0 ||
-      cut > chunk)
+  if (kernel == nullptr || k < 2 || k > KMAX || r0 < 0 || count < 1 ||
+      r0 + count > k || chunk <= 0 || cut <= 0 || cut > chunk)
     return KF_BAD_ARGS;
   int sms = 0;
   const int err = sm_count(&sms);
@@ -272,17 +289,17 @@ extern "C" int kf_ring_rs(int code, const void* const* in, void* const* out,
   a.chunk = chunk;
   a.cut = cut;
   a.k = k;
+  a.r0 = r0;
   a.nband = cut < chunk ? 2 : 1;
-  for (int r = 0; r < k; ++r) {
-    a.in[r] = in[r];
-    a.out[r] = out[r];
-  }
+  for (int j = 0; j < k; ++j) a.in[j] = in[j];
+  for (int i = 0; i < count; ++i) a.out[i] = out[i];
   long long most = 0;  // work items (vectors and scalars) of a segment
-  for (int r = 0; r < k; ++r) {
+  for (int i = 0; i < count; ++i) {
+    const int r = r0 + i;
     for (int b = 0; b < a.nband; ++b) {
       const long long lo = b == 0 ? 0 : cut;
       const long long n = (b == 0 ? cut : chunk) - lo;
-      const uintptr_t o = reinterpret_cast<uintptr_t>(out[r]) + lo * es;
+      const uintptr_t o = reinterpret_cast<uintptr_t>(out[i]) + lo * es;
       bool shared = o % es == 0;
       for (int j = 0; j < k && shared; ++j) {
         shared = (reinterpret_cast<uintptr_t>(in[j]) + (r * chunk + lo) * es) %
@@ -290,14 +307,14 @@ extern "C" int kf_ring_rs(int code, const void* const* in, void* const* out,
       }
       const long long head =
           shared ? static_cast<long long>((16 - o % 16) % 16) / es : -1;
-      a.head[r * a.nband + b] = static_cast<signed char>(head);
+      a.head[i * a.nband + b] = static_cast<signed char>(head);
       const long long h = head < 0 || head > n ? n : head;
       const long long nvec = (n - h) / vec;
       const long long items = n - nvec * (vec - 1);
       most = items > most ? items : most;
     }
   }
-  const int segs = k * a.nband;
+  const int segs = count * a.nband;
   long long bx = (most + THREADS - 1) / THREADS;
   const long long fill = sms * FOLD_BLOCKS_PER_SM / segs;
   bx = bx < fill ? bx : (fill > 0 ? fill : 1);
@@ -306,14 +323,19 @@ extern "C" int kf_ring_rs(int code, const void* const* in, void* const* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// One launch of the all-gather over k co-resident ranks: in/out are k
-// device pointers each (rank j's chunk elements, rank r's k*chunk),
-// elements of `bytes` bytes (2, 4 or 8).  Any element-aligned bases;
-// nothing to keep between launches.
+// One launch of the all-gather over k ranks of one card: in holds k device
+// pointers (rank j's chunk elements), out count of them (the k*chunk
+// output of rank r0 + i), elements of `bytes` bytes (2, 4 or 8).  r0 = 0,
+// count = k is every rank; r0 only names the window, since every output
+// is the same concatenation.  Any element-aligned bases; nothing to keep
+// between launches.
 extern "C" int kf_ring_ag(int bytes, const void* const* in, void* const* out,
-                          int k, long long chunk, void* stream) {
+                          int k, int r0, int count, long long chunk,
+                          void* stream) {
   const CopyKernel kernel = pick_copy(bytes);
-  if (kernel == nullptr || k < 2 || k > KMAX || chunk <= 0) return KF_BAD_ARGS;
+  if (kernel == nullptr || k < 2 || k > KMAX || r0 < 0 || count < 1 ||
+      r0 + count > k || chunk <= 0)
+    return KF_BAD_ARGS;
   int sms = 0;
   const int err = sm_count(&sms);
   if (err) return err;
@@ -321,14 +343,15 @@ extern "C" int kf_ring_ag(int bytes, const void* const* in, void* const* out,
   CopyArgs a;
   a.chunk = chunk;
   a.k = k;
+  a.count = count;
+  for (int i = 0; i < count; ++i) a.out[i] = out[i];
   long long most = 0;  // work items (vectors and scalars) of a shard
   for (int j = 0; j < k; ++j) {
     a.in[j] = in[j];
-    a.out[j] = out[j];
     const uintptr_t o = reinterpret_cast<uintptr_t>(in[j]);
     bool shared = o % es == 0;
-    for (int r = 0; r < k && shared; ++r) {
-      shared = (reinterpret_cast<uintptr_t>(out[r]) + j * chunk * es) % 16 ==
+    for (int i = 0; i < count && shared; ++i) {
+      shared = (reinterpret_cast<uintptr_t>(out[i]) + j * chunk * es) % 16 ==
                o % 16;
     }
     const long long head =
@@ -345,6 +368,56 @@ extern "C" int kf_ring_ag(int bytes, const void* const* in, void* const* out,
   kernel<<<dim3(static_cast<unsigned>(bx), k), THREADS, 0,
            static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------- symmetric buffers --
+//
+// A process-spanning communicator's buffers: each process allocates its
+// own with cudaMalloc (a whole allocation, so its IPC handle names exactly
+// this buffer and no neighbour of torch's caching allocator), publishes
+// the 64-byte handle over the host channel, and maps every peer's once a
+// communicator epoch.  A process cannot open its own handle.
+
+constexpr int KF_HANDLE_BYTES = sizeof(cudaIpcMemHandle_t);
+
+extern "C" int kf_sym_handle_bytes() { return KF_HANDLE_BYTES; }
+
+// cudaMalloc `bytes` on `device` and write the IPC handle of the buffer.
+extern "C" int kf_sym_alloc(int device, long long bytes, void** ptr,
+                            void* handle) {
+  if (bytes <= 0) return KF_BAD_ARGS;
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = cudaMalloc(ptr, static_cast<size_t>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaIpcMemHandle_t h;
+  err = cudaIpcGetMemHandle(&h, *ptr);
+  if (err != cudaSuccess) {
+    cudaFree(*ptr);
+    *ptr = nullptr;
+    return static_cast<int>(err);
+  }
+  memcpy(handle, &h, sizeof(h));
+  return 0;
+}
+
+// Map a peer's buffer from its handle (peer access enabled lazily).
+extern "C" int kf_sym_open(int device, const void* handle, void** ptr) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaIpcMemHandle_t h;
+  memcpy(&h, handle, sizeof(h));
+  return static_cast<int>(
+      cudaIpcOpenMemHandle(ptr, h, cudaIpcMemLazyEnablePeerAccess));
+}
+
+// Unmap a peer's buffer.
+extern "C" int kf_sym_close(void* ptr) {
+  return static_cast<int>(cudaIpcCloseMemHandle(ptr));
+}
+
+// Free this process's own buffer.
+extern "C" int kf_sym_free(void* ptr) {
+  return static_cast<int>(cudaFree(ptr));
 }
 
 extern "C" const char* kf_error_string(int code) {

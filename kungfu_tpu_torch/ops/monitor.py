@@ -68,11 +68,12 @@ def host_noise_scale(engine, local_flat, avg_flat, local_batch_size):
 
 def rank_sq_norms(tree) -> torch.Tensor:
     """Each rank's square norm of its own row of a stacked tree, f32
-    ``[n]``, inside a rank world; :func:`_sq_norm` outside one."""
+    ``[rows]`` (the ranks this process holds), inside a rank world;
+    :func:`_sq_norm` outside one."""
     world = current_world()
     if world is None:
         return _sq_norm(tree)
-    return sum(torch.square(l.float()).reshape(world.n, -1).sum(1)
+    return sum(torch.square(l.float()).reshape(world.rows, -1).sum(1)
                for l in tree_leaves(tree))
 
 

@@ -16,6 +16,12 @@ every axis has size 1 and each collective is the identity).
   :mod:`kungfu_tpu_torch.ops.collectives`: the hand-written CUDA kernels
   on the card, their plain versions on the CPU.
 
+Over a world that spans processes each function takes and returns this
+process's rows; ``pallas_ring`` reads the peers' rows in place through
+the ring kernels, every other schedule gathers the rows and computes as
+one process does (:func:`~kungfu_tpu_torch.ops.collective.lift`), so
+each schedule's result is the one-process world's bit for bit.
+
 ``reduce_scatter_flat`` and ``all_gather_flat`` keep the reference's
 ZeRO geometry: each rank's flat buffer viewed ``[n, chunk]`` mesh-major,
 bucketed along the chunk, so the concatenation over buckets is the
@@ -117,6 +123,8 @@ def _psum_scatter(x: torch.Tensor, axis_name: str) -> torch.Tensor:
     m = coll.peer_size(axis_name)
     if m == 1:
         return x
+    if coll.spanning():
+        return coll.lift(x, lambda full: _psum_scatter(full, axis_name))
     g = coll.group_view(x, axis_name)                 # [G, m, m*c]
     red = g.sum(1, dtype=g.dtype).reshape(g.shape[0], m, -1)
     return coll.ungroup(red, axis_name)
@@ -128,6 +136,8 @@ def _all_gather_tiled(x: torch.Tensor, axis_name: str) -> torch.Tensor:
     m = coll.peer_size(axis_name)
     if m == 1:
         return x
+    if coll.spanning():
+        return coll.lift(x, lambda full: _all_gather_tiled(full, axis_name))
     g = coll.group_view(x, axis_name)                 # [G, m, c]
     full = g.reshape(g.shape[0], 1, -1).expand(g.shape[0], m, -1)
     return coll.ungroup(full, axis_name)
@@ -175,6 +185,11 @@ def all_reduce_scheduled(x, axis: Axis, op: str = "sum",
     sizes = [coll.peer_size(ax) for ax in axes]
     if math.prod(sizes) == 1:
         return x
+    if coll.spanning() and not (schedule == "pallas_ring"
+                                and op in ("sum", "mean")):
+        # only the ring kernels read the peers' rows in place
+        return coll.lift(x, lambda full: all_reduce_scheduled(
+            full, axis, op=op, schedule=schedule))
     coll.check_stacked(x)
     sched_leaf = {
         "ring": _ring_all_reduce_leaf,

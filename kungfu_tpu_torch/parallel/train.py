@@ -883,6 +883,12 @@ def dp_train_step(loss_fn, tx, comm, replicated_params: bool = True,
     (:func:`stack_for_replicas`) and returns them stacked; rank ``r``
     trains row ``r``, and the pulse monitor stays off.
 
+    Over a communicator across processes every process passes the
+    global batch and runs the forward and backward of the ranks it holds
+    (:attr:`~kungfu_tpu_torch.comm.device.Communicator.addressable_n`
+    from :attr:`~kungfu_tpu_torch.comm.device.Communicator.first_rank`)
+    on their shards; the collectives cross the processes.
+
     ``zero_stage`` (1/2/3), or ``plan.zero_stage``, returns
     :func:`~kungfu_tpu_torch.parallel.zero.zero_train_step` with ``tx``
     as the inner elementwise transform; a plan's ``pallas_ring`` arm
@@ -908,13 +914,20 @@ def dp_train_step(loss_fn, tx, comm, replicated_params: bool = True,
                                schedule=zsched)
     axis, n = comm.axis, comm.size
     stacked = not replicated_params
+    # a communicator across processes: this process runs the ranks it
+    # holds, on their shards of the global batch every process passes
+    lo, hold = comm.first_rank, comm.addressable_n
+    if stacked and comm.span is not None:
+        raise NotImplementedError(
+            "per-replica params (SMA, AdaptiveSGD) over a process-spanning "
+            "communicator are not ported (ROADMAP A17)")
 
     def body(params, aux, opt_state, batch, pulse: bool):
-        shards = split_batch(batch, n)
+        shards = split_batch(batch, n)[lo:lo + hold]
         if has_aux:
             # each rank passes its own aux row when the aux is stacked
-            rows = ([tree_map(lambda a: a[r], aux) for r in range(n)]
-                    if stacked else [aux] * n)
+            rows = ([tree_map(lambda a: a[r], aux) for r in range(hold)]
+                    if stacked else [aux] * hold)
             outs, grads, params = _stacked_grads(
                 lambda p, ab: loss_fn(p, ab[0], ab[1]), params,
                 list(zip(rows, shards)), stacked)

@@ -108,6 +108,10 @@ class _ZeroGeometry:
 
     def __init__(self, params, comm, bucket_bytes: int):
         self.n = comm.size
+        #: the ranks this process holds: [lo, lo + rows) (all n with one
+        #: controller)
+        self.lo, self.rows = comm.first_rank, comm.addressable_n
+        self.spanning = comm.span is not None
         self.axes = comm.axis
         sizes = {"kf_host": comm.num_hosts, "kf_local": comm.local_size}
         _, self.spec = fuse(tree_map(
@@ -132,8 +136,11 @@ class _ZeroGeometry:
         return b
 
     def shards_of(self, tree) -> torch.Tensor:
-        """Every rank's chunk of the flat tree, stacked ``[n, chunk]``."""
-        return self.flat_of(tree).view(self.n, self.chunk)
+        """The chunks of the flat tree of the ranks this process holds,
+        stacked ``[rows, chunk]`` (every rank's, ``[n, chunk]``, with one
+        controller)."""
+        return self.flat_of(tree).view(self.n, self.chunk)[
+            self.lo:self.lo + self.rows]
 
     def tree_of(self, flat: torch.Tensor):
         """The param tree from a ``[padded]`` flat buffer."""
@@ -166,6 +173,11 @@ class ZeroStep:
         if schedule not in FLAT_SCHEDULES:
             raise ValueError(
                 f"unknown schedule {schedule!r}; one of {FLAT_SCHEDULES}")
+        if stage == 3 and comm.span is not None:
+            raise NotImplementedError(
+                "ZeRO-3 over a process-spanning communicator is not ported "
+                "(ROADMAP A17): its parameter shard is gathered inside the "
+                "differentiated step")
         self.stage = stage
         self.comm = comm
         self._loss_fn = loss_fn
@@ -253,12 +265,12 @@ class ZeroStep:
         return apply_updates(p_shard, updates), opt_shard
 
     def _step12(self, geo, params, opt_shard, batch, with_pulse: bool):
-        n, chunk = geo.n, geo.chunk
+        n, chunk, lo, rows = geo.n, geo.chunk, geo.lo, geo.rows
         first = tree_leaves(params)[0]
-        g = torch.zeros((n, geo.padded), dtype=geo.flat_dtype,
+        g = torch.zeros((rows, geo.padded), dtype=geo.flat_dtype,
                         device=first.device)
         outs, params = per_rank_grads(
-            self._loss_fn, params, split_batch(batch, n),
+            self._loss_fn, params, split_batch(batch, n)[lo:lo + rows],
             lambda r, grads: geo.fill(g[r], grads))
         losses = torch.stack(outs)
         stats = None
@@ -269,8 +281,8 @@ class ZeroStep:
                 # reduced gradient, then keeps its own chunk
                 for ax in geo.scatter_axes:
                     g = all_reduce(g, ax)
-                rank = torch.arange(n, device=g.device)
-                g_shard = g.view(n, n, chunk)[rank, rank]
+                row = torch.arange(rows, device=g.device)
+                g_shard = g.view(rows, n, chunk)[row, row + lo]
                 if with_pulse:
                     for ax in geo.scatter_axes:
                         gl = all_reduce(gl, ax, op="mean")
@@ -295,7 +307,15 @@ class ZeroStep:
             loss = replicated(all_reduce(losses, geo.axes, op="mean"))
             if stats is not None:
                 stats = replicated(stats)
-        return geo.tree_of(p_shard.reshape(-1)), opt_shard, loss, stats
+            if geo.spanning:
+                # the other processes' chunks: gathered, which moves the
+                # bits that the one-controller concatenation below reads
+                p_full = all_gather_flat(p_shard, geo.scatter_axes,
+                                         geo.widths,
+                                         schedule=self._schedule)[0]
+            else:
+                p_full = p_shard.reshape(-1)
+        return geo.tree_of(p_full), opt_shard, loss, stats
 
     def _step3(self, geo, p_shard, opt_shard, batch):
         shards = split_batch(batch, geo.n)
@@ -432,13 +452,15 @@ def _repad(full: torch.Tensor, total: int, new_padded: int) -> torch.Tensor:
 def _place_sharded(new_comm, full: Optional[torch.Tensor] = None,
                    my_chunk: Optional[torch.Tensor] = None) -> torch.Tensor:
     """A flat state vector as rows on ``new_comm``'s device: the full
-    padded buffer as the ``[n, chunk]`` stack of every rank's chunk, or
-    one rank's own chunk (one rank per process) as its ``[1, chunk]``
-    row."""
+    padded buffer as the ``[rows, chunk]`` stack of the chunks of the
+    ranks this process holds (every rank's, ``[n, chunk]``, with one
+    controller), or one rank's own chunk (one rank per process) as its
+    ``[1, chunk]`` row."""
     dev = new_comm.device
     if full is not None:
-        n = new_comm.size
-        return full.reshape(n, full.numel() // n).to(dev)
+        n, lo = new_comm.size, new_comm.first_rank
+        rows = full.reshape(n, full.numel() // n)
+        return rows[lo:lo + new_comm.addressable_n].to(dev)
     return my_chunk.reshape(1, -1).to(dev)
 
 
@@ -463,8 +485,12 @@ def zero1_reshard(opt_shard, params, new_comm, peer=None, snapshot=None):
     chunk = math.ceil(total / n)
     leaves, treedef = tree_flatten(opt_shard)
     if snapshot is not None or peer is not None:
-        # the structure only: a host-plane member holds its own rank's row
-        rows = 1 if peer is not None else n
+        # the structure only: a host-plane member holds its own rank's
+        # row, a process of a spanning communicator the rows of its ranks
+        if peer is None:
+            rows = n
+        else:
+            rows = 1 if new_comm.span is None else new_comm.addressable_n
         fresh = [torch.empty((rows, chunk), dtype=l.dtype, device="meta")
                  if l.dim() == 2 else l for l in leaves]
         return zero1_restore(snapshot, tree_unflatten(treedef, fresh),

@@ -21,9 +21,16 @@ Where the port differs from the reference:
   as ``devices=["cpu"]``, as the reference reads it as its jax platform;
   :meth:`Peer.device` is the worker's device, and raises without a card
   unless the CPU was asked for (ROADMAP C24);
-* there is no counterpart of ``jax.distributed`` yet: a config with a
-  coordinator and more than one process, or with ``world_peers``, raises
-  ``NotImplementedError`` (the multi-card slice);
+* the counterpart of ``jax.distributed`` is the process world of
+  :mod:`kungfu_tpu_torch.comm.world`: with ``KF_WORLD_PEERS`` (a
+  provisioned world, booted at :meth:`Peer.start` over every slot) or a
+  coordinator and ``KF_NUM_PROCESSES`` > 1 (a fixed world, booted at the
+  first communicator that spans processes), :meth:`Peer.communicator`
+  carves a communicator over the active workers' processes on the one
+  card, each holding ``KF_NUM_DEVICES`` ranks (default 1).  In-world
+  peers outside the active set go ``standby`` and come back through
+  :meth:`Peer.await_rejoin`; ranks on distinct cards raise (the
+  multi-card slice);
 * ``KF_CONFIG_ENABLE_MONITORING`` starts a
   :class:`~kungfu_tpu_torch.monitor.metrics.NetMonitor` over the peer's
   channel and a ``/metrics`` server at the worker port + 10000, as the
@@ -51,6 +58,7 @@ from typing import Dict, List, Optional, Sequence
 from kungfu_tpu_torch.comm.device import Communicator
 from kungfu_tpu_torch.comm.host import ConnType
 from kungfu_tpu_torch.plan.cluster import Cluster
+from kungfu_tpu_torch.plan.peerlist import PeerList
 from kungfu_tpu_torch.utils import envs
 from kungfu_tpu_torch.utils.log import get_logger, log_event
 from kungfu_tpu_torch.utils.stall import stall_detector
@@ -63,23 +71,27 @@ class Peer:
     def __init__(self, config: Optional[envs.Config] = None,
                  devices: Optional[Sequence] = None):
         self.config = config or envs.parse_config_from_env()
-        if self.config.world_peers is not None:
-            raise NotImplementedError(
-                "a provisioned device world (KF_WORLD_PEERS, standby peers, "
-                "await_rejoin) comes with the multi-card slice: the port "
-                "has no counterpart of jax.distributed yet")
-        if self.config.coordinator and self.config.num_processes > 1:
-            raise NotImplementedError(
-                f"a {self.config.num_processes}-process world under "
-                f"coordinator {self.config.coordinator} comes with the "
-                "multi-card slice: the port has no counterpart of "
-                "jax.distributed yet")
         self.cluster: Cluster = self.config.cluster
         self.cluster_version: int = self.config.init_version
         self.detached: bool = False
+        #: in the provisioned world but not in the active worker list:
+        #: alive, holding its world slot, waiting for a resize to bring it
+        #: back (:meth:`await_rejoin`)
+        self.standby: bool = (
+            self.config.world_peers is not None
+            and self.cluster.workers.rank(self.config.self_id) is None)
+        #: a device world of several processes (provisioned, or fixed by
+        #: the coordinator envs); its ProcessWorld once booted
+        self._multiprocess = (self.config.world_peers is not None
+                              or (bool(self.config.coordinator)
+                                  and self.config.num_processes > 1))
+        self._pworld = None
+        ndev = envs.parse_int_env(envs.NUM_DEVICES, 0)
         if devices is None and os.environ.get(envs.JAX_PLATFORM) == "cpu":
-            devices = ["cpu"]  # the launcher's -backend cpu
-        #: the devices of the communicator's ranks (None: one on the card)
+            devices = ["cpu"] * max(ndev, 1)  # the launcher's -backend cpu
+        elif devices is None and ndev > 1:
+            devices = ["cuda"] * ndev
+        #: the devices of this process's ranks (None: one on the card)
         self._devices = list(devices) if devices is not None else None
         self._channel = None
         self._p2p_stop = None
@@ -150,9 +162,21 @@ class Peer:
                 self._p2p_stop = install_p2p_handler(
                     self._channel, self.store, self._ctrl_store,
                     n_peers=self.size())
+            if self.config.world_peers is not None:
+                # every provisioned slot boots the process world now, as
+                # the reference's jax.distributed.initialize does
+                self._process_world()
             from kungfu_tpu_torch.utils.affinity import bind_local_rank
 
-            bind_local_rank(self.local_rank(), self.local_size())
+            world = self.config.world_peers
+            if world is not None:
+                # by the stable world slot, which a resize does not move
+                # (a standby peer has no active local rank)
+                lr = world.local_rank(self.config.self_id)
+                bind_local_rank(0 if lr is None else lr,
+                                max(world.local_size(self.config.self_id), 1))
+            else:
+                bind_local_rank(self.local_rank(), self.local_size())
             # a fresh process is about to build its step: the failure
             # detector gives it the compile grace (no-op without
             # KF_MONITOR_ADDR)
@@ -161,14 +185,15 @@ class Peer:
             monitor_compile_grace(self.rank())
             from kungfu_tpu_torch.monitor import timeline
 
-            timeline.set_rank(None if self.detached else self.rank())
+            timeline.set_rank(None if self.detached or self.standby
+                              else self.rank())
             # live cluster plane: snapshots to the aggregator co-hosted
             # with the config server, under the stable bootstrap rank
             # (a shrink must not make a survivor alias a dead rank's row)
             if (envs.parse_bool_env(envs.ENABLE_CLUSTER_MONITOR)
                     and self.config.config_server):
                 rank = self.chaos_rank()
-                if rank is None and not self.detached:
+                if rank is None and not (self.detached or self.standby):
                     rank = self.rank()
                 if rank is not None:
                     from kungfu_tpu_torch.monitor.aggregator import \
@@ -235,6 +260,9 @@ class Peer:
             self._reporter.stop(final_push=True)
             self._reporter = None
         with self._lock:
+            # a spanning communicator's release meets its peers on the
+            # channel, so it goes first; the strategy survives close/start
+            self._retire_comm()
             if self._channel is not None:
                 self._notify_done()
                 if self._p2p_stop is not None:
@@ -252,13 +280,53 @@ class Peer:
                 self._engine.close()
             self._engine = None
             self._engine_version = -1
-            self._retire_comm()  # the strategy survives close/start
             self._comm_version = -1
             self._started = False
 
+    def _process_world(self):
+        """The booted process world: every slot of ``KF_WORLD_PEERS``, or
+        the fixed world's initial workers (booted at first use)."""
+        if self._pworld is None:
+            if self._channel is None:
+                raise RuntimeError("the process world needs the peer's host "
+                                   "channel: start() the peer first")
+            from kungfu_tpu_torch.comm.world import ProcessWorld
+
+            slots = self.config.world_peers or self.config.cluster.workers
+            # this process's ranks: KF_NUM_DEVICES, default 1
+            self._pworld = ProcessWorld(
+                self._channel, slots, self.config.self_id, self.device(),
+                rows=len(self._devices) if self._devices else 1)
+        return self._pworld.boot()
+
+    def _carve(self):
+        """The span and mesh layout of the active workers' processes
+        (reference ``peer.py:293 _carve_active_devices``): ``(span,
+        local_size)``, or ``(None, None)`` while one process holds every
+        rank.  The mesh's local axis spans a host, so it is the workers
+        a host holds times the ranks a process holds when every host
+        holds one contiguous run of equal length, else the whole mesh
+        (flat)."""
+        if not self._multiprocess or len(self.cluster.workers) <= 1:
+            return None, None
+        span = self._process_world().span(self.cluster.workers,
+                                          self.cluster_version)
+        hosts = [w.host for w in self.cluster.workers]
+        counts, seen, contiguous = {}, set(), True
+        for i, h in enumerate(hosts):
+            counts[h] = counts.get(h, 0) + 1
+            if i and h != hosts[i - 1] and h in seen:
+                contiguous = False
+            seen.add(h)
+        if len(set(counts.values())) == 1 and contiguous:
+            return span, next(iter(counts.values())) * span.rows
+        _log.warning("active workers are unevenly or non-contiguously placed "
+                     "across hosts %s: the mesh is flat 1x%d", counts, span.n)
+        return span, span.n
+
     # -- identity --------------------------------------------------------
     def rank(self) -> int:
-        if self.detached:
+        if self.detached or self.standby:
             return -1
         r = self.cluster.workers.rank(self.config.self_id)
         if r is None:
@@ -308,9 +376,12 @@ class Peer:
     # -- communicator (mesh epoch) ---------------------------------------
     def _retire_comm(self) -> None:
         """Drop the communicator ahead of a new epoch, keeping its
-        strategy for the next one.  Callers hold the lock."""
+        strategy for the next one; a process-spanning one lets its
+        symmetric buffers go before the next epoch maps any.  Callers
+        hold the lock."""
         if self._comm is not None:
             self._comm_strategy = self._comm.strategy
+            self._comm.close()
         self._comm = None
 
     def _record_strategy(self, name: str) -> None:
@@ -352,18 +423,27 @@ class Peer:
                      "keeping %r", version, self._comm_strategy)
 
     def communicator(self) -> Communicator:
-        """The communicator of the current cluster version over this
-        peer's devices, rebuilt after a membership change with rank 0's
-        schedule (reference ``peer.py:512``)."""
+        """The communicator of the current cluster version, rebuilt after
+        a membership change with rank 0's schedule (reference
+        ``peer.py:512``): over this peer's devices, or, in a device world
+        of several processes, carved over the active workers' processes
+        (:meth:`_carve`)."""
         with self._lock:
+            if self.standby:
+                raise RuntimeError(
+                    "standby peer is not in the active worker list; call "
+                    "await_rejoin() before communicator()")
             if self._comm is None or self._comm_version != self.cluster_version:
                 self._retire_comm()
                 self._sync_device_strategy(self.cluster_version)
+                span, local_size = self._carve()
                 self._comm = Communicator(
                     devices=self._devices,
+                    local_size=local_size,
                     strategy=self._comm_strategy,
                     version=self.cluster_version,
                     on_strategy_change=self._record_strategy,
+                    span=span,
                 )
                 self._comm_version = self.cluster_version
                 _log.info("new %r", self._comm)
@@ -412,7 +492,24 @@ class Peer:
         from kungfu_tpu_torch.elastic.resize import slice_aligned_size
 
         new_size = slice_aligned_size(self, new_size)
-        new_cluster = self.cluster.resize(new_size)
+        world = self.config.world_peers
+        if world is not None and new_size > len(world):
+            # a worker with no process would wedge every later collective:
+            # clamp, as the reference does
+            _log.warning("proposed size %d exceeds the provisioned device "
+                         "world (%d slots) — clamping to the world capacity",
+                         new_size, len(world))
+            new_size = len(world)
+        if world is not None:
+            # a provisioned world grows into its own free slots, in slot
+            # order, whatever the launch's port range (ROADMAP C35)
+            workers = list(self.cluster.workers)[:new_size]
+            workers += [w for w in world if w not in workers][
+                :new_size - len(workers)]
+            new_cluster = Cluster(self.cluster.runners,
+                                  PeerList(tuple(workers)))
+        else:
+            new_cluster = self.cluster.resize(new_size)
         req = urllib.request.Request(
             self.config.config_server, data=new_cluster.to_json().encode(),
             method="PUT", headers={"Content-Type": "application/json"})
@@ -455,9 +552,30 @@ class Peer:
                 if self._channel is not None:
                     self._channel.set_token(version)
                     self._channel.reset_connections()
-                self.detached = (new_cluster.workers.rank(self.config.self_id)
-                                 is None)
+                world = self.config.world_peers
+                active = new_cluster.workers.rank(self.config.self_id) \
+                    is not None
+                in_world = (world is not None
+                            and world.rank(self.config.self_id) is not None)
+                # in-world peers never detach: they go standby and are
+                # carved into a later epoch without a relaunch
+                self.detached = not active and not in_world
+                self.standby = not active and in_world
                 self._retire_comm()
+                pworld = self._pworld
+                if (pworld is not None and pworld.described is not None
+                        and active and world is None
+                        and len(new_cluster.workers) != len(pworld.slots)):
+                    # a fixed world: a grown worker is outside it, so the
+                    # next communicator() raises for it
+                    _log.warning(
+                        "resize to %d worker processes but this process's "
+                        "device world has %d — surviving processes keep "
+                        "their original device world; the new world takes "
+                        "effect in relaunched workers only (set "
+                        "KF_WORLD_PEERS to provision a max world for live "
+                        "resize)", len(new_cluster.workers),
+                        len(pworld.slots))
             log_event(f"cluster-resized-v{version}-n{new_cluster.size()}")
         if new_cluster.workers.rank(self.config.self_id) == 0:
             from kungfu_tpu_torch.monitor.aggregator import \
@@ -469,7 +587,7 @@ class Peer:
 
     def _notify_done(self) -> None:
         """Rank 0 tells every runner the job completed (on close)."""
-        if self.config.parent is None or self.detached:
+        if self.config.parent is None or self.detached or self.standby:
             return
         if self.cluster.workers.rank(self.config.self_id) != 0:
             return
@@ -502,10 +620,71 @@ class Peer:
             except (TimeoutError, ConnectionError) as e:
                 _log.warning("cannot notify runner %s: %s", runner, e)
 
+    # -- standby / world (the provisioned world's live elasticity) --------
     def world_barrier(self, name: str = "world") -> None:
-        """The barrier over every provisioned slot; without a provisioned
-        world (the port's only mode) there is nothing to do."""
-        del name
+        """Host-plane barrier over every provisioned slot, active and
+        standby (job-wide phases such as start and shutdown); nothing to
+        do without a provisioned world."""
+        world = self.config.world_peers
+        if world is None or len(world) <= 1 or self._channel is None:
+            return
+        with trace_scope("peer.world_barrier"), stall_detector("world_barrier"):
+            self._channel.barrier(world, name=f"wbarrier.{name}")
+
+    def observe_stage(self):
+        """The config server's current ``(cluster, version)``, not
+        applied: standby peers poll it to decide when to rejoin or shut
+        down."""
+        if not self.config.config_server:
+            raise RuntimeError("observe_stage requires KF_CONFIG_SERVER")
+        from kungfu_tpu_torch.elastic.resize import fetch_cluster
+
+        return fetch_cluster(self.config.config_server)
+
+    def await_rejoin(self, timeout: float = 300.0,
+                     poll_period: float = 0.2) -> bool:
+        """A standby peer waits until the config server publishes a stage
+        that includes it, then adopts it (version fence, a new epoch at
+        the next :meth:`communicator`); True on rejoin, False when
+        ``timeout`` passes first.  The active workers agreed on the stage
+        before publishing it, so the server is the source of truth; the
+        joiner's first collective of the new epoch meets the survivors'."""
+        from kungfu_tpu_torch.utils.retry import sleep_backoff
+
+        deadline = time.time() + timeout
+        failures = 0
+        while time.time() < deadline:
+            try:
+                cluster, version = self.observe_stage()
+            except (OSError, ValueError, KeyError) as e:
+                _log.debug("stage fetch failed: %s", e)
+                # every standby polling a server that is down: back off
+                sleep_backoff(failures, base=poll_period, cap=2.0)
+                failures += 1
+                continue
+            failures = 0
+            if version > self.cluster_version:
+                with self._lock:
+                    self.cluster = cluster
+                    self.cluster_version = version
+                    if self._channel is not None:
+                        self._channel.set_token(version)
+                    if cluster.workers.rank(self.config.self_id) is not None:
+                        if self._channel is not None:
+                            self._channel.reset_connections()
+                        self.standby = False
+                        self.detached = False
+                        self._retire_comm()
+                        rejoined = True
+                    else:
+                        # a newer stage still without us: track its
+                        # version so a later rejoin fences on it
+                        rejoined = False
+                if rejoined:
+                    log_event(f"rejoined-v{version}-n{cluster.size()}")
+                    return True
+            time.sleep(poll_period)
+        return False
 
     # -- in-flight fault tolerance (elastic.shrink) ------------------------
     def recover_from_failure(self, failure: Optional[BaseException] = None,

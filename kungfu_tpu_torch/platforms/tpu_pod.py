@@ -24,8 +24,10 @@ ranks_per_slice`` (``elastic/slices.py``).  A
 :func:`multislice_communicator` over those ranks is a
 :class:`~kungfu_tpu_torch.comm.device.Communicator` whose ``local_size``
 is the ranks a slice, so its ``cross_*`` collectives run across slices.
-Slices on distinct cards need the multi-card slice: the communicator
-refuses ranks on more than one device.
+The ranks may also live in several worker processes of the one card (a
+process-spanning communicator, :mod:`kungfu_tpu_torch.comm.world`).
+Slices on distinct cards need the multi-card slice: a communicator
+refuses ranks on more than one card.
 """
 
 from __future__ import annotations

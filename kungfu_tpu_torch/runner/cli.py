@@ -15,8 +15,11 @@ The reference's flags, and its dispatch:
 
 Where the port differs (ROADMAP C24): ``-backend`` is ``gpu`` (the
 default: every worker of a host runs on its one card) or ``cpu`` (a
-host-only cluster, ``KF_JAX_PLATFORM=cpu``).  ``-device-world`` raises
-``NotImplementedError`` (the multi-card slice).  ``-sentinel DIR`` turns
+host-only cluster, ``KF_JAX_PLATFORM=cpu``).  ``-device-world``
+provisions every host-list slot as one process world on the card (every
+slot spawned, those past ``-np`` booting standby; a resize re-carves the
+communicator over the active workers, see
+:mod:`kungfu_tpu_torch.comm.world`), as the reference's does.  ``-sentinel DIR`` turns
 on ``-monitor``, publishes ``KF_SENTINEL_DIR`` and attaches
 ``Sentinel.from_env()`` to the builtin server's aggregator, as the
 reference's does.  The wire defaults stay the reference's:
@@ -64,8 +67,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-strategy", default="AUTO", help="allreduce strategy name")
     p.add_argument("-w", dest="watch", action="store_true", help="elastic watch mode")
     p.add_argument("-device-world", dest="device_world", action="store_true",
-                   help="provision ALL host-list slots as one device world "
-                        "(raises: comes with the multi-card slice)")
+                   help="provision ALL host-list slots as one device world; "
+                        "elastic resize re-carves the communicator over the "
+                        "active workers (inactive slots go standby)")
     p.add_argument("-config-server", dest="config_server", default="", help="elastic config server URL")
     p.add_argument("-builtin-config-port", dest="builtin_config_port", type=int, default=0,
                    help="start a built-in config server on this port")
@@ -302,11 +306,6 @@ def main(argv: Optional[List[str]] = None) -> int:
                 f"one of {ALLREDUCE_SCHEDULES}"
             )
     cluster = build_cluster(ns)
-    if ns.device_world:
-        from kungfu_tpu_torch.runner.job import MULTI_CARD
-
-        raise NotImplementedError(
-            f"-device-world: a provisioned device world {MULTI_CARD}")
     if ns.sentinel:
         # the judge needs the aggregator it attaches to
         ns.monitor = True
@@ -356,15 +355,21 @@ def main(argv: Optional[List[str]] = None) -> int:
             "/push, /cluster and /metrics exist there"
         )
 
+    world = None
+    if ns.device_world:
+        hl = build_hostlist(ns)
+        world = hl.gen_peer_list(hl.cap(), parse_port_range(ns.port_range))
+
     if ns.num_slices and ns.num_slices > 1:
-        if cluster.size() % ns.num_slices:
+        spawn_total = len(world) if world is not None else cluster.size()
+        if spawn_total % ns.num_slices:
             raise SystemExit(
                 f"kfrun: -num-slices {ns.num_slices} does not tile "
-                f"{cluster.size()} worker slot(s) — slices need identical "
+                f"{spawn_total} worker slot(s) — slices need identical "
                 "worker counts")
         _log.info(
             "multislice: %d slice(s) x %d worker(s) (slice-major)",
-            ns.num_slices, cluster.size() // ns.num_slices,
+            ns.num_slices, spawn_total // ns.num_slices,
         )
 
     if ns.tolerate_failures and (ns.auto_recover or ns.watch):
@@ -446,6 +451,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         log_dir=ns.logdir,
         parent=PeerID(ns.self_host, DEFAULT_RUNNER_PORT),
         backend=ns.backend,
+        world=world,
         slices=max(ns.num_slices, 0),
         extra_envs=extra_envs,
     )

@@ -11,10 +11,15 @@ the parent runner, the two timestamps, the slice identity of
 Where the port differs (ROADMAP C24): the backend is ``gpu`` (the
 default) or ``cpu``.  ``cpu`` stamps the reference's ``JAX_PLATFORMS=cpu``
 and ``KF_JAX_PLATFORM=cpu``, which the port's peer reads as its device
-plane on the host; ``gpu`` stamps nothing, and every worker of a host
-shares the one card.  What needs a multi-process device world raises
-``NotImplementedError``: a provisioned world (``-device-world``) and the
-TPU backend's coordinator envs come with the multi-card slice.
+plane on the host; ``gpu`` stamps what the reference's ``tpu`` backend
+stamps, and every worker of a host shares the one card.  With more than
+one worker the ``gpu`` backend's workers form one fixed process world
+(``KF_COORDINATOR``, ``KF_NUM_PROCESSES``, ``KF_PROCESS_ID``; the
+coordinator address is stamped for the reference's contract, the port's
+rendezvous rides the host channel).  A provisioned world
+(``-device-world``, :attr:`Job.world`) spawns every slot, each stamped
+with ``KF_WORLD_PEERS`` and its slot as its process id, and under ``cpu``
+with ``KF_NUM_DEVICES=1``, as the reference does.
 """
 
 from __future__ import annotations
@@ -34,10 +39,18 @@ from kungfu_tpu_torch.utils import envs
 #: the worker backends: the card, or the host
 BACKENDS = ("gpu", "cpu")
 
-#: the message of every launch feature that needs a device world of
-#: several processes
-MULTI_CARD = ("comes with the multi-card slice: the port has no "
-              "counterpart of jax.distributed yet")
+#: coordinator port = first worker's (job-unique) peer port + this
+#: offset, so two jobs sharing a host never collide
+COORDINATOR_PORT_OFFSET = 20000
+
+
+def _coordinator(first: PeerID) -> str:
+    """The coordinator address of a world whose first worker is
+    ``first``; a port past 65535 wraps into the dynamic range."""
+    port = first.port + COORDINATOR_PORT_OFFSET
+    if port > 65535:
+        port = 20000 + (port % 25536)
+    return f"{first.host}:{port}"
 
 
 @dataclass
@@ -51,7 +64,9 @@ class Job:
     parent: Optional[PeerID] = None
     extra_envs: Dict[str, str] = field(default_factory=dict)
     backend: str = "gpu"  # "gpu": the card | "cpu": the host
-    #: a provisioned device world (``-device-world``): raises
+    #: every provisioned worker slot (``-device-world``): all of them are
+    #: spawned and boot into one process world; a resize re-carves the
+    #: communicator over the active ones (Peer._carve)
     world: Optional[PeerList] = None
     #: multislice partitioning (``-num-slices``): > 1 stamps each worker
     #: with its slice, slice-major contiguous, as the reference does
@@ -62,14 +77,10 @@ class Job:
     job_start: float = field(default_factory=time.time)
 
     def __post_init__(self):
-        if self.world is not None:
-            raise NotImplementedError(
-                f"a provisioned device world (-device-world) {MULTI_CARD}")
         if self.backend == "tpu":
             raise NotImplementedError(
-                "the TPU backend's coordinator envs (KF_COORDINATOR, "
-                f"KF_NUM_PROCESSES, KF_PROCESS_ID) {MULTI_CARD}; the "
-                f"port's backends are {BACKENDS}")
+                f"tpu is not a backend of the port; its backends are "
+                f"{BACKENDS}")
         if self.backend not in BACKENDS:
             raise ValueError(f"backend {self.backend!r}, one of {BACKENDS}")
 
@@ -90,30 +101,59 @@ class Job:
         if self.parent is not None:
             env[envs.PARENT_ID] = str(self.parent)
         if self.slices and self.slices > 1:
-            # slice identity rides the stable spawn rank; the first spawn
-            # pins ranks-per-slice, later (resized) spawns reuse it
+            # slice identity rides the stable spawn rank (the world slot
+            # in a provisioned world); the first spawn pins
+            # ranks-per-slice, later (resized) spawns reuse it
+            spawn_list = (self.world if self.world is not None
+                          else cluster.workers)
+            base_rank = (self.world.rank(worker) if self.world is not None
+                         else rank)
             if self.slice_rps <= 0:
-                if len(cluster.workers) % self.slices:
+                if len(spawn_list) % self.slices:
                     raise ValueError(
-                        f"{len(cluster.workers)} worker slot(s) cannot "
+                        f"{len(spawn_list)} worker slot(s) cannot "
                         f"partition into {self.slices} slices")
-                self.slice_rps = len(cluster.workers) // self.slices
+                self.slice_rps = len(spawn_list) // self.slices
             rps = self.slice_rps
-            if rank is None or len(cluster.workers) % rps:
+            if base_rank is None or len(spawn_list) % rps:
                 raise ValueError(
-                    f"{len(cluster.workers)} worker slot(s) do not tile "
+                    f"{len(spawn_list)} worker slot(s) do not tile "
                     f"{rps}-rank slices")
-            env[envs.MEGASCALE_NUM_SLICES] = str(len(cluster.workers) // rps)
-            env[envs.MEGASCALE_SLICE_ID] = str(rank // rps)
+            env[envs.MEGASCALE_NUM_SLICES] = str(len(spawn_list) // rps)
+            env[envs.MEGASCALE_SLICE_ID] = str(base_rank // rps)
             env[envs.SLICE_RANKS] = str(rps)
         if self.config_server:
             env[envs.CONFIG_SERVER] = self.config_server
-        if self.backend == "cpu":
+        if self.world is not None:
+            # a provisioned world: every slot, active or standby, joins one
+            # process world under its stable slot index
+            wr = self.world.rank(worker)
+            if wr is None:
+                raise ValueError(
+                    f"worker {worker} is not a provisioned world slot")
+            env[envs.WORLD_PEERS] = str(self.world)
+            env[envs.COORDINATOR] = _coordinator(self.world[0])
+            env[envs.NUM_PROCESSES] = str(len(self.world))
+            env[envs.PROCESS_ID] = str(wr)
+            if self.backend == "cpu":
+                env["JAX_PLATFORMS"] = "cpu"
+                env[envs.JAX_PLATFORM] = "cpu"
+                # extra_envs is merged last and may override it
+                env[envs.NUM_DEVICES] = "1"
+        elif self.backend == "cpu":
             # each worker's device plane is the host; collectives run on
             # the host channel (the reference's names, so that its
             # workers run under this launcher too)
             env["JAX_PLATFORMS"] = "cpu"
             env[envs.JAX_PLATFORM] = "cpu"
+        else:
+            # the card: the workers form one fixed process world, as the
+            # reference's tpu backend stamps its jax.distributed world
+            n = len(cluster.workers)
+            if n > 1 and rank is not None:
+                env[envs.COORDINATOR] = _coordinator(cluster.workers[0])
+                env[envs.NUM_PROCESSES] = str(n)
+                env[envs.PROCESS_ID] = str(rank)
         # the package importable in the workers whatever their cwd
         import kungfu_tpu_torch as _pkg
 
@@ -135,6 +175,8 @@ class Job:
     def create_procs(self, cluster: Cluster, self_host: str,
                      version: int = 0) -> List[Proc]:
         """Procs for the workers of ``self_host`` (reference ``job.go:74``
-        CreateProcs)."""
+        CreateProcs); in a provisioned world every slot of the host, those
+        outside the initial worker list booting as standby peers."""
+        spawn_list = self.world if self.world is not None else cluster.workers
         return [self.new_proc(w, cluster, version)
-                for w in cluster.workers if w.host == self_host]
+                for w in spawn_list if w.host == self_host]

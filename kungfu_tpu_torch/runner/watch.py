@@ -48,6 +48,19 @@ def _config_server_version(url: str, timeout: float = 3.0) -> Optional[int]:
         return None
 
 
+def world_local_changes(old_local: Set[PeerID], new_local: Set[PeerID],
+                        world_local: Optional[Set[PeerID]] = None):
+    """The ``(removed, added)`` workers of this host for a stage that
+    moves its workers from ``old_local`` to ``new_local``.  In a
+    provisioned world (``world_local``: the host's world slots) in-world
+    workers move between active and standby themselves, so the runner
+    kills or spawns only slots outside the world (normally none)."""
+    removed, added = old_local - new_local, new_local - old_local
+    if world_local is not None:
+        removed, added = removed - world_local, added - world_local
+    return removed, added
+
+
 def watch_run(ns, cluster: Cluster, job: Job) -> int:
     self_host = ns.self_host
     # bind THIS runner's address (wildcard fallback): compose-style local
@@ -86,7 +99,9 @@ def watch_run(ns, cluster: Cluster, job: Job) -> int:
         idx += 1
 
     current = cluster
-    for w in cluster.workers.on_host(self_host):
+    device_world = job.world is not None
+    initial = job.world if device_world else cluster.workers
+    for w in initial.on_host(self_host):
         spawn(w, cluster, version)
 
     stop = False
@@ -180,8 +195,9 @@ def watch_run(ns, cluster: Cluster, job: Job) -> int:
             chan.set_token(new_version)
             old_local = set(current.workers.on_host(self_host))
             new_local = set(new_cluster.workers.on_host(self_host))
-            removed = old_local - new_local
-            added = new_local - old_local
+            removed, added = world_local_changes(
+                old_local, new_local,
+                set(job.world.on_host(self_host)) if device_world else None)
             for w in removed:
                 r = running.get(w)
                 if r is not None:

@@ -137,13 +137,18 @@ alone), and the runtime knobs the peer and failure recovery read:
 ``KF_CONFIG_SERVER``               URL of the elastic config server
 ``KF_JOB_START_TIMESTAMP``         unix seconds the job started
 ``KF_PROC_START_TIMESTAMP``        unix seconds this process started
+``KF_NUM_DEVICES``                 ranks each worker process of a device
+                                   world holds on its card (default 1;
+                                   peer.py)
 ``KF_COORDINATOR``                 multi-process coordinator address: with
-                                   ``KF_NUM_PROCESSES`` > 1 the peer raises
-                                   until the multi-card slice (peer.py)
+                                   ``KF_NUM_PROCESSES`` > 1 the workers form
+                                   one fixed process world on the card
+                                   (peer.py, comm/world.py)
 ``KF_NUM_PROCESSES``               process count of that world
 ``KF_PROCESS_ID``                  this process's index in it
-``KF_WORLD_PEERS``                 provisioned worker-slot list: the peer
-                                   raises until the multi-card slice
+``KF_WORLD_PEERS``                 provisioned worker-slot list: every slot
+                                   boots into one process world, inactive
+                                   slots go standby (peer.py)
 ``KF_CONFIG_ENABLE_MONITORING``    truthy: the peer runs a NetMonitor over its
                                    channel and serves ``/metrics`` at its
                                    port + 10000 (monitor/metrics.py)
@@ -293,6 +298,7 @@ DEVICE_STRATEGY = "KF_DEVICE_STRATEGY"
 CONFIG_SERVER = "KF_CONFIG_SERVER"
 JOB_START_TIMESTAMP = "KF_JOB_START_TIMESTAMP"
 PROC_START_TIMESTAMP = "KF_PROC_START_TIMESTAMP"
+NUM_DEVICES = "KF_NUM_DEVICES"
 COORDINATOR = "KF_COORDINATOR"
 NUM_PROCESSES = "KF_NUM_PROCESSES"
 PROCESS_ID = "KF_PROCESS_ID"
@@ -355,14 +361,13 @@ LOG_LEVEL = "KF_CONFIG_LOG_LEVEL"
 TRACE_DUMP = "KF_CONFIG_TRACE_DUMP"
 TIMELINE_CAP = "KF_CONFIG_TIMELINE_CAP"
 
-#: the bootstrap envs a launcher sets for every worker: the reference's
-#: list without its NUM_DEVICES, which sizes jax's CPU device count and
-#: has no counterpart here (a worker's device is its backend's)
+#: the bootstrap envs a launcher sets for every worker, the reference's
+#: list
 ALL_BOOTSTRAP_ENVS = [
     SELF_SPEC, INIT_PEERS, INIT_RUNNERS, PARENT_ID, INIT_CLUSTER_VERSION,
     ALLREDUCE_STRATEGY, CONFIG_SERVER, JOB_START_TIMESTAMP,
-    PROC_START_TIMESTAMP, COORDINATOR, NUM_PROCESSES, PROCESS_ID,
-    WORLD_PEERS,
+    PROC_START_TIMESTAMP, NUM_DEVICES, COORDINATOR, NUM_PROCESSES,
+    PROCESS_ID, WORLD_PEERS,
 ]
 
 #: the values of ``KF_PALLAS_COLLECTIVES``, as the reference names them

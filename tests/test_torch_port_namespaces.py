@@ -66,17 +66,9 @@ SMALL_DEFINITIONS = [
         "INCIDENT_WINDOW_ENV", "WARMUP_ENV")],
     ("kungfu_tpu_torch.ops.schedules", "Axis"),
     ("kungfu_tpu_torch.utils.affinity", "USE_AFFINITY"),
+    ("kungfu_tpu_torch.utils.envs", "NUM_DEVICES"),
+    ("kungfu_tpu_torch.runner.job", "COORDINATOR_PORT_OFFSET"),
 ]
-
-#: (port module, name): a reference definition that does not apply to
-#: the port, and why
-NOT_APPLYING_NAMES = {
-    ("kungfu_tpu_torch.utils.envs", "NUM_DEVICES"): (
-        "KF_NUM_DEVICES sizes jax's CPU device count (kungfu_tpu/peer.py); "
-        "a port worker's device is its backend's, nothing reads the knob, "
-        "and env-contract refuses a registry entry with no reader"),
-}
-
 
 def _exports(init: Path):
     """The public names a reference ``__init__`` exports: ``__all__``
@@ -192,14 +184,6 @@ def test_small_definition_under_the_reference_name(mod, name):
         assert value == rvalue
 
 
-@pytest.mark.parametrize("mod,name", sorted(NOT_APPLYING_NAMES))
-def test_not_applying_is_pinned(mod, name):
-    ref = importlib.import_module("kungfu_tpu" + mod[len("kungfu_tpu_torch"):])
-    assert hasattr(ref, name)
-    assert not hasattr(importlib.import_module(mod), name)
-    assert NOT_APPLYING_NAMES[(mod, name)]
-
-
 class TestSmallDefinitionValues:
     def test_chip_peak_is_the_h100_bf16_dense_peak(self):
         from kungfu_tpu_torch.ops import costmodel
@@ -245,8 +229,7 @@ class TestSmallDefinitionValues:
         from kungfu_tpu_torch.utils import envs
 
         assert envs.pulse_knobs() == renvs.pulse_knobs()
-        assert envs.ALL_BOOTSTRAP_ENVS == [
-            e for e in renvs.ALL_BOOTSTRAP_ENVS if e != renvs.NUM_DEVICES]
+        assert envs.ALL_BOOTSTRAP_ENVS == renvs.ALL_BOOTSTRAP_ENVS
 
     def test_launch_knobs_register_and_reload(self, monkeypatch):
         from kungfu_tpu_torch.ops.xent import XENT_ENV

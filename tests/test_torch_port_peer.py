@@ -734,14 +734,6 @@ class TestNotPorted:
     """Knobs and methods whose modules are not ported raise, naming the
     ROADMAP item that brings them."""
 
-    @pytest.mark.parametrize("extra", [
-        {"KF_WORLD_PEERS": "127.0.0.1:10000,127.0.0.1:10001"},
-        {"KF_COORDINATOR": "127.0.0.1:8476", "KF_NUM_PROCESSES": "2"}])
-    def test_multi_process_worlds(self, extra):
-        env = {**envs.single_machine_env(0, 2), **extra}
-        with pytest.raises(NotImplementedError, match="multi-card"):
-            Peer(envs.parse_config_from_env(env), devices=["cpu"])
-
     @pytest.mark.parametrize("knob", ["KF_CONFIG_ENABLE_MONITORING",
                                       "KF_CONFIG_ENABLE_CLUSTER_MONITOR"])
     def test_monitoring_knobs(self, monkeypatch, knob):

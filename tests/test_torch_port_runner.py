@@ -108,7 +108,8 @@ CLUSTERS = [
     ("127.0.0.1:2", 2, {"device_strategy": "ring",
                         "extra_envs": {"KF_CHAOS_SPEC": "die:step=1"}}),
 ]
-#: the keys the port's env may differ in (gpu backend)
+#: the keys the port's env may differ in (gpu backend against the
+#: reference's tpu backend)
 VARYING = ("PYTHONPATH", "KF_JOB_START_TIMESTAMP", "KF_PROC_START_TIMESTAMP",
            "JAX_PLATFORMS", "KF_JAX_PLATFORM")
 
@@ -138,12 +139,15 @@ def test_job_env_matches_reference(monkeypatch, hosts, np_, kw):
 
     monkeypatch.setattr(time, "time", lambda: 1700000000.25)
     ref_cpu = _job_envs(jjob, jplan, hosts, np_, kw, "cpu")
+    ref_tpu = _job_envs(jjob, jplan, hosts, np_, kw, "tpu")
     mine_cpu = _job_envs(tjob, tplan, hosts, np_, kw, "cpu")
     mine_gpu = _job_envs(tjob, tplan, hosts, np_, kw, "gpu")
     assert len(ref_cpu) == np_
     # -backend cpu: byte for byte, the backend's keys included
     assert mine_cpu == ref_cpu
-    for (*head, env), (*jhead, jenv) in zip(mine_gpu, ref_cpu):
+    # -backend gpu: the reference's tpu backend, its fixed world's
+    # coordinator keys included
+    for (*head, env), (*jhead, jenv) in zip(mine_gpu, ref_tpu):
         assert head == jhead
         assert {k: v for k, v in env.items() if k not in VARYING} == \
             {k: v for k, v in jenv.items() if k not in VARYING}
@@ -153,23 +157,11 @@ def test_job_env_matches_reference(monkeypatch, hosts, np_, kw):
 
 
 def test_job_refuses_multi_card():
-    from kungfu_tpu_torch.plan import PeerList
-
-    with pytest.raises(NotImplementedError, match="multi-card"):
-        tjob.Job(prog="p", args=[], world=PeerList.parse("127.0.0.1:1"))
-    with pytest.raises(NotImplementedError, match="multi-card"):
+    with pytest.raises(NotImplementedError, match="not a backend"):
         tjob.Job(prog="p", args=[], backend="tpu")
     with pytest.raises(ValueError):
         tjob.Job(prog="p", args=[], backend="mps")
     assert tjob.Job(prog="p", args=[]).backend == "gpu"
-
-
-@pytest.mark.parametrize("argv,match", [
-    (["-device-world", "python3", "x"], "multi-card"),
-])
-def test_main_refuses(argv, match):
-    with pytest.raises(NotImplementedError, match=match):
-        tcli.main(argv)
 
 
 # -- the helpers -------------------------------------------------------------
