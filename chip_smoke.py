@@ -475,6 +475,36 @@ Phases (any failed check exits non-zero before the result line):
              the right values, and jit-sync over the same source
              flags exactly the ``.item()`` line.  Launches no kernel of
              the port.
+23. world  — the multi-process device world: four worker processes of
+             one provisioned world on the card (``python -m
+             kungfu_tpu_torch -np 2 -H 127.0.0.1:4 -w -device-world``,
+             ``python3 chip_smoke.py --world-worker`` each), active
+             2 -> 4 -> 2, one communicator across the active processes
+             through CUDA IPC.  Each epoch: bert_base() S-SGD steps under
+             pallas_ring (rank 0's first step against the plain
+             versions); (a) bert_base() ZeRO-3 steps under pallas_ring,
+             its parameter shard and momentum re-carved at each resize
+             by ``zero_snapshot`` / ``zero_reshard``, one ``kf_ring_ag`` a
+             bucket in the forward and one ``kf_ring_rs`` in the
+             backward in each process, the first step's mean gradient
+             (its momentum) against the plain mean gradient leaf by leaf
+             and its params SGD's apply of it bit for bit; at four
+             processes the ring kernels across processes bitwise the
+             stacked ring and the plain versions,
+             (b) per-replica SMA (its weight average by psum) from
+             replicas set apart, each rank's first-step gradient and
+             update against the plain SMA step, and (c)
+             ``ShardedTrainer`` on the flagship over dp=2 x tp=2
+             spanning the four processes (``devices=comm``: tp's pair
+             sums across processes through ``lift`` in its forward and
+             its backward, the loss's mean over dp x tp is
+             differentiated through ``lift``'s backward, dp's gradient
+             sync runs the ring kernels), its first
+             loss and synchronized gradient against the one-rank
+             model's, its params SGD's apply of that gradient bit for
+             bit.  Every process's loss bitwise its epoch's, exact
+             launches a step, the sharded trainer's gathered params one
+             digest in every process.
 
 Phase 3 also holds the ring reduce-scatter and all-gather kernels
 bitwise against their plain versions, at the main path's shapes (a
@@ -499,6 +529,7 @@ prints a ``kernels`` JSON line, the ``nvidia-smi`` line, and last
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -7264,18 +7295,14 @@ def _plain_flash_attn(torch, attention):
     return attn
 
 
-def _kfrun_plain_check(torch, kernels, model, params, batch, loss_k,
-                       grads_k, lr: float = BERT_LR,
-                       what: str = "worker") -> dict:
-    """Rank 0's first step through the kernels' plain versions (flash
-    reference forward and backward, ``token_nll_rows`` under
-    ``KF_TPU_XENT=plain``), held against
-    the kernels' loss and gradients, and the params after one SGD step of
-    rate ``lr`` from each; no kernel may launch."""
+def _plain_loss_grads(torch, kernels, model, params, batch):
+    """One rank's loss and gradients (a list in ``tree_flatten`` order)
+    through the kernels' plain versions: flash reference forward and
+    backward, ``token_nll_rows`` under ``KF_TPU_XENT=plain``; no kernel
+    may launch."""
     from kungfu_tpu_torch.ops import xent
     from kungfu_tpu_torch.ops.cuda import attention
     from kungfu_tpu_torch.parallel.train import per_rank_grads
-    from kungfu_tpu_torch.utils.tree import tree_flatten_with_path
 
     plain_attn = _plain_flash_attn(torch, attention)
 
@@ -7297,7 +7324,21 @@ def _kfrun_plain_check(torch, kernels, model, params, batch, loss_k,
     launched = {k: v - before[k] for k, v in _counts(kernels).items()
                 if v != before[k]}
     check(not launched, f"the plain first step launched kernels: {launched}")
-    loss_p = float(outs[0])
+    return outs[0], grads
+
+
+def _kfrun_plain_check(torch, kernels, model, params, batch, loss_k,
+                       grads_k, lr: float = BERT_LR,
+                       what: str = "worker") -> dict:
+    """Rank 0's first step through the kernels' plain versions (flash
+    reference forward and backward, ``token_nll_rows`` under
+    ``KF_TPU_XENT=plain``), held against
+    the kernels' loss and gradients, and the params after one SGD step of
+    rate ``lr`` from each; no kernel may launch."""
+    from kungfu_tpu_torch.utils.tree import tree_flatten_with_path
+
+    loss_p, grads = _plain_loss_grads(torch, kernels, model, params, batch)
+    loss_p = float(loss_p)
     pairs = [("/".join(map(str, path)), p)
              for path, p in tree_flatten_with_path(params)[0]]
     names = [n for n, _ in pairs]
@@ -8900,12 +8941,34 @@ def build_all(torch, attention, lmk, ringk) -> dict:
 #: BERT_SEQ] a rank: the ring kernels across processes
 WORLD_SLOTS, WORLD_SCHEDULE, WORLD_STEPS = 4, (2, 4, 2), 2
 #: the launch of phase 23, command included, at most
-WORLD_TIMEOUT_S = 300
+WORLD_TIMEOUT_S = 600
 #: launches a rank's S-SGD step makes of each ring kernel: one fused
 #: gradient, one reduce-scatter and one all-gather
 WORLD_RING_PER_STEP = 1
 #: timed launches of each ring kernel at the process-spanning shape
 WORLD_TIMED = 10
+#: (a) ZeRO-3 steps an epoch on their own bert_base() params (SGD with
+#: momentum, the parameter shard and the momentum re-carved at each
+#: resize), buckets of 32 MiB: 16 buckets at two processes and at four
+WORLD_ZERO3_STEPS = 2
+WORLD_ZERO3_BUCKET = 32 << 20
+#: (b) per-replica SMA steps at the four-process epoch, the weight
+#: average by all_reduce's psum path (the ring kernels do not run in
+#: it); each rank's replica starts WORLD_SMA_SPREAD times a normal draw
+#: away from the S-SGD params, so that the first step's pull
+#: alpha * (avg - p), about 1e-4 an entry, stands well above the f32
+#: rounding of the update at BERT's parameter scale
+WORLD_SMA_STEPS = 2
+WORLD_SMA_SPREAD = 1e-3
+#: (c) ShardedTrainer steps on the flagship over dp=2 x tp=2 across the
+#: four processes, at the four-process epoch: the global batch [4, 1024]
+#: (each dp replica [2, 1024]), the reference trainer's sgd(0.01)
+WORLD_SHARDED_PLAN = dict(dp=2, tp=2)
+WORLD_SHARDED_STEPS = 2
+WORLD_SHARDED_BATCH, WORLD_SHARDED_SEQ = 4, 1024
+#: the check of ``lift``'s backward across the four processes: one f32
+#: row of this length a rank
+WORLD_LIFT_LEN = 1 << 16
 
 
 def _world_batch(torch, np, vocab: int, epoch: int, step: int, ranks: int):
@@ -8942,6 +9005,7 @@ def _world_ring_check(torch, comm, kernels, loss_fn, params, shard) -> dict:
     buf, _ = fuse(grads)
     del grads
     parts, _ = _flatten_pad(buf[None], k, "sum")
+    del buf
     flat = parts.reshape(1, -1)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -8957,25 +9021,12 @@ def _world_ring_check(torch, comm, kernels, loss_fn, params, shard) -> dict:
         torch.cuda.synchronize()
     t3 = time.perf_counter()
     b2 = span.stats["barrier_s"]
-    full = span.gather([flat])[0]
-    st_rs = ringk.reduce_scatter(full, cut)
-    st_ag = ringk.all_gather(st_rs, cut)
-    pl_rs = rc.ring_reduce_scatter_reference(full, cut)
-    pl_ag = rc.ring_all_gather_reference(pl_rs, cut)
-    torch.cuda.synchronize()
     out = {"k": k, "chunk": chunk, "cut": cut,
            "grads_ms": (t1 - t0) * 1e3, "rs_step_ms": (t2 - t1) * 1e3,
            "ag_step_ms": (t3 - t2) * 1e3,
            "rs_barrier_ms": (b1 - b0) * 1e3, "ag_barrier_ms": (b2 - b1) * 1e3,
            "rs_digest": _device_digest(torch, rs[0]),
-           "ag_digest": _device_digest(torch, ag[0]),
-           "stacked_rs_digest": _device_digest(torch, st_rs[first]),
-           "stacked_ag_digest": _device_digest(torch, st_ag[first]),
-           "rs_vs_stacked": bool(torch.equal(rs[0], st_rs[first])),
-           "ag_vs_stacked": bool(torch.equal(ag[0], st_ag[first])),
-           "rs_vs_plain": bool(torch.equal(rs[0], pl_rs[first])),
-           "ag_vs_plain": bool(torch.equal(ag[0], pl_ag[first]))}
-    del st_ag, pl_rs, pl_ag, ag
+           "ag_digest": _device_digest(torch, ag[0])}
     rows = span.rows
 
     def timed(x, launch):
@@ -9003,23 +9054,453 @@ def _world_ring_check(torch, comm, kernels, loss_fn, params, shard) -> dict:
         ringk.reduce_scatter_rows(ring, [rs_out[0]], first, cut)))
     out["ag_ms"], out["ag_wall_ms"] = timed(rs, lambda ring: (
         ringk.all_gather_rows(ring, [ag_out[0]], first, cut)))
-    if first == 0:
-        out["stacked_rs_ms"] = device_ms(
-            torch, lambda: ringk.reduce_scatter(full, cut), 3, 5)
-        out["stacked_ag_ms"] = device_ms(
-            torch, lambda: ringk.all_gather(st_rs, cut), 3, 5)
-        out["plain_rs_ms"] = device_ms(
-            torch, lambda: rc.ring_reduce_scatter_reference(full, cut), 1, 3)
-        out["plain_ag_ms"] = device_ms(
-            torch, lambda: rc.ring_all_gather_reference(st_rs, cut), 1, 3)
-        out["library_rs_ms"] = device_ms(
-            torch, lambda: full.view(k, k, chunk).sum(0), 3, 5)
-        out["library_ag_ms"] = device_ms(
-            torch, lambda: st_rs.reshape(1, -1).expand(k, -1).contiguous(),
-            3, 5)
-    span.barrier()
-    del full, st_rs, flat, rs, rs_out, ag_out
+    del rs_out, ag_out
+    # the stacked kernels and the plain versions on the four published
+    # buffers, one process at a time (the others wait at the barrier), so
+    # that only one process holds the whole [k, k * chunk] buffer and
+    # their outputs at once; process 0 also times them in its turn
+    (views,) = span.publish([flat])
+    for q in range(span.procs):
+        if q == span.index:
+            full = torch.cat(views, 0)
+            st_rs = ringk.reduce_scatter(full, cut)
+            st_ag = ringk.all_gather(st_rs, cut)
+            pl_rs = rc.ring_reduce_scatter_reference(full, cut)
+            pl_ag = rc.ring_all_gather_reference(pl_rs, cut)
+            out.update(
+                stacked_rs_digest=_device_digest(torch, st_rs[first]),
+                stacked_ag_digest=_device_digest(torch, st_ag[first]),
+                rs_vs_stacked=bool(torch.equal(rs[0], st_rs[first])),
+                ag_vs_stacked=bool(torch.equal(ag[0], st_ag[first])),
+                rs_vs_plain=bool(torch.equal(rs[0], pl_rs[first])),
+                ag_vs_plain=bool(torch.equal(ag[0], pl_ag[first])))
+            del st_ag, pl_rs, pl_ag
+            if first == 0:
+                out["stacked_rs_ms"] = device_ms(
+                    torch, lambda: ringk.reduce_scatter(full, cut), 3, 5)
+                out["stacked_ag_ms"] = device_ms(
+                    torch, lambda: ringk.all_gather(st_rs, cut), 3, 5)
+                out["plain_rs_ms"] = device_ms(
+                    torch, lambda: rc.ring_reduce_scatter_reference(full, cut),
+                    1, 3)
+                out["plain_ag_ms"] = device_ms(
+                    torch, lambda: rc.ring_all_gather_reference(st_rs, cut),
+                    1, 3)
+                out["library_rs_ms"] = device_ms(
+                    torch, lambda: full.view(k, k, chunk).sum(0), 3, 5)
+                out["library_ag_ms"] = device_ms(
+                    torch, lambda: st_rs.reshape(1, -1).expand(k, -1)
+                    .contiguous(), 3, 5)
+            del full, st_rs
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        span.barrier()
+    span.drain()
+    del views, flat, parts, rs, ag
     torch.cuda.empty_cache()
+    return out
+
+
+def _world_steps(torch, kernels, span, want, run, batches) -> dict:
+    """``run(batch) -> loss`` over ``batches``, launches counted from zero
+    a step and held to ``want``: each step's loss (repr), host ms around
+    a synchronised step, the span's barrier ms inside it, the launches."""
+    out = {"losses": [], "step_ms": [], "barrier_ms": [],
+           "launches": {key: 0 for key in want}}
+    for i, batch in enumerate(batches):
+        _reset(kernels)
+        torch.cuda.synchronize()
+        b0 = span.stats["barrier_s"]
+        t0 = time.perf_counter()
+        loss = float(run(batch))  # synchronises
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["barrier_ms"].append((span.stats["barrier_s"] - b0) * 1e3)
+        out["losses"].append(repr(loss))
+        check(math.isfinite(loss), f"step {i}: loss {loss}")
+        per = _counts(kernels)
+        check(per == want, f"step {i} launched {per}, expected {want}")
+        for key, n in per.items():
+            out["launches"][key] += n
+    return out
+
+
+def _leaf_names(tree) -> list:
+    """``path/of/leaf`` names in ``tree_flatten`` order."""
+    from kungfu_tpu_torch.utils.tree import tree_flatten_with_path
+
+    return ["/".join(map(str, path))
+            for path, _ in tree_flatten_with_path(tree)[0]]
+
+
+def _rel_text(rel: dict) -> str:
+    """A :func:`_leaf_rel` result as text."""
+    text = f"worst leaf rel L2 {rel['worst']:.3e} ({rel['leaf']})"
+    if "qk_worst" in rel:
+        text += f", q/k {rel['qk_worst']:.3e} ({rel['qk_leaf']})"
+    return text
+
+
+def _apply_text(a: dict) -> str:
+    """An :func:`_apply_differs` result as text."""
+    return (f"{a['leaves'] - len(a['differ'])}/{a['leaves']} leaves "
+            f"bitwise, largest |difference| {a['max_abs']}")
+
+
+def _leaf_rel(got: dict, ref: dict, qk_apart: bool) -> dict:
+    """The worst relative L2 per leaf (:func:`_rel_l2_leaves`) and its
+    leaf.  With ``qk_apart`` the q/k leaves' worst stands apart, as phase
+    20 keeps it (``KFRUN_QK_LEAVES``: at BERT's nearly uniform attention
+    the flash backward's q and k gradients stand further from the plain
+    path's); it is reported, not held."""
+    rel = _rel_l2_leaves(got, ref)
+    qk = {n: x for n, x in rel.items() if qk_apart
+          and any(k in f"/{n}/" for k in KFRUN_QK_LEAVES)}
+    rest = {n: x for n, x in rel.items() if n not in qk}
+    out = {"worst": max(rest.values()), "leaf": max(rest, key=rest.get)}
+    if qk:
+        out.update(qk_worst=max(qk.values()), qk_leaf=max(qk, key=qk.get))
+    return out
+
+
+def _apply_differs(torch, new: dict, start: dict, grad: dict,
+                   lr: float) -> dict:
+    """SGD's apply from ``start`` by ``grad``, as ``sgd`` and
+    ``apply_updates`` compute it (``start + (-lr * grad)``), held bit for
+    bit against ``new`` leaf by leaf: the leaves that differ and the
+    largest |difference|.  A relative check of ``(start - new) / lr``
+    cannot stand in for it: where ``lr * grad`` falls below half an f32
+    ulp of the param (a layer norm's scale at 1, BERT's key weights at
+    init) the step rounds it away."""
+    differ, worst = [], 0.0
+    for n, t in new.items():
+        d = t - (start[n] + (-lr * grad[n]))
+        if bool(d.any()):
+            differ.append(n)
+            worst = max(worst, d.abs().max().item())
+    return {"leaves": len(new), "differ": differ, "max_abs": worst}
+
+
+def _world_zero3(torch, np, kernels, comm, peer, model, loss_fn, params0,
+                 carry: dict, v: int, want: dict) -> dict:
+    """Phase 23 (a): ``WORLD_ZERO3_STEPS`` ZeRO-3 steps of bert_base()
+    under pallas_ring over the epoch's communicator.  The parameter
+    shard and the momentum come from ``params0`` at epoch 0 and from the
+    last epoch's snapshots (``carry``) after, through ``zero_reshard``;
+    the epoch ends by snapshotting both again.  At epoch 0 every process
+    also takes its rank's first step through the plain versions and
+    means the gradients across the processes; after the first step the
+    ZeRO-3 step's mean gradient (its momentum, gathered) is held against
+    that plain mean gradient leaf by leaf, and its gathered params
+    against SGD's apply of that momentum (:func:`_apply_differs`)."""
+    from kungfu_tpu_torch.ops import collective as coll
+    from kungfu_tpu_torch.ops.fuse import fuse
+    from kungfu_tpu_torch.optimizers import sgd
+    from kungfu_tpu_torch.parallel.train import split_batch
+    from kungfu_tpu_torch.parallel.zero import (zero_reshard, zero_snapshot,
+                                                zero_train_step)
+    from kungfu_tpu_torch.utils.tree import tree_leaves
+
+    vocab, span = model.cfg.vocab_size, comm.span
+    z = zero_train_step(loss_fn, sgd(BERT_LR, momentum=BERT_MOMENTUM), comm,
+                        stage=3, bucket_bytes=WORLD_ZERO3_BUCKET,
+                        schedule="pallas_ring")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p, o = z.init_params(params0), z.init_opt(params0)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    if v:
+        # rank 0 holds the snapshots; the others pass None and receive
+        p = zero_reshard(p, params0, comm, peer, snapshot=carry.get("p"))
+        o = zero_reshard(o, params0, comm, peer, snapshot=carry.get("o"))
+    torch.cuda.synchronize()
+    init_ms, recarve_ms = ((t1 - t0) * 1e3,
+                           (time.perf_counter() - t1) * 1e3)
+    buckets = len(z._require_g3().widths)  # noqa: SLF001
+    want = dict(want, ring_rs=buckets, ring_ag=buckets)
+    batches = [_world_batch(torch, np, vocab, v, s, comm.size)
+               for s in range(WORLD_ZERO3_STEPS)]
+    plain = None
+    names = _leaf_names(params0)
+    if v == 0:
+        # the plain first step: each rank's plain loss and gradient on
+        # its shard, meaned across the processes (the plain psum path)
+        shard = split_batch(batches[0], comm.size)[comm.first_rank]
+        loss_p, grads_p = _plain_loss_grads(torch, kernels, model, params0,
+                                            shard)
+        flat, _ = fuse(grads_p)
+        del grads_p
+        with comm.world():
+            mean = coll.all_reduce(flat[None], comm.axis, op="mean")[0]
+            loss_p = float(coll.all_reduce(loss_p.reshape(1), comm.axis,
+                                           op="mean")[0])
+        del flat
+        mean_p, off = {}, 0
+        for name, leaf in zip(names, tree_leaves(params0)):
+            mean_p[name] = mean[off:off + leaf.numel()].view(leaf.shape)
+            off += leaf.numel()
+    state = {"p": p, "o": o}
+
+    def run(batch):
+        state["p"], state["o"], loss = z.step(state["p"], state["o"], batch)
+        return loss
+
+    out = _world_steps(torch, kernels, span, want, run, batches[:1])
+    if v == 0:
+        # one SGD-momentum step from zero momentum: the momentum is the
+        # step's mean gradient, and the update is BERT_LR times it
+        grad = dict(zip(names, tree_leaves(
+            z.gather_params(state["o"].trace))))
+        new = dict(zip(names, tree_leaves(z.gather_params(state["p"]))))
+        loss_k = float(out["losses"][0])
+        plain = {"loss": loss_k, "loss_plain": loss_p,
+                 "loss_rel": abs(loss_k - loss_p) / abs(loss_p),
+                 "grad": _leaf_rel(grad, mean_p, qk_apart=True),
+                 "apply": _apply_differs(torch, new, dict(zip(
+                     names, tree_leaves(params0))), grad, BERT_LR)}
+        del grad, new, mean_p, mean
+    rest = _world_steps(torch, kernels, span, want, run, batches[1:])
+    for key in ("losses", "step_ms", "barrier_ms"):
+        out[key] += rest[key]
+    for key, n in rest["launches"].items():
+        out["launches"][key] += n
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    carry["o"] = zero_snapshot(state["o"], peer)
+    carry["p"] = zero_snapshot(state["p"], peer)
+    snapshot_ms = (time.perf_counter() - t0) * 1e3
+    out.update(buckets=buckets, init_ms=init_ms, recarve_ms=recarve_ms,
+               snapshot_ms=snapshot_ms, plain=plain,
+               shard_digest=_device_digest(torch, state["p"]))
+    return out
+
+
+def _sma_replica(torch, leaves, rank: int) -> list:
+    """Rank ``rank``'s starting replica of phase 23 (b): each leaf plus
+    ``WORLD_SMA_SPREAD`` times a normal draw seeded by the rank, so any
+    process can make every rank's replica."""
+    gen = torch.Generator(device=leaves[0].device).manual_seed(23_000 + rank)
+    return [t + WORLD_SMA_SPREAD * torch.randn(
+        t.shape, generator=gen, device=t.device, dtype=t.dtype)
+        for t in leaves]
+
+
+def _world_sma(torch, np, kernels, comm, model, loss_fn, params, v: int,
+               want: dict) -> dict:
+    """Phase 23 (b): ``WORLD_SMA_STEPS`` per-replica SMA steps (alpha
+    ``SMA_ALPHA``, the weights averaged by ``all_reduce``'s psum path,
+    the reference's) from the S-SGD params, each rank's replica moved
+    apart first (:func:`_sma_replica`) so that the first step's average
+    pulls; this process's replica rows.  After the first step each row
+    is held against the plain SMA step: its momentum (the row's local
+    gradient) against the plain versions' gradient on the rank's shard,
+    and its update against ``-BERT_LR * g + SMA_ALPHA * (avg - p)``, the
+    average made here from every rank's replica."""
+    from kungfu_tpu_torch.optimizers import sgd, synchronous_averaging
+    from kungfu_tpu_torch.parallel.train import (dp_train_step, split_batch,
+                                                 stack_for_replicas)
+    from kungfu_tpu_torch.utils.tree import (tree_flatten, tree_leaves,
+                                             tree_unflatten)
+
+    tx = synchronous_averaging(sgd(BERT_LR, momentum=BERT_MOMENTUM),
+                               comm.axis, alpha=SMA_ALPHA)
+    step = dp_train_step(loss_fn, tx, comm, replicated_params=False)
+    leaves, treedef = tree_flatten(params)
+    names = _leaf_names(params)
+    ranks = range(comm.first_rank, comm.first_rank + comm.addressable_n)
+    starts, avg = {}, [torch.zeros_like(t) for t in leaves]
+    for r in range(comm.size):
+        rep = _sma_replica(torch, leaves, r)
+        avg = [a + t for a, t in zip(avg, rep)]
+        if r in ranks:
+            starts[r] = rep
+    avg = [a / comm.size for a in avg]
+    state = {"p": tree_unflatten(treedef, [
+        torch.stack([starts[r][i] for r in ranks])
+        for i in range(len(leaves))]),
+        "o": stack_for_replicas(tx.init(params), comm.addressable_n)}
+    want = dict(want, ring_rs=0, ring_ag=0)
+
+    def run(batch):
+        state["p"], state["o"], loss = step(state["p"], state["o"], batch)
+        return loss
+
+    batches = [_world_batch(torch, np, model.cfg.vocab_size, v, 10 + s,
+                            comm.size) for s in range(WORLD_SMA_STEPS)]
+    out = _world_steps(torch, kernels, comm.span, want, run, batches[:1])
+    shards = split_batch(batches[0], comm.size)
+    plain = []
+    for j, r in enumerate(ranks):
+        start = starts.pop(r)
+        loss_p, g = _plain_loss_grads(torch, kernels, model,
+                                      tree_unflatten(treedef, start),
+                                      shards[r])
+        got_g = {n: t[j] for n, t in zip(
+            names, tree_leaves(state["o"].trace))}
+        got_u = {n: t[j] - s for n, t, s in zip(
+            names, tree_leaves(state["p"]), start)}
+        want_u = {n: -BERT_LR * gi + SMA_ALPHA * (a - s) for n, gi, a, s
+                  in zip(names, g, avg, start)}
+        plain.append({"rank": r, "loss_plain": float(loss_p),
+                      "grad": _leaf_rel(got_g, dict(zip(names, g)),
+                                        qk_apart=True),
+                      "update": _leaf_rel(got_u, want_u, qk_apart=False)})
+        del start, g, got_g, got_u, want_u
+    del avg
+    rest = _world_steps(torch, kernels, comm.span, want, run, batches[1:])
+    for key in ("losses", "step_ms", "barrier_ms"):
+        out[key] += rest[key]
+    for key, n in rest["launches"].items():
+        out["launches"][key] += n
+    out.update(leaves=len(leaves), plain=plain)
+    return out
+
+
+def _world_lift_check(torch, comm) -> dict:
+    """Phase 23's check of the differentiable ``lift`` across the
+    processes, run by every process of the four-process epoch: nothing
+    of (a)-(c) differentiates through ``lift`` (the tp pair, ZeRO-3's
+    gather and the ring pair have backwards of their own, whose
+    collectives run ``lift`` forward only).  Each collective's output
+    and input gradient over the span, on this process's rows of seeded
+    ``[n, WORLD_LIFT_LEN]`` inputs and cotangents, held bit for bit
+    against the same collective over a one-process communicator of n
+    co-resident ranks on the whole inputs; the cases that differ."""
+    from kungfu_tpu_torch.comm.device import Communicator
+    from kungfu_tpu_torch.ops import collective as coll
+
+    n, lo, rows, ax = comm.size, comm.first_rank, comm.addressable_n, \
+        "kf_local"
+    shift = [((j + 1) % n, j) for j in range(n)]
+    cases = {
+        "all_reduce_sum": lambda x: coll.all_reduce(x, ax),
+        "all_reduce_mean": lambda x: coll.all_reduce(x, ax, op="mean"),
+        "all_reduce_max": lambda x: coll.all_reduce(x, ax, op="max"),
+        "all_gather": lambda x: coll.all_gather(x, ax, tiled=True),
+        "broadcast": lambda x: coll.broadcast(x, ax, root=1),
+        "ppermute": lambda x: coll.ppermute(x, ax, shift),
+        "all_to_all": lambda x: coll.all_to_all(
+            x.reshape(x.shape[0], n, -1), ax, 0, 1),
+        "chain": lambda x: coll.all_gather(
+            coll.all_reduce(x, ax) * x, ax, tiled=True).tanh(),
+    }
+    one = Communicator(devices=[comm.device] * n, local_size=n)
+
+    def vjp(c, fn, x, ct):
+        x = x.clone().requires_grad_(True)
+        with c.world():
+            y = fn(x)
+            (g,) = torch.autograd.grad(y, x, ct)
+        return y.detach(), g
+
+    differ = []
+    for i, (name, fn) in enumerate(cases.items()):
+        gen = torch.Generator(device=comm.device).manual_seed(2300 + i)
+        x = torch.randn((n, WORLD_LIFT_LEN), generator=gen,
+                        device=comm.device)
+        with one.world():
+            shape = fn(x).shape
+        ct = torch.randn(shape, generator=gen, device=comm.device)
+        y1, g1 = vjp(one, fn, x, ct)
+        y, g = vjp(comm, fn, x[lo:lo + rows], ct[lo:lo + rows])
+        if not (torch.equal(y, y1[lo:lo + rows])
+                and torch.equal(g, g1[lo:lo + rows])):
+            differ.append(name)
+    return {"cases": list(cases), "differ": differ}
+
+
+def _world_sharded(torch, np, kernels, comm, tr, attention) -> dict:
+    """Phase 23 (c) under ``KF_TPU_XENT=fused``, as phase 17 runs
+    (:func:`_world_sharded_steps`)."""
+    from kungfu_tpu_torch.ops import xent
+
+    old = _set_env({"KF_TPU_XENT": "fused"})
+    xent.XENT_ENV.reload()
+    try:
+        return _world_sharded_steps(torch, np, kernels, comm, tr, attention)
+    finally:
+        _set_env(old)
+        xent.XENT_ENV.reload()
+
+
+def _world_sharded_steps(torch, np, kernels, comm, tr, attention) -> dict:
+    """Phase 23 (c): ``WORLD_SHARDED_STEPS`` steps of the flagship
+    through ``ShardedTrainer(ParallelPlan(dp=2, tp=2,
+    collective_schedule="pallas_ring"), devices=comm)``: the mesh spans
+    the four processes, one rank each, so tp's pair and dp's gradient
+    sync both cross processes.  Process 0 first takes the one-rank
+    model's loss and gradient on the same batch (phase 17's reference);
+    after the first step the synchronized gradient the optimizer
+    received, gathered from every process, is held against that
+    gradient leaf by leaf, and the gathered params against SGD's apply
+    of it (:func:`_apply_differs`).  Each process's loss and the digest
+    of the gathered params."""
+    from kungfu_tpu_torch.ops.fuse import fuse
+    from kungfu_tpu_torch.optimizers import sgd
+    from kungfu_tpu_torch.parallel.train import ParallelPlan, ShardedTrainer
+    from kungfu_tpu_torch.utils.tree import (tree_flatten, tree_leaves,
+                                             tree_unflatten)
+
+    cfg = tr.TransformerConfig(**{**FLAGSHIP, "max_seq": WORLD_SHARDED_SEQ})
+    model = tr.Transformer(cfg)
+    tparams = model.init(torch.Generator().manual_seed(0),
+                         device=comm.device)
+    rng = np.random.default_rng([23, 3])
+    batch = tuple(torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(WORLD_SHARDED_BATCH, WORLD_SHARDED_SEQ)))
+        .to(comm.device) for _ in range(2))
+    one = None
+    if comm.first_rank == 0:
+        leaves, treedef = tree_flatten(tparams)
+        own = [t.detach().requires_grad_(True) for t in leaves]
+        loss = model.loss(tree_unflatten(treedef, own), batch, train=False,
+                          attn_fn=attention.make_flash_attn())
+        grads = torch.autograd.grad(loss, own)
+        one = {"loss": float(loss.detach()),
+               "grads": tr.flatten(tree_unflatten(treedef, list(grads)))}
+        del own, loss, grads
+    seen = {}
+    trainer = ShardedTrainer(cfg, ParallelPlan(
+        **WORLD_SHARDED_PLAN, collective_schedule="pallas_ring"),
+        tx=_recording(sgd(SHARDED_LR), seen), devices=comm)
+    params = trainer.from_transformer_params(tparams)
+    del tparams
+    state = {"s": {"params": params, "opt_state": trainer.tx.init(params),
+                   "step": 0}}
+    n_leaves = len(tree_leaves(params))
+    L = cfg.n_layers
+    want = {key: 0 for key in _counts(kernels)}
+    want.update(flash_fwd=L, flash_bwd_dq=L, flash_bwd_dkv=L, xent_fwd=1,
+                xent_bwd=1, ring_rs=n_leaves, ring_ag=n_leaves)
+
+    def run(b):
+        state["s"], loss = trainer.step(state["s"], b)
+        return loss
+
+    out = _world_steps(torch, kernels, comm.span, want, run, [batch])
+    # every process takes part in the gathers (the step is functional:
+    # ``params`` still holds the start); process 0 compares
+    grad = _global_flat(trainer, seen.pop("grads"), L)
+    new = _global_flat(trainer, state["s"]["params"], L)
+    start = _global_flat(trainer, params, L)
+    del params
+    if one is not None:
+        first = float(out["losses"][0])
+        out["plain"] = {
+            "one_rank_loss": one["loss"],
+            "loss_rel": abs(first - one["loss"]) / abs(one["loss"]),
+            "grad": _leaf_rel(grad, one["grads"], qk_apart=False),
+            "apply": _apply_differs(torch, new, start, grad, SHARDED_LR)}
+        del one
+    del grad, new, start
+    rest = _world_steps(torch, kernels, comm.span, want, run,
+                        [batch] * (WORLD_SHARDED_STEPS - 1))
+    for key in ("losses", "step_ms", "barrier_ms"):
+        out[key] += rest[key]
+    for key, n in rest["launches"].items():
+        out["launches"][key] += n
+    flat, _ = fuse(trainer.gather_params(state["s"]["params"]))
+    out.update(leaves=n_leaves, params_digest=_device_digest(torch, flat))
     return out
 
 
@@ -9028,7 +9509,9 @@ def world_worker_main(argv) -> int:
     under ``python -m kungfu_tpu_torch -w -device-world``: the reference's
     ``examples/device_elastic.py`` loop (a psum of world_rank + 1 an
     epoch, standby slots waiting in ``await_rejoin``) with bert_base()
-    S-SGD steps under pallas_ring over the re-carved communicator.  It
+    S-SGD steps under pallas_ring over the re-carved communicator, then
+    (a) ZeRO-3 steps, and at four processes (b) SMA and (c) the sharded
+    flagship, on the same communicator.  It
     prints the ``KFEPOCH`` and ``KFDONE`` lines and writes one JSON object
     a line to ``--out``/slot{world_rank}.jsonl."""
     import argparse
@@ -9071,6 +9554,10 @@ def world_worker_main(argv) -> int:
          boot_ms=peer._pworld.boot_s * 1e3)  # noqa: SLF001
     model = tr.bert_base()
     params = model.init(torch.Generator().manual_seed(0), device="cuda")
+    # (a)'s starting params and the carve's structure after (the steps
+    # are functional: nothing writes into these tensors)
+    params0 = params
+    z3_carry = {}
     flash = attention.make_flash_attn()
 
     def loss_fn(p, b):
@@ -9085,6 +9572,14 @@ def world_worker_main(argv) -> int:
                 ring_rs=WORLD_RING_PER_STEP, ring_ag=WORLD_RING_PER_STEP)
     schedule = list(WORLD_SCHEDULE)
     deadline = time.time() + WORLD_TIMEOUT_S
+    mem = {}
+
+    def mark(section: str) -> None:
+        # this process's peak GiB allocated and reserved by PyTorch in the
+        # section that just ended (the span's buffers are not PyTorch's)
+        mem[section] = [torch.cuda.max_memory_allocated() / 2 ** 30,
+                        torch.cuda.max_memory_reserved() / 2 ** 30]
+        torch.cuda.reset_peak_memory_stats()
     while time.time() < deadline:
         if peer.standby:
             try:
@@ -9100,6 +9595,8 @@ def world_worker_main(argv) -> int:
         comm = peer.communicator()
         if v == 0:
             comm.set_strategy("pallas_ring")
+        mem = {}
+        torch.cuda.reset_peak_memory_stats()
         x = torch.full((comm.addressable_n,), float(wr + 1), device="cuda")
         got = float(comm.all_reduce(x)[0])
         expect = float(sum(world.rank(w) + 1 for w in peer.cluster.workers))
@@ -9149,18 +9646,38 @@ def world_worker_main(argv) -> int:
             for key, n in per.items():
                 launches[key] += n
         barrier_ms = (span.stats["barrier_s"] - b0) * 1e3
-        ring = None
+        mark("ssgd")
+        ring = sma = sharded = lift = None
         if comm.size == WORLD_SLOTS:
             shard = split_batch(batch, comm.size)[comm.first_rank]
             ring = _world_ring_check(torch, comm, kernels, loss_fn, params,
                                      shard)
+            mark("ring")
+            lift = _world_lift_check(torch, comm)
+            mark("lift")
+        # (a) ZeRO-3 every epoch; (b) SMA and (c) the sharded flagship at
+        # four processes, each on the same communicator
+        base = {key: n for key, n in want.items()}
+        zero3 = _world_zero3(torch, np, kernels, comm, peer, model, loss_fn,
+                             params0, z3_carry, v, base)
+        torch.cuda.empty_cache()
+        mark("zero3")
+        if comm.size == WORLD_SLOTS:
+            sma = _world_sma(torch, np, kernels, comm, model, loss_fn,
+                             params, v, base)
+            torch.cuda.empty_cache()
+            mark("sma")
+            sharded = _world_sharded(torch, np, kernels, comm, tr, attention)
+            torch.cuda.empty_cache()
+            mark("sharded")
+        emit("a17", v=v, zero3=zero3, sma=sma, sharded=sharded, lift=lift)
         emit("epoch", v=v, size=peer.size(), rank=peer.rank(), psum=got,
              losses=[repr(x) for x in losses], step_ms=step_ms,
              step_barrier_ms=barrier_ms, resync_ms=resync_ms,
              open_ms=span.stats["open_s"] * 1e3, open_ms_before=open_s * 1e3,
              opens=span.stats["opens"], first_step_wall=first_wall,
              launches=launches, plain=plain, ring=ring,
-             strategy=comm.strategy)
+             strategy=comm.strategy, mem=mem)
         print(f"KFEPOCH v={v} size={peer.size()} rank={peer.rank()} "
               f"world_rank={wr} psum={got} expect={expect} pid={os.getpid()} "
               f"ok=True strategy={comm.strategy} loss={losses[-1]:.17g}",
@@ -9184,22 +9701,134 @@ def world_worker_main(argv) -> int:
     return 0
 
 
+def _world_a17_checks(np, epochs: dict, a17: dict, launches: dict) -> dict:
+    """Phase 23's parent-side checks of (a)-(c) over the workers'
+    records; their launches are added to ``launches`` (the main path's).
+    The first steps against the plain versions are held here, not in the
+    workers, so that a fault found by one process stops no other midway
+    through a collective."""
+    check(sorted(a17) == [0, 1, 2]
+          and [len(a17[v]) for v in (0, 1, 2)] == list(WORLD_SCHEDULE),
+          f"(a)-(c) records an epoch {[len(a17.get(v, [])) for v in a17]}")
+    four = [v for v, n in enumerate(WORLD_SCHEDULE) if n == WORLD_SLOTS]
+    out = {"zero3": {"losses": {}, "step_ms": {}, "barrier_ms": {},
+                     "init_ms": {}, "recarve_ms": {}, "snapshot_ms": {}}}
+    z3 = out["zero3"]
+    for v, rs in a17.items():
+        zs = [r["zero3"] for r in rs]
+        check(len({tuple(z["losses"]) for z in zs}) == 1,
+              f"epoch {v}'s ZeRO-3 losses diverged: "
+              f"{[z['losses'] for z in zs]}")
+        check(len({z["buckets"] for z in zs}) == 1, "ZeRO-3 bucket counts")
+        z3["buckets"] = zs[0]["buckets"]
+        z3["losses"][v] = [float(x) for x in zs[0]["losses"]]
+        for key in ("step_ms", "barrier_ms", "init_ms", "recarve_ms",
+                    "snapshot_ms"):
+            z3[key][v] = [z[key] for z in zs]
+        for z in zs:
+            for key, n in z["launches"].items():
+                launches[key] += n
+        check((v in four) == all(r["sma"] is not None
+                                 and r["sharded"] is not None for r in rs),
+              f"epoch {v}: (b) and (c) run at four processes only")
+    plain = [r["zero3"]["plain"] for r in a17[0]]
+    check(all(x is not None for x in plain), "ZeRO-3's plain first step")
+    for x in plain:
+        check(x["loss_rel"] <= KFRUN_LOSS_RTOL
+              and x["grad"]["worst"] <= KFRUN_GRAD_REL_L2
+              and not x["apply"]["differ"],
+              f"ZeRO-3's first step vs the plain mean step: {x}")
+    z3["plain"] = plain[0]
+    ssgd0 = [float(x) for x in epochs[0][0]["losses"]]
+    z3["first_vs_ssgd"] = {"zero3": z3["losses"][0][0], "ssgd": ssgd0[0],
+                           "bitwise": z3["losses"][0][0] == ssgd0[0]}
+    z3["steps"] = WORLD_ZERO3_STEPS * sum(WORLD_SCHEDULE)
+    for key, n_step in (("ring_rs", z3["buckets"]),
+                        ("ring_ag", z3["buckets"])):
+        got = sum(r["zero3"]["launches"][key] for rs in a17.values()
+                  for r in rs)
+        check(got == n_step * z3["steps"], f"ZeRO-3 {key} launches {got}")
+    for v in four:
+        sms = [r["sma"] for r in a17[v]]
+        shs = [r["sharded"] for r in a17[v]]
+        check(len({tuple(x["losses"]) for x in sms}) == 1,
+              f"SMA losses diverged: {[x['losses'] for x in sms]}")
+        rows = [x for sm in sms for x in sm["plain"]]
+        check(sorted(x["rank"] for x in rows) == list(range(WORLD_SLOTS)),
+              f"SMA's plain rows {[x['rank'] for x in rows]}")
+        sma_loss = float(sms[0]["losses"][0])
+        sma_plain = sum(x["loss_plain"] for x in rows) / len(rows)
+        sma_rel = abs(sma_loss - sma_plain) / abs(sma_plain)
+        check(sma_rel <= KFRUN_LOSS_RTOL,
+              f"SMA's first loss {sma_loss} vs the plain ranks' mean "
+              f"{sma_plain}")
+        for x in rows:
+            check(x["grad"]["worst"] <= KFRUN_GRAD_REL_L2
+                  and x["update"]["worst"] <= KFRUN_GRAD_REL_L2,
+                  f"SMA's first step vs the plain SMA step: {x}")
+        lifts = [r["lift"] for r in a17[v]]
+        check(all(not x["differ"] for x in lifts),
+              f"lift's vjps across processes vs one process: {lifts}")
+        out["lift"] = {"cases": lifts[0]["cases"], "processes": len(lifts)}
+        check(len({tuple(x["losses"]) for x in shs}) == 1,
+              f"sharded losses diverged: {[x['losses'] for x in shs]}")
+        check(len({tuple(x["params_digest"]) for x in shs}) == 1,
+              "the sharded trainer's gathered params differ by process")
+        ones = [x["plain"] for x in shs if "plain" in x]
+        check(len(ones) == 1, "process 0's one-rank reference")
+        one = ones[0]
+        check(one["loss_rel"] <= SHARDED_LOSS_RTOL
+              and one["grad"]["worst"] <= SHARDED_GRAD_REL_L2
+              and not one["apply"]["differ"],
+              f"the sharded first step vs the one-rank model: {one}")
+        for x in sms + shs:
+            for key, n in x["launches"].items():
+                launches[key] += n
+        out["sma"] = {"leaves": sms[0]["leaves"],
+                      "losses": [float(x) for x in sms[0]["losses"]],
+                      "plain": {"loss_rel": sma_rel, "rows": rows},
+                      "step_ms": [x["step_ms"] for x in sms],
+                      "barrier_ms": [x["barrier_ms"] for x in sms]}
+        out["sharded"] = {"leaves": shs[0]["leaves"],
+                          "losses": [float(x) for x in shs[0]["losses"]],
+                          "plain": one,
+                          "step_ms": [x["step_ms"] for x in shs],
+                          "barrier_ms": [x["barrier_ms"] for x in shs]}
+    return out
+
+
 def phase_world(torch, np, kernels, spec, kfrun) -> dict:
     """Phase 23: the multi-process device world.  bert_base() S-SGD under
     pallas_ring in a provisioned world of four worker processes on the
     card, active 2 -> 4 -> 2 (``python -m kungfu_tpu_torch -np 2 -H
     127.0.0.1:4 -w -device-world``, one process a slot, a communicator
-    across the active processes through CUDA IPC).  Checks: the psums
-    name the active slots, every replica's loss is bitwise its epoch's,
-    rank 0's first step against the plain versions, exact launches a
-    step, the cross-process ring kernels bitwise the single-process
-    stacked ring and the plain versions on the same four gradient
-    buffers, worker 0 keeps one pid, KFDONE from every slot."""
+    across the active processes through CUDA IPC), then on the same
+    communicator (a) ZeRO-3 every epoch, (b) SMA and (c) the sharded
+    flagship at four processes (:func:`_world_a17_checks`).  Checks: the
+    psums name the active slots, every replica's loss is bitwise its
+    epoch's, rank 0's first step against the plain versions, exact
+    launches a step, the cross-process ring kernels bitwise the
+    single-process stacked ring and the plain versions on the same four
+    gradient buffers, worker 0 keeps one pid, KFDONE from every slot."""
     import shutil
     import tempfile
+    import threading
 
     t_phase = time.perf_counter()
     root = tempfile.mkdtemp(prefix="kfw")
+    # the card's memory in use by every process, read every 50 ms while
+    # the workers run, beside what this process holds
+    total = torch.cuda.mem_get_info()[1]
+    held = [torch.cuda.memory_allocated(), torch.cuda.memory_reserved(),
+            total - torch.cuda.mem_get_info()[0]]
+    peak_used, stop = [0], threading.Event()
+
+    def poll():
+        while not stop.wait(0.05):
+            peak_used[0] = max(peak_used[0],
+                               total - torch.cuda.mem_get_info()[0])
+
+    poller = threading.Thread(target=poll, daemon=True)
     try:
         base = _free_port_range(WORLD_SLOTS)
         cfg_port = _free_port()
@@ -9218,13 +9847,23 @@ def phase_world(torch, np, kernels, spec, kfrun) -> dict:
         with open(os.path.join(root, "runner.log"), "w") as f:
             proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT,
                                     cwd=HERE, env=env, start_new_session=True)
+        poller.start()
         try:
             rc = proc.wait(timeout=WORLD_TIMEOUT_S)
         except subprocess.TimeoutExpired:
             os.killpg(proc.pid, 9)
             proc.wait()
             rc = None
+        finally:
+            stop.set()
+            poller.join()
         wall_s = time.time() - t0
+        gib = 2 ** 30
+        print(f"world memory: the card's peak in use {peak_used[0] / gib:.2f}"
+              f" of {total / gib:.2f} GiB while the workers ran; before "
+              f"them {held[2] / gib:.2f} GiB in use, this process "
+              f"{held[0] / gib:.2f} GiB allocated and {held[1] / gib:.2f} "
+              f"reserved by PyTorch")
         logs = ""
         for name in sorted(os.listdir(logdir)) if os.path.isdir(logdir) \
                 else []:
@@ -9237,10 +9876,12 @@ def phase_world(torch, np, kernels, spec, kfrun) -> dict:
         recs = _kfrun_records(out_dir)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    epochs = {}
+    epochs, a17 = {}, {}
     for r in recs:
         if r["kind"] == "epoch":
             epochs.setdefault(r["v"], []).append(r)
+        elif r["kind"] == "a17":
+            a17.setdefault(r["v"], []).append(r)
     check(sorted(epochs) == [0, 1, 2], f"epochs {sorted(epochs)}")
     sizes = [len(epochs[v]) for v in (0, 1, 2)]
     check(sizes == list(WORLD_SCHEDULE), f"active slots an epoch {sizes}")
@@ -9297,6 +9938,7 @@ def phase_world(torch, np, kernels, spec, kfrun) -> dict:
     n_steps = sum(WORLD_SCHEDULE) * WORLD_STEPS
     check(launches["ring_rs"] == launches["ring_ag"]
           == n_steps * WORLD_RING_PER_STEP, f"ring launches {launches}")
+    a17_out = _world_a17_checks(np, epochs, a17, launches)
     props = {r["v"]: r["wall"] for r in recs if r["kind"] == "propose"}
     resize_s = {v: max(r["first_step_wall"] for r in epochs[v])
                 - props[v - 1] for v in (1, 2)}
@@ -9328,9 +9970,16 @@ def phase_world(torch, np, kernels, spec, kfrun) -> dict:
                    "stacked_ms": r0["stacked_ag_ms"],
                    "plain_ms": r0["plain_ag_ms"],
                    "library_ms": r0["library_ag_ms"], **t}},
+        "memory": {"peak_used_gib": peak_used[0] / gib,
+                   "total_gib": total / gib, "before_used_gib": held[2] / gib,
+                   "parent_allocated_gib": held[0] / gib,
+                   "parent_reserved_gib": held[1] / gib,
+                   "sections_gib": {v: {r["slot"]: r["mem"] for r in rs}
+                                    for v, rs in epochs.items()}},
         "kfrun_host_engine": {
             "step_ms": kfrun["a"]["median_ms"]["step_ms"],
             "allreduce_share": kfrun["a"]["allreduce_share"]},
+        **a17_out,
     }
     sp = out["split_4proc"]
     rsx, agx = out["ring_span"]["rs"], out["ring_span"]["ag"]
@@ -9359,6 +10008,45 @@ def phase_world(torch, np, kernels, spec, kfrun) -> dict:
           f"{rsx['plain_ms']:.4f} and {agx['plain_ms']:.4f} ms, PyTorch "
           f"{rsx['library_ms']:.4f} and {agx['library_ms']:.4f} ms; bound "
           f"{t['bound_ms']:.4f} ms ({nbytes} bytes); launches {launches}")
+    z3, sm, sh = out["zero3"], out["sma"], out["sharded"]
+    z3p = z3["plain"]
+    print(f"world (a) ZeRO-3 under pallas_ring, {z3['buckets']} buckets: "
+          f"step ms {z3['step_ms']}, barrier ms in the steps "
+          f"{z3['barrier_ms']}; losses {z3['losses']} (every process "
+          f"bitwise its epoch's; S-SGD's first loss "
+          f"{z3['first_vs_ssgd']}); carve ms {z3['init_ms']}, re-carve "
+          f"ms {z3['recarve_ms']}, "
+          f"snapshot ms {z3['snapshot_ms']}; first step vs the plain mean "
+          f"step: loss rel {z3p['loss_rel']:.3e}, mean gradient (the "
+          f"momentum) {_rel_text(z3p['grad'])} (tol {KFRUN_GRAD_REL_L2}); "
+          f"params vs SGD's apply of it: {_apply_text(z3p['apply'])}")
+    smp = sm["plain"]
+    print(f"world (b) SMA at four processes, {sm['leaves']} leaves, the "
+          f"average by psum: step ms {sm['step_ms']}, barrier ms "
+          f"{sm['barrier_ms']}, losses {sm['losses']}; first step vs the "
+          f"plain SMA step: loss rel {smp['loss_rel']:.3e}, each rank's "
+          + "; ".join(f"rank {x['rank']} gradient {_rel_text(x['grad'])}, "
+                      f"update {_rel_text(x['update'])}"
+                      for x in smp["rows"])
+          + f" (tol {KFRUN_GRAD_REL_L2})")
+    shp = sh["plain"]
+    print(f"world (c) ShardedTrainer dp2 x tp2 across four processes, the "
+          f"flagship at [{WORLD_SHARDED_BATCH}, {WORLD_SHARDED_SEQ}]: step ms "
+          f"{sh['step_ms']}, barrier ms {sh['barrier_ms']}, losses "
+          f"{sh['losses']}; first step vs the one-rank model: loss rel "
+          f"{shp['loss_rel']:.3e}, synchronized gradient "
+          f"{_rel_text(shp['grad'])} (tol {SHARDED_GRAD_REL_L2}); params vs "
+          f"SGD's apply of it: {_apply_text(shp['apply'])}")
+    print(f"world lift: {len(out['lift']['cases'])} collectives "
+          f"({', '.join(out['lift']['cases'])}) over the span in each of "
+          f"{out['lift']['processes']} processes, outputs and input "
+          f"gradients bitwise the one-process communicator's")
+    print(f"world memory by section, each process's peak GiB allocated "
+          f"and reserved by PyTorch (slot: section: [allocated, reserved]): "
+          + "; ".join(f"epoch {v}: " + json.dumps({
+              slot: {sec: [round(x, 2) for x in m] for sec, m in ms.items()}
+              for slot, ms in sorted(sec_v.items())})
+              for v, sec_v in out["memory"]["sections_gib"].items()))
     print(f"world beside phase 20's host engine (for reading): "
           f"{out['kfrun_host_engine']['step_ms']:.1f} ms a step, allreduce "
           f"{out['kfrun_host_engine']['allreduce_share']:.3f} of it")
@@ -9522,6 +10210,10 @@ def main() -> int:
     # 22. the port's kf-lint and kf-verify over this checkout and over a
     # copy with one planted fault per rule family; no kernel launches
     analysis = phase_analysis()
+    # phase 23's four workers share the card with this process: let go of
+    # what the earlier phases' cycles still hold
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # 23. the multi-process device world: bert_base() in four worker
     # processes of one provisioned world, re-carved 2 -> 4 -> 2, the ring

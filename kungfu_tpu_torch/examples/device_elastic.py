@@ -18,10 +18,11 @@ initially active)::
 Every epoch each active worker runs a device-plane allreduce over the
 active processes and prints one ``KFEPOCH`` line, in the reference's
 format; the tests check that the psum spans exactly the active set and
-that worker 0's pid never changes.  ``--train`` runs S-SGD (or ZeRO-1)
-steps of the MNIST SLP, whose params come from :func:`slp_params`
-(numpy, seed 1) and whose batches from ``default_rng(1000)``, so that
-the reference's ``dp_train_step`` can be fed the same numbers.
+that worker 0's pid never changes.  ``--train`` runs S-SGD (or ZeRO-1,
+ZeRO-3 or per-replica SMA) steps of the MNIST SLP, whose params come
+from :func:`slp_params` (numpy, seed 1) and whose batches from
+``default_rng(1000)``, so that the reference's ``dp_train_step`` can be
+fed the same numbers.
 """
 
 from __future__ import annotations
@@ -82,11 +83,21 @@ def main(argv=None) -> int:
     ap.add_argument("--zero1", action="store_true",
                     help="with --train: ZeRO-1, the optimizer shards carried "
                          "across resizes by zero1_snapshot/zero1_reshard")
+    ap.add_argument("--zero3", action="store_true",
+                    help="with --train: ZeRO-3, the parameter shard and the "
+                         "optimizer shards carried across resizes by "
+                         "zero_snapshot/zero_reshard")
+    ap.add_argument("--sma", action="store_true",
+                    help="with --train: per-replica SMA (alpha 0.1), each "
+                         "epoch re-stacked from the resync root's replica")
     ns = ap.parse_args(argv)
     if ns.steps_per_epoch < 1:
         ap.error("--steps-per-epoch must be >= 1")
-    if ns.zero1 and not ns.train:
-        ap.error("--zero1 requires --train")
+    modes = [m for m in ("zero1", "zero3", "sma") if getattr(ns, m)]
+    if modes and not ns.train:
+        ap.error(f"--{modes[0]} requires --train")
+    if len(modes) > 1:
+        ap.error("--zero1, --zero3 and --sma exclude each other")
     schedule = [int(s) for s in ns.schedule.split(",")]
     shutdown_version = len(schedule)
 
@@ -116,18 +127,67 @@ def main(argv=None) -> int:
                           slp_params())
         opt = sgd(0.1, momentum=0.9)
     z1_snap = None  # rank 0's host snapshot of the sharded state
+    p_snap = None   # and of ZeRO-3's parameter shard
+    p_shard = None
 
     def train_epoch(comm, v):
-        """A few S-SGD (or ZeRO-1) steps over this epoch; the params and
-        the optimizer state survive the transitions.  Epoch entry re-syncs
-        them from the resync root over the new communicator, so joiners
-        take the survivors' trajectory."""
+        """A few S-SGD (ZeRO-1, ZeRO-3 or SMA) steps over this epoch; the
+        params and the optimizer state survive the transitions.  Epoch
+        entry re-syncs them from the resync root over the new
+        communicator, or re-carves the sharded state, so joiners take the
+        survivors' trajectory."""
         from kungfu_tpu_torch.initializer import resync_parameters
         from kungfu_tpu_torch.optimizers import synchronous_sgd
         from kungfu_tpu_torch.parallel.train import dp_train_step
 
-        nonlocal params, opt_state, z1_snap
+        nonlocal params, opt_state, z1_snap, p_snap, p_shard
         rroot = min(ns.resync_root, comm.size - 1)
+        if ns.zero3:
+            from kungfu_tpu_torch.parallel.zero import (zero_reshard,
+                                                        zero_snapshot,
+                                                        zero_train_step)
+
+            z = zero_train_step(lambda p, b: model.loss(p, b), opt, comm,
+                                stage=3)
+            # params is the carve's structure only after epoch 0: the
+            # shard and the state come from the pre-resize snapshots
+            fresh_p, fresh = z.init_params(params), z.init_opt(params)
+            if v == 0:
+                p_shard, opt_state = fresh_p, fresh
+            else:
+                p_shard = zero_reshard(fresh_p, params, comm, peer,
+                                       snapshot=p_snap)
+                opt_state = zero_reshard(fresh, params, comm, peer,
+                                         snapshot=z1_snap)
+            loss = None
+            for xb, yb in epoch_batches(comm.size, ns.steps_per_epoch):
+                batch = (torch.from_numpy(xb).to(device),
+                         torch.from_numpy(yb).to(device))
+                p_shard, opt_state, loss = z.step(p_shard, opt_state, batch)
+            z1_snap = zero_snapshot(opt_state, peer)
+            p_snap = zero_snapshot(p_shard, peer)
+            return float(loss)
+        if ns.sma:
+            from kungfu_tpu_torch.optimizers import synchronous_averaging
+            from kungfu_tpu_torch.parallel.train import stack_for_replicas
+
+            tx = synchronous_averaging(opt, comm.axis, alpha=0.1)
+            step = dp_train_step(lambda p, b: model.loss(p, b), tx, comm,
+                                 replicated_params=False)
+            # the resync root's first replica wins: every process takes
+            # its row 0 and re-stacks it for the ranks it now holds
+            if opt_state is None:  # a process's first epoch
+                one = (params, tx.init(params))
+            else:
+                one = tree_map(lambda a: a[0], (params, opt_state))
+            one = resync_parameters(one, peer, comm=comm, root=rroot)
+            params, opt_state = stack_for_replicas(one, comm.addressable_n)
+            loss = None
+            for xb, yb in epoch_batches(comm.size, ns.steps_per_epoch):
+                batch = (torch.from_numpy(xb).to(device),
+                         torch.from_numpy(yb).to(device))
+                params, opt_state, loss = step(params, opt_state, batch)
+            return float(loss)
         if ns.zero1:
             from kungfu_tpu_torch.parallel import (zero1_reshard,
                                                    zero1_snapshot,

@@ -107,7 +107,8 @@ def sharded_params_from_jax(tree, trainer) -> dict:
     :class:`~kungfu_tpu_torch.parallel.train.ShardedTrainer`) from a
     reference ``ShardedTrainer``'s params on the same plan: its global
     arrays as numpy (``jax.device_get``), each cut into the blocks the
-    port's ranks hold.  The trees must match leaf for leaf
+    port's ranks hold (over a mesh across processes, the blocks of this
+    process's ranks).  The trees must match leaf for leaf
     (``ValueError`` otherwise), dense or MoE."""
     flat, want = flatten(tree), flatten(trainer.param_specs)
     if set(flat) != set(want):

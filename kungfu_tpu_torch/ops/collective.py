@@ -131,26 +131,87 @@ def spanning() -> bool:
     return world is not None and world.span is not None
 
 
+class _Lift(torch.autograd.Function):
+    """:func:`lift` as one differentiable op.  The forward gathers every
+    rank's rows of the inputs through the span, runs ``fn`` over the
+    whole world and keeps this process's rows.  The backward gathers
+    every rank's rows of the output cotangents through the span, takes
+    the vjp of ``fn`` over the whole world's rows (the gathered inputs
+    kept from the forward) and keeps this process's rows of the input
+    cotangents, so each process's gradient rows are the one-process
+    world's bit for bit.
+
+    The backward's exchange is a collective like the forward's: every
+    process of the span must reach it, in the same order.  Autograd runs
+    the same graph on every process (each makes the same calls with the
+    same shapes), so the backward ops run in the same order everywhere
+    and every process meets the others at each exchange."""
+
+    @staticmethod
+    def forward(ctx, io, *leaves):
+        world, treedef, fn = io["world"], io["treedef"], io["fn"]
+        full = world.span.gather(leaves)
+        with use_world(world.whole()):
+            out = fn(tree_unflatten(treedef, full))
+        outs, io["out_def"] = tree_flatten(out)
+        lo, hi = world.first, world.first + world.rows
+        mine = tuple(a[lo:hi].clone() for a in outs)
+        ctx.io = io
+        ctx.save_for_backward(*full)
+        ctx.mark_non_differentiable(*(a for a in mine
+                                      if not a.is_floating_point()))
+        return mine
+
+    @staticmethod
+    def backward(ctx, *cts):
+        io = ctx.io
+        world, treedef, fn = io["world"], io["treedef"], io["fn"]
+        full_in = ctx.saved_tensors
+        wants = ctx.needs_input_grad[1:]
+        # the cotangent rows of every floating output, every rank's
+        floating = [i for i, c in enumerate(cts)
+                    if c is not None and c.is_floating_point()]
+        full_ct = world.span.gather([cts[i].contiguous() for i in floating])
+        with torch.enable_grad(), use_world(world.whole()):
+            ins = [a.detach().requires_grad_(w)
+                   for a, w in zip(full_in, wants)]
+            outs = tree_leaves(fn(tree_unflatten(treedef, ins)))
+            pairs = [(outs[i], c) for i, c in zip(floating, full_ct)
+                     if outs[i].requires_grad]
+            need = [a for a in ins if a.requires_grad]
+            grads = torch.autograd.grad(
+                [o for o, _ in pairs], need, [c for _, c in pairs],
+                allow_unused=True) if pairs and need else [None] * len(need)
+        lo, hi = world.first, world.first + world.rows
+        got = iter(grads)
+        out = []
+        for a, w in zip(ins, wants):
+            g = next(got) if w else None
+            if w and g is None:
+                g = torch.zeros_like(a)
+            out.append(None if g is None else g[lo:hi])
+        return (None, *out)
+
+
 def lift(x, fn):
     """``fn`` -- a collective over the stacked rows of all ``n`` ranks --
     run in a world that spans processes: every rank's rows of each leaf
     of ``x`` are gathered through the span (one exchange for the tree),
     ``fn`` runs on them in :meth:`RankWorld.whole`, and this process's
     rows of its result are returned.  The result is the one-process
-    world's, bit for bit.  Not differentiable: a collective that autograd
-    would trace through across processes raises."""
-    world = current_world()
+    world's, bit for bit.
+
+    Differentiable (the counterpart of ``jax.grad`` transposing a
+    collective across the processes of a multi-controller mesh): where
+    autograd records the call, the backward gathers the cotangent rows,
+    takes ``fn``'s vjp over the whole world and returns this process's
+    rows (:class:`_Lift`), the one-process world's gradient bit for
+    bit."""
     leaves, treedef = tree_flatten(x)
-    if torch.is_grad_enabled() and any(l.requires_grad for l in leaves):
-        raise NotImplementedError(
-            "differentiating through a collective over a process-spanning "
-            "communicator is not ported (ROADMAP A17)")
     check_stacked(x)
-    full = world.span.gather(leaves)
-    with use_world(world.whole()):
-        out = fn(tree_unflatten(treedef, full))
-    lo, hi = world.first, world.first + world.rows
-    return tree_map(lambda a: a[lo:hi].clone(), out)
+    io = {"world": current_world(), "treedef": treedef, "fn": fn}
+    mine = _Lift.apply(io, *leaves)
+    return tree_unflatten(io["out_def"], list(mine))
 
 
 def _names(axis: Axis) -> Tuple[str, ...]:

@@ -40,7 +40,11 @@ rows are bit for bit the one-process world's.
 
 Both collectives are differentiable as a pair, as the reference's
 custom-vjp pair: the backward of the all-gather is the ring
-reduce-scatter of the cotangent, and the reverse.  Every call adds its
+reduce-scatter of the cotangent, and the reverse.  The backward runs in
+the forward's world, so over a span it launches the kernel across the
+processes too (``kf_ring_rs`` under the all-gather, ``kf_ring_ag`` under
+the reduce-scatter), never :func:`~kungfu_tpu_torch.ops.collective.
+lift`.  Every call adds its
 per-rank wire bytes, in the reference's ring convention
 (:func:`ring_wire_bytes`), to :data:`ring_bytes`.
 """

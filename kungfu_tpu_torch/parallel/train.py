@@ -241,13 +241,15 @@ def _rank_slices(shape, spec: PartitionSpec, plan: MeshPlan,
     return tuple(out)
 
 
-def shard_stacked(x: torch.Tensor, spec: PartitionSpec,
-                  plan: MeshPlan) -> torch.Tensor:
+def shard_stacked(x: torch.Tensor, spec: PartitionSpec, plan: MeshPlan,
+                  first: int = 0, rows: Optional[int] = None) -> torch.Tensor:
     """A global array as the stacked per-rank blocks ``[n, *local]``
-    that the mesh's ranks hold under ``spec``."""
-    coords = _rank_coords(plan)
+    that the mesh's ranks hold under ``spec`` (only ranks ``[first,
+    first + rows)``, ``[rows, *local]``, when ``rows`` is given)."""
+    rows = plan.size - first if rows is None else rows
+    coords = _rank_coords(plan)[first:first + rows]
     if all(name is None for name in spec.names):
-        return x.unsqueeze(0).expand((plan.size,) + tuple(x.shape)).clone()
+        return x.unsqueeze(0).expand((rows,) + tuple(x.shape)).clone()
     return torch.stack([x[_rank_slices(x.shape, spec, plan, c)]
                         for c in coords])
 
@@ -326,6 +328,20 @@ class ShardedTrainer:
     partitions its rows by round branch (:mod:`.ring`).  The head and
     the loss run on the last stage's ranks only: the reference masks the
     other stages' terms, whose gradients are zero.
+
+    ``devices`` is a list of ``plan.size`` devices on one card (or the
+    host), or a :class:`~kungfu_tpu_torch.comm.device.Communicator` of
+    ``plan.size`` ranks (:meth:`MeshPlan.build_mesh`).  A communicator
+    across worker processes gives a mesh across them, the reference's
+    default ``jax.devices()`` under ``jax.distributed``: each process
+    then runs the lockstep body for the ranks it holds, ``[first, first
+    + rows)`` in mesh-major order, every stacked value is ``[rows,
+    ...]``, and the collectives inside the forward and backward (tp's
+    pair, sp's rotation, pp's hop, EP's all-to-all, the gradient sync)
+    cross the processes, differentiably
+    (:func:`~kungfu_tpu_torch.ops.collective.lift`).  Every process
+    passes the same global batch and calls each method in the same
+    order.
 
     Parameters are stacked per-rank blocks ``[n, *local]`` of the
     reference's global layout (:meth:`shard_params`, :meth:`gather_params`);
@@ -478,13 +494,19 @@ class ShardedTrainer:
 
         def put(x, spec):
             return shard_stacked(_tensor(x).to(dev, torch.float32), spec,
-                                 self.plan)
+                                 self.plan, self.mesh.first, self.mesh.rows)
 
         return tree_map(put, params, self.param_specs)
 
     def gather_params(self, params):
         """Inverse of :meth:`shard_params`: the global tree (what the
-        reference's ``jax.device_get`` of its sharded params shows)."""
+        reference's ``jax.device_get`` of its sharded params shows).
+        Over a mesh across processes every rank's blocks are gathered
+        first (one exchange: every process calls this)."""
+        if self.mesh.span is not None:
+            leaves, treedef = tree_flatten(params)
+            params = tree_unflatten(treedef, self.mesh.span.gather(
+                [l.detach().contiguous() for l in leaves]))
         return tree_map(lambda x, spec: gather_stacked(x, spec, self.plan),
                         params, self.param_specs)
 
@@ -509,7 +531,8 @@ class ShardedTrainer:
         """A global ``[B, S]`` batch leaf as each rank's ``[B/dp, S/sp]``
         block, stacked (``P(dp, sp)``, replicated over pp and tp)."""
         return shard_stacked(_tensor(x).to(self.mesh.device),
-                             P(AXIS_DP, AXIS_SP), self.plan)
+                             P(AXIS_DP, AXIS_SP), self.plan, self.mesh.first,
+                             self.mesh.rows)
 
     # -- the per-rank math, all ranks at once ------------------------------
     def _block(self, lp, h, positions):
@@ -879,15 +902,19 @@ def dp_train_step(loss_fn, tx, comm, replicated_params: bool = True,
 
     ``replicated_params=False`` (SMA, AdaptiveSGD: each replica owns
     diverging weights) takes ``params``, ``opt_state`` and, with
-    ``has_aux``, ``aux`` stacked on a leading ``comm.size`` axis
-    (:func:`stack_for_replicas`) and returns them stacked; rank ``r``
-    trains row ``r``, and the pulse monitor stays off.
+    ``has_aux``, ``aux`` stacked on a leading ``comm.addressable_n``
+    axis (:func:`stack_for_replicas`) and returns them stacked; rank
+    ``r`` trains its row, and the pulse monitor stays off.
 
     Over a communicator across processes every process passes the
     global batch and runs the forward and backward of the ranks it holds
     (:attr:`~kungfu_tpu_torch.comm.device.Communicator.addressable_n`
     from :attr:`~kungfu_tpu_torch.comm.device.Communicator.first_rank`)
-    on their shards; the collectives cross the processes.
+    on their shards; the collectives cross the processes.  Per-replica
+    params, aux and optimizer state are then this process's rows
+    ``[addressable_n, ...]`` (the reference's ``P(axis)`` addressable
+    slice), and the weight averages of SMA and AdaptiveSGD, like the
+    monitors' reductions, run across the processes.
 
     ``zero_stage`` (1/2/3), or ``plan.zero_stage``, returns
     :func:`~kungfu_tpu_torch.parallel.zero.zero_train_step` with ``tx``
@@ -917,10 +944,6 @@ def dp_train_step(loss_fn, tx, comm, replicated_params: bool = True,
     # a communicator across processes: this process runs the ranks it
     # holds, on their shards of the global batch every process passes
     lo, hold = comm.first_rank, comm.addressable_n
-    if stacked and comm.span is not None:
-        raise NotImplementedError(
-            "per-replica params (SMA, AdaptiveSGD) over a process-spanning "
-            "communicator are not ported (ROADMAP A17)")
 
     def body(params, aux, opt_state, batch, pulse: bool):
         shards = split_batch(batch, n)[lo:lo + hold]

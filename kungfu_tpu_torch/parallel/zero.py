@@ -41,6 +41,12 @@ stages 1 and 2 is the reference's partitioner all-gather, and here a
 plain view of the shards.  Stage 3 gathers the params through
 :func:`~kungfu_tpu_torch.ops.schedules.all_gather_flat` inside the step,
 and its gradient arrives through the gather's backward, scattered.
+
+Over a communicator across processes every process holds the rows of
+its own ranks (``[rows, chunk]``) and runs their passes on their shards
+of the global batch; the gathers and scatters, the backward's included,
+cross the processes.  Stage 3's parameter shard crosses a resize as the
+optimizer state does (``zero_snapshot`` / ``zero_reshard``).
 """
 
 from __future__ import annotations
@@ -173,11 +179,6 @@ class ZeroStep:
         if schedule not in FLAT_SCHEDULES:
             raise ValueError(
                 f"unknown schedule {schedule!r}; one of {FLAT_SCHEDULES}")
-        if stage == 3 and comm.span is not None:
-            raise NotImplementedError(
-                "ZeRO-3 over a process-spanning communicator is not ported "
-                "(ROADMAP A17): its parameter shard is gathered inside the "
-                "differentiated step")
         self.stage = stage
         self.comm = comm
         self._loss_fn = loss_fn
@@ -221,7 +222,9 @@ class ZeroStep:
 
     def init_params(self, params):
         """Stage 3: carve the param tree into the stacked ``[n, chunk]``
-        shard the step trains on.  Stages 1/2: identity."""
+        shard the step trains on (over a communicator across processes,
+        the ``[rows, chunk]`` rows of the ranks this process holds).
+        Stages 1/2: identity."""
         if self.stage != 3:
             return params
         geo = self._get(params)
@@ -229,11 +232,19 @@ class ZeroStep:
         return geo.shards_of(params)
 
     def gather_params(self, p):
-        """Stage 3: the param tree from the stacked shard.  Stages 1/2:
-        identity (the params are already replicated)."""
+        """Stage 3: the param tree from the stacked shard.  Over a
+        communicator across processes the other processes' chunks are
+        gathered through :func:`~kungfu_tpu_torch.ops.schedules.
+        all_gather_flat` (a collective: every process calls it).  Stages
+        1/2: identity (the params are already replicated)."""
         if self.stage != 3:
             return p
-        return self._require_g3().tree_of(p.reshape(-1))
+        geo = self._require_g3()
+        if geo.spanning:
+            with self.comm.world():
+                p = all_gather_flat(p, geo.scatter_axes, geo.widths,
+                                    schedule=self._schedule)[0]
+        return geo.tree_of(p.reshape(-1))
 
     def comm_bytes(self, params) -> dict:
         """Analytic per-rank wire bytes per step for this model on this
@@ -318,7 +329,9 @@ class ZeroStep:
         return geo.tree_of(p_full), opt_shard, loss, stats
 
     def _step3(self, geo, p_shard, opt_shard, batch):
-        shards = split_batch(batch, geo.n)
+        # the shards of the ranks this process holds (all n with one
+        # controller)
+        shards = split_batch(batch, geo.n)[geo.lo:geo.lo + geo.rows]
         p_loc = p_shard.detach().requires_grad_(True)
         with self.comm.world():
             # the bucket-wise all-gather inside the step: the full params

@@ -1,9 +1,12 @@
 """One worker process of ``tests/test_torch_port_device_world.py``.
 
-``python tests/_world_worker.py DIR INDEX PROCS ROWS MODE`` runs every
-eager collective of a process-spanning ``Communicator`` on this
-process's rows of seeded inputs, and ZeRO-1 and ZeRO-2 steps over it,
-and writes its rows of each result to ``DIR/out{INDEX}.npz``; the parent holds them against the one-process
+``python tests/_world_worker.py DIR INDEX PROCS ROWS MODE [a17]`` runs
+every eager collective of a process-spanning ``Communicator`` on this
+process's rows of seeded inputs, and ZeRO-1 and ZeRO-2 steps over it
+(with ``a17``: the vjp of every spanning collective, ZeRO-3 steps, SMA,
+AdaptiveSGD and the monitors, and a ``ShardedTrainer`` over a mesh
+across the processes, :func:`a17`), and writes its rows of each result
+to ``DIR/out{INDEX}.npz``; the parent holds them against the one-process
 communicator.  ``MODE`` ``world``: bind a host channel on a port the OS
 picks, write it to ``DIR/port{INDEX}``, wait for ``DIR/peers`` (the
 parent's list of every worker) and boot a ``ProcessWorld`` over them.
@@ -126,6 +129,230 @@ def zero_steps(comm) -> dict:
     return out
 
 
+# -- A17: gradients through the span, ZeRO-3, replicas, the sharded mesh --
+
+#: the per-rank input of the vjp cases: [VJP_LEN] floats
+VJP_LEN = 48
+
+
+def _vjp_cases(comm):
+    """``{name: fn}``: each a collective (or a chain of them) over the
+    span's axis on a stacked ``[rows, VJP_LEN]`` input."""
+    from kungfu_tpu_torch.ops import collective as coll
+    from kungfu_tpu_torch.ops import collectives as ring
+    from kungfu_tpu_torch.ops.schedules import (_all_gather_tiled,
+                                                _psum_scatter,
+                                                all_gather_flat,
+                                                all_reduce_scheduled,
+                                                reduce_scatter_flat)
+
+    n, ax = comm.size, "kf_local"
+    shift = [((j + 1) % n, j) for j in range(n)]
+    cases = {
+        "ar_sum": lambda x: coll.all_reduce(x, comm.axis),
+        "ar_mean": lambda x: coll.all_reduce(x, comm.axis, op="mean"),
+        "ar_max": lambda x: coll.all_reduce(x, comm.axis, op="max"),
+        "ar_min": lambda x: coll.all_reduce(x, ax, op="min"),
+        "ag": lambda x: coll.all_gather(x, ax),
+        "ag_tiled": lambda x: coll.all_gather(x, ax, tiled=True),
+        "bcast1": lambda x: coll.broadcast(x, ax, root=1),
+        "psum_scatter": lambda x: _psum_scatter(x, ax),
+        "ag_tiled_lax": lambda x: _all_gather_tiled(x, ax),
+        "ppermute_shift": lambda x: coll.ppermute(x, ax, shift),
+        "ppermute_part": lambda x: coll.ppermute(x, ax, [(0, n - 1),
+                                                         (1, 0)]),
+        "all_to_all": lambda x: coll.all_to_all(
+            x.reshape(x.shape[0], n * 2, -1), ax, 0, 1),
+        "sched_ring": lambda x: all_reduce_scheduled(x, ax,
+                                                     schedule="ring"),
+        "sched_two_stage": lambda x: all_reduce_scheduled(
+            x, ax, schedule="two_stage"),
+        "sched_pallas_ring": lambda x: all_reduce_scheduled(
+            x, ax, schedule="pallas_ring"),
+        "ring_rs": lambda x: ring.ring_reduce_scatter(x, ax),
+        "ring_ag": lambda x: ring.ring_all_gather(x, ax, bidirectional=True),
+        "chain": lambda x: coll.all_gather(
+            coll.all_reduce(x, ax) * x, ax, tiled=True).tanh(),
+    }
+    for sched in ("lax", "pallas_ring"):
+        cases[f"flat_ag_{sched}"] = lambda x, s=sched: all_gather_flat(
+            x, [ax], widths=(5, 7, VJP_LEN - 12), schedule=s)
+        cases[f"flat_rs_{sched}"] = lambda x, s=sched: reduce_scatter_flat(
+            x, [ax], VJP_LEN // n, widths=(3, VJP_LEN // n - 3),
+            schedule=s)
+    return cases
+
+
+def vjps(comm, x_rows, first: int) -> dict:
+    """Each case's output and input gradient on this process's rows
+    ``x_rows`` of every rank's ``[n, VJP_LEN]`` input, under seeded
+    cotangents drawn for every rank (``first``: this process's first
+    rank), and ``axis_index`` over the span."""
+    from kungfu_tpu_torch.ops import collective as coll
+
+    out = {}
+    rows = x_rows.shape[0]
+    with comm.world():
+        for i, (name, fn) in enumerate(_vjp_cases(comm).items()):
+            x = torch.from_numpy(x_rows.copy()).requires_grad_(True)
+            y = fn(x)
+            rng = np.random.default_rng([SEED, i])
+            ct = rng.standard_normal((comm.size,) + tuple(y.shape[1:]))
+            ct = torch.from_numpy(ct[first:first + rows].astype(np.float32))
+            (g,) = torch.autograd.grad(y, x, ct)
+            out[f"vjp_{name}_y"] = y.detach()
+            out[f"vjp_{name}_g"] = g
+        out["axis_index"] = coll.axis_index("kf_local", device="cpu")
+    return out
+
+
+def zero3_steps(comm) -> dict:
+    """Three ZeRO-3 steps of the MNIST SLP under each flat schedule (SGD
+    with momentum, buckets of 4 KiB): each step's loss, this process's
+    rows of the parameter shard and the momentum, and the gathered
+    params."""
+    from kungfu_tpu_torch.examples.device_elastic import (epoch_batches,
+                                                          slp_params)
+    from kungfu_tpu_torch.models import mnist_slp
+    from kungfu_tpu_torch.ops.schedules import FLAT_SCHEDULES
+    from kungfu_tpu_torch.optimizers import sgd
+    from kungfu_tpu_torch.parallel.zero import zero_train_step
+    from kungfu_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    model = mnist_slp()
+    out = {}
+    for sched in FLAT_SCHEDULES:
+        params = tree_map(torch.from_numpy, slp_params())
+        z = zero_train_step(lambda p, b: model.loss(p, b),
+                            sgd(0.1, momentum=0.9), comm, stage=3,
+                            bucket_bytes=4096, schedule=sched)
+        p, state = z.init_params(params), z.init_opt(params)
+        losses = []
+        for x, y in epoch_batches(comm.size, 3):
+            p, state, loss = z.step(p, state, (torch.from_numpy(x),
+                                               torch.from_numpy(y)))
+            losses.append(loss)
+        key = f"zero3_{sched}"
+        out[f"{key}_loss"] = torch.stack(losses)
+        out[f"{key}_shard"] = p
+        out[f"{key}_params"] = torch.cat(
+            [leaf.reshape(-1) for leaf in tree_leaves(z.gather_params(p))])
+        for i, leaf in enumerate(tree_leaves(state)):
+            out[f"{key}_state{i}"] = leaf
+    return out
+
+
+#: the per-replica transforms (the others keep the params replicated)
+REPLICA_TX = ("sma", "ada")
+
+
+def replica_steps(comm) -> dict:
+    """Three per-replica steps of the MNIST SLP through
+    ``dp_train_step(replicated_params=False)``: SMA (alpha 0.1) and
+    AdaptiveSGD (the switch at step 1), SGD with momentum inside, the params and state
+    this process's rows; then three S-SGD steps under the
+    gradient-noise-scale and variance monitors.  Each step's loss
+    and the rows after the last."""
+    from kungfu_tpu_torch.examples.device_elastic import (epoch_batches,
+                                                          slp_params)
+    from kungfu_tpu_torch.models import mnist_slp
+    from kungfu_tpu_torch.optimizers import (adaptive_sgd,
+                                             monitor_gradient_noise_scale,
+                                             monitor_gradient_variance, sgd,
+                                             synchronous_averaging)
+    from kungfu_tpu_torch.parallel.train import (dp_train_step,
+                                                 stack_for_replicas)
+    from kungfu_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    model = mnist_slp()
+    inner = sgd(0.1, momentum=0.9)
+    txs = {"sma": synchronous_averaging(inner, comm.axis, alpha=0.1),
+           "ada": adaptive_sgd(inner, comm.axis, change_step=1),
+           "gns": monitor_gradient_noise_scale(inner, comm.axis, 8),
+           "var": monitor_gradient_variance(inner, comm.axis)}
+    out = {}
+    for name, tx in txs.items():
+        stacked = name in REPLICA_TX
+        params = tree_map(torch.from_numpy, slp_params())
+        state = tx.init(params)
+        if stacked:
+            params = stack_for_replicas(params, comm.addressable_n)
+            state = stack_for_replicas(state, comm.addressable_n)
+        step = dp_train_step(lambda p, b: model.loss(p, b), tx, comm,
+                             replicated_params=not stacked)
+        losses = []
+        for x, y in epoch_batches(comm.size, 3):
+            params, state, loss = step(params, state, (torch.from_numpy(x),
+                                                       torch.from_numpy(y)))
+            losses.append(loss)
+        out[f"{name}_loss"] = torch.stack(losses)
+        for i, leaf in enumerate(tree_leaves(params)):
+            out[f"{name}_param{i}"] = leaf
+        for i, leaf in enumerate(tree_leaves(state)):
+            out[f"{name}_state{i}"] = leaf
+    return out
+
+
+#: the sharded trainer's narrow model and batch (dp=2 x tp=2)
+SHARDED_CFG = dict(vocab_size=64, d_model=64, n_layers=2, n_heads=4,
+                   d_ff=128, max_seq=32, causal=True, pos="rope",
+                   dtype="float32")
+SHARDED_LR = 0.05
+
+
+def sharded_batches(steps: int = 2):
+    rng = np.random.default_rng([SEED, 4])
+    return [tuple(rng.integers(0, SHARDED_CFG["vocab_size"], size=(8, 32))
+                  .astype(np.int32) for _ in range(2))
+            for _ in range(steps)]
+
+
+def sharded_steps(comm) -> dict:
+    """Two ``ShardedTrainer`` steps over ``dp=2 x tp=2`` on ``comm``'s
+    four ranks, under psum and pallas_ring: each step's loss, this
+    process's rows of every param leaf, and the gathered global params
+    (flat)."""
+    from kungfu_tpu_torch.models.transformer import TransformerConfig
+    from kungfu_tpu_torch.optimizers import sgd
+    from kungfu_tpu_torch.parallel.train import ParallelPlan, ShardedTrainer
+    from kungfu_tpu_torch.utils.tree import tree_leaves
+
+    out = {}
+    for sched in ("psum", "pallas_ring"):
+        trainer = ShardedTrainer(
+            TransformerConfig(**SHARDED_CFG),
+            ParallelPlan(dp=2, tp=2, collective_schedule=sched),
+            tx=sgd(SHARDED_LR), devices=comm)
+        state = trainer.init(torch.Generator().manual_seed(0))
+        losses = []
+        for ids, tgt in sharded_batches():
+            state, loss = trainer.step(state, (torch.from_numpy(ids),
+                                               torch.from_numpy(tgt)))
+            losses.append(loss)
+        out[f"sharded_{sched}_loss"] = torch.stack(losses)
+        for i, leaf in enumerate(tree_leaves(state["params"])):
+            out[f"sharded_{sched}_p{i}"] = leaf
+        out[f"sharded_{sched}_global"] = torch.cat(
+            [leaf.reshape(-1) for leaf in
+             tree_leaves(trainer.gather_params(state["params"]))])
+    return out
+
+
+def a17(comm, full: dict, first: int, rows: int) -> dict:
+    """Every A17 check's results on this process's rows (all of them
+    with one process), numpy out."""
+    out = vjps(comm, full["vjp"][first:first + rows], first)
+    out.update(zero3_steps(comm))
+    out.update(replica_steps(comm))
+    out.update(sharded_steps(comm))
+    return {k: v.detach().numpy() for k, v in out.items()}
+
+
+def a17_inputs(n: int) -> dict:
+    rng = np.random.default_rng([SEED, 17])
+    return {"vjp": rng.standard_normal((n, VJP_LEN)).astype(np.float32)}
+
+
 def _world_comm(root: str, index: int, rows: int):
     from kungfu_tpu_torch.comm.device import Communicator
     from kungfu_tpu_torch.comm.host import PyHostChannel
@@ -182,9 +409,12 @@ def main(argv) -> int:
     else:
         comm, close = _peer_comm(root, index, procs, rows)
     span = comm.span
-    full = inputs(comm.size)
-    mine = {k: v[span.first:span.first + rows] for k, v in full.items()}
-    res = collectives(comm, mine)
+    if len(argv) > 5 and argv[5] == "a17":
+        res = a17(comm, a17_inputs(comm.size), span.first, rows)
+    else:
+        full = inputs(comm.size)
+        mine = {k: v[span.first:span.first + rows] for k, v in full.items()}
+        res = collectives(comm, mine)
     res["stats"] = np.array([span.stats["exchanges"], span.stats["opens"]])
     np.savez(os.path.join(root, f"out{index}.npz"), **res)
     comm.close()

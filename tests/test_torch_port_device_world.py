@@ -186,7 +186,7 @@ def test_watch_keeps_in_world_workers():
 
 
 class _Span:
-    """A span's geometry only, for the refusals raised before any
+    """A span's geometry only, for the checks made before any
     exchange."""
 
     def __init__(self, procs: int, index: int, rows: int = 1):
@@ -208,30 +208,23 @@ class TestSpanningGeometry:
         with pytest.raises(ValueError, match="rank"):
             Communicator(devices=["cpu"], span=_Span(2, 0, rows=2))
 
-    def test_sma_over_a_span_is_refused(self):
-        from kungfu_tpu_torch.optimizers import sgd
-        from kungfu_tpu_torch.parallel.train import dp_train_step
-
-        comm = Communicator(devices=["cpu"], span=_Span(2, 0))
-        with pytest.raises(NotImplementedError, match="A17"):
-            dp_train_step(lambda p, b: 0.0, sgd(0.1), comm,
-                          replicated_params=False)
-
-    def test_zero3_over_a_span_is_refused(self):
-        from kungfu_tpu_torch.optimizers import sgd
-        from kungfu_tpu_torch.parallel.zero import zero_train_step
-
-        comm = Communicator(devices=["cpu"], span=_Span(2, 0))
-        with pytest.raises(NotImplementedError, match="A17"):
-            zero_train_step(lambda p, b: 0.0, sgd(0.1), comm, stage=3)
-
-    def test_grad_through_a_spanning_collective_is_refused(self):
+    def test_mesh_over_a_span(self):
+        """A mesh built over a communicator across processes holds this
+        process's window of ranks and binds a span-aware world."""
         from kungfu_tpu_torch.ops import collective
+        from kungfu_tpu_torch.parallel import MeshPlan
 
-        comm = Communicator(devices=["cpu"], span=_Span(2, 0))
-        x = torch.ones(1, 3, requires_grad=True)
-        with comm.world(), pytest.raises(NotImplementedError, match="A17"):
-            collective.all_reduce(x * 2, comm.axis)
+        span = _Span(2, 1, rows=2)
+        mesh = MeshPlan(dp=2, tp=2).build_mesh(
+            Communicator(devices=["cpu"] * 2, span=span))
+        assert (mesh.size, mesh.first, mesh.rows) == (4, 2, 2)
+        with mesh.world() as world:
+            assert world.span is span and (world.first, world.rows) == (2, 2)
+            assert collective.peer_rank("dp").tolist() == [1, 1]
+            assert collective.peer_rank("tp").tolist() == [0, 1]
+        with pytest.raises(ValueError, match="8 ranks"):
+            MeshPlan(dp=4, tp=2).build_mesh(
+                Communicator(devices=["cpu"] * 2, span=span))
 
 
 # -- (b) collectives across processes ----------------------------------------
@@ -258,21 +251,26 @@ def _run_processes(root, procs: int, rows: int, mode: str):
                            stderr=subprocess.STDOUT, text=True)
           for i in range(procs)]
     if mode == "world":
-        ports = []
-        for i in range(procs):
-            p = os.path.join(root, f"port{i}")
-            deadline = time.time() + 60
-            while not os.path.exists(p):
-                assert time.time() < deadline, "a worker never bound"
-                assert ps[i].poll() is None, ps[i].communicate()[0]
-                time.sleep(0.02)
-            with open(p) as f:
-                ports.append(f.read().strip())
-        with open(os.path.join(root, "peers.tmp"), "w") as f:
-            f.write(",".join(f"127.0.0.1:{p}" for p in ports))
-        os.replace(os.path.join(root, "peers.tmp"),
-                   os.path.join(root, "peers"))
+        _publish_peers(root, ps)
     return ps
+
+
+def _publish_peers(root, ps) -> None:
+    """Wait for each world-mode worker's port and write the peer list
+    every worker waits for."""
+    ports = []
+    for i, proc in enumerate(ps):
+        p = os.path.join(root, f"port{i}")
+        deadline = time.time() + 60
+        while not os.path.exists(p):
+            assert time.time() < deadline, "a worker never bound"
+            assert proc.poll() is None, proc.communicate()[0]
+            time.sleep(0.02)
+        with open(p) as f:
+            ports.append(f.read().strip())
+    with open(os.path.join(root, "peers.tmp"), "w") as f:
+        f.write(",".join(f"127.0.0.1:{p}" for p in ports))
+    os.replace(os.path.join(root, "peers.tmp"), os.path.join(root, "peers"))
 
 
 @pytest.fixture(scope="module")
@@ -409,22 +407,26 @@ def launches(tmp_path_factory):
     for name, (alias, slots, args) in runs.items():
         tmp = tmp_path_factory.mktemp(name)
         started[name] = (tmp, _launch(tmp, alias, slots, args))
-    out = {}
-    for name, (tmp, proc) in started.items():
-        try:
-            text = proc.communicate(timeout=240)[0]
-        except subprocess.TimeoutExpired:
-            os.killpg(proc.pid, 9)
-            text = proc.communicate()[0]
-        lines, errs = [], ""
-        for f in sorted(glob.glob(str(tmp / "logs" / "*.stdout.log"))):
-            with open(f) as fh:
-                lines += fh.read().splitlines()
-        for f in sorted(glob.glob(str(tmp / "logs" / "*.stderr.log"))):
-            with open(f) as fh:
-                errs += fh.read()
-        out[name] = (proc.returncode, text, lines, errs)
-    return out
+    return {name: _collect(tmp, proc)
+            for name, (tmp, proc) in started.items()}
+
+
+def _collect(tmp, proc):
+    """``(rc, output, stdout lines of the workers, their stderr)`` of a
+    launch, killed after 240 s."""
+    try:
+        text = proc.communicate(timeout=240)[0]
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        text = proc.communicate()[0]
+    lines, errs = [], ""
+    for f in sorted(glob.glob(str(tmp / "logs" / "*.stdout.log"))):
+        with open(f) as fh:
+            lines += fh.read().splitlines()
+    for f in sorted(glob.glob(str(tmp / "logs" / "*.stderr.log"))):
+        with open(f) as fh:
+            errs += fh.read()
+    return proc.returncode, text, lines, errs
 
 
 _EPOCH = re.compile(
