@@ -134,22 +134,22 @@ Phases (any failed check exits non-zero before the result line):
              ``ZeroBoundary.commit_local`` with ring-buddy mirrors,
              ``StepSnapshot.commit``, ``PersistPlane.commit`` (period 0)
              and ``elastic_step``.  ``KF_CHAOS_SPEC`` kills old rank 3
-             (``mode=raise``) at its first engine collective of step 4;
+             (``mode=raise``) at its first engine collective of step 3;
              the survivors call ``recover_from_failure``, replay from
-             step 3 at three ranks for steps 4-6; a ``preempt:all``
-             clause fires at ``elastic_step``'s announcement of step 6,
+             step 2 at three ranks for steps 3-5; a ``preempt:all``
+             clause fires at ``elastic_step``'s announcement of step 5,
              and two fresh peers with ``KF_PERSIST_RESTORE=1`` agree on
-             the step-6 manifest, restore their shares and take step 7.
+             the step-5 manifest, restore their shares and take step 6.
              Checks: (a) each survivor's ``PeerFailureError`` names rank
              3 within the peer deadline plus slack, every thread join
              bounded; (b) three peers at cluster version 1 with one
              digest, the shrunk cluster on the config server; (c) the
-             agreed replay step 3, its params bitwise step 3's; (d) the
-             re-carved momentum bitwise the step-3 state repadded into
+             agreed replay step 2, its params bitwise step 2's; (d) the
+             re-carved momentum bitwise the step-2 state repadded into
              three chunks (rank 3's chunk from its ring buddy); (e)
-             steps 4-6 bitwise a fixed world of three fresh peers; (f)
-             the manifest's state bitwise step 6's repadded into two
-             chunks, and step 7 bitwise a fixed two-rank world; (g) exact
+             steps 3-5 bitwise a fixed world of three fresh peers; (f)
+             the manifest's state bitwise step 5's repadded into two
+             chunks, and step 6 bitwise a fixed two-rank world; (g) exact
              launches every step; (h) finite, falling loss.  Step ms at
              4, 3 and 2 ranks split into grads, D2H, reduce-scatter,
              update, all-gather and commits; detection, ping sweep,
@@ -505,6 +505,30 @@ Phases (any failed check exits non-zero before the result line):
              bit.  Every process's loss bitwise its epoch's, exact
              launches a step, the sharded trainer's gathered params one
              digest in every process.
+24. examples — the reference's example entry points
+             (``kungfu_tpu_torch.examples``), each through its
+             ``main(argv)`` in this process, its launches counted from
+             zero: (a) ``long_context`` at the flagship's width (d_model
+             768, 12 layers, 12 heads, d_ff 3072, learned positions,
+             bf16) over four co-resident sp ranks with ``--block-impl
+             auto``, first at S = 2048 (its own check of the ring loss
+             against the dense loss), then at S = 32768, batch 1, three
+             Adam steps: the first loss against the same ring through
+             the plain einsum blocks (forward only, two heads at a
+             time), the loss falls, rows 1-3 launch inside the ring;
+             rows 1-3 held against their plain versions and timed at
+             the ring round's [48, 8192, 64]; tokens/s, step ms, peak
+             memory; (b) ``shard_train`` at its defaults (dp 2, sp 2, tp
+             2), dense and with four experts; (c) ``strategy_tour
+             --steps 18`` on eight co-resident ranks (one re-tune, ZeRO-1
+             at 1/8; the autotune's probes launch rows 9-10, counted
+             apart from the main path's launches, and install psum); (d)
+             ``serve_demo`` at its defaults in a fresh process, its
+             outcome read (its dead-list assertion depends on timing,
+             ROADMAP C42), then ``serve_demo --tokens 96``
+             (``EX_SERVE_ARGS``): no request lost through the chaos
+             kill, a replay equal to greedy decoding through the flash
+             forward (16-wide heads zero-padded to 64).
 
 Phase 3 also holds the ring reduce-scatter and all-gather kernels
 bitwise against their plain versions, at the main path's shapes (a
@@ -658,8 +682,9 @@ MONITOR_STEPS = 5
 GNS_SQ_RTOL = 1e-3
 GNS_RTOL = 1e-2
 #: phase 12: main-path steps of the host engine before the two strategy
-#: swaps; ZeRO-2's host bucket (columns a rank) and (c)'s slice
-HOST_STEPS = 6
+#: swaps (cut from 6 to make room for phase 24, then to 3); ZeRO-2's host
+#: bucket (columns a rank) and (c)'s slice
+HOST_STEPS = 3
 HOST_BUCKET = 1 << 20
 HOST_SLICE_BYTES = 16 << 20
 #: phase 12's params after one step against the device-plane S-SGD step,
@@ -3186,14 +3211,15 @@ def _host_engine_steps(torch, np, kernels, E, engines, model, params, batch,
 
 
 #: phase 13: sgd on the host plane's ZeRO-2 step through a kill, a shrink
-#: and a cold restore.  Steps 1-3 run at four ranks; old rank 3 dies in
-#: mode=raise at its first engine collective of step 4; the survivors
-#: replay from step 3 and run steps 4-6 at three ranks; a preempt:all
-#: clause fires at elastic_step's announcement of step 6, and two fresh
-#: peers restore the step-6 manifest and take step 7
+#: and a cold restore.  Steps 1-2 run at four ranks; old rank 3 dies in
+#: mode=raise at its first engine collective of step 3; the survivors
+#: replay from step 2 and run steps 3-5 at three ranks; a preempt:all
+#: clause fires at elastic_step's announcement of step 5, and two fresh
+#: peers restore the step-5 manifest and take step 6 (the kill was at
+#: step 4 before phase 24 needed the room)
 RECOVER_LR, RECOVER_MOMENTUM = 0.05, 0.9
 RECOVER_RANKS = (4, 3, 2)
-RECOVER_KILL_STEP, RECOVER_PREEMPT_STEP, RECOVER_LAST = 4, 6, 7
+RECOVER_KILL_STEP, RECOVER_PREEMPT_STEP, RECOVER_LAST = 3, 5, 6
 RECOVER_VICTIM = 3
 #: per-peer deadline of the phase's engine collectives (s): above the
 #: largest skew of a healthy step (rank 0 waits out its params manifest
@@ -3339,10 +3365,10 @@ def phase_recover(torch, np, kernels, tr):
     params regathered by ``host_bucket_all_gather``; then
     ``ZeroBoundary.commit_local`` with ring-buddy mirrors,
     ``StepSnapshot.commit``, ``PersistPlane.commit`` (period 0), the
-    fence and ``elastic_step``.  Old rank 3 dies at step 4's first
-    engine collective; the survivors recover, replay from step 3 and run
-    steps 4-6; a whole-job preemption after step 6 ends the run, and two
-    fresh peers restore the step-6 manifest and take step 7.  Checks
+    fence and ``elastic_step``.  Old rank 3 dies at step 3's first
+    engine collective; the survivors recover, replay from step 2 and run
+    steps 3-5; a whole-job preemption after step 5 ends the run, and two
+    fresh peers restore the step-5 manifest and take step 6.  Checks
     (a)-(h) of the module docstring, each fatal."""
     import shutil
     import tempfile
@@ -3553,12 +3579,14 @@ def phase_recover(torch, np, kernels, tr):
             ckpt_writes()
         ctl = chaos.controller_for(RECOVER_VICTIM)
         check(ctl._colls == kill_coll - 1, f"the victim ran {ctl._colls} "
-              f"engine collectives in steps 1-3, not {kill_coll - 1}")
+              f"engine collectives in steps 1-{RECOVER_KILL_STEP - 1}, not "
+              f"{kill_coll - 1}")
         flat3 = flat
         # the optimizer's own state, not the boundary under test
         mom3 = torch.cat([rk.mom.trace.cpu() for rk in world])
 
-        # the kill: old rank 3 dies at step 4's first engine collective
+        # the kill: old rank 3 dies at the kill step's first engine
+        # collective
         deaths, errs, recov, ends = {}, {}, {}, []
 
         def kill_body(rk):
@@ -3605,7 +3633,7 @@ def phase_recover(torch, np, kernels, tr):
         published, pub_v = fetch_cluster(server.url)
         check(published.workers == survivors[0].peer.cluster.workers,
               f"(b) the config server holds {published} (version {pub_v})")
-        # (c) the agreed replay point: step 3's params, bitwise
+        # (c) the agreed replay point: the previous step's params, bitwise
         replay_bytes = len(survivors[0].snap.serialize())
         flat_r = None
         for rk in survivors:
@@ -3615,14 +3643,15 @@ def phase_recover(torch, np, kernels, tr):
                   f"{shrunk}, replay step {replay and replay[0]}")
             got = flatten(replay[1])
             check(torch.equal(got, flat3), f"(c) rank {rk.r}'s replayed "
-                  "params differ from step 3's")
+                  "params differ from the step before the kill's")
             flat_r = got
         # (d) the re-carve, the dead rank's chunk from its ring buddy
         want3 = _repad(torch, mom3, total, n3)
         for rk in survivors:
             got = rk.zb.chunks()[1][0]
             check(torch.equal(got, want3[rk.r]), f"(d) rank {rk.r}'s "
-                  "re-carved momentum chunk differs from step 3's state "
+                  "re-carved momentum chunk differs from the step before "
+                  "the kill's state "
                   "repadded into three chunks")
         plan = reshard_plan(total, n4, n3)
         moved = sum(ln for o, r, _, ln in plan
@@ -3661,7 +3690,8 @@ def phase_recover(torch, np, kernels, tr):
               f"moved; place {place_s:.3f} s; cluster version 1 of {n3} "
               f"peers, published (config version {pub_v}); {smi}")
 
-        # steps 4-6 at three ranks, from the replay point
+        # the kill step to the preempt step at three ranks, from the
+        # replay point
         states = [replace(states[rk.r], step=RECOVER_KILL_STEP)
                   for rk in world3]
         flat = flat_r
@@ -3698,13 +3728,14 @@ def phase_recover(torch, np, kernels, tr):
         os.environ.pop("KF_CHAOS_SPEC")
         os.environ.pop("KF_CONFIG_ENABLE_TRACE")
 
-        # (e) a fixed three-rank world from (c) + (d), steps 4-6
+        # (e) a fixed three-rank world from (c) + (d), the same steps
         fx6, fx_mom6 = fixed_world(n3, flat3, want3,
                                    range(RECOVER_KILL_STEP,
                                          RECOVER_PREEMPT_STEP + 1), "3")
         _check_bitwise(torch, [flat6, mom6], [fx6, fx_mom6.reshape(-1)],
-                       "recover (e): params and momentum after steps 4-6 "
-                       "vs a fixed three-rank world")
+                       f"recover (e): params and momentum after steps "
+                       f"{RECOVER_KILL_STEP}-{RECOVER_PREEMPT_STEP} vs a "
+                       f"fixed three-rank world")
         for k in range(RECOVER_KILL_STEP, RECOVER_PREEMPT_STEP + 1):
             check(losses[k] == losses[f"fixed_3_{k}"],
                   f"(e) step {k} loss {losses[k]} != the fixed world's")
@@ -3740,10 +3771,11 @@ def phase_recover(torch, np, kernels, tr):
                   f"{rs.meta['old_n']} ranks")
             check(torch.equal(rs.vec[0], want2[r]) and
                   torch.equal(zb.chunks()[1][0], want2[r]),
-                  f"(f) rank {r}'s restored momentum differs from step 6's "
-                  "state repadded into two chunks")
+                  f"(f) rank {r}'s restored momentum differs from step "
+                  f"{RECOVER_PREEMPT_STEP}'s state repadded into two chunks")
             check(torch.equal(rs.replicated["params"], flat6),
-                  f"(f) rank {r}'s restored params differ from step 6's")
+                  f"(f) rank {r}'s restored params differ from step "
+                  f"{RECOVER_PREEMPT_STEP}'s")
         world2 = [_RecoverRank(torch, p, r, n2, total,
                                restored[r][0].replicated["params"],
                                restored[r][0].vec[0])
@@ -3761,8 +3793,9 @@ def phase_recover(torch, np, kernels, tr):
         peers = []
         fx7, fx_mom7 = fixed_world(n2, flat6, want2, [k], "2")
         _check_bitwise(torch, [flat7, mom7], [fx7, fx_mom7.reshape(-1)],
-                       "recover (f): params and momentum after step 7 from "
-                       "the manifest vs a fixed two-rank world")
+                       f"recover (f): params and momentum after step "
+                       f"{RECOVER_LAST} from the manifest vs a fixed two-rank "
+                       f"world")
         check(losses[k] == losses[f"fixed_2_{k}"],
               f"(f) step {k} loss {losses[k]} != the fixed world's")
     finally:
@@ -3802,7 +3835,8 @@ def phase_recover(torch, np, kernels, tr):
                   "boundary_commit_ms", "buddy_ms", "snapshot_ms",
                   "persist_issue_ms", "persist_fence_ms", "elastic_step_ms")
                   if key in m) + f"; {smi}")
-    print(f"recover: persist {manifest_bytes} B in the step-6 manifest; "
+    print(f"recover: persist {manifest_bytes} B in the step-"
+          f"{RECOVER_PREEMPT_STEP} manifest; "
           f"writer-thread s per write rank 0 "
           f"{[round(x, 3) for x in w_rank0]}, other ranks median "
           f"{statistics.median(w_other) if w_other else float('nan'):.3f}; "
@@ -10055,6 +10089,404 @@ def phase_world(torch, np, kernels, spec, kfrun) -> dict:
     return out
 
 
+#: phase 24: the reference's example entry points, in-process, on the
+#: card.  (a) long_context at the flagship's width: 12 heads and d_ff
+#: 3072 follow from the example's own rule, four co-resident sp ranks,
+#: block_impl auto (the flash kernels in every ring round)
+EX_LC_WIDTH = ["--d-model", "768", "--n-layers", "12", "--sp", "4",
+               "--block-impl", "auto"]
+#: first below the example's dense-check gate, then the headline length
+EX_LC_CHECKED = ["--seq-len", "2048", "--steps", "2"]
+EX_LC_LONG = ["--seq-len", "32768", "--batch-size", "1", "--steps", "3"]
+#: the long run's first loss against the same ring over the plain
+#: einsum blocks, forward only: phase 17's loss tolerance
+#: (SHARDED_LOSS_RTOL).  At init the loss sits near ln(1024) whatever
+#: attention computes, so the loss without the causal mask is printed
+#: beside it, as phase 17 does
+EX_LC_LOSS_RTOL = SHARDED_LOSS_RTOL
+#: the einsum blocks run this many heads at a time: a head's [4, 8192,
+#: 8192] f32 logits are 1 GiB, and the block's temporaries a few of them
+EX_LC_PLAIN_HEADS = 2
+#: rows 1-3 at the ring's shape: the diagonal round of S/sp = 8192 over
+#: all four ranks' 12 heads, causal, with the merge's lse cotangent
+EX_RING_SHAPE = (4 * 12, 8192, 64)
+#: (c): strategy_tour at the reference test's --steps
+EX_TOUR_STEPS = 18
+#: (d): serve_demo's requests long enough to overlap.  Least-outstanding
+#: dispatch ties to the lowest rank, as the reference's does: worker 1
+#: gets a request only while worker 0 holds one, and the victim joins
+#: the router's dead list only once it holds two expired requests or a
+#: later dispatch to it fails, which needs workers 0 and 2 to hold two
+#: each.  At 24 tokens a request can end on an H100 within the 20 ms
+#: between arrivals, so the kill may never land, or land on one request
+#: that replays alone, and the demo's dead-list assertion fails (ROADMAP
+#: C42); at 96 each takes 300 ms or more (prompt 17 + 96 <= max_seq 128)
+EX_SERVE_ARGS = ["--tokens", "96"]
+#: (d) first reads serve_demo at its defaults in a fresh process: each
+#: request's worker, replays and milliseconds, and the demo's outcome.
+#: Its dead-list assertion is timing's (C42), so that one outcome is
+#: read, not held; any other failure fails the phase
+EX_SERVE_DEFAULTS_DRIVER = """\
+import json
+from kungfu_tpu_torch.examples import serve_demo
+from kungfu_tpu_torch.serve import router
+handles = []
+submit = router.ServeRouter.submit
+def recorded(self, *args, **kwargs):
+    handles.append(submit(self, *args, **kwargs))
+    return handles[-1]
+router.ServeRouter.submit = recorded
+try:
+    serve_demo.main([])
+    outcome = "passed"
+except AssertionError as e:
+    outcome = "assertion: " + str(e)
+print("SERVE_DEFAULTS " + json.dumps({"outcome": outcome, "requests": [
+    [h.worker, h.replays, ((h.done_s or h.submitted_s) - h.submitted_s)
+     * 1e3] for h in handles]}), flush=True)
+"""
+#: the dead-list assertion's message: the victim stayed live
+EX_SERVE_DEFAULTS_READ = ("passed", "assertion: []")
+EX_SERVE_DEFAULTS_TIMEOUT_S = 180
+#: knobs the earlier phases set that a user's run of an example has not
+EX_CLEAR_ENV = ("KF_CHAOS_SPEC", "KF_JAX_PLATFORM", "MEGASCALE_NUM_SLICES",
+                "KF_SLICE_RANKS", "KF_TPU_XENT", "KF_TPU_ATTN",
+                "KF_TPU_LM_HEAD", "KF_NATIVE_ENGINE", "KF_TPU_HOST_TRANSPORT")
+
+
+def _per_head_einsum(torch, long_context, sp: int, heads: int):
+    """The example's ``attn_fn`` through the ring's plain einsum blocks,
+    ``heads`` heads at a time (the [S/sp, S/sp] f32 logits of all 12
+    would not fit beside the model)."""
+    ring = long_context.ring_attn(sp, "einsum")
+
+    def attn(q, k, v, causal):
+        outs = [ring(q[:, h:h + heads].contiguous(),
+                     k[:, h:h + heads].contiguous(),
+                     v[:, h:h + heads].contiguous(), causal)
+                for h in range(0, q.shape[1], heads)]
+        return torch.cat(outs, dim=1)
+
+    return attn
+
+
+def _ring_shape_rows(torch, attention, spec) -> dict:
+    """Rows 1-3 at the ring's S/sp = 8192 round: the kernels against
+    their plain versions on the same inputs (the forward's in chunks of
+    12 rows: a chunk's [12, 8192, 8192] f32 scores are 3 GiB), then
+    timed beside the plain versions and SDPA, with the bound."""
+    import torch.nn.functional as F
+
+    bh, s, d = EX_RING_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    q, k, v, do = (torch.randn((bh, s, d), generator=gen, device="cuda"
+                               ).to(torch.bfloat16) for _ in range(4))
+    dl = torch.randn((bh, s), generator=gen, device="cuda")
+    chunk = 12
+
+    def plain_fwd():
+        parts = [attention.flash_attention_reference(
+            q[i:i + chunk], k[i:i + chunk], v[i:i + chunk], True)
+            for i in range(0, bh, chunk)]
+        return (torch.cat([o for o, _ in parts]),
+                torch.cat([l for _, l in parts]))
+
+    out, lse = attention._launch(q, k, v, True)
+    ref_o, ref_lse = plain_fwd()
+    o_err = (out.float() - ref_o.float()).abs().max().item()
+    l_err = (lse - ref_lse).abs().max().item()
+    del ref_o, ref_lse
+    delta = (do.float() * out.float()).sum(-1) - dl
+    dq = attention._launch_bwd_dq(q, k, v, do, lse, delta, True)
+    dk, dv = attention._launch_bwd_dkv(q, k, v, do, lse, delta, True)
+    torch.cuda.synchronize()
+    blocked = attention.flash_attention_backward_reference(
+        q, k, v, out, lse, do, True, delta=delta)
+    top = max(t.float().abs().max().item() for t in blocked)
+    g_tol = BF16_GRAD_RTOL * top
+    dq_err = _grad_err([dq], blocked[:1])
+    dkv_err = _grad_err([dk, dv], blocked[1:])
+    del blocked, dq, dk, dv
+    print(f"examples ring rows [{bh}, {s}, {d}] causal: max|dO| "
+          f"{o_err:.3e} (tol {BF16_O_ATOL}), max|dlse| {l_err:.3e} (tol "
+          f"{BF16_LSE_ATOL}), dQ {dq_err:.3e} and dK/dV {dkv_err:.3e} vs "
+          f"the blocked plain backward (tol {g_tol:.3e})")
+    check(o_err <= BF16_O_ATOL, f"ring-shape forward O error {o_err}")
+    check(l_err <= BF16_LSE_ATOL, f"ring-shape forward lse error {l_err}")
+    check(dq_err <= g_tol, f"ring-shape dQ error {dq_err} > {g_tol}")
+    check(dkv_err <= g_tol, f"ring-shape dK/dV error {dkv_err} > {g_tol}")
+
+    q4, k4, v4 = (t.view(1, bh, s, d) for t in (q, k, v))
+    fwd_ms = device_ms(torch, lambda: attention._launch(q, k, v, True),
+                       iters=5, windows=7)
+    plain_ms = device_ms(torch, plain_fwd, iters=1, windows=3)
+    sdpa_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True), iters=5, windows=7)
+    fwd_us = host_us(torch, lambda: attention._launch(q, k, v, True),
+                     calls=20)
+    dq_ms = device_ms(torch, lambda: attention._launch_bwd_dq(
+        q, k, v, do, lse, delta, True), iters=5, windows=7)
+    dkv_ms = device_ms(torch, lambda: attention._launch_bwd_dkv(
+        q, k, v, do, lse, delta, True), iters=5, windows=7)
+    dq_us = host_us(torch, lambda: attention._launch_bwd_dq(
+        q, k, v, do, lse, delta, True), calls=20)
+    dkv_us = host_us(torch, lambda: attention._launch_bwd_dkv(
+        q, k, v, do, lse, delta, True), calls=20)
+    bwd_plain_ms = device_ms(
+        torch, lambda: attention.flash_attention_backward_reference(
+            q, k, v, out, lse, do, True), iters=1, windows=3)
+    qg, kg, vg = (t.view(1, bh, s, d).clone().requires_grad_(True)
+                  for t in (q, k, v))
+    do4 = do.view(1, bh, s, d)
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        torch.autograd.grad(o, (qg, kg, vg), do4)
+
+    sdpa_bwd_ms = device_ms(torch, sdpa_fwd_bwd, iters=3, windows=5) - sdpa_ms
+    # the bounds as phase 3 counts them (phase_flash_forward/_backward)
+    pairs = bh * (s * (s + 1) // 2)
+    rows = bh * s * 4 * 2
+    t_fwd = bound(spec, 4 * d * pairs, 4 * bh * s * d * 2 + bh * s * 4)
+    t_dq = bound(spec, 3 * 2 * d * pairs, 5 * bh * s * d * 2 + rows)
+    t_dkv = bound(spec, 4 * 2 * d * pairs, 6 * bh * s * d * 2 + rows)
+    timing = {
+        "fwd": {"ms": fwd_ms, "plain_ms": plain_ms, "library_ms": sdpa_ms,
+                "host_us": fwd_us, **t_fwd},
+        "dq": {"ms": dq_ms, "plain_ms": bwd_plain_ms,
+               "library_ms": sdpa_bwd_ms, "host_us": dq_us, **t_dq},
+        "dkv": {"ms": dkv_ms, "plain_ms": bwd_plain_ms,
+                "library_ms": sdpa_bwd_ms, "host_us": dkv_us, **t_dkv}}
+    for name, t in timing.items():
+        print(f"examples ring rows {name} [{bh}, {s}, {d}] causal: kernel "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, sdpa "
+              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}, {t['bound_ms'] / t['ms']:.1%} of it), "
+              f"{t['flops'] / t['ms'] / 1e9:.1f} TFLOP/s, host "
+              f"{t['host_us']:.1f} us per launch")
+    del q, k, v, do, dl, out, lse, delta, q4, k4, v4, qg, kg, vg, do4
+    return {"errors": {"o_err": o_err, "lse_err": l_err, "dq_err": dq_err,
+                       "dkv_err": dkv_err, "grad_tol": g_tol},
+            "timing": timing}
+
+
+def phase_examples(torch, np, kernels, spec) -> dict:
+    """Phase 24: the reference's example entry points through their
+    ``main(argv)``, in this process, on the card, each run's launches
+    counted from zero.  (a) ``long_context`` at the flagship's width
+    on four sp ranks: at S = 2048 its own dense check, then at S = 32768
+    three Adam steps, the first loss against the ring over the plain
+    einsum blocks, rows 1-3 launched inside the ring and held and timed
+    at its round's shape; (b) ``shard_train`` at its defaults, dense and
+    with four experts; (c) ``strategy_tour`` at ``--steps 18``; (d)
+    ``serve_demo`` at its defaults in a fresh process, read, then at
+    ``EX_SERVE_ARGS``, held."""
+    from kungfu_tpu_torch.examples import (long_context, serve_demo,
+                                           shard_train, strategy_tour)
+    from kungfu_tpu_torch.ops.cuda import attention
+
+    t_phase = time.perf_counter()
+    # the examples as a user starts them: no knob an earlier phase set
+    old = _set_env({k: None for k in EX_CLEAR_ENV})
+    try:
+        return _examples(torch, kernels, spec, long_context, serve_demo,
+                         shard_train, strategy_tour, attention, t_phase)
+    finally:
+        _set_env(old)
+
+
+def _examples(torch, kernels, spec, long_context, serve_demo, shard_train,
+              strategy_tour, attention, t_phase) -> dict:
+    import contextlib
+    import io
+
+    out = {"runs": {}}
+    total: dict = {}
+
+    def run(label, fn, apart=None):
+        """``apart``: launches made inside the run that are not its own
+        (the autotune's probes), left out of its count."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        buf = io.StringIO()
+        _reset(kernels)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: n - (apart or {}).get(k, 0)
+                    for k, n in _counts(kernels).items()}
+        launches = {k: n for k, n in launches.items() if n}
+        text = buf.getvalue()
+        print(text, end="")
+        check(rc == 0, f"examples {label}: main returned {rc}")
+        for key, n in launches.items():
+            total[key] = total.get(key, 0) + n
+        res = {"wall_s": wall, "launches": launches,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        print(f"examples {label}: {wall:.2f} s, peak "
+              f"{res['peak_gib']:.2f} GiB, launches {launches}")
+        out["runs"][label] = res
+        return res, text
+
+    # (a) long_context at the flagship's width
+    rep = {}
+    a1, _ = run("long_context S=2048", lambda: long_context.main(
+        EX_LC_WIDTH + EX_LC_CHECKED, rep))
+    got, ref = rep["dense_check"]
+    a1.update(dense_check={"ring": got, "dense": ref}, losses=rep["losses"],
+              step_s=rep["step_s"], tok_s=rep["tok_s"])
+    rep = {}
+    a2, _ = run("long_context S=32768", lambda: long_context.main(
+        EX_LC_WIDTH + EX_LC_LONG, rep))
+    a2.update(losses=rep["losses"], step_s=rep["step_s"], tok_s=rep["tok_s"])
+    for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(a2["launches"].get(key, 0) > 0,
+              f"long_context S=32768: no {key} launch inside the ring")
+    check(all(math.isfinite(x) for x in a2["losses"]),
+          f"long_context S=32768: losses {a2['losses']}")
+    check(a2["losses"][-1] < a2["losses"][0],
+          f"long_context S=32768: loss did not fall {a2['losses']}")
+    args = long_context.parse_args(EX_LC_WIDTH + EX_LC_LONG)
+    model, params, ids, targets = long_context.build(args,
+                                                     torch.device("cuda"))
+    before = _counts(kernels)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        plain = float(long_context.sharded_loss(
+            model, params, ids, targets, args.sp,
+            _per_head_einsum(torch, long_context, args.sp,
+                             EX_LC_PLAIN_HEADS)))
+    plain_s = time.perf_counter() - t0
+    after = _counts(kernels)
+    check(after == before, f"the plain ring launched kernels: "
+          f"{ {k: after[k] - before[k] for k in after} }")
+    flash = long_context.ring_attn(args.sp, "flash")
+    with torch.no_grad():
+        # an attention fault's loss, for scale: the ring without the mask
+        unmasked = float(long_context.sharded_loss(
+            model, params, ids, targets, args.sp,
+            lambda q, k, v, causal: flash(q, k, v, False)))
+    first = a2["losses"][0]
+    rel = abs(first - plain) / abs(plain)
+    print(f"examples long_context S=32768: first loss {first:.6f} through "
+          f"the flash kernels, {plain:.6f} through the plain einsum ring "
+          f"(rel {rel:.3e}, tol {EX_LC_LOSS_RTOL}; {plain_s:.2f} s); "
+          f"without the causal mask {unmasked:.6f}")
+    check(rel <= EX_LC_LOSS_RTOL,
+          f"long_context S=32768 first loss {first} vs plain ring {plain}")
+    a2.update(plain_loss=plain, rel=rel, unmasked_loss=unmasked,
+              plain_s=plain_s)
+    del model, params, ids, targets
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["ring_rows"] = _ring_shape_rows(torch, attention, spec)
+    torch.cuda.empty_cache()
+
+    # (b) shard_train at its defaults, dense and MoE
+    for label, argv in (("shard_train", []),
+                        ("shard_train experts 4", ["--experts", "4"])):
+        res, text = run(label, lambda argv=argv: shard_train.main(argv))
+        check("mesh MeshPlan(dp=2, pp=1, sp=2, tp=2) over 8/8 devices"
+              in text and text.rstrip().endswith("OK"),
+              f"{label}: output {text[-300:]!r}")
+        check(res["launches"].get("flash_fwd", 0) > 0,
+              f"{label}: no flash_fwd launch")
+
+    # (c) strategy_tour.  Its autotune times every schedule, the ring
+    # kernels among them, and installs psum on one card, so rows 9-10
+    # launch in its probes only: those are counted apart
+    from kungfu_tpu_torch.comm.device import Communicator
+
+    probes: dict = {}
+    autotune = Communicator.autotune_strategy
+
+    def probed(self, *args, **kwargs):
+        before = _counts(kernels)
+        try:
+            return autotune(self, *args, **kwargs)
+        finally:
+            for key, n in _counts(kernels).items():
+                probes[key] = probes.get(key, 0) + n - before[key]
+
+    Communicator.autotune_strategy = probed
+    try:
+        res, text = run("strategy_tour", lambda: strategy_tour.main(
+            ["--steps", str(EX_TOUR_STEPS)]), apart=probes)
+    finally:
+        Communicator.autotune_strategy = autotune
+    for want in ("[1] autotune", "adaptive re-tunes: 1", "(1/8)"):
+        check(want in text, f"strategy_tour: {want!r} missing: "
+              f"{text[-500:]!r}")
+    for key in ("ring_rs", "ring_ag"):
+        check(probes.get(key, 0) > 0,
+              f"strategy_tour: no {key} launch in the autotune's probes")
+    res["probe_launches"] = {k: n for k, n in probes.items() if n}
+    print(f"examples strategy_tour: autotune probe launches "
+          f"{res['probe_launches']} (not the main path's)")
+    out["probe_launches"] = {key: probes.get(key, 0)
+                             for key in _counts(kernels)}
+
+    # (d) serve_demo: its defaults in a fresh process, read; then held
+    # at EX_SERVE_ARGS
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", EX_SERVE_DEFAULTS_DRIVER], cwd=HERE,
+        env=dict(os.environ, PYTHONPATH=HERE), capture_output=True,
+        text=True, timeout=EX_SERVE_DEFAULTS_TIMEOUT_S)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("SERVE_DEFAULTS ")]
+    check(proc.returncode == 0 and lines,
+          f"serve_demo at its defaults: rc {proc.returncode}: "
+          f"{(proc.stdout + proc.stderr)[-1500:]!r}")
+    defaults = json.loads(lines[0].split(" ", 1)[1])
+    check(defaults["outcome"] in EX_SERVE_DEFAULTS_READ,
+          f"serve_demo at its defaults: {defaults['outcome']}")
+    ms = [r[2] for r in defaults["requests"]]
+    per_worker = [sum(r[0] == w for r in defaults["requests"])
+                  for w in range(3)]
+    defaults.update(wall_s=time.perf_counter() - t0, per_worker=per_worker,
+                    ms_range=[min(ms), max(ms)])
+    replays = sum(r[1] for r in defaults["requests"])
+    if defaults["outcome"] == "passed":
+        read = "passed"
+    elif replays:
+        read = ("the kill landed, its one stuck request replayed alone and "
+                "the victim stayed off the dead list (ROADMAP C42)")
+    else:
+        read = ("the kill never landed: each request ended before the next "
+                "arrived, so worker 0 took them all (ROADMAP C42)")
+    print(f"examples serve_demo at its defaults, fresh process: {read}; "
+          f"requests a worker at the end {per_worker}, replays "
+          f"{replays}, {min(ms):.1f}-"
+          f"{max(ms):.1f} ms a request; {defaults['wall_s']:.2f} s")
+    out["serve_defaults"] = defaults
+
+    rep = {}
+    res, text = run("serve_demo", lambda: serve_demo.main(EX_SERVE_ARGS,
+                                                          rep))
+    check("serve-demo: survived worker kill; 24/24 requests completed"
+          in text, f"serve_demo: output {text[-300:]!r}")
+    # the engine's attention is plain, as the reference's; the greedy
+    # reference's full forwards run row 1 on 16-wide heads padded to 64
+    check(res["launches"].get("flash_fwd", 0) > 0,
+          "serve_demo: no flash_fwd launch in the greedy reference")
+    res.update(replayed=rep["replayed"], reused=rep["reused"])
+
+    out["long_context"] = {"s2048": a1, "s32768": a2}
+    out["launches"] = {key: total.get(key, 0) for key in _counts(kernels)}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"examples (a) long_context S=32768: {a2['tok_s']:,.0f} tok/s, "
+          f"{a2['step_s'] * 1e3:.1f} ms a step, peak {a2['peak_gib']:.2f} "
+          f"GiB; S=2048 {a1['tok_s']:,.0f} tok/s, "
+          f"{a1['step_s'] * 1e3:.1f} ms a step")
+    print(f"examples phase: {out['phase_s']:.2f} s, launches "
+          f"{out['launches']}")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -10220,9 +10652,18 @@ def main() -> int:
     # kernels across processes through CUDA IPC
     world = phase_world(torch, np, kernels, spec, kfrun)
     torch.cuda.empty_cache()
+
+    # 24. the reference's example entry points, in this process: long
+    # context at the flagship's width over four sp ranks, the 4-D
+    # trainer, the strategy tour and the serving demo
+    examples = phase_examples(torch, np, kernels, spec)
+    torch.cuda.empty_cache()
+    fwd_timing["ring_s8192"] = examples["ring_rows"]["timing"]["fwd"]
+    bwd_timing["ring_s8192"] = {
+        part: examples["ring_rows"]["timing"][part] for part in ("dq", "dkv")}
     paths = (train, train_fused, ssgd, zero2, zero3, replicas, elastic,
              host_engine, recover, gossip, adapt, sharded, pipeline, images,
-             kfrun, sentinel, world)
+             kfrun, sentinel, world, examples)
 
     def row(name, route, source, replaces, key, err, timing, others=None):
         extra = {k: timing[k] for k in ("plain_head_ms", "bound_fp32_ms",
@@ -10261,12 +10702,14 @@ def main() -> int:
             "ms", "wall_ms", "stacked_ms", "plain_ms", "library_ms",
             "bound_ms")})
         out["span_launches"] = world["launches"][key]
+        # phase 24's autotune probes, outside ``launches``
+        out["autotune_probe_launches"] = examples["probe_launches"][key]
         return out
 
     cu = "kungfu_tpu_torch/ops/cuda/csrc/"
     tri = "kungfu_tpu_torch/ops/triton/xent.py"
     other_flash = (("bert", "bert_s512"), ("ring_s512", "ring_s512"),
-                   ("ring_s1024", "ring_s1024"))
+                   ("ring_s1024", "ring_s1024"), ("ring_s8192", "ring_s8192"))
     pal = "kungfu_tpu/ops/pallas/"
     rows = [
         row("attention._fwd_kernel", "cuda", cu + "flash_fwd.cu",
@@ -10333,6 +10776,8 @@ def main() -> int:
     for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "xent_fwd",
                 "xent_bwd", "ring_rs", "ring_ag"):
         check(world["launches"][key] > 0, f"phase 23 never launched {key}")
+    for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(examples["launches"][key] > 0, f"phase 24 never launched {key}")
     print("details: " + json.dumps({
         "forward": fwd, "serve": serve, "train": train,
         "train_fused_head": train_fused, "ssgd_4_ranks": ssgd,
@@ -10349,6 +10794,7 @@ def main() -> int:
         "sentinel_flagship_3_peers": sentinel,
         "analysis_lint_verify": analysis,
         "world_bert_4_processes": world,
+        "examples_entry_points": examples,
         "ring_timing": ring_timing, "build": build,
         "flash_fwd_errors": fwd_errs, "flash_fwd_timing": fwd_timing,
         "flash_bwd_errors": bwd_errs, "flash_bwd_timing": bwd_timing,

@@ -19,16 +19,19 @@ backward as ``delta -= dlse`` (``_flash_pair_bwd``).  Dispatch is by the
 device of the tensors: a CPU tensor takes the plain versions, a CUDA
 tensor launches the kernels or raises — a failed build, a refused launch
 or a CUDA error never falls back to a plain version or to a library
-attention.
+attention.  A head narrower than the compiled dims (32, 64, 128) runs
+zero-padded to one of them where :data:`PADDED_HEAD_DIMS` names it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 import threading
 from typing import Callable, Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from kungfu_tpu_torch.ops.cuda import _build
@@ -289,12 +292,37 @@ class _Flash(torch.autograd.Function):
                                           ctx.causal), None)
 
 
+#: head dims that run zero-padded to a compiled dim on the card: the
+#: serving demo's 16-wide heads (``examples/serve_demo``: d_model 32 over
+#: 2 heads) pad to 64, a power of 4 times as wide, so the scale
+#: correction ``sqrt(64 / 16)`` = 2 is exact in bf16 and f32.  The
+#: reference's Pallas kernel takes the whole head dim as one block, so
+#: any ``D`` runs there
+PADDED_HEAD_DIMS = {16: 64}
+
+
+def _flash_padded(q, k, v, causal: bool, dp: int):
+    """``(O, lse)`` through heads zero-padded to ``dp``: the zero lanes
+    leave every q.k unchanged and give zero output lanes, and q scaled by
+    ``sqrt(dp / d)`` turns the kernels' ``1/sqrt(dp)`` into
+    ``1/sqrt(d)``; differentiable through the pad, scale and slice."""
+    d = q.shape[-1]
+    pad = (0, dp - d)
+    scale = float(math.isqrt(dp // d))
+    out, lse = _Flash.apply(F.pad(q * scale, pad), F.pad(k, pad),
+                            F.pad(v, pad), causal)
+    return out[..., :d], lse
+
+
 def _flash_pair(q, k, v, causal: bool):
     """``(O, lse)`` for ``[BH, S, D]``: plain versions on the CPU, the
-    kernels on CUDA."""
+    kernels on CUDA (a head of :data:`PADDED_HEAD_DIMS` padded)."""
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash attention runs on cuda or cpu, "
                          f"not {q.device}")
+    d = q.shape[-1]
+    if q.device.type == "cuda" and d in PADDED_HEAD_DIMS:
+        return _flash_padded(q, k, v, causal, PADDED_HEAD_DIMS[d])
     return _Flash.apply(q, k, v, causal)
 
 

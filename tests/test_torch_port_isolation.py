@@ -214,6 +214,46 @@ def _check_scanned(modules):
         assert path in PORT_FILES
 
 
+#: the reference's example entry points, one module each, and the
+#: in-process examples' shared helpers
+EXAMPLE_MODULES = ["kungfu_tpu_torch.examples." + name for name in (
+    "long_context", "shard_train", "strategy_tour", "serve_demo",
+    "torch_simple", "gns_elastic", "cifar_elastic", "gossip_train",
+    "shrink_survivors", "zero_shrink", "multislice_shrink",
+    "overlap_pipeline", "pp_demo", "adapt_interference", "_local")]
+
+
+class TestExampleModules:
+    def test_example_modules_are_scanned(self):
+        """Every example is in the AST scans above (no jax, nothing of
+        kungfu_tpu, triton only inside functions) and the fresh-import
+        check."""
+        _check_scanned(EXAMPLE_MODULES)
+
+    @pytest.mark.parametrize("module", EXAMPLE_MODULES,
+                             ids=lambda m: m.rsplit(".", 1)[1])
+    def test_import_leaves_the_environment(self, module):
+        """The reference's demos set ``KF_CHAOS_SPEC`` and the engine's
+        knobs at module top; the port's set them inside ``main()`` only,
+        so importing one changes no variable of ``os.environ``."""
+        code = (
+            "import importlib, os, sys\n"
+            f"sys.path.insert(0, {str(ROOT)!r})\n"
+            "before = dict(os.environ)\n"
+            f"mod = importlib.import_module({module!r})\n"
+            "after = dict(os.environ)\n"
+            "diff = sorted(k for k in set(before) | set(after)\n"
+            "              if before.get(k) != after.get(k))\n"
+            "assert not diff, diff\n"
+            "assert callable(getattr(mod, 'main', None)) or "
+            "mod.__name__.endswith('_local')\n"
+            "print('ENV-UNCHANGED')\n")
+        out = subprocess.run([sys.executable, "-c", code],
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode == 0, out.stderr
+        assert "ENV-UNCHANGED" in out.stdout
+
+
 class TestNativeBuild:
     def test_peer_runtime_modules_are_scanned(self):
         _check_scanned(PEER_RUNTIME_MODULES)
