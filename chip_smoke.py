@@ -134,22 +134,22 @@ Phases (any failed check exits non-zero before the result line):
              ``ZeroBoundary.commit_local`` with ring-buddy mirrors,
              ``StepSnapshot.commit``, ``PersistPlane.commit`` (period 0)
              and ``elastic_step``.  ``KF_CHAOS_SPEC`` kills old rank 3
-             (``mode=raise``) at its first engine collective of step 3;
+             (``mode=raise``) at its first engine collective of step 2;
              the survivors call ``recover_from_failure``, replay from
-             step 2 at three ranks for steps 3-5; a ``preempt:all``
-             clause fires at ``elastic_step``'s announcement of step 5,
+             step 1 at three ranks for steps 2-3; a ``preempt:all``
+             clause fires at ``elastic_step``'s announcement of step 3,
              and two fresh peers with ``KF_PERSIST_RESTORE=1`` agree on
-             the step-5 manifest, restore their shares and take step 6.
+             the step-3 manifest, restore their shares and take step 4.
              Checks: (a) each survivor's ``PeerFailureError`` names rank
              3 within the peer deadline plus slack, every thread join
              bounded; (b) three peers at cluster version 1 with one
              digest, the shrunk cluster on the config server; (c) the
-             agreed replay step 2, its params bitwise step 2's; (d) the
-             re-carved momentum bitwise the step-2 state repadded into
+             agreed replay step 1, its params bitwise step 1's; (d) the
+             re-carved momentum bitwise the step-1 state repadded into
              three chunks (rank 3's chunk from its ring buddy); (e)
-             steps 3-5 bitwise a fixed world of three fresh peers; (f)
-             the manifest's state bitwise step 5's repadded into two
-             chunks, and step 6 bitwise a fixed two-rank world; (g) exact
+             steps 2-3 bitwise a fixed world of three fresh peers; (f)
+             the manifest's state bitwise step 3's repadded into two
+             chunks, and step 4 bitwise a fixed two-rank world; (g) exact
              launches every step; (h) finite, falling loss.  Step ms at
              4, 3 and 2 ranks split into grads, D2H, reduce-scatter,
              update, all-gather and commits; detection, ping sweep,
@@ -529,6 +529,21 @@ Phases (any failed check exits non-zero before the result line):
              (``EX_SERVE_ARGS``): no request lost through the chaos
              kill, a replay equal to greedy decoding through the flash
              forward (16-wide heads zero-padded to 64).
+25. cluster — the compose-style elastic cluster:
+             ``scripts/cluster_torch.py`` at the reference harness's
+             defaults (an external config server, a watch runner on each
+             of 127.0.0.1 and 127.0.0.2 with two slots, ``elastic_mnist``
+             through ``2:3,4:3,2:3``) with ``--backend gpu``, in a
+             session of its own under a 120 s limit: exit 0, its JSON
+             line ``ok`` with sizes [2, 4], the runner of 127.0.0.2 at 0,
+             2 and 0 workers a stage, every worker's params on
+             ``cuda:0``, rank 0's loss falling, and no process of the
+             cluster alive afterwards; the card's memory in use before
+             and at its peak.  No kernel of rows 1-10 launches there (the
+             SLP's loss takes the plain path).  A failure names the
+             phase and stage and prints the harness's output, the tails
+             of the server's and runners' logs and the card's memory in
+             use before the ``FAIL:`` line.
 
 Phase 3 also holds the ring reduce-scatter and all-gather kernels
 bitwise against their plain versions, at the main path's shapes (a
@@ -546,7 +561,8 @@ cluster, where dh and dW take the SIMT kernels) each run in a process
 of their own (``python3 chip_smoke.py --lm-head-case NAME``), all
 started together, so that a kernel that hangs or faults names its case.
 
-Each path's launches are counted from zero just before it runs.  It
+Each path's launches are counted from zero just before it runs.  Each
+phase starts with a ``phase <n> <name>: start <time>`` line.  It
 prints a ``kernels`` JSON line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Imports neither jax nor kungfu_tpu.
 """
@@ -682,9 +698,9 @@ MONITOR_STEPS = 5
 GNS_SQ_RTOL = 1e-3
 GNS_RTOL = 1e-2
 #: phase 12: main-path steps of the host engine before the two strategy
-#: swaps (cut from 6 to make room for phase 24, then to 3); ZeRO-2's host
-#: bucket (columns a rank) and (c)'s slice
-HOST_STEPS = 3
+#: swaps (cut from 6 to make room for phase 24, then to 3, and to 2 for
+#: phase 25); ZeRO-2's host bucket (columns a rank) and (c)'s slice
+HOST_STEPS = 2
 HOST_BUCKET = 1 << 20
 HOST_SLICE_BYTES = 16 << 20
 #: phase 12's params after one step against the device-plane S-SGD step,
@@ -3211,15 +3227,16 @@ def _host_engine_steps(torch, np, kernels, E, engines, model, params, batch,
 
 
 #: phase 13: sgd on the host plane's ZeRO-2 step through a kill, a shrink
-#: and a cold restore.  Steps 1-2 run at four ranks; old rank 3 dies in
-#: mode=raise at its first engine collective of step 3; the survivors
-#: replay from step 2 and run steps 3-5 at three ranks; a preempt:all
-#: clause fires at elastic_step's announcement of step 5, and two fresh
-#: peers restore the step-5 manifest and take step 6 (the kill was at
-#: step 4 before phase 24 needed the room)
+#: and a cold restore.  Step 1 runs at four ranks; old rank 3 dies in
+#: mode=raise at its first engine collective of step 2; the survivors
+#: replay from step 1 and run steps 2-3 at three ranks; a preempt:all
+#: clause fires at elastic_step's announcement of step 3, and two fresh
+#: peers restore the step-3 manifest and take step 4 (the kill was at
+#: step 4, the preemption at 5 and the last step 6 before phases 24 and
+#: 25 needed the room)
 RECOVER_LR, RECOVER_MOMENTUM = 0.05, 0.9
 RECOVER_RANKS = (4, 3, 2)
-RECOVER_KILL_STEP, RECOVER_PREEMPT_STEP, RECOVER_LAST = 3, 5, 6
+RECOVER_KILL_STEP, RECOVER_PREEMPT_STEP, RECOVER_LAST = 2, 3, 4
 RECOVER_VICTIM = 3
 #: per-peer deadline of the phase's engine collectives (s): above the
 #: largest skew of a healthy step (rank 0 waits out its params manifest
@@ -3365,10 +3382,10 @@ def phase_recover(torch, np, kernels, tr):
     params regathered by ``host_bucket_all_gather``; then
     ``ZeroBoundary.commit_local`` with ring-buddy mirrors,
     ``StepSnapshot.commit``, ``PersistPlane.commit`` (period 0), the
-    fence and ``elastic_step``.  Old rank 3 dies at step 3's first
-    engine collective; the survivors recover, replay from step 2 and run
-    steps 3-5; a whole-job preemption after step 5 ends the run, and two
-    fresh peers restore the step-5 manifest and take step 6.  Checks
+    fence and ``elastic_step``.  Old rank 3 dies at step 2's first
+    engine collective; the survivors recover, replay from step 1 and run
+    steps 2-3; a whole-job preemption after step 3 ends the run, and two
+    fresh peers restore the step-3 manifest and take step 4.  Checks
     (a)-(h) of the module docstring, each fatal."""
     import shutil
     import tempfile
@@ -4737,8 +4754,8 @@ SERVE_BASELINE_REQUESTS = 60
 #: seconds of load at the offered rate that measure each worker's
 #: decode cadence, from which the kills' steps are chosen
 SERVE_CALIBRATE_S = 3.0
-#: rank 1 dies at the tenth decode iteration of its first request in
-#: the timed load (two commits of four tokens made by then)
+#: rank 1 dies at the tenth decode iteration after the pair that hands it
+#: a request in the timed load (two commits of four tokens made by then)
 SERVE_KILL1_ITERATIONS = 10
 #: seconds of decoding at the busiest worker's measured cadence after
 #: which rank 2, the dispatch's first choice once slice 0 is out, dies
@@ -4996,25 +5013,26 @@ def _serve_slo(torch, np, model, params) -> dict:
         # handed the extra request of the pair below, and rank 2 decodes
         # all the traffic once slice 0 is out.  Where a worker does decode
         # at the offered rate (a slower host), its measured cadence
-        # carries it past the pre-kill window first.
+        # carries it past the pre-kill window first.  Rank 1's kill is
+        # armed when the pair arrives, at its own count then: on a host
+        # where it decodes through the pre-kill window faster than it did
+        # while calibrating, a step chosen here came before that window
+        # filled (19 of 30 requests on one slower H100 host)
         now = [m["n"] for m in meters]
         busiest = max(r_cal)
         t_pre = (SERVE_MIN_PRE + 10) * period + 2 * p50_cal
-        s1 = now[1] + int(r_cal[1] * t_pre) + SERVE_KILL1_ITERATIONS
         t_mid = t_pre + SERVE_DEADLINE_S + 1.0
         s2 = max(now[2] + int(r_cal[2] * t_mid),
                  now[3] + int(r_cal[3] * t_mid)) + int(
                      busiest * SERVE_KILL_GAP_S)
-        spec = (f"die:rank=1,step={s1},mode=raise;"
-                f"die_slice:slice=1,step={s2},mode=raise,rps=2")
-        out.update(s1=s1, s2=s2, chaos_spec=spec,
-                   calibrate_it_s=r_cal, p50_calibrate_s=p50_cal)
+        slice_kill = f"die_slice:slice=1,step={s2},mode=raise,rps=2"
+        out.update(s2=s2, calibrate_it_s=r_cal, p50_calibrate_s=p50_cal)
         print(f"serve (a): decode iterations/s at the offered rate "
               f"{[round(x, 1) for x in r_cal]}; e2e p50 {p50_cal * 1e3:.1f} "
-              f"ms; S1 {s1} (rank 1 at {now[1]}, {SERVE_KILL1_ITERATIONS} "
-              f"iterations past its cadence over {t_pre:.2f} s), S2 {s2} (ranks 2, 3 at {now[2]}, "
-              f"{now[3]}: {SERVE_KILL_GAP_S} s at {busiest:.1f} "
-              f"iterations/s); KF_CHAOS_SPEC={spec!r}")
+              f"ms; S1 rank 1's count when the pair arrives + "
+              f"{SERVE_KILL1_ITERATIONS} (rank 1 at {now[1]} now), S2 {s2} "
+              f"(ranks 2, 3 at {now[2]}, {now[3]}: {SERVE_KILL_GAP_S} s at "
+              f"{busiest:.1f} iterations/s after {t_mid:.2f} s)")
 
         reused0 = REGISTRY.counter("kf_serve_prefill_tokens_total",
                                    what="reused").value
@@ -5044,7 +5062,7 @@ def _serve_slo(torch, np, model, params) -> dict:
                                            if not h.done())
                 time.sleep(0.005)
 
-        os.environ["KF_CHAOS_SPEC"] = spec
+        os.environ["KF_CHAOS_SPEC"] = slice_kill
         sent = []  # (prompt, handle) as each submit returns
         submits = []
         # each arrival is submitted from a pool thread, as by a client of
@@ -5080,6 +5098,12 @@ def _serve_slo(torch, np, model, params) -> dict:
             if pair_at is None and sum(
                     1 for _, h in list(sent) if h.done()) \
                     >= SERVE_MIN_PRE + 5:
+                s1 = meters[1]["n"] + SERVE_KILL1_ITERATIONS
+                spec = f"die:rank=1,step={s1},mode=raise;{slice_kill}"
+                os.environ["KF_CHAOS_SPEC"] = spec
+                out.update(s1=s1, chaos_spec=spec)
+                print(f"serve (a): KF_CHAOS_SPEC={spec!r} as the pair "
+                      f"arrives")
                 # one extra arrival beside the regular one: the pair
                 # overlaps, so the dispatch hands one of them to rank 1
                 pair_at = now_t - t_load
@@ -6090,8 +6114,9 @@ PIPE_BATCH, PIPE_SEQ = 8, 1024
 PIPE_LR, PIPE_MOMENTUM = 0.05, 0.9
 PIPE_WIRE_MS = 30
 #: steps of each schedule, each from the same start; interleaved with
-#: two chunks a stage
-PIPE_STEPS = {"1f1b": 2, "sequential": 2, "interleaved": 2}
+#: two chunks a stage (two steps each before phase 25 needed the room;
+#: the momentum's second use is held in (b), after the slice kill)
+PIPE_STEPS = {"1f1b": 1, "sequential": 1, "interleaved": 1}
 PIPE_INTERLEAVE = 2
 #: the first loss against the one-rank flagship Transformer.loss on the
 #: same rows, and the first loss and reduced gradient against the same
@@ -6102,11 +6127,11 @@ PIPE_INTERLEAVE = 2
 PIPE_LOSS_RTOL = SHARDED_LOSS_RTOL
 PIPE_GRAD_REL_L2 = SHARDED_GRAD_REL_L2
 #: (b): slice 1 dies as step 2 begins (tests/test_pp.py:761's drill and
-#: its peer deadline: detection read 12.01-12.02 s); two steps at one
-#: stage after the re-carve
+#: its peer deadline: detection read 12.01-12.02 s); one step at one
+#: stage after the re-carve (two before phase 25 needed the room)
 PIPE_KILL_STEP = 2
 PIPE_DEADLINE_S = 12
-PIPE_AFTER_STEPS = 2
+PIPE_AFTER_STEPS = 1
 #: (c): tensor parallelism within each stage at the flagship's widths
 PIPE_TP_LAYERS = 4
 PIPE_TP_PLAN = dict(pp=2, dp=1, tp=2, n_micro=4)
@@ -10487,6 +10512,234 @@ def _examples(torch, kernels, spec, long_context, serve_demo, shard_train,
     return out
 
 
+#: phase 25: ``scripts/cluster_torch.py`` at the reference harness's
+#: defaults on the card: two loopback-alias hosts of two slots, two
+#: workers to start, 2 -> 4 -> 2, three steps a stage
+CLUSTER_ARGS = ["--hosts", "2", "--slots-per-host", "2", "--np", "2",
+                "--schedule", "2:3,4:3,2:3"]
+#: the harness's own limit (its --timeout, s), and the phase's on top:
+#: the harness's cleanup takes up to twice its 10 s kill grace
+CLUSTER_TIMEOUT_S = 120
+CLUSTER_DEADLINE_S = CLUSTER_TIMEOUT_S + 30
+CLUSTER_SIZES = [2, 4]
+#: each host's workers at v0, v1 and v2 (the runners' ``watching`` and
+#: ``stage`` lines): the grow lands on the host that started empty
+CLUSTER_LOCAL = {"127.0.0.1": [(0, 2), (1, 2), (2, 2)],
+                 "127.0.0.2": [(0, 0), (1, 2), (2, 0)]}
+#: lines of each log printed on a failure
+CLUSTER_TAIL = 40
+
+
+def _cluster_harness():
+    """``scripts/cluster_torch.py`` as a module (its log parsers and the
+    tagged-process helpers)."""
+    import importlib.util
+
+    path = os.path.join(HERE, "scripts", "cluster_torch.py")
+    spec = importlib.util.spec_from_file_location("cluster_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _read(path: str) -> str:
+    try:
+        with open(path, errors="replace") as f:
+            return f.read()
+    except OSError:
+        return ""
+
+
+def _event_wall(text: str, name: str):
+    m = re.search(r"event: " + re.escape(name) + r" \| wall=([\d.]+)", text)
+    return float(m.group(1)) if m else None
+
+
+def phase_cluster(torch) -> dict:
+    """Phase 25: the compose-style elastic cluster on the card.
+    ``scripts/cluster_torch.py`` (its own session) starts an external
+    config server and one watch runner on each of 127.0.0.1 and
+    127.0.0.2, whose ``elastic_mnist`` workers train on the card through
+    2 -> 4 -> 2.  Checks: exit 0 and the harness's JSON line (``ok``,
+    sizes [2, 4]); the runner of 127.0.0.2 starts with no worker, runs
+    two in the grown stage and none after the shrink; every worker's
+    params on ``cuda:0``; rank 0's last loss below its first; no process
+    of the cluster alive afterwards (each process group seen while it
+    ran, ``os.killpg(pgid, 0)``).  The card's memory in use is read
+    every 0.1 s.  A failure names its stage and prints the harness's
+    output and every log's tail before it raises."""
+    import shutil
+    import signal
+    import tempfile
+    import threading
+    import uuid
+
+    ct = _cluster_harness()
+    gib = 2 ** 30
+    t_phase = time.perf_counter()
+    free, total = torch.cuda.mem_get_info()
+    before = total - free
+    print(f"cluster memory before: {before / gib:.2f} of {total / gib:.2f} "
+          f"GiB in use, this process {torch.cuda.memory_allocated() / gib:.2f}"
+          f" GiB allocated and {torch.cuda.memory_reserved() / gib:.2f} "
+          f"reserved by PyTorch", flush=True)
+    root = tempfile.mkdtemp(prefix="kfc")
+    logdir = os.path.join(root, "logs")
+    tag = uuid.uuid4().hex
+    cmd = [sys.executable, os.path.join(HERE, "scripts", "cluster_torch.py"),
+           *CLUSTER_ARGS, "--backend", "gpu", "--logdir", logdir,
+           "--timeout", str(CLUSTER_TIMEOUT_S)]
+    env = dict(os.environ, **{ct.TAG_ENV: tag})
+    peak, groups, stop = [before], set(), threading.Event()
+
+    def poll():
+        while not stop.wait(0.1):
+            peak[0] = max(peak[0], total - torch.cuda.mem_get_info()[0])
+            groups.update(ct.process_groups(ct.tagged_pids(tag)))
+
+    poller = threading.Thread(target=poll, daemon=True)
+    hosts = sorted(CLUSTER_LOCAL)
+    res = {"out": "", "err": ""}
+
+    def fail(stage: str, msg: str):
+        print(f"phase 25 {stage}: the harness's stdout:\n{res['out']}\n"
+              f"its stderr:\n{res['err']}", file=sys.stderr)
+        for name in ["config-server.log"] + [f"runner-{h}.log"
+                                             for h in hosts]:
+            tail = _read(os.path.join(logdir, name)).splitlines()
+            print(f"phase 25 {stage}: the last {CLUSTER_TAIL} lines of "
+                  f"{name}:\n" + "\n".join(tail[-CLUSTER_TAIL:]),
+                  file=sys.stderr)
+        free = torch.cuda.mem_get_info()[0]
+        print(f"phase 25 {stage}: the card's memory in use "
+              f"{(total - free) / gib:.2f} of {total / gib:.2f} GiB",
+              file=sys.stderr)
+        raise SmokeFailure(f"phase 25 {stage}: {msg}")
+
+    proc = None
+    try:
+        t0 = time.time()
+        proc = subprocess.Popen(cmd, cwd=HERE, env=env, text=True,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE,
+                                start_new_session=True)
+        groups.add(proc.pid)
+        poller.start()
+        print(f"cluster: {' '.join(cmd[1:])}", flush=True)
+        try:
+            res["out"], res["err"] = proc.communicate(
+                timeout=CLUSTER_DEADLINE_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            res["out"], res["err"] = proc.communicate()
+            fail("run", f"the harness ran past {CLUSTER_DEADLINE_S} s")
+        wall_s = time.time() - t0
+        stop.set()
+        poller.join()
+        if proc.returncode != 0:
+            fail("exit", f"the harness exited {proc.returncode}")
+        lines = res["out"].strip().splitlines()
+        try:
+            result = json.loads(lines[-1])
+        except (IndexError, ValueError):
+            fail("result", "no JSON line last on the harness's stdout")
+        if not (result.get("ok") is True
+                and result.get("sizes_observed") == CLUSTER_SIZES):
+            fail("result", f"{result}, want ok and sizes {CLUSTER_SIZES}")
+        # each host's workers at every stage, from its runner's log
+        local = {h: ct.local_workers(_read(os.path.join(
+            logdir, f"runner-{h}.log"))) for h in hosts}
+        if local != CLUSTER_LOCAL:
+            fail("runners", f"workers a stage by host {local}, want "
+                 f"{CLUSTER_LOCAL}")
+        # the workers' own lines: where their params live, rank 0's loss
+        ups, steps, done = [], [], []
+        for h in hosts:
+            wdir = os.path.join(logdir, f"workers-{h}")
+            for name in sorted(os.listdir(wdir)) if os.path.isdir(wdir) \
+                    else []:
+                text = _read(os.path.join(wdir, name))
+                ups += re.findall(r"^worker (\d+)/(\d+) up \(v(\d+)\) on "
+                                  r"(\S+)$", text, re.M)
+                done += re.findall(r"^worker (\d+): done at step (\d+), "
+                                   r"sizes seen \[([\d, ]+)\]", text, re.M)
+                if h == hosts[0] and name == "worker-0.stdout.log":
+                    steps = [(int(s), int(n), float(x)) for s, n, x in
+                             re.findall(r"^step (\d+): size (\d+) loss "
+                                        r"(\S+)$", text, re.M)]
+        devices = sorted({d for *_, d in ups})
+        if len(ups) != 4 or devices != ["cuda:0"]:
+            fail("devices", f"worker up lines {ups}, want four on cuda:0")
+        if len(done) != 2 or any(s != "2, 4" for *_, s in done):
+            fail("done", f"finished workers {done}, want two that saw "
+                 f"sizes [2, 4]")
+        losses = [x for *_, x in steps]
+        if len(losses) < 2 or not all(math.isfinite(x) for x in losses) \
+                or not losses[-1] < losses[0]:
+            fail("loss", f"rank 0's losses {steps} do not fall")
+        # every process group of the cluster is gone
+        alive = []
+        for g in sorted(groups):
+            try:
+                os.killpg(g, 0)
+                alive.append(g)
+            except ProcessLookupError:
+                pass
+            except PermissionError:
+                alive.append(g)
+        if alive or ct.tagged_pids(tag):
+            fail("cleanup", f"process groups still alive {alive} of "
+                 f"{sorted(groups)}; tagged {ct.tagged_pids(tag)}")
+        # each stage's wall: rank 0's peer start and resizes, the end
+        rank0 = _read(os.path.join(logdir, f"workers-{hosts[0]}",
+                                   "worker-0.stderr.log"))
+        marks = [t0, _event_wall(rank0, "peer-started"),
+                 _event_wall(rank0, "cluster-resized-v1-n4"),
+                 _event_wall(rank0, "cluster-resized-v2-n2"), t0 + wall_s]
+        if None in marks:
+            fail("events", f"rank 0's events {marks}")
+        stage_s = dict(zip(("boot", "v0_size2", "v1_size4", "v2_size2"),
+                           [b - a for a, b in zip(marks, marks[1:])]))
+    finally:
+        stop.set()
+        if poller.is_alive():
+            poller.join()
+        if proc is not None and proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        for pid in ct.tagged_pids(tag):
+            try:
+                os.killpg(os.getpgid(pid), signal.SIGKILL)
+            except (ProcessLookupError, PermissionError):
+                pass
+        shutil.rmtree(root, ignore_errors=True)
+    out = {"wall_s": wall_s, "stage_s": stage_s, "sizes": CLUSTER_SIZES,
+           "local_workers": local, "losses": steps,
+           "process_groups": len(groups),
+           "memory_gib": {"before": before / gib, "peak": peak[0] / gib,
+                          "total": total / gib},
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"cluster: {len(hosts)} runners x 2 slots, "
+          f"{CLUSTER_ARGS[-1]}, harness {wall_s:.2f} s (stages "
+          f"{ {k: round(v, 2) for k, v in stage_s.items()} } s); "
+          f"sizes_observed {CLUSTER_SIZES}; workers a stage by host "
+          f"{local}; every worker on cuda:0; rank 0's losses {steps}; "
+          f"{len(groups)} process groups, none alive after")
+    print(f"cluster memory: the card's peak in use {peak[0] / gib:.2f} of "
+          f"{total / gib:.2f} GiB while the cluster ran, "
+          f"{(peak[0] - before) / 2 ** 20:.0f} MiB above the "
+          f"{before / gib:.2f} GiB before it")
+    print(f"cluster phase: {out['phase_s']:.2f} s")
+    return out
+
+
+def _stamp(n: int, name: str) -> None:
+    """The line that places a phase in the output: its number, its
+    name and the wall clock at its start."""
+    print(f"phase {n} {name}: start {time.strftime('%Y-%m-%d %H:%M:%S')}",
+          flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -10508,6 +10761,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # 1. probe
+    _stamp(1, "probe")
     name = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
     smi = nvidia_smi()
@@ -10519,9 +10773,11 @@ def main() -> int:
     check(spec is not None, f"no datasheet entry for {name!r}")
 
     # 2. build
+    _stamp(2, "build")
     build = build_all(torch, attention, lmk, ringk)
 
     # 3. kernels against their plain versions
+    _stamp(3, "kernels")
     t0 = time.perf_counter()
     fwd_errs, fwd_timing = phase_flash_forward(torch, attention, spec)
     bwd_errs, bwd_timing = phase_flash_backward(torch, attention, spec)
@@ -10533,6 +10789,7 @@ def main() -> int:
     print(f"kernels phase: {time.perf_counter() - t0:.2f} s")
 
     # 4. + 5. the forward and serving paths, without autograd graphs
+    _stamp(4, "forward")
     model = tr.Transformer(tr.TransformerConfig(**FLAGSHIP))
     t0 = time.perf_counter()
     params = model.init(torch.Generator().manual_seed(0), device="cuda")
@@ -10542,6 +10799,7 @@ def main() -> int:
         0, FLAGSHIP["vocab_size"], size=(4, 256))).cuda()
     with torch.inference_mode():
         fwd = phase_forward(torch, attention, tr, model, params, ids)
+        _stamp(5, "serve")
         serve = phase_serve(torch, np, attention, model, params)
     del model, params
     torch.cuda.empty_cache()
@@ -10549,8 +10807,10 @@ def main() -> int:
     # 6. + 7. the training path, plain head then fused LM head; each
     # phase's peak memory is its own timed steps'
     kernels = (attention, xk, lmk, ringk)
+    _stamp(6, "train, plain head")
     train = phase_train(torch, np, kernels, tr, costmodel, spec, "plain")
     torch.cuda.empty_cache()
+    _stamp(7, "train, fused LM head")
     train_fused = phase_train(torch, np, kernels, tr, costmodel, spec, "fused")
     print(f"train, fused LM head against the plain head: "
           f"{train_fused['step_ms']:.2f} vs {train['step_ms']:.2f} ms/step, "
@@ -10558,8 +10818,10 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 8. + 9. the same step on four co-resident ranks: S-SGD, then ZeRO
+    _stamp(8, "S-SGD")
     ssgd, ssgd_p1 = phase_ssgd(torch, np, kernels, tr, train["losses"][0])
     torch.cuda.empty_cache()
+    _stamp(9, "ZeRO")
     zero2 = phase_zero(torch, np, kernels, tr, 2, ssgd_p1)
     torch.cuda.empty_cache()
     zero3 = phase_zero(torch, np, kernels, tr, 3, ssgd_p1)
@@ -10568,6 +10830,7 @@ def main() -> int:
 
     # 10. bert_base() on the same ranks: SMA, AdaptiveSGD, the monitors
     # and the autotune of the allreduce schedule
+    _stamp(10, "replicas")
     t0 = time.perf_counter()
     bert = _bert_build(torch, np, tr, kernels)
     replicas = phase_replicas(torch, np, kernels, tr, costmodel, spec, bert)
@@ -10575,12 +10838,14 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 11. ZeRO-2 through a live 4 -> 2 -> 4 resize of the same ranks
+    _stamp(11, "elastic")
     t0 = time.perf_counter()
     elastic = phase_elastic(torch, np, kernels, tr)
     print(f"elastic phase: {time.perf_counter() - t0:.2f} s")
     torch.cuda.empty_cache()
 
     # 12. the host engine: system.py's --backend host loop on bert_base()
+    _stamp(12, "host engine")
     host_engine = phase_host_engine(torch, np, kernels, tr, bert,
                                     replicas["gns"])
     print(f"host engine phase: {host_engine['phase_s']:.2f} s")
@@ -10588,17 +10853,20 @@ def main() -> int:
 
     # 13. the peer runtime: a rank killed mid-collective, the survivors
     # shrunk and replayed, a whole-job preemption restored from manifests
+    _stamp(13, "recover")
     recover = phase_recover(torch, np, kernels, tr)
     print(f"recover phase: {recover['wall_s']:.2f} s")
     torch.cuda.empty_cache()
 
     # 14. pair-averaging gossip on bert_base() over four peers
+    _stamp(14, "gossip")
     gossip = phase_gossip(torch, np, kernels, tr, bert)
     print(f"gossip phase: {gossip['phase_s']:.2f} s")
     torch.cuda.empty_cache()
 
     # 15. the adaptation plane: the device bandit on bert_base()'s S-SGD
     # steps, the host bandit and the interference driver under chaos
+    _stamp(15, "adapt")
     adapt = phase_adapt(torch, np, kernels, tr, bert)
     print(f"adapt phase: {adapt['phase_s']:.2f} s")
     del bert
@@ -10607,28 +10875,33 @@ def main() -> int:
     # 16. the serving plane on the flagship: six workers and a router
     # through a worker kill and a slice kill, the autoscale loop over the
     # live aggregator, a warm KV cache across a cold restart
+    _stamp(16, "serve plane")
     serve_plane = phase_serve_plane(torch, np, attention, tr)
     torch.cuda.empty_cache()
 
     # 17. the in-mesh 4-D plan: the flagship over sixteen co-resident
     # ranks, f32 at the reference's tolerances, ring attention alone, MoE
+    _stamp(17, "sharded")
     sharded = phase_sharded(torch, np, kernels, tr, spec)
     print(f"sharded phase: {sharded['phase_s']:.2f} s")
     torch.cuda.empty_cache()
 
     # 18. the cross-host pipeline: the flagship over two emulated slices
     # of two peers, three schedules, a slice kill re-carved, tp in a stage
+    _stamp(18, "pipeline")
     pipeline = phase_pipeline(torch, np, kernels, tr, spec)
     torch.cuda.empty_cache()
 
     # 19. the image models and the data plane: ResNet-50 S-SGD on one and
     # four ranks, f32 card vs CPU, ImageNet/MNIST through prefetch, VGG-16
+    _stamp(19, "images")
     images = phase_images(torch, np, kernels, spec)
     torch.cuda.empty_cache()
 
     # 20. the launcher: bert_base() in four worker processes under
     # `python -m kungfu_tpu_torch -monitor`, then a real worker death
     # relaunched from the epoch checkpoint by -auto-recover
+    _stamp(20, "launcher")
     kfrun = phase_kfrun(torch, np, kernels)
     torch.cuda.empty_cache()
 
@@ -10636,11 +10909,13 @@ def main() -> int:
     # step-time regression caught online and replayed offline, the
     # decision ledger, the recompile watermark, device_trace and kftrace,
     # the torch shim
+    _stamp(21, "sentinel")
     sentinel = phase_sentinel(torch, np, kernels, tr)
     torch.cuda.empty_cache()
 
     # 22. the port's kf-lint and kf-verify over this checkout and over a
     # copy with one planted fault per rule family; no kernel launches
+    _stamp(22, "analysis")
     analysis = phase_analysis()
     # phase 23's four workers share the card with this process: let go of
     # what the earlier phases' cycles still hold
@@ -10650,14 +10925,25 @@ def main() -> int:
     # 23. the multi-process device world: bert_base() in four worker
     # processes of one provisioned world, re-carved 2 -> 4 -> 2, the ring
     # kernels across processes through CUDA IPC
+    _stamp(23, "world")
     world = phase_world(torch, np, kernels, spec, kfrun)
     torch.cuda.empty_cache()
 
     # 24. the reference's example entry points, in this process: long
     # context at the flagship's width over four sp ranks, the 4-D
     # trainer, the strategy tour and the serving demo
+    _stamp(24, "examples")
     examples = phase_examples(torch, np, kernels, spec)
     torch.cuda.empty_cache()
+
+    # 25. the compose-style elastic cluster: scripts/cluster_torch.py's
+    # config server and two watch runners, elastic_mnist on the card
+    # through 2 -> 4 -> 2; four more CUDA contexts share the card with
+    # this process, so let go of what the earlier phases still hold
+    gc.collect()
+    torch.cuda.empty_cache()
+    _stamp(25, "cluster")
+    cluster = phase_cluster(torch)
     fwd_timing["ring_s8192"] = examples["ring_rows"]["timing"]["fwd"]
     bwd_timing["ring_s8192"] = {
         part: examples["ring_rows"]["timing"][part] for part in ("dq", "dkv")}
@@ -10795,6 +11081,7 @@ def main() -> int:
         "analysis_lint_verify": analysis,
         "world_bert_4_processes": world,
         "examples_entry_points": examples,
+        "cluster_compose_2_hosts": cluster,
         "ring_timing": ring_timing, "build": build,
         "flash_fwd_errors": fwd_errs, "flash_fwd_timing": fwd_timing,
         "flash_bwd_errors": bwd_errs, "flash_bwd_timing": bwd_timing,

@@ -39,12 +39,12 @@ def main(argv=None) -> int:
     peer = kf.init()
     device = peer.device()
     rank = kf.current_rank()
-    print(f"worker {rank}/{kf.cluster_size()} up (v{peer.cluster_version})",
-          flush=True)
-
     model = mnist_slp()
     params = model.init(torch.Generator().manual_seed(7 + rank),
                         device=device)
+    # the reference's line, and the device the worker's params live on
+    print(f"worker {rank}/{kf.cluster_size()} up (v{peer.cluster_version}) "
+          f"on {params['dense_0']['w'].device}", flush=True)
     params = broadcast_parameters(params, peer)
 
     x, y = synthetic_mnist()

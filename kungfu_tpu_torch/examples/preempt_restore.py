@@ -139,8 +139,11 @@ def _kfrun(np_, root: str, n_steps: int, backend: str,
            "-np", str(np_), "-restore-from", root]
     if chaos_spec:
         cmd += ["-chaos", chaos_spec]
-    cmd += [sys.executable, "-m", "kungfu_tpu_torch.examples.preempt_restore",
-            "--worker", "--n-steps", str(n_steps)]
+    # the worker by path, as the reference's demo names it: a ``-m``
+    # after the launcher's positional program can be read as an
+    # abbreviation of its ``-monitor`` option (ROADMAP C44)
+    cmd += [sys.executable, os.path.abspath(__file__), "--worker",
+            "--n-steps", str(n_steps)]
     print(f"demo: {' '.join(cmd[2:])}", flush=True)
     out = subprocess.run(cmd, capture_output=True, text=True, timeout=240)
     sys.stdout.write(out.stdout)

@@ -103,6 +103,8 @@ def watch_run(ns, cluster: Cluster, job: Job) -> int:
     initial = job.world if device_world else cluster.workers
     for w in initial.on_host(self_host):
         spawn(w, cluster, version)
+    _log.info("watching %s: %d local worker(s) at v%d", self_host,
+              len(cluster.workers.on_host(self_host)), version)
 
     stop = False
     job_done = False
@@ -189,12 +191,12 @@ def watch_run(ns, cluster: Cluster, job: Job) -> int:
                     return 1
                 continue
             seen_versions.add(new_version)
-            _log.info(
-                "stage v%d: %d -> %d workers", new_version, current.size(), new_cluster.size()
-            )
             chan.set_token(new_version)
             old_local = set(current.workers.on_host(self_host))
             new_local = set(new_cluster.workers.on_host(self_host))
+            _log.info("stage v%d: %d -> %d workers (%d -> %d on %s)",
+                      new_version, current.size(), new_cluster.size(),
+                      len(old_local), len(new_local), self_host)
             removed, added = world_local_changes(
                 old_local, new_local,
                 set(job.world.on_host(self_host)) if device_world else None)

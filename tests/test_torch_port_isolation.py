@@ -1,6 +1,7 @@
 """The port stands alone: no jax, nothing of kungfu_tpu, no silent CPU.
 
-* an AST scan: no module of kungfu_tpu_torch/, nor chip_smoke.py,
+* an AST scan: no module of kungfu_tpu_torch/, nor chip_smoke.py nor
+  the port's scripts (the cluster harness, the standalone launchers),
   imports ``jax`` or ``kungfu_tpu`` (whole module names:
   ``kungfu_tpu_torch`` itself starts with ``kungfu_tpu``), and none
   imports ``triton`` outside a function;
@@ -27,7 +28,12 @@ ROOT = Path(__file__).resolve().parents[1]
 #: scripts that drive the port on the card, outside its package
 PORT_SCRIPTS = [ROOT / "chip_smoke.py", ROOT / "scripts" / "flash_timing.py",
                 ROOT / "scripts" / "host_engine_timing.py",
-                ROOT / "scripts" / "serve_threads_timing.py"]
+                ROOT / "scripts" / "serve_threads_timing.py",
+                ROOT / "scripts" / "cluster_torch.py",
+                ROOT / "scripts" / "kflint_torch",
+                ROOT / "scripts" / "kfhist_torch",
+                ROOT / "scripts" / "kftop_torch",
+                ROOT / "scripts" / "kftrace_torch"]
 PORT_FILES = sorted((ROOT / "kungfu_tpu_torch").rglob("*.py")) + PORT_SCRIPTS
 PORT_MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
