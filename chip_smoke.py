@@ -14,21 +14,28 @@ Phases (any failed check exits non-zero before the result line):
              kernels compile at their first launch, in phase 3); the
              wgmma/TMA flash kernels must show no register spills in
              ptxas's report and HGMMA and UTMALDG instructions in their
-             SASS (``cuobjdump``), and so must the LM head's wgmma
-             forward, dh and dW kernels;
+             SASS (``cuobjdump``) at every compiled head width (32, 64,
+             96, 128, 256), and so must the LM head's wgmma forward, dh
+             and dW kernels; the build's wall seconds are printed;
 3. kernels — each kernel against its plain PyTorch version on the card,
              at the main path's shape and at the edge cases (for the
              flash kernels also a bf16 grid of sequence lengths around
-             their tile edges, head dims 32/64/128, causal and not, and
-             phase 17's ring rounds, the backward with a non-zero lse
-             cotangent; for the cross-entropy also phase 17 (a)'s
-             [16384, 32128]), with the tolerances below; timed (median
+             their tile edges, head dims 32/64/96/128/256 and the padded
+             16/48/80/160, causal and not, the padded widths in f32
+             too, one call of 70,000 batch-heads (two launches of
+             each kernel), a 257-wide head refused with a ValueError
+             that names the limit, and phase 17's ring rounds, the
+             backward with a non-zero lse cotangent; for the
+             cross-entropy also phase 17 (a)'s [16384, 32128]), with
+             the tolerances below; timed (median
              of CUDA-event windows) beside its plain version and one
              PyTorch library call, the flash forward at its three
              main-path shapes and dQ and dK/dV at the two training
              shapes, and all three without a mask at one BERT-base
              rank's [96, 512, 64], and at phase 17's ring rounds ([192,
-             512, 64] causal, [96, 1024, 64] without a mask), the
+             512, 64] causal, [96, 1024, 64] without a mask), and at
+             phase 26's [64, 2048, 80] (padded to 96) and [16, 2048,
+             256] causal beside SDPA on the unpadded call, the
              cross-entropy at the flagship's [8192, 32128] and BERT's
              [4096, 30528], with the host µs per launch;
 4. forward — the flagship forward (vocab 32128, d_model 768, 12 layers,
@@ -528,7 +535,7 @@ Phases (any failed check exits non-zero before the result line):
              ROADMAP C42), then ``serve_demo --tokens 96``
              (``EX_SERVE_ARGS``): no request lost through the chaos
              kill, a replay equal to greedy decoding through the flash
-             forward (16-wide heads zero-padded to 64).
+             forward (16-wide heads zero-padded to 32).
 25. cluster — the compose-style elastic cluster:
              ``scripts/cluster_torch.py`` at the reference harness's
              defaults (an external config server, a watch runner on each
@@ -544,6 +551,24 @@ Phases (any failed check exits non-zero before the result line):
              phase and stage and prints the harness's output, the tails
              of the server's and runners' logs and the card's memory in
              use before the ``FAIL:`` line.
+26. head widths — the port's entry points at two public models'
+             widths, from seed 0, four layers each: ``pythia_2p8b_w``
+             (vocab 50304, d_model 2560, 32 heads of 80, d_ff 10240; the
+             heads run zero-padded to the 96-wide kernels) and
+             ``pythia_1b_w`` (vocab 50304, d_model 2048, 8 heads of 256,
+             d_ff 8192), causal, RoPE, bf16.  For each: (a)
+             ``Transformer.apply`` at ``[4, 256]``, its logits against
+             ``KF_TPU_ATTN=xla`` within phase 4's tolerance; (b) an
+             ``InferenceEngine`` answering four greedy requests, each
+             token within phase 5's margin of the flash forward; (c)
+             phase 6's one-rank step at ``[2, 2048]`` (plain head, fused
+             cross-entropy, ``sgd(0.05, momentum=0.9)``), its first-step
+             gradients against the kernels' plain versions (5e-2
+             relative L2 per leaf but the q/k weights, phase 20's rule),
+             the loss falling over three steps.  Rows 1-3 launch exactly
+             four times a forward or a step in (a) and (c); each part's
+             ms and tokens/s, the card's memory in use before the phase
+             and at its peak.
 
 Phase 3 also holds the ring reduce-scatter and all-gather kernels
 bitwise against their plain versions, at the main path's shapes (a
@@ -828,7 +853,15 @@ def bound(spec, flops: float, nbytes: float) -> dict:
 #: dK/dV kernel): sequence lengths on both sides of the tile edges
 EDGE_SEQS = (1, 63, 65, 127, 129, 2047)
 EDGE_BH = (1, 12)
-EDGE_DIMS = (32, 64, 128)
+EDGE_DIMS = (32, 64, 96, 128, 256)
+#: widths between the compiled ones: the wrapper zero-pads them to the
+#: next compiled width and passes 1/sqrt of the unpadded width (16 -> 32,
+#: 48 -> 64 with a scale that is not a power of two, 80 -> 96, 160 ->
+#: 256); on the edge grid in bf16 and in f32
+EDGE_PADDED = (16, 48, 80, 160)
+#: one call over more batch-heads than a launch's grid takes (65535 on
+#: y): the C launchers run it as two launches of each kernel
+BIG_BH_SHAPE = (70000, 65, 64)
 #: the main-path shapes [BH, S, D] of the flash kernels and their mask:
 #: the serving forward, the one-rank training step, one of four
 #: co-resident ranks, and one BERT-base rank of phase 10 (8 x 512
@@ -842,22 +875,43 @@ FLASH_SHAPES = {"s256": (48, 256, 64, True),
                 # (c)'s bidirectional round (4 x 2 x 12 heads, 1024)
                 "ring_s512": (16 * 2 * 6, 512, 64, True),
                 "ring_s1024": (4 * 2 * 12, 1024, 64, False)}
-#: the backward's timed shapes: the two causal training shapes, BERT's
-#: and the ring's
+#: phase 26's attention at its two widths, [B * H, S, D] causal: Pythia
+#: 2.8B's 80-wide heads (run padded to 96) and Pythia 1B's 256-wide ones
+FLASH_SHAPES.update({"pythia_2p8b": (2 * 32, TRAIN_SEQ, 80, True),
+                     "pythia_1b": (2 * 8, TRAIN_SEQ, 256, True)})
+#: the backward's timed shapes: the two causal training shapes, BERT's,
+#: the ring's and phase 26's
 FLASH_BWD_SHAPES = ("s2048", "rank_s2048", "bert_s512", "ring_s512",
-                    "ring_s1024")
+                    "ring_s1024", "pythia_2p8b", "pythia_1b")
 
 
 def _edge_cases():
-    """(name, (BH, S, D), causal, input scale) of the bf16 edge grid, and
-    one case with q and k scaled by 8, so row maxima move across kv
-    blocks."""
-    cases = [(f"edge_bh{bh}_s{s}_d{d}_{'causal' if c else 'full'}",
-              (bh, s, d), c, 1.0)
-             for s in EDGE_SEQS for bh in EDGE_BH for d in EDGE_DIMS
+    """(name, (BH, S, D), dtype name, causal, input scale) of the edge
+    grid: bf16 at every compiled and padded width, f32 at the padded
+    widths, and one case with q and k scaled by 8, so row maxima move
+    across kv blocks."""
+    grid = ([("bfloat16", d) for d in sorted(EDGE_DIMS + EDGE_PADDED)]
+            + [("float32", d) for d in EDGE_PADDED])
+    cases = [(f"edge_{dt[:4]}_bh{bh}_s{s}_d{d}_{'causal' if c else 'full'}",
+              (bh, s, d), dt, c, 1.0)
+             for dt, d in grid for s in EDGE_SEQS for bh in EDGE_BH
              for c in (True, False)]
-    cases.append(("edge_x8_bh12_s2047_d64_causal", (12, 2047, 64), True, 8.0))
+    cases.append(("edge_x8_bh12_s2047_d64_causal", (12, 2047, 64),
+                  "bfloat16", True, 8.0))
     return cases
+
+
+def _flash_operands(torch, attention, gen, bh: int, s: int, d: int,
+                    n: int = 3):
+    """``n`` bf16 ``[bh, s, d]`` operands, the same zero-padded to the
+    compiled width the wrapper runs ``d`` at (contiguous, as the kernels
+    take them), and that width's scale."""
+    import torch.nn.functional as F
+
+    dp, scale = attention.kernel_head_dim(d)
+    ts = [torch.randn((bh, s, d), generator=gen, device="cuda"
+                      ).to(torch.bfloat16) for _ in range(n)]
+    return ts, [F.pad(t, (0, dp - d)).contiguous() for t in ts], dp, scale
 
 
 def host_us(torch, fn, calls: int = 200) -> float:
@@ -899,13 +953,20 @@ def phase_flash_forward(torch, attention, spec):
         ("ring_s1024_full", (4 * 2, 12, 1024, 64), torch.bfloat16, False),
         # phase 21's rank step
         ("p21_main", (P21_BATCH, 12, P21_SEQ, 64), torch.bfloat16, True),
+        # phase 26's widths: 80 runs padded to 96, 256 as it is
+        ("pythia_2p8b_main", (2, 32, TRAIN_SEQ, 80), torch.bfloat16, True),
+        ("pythia_1b_main", (2, 8, TRAIN_SEQ, 256), torch.bfloat16, True),
+        ("f32_d256", (1, 2, 100, 256), torch.float32, True),
+        ("f32_d96_noncausal", (1, 3, 130, 96), torch.float32, False),
+        # more batch-heads than one launch's grid: two launches
+        ("bh70000", (1, *BIG_BH_SHAPE), torch.bfloat16, True),
     ]
     cases = ([(n, sh, dt, c, 1.0) for n, sh, dt, c in cases]
-             + [(n, (1, *sh), torch.bfloat16, c, x)
-                for n, sh, c, x in _edge_cases()])
+             + [(n, (1, *sh), getattr(torch, dt), c, x)
+                for n, sh, dt, c, x in _edge_cases()])
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
-    worst = {"o_err": 0.0, "lse_err": 0.0}
+    worst = 0.0
     for name, (b, h, s, d), dtype, causal, x in cases:
         q, k, v = (torch.randn((b * h, s, d), generator=gen, device="cuda"
                                ) for _ in range(3))
@@ -927,43 +988,70 @@ def phase_flash_forward(torch, attention, spec):
         check(l_err <= l_tol, f"{name}: lse error {l_err} > {l_tol}")
         results[name] = {"o_err": o_err, "lse_err": l_err}
         if edge:
-            worst = {"o_err": max(worst["o_err"], o_err),
-                     "lse_err": max(worst["lse_err"], l_err)}
+            worst = max(worst, o_err / o_tol, l_err / l_tol)
+        elif name == "bh70000":
+            print(f"flash fwd bh70000: {attention.bh_chunks(b * h)} "
+                  f"(first batch-head, count) a launch")
         del q, k, v, out, lse, ref_o, ref_lse
+    # a head wider than the widest compiled one is refused on the card,
+    # never run through a plain version (ROADMAP C47)
+    wide = torch.zeros((1, 8, attention.MAX_HEAD_DIM + 1), device="cuda",
+                       dtype=torch.bfloat16)
+    try:
+        attention.flash_attention_with_lse(wide, wide, wide)
+    except ValueError as e:
+        check(str(attention.MAX_HEAD_DIM) in str(e),
+              f"the {wide.shape[-1]}-wide refusal does not name the limit: {e}")
+        print(f"flash fwd head dim {wide.shape[-1]}: refused ({e})")
+    else:
+        raise SmokeFailure(f"a {wide.shape[-1]}-wide head ran on the card")
     n_edge = len(_edge_cases())
-    print(f"flash fwd bf16 edges: {n_edge} cases (S {EDGE_SEQS} x BH "
-          f"{EDGE_BH} x D {EDGE_DIMS} x causal/full, and q, k x8 at "
-          f"[12, 2047, 64]): worst max|dO|={worst['o_err']:.3e} (tol "
-          f"{BF16_O_ATOL}), max|dlse|={worst['lse_err']:.3e} (tol "
-          f"{BF16_LSE_ATOL})")
+    print(f"flash fwd edges: {n_edge} cases (S {EDGE_SEQS} x BH {EDGE_BH} "
+          f"x causal/full at D {EDGE_DIMS} and padded {EDGE_PADDED} in bf16, "
+          f"the padded in f32, and q, k x8 at [12, 2047, 64]): the largest "
+          f"error used {worst:.3f} of its tolerance (bf16 O {BF16_O_ATOL}, "
+          f"lse {BF16_LSE_ATOL}; f32 {F32_ATOL})")
 
-    # timing at the main-path shapes (contiguous [BH, S, D]; warm L2)
+    # timing at the main-path shapes (contiguous [BH, S, D]; warm L2); a
+    # padded width's kernel runs on the padded operands, the plain version
+    # and SDPA on the unpadded ones
     timing = {}
     for label, (bh, s, d, causal) in FLASH_SHAPES.items():
-        q, k, v = (torch.randn((bh, s, d), generator=gen, device="cuda"
-                               ).to(torch.bfloat16) for _ in range(3))
+        (q, k, v), (qp, kp, vp), dp, scale = _flash_operands(
+            torch, attention, gen, bh, s, d)
         q4, k4, v4 = (t.view(1, bh, s, d) for t in (q, k, v))
-        ms = device_ms(torch, lambda: attention._launch(q, k, v, causal))
+        ms = device_ms(torch, lambda: attention._launch(qp, kp, vp, causal,
+                                                        scale))
         plain_ms = device_ms(torch, lambda: attention.flash_attention_reference(
             q, k, v, causal), iters=1, windows=5)
         library_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
             q4, k4, v4, is_causal=causal))
-        us = host_us(torch, lambda: attention._launch(q, k, v, causal))
+        us = host_us(torch, lambda: attention._launch(qp, kp, vp, causal,
+                                                      scale))
         # each (q, k) pair needs 4*D FLOPs (QK^T and PV): s(s+1)/2 pairs
         # a row block under the causal mask, s*s without; bytes are q, k,
-        # v read once, O written once (bf16), lse written (f32)
+        # v read once, O written once (bf16), lse written (f32).  The
+        # bound is the unpadded width's; a padded width's kernel does the
+        # work of its compiled width (bound_executed_ms)
         pairs = bh * (s * (s + 1) // 2 if causal else s * s)
         t = bound(spec, 4 * d * pairs, 4 * bh * s * d * 2 + bh * s * 4)
         timing[label] = {"ms": ms, "plain_ms": plain_ms,
                          "library_ms": library_ms, "host_us": us, **t}
+        pad_text = ""
+        if dp != d:
+            ex = bound(spec, 4 * dp * pairs, 4 * bh * s * dp * 2 + bh * s * 4)
+            timing[label].update(head_dim_run=dp,
+                                 bound_executed_ms=ex["bound_ms"])
+            pad_text = (f"; padded to {dp}: {dp / d - 1:.0%} more kernel "
+                        f"work, executed bound {ex['bound_ms']:.4f} ms")
         print(f"flash fwd timing {label} [{bh}, {s}, {d}] causal={causal}: "
               f"kernel {ms:.4f} "
               f"ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
               f"{t['bound_ms']:.4f} ms ({t['bound_by']}, "
               f"{t['bound_ms'] / ms:.1%} of it); "
               f"{t['flops'] / ms / 1e9:.1f} TFLOP/s; host {us:.1f} us per "
-              f"launch")
-        del q, k, v, q4, k4, v4
+              f"launch{pad_text}")
+        del q, k, v, qp, kp, vp, q4, k4, v4
     return results, timing
 
 
@@ -996,10 +1084,21 @@ def phase_flash_backward(torch, attention, spec):
          True),
         ("p21_main", (P21_BATCH, 12, P21_SEQ, 64), torch.bfloat16, True,
          False),
+        # a 48-wide head runs the D = 64 kernels with the scale
+        # 1/sqrt(48), not a power of two: dK through bf16(Q * scale)
+        ("bf16_d48_dk", (2, 4, 256, 48), torch.bfloat16, True, True),
+        # phase 26's widths, and the f32 kernels at the new widths
+        ("pythia_2p8b_main", (2, 32, TRAIN_SEQ, 80), torch.bfloat16, True,
+         False),
+        ("pythia_1b_main", (2, 8, TRAIN_SEQ, 256), torch.bfloat16, True,
+         False),
+        ("f32_d256", (1, 2, 100, 256), torch.float32, True, True),
+        ("f32_d96_noncausal", (1, 3, 130, 96), torch.float32, False, True),
+        ("bh70000", (1, *BIG_BH_SHAPE), torch.bfloat16, True, False),
     ]
     cases = ([(*c, 1.0) for c in cases]
-             + [(n, (1, *sh), torch.bfloat16, c, False, x)
-                for n, sh, c, x in _edge_cases()])
+             + [(n, (1, *sh), getattr(torch, dt), c, False, x)
+                for n, sh, dt, c, x in _edge_cases()])
     gen = torch.Generator(device="cuda").manual_seed(1)
     results = {}
     worst = 0.0
@@ -1043,10 +1142,11 @@ def phase_flash_backward(torch, attention, spec):
                          "dkv_err": _grad_err(got[1:], blocked[1:]),
                          "err_vs_autograd": e_auto}
         del q, k, v, do, leaves, out, lse, got, blocked, f32, ro, rl, auto
-    print(f"flash bwd bf16 edges: {len(_edge_cases())} cases (as the "
+    print(f"flash bwd edges: {len(_edge_cases())} cases (as the "
           f"forward's), the largest error used {worst:.3f} of its tolerance "
-          f"(vs blocked and vs autograd, {BF16_GRAD_RTOL} of max|grad|)")
-    check(worst <= 1.0, "a bf16 edge case exceeded its tolerance")
+          f"(vs blocked and vs autograd; bf16 {BF16_GRAD_RTOL} of max|grad|, "
+          f"f32 {F32_GRAD_ATOL_BLOCKED} and {F32_GRAD_ATOL_AUTOGRAD})")
+    check(worst <= 1.0, "an edge case exceeded its tolerance")
 
     # timing at the training shapes: each kernel alone, the plain
     # backward, and SDPA's backward (forward + backward less the forward)
@@ -1055,18 +1155,19 @@ def phase_flash_backward(torch, attention, spec):
     timing = {}
     for label in FLASH_BWD_SHAPES:
         bh, s, d, causal = FLASH_SHAPES[label]
-        q, k, v, do = (torch.randn((bh, s, d), generator=gen, device="cuda"
-                                   ).to(torch.bfloat16) for _ in range(4))
-        out, lse = attention._launch(q, k, v, causal)
+        (q, k, v, do), (qp, kp, vp, dop), dp, scale = _flash_operands(
+            torch, attention, gen, bh, s, d, n=4)
+        outp, lse = attention._launch(qp, kp, vp, causal, scale)
+        out = outp[..., :d]
         delta = (do.float() * out.float()).sum(-1)
         dq_ms = device_ms(torch, lambda: attention._launch_bwd_dq(
-            q, k, v, do, lse, delta, causal))
+            qp, kp, vp, dop, lse, delta, causal, scale))
         dkv_ms = device_ms(torch, lambda: attention._launch_bwd_dkv(
-            q, k, v, do, lse, delta, causal))
+            qp, kp, vp, dop, lse, delta, causal, scale))
         dq_us = host_us(torch, lambda: attention._launch_bwd_dq(
-            q, k, v, do, lse, delta, causal))
+            qp, kp, vp, dop, lse, delta, causal, scale))
         dkv_us = host_us(torch, lambda: attention._launch_bwd_dkv(
-            q, k, v, do, lse, delta, causal))
+            qp, kp, vp, dop, lse, delta, causal, scale))
         plain_ms = device_ms(
             torch, lambda: attention.flash_attention_backward_reference(
                 q, k, v, out, lse, do, causal), iters=1, windows=5)
@@ -1095,6 +1196,12 @@ def phase_flash_backward(torch, attention, spec):
             "dkv": {"ms": dkv_ms, "plain_ms": plain_ms,
                     "library_ms": library_ms, "host_us": dkv_us, **t_dkv},
         }
+        if dp != d:  # the padded kernels' work, at the compiled width
+            for part, n_prod, n_io in (("dq", 3, 5), ("dkv", 4, 6)):
+                ex = bound(spec, n_prod * 2 * dp * pairs,
+                           n_io * bh * s * dp * 2 + rows)
+                timing[label][part].update(head_dim_run=dp,
+                                           bound_executed_ms=ex["bound_ms"])
         print(f"flash bwd timing {label} [{bh}, {s}, {d}] causal={causal}: "
               f"dQ {dq_ms:.4f} ms "
               f"(bound {t_dq['bound_ms']:.4f}, {t_dq['bound_by']}, "
@@ -1107,7 +1214,8 @@ def phase_flash_backward(torch, attention, spec):
               f"{dkv_us:.1f} us per launch); plain backward {plain_ms:.4f} "
               f"ms; sdpa backward {library_ms:.4f} ms (fwd+bwd less fwd "
               f"{sdpa_fwd:.4f})")
-        del q, k, v, do, out, lse, delta, q4, k4, v4, do4
+        del q, k, v, do, qp, kp, vp, dop, outp, out, lse, delta, q4, k4, v4
+        del do4
     return results, timing
 
 
@@ -6658,9 +6766,9 @@ WGMMA_KERNELS = ("flash_fwd_bf16_wgmma_kernel",
                  "lm_head_fwd_wgmma_kernel",
                  "lm_head_bwd_dh_wgmma_kernel",
                  "lm_head_bwd_dw_wgmma_kernel")
-#: their instantiations: the flash kernels at D 32/64/128; the LM head's
-#: forward, dh and dW, each for f32 and bf16 W
-WGMMA_INSTANTIATIONS = 3 * 3 + 3 * 2
+#: their instantiations: the flash kernels at D 32/64/96/128/256; the LM
+#: head's forward, dh and dW, each for f32 and bf16 W
+WGMMA_INSTANTIATIONS = 3 * 5 + 3 * 2
 
 
 def _resnet_macs(model, hw: int) -> int:
@@ -8988,8 +9096,12 @@ def build_all(torch, attention, lmk, ringk) -> dict:
     check(all(k in names for k in WGMMA_KERNELS)
           and len(info["kernels"]) == WGMMA_INSTANTIATIONS,
           f"expected {WGMMA_INSTANTIATIONS} wgmma kernels (flash at D "
-          f"32/64/128; LM-head forward, dh and dW for f32 and bf16 W), "
-          f"found {names}")
+          f"32/64/96/128/256; LM-head forward, dh and dW for f32 and bf16 "
+          f"W), found {names}")
+    for d in (96, 256):  # the new widths: every flash kernel at both
+        for k in WGMMA_KERNELS[:3]:
+            check(any(k in fn and f"ILi{d}E" in fn for fn in info["kernels"]),
+                  f"no {k} at D = {d}")
     return info
 
 
@@ -10733,6 +10845,208 @@ def phase_cluster(torch) -> dict:
     return out
 
 
+#: phase 26: two public models' widths in the JAX package's
+#: TransformerConfig, depth cut to four layers (from 32 and 16), random
+#: weights from seed 0: Pythia-2.8B's (EleutherAI/pythia-2.8b
+#: config.json; Biderman et al. 2023, Table 1), whose 80-wide heads run
+#: zero-padded to the 96-wide kernels, and Pythia-1B's, whose heads are
+#: 256 wide.  Pythia's partial rotary (a quarter of each head) and
+#: parallel residual are not in the reference's Transformer: its full
+#: RoPE and sequential block stand in
+HEAD_WIDTH_MODELS = {
+    "pythia_2p8b_w": dict(vocab_size=50304, d_model=2560, n_heads=32,
+                          d_ff=10240),
+    "pythia_1b_w": dict(vocab_size=50304, d_model=2048, n_heads=8,
+                        d_ff=8192)}
+HEAD_WIDTH_COMMON = dict(n_layers=4, max_seq=TRAIN_SEQ, causal=True,
+                         pos="rope", dtype="bfloat16")
+#: (b): four greedy requests of these prompt lengths, 16 new tokens each
+HEAD_WIDTH_PROMPTS, HEAD_WIDTH_NEW = (17, 64, 150, 200), 16
+#: (c): phase 6's step at ids and targets [2, 2048], three steps
+HEAD_WIDTH_BATCH, HEAD_WIDTH_STEPS = 2, 3
+
+
+def _head_width_serve(torch, np, model, params) -> dict:
+    """(b): an ``InferenceEngine`` answers four greedy requests; each
+    token is held against full-context greedy decoding through the flash
+    forward (phase 5's margin)."""
+    from kungfu_tpu_torch.serve.engine import InferenceEngine
+
+    vocab = model.cfg.vocab_size
+    rng = np.random.default_rng(1)
+    prompts = {f"r{n}": rng.integers(0, vocab, size=n).tolist()
+               for n in HEAD_WIDTH_PROMPTS}
+    engine = InferenceEngine(model, params, max_batch=len(prompts),
+                             max_seq=512)
+    engine.warmup(prompt_lens=(max(HEAD_WIDTH_PROMPTS),))
+    done, steps = {}, 0
+    t0 = time.perf_counter()
+    for rid, toks in prompts.items():
+        engine.submit(rid, toks, HEAD_WIDTH_NEW)
+    while engine.pending_count or engine.active_count:
+        for ev in engine.step():
+            if ev["kind"] == "done":
+                done[ev["rid"]] = ev
+        steps += 1
+    wall = time.perf_counter() - t0
+    check(set(done) == set(prompts), f"completed {sorted(done)}")
+    for rid, ev in done.items():
+        check(len(ev["tokens"]) == HEAD_WIDTH_NEW,
+              f"{rid}: {len(ev['tokens'])} tokens, budget {HEAD_WIDTH_NEW}")
+    worst, exact, _ = _teacher_forced(
+        torch, model, params, [(prompts[r], done[r]["tokens"]) for r in done])
+    total = HEAD_WIDTH_NEW * len(done)
+    print(f"  (b) serve: {len(done)} requests, {steps} steps, "
+          f"{wall * 1e3:.1f} ms, {total / wall:.1f} generated tokens/s; vs "
+          f"full-context greedy {sum(exact)}/{len(exact)} requests "
+          f"identical, largest top-1 margin {worst:.3e} (tol "
+          f"{GREEDY_MARGIN})")
+    check(worst <= GREEDY_MARGIN, f"engine token loses to the greedy top-1 "
+          f"by {worst} > {GREEDY_MARGIN}")
+    return {"ms": wall * 1e3, "tokens_s": total / wall, "steps": steps,
+            "greedy_exact_requests": sum(exact), "greedy_worst_margin": worst}
+
+
+def _head_width_train(torch, np, kernels, tr, model, params) -> dict:
+    """(c): phase 6's one-rank step (flash, plain head, fused
+    cross-entropy, ``synchronous_sgd(sgd(0.05, momentum=0.9))``) at
+    ``[2, 2048]``: the first-step gradients against the kernels' plain
+    versions (phase 20's rule), exact launches a step, three steps of
+    falling loss."""
+    from kungfu_tpu_torch.comm.device import Communicator
+    from kungfu_tpu_torch.ops import xent
+    from kungfu_tpu_torch.optimizers import sgd, synchronous_sgd
+    from kungfu_tpu_torch.parallel.train import dp_train_step
+    from kungfu_tpu_torch.utils.tree import tree_flatten
+
+    cfg = model.cfg
+    rng = np.random.default_rng(0)
+    batch = tuple(torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(HEAD_WIDTH_BATCH, TRAIN_SEQ))).cuda()
+        for _ in range(2))
+    flash = kernels[0].make_flash_attn()
+
+    def loss_fn(p, b):
+        logits = model.apply(p, b[0], train=True, attn_fn=flash)
+        return xent.softmax_cross_entropy(logits, b[1]).mean()
+
+    names = _leaf_names(params)
+    g_kern = tree_flatten(_grads(loss_fn, params, batch))[0]
+    loss_p, g_plain = _plain_loss_grads(torch, kernels, model, params, batch)
+    rel = _leaf_rel(dict(zip(names, g_kern)), dict(zip(names, g_plain)),
+                    qk_apart=True)
+    print(f"  (c) first-step gradients vs the plain versions: "
+          f"{_rel_text(rel)} (tol {KFRUN_GRAD_REL_L2} but q/k, C10)")
+    check(all(bool(torch.isfinite(g).all()) for g in g_kern),
+          "non-finite gradients")
+    check(rel["worst"] <= KFRUN_GRAD_REL_L2,
+          f"gradient of {rel['leaf']} differs from the plain versions' by "
+          f"{rel['worst']} > {KFRUN_GRAD_REL_L2}")
+    del g_kern, g_plain
+
+    comm = Communicator(devices=["cuda:0"])
+    tx = synchronous_sgd(sgd(0.05, momentum=0.9), comm.axis)
+    step = dp_train_step(loss_fn, tx, comm)
+    p, o = params, tx.init(params)
+    want = {k: 0 for k in _counts(kernels)}
+    want.update(flash_fwd=cfg.n_layers, flash_bwd_dq=cfg.n_layers,
+                flash_bwd_dkv=cfg.n_layers, xent_fwd=1, xent_bwd=1)
+    losses, times, launches = [], [], dict.fromkeys(want, 0)
+    for i in range(HEAD_WIDTH_STEPS):
+        _reset(kernels)
+        t0 = time.perf_counter()
+        p, o, loss = step(p, o, batch)
+        losses.append(float(loss))  # synchronises
+        times.append((time.perf_counter() - t0) * 1e3)
+        per_step = _counts(kernels)
+        check(per_step == want, f"step {i} launched {per_step}, expected "
+              f"{want}")
+        launches = {k: launches[k] + per_step[k] for k in want}
+    print(f"  (c) first loss {losses[0]:.6f}, through the plain versions "
+          f"{float(loss_p):.6f}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"loss did not fall over {HEAD_WIDTH_STEPS} steps: {losses}")
+    step_ms = statistics.median(times[1:])
+    toks = HEAD_WIDTH_BATCH * TRAIN_SEQ / (step_ms / 1e3)
+    print(f"  (c) train: losses {[round(x, 4) for x in losses]}, step ms "
+          f"{[round(t, 2) for t in times]} (median of steps 2-"
+          f"{HEAD_WIDTH_STEPS} {step_ms:.2f}), {toks:.0f} tokens/s; "
+          f"launches a step {want}")
+    return {"launches": launches, "losses": losses, "loss_plain":
+            float(loss_p), "grad_rel": rel, "step_ms": step_ms,
+            "step_ms_all": times, "tokens_s": toks}
+
+
+def phase_head_widths(torch, np, kernels, tr) -> dict:
+    """Phase 26: the forward, the serving engine and the training step
+    at Pythia-2.8B's and Pythia-1B's widths (``HEAD_WIDTH_MODELS``)."""
+    import threading
+
+    attention = kernels[0]
+    gib = 2 ** 30
+    t_phase = time.perf_counter()
+    free, total = torch.cuda.mem_get_info()
+    peak, stop = [total - free], threading.Event()
+    print(f"head widths memory before: {(total - free) / gib:.2f} of "
+          f"{total / gib:.2f} GiB in use, this process "
+          f"{torch.cuda.memory_allocated() / gib:.2f} GiB allocated and "
+          f"{torch.cuda.memory_reserved() / gib:.2f} reserved by PyTorch; "
+          f"{nvidia_smi()}", flush=True)
+
+    def poll():
+        while not stop.wait(0.05):
+            peak[0] = max(peak[0], total - torch.cuda.mem_get_info()[0])
+
+    poller = threading.Thread(target=poll, daemon=True)
+    poller.start()
+    out = {"launches": dict.fromkeys(_counts(kernels), 0), "models": {},
+           "mem_before_gib": (total - free) / gib}
+    try:
+        for name, widths in HEAD_WIDTH_MODELS.items():
+            t0 = time.perf_counter()
+            cfg = tr.TransformerConfig(**widths, **HEAD_WIDTH_COMMON)
+            model = tr.Transformer(cfg)
+            d = cfg.d_model // cfg.n_heads
+            dp, _ = attention.kernel_head_dim(d)
+            params = model.init(torch.Generator().manual_seed(0),
+                                device="cuda")
+            print(f"head widths {name}: d_model {cfg.d_model}, "
+                  f"{cfg.n_heads} heads of {d} (the kernels run {dp}), "
+                  f"{cfg.n_layers} layers, d_ff {cfg.d_ff}, vocab "
+                  f"{cfg.vocab_size}", flush=True)
+            ids = torch.from_numpy(np.random.default_rng(0).integers(
+                0, cfg.vocab_size, size=(4, 256))).cuda()
+            with torch.inference_mode():
+                fwd = phase_forward(torch, attention, tr, model, params, ids)
+                print(f"  (a) forward: {fwd['ms']:.3f} ms, "
+                      f"{fwd['tokens_s']:.0f} tokens/s, logits vs xla "
+                      f"{fwd['logits_err']:.3e}")
+                serve = _head_width_serve(torch, np, model, params)
+            train = _head_width_train(torch, np, kernels, tr, model, params)
+            out["launches"]["flash_fwd"] += fwd["launches"]
+            for k, n in train["launches"].items():
+                out["launches"][k] += n
+            out["models"][name] = {"head_dim": d, "head_dim_run": dp,
+                                   "forward": fwd, "serve": serve,
+                                   "train": train,
+                                   "wall_s": time.perf_counter() - t0}
+            print(f"head widths {name}: {out['models'][name]['wall_s']:.2f}"
+                  f" s", flush=True)
+            del model, params, ids
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        stop.set()
+        poller.join()
+    out["mem_peak_gib"] = peak[0] / gib
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"head widths phase: {out['phase_s']:.2f} s; the card's memory in "
+          f"use {out['mem_before_gib']:.2f} GiB before, "
+          f"{out['mem_peak_gib']:.2f} at its peak (read every 50 ms); "
+          f"launches {out['launches']}")
+    return out
+
+
 def _stamp(n: int, name: str) -> None:
     """The line that places a phase in the output: its number, its
     name and the wall clock at its start."""
@@ -10944,12 +11258,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     _stamp(25, "cluster")
     cluster = phase_cluster(torch)
+
+    # 26. the port's entry points at Pythia-2.8B's and Pythia-1B's widths:
+    # 80-wide heads padded to the 96-wide kernels, 256-wide heads
+    gc.collect()
+    torch.cuda.empty_cache()
+    _stamp(26, "head widths")
+    head_widths = phase_head_widths(torch, np, kernels, tr)
     fwd_timing["ring_s8192"] = examples["ring_rows"]["timing"]["fwd"]
     bwd_timing["ring_s8192"] = {
         part: examples["ring_rows"]["timing"][part] for part in ("dq", "dkv")}
     paths = (train, train_fused, ssgd, zero2, zero3, replicas, elastic,
              host_engine, recover, gossip, adapt, sharded, pipeline, images,
-             kfrun, sentinel, world, examples)
+             kfrun, sentinel, world, examples, head_widths)
 
     def row(name, route, source, replaces, key, err, timing, others=None):
         extra = {k: timing[k] for k in ("plain_head_ms", "bound_fp32_ms",
@@ -10958,7 +11279,8 @@ def main() -> int:
         # the same kernel at other main-path shapes: phase 10's, phase 17's
         for label, other in (others or {}).items():
             extra.update({f"{label}_{k}": other[k] for k in (
-                "ms", "plain_ms", "bound_ms", "library_ms", "host_us")})
+                "ms", "plain_ms", "bound_ms", "library_ms", "host_us",
+                "head_dim_run", "bound_executed_ms") if k in other})
         return {"name": name, "route": route, "source": source,
                 "replaces": replaces,
                 "launches": (fwd["launches"] + serve["launches"]
@@ -10995,7 +11317,8 @@ def main() -> int:
     cu = "kungfu_tpu_torch/ops/cuda/csrc/"
     tri = "kungfu_tpu_torch/ops/triton/xent.py"
     other_flash = (("bert", "bert_s512"), ("ring_s512", "ring_s512"),
-                   ("ring_s1024", "ring_s1024"), ("ring_s8192", "ring_s8192"))
+                   ("ring_s1024", "ring_s1024"), ("ring_s8192", "ring_s8192"),
+                   ("pythia_2p8b", "pythia_2p8b"), ("pythia_1b", "pythia_1b"))
     pal = "kungfu_tpu/ops/pallas/"
     rows = [
         row("attention._fwd_kernel", "cuda", cu + "flash_fwd.cu",
@@ -11064,6 +11387,10 @@ def main() -> int:
         check(world["launches"][key] > 0, f"phase 23 never launched {key}")
     for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         check(examples["launches"][key] > 0, f"phase 24 never launched {key}")
+    for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "xent_fwd",
+                "xent_bwd"):
+        check(head_widths["launches"][key] > 0,
+              f"phase 26 never launched {key}")
     print("details: " + json.dumps({
         "forward": fwd, "serve": serve, "train": train,
         "train_fused_head": train_fused, "ssgd_4_ranks": ssgd,
@@ -11082,6 +11409,7 @@ def main() -> int:
         "world_bert_4_processes": world,
         "examples_entry_points": examples,
         "cluster_compose_2_hosts": cluster,
+        "head_widths_pythia_2p8b_1b": head_widths,
         "ring_timing": ring_timing, "build": build,
         "flash_fwd_errors": fwd_errs, "flash_fwd_timing": fwd_timing,
         "flash_bwd_errors": bwd_errs, "flash_bwd_timing": bwd_timing,

@@ -19,16 +19,24 @@ backward as ``delta -= dlse`` (``_flash_pair_bwd``).  Dispatch is by the
 device of the tensors: a CPU tensor takes the plain versions, a CUDA
 tensor launches the kernels or raises — a failed build, a refused launch
 or a CUDA error never falls back to a plain version or to a library
-attention.  A head narrower than the compiled dims (32, 64, 128) runs
-zero-padded to one of them where :data:`PADDED_HEAD_DIMS` names it.
+attention.
+
+Head widths: the kernels are compiled for :data:`COMPILED_HEAD_DIMS`
+(32, 64, 96, 128, 256).  On the card any other width up to
+:data:`MAX_HEAD_DIM` runs zero-padded to the next of them, with the
+scale ``1/sqrt(D)`` of the unpadded width passed to the launchers
+(:func:`kernel_head_dim`): zero lanes add zero to every q.k, and give
+zero output and gradient lanes, which are sliced off.  A wider head
+raises ``ValueError`` on the card; the reference's Pallas block takes
+any width that fits its memory (``ROADMAP.md`` C47).  The plain versions
+take the same optional ``scale``.
 """
 
 from __future__ import annotations
 
 import ctypes
-import math
 import threading
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -36,8 +44,13 @@ from torch.autograd.function import once_differentiable
 
 from kungfu_tpu_torch.ops.cuda import _build
 
-#: head dims the kernels are compiled for
-SUPPORTED_HEAD_DIMS = (32, 64, 128)
+#: head widths the kernels are compiled for
+COMPILED_HEAD_DIMS = (32, 64, 96, 128, 256)
+#: the widest head the kernels run (padded or not)
+MAX_HEAD_DIM = COMPILED_HEAD_DIMS[-1]
+#: batch-heads one kernel launch takes (the grid's y extent): the C
+#: launchers launch more in chunks of at most this many
+MAX_GRID_Y = 65535
 _NEG_INF = -1e30
 #: kv block of the plain blocked backward (any size gives the same sums
 #: up to f32 reassociation)
@@ -60,9 +73,28 @@ def reset_launch_counts() -> None:
             launch_counts[name] = 0
 
 
-def _count(name: str) -> None:
+def _count(name: str, n: int = 1) -> None:
     with _count_lock:
-        launch_counts[name] += 1
+        launch_counts[name] += n
+
+
+def kernel_head_dim(d: int) -> Tuple[int, float]:
+    """``(compiled width, scale)`` the kernels run a head of width ``d``
+    at: the narrowest compiled width at or above ``d`` (the rest zero
+    lanes) and ``1/sqrt(d)`` of the unpadded width.  Raises
+    ``ValueError`` past :data:`MAX_HEAD_DIM`."""
+    if d < 1 or d > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} is outside the flash kernels' range: "
+                         f"1 to {MAX_HEAD_DIM} (widths up to {MAX_HEAD_DIM} "
+                         f"run zero-padded to one of {COMPILED_HEAD_DIMS})")
+    return next(c for c in COMPILED_HEAD_DIMS if c >= d), 1.0 / (d ** 0.5)
+
+
+def bh_chunks(bh: int, limit: int = MAX_GRID_Y) -> List[Tuple[int, int]]:
+    """``(first batch-head, count)`` of each kernel launch a C launcher
+    makes for ``bh`` batch-heads: chunks of ``limit`` in order, the last
+    one short (the loop in ``kf_flash_fwd`` and the backward launchers)."""
+    return [(b0, min(limit, bh - b0)) for b0 in range(0, bh, limit)]
 
 
 def _load(source: str, signatures: Dict[str, int]) -> _build.Built:
@@ -95,14 +127,18 @@ def load_bwd() -> _build.Built:
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
-                              v: torch.Tensor, causal: bool = True
+                              v: torch.Tensor, causal: bool = True,
+                              scale: Optional[float] = None
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the forward kernel: ``(O, lse)`` for ``[..., S, D]``
     operands (``[BH, S, D]`` or ``[B, H, S, D]``); O in the input dtype,
     lse f32.  P is rounded to V's dtype before the PV product, as the
-    kernel does; the row sum uses the unrounded f32 P."""
+    kernel does; the row sum uses the unrounded f32 P.  ``scale``
+    defaults to ``1/sqrt(D)``; a padded head passes its unpadded width's."""
     s, d = q.shape[-2], q.shape[-1]
-    logits = (q.float() * (1.0 / (d ** 0.5))) @ k.float().transpose(-1, -2)
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    logits = (q.float() * scale) @ k.float().transpose(-1, -2)
     mask = None
     if causal:
         mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
@@ -117,15 +153,17 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
 
 
 def flash_attention_backward_reference(q, k, v, out, lse, dout, causal: bool,
-                                       block_k: int = BWD_BLOCK_K, delta=None
+                                       block_k: int = BWD_BLOCK_K, delta=None,
+                                       scale: Optional[float] = None
                                        ) -> Tuple[torch.Tensor, ...]:
     """Plain version of the backward kernels (the reference's
     ``_bwd_blocked``): ``(dq, dk, dv)`` in q's dtype for ``[BH, S, D]``
     operands, all arithmetic in f32, one kv block at a time.  ``delta``
     defaults to ``rowsum(dO * O)``; a caller with an lse cotangent passes
-    ``rowsum(dO * O) - dlse``."""
+    ``rowsum(dO * O) - dlse``.  ``scale`` as the forward's."""
     s, d = q.shape[-2], q.shape[-1]
-    scale = 1.0 / (d ** 0.5)
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
     qf, dof = q.float(), dout.float()
     if delta is None:
         delta = (dof * out.float()).sum(-1)
@@ -158,12 +196,14 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"flash attention takes float32 or bfloat16, "
                          f"got {q.dtype}")
-    if q.shape[-1] not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"head dim {q.shape[-1]} is not supported by the "
-                         f"flash kernel (supported: {SUPPORTED_HEAD_DIMS})")
+    d = q.shape[-1]
+    if d not in COMPILED_HEAD_DIMS:
+        kernel_head_dim(d)  # raises past MAX_HEAD_DIM
+        raise ValueError(f"head dim {d} is not a compiled width "
+                         f"{COMPILED_HEAD_DIMS}: pad it (kernel_head_dim)")
     if not (q.device == k.device == v.device):
         raise ValueError("q/k/v lie on different devices")
-    if q.shape[0] > 65535 or q.shape[1] == 0:
+    if q.shape[0] == 0 or q.shape[1] == 0:
         raise ValueError(f"unsupported shape {tuple(q.shape)}")
 
 
@@ -183,10 +223,14 @@ def _raise_on(lib, err: int, what: str) -> None:
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The forward kernel on contiguous, aligned ``[BH, S, D]`` operands."""
+            causal: bool, scale: Optional[float] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel on contiguous, aligned ``[BH, S, D]`` operands
+    of a compiled width; ``scale`` defaults to ``1/sqrt(D)``."""
     lib = load().lib
     bh, s, d = q.shape
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
     out = torch.empty_like(q)
     lse = torch.empty((bh, s), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -194,9 +238,9 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.kf_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), bh, s, d, int(bool(causal)),
-            int(q.dtype == torch.bfloat16), 1.0 / (d ** 0.5), stream)
+            int(q.dtype == torch.bfloat16), scale, stream)
     _raise_on(lib, err, "forward")
-    _count("flash_fwd")
+    _count("flash_fwd", len(bh_chunks(bh)))
     return out, lse
 
 
@@ -213,75 +257,86 @@ def _bwd_operands(q, dout, lse, delta):
 
 
 def _launch_bwd_kernel(name: str, q, k, v, dout, lse, delta, causal: bool,
-                       outs) -> None:
+                       outs, scale: Optional[float]) -> None:
     lib = load_bwd().lib
     bh, s, d = q.shape
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = getattr(lib, f"kf_{name}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
             bh, s, d, int(bool(causal)), int(q.dtype == torch.bfloat16),
-            1.0 / (d ** 0.5), stream)
+            scale, stream)
     _raise_on(lib, err, name)
-    _count(name)
+    _count(name, len(bh_chunks(bh)))
 
 
-def _launch_bwd_dq(q, k, v, dout, lse, delta, causal: bool) -> torch.Tensor:
+def _launch_bwd_dq(q, k, v, dout, lse, delta, causal: bool,
+                   scale: Optional[float] = None) -> torch.Tensor:
     """The dQ kernel on the forward's operands and prepared dout, lse,
-    delta (:func:`_bwd_operands`)."""
+    delta (:func:`_bwd_operands`); ``scale`` as :func:`_launch`'s."""
     dq = torch.empty_like(q)
-    _launch_bwd_kernel("flash_bwd_dq", q, k, v, dout, lse, delta, causal, (dq,))
+    _launch_bwd_kernel("flash_bwd_dq", q, k, v, dout, lse, delta, causal, (dq,),
+                       scale)
     return dq
 
 
-def _launch_bwd_dkv(q, k, v, dout, lse, delta, causal: bool
+def _launch_bwd_dkv(q, k, v, dout, lse, delta, causal: bool,
+                    scale: Optional[float] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The dK/dV kernel, operands as :func:`_launch_bwd_dq`."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch_bwd_kernel("flash_bwd_dkv", q, k, v, dout, lse, delta, causal,
-                       (dk, dv))
+                       (dk, dv), scale)
     return dk, dv
 
 
-def _launch_bwd(q, k, v, dout, lse, delta, causal: bool
+def _launch_bwd(q, k, v, dout, lse, delta, causal: bool,
+                scale: Optional[float] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The dQ kernel, then the dK/dV kernel."""
     dout, lse, delta = _bwd_operands(q, dout, lse, delta)
-    dq = _launch_bwd_dq(q, k, v, dout, lse, delta, causal)
-    return (dq, *_launch_bwd_dkv(q, k, v, dout, lse, delta, causal))
+    dq = _launch_bwd_dq(q, k, v, dout, lse, delta, causal, scale)
+    return (dq, *_launch_bwd_dkv(q, k, v, dout, lse, delta, causal, scale))
 
 
 def flash_attention_backward(q, k, v, out, lse, dout, dlse=None,
-                             causal: bool = True
+                             causal: bool = True,
+                             scale: Optional[float] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` of :func:`flash_attention_with_lse` for ``[BH, S, D]``
     operands: the plain version on the CPU, the kernels on CUDA.
     ``delta = rowsum(dO * O) - dlse`` is formed here, outside the kernels,
-    as the reference forms it outside its Pallas kernels."""
+    as the reference forms it outside its Pallas kernels.  ``scale``
+    defaults to ``1/sqrt(D)``."""
     delta = (dout.float() * out.float()).sum(-1)
     if dlse is not None:
         delta = delta - dlse.float()
     if q.device.type == "cpu":
         return flash_attention_backward_reference(q, k, v, out, lse, dout,
-                                                  causal, delta=delta)
-    return _launch_bwd(q, k, v, dout, lse, delta, causal)
+                                                  causal, delta=delta,
+                                                  scale=scale)
+    return _launch_bwd(q, k, v, dout, lse, delta, causal, scale)
 
 
 class _Flash(torch.autograd.Function):
     """``(O, lse)`` with the flash backward; the plain versions on CPU
-    tensors, the kernels on CUDA ones."""
+    tensors, the kernels on CUDA ones (at a compiled width).  ``scale``
+    defaults to ``1/sqrt(D)``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
+    def forward(ctx, q, k, v, causal, scale=None):
         if q.device.type == "cpu":
-            out, lse = flash_attention_reference(q, k, v, causal)
+            out, lse = flash_attention_reference(q, k, v, causal, scale)
         else:
             _check(q, k, v)
             q, k, v = (_operand(t) for t in (q, k, v))
-            out, lse = _launch(q, k, v, causal)
+            out, lse = _launch(q, k, v, causal, scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
+        ctx.scale = scale
         return out, lse
 
     @staticmethod
@@ -289,40 +344,34 @@ class _Flash(torch.autograd.Function):
     def backward(ctx, dout, dlse):
         q, k, v, out, lse = ctx.saved_tensors
         return (*flash_attention_backward(q, k, v, out, lse, dout, dlse,
-                                          ctx.causal), None)
-
-
-#: head dims that run zero-padded to a compiled dim on the card: the
-#: serving demo's 16-wide heads (``examples/serve_demo``: d_model 32 over
-#: 2 heads) pad to 64, a power of 4 times as wide, so the scale
-#: correction ``sqrt(64 / 16)`` = 2 is exact in bf16 and f32.  The
-#: reference's Pallas kernel takes the whole head dim as one block, so
-#: any ``D`` runs there
-PADDED_HEAD_DIMS = {16: 64}
+                                          ctx.causal, ctx.scale), None, None)
 
 
 def _flash_padded(q, k, v, causal: bool, dp: int):
-    """``(O, lse)`` through heads zero-padded to ``dp``: the zero lanes
-    leave every q.k unchanged and give zero output lanes, and q scaled by
-    ``sqrt(dp / d)`` turns the kernels' ``1/sqrt(dp)`` into
-    ``1/sqrt(d)``; differentiable through the pad, scale and slice."""
+    """``(O, lse)`` through heads zero-padded to ``dp`` with the scale
+    ``1/sqrt(D)`` of the unpadded width: the zero lanes leave every q.k
+    unchanged and give zero output lanes, which are sliced off; the
+    backward's dO is zero there, so ``rowsum(dO * O)`` is unchanged and
+    the zero lanes of dQ, dK and dV are sliced off too."""
     d = q.shape[-1]
     pad = (0, dp - d)
-    scale = float(math.isqrt(dp // d))
-    out, lse = _Flash.apply(F.pad(q * scale, pad), F.pad(k, pad),
-                            F.pad(v, pad), causal)
+    out, lse = _Flash.apply(F.pad(q, pad), F.pad(k, pad), F.pad(v, pad),
+                            causal, 1.0 / (d ** 0.5))
     return out[..., :d], lse
 
 
 def _flash_pair(q, k, v, causal: bool):
     """``(O, lse)`` for ``[BH, S, D]``: plain versions on the CPU, the
-    kernels on CUDA (a head of :data:`PADDED_HEAD_DIMS` padded)."""
+    kernels on CUDA, a width between the compiled ones zero-padded to the
+    next (:func:`kernel_head_dim`)."""
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash attention runs on cuda or cpu, "
                          f"not {q.device}")
     d = q.shape[-1]
-    if q.device.type == "cuda" and d in PADDED_HEAD_DIMS:
-        return _flash_padded(q, k, v, causal, PADDED_HEAD_DIMS[d])
+    if q.device.type == "cuda":
+        dp, _ = kernel_head_dim(d)
+        if dp != d:
+            return _flash_padded(q, k, v, causal, dp)
     return _Flash.apply(q, k, v, causal)
 
 

@@ -26,26 +26,35 @@
 // P to dO's dtype before P^T dO, dS and Q*scale to Q's dtype before
 // dS^T (Q*scale); every product accumulates in f32.
 //
-// f32 (dQ and dK/dV): four warps per CTA, 64-row tiles, each warp owning
-// 16 rows of the product it accumulates in registers across the whole
-// loop; P and dS pass through shared memory one 64x64 tile at a time and
-// never reach device memory.  Rows past S load as zeros and are masked
-// (no padding copies); lse and delta are plain [BH, S] vectors.  FMA on
-// the CUDA cores, never TF32.
+// Head widths: compiled for D in 32, 64, 96, 128 and 256; the wrapper
+// zero-pads any other width up to 256 to the next of them and passes the
+// scale of the unpadded width.  The pad lanes of Q, K, V and dO are zero,
+// so they add nothing to S or dP and their dQ, dK and dV lanes are zero.
+//
+// f32 (dQ and dK/dV): four warps per CTA, R-row tiles (R = 64, two lanes
+// to a row; R = 32 and four lanes to a row at D = 256, so that the tiles
+// fit shared memory and dK and dV a lane's registers), each lane group
+// owning a row of the product it accumulates in registers across the
+// whole loop; P and dS pass through shared memory one R x R tile at a
+// time and never reach device memory.  Rows past S load as zeros and are
+// masked (no padding copies); lse and delta are plain [BH, S] vectors.
+// FMA on the CUDA cores, never TF32.
 //
 // dQ bf16 (flash_bwd_dq_bf16_wgmma_kernel): warp-specialised wgmma and
 // TMA, q-major.  A CTA owns 128 q rows: two consumer warpgroups of 64
-// rows, with Q and dO resident in shared memory (one TMA load) and each
+// rows (one and 64 rows at D = 256, see hopper::WgPlan), with Q and dO
+// resident in shared memory (one TMA load) and each
 // thread's lse (times log2 e) and delta rows in registers.  The producer
-// warpgroup streams K and V tiles of 64 rows through a two-stage ring of
-// full/empty mbarriers, K and V on separate full barriers so that
-// S = Q K^T starts before V lands.  Per kv tile each consumer issues
-// S = Q K^T and dP = dO V^T by wgmma (operands K-major as stored), forms
+// warpgroup streams K and V tiles (64 rows at D <= 64, else 32) through
+// a two-stage ring of full/empty mbarriers, K and V on separate full
+// barriers so that S = Q K^T starts before V lands.  Per kv tile each
+// consumer issues S = Q K^T and dP = dO V^T by wgmma (operands K-major
+// as stored), forms
 // P = exp2(S scale log2 e - lse log2 e) in registers while dP is still in
 // flight, then dS = P (dP - delta), rounds it to bf16 in the accumulator
 // layout and feeds it as the register A operand of dQ += dS K, with K
 // (stored [kv, D]) MN-major through the transpose bit.  No score, P or
-// dS tile touches shared memory; dQ (16-64 f32 registers) stays in
+// dS tile touches shared memory; dQ (16-128 f32 registers) stays in
 // registers for the whole loop and is scaled once in the epilogue.  Masks
 // run only on a tile that crosses the diagonal or S; there kv >= S (K
 // zero-filled) and q >= S (lse read as 0) are masked explicitly.
@@ -53,10 +62,11 @@
 // dK/dV bf16 (flash_bwd_dkv_bf16_wgmma_kernel): warp-specialised wgmma
 // and TMA, kv-major from the start, so nothing is transposed through
 // shared memory.  A CTA owns 128 kv rows: two consumer warpgroups of 64
-// kv rows each, with K and V resident in shared memory (one TMA load).
-// The producer warpgroup streams Q and dO tiles (64 rows, 3-D tensor
-// maps over [BH, S, D]) and the matching lse and delta rows through a
-// two-stage ring of full/empty mbarriers.  Per q block each consumer
+// kv rows each (one and 64 rows at D = 256), with K and V resident in
+// shared memory (one TMA load).  The producer warpgroup streams Q and dO
+// tiles (64 rows, 32 at D = 256; 3-D tensor maps over [BH, S, D]) and
+// the matching lse and delta rows through a two-stage ring of
+// full/empty mbarriers.  Per q block each consumer
 // computes S^T = K Q^T and dP^T = V dO^T by wgmma (operands K-major as
 // stored), P^T = exp(S^T scale - lse) and dS^T = P^T (dP^T - delta) in
 // registers, then dV += P^T dO and dK += dS^T (Q scale) with bf16 P^T
@@ -65,12 +75,21 @@
 // starts at the q block holding the diagonal; no atomics.  Q rows past S
 // arrive zero-filled (and lse rows as 0), which would give P = 1, so a
 // block that crosses S masks q >= S explicitly.  bf16(Q scale) is exact
-// at D = 64 (scale 2^-3): the kernel feeds Q's tile and multiplies dK by
-// scale once; at D = 32 and 128 a producer warp pair writes the rounded
-// scaled copy of each Q tile and fences it to the async proxy.  At
-// D = 128 the grid has a z of 2: one CTA per kv block accumulates dV and
-// another dK (S^T is computed by both), since dK, dV, S^T and dP^T
-// together do not fit one thread's registers without spilling.
+// when the scale is a power of two (2^-3 at D = 64, 2^-4 at 256 unpadded),
+// which the launcher reads off the scale it is given: there the kernel
+// feeds Q's tile and multiplies dK by scale once; for any other scale (a
+// padded width's included) a producer warp pair writes the rounded
+// scaled copy of each Q tile and fences it to the async proxy, the
+// reference's rounding point.  From D = 96 on the grid has a z of 2: one
+// CTA per kv block accumulates dV and another dK (S^T is computed by
+// both), since dK, dV, S^T and dP^T together do not fit one thread's
+// registers without spilling; at D = 256 the streamed q tiles are 32
+// rows, as 64 would take K, V and two stages of Q, dO and Q scale over
+// the 227 KiB of shared memory.
+//
+// Batch-heads sit on the grid's y, so a launcher launches them in chunks
+// of at most 65535 (hopper::MAX_GRID_Y), each on its own slice of the
+// operands.
 //
 // The backward recomputes S the same way as flash_fwd.cu (the bf16
 // product of unscaled Q and K, f32 accumulate, times scale in f32), but
@@ -91,15 +110,14 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
 
 namespace {
 
-constexpr int BQ = 64;          // q rows per tile
-constexpr int BK = 64;          // kv rows per tile
-constexpr int NTHREADS = 128;   // four warps, 16 rows each
+constexpr int NTHREADS = 128;   // f32: four warps
 constexpr int KF_BAD_ARGS = -1;
 constexpr int KF_BAD_REGS = -3;
 constexpr float LOG2E = 1.4426950408889634f;
@@ -108,16 +126,16 @@ __host__ __device__ constexpr size_t round_up(size_t x, size_t a) {
   return (x + a - 1) / a * a;
 }
 
-// Rows [r0, r0 + 64) of a contiguous f32 [S, D] matrix into shared memory
+// Rows [r0, r0 + R) of a contiguous f32 [S, D] matrix into shared memory
 // with leading dimension LD, 16 bytes per thread per step, each element
 // multiplied by `scale` (scale 1 copies); rows past S are zero.
-template <typename T, int D, int LD>
+template <typename T, int D, int LD, int R>
 __device__ __forceinline__ void load_rows(T* dst, const T* __restrict__ src,
                                           int r0, int S, int tid,
                                           float scale = 1.f) {
   constexpr int EPV = 16 / sizeof(T);
   constexpr int VPR = D / EPV;
-  for (int i = tid; i < 64 * VPR; i += NTHREADS) {
+  for (int i = tid; i < R * VPR; i += NTHREADS) {
     const int r = i / VPR;
     const int c = (i % VPR) * EPV;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
@@ -140,18 +158,16 @@ __device__ __forceinline__ bool live(int qpos, int kpos, int S, int causal) {
 // ---------------------------------------------------------------- bf16 --
 
 template <int D>
-struct DqCfg {
-  static constexpr int BQ = 128;                 // q rows per CTA
-  // kv rows per streamed tile: at D = 128 the S and dP accumulators are
-  // halved, since with 64-row tiles they, dQ and the dS fragments made
-  // ptxas spill
-  static constexpr int BK = D == 128 ? 32 : 64;
+struct DqCfg : hopper::WgPlan<D == 256 ? 1 : 2> {
+  // consumer warpgroups: one at D = 256, where dQ alone is 128 registers
+  // a thread (hopper::WgPlan)
+  using hopper::WgPlan<D == 256 ? 1 : 2>::NWG;
+  static constexpr int BQ = 64 * NWG;            // q rows per CTA
+  // kv rows per streamed tile: from D = 96 on the S and dP accumulators
+  // are halved, since at D = 128 with 64-row tiles they, dQ and the dS
+  // fragments made ptxas spill
+  static constexpr int BK = D <= 64 ? 64 : 32;
   static constexpr int STAGES = 2;
-  static constexpr int THREADS = 384;            // producer + 2 consumers
-  static constexpr int ENTRY_REGS = 168;         // 65536 / 384, multiple of 8
-  static constexpr int PRODUCER_REGS = 24;
-  static constexpr int CONSUMER_REGS =
-      ENTRY_REGS + (ENTRY_REGS - PRODUCER_REGS) / 2;
   static constexpr int Q_BYTES = BQ * D * 2;
   static constexpr int KV_BYTES = BK * D * 2;
   static constexpr int DO_OFF = Q_BYTES;                     // Q at 0
@@ -161,6 +177,7 @@ struct DqCfg {
   // q_full, k_full[STAGES], v_full[STAGES], empty[STAGES]
   static constexpr int BYTES = BAR_OFF + (1 + 3 * STAGES) * 8 + 1024;
   static_assert(KV_BYTES % 1024 == 0, "alignment");
+  static_assert(BYTES <= 232448, "over the card's shared-memory opt-in");
 
   // shared-memory addresses from the 1024-aligned base
   static __device__ uint32_t q_tile(uint32_t b) { return b; }
@@ -216,7 +233,7 @@ __device__ __forceinline__ void dq_probs(float (&sacc)[BK / 2],
 // and delta in registers.  A tile's dQ product is waited for only after
 // the next tile's S and dP are issued, and its stage is released then.
 template <int D>
-__global__ void __launch_bounds__(384, 1)
+__global__ void __launch_bounds__(DqCfg<D>::THREADS, 1)
 flash_bwd_dq_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                                const __grid_constant__ CUtensorMap k_map,
                                const __grid_constant__ CUtensorMap v_map,
@@ -243,7 +260,7 @@ flash_bwd_dq_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     for (int s = 0; s < ST; ++s) {
       mbar_init(C::k_full(base, s), 1);
       mbar_init(C::v_full(base, s), 1);
-      mbar_init(C::empty(base, s), 256);
+      mbar_init(C::empty(base, s), 128 * C::NWG);
     }
     mbar_init_fence();
   }
@@ -251,7 +268,7 @@ flash_bwd_dq_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 
   if (wg == 0) {
     // ------------------------------------------------------ producer --
-    setmaxnreg_dec<C::PRODUCER_REGS>();
+    C::producer_regs();
     if (threadIdx.x == 0) {
       prefetch_map(&k_map);
       prefetch_map(&v_map);
@@ -281,7 +298,7 @@ flash_bwd_dq_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 
   // -------------------------------------------------------- consumer --
-  setmaxnreg_inc<C::CONSUMER_REGS>();
+  C::consumer_regs();
   const int w = wg - 1;  // q rows [64 w, 64 w + 64) of the block
   const int qw0 = q0 + 64 * w;
   const int t = threadIdx.x % 128;
@@ -394,33 +411,30 @@ flash_bwd_dq_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 }
 
 template <int D>
-struct DkvCfg {
-  static constexpr int BQ = 64;                  // q rows per streamed tile
-  static constexpr int BKV = 128;                // kv rows per CTA
+struct DkvCfg : hopper::WgPlan<D == 256 ? 1 : 2> {
+  // consumer warpgroups: one at D = 256, where dK or dV alone is 128
+  // registers a thread (hopper::WgPlan)
+  using hopper::WgPlan<D == 256 ? 1 : 2>::NWG;
+  static constexpr int BQ = D == 256 ? 32 : 64;  // q rows per streamed tile
+  static constexpr int BKV = 64 * NWG;           // kv rows per CTA
   static constexpr int STAGES = 2;
-  static constexpr int THREADS = 384;            // producer + 2 consumers
-  // bf16(Q * scale) == Q * scale exactly when scale is a power of two
-  static constexpr bool SCALE_EXACT = D == 64;
-  // at D = 128 one CTA accumulates dV and another dK (grid z): both
-  // 64-register accumulators and the S^T / dP^T tiles in one thread's
-  // registers made ptxas spill inside the loop
-  static constexpr bool SPLIT = D == 128;
-  static constexpr int ENTRY_REGS = 168;         // 65536 / 384, multiple of 8
-  static constexpr int PRODUCER_REGS = 24;
-  static constexpr int CONSUMER_REGS =
-      ENTRY_REGS + (ENTRY_REGS - PRODUCER_REGS) / 2;
+  // from D = 96 on one CTA accumulates dV and another dK (grid z): at
+  // D = 128 both 64-register accumulators and the S^T / dP^T tiles in one
+  // thread's registers made ptxas spill inside the loop
+  static constexpr bool SPLIT = D >= 96;
   static constexpr int KV_BYTES = BKV * D * 2;
   static constexpr int QT_BYTES = BQ * D * 2;
   static constexpr int V_OFF = KV_BYTES;                       // K at 0
   static constexpr int Q_OFF = V_OFF + KV_BYTES;               // STAGES tiles
   static constexpr int DO_OFF = Q_OFF + STAGES * QT_BYTES;     // STAGES tiles
-  static constexpr int QS_OFF = DO_OFF + STAGES * QT_BYTES;    // STAGES, if used
-  static constexpr int ROW_OFF =
-      QS_OFF + (SCALE_EXACT ? 0 : STAGES * QT_BYTES);          // lse, delta
+  // bf16(Q scale), STAGES tiles: used unless the scale is a power of two
+  static constexpr int QS_OFF = DO_OFF + STAGES * QT_BYTES;
+  static constexpr int ROW_OFF = QS_OFF + STAGES * QT_BYTES;   // lse, delta
   static constexpr int BAR_OFF = ROW_OFF + STAGES * 2 * BQ * 4;
   // kv_full, full[STAGES], qs_full[STAGES], empty[STAGES]
   static constexpr int BYTES = BAR_OFF + (1 + 3 * STAGES) * 8 + 1024;
   static_assert(QT_BYTES % 1024 == 0 && KV_BYTES % 1024 == 0, "alignment");
+  static_assert(BYTES <= 232448, "over the card's shared-memory opt-in");
 
   // shared-memory addresses from the 1024-aligned base
   static __device__ uint32_t k_tile(uint32_t b) { return b; }
@@ -494,11 +508,12 @@ struct DkvConsumer {
   int bh, kvw0, S;
   float scale;
   int causal, qb0, n_it;
+  int scale_exact;  // bf16(Q scale) == Q scale: feed Q, scale dK once
 
   template <bool DO_DK, bool DO_DV>
   __device__ __forceinline__ void run() {
     using namespace hopper;
-    const int w = (kvw0 / 64) % 2;  // this warpgroup's half of the K/V tiles
+    const int w = threadIdx.x / 128 - 1;  // this warpgroup's K/V rows
     const int t = threadIdx.x % 128;
     const int lane = t % 32;
     const int kv0 = kvw0 + 16 * (t / 32) + lane / 4;  // + 8 i
@@ -567,9 +582,9 @@ struct DkvConsumer {
           }
         }
       }
-      if constexpr (DO_DK && !C::SCALE_EXACT) mbar_wait(C::qs_full(base, s), ph);
+      if (DO_DK && !scale_exact) mbar_wait(C::qs_full(base, s), ph);
       const uint32_t qb_tile =
-          C::SCALE_EXACT ? C::q_tile(base, s) : C::qs_tile(base, s);
+          scale_exact ? C::q_tile(base, s) : C::qs_tile(base, s);
       fence_frags(pa);
       if constexpr (DO_DK) fence_frags(dsa);
       if constexpr (DO_DV) fence_regs(dv_acc);
@@ -598,7 +613,7 @@ struct DkvConsumer {
     }
 
     // epilogue: dK (times scale when Q went in unscaled) and dV in bf16
-    const float mult = C::SCALE_EXACT ? scale : 1.f;
+    const float mult = scale_exact ? scale : 1.f;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int kv = kv0 + 8 * i;
@@ -622,7 +637,7 @@ struct DkvConsumer {
 };
 
 template <int D>
-__global__ void __launch_bounds__(384, 1)
+__global__ void __launch_bounds__(DkvCfg<D>::THREADS, 1)
 flash_bwd_dkv_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                                 const __grid_constant__ CUtensorMap k_map,
                                 const __grid_constant__ CUtensorMap v_map,
@@ -631,7 +646,7 @@ flash_bwd_dkv_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                                 const float* __restrict__ delta,
                                 __nv_bfloat16* __restrict__ dk,
                                 __nv_bfloat16* __restrict__ dv, int S,
-                                float scale, int causal) {
+                                float scale, int causal, int scale_exact) {
   using C = DkvCfg<D>;
   using G = hopper::TileGeom<D>;
   using namespace hopper;
@@ -657,7 +672,7 @@ flash_bwd_dkv_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       // scaling warp pair; empty: every consumer thread
       mbar_init(C::full(base, s), 1 + 32);
       mbar_init(C::qs_full(base, s), 64);
-      mbar_init(C::empty(base, s), 256);
+      mbar_init(C::empty(base, s), 128 * C::NWG);
     }
     mbar_init_fence();
   }
@@ -665,7 +680,7 @@ flash_bwd_dkv_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 
   if (wg == 0) {
     // ------------------------------------------------------ producer --
-    setmaxnreg_dec<C::PRODUCER_REGS>();
+    C::producer_regs();
     const int pw = threadIdx.x / 32, lane = threadIdx.x % 32;
     if (threadIdx.x == 0) {
       prefetch_map(&q_map);
@@ -701,8 +716,7 @@ flash_bwd_dkv_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         }
         mbar_arrive(C::full(base, s));
       }
-    } else if (pw >= 2 && !C::SCALE_EXACT &&
-               !(C::SPLIT && blockIdx.z == 0)) {
+    } else if (pw >= 2 && !scale_exact && !(C::SPLIT && blockIdx.z == 0)) {
       // warps 2-3: bf16(Q * scale), element by element in the swizzled
       // layout TMA wrote, then fenced to the async proxy for wgmma.  Only
       // where a consumer waits for it: the dV-only CTAs of a split grid
@@ -731,9 +745,9 @@ flash_bwd_dkv_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     }
   } else {
     // ------------------------------------------------------ consumer --
-    setmaxnreg_inc<C::CONSUMER_REGS>();
+    C::consumer_regs();
     DkvConsumer<D> c{base, lse_s, delta_s, dk, dv, bh, k0 + 64 * (wg - 1), S,
-                     scale, causal, qb0, n_it};
+                     scale, causal, qb0, n_it, scale_exact};
     if constexpr (!C::SPLIT) {
       c.template run<true, true>();
     } else if (blockIdx.z == 0) {
@@ -746,12 +760,18 @@ flash_bwd_dkv_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 
 // ----------------------------------------------------------------- f32 --
 
+// The f32 tiling: R-row tiles of q and kv, LPR lanes to a row, NC
+// columns of a P / dS tile and DC columns of an accumulated row a lane.
 template <int D>
 struct F32Layout {
-  static constexpr int LDT = D + 4;   // f32 [64, D] operand tiles
-  static constexpr int LDP = BK + 4;  // f32 [64, 64] P and dS
-  static constexpr size_t TILE = round_up(size_t(64) * LDT * 4, 128);
-  static constexpr size_t PTILE = round_up(size_t(64) * LDP * 4, 128);
+  static constexpr int R = D > 128 ? 32 : 64;
+  static constexpr int LPR = NTHREADS / R;  // 2 or 4
+  static constexpr int NC = R / LPR;
+  static constexpr int DC = D / LPR;
+  static constexpr int LDT = D + 4;   // f32 [R, D] operand tiles
+  static constexpr int LDP = R + 4;   // f32 [R, R] P and dS
+  static constexpr size_t TILE = round_up(size_t(R) * LDT * 4, 128);
+  static constexpr size_t PTILE = round_up(size_t(R) * LDP * 4, 128);
   static constexpr size_t Q = 0;      // Q * scale, as the forward keeps it
   static constexpr size_t DO = Q + TILE;
   static constexpr size_t K = DO + TILE;
@@ -759,6 +779,7 @@ struct F32Layout {
   static constexpr size_t P = V + TILE;
   static constexpr size_t DS = P + PTILE;
   static constexpr size_t BYTES = DS + PTILE;
+  static_assert(BYTES <= 232448, "over the card's shared-memory opt-in");
 };
 
 __device__ __forceinline__ float dot_rows(const float* a, const float* b,
@@ -769,20 +790,21 @@ __device__ __forceinline__ float dot_rows(const float* a, const float* b,
   return s;
 }
 
-// P and dS of one lane pair's q row against a 64-row kv tile: S is the
-// forward's sequential FMA dot of the pre-scaled Q row with each K row.
+// P and dS of one lane's share (NC columns) of a q row against an R-row
+// kv tile: S is the forward's sequential FMA dot of the pre-scaled Q row
+// with each K row.
 template <int D>
 __device__ __forceinline__ void f32_p_ds(const float* Qs, const float* dOs,
                                          const float* Ks, const float* Vs,
                                          float* prow, float* dsrow, int row,
-                                         int half, int qpos, int k0, int S,
+                                         int part, int qpos, int k0, int S,
                                          int causal, float row_lse,
                                          float row_delta) {
   using L = F32Layout<D>;
   const float* qrow = Qs + row * L::LDT;
   const float* drow = dOs + row * L::LDT;
-  for (int j = 0; j < 32; ++j) {
-    const int col = half * 32 + j;
+  for (int j = 0; j < L::NC; ++j) {
+    const int col = part * L::NC + j;
     float p = 0.f, ds = 0.f;
     if (live(qpos, k0 + col, S, causal)) {
       p = expf(dot_rows(qrow, Ks + col * L::LDT, D) - row_lse);
@@ -804,6 +826,7 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
                         float* __restrict__ dq, int S, float scale,
                         int causal) {
   using L = F32Layout<D>;
+  constexpr int R = L::R, LPR = L::LPR, DC = L::DC;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem + L::Q);
   float* dOs = reinterpret_cast<float*>(smem + L::DO);
@@ -811,49 +834,49 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
   float* Vs = reinterpret_cast<float*>(smem + L::V);
   float* dSs = reinterpret_cast<float*>(smem + L::DS);
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * R;
   const size_t base = (size_t)blockIdx.y * S * D;
   const int tid = threadIdx.x, lane = tid & 31;
-  const int row = (tid >> 5) * 16 + (lane >> 1);
-  const int half = lane & 1;
+  const int row = (tid >> 5) * (32 / LPR) + lane / LPR;
+  const int part = lane % LPR;
   const int qpos = q0 + row;
   const size_t ridx = (size_t)blockIdx.y * S + qpos;
   const float row_lse = qpos < S ? lse[ridx] : 0.f;
   const float row_delta = qpos < S ? delta[ridx] : 0.f;
 
-  load_rows<float, D, L::LDT>(Qs, q + base, q0, S, tid, scale);
-  load_rows<float, D, L::LDT>(dOs, dout + base, q0, S, tid);
+  load_rows<float, D, L::LDT, R>(Qs, q + base, q0, S, tid, scale);
+  load_rows<float, D, L::LDT, R>(dOs, dout + base, q0, S, tid);
 
-  float acc[D / 2];
+  float acc[DC];
 #pragma unroll
-  for (int c = 0; c < D / 2; ++c) acc[c] = 0.f;
+  for (int c = 0; c < DC; ++c) acc[c] = 0.f;
 
-  const int n_kb = (S + BK - 1) / BK;
-  const int kb_end = causal ? min(n_kb, (q0 + BQ - 1) / BK + 1) : n_kb;
+  const int n_kb = (S + R - 1) / R;
+  const int kb_end = causal ? min(n_kb, (q0 + R - 1) / R + 1) : n_kb;
   for (int kb = 0; kb < kb_end; ++kb) {
-    const int k0 = kb * BK;
+    const int k0 = kb * R;
     __syncthreads();
-    load_rows<float, D, L::LDT>(Ks, k + base, k0, S, tid);
-    load_rows<float, D, L::LDT>(Vs, v + base, k0, S, tid);
+    load_rows<float, D, L::LDT, R>(Ks, k + base, k0, S, tid);
+    load_rows<float, D, L::LDT, R>(Vs, v + base, k0, S, tid);
     __syncthreads();
 
     float* dsrow = dSs + row * L::LDP;
-    f32_p_ds<D>(Qs, dOs, Ks, Vs, nullptr, dsrow, row, half, qpos, k0, S,
+    f32_p_ds<D>(Qs, dOs, Ks, Vs, nullptr, dsrow, row, part, qpos, k0, S,
                 causal, row_lse, row_delta);
-    __syncwarp();  // the lane pair shares the row
-    for (int j = 0; j < BK; ++j) {
+    __syncwarp();  // the row's lanes share it
+    for (int j = 0; j < R; ++j) {
       const float ds = dsrow[j];
-      const float* krow = Ks + j * L::LDT + half * (D / 2);
+      const float* krow = Ks + j * L::LDT + part * DC;
 #pragma unroll
-      for (int c = 0; c < D / 2; ++c) acc[c] = fmaf(ds, krow[c], acc[c]);
+      for (int c = 0; c < DC; ++c) acc[c] = fmaf(ds, krow[c], acc[c]);
     }
     __syncwarp();
   }
 
   if (qpos < S) {
-    float* dst = dq + base + (size_t)qpos * D + half * (D / 2);
+    float* dst = dq + base + (size_t)qpos * D + part * DC;
 #pragma unroll
-    for (int c = 0; c < D / 2; ++c) dst[c] = acc[c] * scale;
+    for (int c = 0; c < DC; ++c) dst[c] = acc[c] * scale;
   }
 }
 
@@ -868,6 +891,7 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
                          float* __restrict__ dk, float* __restrict__ dv,
                          int S, float scale, int causal) {
   using L = F32Layout<D>;
+  constexpr int R = L::R, LPR = L::LPR, DC = L::DC;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem + L::Q);
   float* dOs = reinterpret_cast<float*>(smem + L::DO);
@@ -876,26 +900,26 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
   float* Ps = reinterpret_cast<float*>(smem + L::P);
   float* dSs = reinterpret_cast<float*>(smem + L::DS);
 
-  const int k0 = blockIdx.x * BK;
+  const int k0 = blockIdx.x * R;
   const size_t base = (size_t)blockIdx.y * S * D;
   const size_t rbase = (size_t)blockIdx.y * S;
   const int tid = threadIdx.x, lane = tid & 31;
-  const int row = (tid >> 5) * 16 + (lane >> 1);
-  const int half = lane & 1;
+  const int row = (tid >> 5) * (32 / LPR) + lane / LPR;
+  const int part = lane % LPR;
 
-  load_rows<float, D, L::LDT>(Ks, k + base, k0, S, tid);
-  load_rows<float, D, L::LDT>(Vs, v + base, k0, S, tid);
+  load_rows<float, D, L::LDT, R>(Ks, k + base, k0, S, tid);
+  load_rows<float, D, L::LDT, R>(Vs, v + base, k0, S, tid);
 
-  float dk_acc[D / 2], dv_acc[D / 2];
+  float dk_acc[DC], dv_acc[DC];
 #pragma unroll
-  for (int c = 0; c < D / 2; ++c) dk_acc[c] = dv_acc[c] = 0.f;
+  for (int c = 0; c < DC; ++c) dk_acc[c] = dv_acc[c] = 0.f;
 
-  const int n_qb = (S + BQ - 1) / BQ;
-  for (int qb = causal ? k0 / BQ : 0; qb < n_qb; ++qb) {
-    const int q0 = qb * BQ;
+  const int n_qb = (S + R - 1) / R;
+  for (int qb = causal ? k0 / R : 0; qb < n_qb; ++qb) {
+    const int q0 = qb * R;
     __syncthreads();
-    load_rows<float, D, L::LDT>(Qs, q + base, q0, S, tid, scale);
-    load_rows<float, D, L::LDT>(dOs, dout + base, q0, S, tid);
+    load_rows<float, D, L::LDT, R>(Qs, q + base, q0, S, tid, scale);
+    load_rows<float, D, L::LDT, R>(dOs, dout + base, q0, S, tid);
     __syncthreads();
 
     // P and dS of q row `row`
@@ -903,17 +927,17 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
     const float row_lse = qpos < S ? lse[rbase + qpos] : 0.f;
     const float row_delta = qpos < S ? delta[rbase + qpos] : 0.f;
     f32_p_ds<D>(Qs, dOs, Ks, Vs, Ps + row * L::LDP, dSs + row * L::LDP, row,
-                half, qpos, k0, S, causal, row_lse, row_delta);
+                part, qpos, k0, S, causal, row_lse, row_delta);
     __syncthreads();
 
-    // dV and dK of kv row `row`: sums over the 64 q rows of the tile
-    for (int i = 0; i < BQ; ++i) {
+    // dV and dK of kv row `row`: sums over the R q rows of the tile
+    for (int i = 0; i < R; ++i) {
       const float p = Ps[i * L::LDP + row];
       const float ds = dSs[i * L::LDP + row];
-      const float* drow = dOs + i * L::LDT + half * (D / 2);
-      const float* qrow = Qs + i * L::LDT + half * (D / 2);
+      const float* drow = dOs + i * L::LDT + part * DC;
+      const float* qrow = Qs + i * L::LDT + part * DC;
 #pragma unroll
-      for (int c = 0; c < D / 2; ++c) {
+      for (int c = 0; c < DC; ++c) {
         dv_acc[c] = fmaf(p, drow[c], dv_acc[c]);
         dk_acc[c] = fmaf(ds, qrow[c], dk_acc[c]);
       }
@@ -921,9 +945,9 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
   }
 
   if (k0 + row < S) {
-    const size_t off = base + (size_t)(k0 + row) * D + half * (D / 2);
+    const size_t off = base + (size_t)(k0 + row) * D + part * DC;
 #pragma unroll
-    for (int c = 0; c < D / 2; ++c) {
+    for (int c = 0; c < DC; ++c) {
       dk[off + c] = dk_acc[c];
       dv[off + c] = dv_acc[c];
     }
@@ -931,6 +955,14 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
 }
 
 // ------------------------------------------------------------- launch --
+
+// bf16(Q * scale) == Q * scale for every bf16 Q (short of underflow) when
+// scale is a power of two: 2^-3 at D = 64, but not 1/sqrt(48) of a
+// 48-wide head padded to the D = 64 kernels.
+static inline int scale_is_pow2(float scale) {
+  int e;
+  return scale > 0.f && frexpf(scale, &e) == 0.5f;
+}
 
 template <typename Kernel>
 int prepare(Kernel kernel, size_t smem) {
@@ -953,7 +985,7 @@ int launch_dq_bf16(const void* q, const void* k, const void* v,
     cudaFuncAttributes attr;
     cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
     if (err != cudaSuccess) return (int)err;
-    if (attr.numRegs != C::ENTRY_REGS) return KF_BAD_REGS;
+    if (C::SETMAXNREG && attr.numRegs != C::ENTRY_REGS) return KF_BAD_REGS;
     if ((err = (cudaError_t)prepare(kernel, C::BYTES)) != cudaSuccess) {
       return (int)err;
     }
@@ -981,9 +1013,10 @@ int launch_dq(int is_bf16, const void* q, const void* k, const void* v,
     return launch_dq_bf16<D>(q, k, v, dout, lse, delta, dq, bh, S, scale,
                              causal, stream);
   }
-  const dim3 grid((S + BQ - 1) / BQ, bh);
+  using L = F32Layout<D>;
+  const dim3 grid((S + L::R - 1) / L::R, bh);
   auto kernel = flash_bwd_dq_f32_kernel<D>;
-  constexpr size_t smem = F32Layout<D>::BYTES;
+  constexpr size_t smem = L::BYTES;
   int err;
   if ((err = prepare(kernel, smem)) != 0) return err;
   kernel<<<grid, NTHREADS, smem, stream>>>(
@@ -1007,7 +1040,7 @@ int launch_dkv_bf16(const void* q, const void* k, const void* v,
     cudaFuncAttributes attr;
     cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
     if (err != cudaSuccess) return (int)err;
-    if (attr.numRegs != C::ENTRY_REGS) return KF_BAD_REGS;
+    if (C::SETMAXNREG && attr.numRegs != C::ENTRY_REGS) return KF_BAD_REGS;
     if ((err = (cudaError_t)prepare(kernel, C::BYTES)) != cudaSuccess) {
       return (int)err;
     }
@@ -1022,7 +1055,8 @@ int launch_dkv_bf16(const void* q, const void* k, const void* v,
   const dim3 grid((S + C::BKV - 1) / C::BKV, bh, C::SPLIT ? 2 : 1);
   kernel<<<grid, C::THREADS, C::BYTES, stream>>>(
       qm, km, vm, dom, lse, delta, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), S, scale, causal);
+      static_cast<__nv_bfloat16*>(dv), S, scale, causal,
+      scale_is_pow2(scale));
   return (int)cudaGetLastError();
 }
 
@@ -1035,9 +1069,10 @@ int launch_dkv(int is_bf16, const void* q, const void* k, const void* v,
     return launch_dkv_bf16<D>(q, k, v, dout, lse, delta, dk, dv, bh, S, scale,
                               causal, stream);
   }
-  const dim3 grid((S + BK - 1) / BK, bh);
+  using L = F32Layout<D>;
+  const dim3 grid((S + L::R - 1) / L::R, bh);
   auto kernel = flash_bwd_dkv_f32_kernel<D>;
-  constexpr size_t smem = F32Layout<D>::BYTES;
+  constexpr size_t smem = L::BYTES;
   int err;
   if ((err = prepare(kernel, smem)) != 0) return err;
   kernel<<<grid, NTHREADS, smem, stream>>>(
@@ -1048,29 +1083,85 @@ int launch_dkv(int is_bf16, const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// Each returns 0 on success, a cudaError_t code, or -1 for arguments the
-// kernels do not take (the Python wrapper checks them first).
-extern "C" int kf_flash_bwd_dq(const void* q, const void* k, const void* v,
-                               const void* dout, const void* lse,
-                               const void* delta, void* dq, int bh, int seq,
-                               int head_dim, int causal, int is_bf16,
-                               float scale, void* stream) {
-  if (bh <= 0 || bh > 65535 || seq <= 0) return KF_BAD_ARGS;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
+// One launch of each grid over batch-heads [0, bh) of the given slices
+// (bh <= hopper::MAX_GRID_Y).
+int dq_chunk(const void* q, const void* k, const void* v, const void* dout,
+             const float* l, const float* dl, void* dq, int bh, int seq,
+             int head_dim, int causal, int is_bf16, float scale,
+             cudaStream_t st) {
   switch (head_dim) {
     case 32:
       return launch_dq<32>(is_bf16, q, k, v, dout, l, dl, dq, bh, seq, scale, causal, st);
     case 64:
       return launch_dq<64>(is_bf16, q, k, v, dout, l, dl, dq, bh, seq, scale, causal, st);
+    case 96:
+      return launch_dq<96>(is_bf16, q, k, v, dout, l, dl, dq, bh, seq, scale, causal, st);
     case 128:
       return launch_dq<128>(is_bf16, q, k, v, dout, l, dl, dq, bh, seq, scale, causal, st);
+    case 256:
+      return launch_dq<256>(is_bf16, q, k, v, dout, l, dl, dq, bh, seq, scale, causal, st);
     default:
       return KF_BAD_ARGS;
   }
+}
+
+int dkv_chunk(const void* q, const void* k, const void* v, const void* dout,
+              const float* l, const float* dl, void* dk, void* dv, int bh,
+              int seq, int head_dim, int causal, int is_bf16, float scale,
+              cudaStream_t st) {
+  switch (head_dim) {
+    case 32:
+      return launch_dkv<32>(is_bf16, q, k, v, dout, l, dl, dk, dv, bh, seq, scale, causal, st);
+    case 64:
+      return launch_dkv<64>(is_bf16, q, k, v, dout, l, dl, dk, dv, bh, seq, scale, causal, st);
+    case 96:
+      return launch_dkv<96>(is_bf16, q, k, v, dout, l, dl, dk, dv, bh, seq, scale, causal, st);
+    case 128:
+      return launch_dkv<128>(is_bf16, q, k, v, dout, l, dl, dk, dv, bh, seq, scale, causal, st);
+    case 256:
+      return launch_dkv<256>(is_bf16, q, k, v, dout, l, dl, dk, dv, bh, seq, scale, causal, st);
+    default:
+      return KF_BAD_ARGS;
+  }
+}
+
+// The operand slices of batch-heads [b0, ...): rows of `row` bytes
+// ([S, D] a batch-head) and of `seq` floats (lse, delta).
+struct Slices {
+  size_t row;
+  int seq, b0;
+  const void* in(const void* p) const {
+    return static_cast<const char*>(p) + (size_t)b0 * row;
+  }
+  void* out(void* p) const { return static_cast<char*>(p) + (size_t)b0 * row; }
+  const float* rows(const void* p) const {
+    return static_cast<const float*>(p) + (size_t)b0 * seq;
+  }
+};
+
+}  // namespace
+
+// Each returns 0 on success, a cudaError_t code, or -1 for arguments the
+// kernels do not take (the Python wrapper checks them first).  head_dim
+// is a compiled width (32, 64, 96, 128, 256); scale is the caller's
+// (1/sqrt of the unpadded width).  Any bh: the batch-heads launch in
+// chunks of at most hopper::MAX_GRID_Y, each on its own slice.
+extern "C" int kf_flash_bwd_dq(const void* q, const void* k, const void* v,
+                               const void* dout, const void* lse,
+                               const void* delta, void* dq, int bh, int seq,
+                               int head_dim, int causal, int is_bf16,
+                               float scale, void* stream) {
+  if (bh <= 0 || seq <= 0) return KF_BAD_ARGS;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  for (int b0 = 0; b0 < bh; b0 += hopper::MAX_GRID_Y) {
+    const int n = bh - b0 < hopper::MAX_GRID_Y ? bh - b0 : hopper::MAX_GRID_Y;
+    const Slices c{(size_t)seq * head_dim * (is_bf16 ? 2 : 4), seq, b0};
+    const int err = dq_chunk(c.in(q), c.in(k), c.in(v), c.in(dout),
+                             c.rows(lse), c.rows(delta), c.out(dq), n, seq,
+                             head_dim, causal, is_bf16, scale, st);
+    if (err != 0) return err;
+  }
+  return 0;
 }
 
 extern "C" int kf_flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -1078,20 +1169,18 @@ extern "C" int kf_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                 const void* delta, void* dk, void* dv, int bh,
                                 int seq, int head_dim, int causal, int is_bf16,
                                 float scale, void* stream) {
-  if (bh <= 0 || bh > 65535 || seq <= 0) return KF_BAD_ARGS;
+  if (bh <= 0 || seq <= 0) return KF_BAD_ARGS;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-  switch (head_dim) {
-    case 32:
-      return launch_dkv<32>(is_bf16, q, k, v, dout, l, dl, dk, dv, bh, seq, scale, causal, st);
-    case 64:
-      return launch_dkv<64>(is_bf16, q, k, v, dout, l, dl, dk, dv, bh, seq, scale, causal, st);
-    case 128:
-      return launch_dkv<128>(is_bf16, q, k, v, dout, l, dl, dk, dv, bh, seq, scale, causal, st);
-    default:
-      return KF_BAD_ARGS;
+  for (int b0 = 0; b0 < bh; b0 += hopper::MAX_GRID_Y) {
+    const int n = bh - b0 < hopper::MAX_GRID_Y ? bh - b0 : hopper::MAX_GRID_Y;
+    const Slices c{(size_t)seq * head_dim * (is_bf16 ? 2 : 4), seq, b0};
+    const int err = dkv_chunk(c.in(q), c.in(k), c.in(v), c.in(dout),
+                              c.rows(lse), c.rows(delta), c.out(dk),
+                              c.out(dv), n, seq, head_dim, causal, is_bf16,
+                              scale, st);
+    if (err != 0) return err;
   }
+  return 0;
 }
 
 extern "C" const char* kf_error_string(int code) {

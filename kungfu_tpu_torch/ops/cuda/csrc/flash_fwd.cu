@@ -12,11 +12,17 @@
 // The TPU carried m/l/acc across a sequential grid axis; here the kv walk
 // is a loop inside the CTA, and CTAs run in any order, heaviest first.
 //
+// Head widths: the kernels are compiled for D in 32, 64, 96, 128 and
+// 256; the wrapper zero-pads any other width up to 256 to the next of
+// them and passes the scale 1/sqrt(D) of the unpadded width (zero lanes
+// add zero to every q.k and give zero output lanes).
+//
 // bf16: warp-specialised wgmma/TMA kernel (flash_fwd_bf16_wgmma_kernel).
 // * One producer warpgroup and two consumer warpgroups of 64 q rows each
-//   (128-row q blocks, one CTA per SM).  After setmaxnreg.dec, one
+//   (128-row q blocks, one CTA per SM; at D = 256 one consumer warpgroup
+//   and 64-row q blocks, see hopper::WgPlan).  After setmaxnreg.dec, one
 //   producer thread TMA-loads the Q tile once and streams K and V tiles
-//   (128 rows; 64 at D = 128) through a
+//   (128 rows at D <= 64, else 64) through a
 //   two-stage ring in shared memory (full/empty mbarriers per stage, K and
 //   V on separate full barriers so Q K^T starts before V lands).  The
 //   tensor maps are 3-D over [BH, S, D], so a tile that runs past S is
@@ -36,8 +42,15 @@
 // unrounded f32 P; P is rounded to bf16 before P V.
 //
 // f32: plain FMA on the CUDA cores, never TF32, so f32 parity checks hold
-// the algorithm to f32 rounding; 64x64 tiles, one CTA of four warps per
-// (bh, 64-row q block), Q pre-scaled by 1/sqrt(D) as the reference does.
+// the algorithm to f32 rounding; one CTA of four warps per (bh, q block),
+// Q pre-scaled by the scale as the reference does.  Tiles are 64 x 64
+// with two lanes to a row; at D = 256 they are 32 x 32 with four lanes to
+// a row, so that the tiles fit shared memory and a lane's share of the
+// output row (D / 4 floats) its registers.
+//
+// Batch-heads sit on the grid's y, so a launcher launches them in chunks
+// of at most 65535 (hopper::MAX_GRID_Y), each on its own slice of the
+// operands.
 //
 // What bounds it: at the training shape [48, 2048, 64] causal the forward
 // needs 26 us of bf16 tensor-core work (4 D FLOPs per causal pair)
@@ -59,9 +72,7 @@ namespace {
 
 using namespace hopper;
 
-constexpr int BQ = 64;          // f32: q rows per CTA
-constexpr int BK = 64;          // f32: kv rows per tile
-constexpr int NTHREADS = 128;   // f32: four warps, 16 q rows each
+constexpr int NTHREADS = 128;   // f32: four warps
 constexpr float MASK_VALUE = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
@@ -77,21 +88,14 @@ __host__ __device__ constexpr size_t round_up(size_t x, size_t a) {
 constexpr int STAGES = 2;
 
 template <int D>
-struct FwdCfg {
-  static constexpr int NWG = 2;          // consumer warpgroups
+struct FwdCfg : WgPlan<D == 256 ? 1 : 2> {
+  // consumer warpgroups: two, but one at D = 256, where O alone is 128
+  // registers a thread and S, O and P do not fit 168 (WgPlan)
+  using WgPlan<D == 256 ? 1 : 2>::NWG;
   static constexpr int BQ = 64 * NWG;    // q rows per CTA
-  // kv rows per tile: at D = 128 the S accumulator is halved so that S,
-  // O and P fit the consumers' registers without spilling
-  static constexpr int BK = D == 128 ? 64 : 128;
-  static constexpr int THREADS = 128 * (NWG + 1);
-  // registers at entry (ptxas allots the launch bounds' maximum to a
-  // kernel with setmaxnreg); the producer drops to PRODUCER_REGS and the
-  // consumers split what it frees
-  static constexpr int ENTRY_REGS = 65536 / THREADS / 8 * 8;
-  static constexpr int PRODUCER_REGS = 24;
-  static constexpr int CONSUMER_REGS =
-      ENTRY_REGS + (ENTRY_REGS - PRODUCER_REGS) / NWG;
-  static_assert(CONSUMER_REGS % 8 == 0 && CONSUMER_REGS <= 256, "registers");
+  // kv rows per tile: from D = 96 on the S accumulator is halved so that
+  // S, O and P fit the consumers' registers without spilling
+  static constexpr int BK = D <= 64 ? 128 : 64;
   static constexpr int Q_BYTES = BQ * D * 2;
   static constexpr int KV_BYTES = BK * D * 2;
   static constexpr int K_OFF = Q_BYTES;                    // STAGES tiles
@@ -99,6 +103,7 @@ struct FwdCfg {
   static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
   // q_full, k_full[STAGES], v_full[STAGES], empty[STAGES]
   static constexpr int BYTES = BAR_OFF + (1 + 3 * STAGES) * 8 + 1024;
+  static_assert(BYTES <= 232448, "over the card's shared-memory opt-in");
 };
 
 // One block of the online softmax for the two rows this thread holds:
@@ -203,7 +208,7 @@ flash_fwd_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 
   if (wg == 0) {
     // ------------------------------------------------------ producer --
-    setmaxnreg_dec<C::PRODUCER_REGS>();
+    C::producer_regs();
     if (threadIdx.x == 0) {
       prefetch_map(&q_map);
       prefetch_map(&k_map);
@@ -230,7 +235,7 @@ flash_fwd_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     }
   } else {
     // ------------------------------------------------------ consumer --
-    setmaxnreg_inc<C::CONSUMER_REGS>();
+    C::consumer_regs();
     const int w = wg - 1;  // q rows [64 w, 64 w + 64) of the block
     const int t = threadIdx.x % 128;
     const int lane = t % 32;
@@ -321,7 +326,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
     cudaFuncAttributes attr;
     cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
     if (err != cudaSuccess) return (int)err;
-    if (attr.numRegs != C::ENTRY_REGS) return KF_BAD_REGS;
+    if (C::SETMAXNREG && attr.numRegs != C::ENTRY_REGS) return KF_BAD_REGS;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                C::BYTES);
     if (err != cudaSuccess) return (int)err;
@@ -341,26 +346,33 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
 
 // ----------------------------------------------------------------- f32 --
 
+// The f32 tiling: R rows in a q block and in a kv tile, LPR lanes to a
+// row, NC score columns and DC output columns a lane.
 template <int D>
 struct F32Layout {
+  static constexpr int R = D > 128 ? 32 : 64;
+  static constexpr int LPR = NTHREADS / R;  // 2 or 4
+  static constexpr int NC = R / LPR;
+  static constexpr int DC = D / LPR;
   static constexpr int LDT = D + 4;   // f32 Q/K/V tiles
-  static constexpr int LDP = BK + 4;  // f32 probabilities
+  static constexpr int LDP = R + 4;   // f32 probabilities
   static constexpr size_t Q = 0;
-  static constexpr size_t K = Q + round_up(size_t(BQ) * LDT * 4, 128);
-  static constexpr size_t V = K + round_up(size_t(BK) * LDT * 4, 128);
-  static constexpr size_t P = V + round_up(size_t(BK) * LDT * 4, 128);
-  static constexpr size_t BYTES = P + round_up(size_t(BQ) * LDP * 4, 128);
+  static constexpr size_t K = Q + round_up(size_t(R) * LDT * 4, 128);
+  static constexpr size_t V = K + round_up(size_t(R) * LDT * 4, 128);
+  static constexpr size_t P = V + round_up(size_t(R) * LDT * 4, 128);
+  static constexpr size_t BYTES = P + round_up(size_t(R) * LDP * 4, 128);
+  static_assert(BYTES <= 232448, "over the card's shared-memory opt-in");
 };
 
-// Rows [r0, r0 + 64) of a contiguous [S, D] matrix into shared memory with
+// Rows [r0, r0 + R) of a contiguous [S, D] matrix into shared memory with
 // leading dimension LD, 16 bytes per thread per step; rows past S are zero
 // so that masked scores and padded V rows stay finite.
-template <typename T, int D, int LD>
+template <typename T, int D, int LD, int R>
 __device__ __forceinline__ void load_rows(T* dst, const T* __restrict__ src,
                                           int r0, int S, int tid) {
   constexpr int EPV = 16 / sizeof(T);
   constexpr int VPR = D / EPV;
-  for (int i = tid; i < 64 * VPR; i += NTHREADS) {
+  for (int i = tid; i < R * VPR; i += NTHREADS) {
     const int r = i / VPR;
     const int c = (i % VPR) * EPV;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
@@ -371,37 +383,52 @@ __device__ __forceinline__ void load_rows(T* dst, const T* __restrict__ src,
   }
 }
 
-// Online-softmax update for one row half: 32 raw scores (already scaled)
-// of columns [c0, c0 + 32), shared by the lane pair (lane, lane ^ 1).
+// Sum (or max) over the LPR lanes that share a row.
+template <int LPR>
+__device__ __forceinline__ float row_max(float x) {
+#pragma unroll
+  for (int o = 1; o < LPR; o *= 2) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+template <int LPR>
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int o = 1; o < LPR; o *= 2) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Online-softmax update for one lane's share of a row: NC raw scores
+// (already scaled) of columns [c0, c0 + NC), the row shared by LPR lanes.
 // Returns the correction factor for the accumulator; writes P via `put`.
-template <typename Put>
+template <int NC, int LPR, typename Put>
 __device__ __forceinline__ float softmax_update(const float* scores, int k0,
                                                 int c0, int qpos, int S,
                                                 int causal, float& m, float& l,
                                                 Put put) {
-  float sv[32];
+  float sv[NC];
   unsigned live = 0u;
   float mx = MASK_VALUE;
 #pragma unroll
-  for (int j = 0; j < 32; ++j) {
+  for (int j = 0; j < NC; ++j) {
     const int kpos = k0 + c0 + j;
     const bool ok = kpos < S && (!causal || qpos >= kpos);
     sv[j] = ok ? scores[j] : MASK_VALUE;
     live |= (ok ? 1u : 0u) << j;
     mx = fmaxf(mx, sv[j]);
   }
-  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+  mx = row_max<LPR>(mx);
   const float m_new = fmaxf(m, mx);
   const float corr = expf(m - m_new);
   float sum = 0.f;
 #pragma unroll
-  for (int j = 0; j < 32; ++j) {
+  for (int j = 0; j < NC; ++j) {
     // masked entries contribute 0, also when the whole row is masked so far
     const float p = ((live >> j) & 1u) ? expf(sv[j] - m_new) : 0.f;
     sum += p;
     put(j, p);
   }
-  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+  sum = row_sum<LPR>(sum);
   l = l * corr + sum;
   m = m_new;
   return corr;
@@ -413,69 +440,70 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
                      float* __restrict__ lse, int S, float scale, int causal) {
   using L = F32Layout<D>;
+  constexpr int R = L::R, LPR = L::LPR, NC = L::NC, DC = L::DC;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem + L::Q);
   float* Ks = reinterpret_cast<float*>(smem + L::K);
   float* Vs = reinterpret_cast<float*>(smem + L::V);
   float* Ps = reinterpret_cast<float*>(smem + L::P);
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * R;
   const size_t base = (size_t)blockIdx.y * S * D;
   const int tid = threadIdx.x, lane = tid & 31;
-  const int row = (tid >> 5) * 16 + (lane >> 1);
-  const int half = lane & 1;
+  const int row = (tid >> 5) * (32 / LPR) + lane / LPR;
+  const int part = lane % LPR;
   const int qpos = q0 + row;
 
-  load_rows<float, D, L::LDT>(Qs, q + base, q0, S, tid);
+  load_rows<float, D, L::LDT, R>(Qs, q + base, q0, S, tid);
   __syncthreads();
-  for (int i = tid; i < BQ * D; i += NTHREADS) Qs[(i / D) * L::LDT + i % D] *= scale;
+  for (int i = tid; i < R * D; i += NTHREADS) Qs[(i / D) * L::LDT + i % D] *= scale;
 
-  const int n_kb = (S + BK - 1) / BK;
-  const int kb_end = causal ? min(n_kb, (q0 + BQ - 1) / BK + 1) : n_kb;
+  const int n_kb = (S + R - 1) / R;
+  const int kb_end = causal ? min(n_kb, (q0 + R - 1) / R + 1) : n_kb;
   float m = MASK_VALUE, l = 0.f;
-  float acc[D / 2];
+  float acc[DC];
 #pragma unroll
-  for (int c = 0; c < D / 2; ++c) acc[c] = 0.f;
+  for (int c = 0; c < DC; ++c) acc[c] = 0.f;
 
   for (int kb = 0; kb < kb_end; ++kb) {
-    const int k0 = kb * BK;
+    const int k0 = kb * R;
     __syncthreads();
-    load_rows<float, D, L::LDT>(Ks, k + base, k0, S, tid);
-    load_rows<float, D, L::LDT>(Vs, v + base, k0, S, tid);
+    load_rows<float, D, L::LDT, R>(Ks, k + base, k0, S, tid);
+    load_rows<float, D, L::LDT, R>(Vs, v + base, k0, S, tid);
     __syncthreads();
 
     const float* qrow = Qs + row * L::LDT;
-    float scores[32];
+    float scores[NC];
 #pragma unroll
-    for (int j = 0; j < 32; ++j) {
-      const float* krow = Ks + (half * 32 + j) * L::LDT;
+    for (int j = 0; j < NC; ++j) {
+      const float* krow = Ks + (part * NC + j) * L::LDT;
       float s = 0.f;
 #pragma unroll 16
       for (int d = 0; d < D; ++d) s = fmaf(qrow[d], krow[d], s);
       scores[j] = s;
     }
     float* prow = Ps + row * L::LDP;
-    const float corr = softmax_update(
-        scores, k0, half * 32, qpos, S, causal, m, l,
-        [&](int j, float p) { prow[half * 32 + j] = p; });
+    const float corr = softmax_update<NC, LPR>(
+        scores, k0, part * NC, qpos, S, causal, m, l,
+        [&](int j, float p) { prow[part * NC + j] = p; });
     __syncwarp();
 #pragma unroll
-    for (int c = 0; c < D / 2; ++c) acc[c] *= corr;
-    for (int j = 0; j < BK; ++j) {
+    for (int c = 0; c < DC; ++c) acc[c] *= corr;
+    for (int j = 0; j < R; ++j) {
       const float p = prow[j];
-      const float* vrow = Vs + j * L::LDT + half * (D / 2);
+      const float* vrow = Vs + j * L::LDT + part * DC;
 #pragma unroll
-      for (int c = 0; c < D / 2; ++c) acc[c] = fmaf(p, vrow[c], acc[c]);
+      for (int c = 0; c < DC; ++c) acc[c] = fmaf(p, vrow[c], acc[c]);
     }
     __syncwarp();
   }
 
   const float l_safe = fmaxf(l, 1e-30f);
   if (qpos < S) {
-    float* dst = o + base + (size_t)qpos * D + half * (D / 2);
+    float* dst = o + base + (size_t)qpos * D + part * DC;
 #pragma unroll
-    for (int c = 0; c < D / 2; ++c) dst[c] = acc[c] / l_safe;
-    if (half == 0) lse[(size_t)blockIdx.y * S + qpos] = m + logf(l_safe);
+    for (int c = 0; c < DC; ++c) dst[c] = acc[c] / l_safe;
+    if (part == 0) lse[(size_t)blockIdx.y * S + qpos] = m + logf(l_safe);
   }
 }
 
@@ -483,13 +511,13 @@ template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                void* lse, int bh, int S, float scale, int causal,
                cudaStream_t stream) {
+  using L = F32Layout<D>;
   auto kernel = flash_fwd_f32_kernel<D>;
-  constexpr size_t smem = F32Layout<D>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::BYTES);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + BQ - 1) / BQ, bh);
-  kernel<<<grid, NTHREADS, smem, stream>>>(
+  const dim3 grid((S + L::R - 1) / L::R, bh);
+  kernel<<<grid, NTHREADS, L::BYTES, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o),
       static_cast<float*>(lse), S, scale, causal);
@@ -506,27 +534,52 @@ int dispatch(int is_bf16, const void* q, const void* k, const void* v, void* o,
   return launch_f32<D>(q, k, v, o, lse, bh, S, scale, causal, stream);
 }
 
-}  // namespace
-
-// Returns 0 on success, a cudaError_t code, or a negative code of
-// kf_error_string for arguments the kernel does not take (the Python
-// wrapper checks them first).
-extern "C" int kf_flash_fwd(const void* q, const void* k, const void* v,
-                            void* o, void* lse, int bh, int seq, int head_dim,
-                            int causal, int is_bf16, float scale,
-                            void* stream) {
-  if (bh <= 0 || bh > 65535 || seq <= 0) return KF_BAD_ARGS;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+// One launch over batch-heads [0, bh) of the given slices (bh <= 65535).
+int fwd_chunk(const void* q, const void* k, const void* v, void* o, void* lse,
+              int bh, int seq, int head_dim, int causal, int is_bf16,
+              float scale, cudaStream_t st) {
   switch (head_dim) {
     case 32:
       return dispatch<32>(is_bf16, q, k, v, o, lse, bh, seq, scale, causal, st);
     case 64:
       return dispatch<64>(is_bf16, q, k, v, o, lse, bh, seq, scale, causal, st);
+    case 96:
+      return dispatch<96>(is_bf16, q, k, v, o, lse, bh, seq, scale, causal, st);
     case 128:
       return dispatch<128>(is_bf16, q, k, v, o, lse, bh, seq, scale, causal, st);
+    case 256:
+      return dispatch<256>(is_bf16, q, k, v, o, lse, bh, seq, scale, causal, st);
     default:
       return KF_BAD_ARGS;
   }
+}
+
+}  // namespace
+
+// Returns 0 on success, a cudaError_t code, or a negative code of
+// kf_error_string for arguments the kernel does not take (the Python
+// wrapper checks them first).  head_dim is a compiled width (32, 64, 96,
+// 128, 256); scale is the caller's (1/sqrt of the unpadded width).  Any
+// bh: the batch-heads launch in chunks of at most hopper::MAX_GRID_Y,
+// each on its own slice of the operands.
+extern "C" int kf_flash_fwd(const void* q, const void* k, const void* v,
+                            void* o, void* lse, int bh, int seq, int head_dim,
+                            int causal, int is_bf16, float scale,
+                            void* stream) {
+  if (bh <= 0 || seq <= 0) return KF_BAD_ARGS;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t row = (size_t)seq * head_dim * (is_bf16 ? 2 : 4);
+  for (int b0 = 0; b0 < bh; b0 += MAX_GRID_Y) {
+    const int n = bh - b0 < MAX_GRID_Y ? bh - b0 : MAX_GRID_Y;
+    const size_t off = (size_t)b0 * row;
+    const int err = fwd_chunk(
+        static_cast<const char*>(q) + off, static_cast<const char*>(k) + off,
+        static_cast<const char*>(v) + off, static_cast<char*>(o) + off,
+        static_cast<float*>(lse) + (size_t)b0 * seq, n, seq, head_dim, causal,
+        is_bf16, scale, st);
+    if (err != 0) return err;
+  }
+  return 0;
 }
 
 extern "C" const char* kf_error_string(int code) {

@@ -5,11 +5,12 @@
 // tensor-map encoding.
 //
 // Tile convention.  A bf16 tile of R rows and D columns (D in 32, 64,
-// 128, 256) is stored as ceil(D / 64) TMA boxes of [R, min(D, 64)], one after
-// the other; a box row is 64 (D = 32) or 128 bytes, written by TMA with
-// the 64- or 128-byte swizzle of the same width, so a group of 8 rows
-// (one swizzle atom, 512 or 1024 bytes) is the unit wgmma steps over.
-// Tiles start on 1024-byte boundaries, as the 128-byte swizzle needs.
+// 96, 128, 256) is stored as D / 64 TMA boxes of [R, 64] where D is a
+// multiple of 64, else as D / 32 boxes of [R, 32], one after the other;
+// a box row is 128 or 64 bytes, written by TMA with the 128- or 64-byte
+// swizzle of the same width, so a group of 8 rows (one swizzle atom,
+// 1024 or 512 bytes) is the unit wgmma steps over.  Tiles start on
+// 1024-byte boundaries, as the 128-byte swizzle needs.
 //
 // Every spin on an mbarrier traps after TIMEOUT_NS, so a wrong phase bit
 // ends the launch with an error instead of hanging the card.
@@ -24,6 +25,9 @@
 namespace hopper {
 
 constexpr unsigned long long TIMEOUT_NS = 20000000000ull;
+// the grid's y (and z) extent: a launcher whose grid puts the batch-heads
+// on y launches them in chunks of at most this many
+constexpr int MAX_GRID_Y = 65535;
 // the launcher's code for a tensor map cuTensorMapEncodeTiled refused
 constexpr int KF_TMA_ENCODE_FAILED = -2;
 
@@ -201,6 +205,37 @@ __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
 }
 
+// The warpgroup plan of a warp-specialised kernel: one producer
+// warpgroup and NWG consumer warpgroups.  ptxas fits the whole kernel,
+// consumers included, in the launch bounds' share of the register file
+// (168 at 384 threads) whatever setmaxnreg.inc grants at run time: with
+// CUDA 12.8's ptxas the flash dQ kernel at D = 256 takes 205 registers
+// without spilling at a 255 cap, and spills 404 bytes at 384 threads
+// with the consumers granted 240.  With two consumer warpgroups the producer gives up its
+// registers (setmaxnreg) and the consumers' code fits 168; with one (256
+// threads) every thread may hold 255 and setmaxnreg is not used.
+template <int NWG_>
+struct WgPlan {
+  static constexpr int NWG = NWG_;
+  static constexpr int THREADS = 128 * (NWG + 1);
+  static constexpr bool SETMAXNREG = NWG > 1;
+  // registers at entry: ptxas allots the launch bounds' maximum to a
+  // kernel with setmaxnreg, and the launchers check it
+  static constexpr int ENTRY_REGS = 65536 / THREADS / 8 * 8;
+  static constexpr int PRODUCER_REGS = 24;
+  static constexpr int CONSUMER_REGS =
+      SETMAXNREG ? ENTRY_REGS + (ENTRY_REGS - PRODUCER_REGS) / NWG
+                 : ENTRY_REGS;
+  static_assert(CONSUMER_REGS % 8 == 0 && CONSUMER_REGS <= 256, "registers");
+
+  static __device__ __forceinline__ void producer_regs() {
+    if constexpr (SETMAXNREG) setmaxnreg_dec<PRODUCER_REGS>();
+  }
+  static __device__ __forceinline__ void consumer_regs() {
+    if constexpr (SETMAXNREG) setmaxnreg_inc<CONSUMER_REGS>();
+  }
+};
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 }
@@ -245,14 +280,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 template <int D>
 struct TileGeom {
-  static_assert(D == 32 || D == 64 || D == 128 || D == 256, "tile width");
-  static constexpr int BOX_COLS = D < 64 ? D : 64;
+  static_assert(D == 32 || D == 64 || D == 96 || D == 128 || D == 256,
+                "tile width");
+  // 96 is not a whole number of 64-column boxes: three 32-column ones
+  static constexpr int BOX_COLS = D % 64 == 0 ? 64 : 32;
   static constexpr int ROW_BYTES = BOX_COLS * 2;       // one box row
   static constexpr int ATOM_BYTES = 8 * ROW_BYTES;     // 8 rows
   static constexpr int N_BOX = D / BOX_COLS;
-  static constexpr uint64_t LAYOUT = D < 64 ? 2 : 1;   // 64B / 128B swizzle
+  static constexpr uint64_t LAYOUT = BOX_COLS == 32 ? 2 : 1;  // 64B / 128B
   static constexpr CUtensorMapSwizzle SWIZZLE =
-      D < 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
+      BOX_COLS == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
 };
 
 __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
@@ -276,7 +313,7 @@ __device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int rows,
 
 // MN-major operand (the reduction runs down the stored rows; the D
 // columns are the product's N): reduction slice `ks` is rows [16 ks,
-// 16 ks + 16); the next 64 columns (next box) are `rows` rows further.
+// 16 ks + 16); the next box's columns are `rows` rows further.
 template <int D>
 __device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int rows,
                                                  int ks) {
@@ -372,6 +409,34 @@ struct Wgmma<64> {
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
           "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate),
+          "n"(TRANS_B));
+  }
+};
+
+template <>
+struct Wgmma<96> {
+  template <int TRANS_B>
+  static __device__ __forceinline__ void ss(float (&d)[48], uint64_t a,
+                                            uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+        "%48, %49, p, 1, 1, 0, %51;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : "l"(a), "l"(b), "r"(accumulate), "n"(TRANS_B));
+  }
+  template <int TRANS_B>
+  static __device__ __forceinline__ void rs(float (&d)[48],
+                                            const uint32_t (&a)[4], uint64_t b,
+                                            int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+        "{%48, %49, %50, %51}, %52, p, 1, 1, %54;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate),
           "n"(TRANS_B));
   }
@@ -480,7 +545,7 @@ static inline EncodeTiledFn encode_fn() {
 }
 
 // A 3-D map over a contiguous bf16 [bh, S, D] tensor, boxes of
-// [box_rows, min(D, 64)] within one (bh) slice: a box that runs past S
+// [box_rows, TileGeom<D>::BOX_COLS] within one (bh) slice: a box that runs past S
 // is zero-filled by the TMA unit, never read from the next slice.
 template <int D>
 static inline int encode_rows_map(CUtensorMap* map, const void* base, int bh,

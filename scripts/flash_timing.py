@@ -3,14 +3,20 @@
 checkout of the PyTorch/CUDA port on one GPU.
 
     python3 scripts/flash_timing.py [--root DIR] [--label NAME]
+        [--head-dim D] [--pad-to DP]
 
 Imports ``kungfu_tpu_torch`` from ``DIR`` (default: the checkout holding
 this script), so two checkouts, e.g. a ``git archive`` of a parent
 commit unpacked into an ignored directory, can be timed in turns in one
 call on one card.  For each main-path shape, ``[BH, S, D]`` bf16
-causal: ``[48, 256, 64]`` (the serving forward), ``[48, 2048, 64]`` (the
-one-rank training step) and ``[12, 2048, 64]`` (one of four co-resident
-ranks), it prints the device ms per launch of the forward kernel
+causal: ``[48, 256, D]`` (the serving forward), ``[48, 2048, D]`` (the
+one-rank training step) and ``[12, 2048, D]`` (one of four co-resident
+ranks), D = 64 by default.  A D that is not a compiled width runs as the
+wrapper runs it: zero-padded to ``DP`` (by default the checkout's
+``attention.kernel_head_dim(D)``, or D where the checkout has none) with
+the scale ``1/sqrt(D)`` of the unpadded width; ``--head-dim 80
+--pad-to 96`` times Pythia-2.8B's heads, ``--head-dim 256``
+Pythia-1B's.  It prints the device ms per launch of the forward kernel
 (``attention._launch``), the dQ kernel (``attention._launch_bwd_dq``)
 and the dK/dV kernel (``attention._launch_bwd_dkv``): the median over 11
 CUDA-event windows
@@ -37,7 +43,7 @@ import subprocess
 import sys
 import time
 
-SHAPES = ((48, 256, 64), (48, 2048, 64), (12, 2048, 64))
+SHAPES = ((48, 256), (48, 2048), (12, 2048))
 
 
 def device_ms(torch, fn, iters: int = 20, windows: int = 11) -> float:
@@ -98,8 +104,14 @@ def main() -> int:
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     ap.add_argument("--label", default="")
+    ap.add_argument("--head-dim", type=int, default=64,
+                    help="the head width D of every shape (default 64)")
+    ap.add_argument("--pad-to", type=int, default=None,
+                    help="the compiled width the kernels run D at (default: "
+                    "the checkout's kernel_head_dim(D), else D)")
     args = ap.parse_args()
     import torch
+    import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
@@ -111,29 +123,38 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip().splitlines()[0]
     gen = torch.Generator(device="cuda").manual_seed(0)
+    d = args.head_dim
+    dp = args.pad_to or (attention.kernel_head_dim(d)[0]
+                         if hasattr(attention, "kernel_head_dim") else d)
+    # the unpadded width's scale, passed only to a padded launch (a
+    # checkout from before the scale argument runs a compiled D as it is)
+    kw = {"scale": 1.0 / d ** 0.5} if dp != d else {}
     rows = []
-    for bh, s, d in SHAPES:
-        q, k, v, do = (torch.randn((bh, s, d), generator=gen, device="cuda"
-                                   ).to(torch.bfloat16) for _ in range(4))
-        out, lse = attention._launch(q, k, v, True)
+    for bh, s in SHAPES:
+        q, k, v, do = (F.pad(torch.randn(
+            (bh, s, d), generator=gen, device="cuda").to(torch.bfloat16),
+            (0, dp - d)).contiguous() for _ in range(4))
+        out, lse = attention._launch(q, k, v, True, **kw)
         delta = (do.float() * out.float()).sum(-1)
 
         def fwd():
-            attention._launch(q, k, v, True)
+            attention._launch(q, k, v, True, **kw)
 
         def dq():
-            attention._launch_bwd_dq(q, k, v, do, lse, delta, True)
+            attention._launch_bwd_dq(q, k, v, do, lse, delta, True, **kw)
 
         def dkv():
-            attention._launch_bwd_dkv(q, k, v, do, lse, delta, True)
+            attention._launch_bwd_dkv(q, k, v, do, lse, delta, True, **kw)
 
-        row = {"shape": [bh, s, d], "fwd_ms": device_ms(torch, fwd),
+        row = {"shape": [bh, s, d], "head_dim_run": dp,
+               "fwd_ms": device_ms(torch, fwd),
                "dq_ms": device_ms(torch, dq),
                "dkv_ms": device_ms(torch, dkv),
                "fwd_host_us": host_us(torch, fwd),
                "dq_host_us": host_us(torch, dq),
                "dkv_host_us": host_us(torch, dkv)}
-        print(f"{args.label} [{bh}, {s}, {d}]: forward {row['fwd_ms']:.4f} ms "
+        print(f"{args.label} [{bh}, {s}, {d}->{dp}]: forward "
+              f"{row['fwd_ms']:.4f} ms "
               f"({row['fwd_host_us']:.1f} us host), dQ {row['dq_ms']:.4f} ms "
               f"({row['dq_host_us']:.1f} us host), dK/dV "
               f"{row['dkv_ms']:.4f} ms ({row['dkv_host_us']:.1f} us host)")

@@ -268,8 +268,11 @@ class TestKernelContract:
     itself is checked on the card by chip_smoke.py)."""
 
     def test_unsupported_head_dim_raises(self):
-        q = torch.zeros(2, 16, 48)
-        with pytest.raises(ValueError, match="head dim 48"):
+        """A head wider than 256 is refused on the card (ROADMAP C47):
+        every width up to 256 runs, padded to a compiled one, and nothing
+        falls back to a plain version."""
+        q = torch.zeros(2, 16, 257)
+        with pytest.raises(ValueError, match="head dim 257 .*256"):
             attention._check(q, q, q)
 
     @pytest.mark.parametrize("dtype", [torch.float16, torch.float64])

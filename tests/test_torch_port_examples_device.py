@@ -424,15 +424,19 @@ def test_one_stuck_request_leaves_the_victim_live(_serve_env, monkeypatch):
 
 def test_padded_head_dim():
     """The serving demo's heads are 16 wide; the kernels are compiled for
-    32, 64 and 128.  Its head pads to 64, 4 times as wide (an exact
-    power-of-two scale correction); no compiled dim pads."""
+    32, 64, 96, 128 and 256.  Its head pads to 32, the narrowest compiled
+    width above it, with the scale 1/sqrt(16) of the unpadded width
+    passed to the kernels; a compiled width runs as it is."""
     from kungfu_tpu_torch.examples.serve_demo import build
-    from kungfu_tpu_torch.ops.cuda.attention import (PADDED_HEAD_DIMS,
-                                                     SUPPORTED_HEAD_DIMS)
+    from kungfu_tpu_torch.ops.cuda.attention import (COMPILED_HEAD_DIMS,
+                                                     kernel_head_dim)
 
     cfg = build("cpu")[0].cfg
-    assert PADDED_HEAD_DIMS == {cfg.d_model // cfg.n_heads: 64}
-    assert not set(PADDED_HEAD_DIMS) & set(SUPPORTED_HEAD_DIMS)
+    d = cfg.d_model // cfg.n_heads
+    assert d == 16 and d not in COMPILED_HEAD_DIMS
+    assert kernel_head_dim(d) == (32, 0.25)
+    assert all(kernel_head_dim(c) == (c, 1.0 / c ** 0.5)
+               for c in COMPILED_HEAD_DIMS)
 
 
 @pytest.mark.parametrize("s", [40, 7])
@@ -443,7 +447,8 @@ def test_padded_heads_equal_unpadded(s, causal):
     gradients."""
     from kungfu_tpu_torch.ops.cuda import attention
 
-    (d, dp), = attention.PADDED_HEAD_DIMS.items()
+    d = 16  # serve_demo's head
+    dp, _ = attention.kernel_head_dim(d)
     rng = np.random.default_rng(s)
     q, k, v, do = (torch.from_numpy(rng.standard_normal((6, s, d)).astype(
         np.float32)) for _ in range(4))
